@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card.  It
+
+1. builds every kernel of ``src/repro_torch/csrc`` with ``nvcc`` (in
+   parallel, into ``build/kernels/``) and prints the card's name and power
+   limit;
+2. holds each kernel against its plain PyTorch version on the card, at the
+   serving path's full-width shapes and at one ragged shape, and times both
+   with CUDA events;
+3. drives the port's serving path at ``sgpr-synth-1m`` (n = 1e6, q = 8,
+   d = 4, m = 512): ``SGPR`` -> ``log_bound`` -> ``predictive_state`` ->
+   ``save_state`` / ``load_state`` -> ``PredictEngine`` answering query
+   batches, with every launch counter set to 0 just before and read just
+   after, and checks its answers against the same path computed by the
+   plain versions in f64 on the card.
+
+It prints one JSON line describing the kernels of the main path, then
+``{"ok": true, "device": {...}}`` as its last line.  Any failed check
+raises, so the exit code is non-zero and no result line is printed.  It
+exits with code 2, printing nothing on stdout, where there is no CUDA device
+or no ``src/repro_torch`` beside it.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SEED = 0
+# Forward-error bounds |kernel - plain| <= rtol*|plain| + atol_abs * (plain
+# on |operands|), by the kernel's dtype.  f32: the f32 tier of
+# tests/test_reg_stats_pallas.py.  f64: far above f64 rounding over 1e6
+# rows, far below one f32 rounding of the slab, so a double instantiation
+# that computes partly in f32 fails.
+TIERS = {torch.float32: (2e-4, 1e-5), torch.float64: (1e-10, 1e-11)}
+# Serving budgets (tests/test_serving_quant.py): mean RMSE / std(y),
+# var RMSE / sf2, against the plain f64 path.
+MEAN_BUDGET, VAR_BUDGET = 2e-2, 5e-3
+# Published dense peaks (NVIDIA H100 data sheet), by the product name
+# nvidia-smi reports: (f32 FLOP/s on the CUDA cores, f64 FLOP/s on the FP64
+# tensor cores -- the card's highest f64 rate, bytes/s).
+PEAKS = {"PCIe": (51.2e12, 51.2e12, 2.0e12), "NVL": (60e12, 60e12, 3.9e12),
+         "SXM": (67e12, 67e12, 3.35e12)}
+TIMED_REPS = 10
+PLAIN_ROWS = 65_536   # rows per chunk of the plain reg_stats (its (rows, m, q) diff)
+DEV = "cuda"
+
+
+def card_peaks(name: str):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return PEAKS[key]
+    return PEAKS["SXM"]
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = TIMED_REPS) -> float:
+    """Median CUDA-event time of ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def make_regression(rng, n, q, d, noise=0.1):
+    """The formula of tests/conftest.py::make_regression."""
+    x = rng.uniform(-2.0, 2.0, size=(n, q))
+    w = rng.standard_normal((q, d))
+    f = np.sin(x @ w) + 0.5 * np.cos(2.0 * (x @ w[:, ::-1]))
+    return x, f + noise * rng.standard_normal((n, d))
+
+
+def check_close(name, got, plain, plain_abs) -> tuple[float, float]:
+    """Forward-error check at ``got``'s dtype tier; returns (max abs error,
+    max error / bound)."""
+    rtol, atol_abs = TIERS[got.dtype]
+    err = (got.double() - plain).abs()
+    bound = rtol * plain.abs() + atol_abs * plain_abs.abs()
+    worst = float((err / bound.clamp_min(1e-300)).max())
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        raise AssertionError(f"{name}: max |err|/bound = {worst:.3e} "
+                             f"(max |err| {float(err.max()):.3e})")
+    return float(err.max()), worst
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+
+def plain_reg_stats(ref, hyp, z, x, y, w):
+    """The plain version over row chunks (its (rows, m, q) broadcast would be
+    32 GB at n = 1e6 in one piece), summed in f64."""
+    b = c = d_stat = 0.0
+    for lo in range(0, x.shape[0], PLAIN_ROWS):
+        sl = slice(lo, lo + PLAIN_ROWS)
+        bb, cc, dd = ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z,
+                                       x[sl], y[sl], w[sl])
+        b, c, d_stat = b + bb, c + cc, d_stat + dd
+    return b, c, d_stat
+
+
+def reg_stats_flops(n, m, q, d) -> float:
+    # slab n*m*(3q+2); D upper half n*m(m+1)/2 FMAs; C n*m*d FMAs; b n adds
+    return n * m * (3 * q + 2) + n * m * (m + 1) + 2 * n * m * d + n
+
+
+def predict_flops(t, m, q, d) -> float:
+    # slab t*m*(3q+2); quad over the symmetric g t*m(m+1)/2 pair products;
+    # mean t*m*d FMAs
+    return t * m * (3 * q + 2) + t * m * (m + 1) + 2 * t * m * d
+
+
+def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
+    rng = np.random.default_rng(SEED + n + m)
+    dev = DEV
+    f64 = torch.float64
+
+    def t64(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(dev)
+
+    x, y = make_regression(rng, n, q, d)
+    z = t64(rng.uniform(-2.0, 2.0, (m, q)))
+    x, y = t64(x), t64(y)
+    w = (t64(rng.uniform(size=n) > 0.15) if masked
+         else torch.ones(n, dtype=f64, device=dev))
+    hyp = {"log_sf2": t64(float(np.log(float(y.var())))),
+           "log_ell": t64(np.full(q, 0.5 * np.log(q)))}
+    xk, yk, wk, zk = (v.to(dtype) for v in (x, y, w, z))
+    # The plain version runs in f64 on exactly the values the kernel sees.
+    xs, ys, ws, zs = (v.to(f64) for v in (xk, yk, wk, zk))
+    b, c, dd = rs_ops.reg_stats(hyp, zk, xk, yk, wk)
+    pb, pc, pd = plain_reg_stats(rs_ref, hyp, zs, xs, ys, ws)
+    _, pc_abs, _ = plain_reg_stats(rs_ref, hyp, zs, xs, ys.abs(), ws)
+    torch.cuda.synchronize()
+    if c.shape != (m, d) or dd.shape != (m, m):
+        raise AssertionError(f"reg_stats shapes {tuple(c.shape)}, {tuple(dd.shape)}")
+    err_b, _ = check_close("reg_stats b", b, pb, pb)
+    err_c, worst_c = check_close("reg_stats C", c, pc, pc_abs)
+    err_d, worst_d = check_close("reg_stats D", dd, pd, pd)
+    if not torch.equal(dd, dd.T):
+        raise AssertionError("reg_stats D is not exactly symmetric")
+    out = {"shape": dict(n=n, m=m, q=q, d=d), "dtype": str(dtype),
+           "max_abs_err": max(err_b, err_c, err_d),
+           "max_err_over_bound": max(worst_c, worst_d)}
+    if timed:
+        out["ms"] = time_ms(lambda: rs_ops.reg_stats(hyp, zk, xk, yk, wk))
+        out["plain_ms"] = time_ms(
+            lambda: plain_reg_stats(rs_ref, hyp, zs, xs, ys, ws), reps=3)
+        item, peak = ((4, peaks[0]) if dtype == torch.float32
+                      else (8, peaks[1]))
+        nbytes = item * (n * (q + d + 1) + m * q + m * m + m * d + 1)
+        t_ops = reg_stats_flops(n, m, q, d) / peak * 1e3
+        t_bytes = nbytes / peaks[2] * 1e3
+        out["bound_ms"] = max(t_ops, t_bytes)
+        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"reg_stats {out}", flush=True)
+    return out
+
+
+def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
+    rng = np.random.default_rng(SEED + t + m)
+    dev = DEV
+
+    def tt(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(dev, dtype)
+
+    z = tt(rng.uniform(-2.0, 2.0, (m, q)))
+    a_mean = tt(rng.standard_normal((m, d)))
+    g = rng.standard_normal((m, m))
+    g = tt(g + g.T)                       # symmetric like the real g
+    x = tt(rng.uniform(-2.0, 2.0, (t, q)))
+    hyp = {"log_sf2": tt(rng.uniform(-0.5, 0.8)),
+           "log_ell": tt(np.full(q, 0.5 * np.log(q)))}
+    f64 = torch.float64
+    ops64 = [v.to(f64) for v in (z, a_mean, g, x)]
+    hyp64 = {k: v.to(f64) for k, v in hyp.items()}
+    mean, quad = p_ops.predict_stats(hyp, z, a_mean, g, x)
+    pm, pq = p_ref.predict_ref(hyp64["log_sf2"], hyp64["log_ell"], *ops64)
+    pm_abs, pq_abs = p_ref.predict_ref(hyp64["log_sf2"], hyp64["log_ell"],
+                                       ops64[0], ops64[1].abs(), ops64[2].abs(),
+                                       ops64[3])
+    torch.cuda.synchronize()
+    if mean.shape != (t, d) or quad.shape != (t,):
+        raise AssertionError(f"predict shapes {tuple(mean.shape)}, {tuple(quad.shape)}")
+    err_m, worst_m = check_close("predict mean", mean, pm, pm_abs)
+    err_q, worst_q = check_close("predict quad", quad, pq, pq_abs)
+    out = {"shape": dict(t=t, m=m, q=q, d=d), "dtype": str(dtype),
+           "max_abs_err": max(err_m, err_q),
+           "max_err_over_bound": max(worst_m, worst_q)}
+    if timed:
+        out["ms"] = time_ms(lambda: p_ops.predict_stats(hyp, z, a_mean, g, x))
+        out["plain_ms"] = time_ms(
+            lambda: p_ref.predict_ref(hyp["log_sf2"], hyp["log_ell"],
+                                             z, a_mean, g, x))
+        item = 4 if dtype == torch.float32 else 8
+        peak = peaks[0] if dtype == torch.float32 else peaks[1]
+        nbytes = item * (t * q + m * q + m * d + m * m + q + 1 + t * d + t)
+        t_ops = predict_flops(t, m, q, d) / peak * 1e3
+        t_bytes = nbytes / peaks[2] * 1e3
+        out["bound_ms"] = max(t_ops, t_bytes)
+        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"predict {out}", flush=True)
+    return out
+
+
+# -- phase 3: the serving path at sgpr-synth-1m ------------------------------
+
+def plain_serving(hyp, z, x, y, queries):
+    """The same path computed by the plain versions, in f64 on the card."""
+    from repro_torch.core import bound as bound_mod
+    from repro_torch.core import stats as stats_mod
+    from repro_torch.kernels.predict import ref as p_ref
+    from repro_torch.kernels.reg_stats import ref as rs_ref
+    from repro_torch.serve import posterior
+
+    w = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    b, c, d_stat = plain_reg_stats(rs_ref, hyp, z, x, y, w)
+    st = stats_mod.Stats(A=(y * y).sum(), B=b, C=c, D=d_stat,
+                         KL=torch.zeros((), dtype=x.dtype, device=x.device),
+                         n=w.sum())
+    lb = float(bound_mod.collapsed_bound(hyp, z, st, y.shape[1]))
+    state = posterior.extract_state(hyp, z, st, device=DEV)
+    noise = torch.exp(-hyp["log_beta"])
+    preds = []
+    for xq in queries:
+        mean, quad = p_ref.predict_ref(hyp["log_sf2"], hyp["log_ell"], z,
+                                       state.a_mean, state.g, xq)
+        preds.append((mean, torch.exp(hyp["log_sf2"]) - quad + noise))
+    return lb, preds
+
+
+def rmse(a, b) -> float:
+    return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
+
+
+def serving_path(rt, cfg) -> dict:
+    from repro_torch.core import covariance, init_utils
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    x, y = make_regression(rng, cfg.n, cfg.q, cfg.d)
+    z = init_utils.kmeans(x[:8192], cfg.m, iters=5, seed=SEED)
+    hyp = init_utils.default_hyp_for(covariance.SE_ARD, y, cfg.q)
+    qrng = np.random.default_rng(SEED + 1)
+    sizes = (1, 1_000, 65_536)
+    queries = [qrng.uniform(-2.0, 2.0, (t, cfg.q)) for t in sizes]
+    x_full = qrng.uniform(-2.0, 2.0, (256, cfg.q))
+    steps = {"host_data_s": time.perf_counter() - t0}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - s
+        return out
+
+    # Every launch counter to 0 just before the main path, read just after.
+    for counts in (rs_ops.LAUNCHES, p_ops.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    model = step("sgpr_init_s", lambda: rt.SGPR(x, y, hyp=hyp, z=z,
+                                                device=DEV))
+    lb = step("log_bound_s", model.log_bound)
+    state = step("predictive_state_s", model.predictive_state)
+    with tempfile.TemporaryDirectory() as tmp:
+        step("save_state_s", lambda: rt.save_state(pathlib.Path(tmp) / "st",
+                                                   state))
+        loaded, _ = step("load_state_s",
+                         lambda: rt.load_state(pathlib.Path(tmp) / "st",
+                                               device=DEV))
+    eng = rt.PredictEngine(loaded, block_size=256, device=DEV)
+    answers = [step(f"predict_t{t}_s",
+                    lambda xq=xq: eng.predict(xq, include_noise=True))
+               for t, xq in zip(sizes, queries)]
+    full_mean, full_cov = step(
+        "predict_full_cov_t256_s",
+        lambda: eng.predict_full_cov(x_full, include_noise=True))
+    # The same state served at f32 width (the f32 instantiation).
+    eng32 = rt.PredictEngine(loaded, block_size=256, device=DEV,
+                           compute_dtype=torch.float32)
+    ans32 = step("predict_f32_t65536_s",
+                 lambda: eng32.predict(queries[-1], include_noise=True))
+    launches = {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "predict_f64": p_ops.LAUNCHES["float64"],
+                "predict_f32": p_ops.LAUNCHES["float32"]}
+    print(f"main path steps (s): {json.dumps(steps)}", flush=True)
+    print(f"main path launches: {json.dumps(launches)} (reg_stats_f32: "
+          f"{rs_ops.LAUNCHES['float32']}, not on the path)", flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+    # -- check against the plain f64 path -------------------------------------
+    f64 = torch.float64
+    plain_lb, plain = plain_serving(
+        model.params["hyp"], model.params["z"], model.x, model.y,
+        [torch.from_numpy(q).to(DEV, f64)
+         for q in list(queries) + [x_full, queries[-1]]])
+    ystd = float(np.std(y))
+    sf2 = float(np.exp(hyp["log_sf2"]))
+    report = {"log_bound": lb, "plain_log_bound": plain_lb,
+              "log_bound_rel_diff": abs(lb - plain_lb) / abs(plain_lb)}
+    if not math.isfinite(lb):
+        raise AssertionError(f"log_bound is not finite: {lb}")
+    served = list(answers) + [(full_mean, torch.diagonal(full_cov)), ans32]
+    labels = [f"t{t}" for t in sizes] + ["full_cov_t256", "f32_engine_t65536"]
+    for label, (mean, var), (pm, pv) in zip(labels, served, plain):
+        n_rows = pm.shape[0]
+        if mean.shape != (n_rows, cfg.d) or var.shape != (n_rows,) \
+                or not bool(torch.isfinite(mean).all()) \
+                or not bool(torch.isfinite(var).all()):
+            raise AssertionError(f"request {label}: bad output shapes/values")
+        mr, vr = rmse(mean, pm) / ystd, rmse(var, pv) / sf2
+        report[label] = {"mean_rmse_over_std_y": mr, "var_rmse_over_sf2": vr}
+        if mr > MEAN_BUDGET or vr > VAR_BUDGET:
+            raise AssertionError(f"request {label}: mean {mr:.3e} / var "
+                                 f"{vr:.3e} outside the serving budgets")
+    if not torch.allclose(full_cov, full_cov.T, rtol=0, atol=1e-9 * sf2):
+        raise AssertionError("predict_full_cov is not symmetric")
+    print(f"main path vs plain f64: {json.dumps(report)}", flush=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout (src/repro_torch missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch as rt
+    from repro_torch.configs import GP_CONFIGS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.predict import ref as p_ref
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+    from repro_torch.kernels.reg_stats import ref as rs_ref
+
+    # The plain versions' matmuls in full f32/f64, never TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          "allow_tf32 = False", flush=True)
+
+    # -- phase 1: build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print(f"  {name}: {line.strip()}", flush=True)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+
+    # -- phase 2: each kernel against its plain version ------------------------
+    cfg = GP_CONFIGS["sgpr-synth-1m"]
+    rs_full, pr_full = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        rs_full[dtype] = check_reg_stats(rs_ops, rs_ref, peaks, cfg.n, cfg.m,
+                                         cfg.q, cfg.d, dtype, masked=False,
+                                         timed=True)
+        check_reg_stats(rs_ops, rs_ref, peaks, 1_000_003, 130, 3, 5, dtype,
+                        masked=True, timed=False)
+    for dtype in (torch.float32, torch.float64):
+        pr_full[dtype] = check_predict(p_ops, p_ref, peaks, 65_536,
+                                       cfg.m, cfg.q, cfg.d, dtype, timed=True)
+        check_predict(p_ops, p_ref, peaks, 1_000, 130, 3, 5, dtype,
+                      timed=False)
+
+    # -- phase 3: the main path -------------------------------------------------
+    launches = serving_path(rt, cfg)
+
+    def entry(kname, source, replaces, res):
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[kname],
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None}
+
+    # The kernels the main path runs (reg_stats_f32 is checked above but
+    # serves only f32 callers; the f64 model never reaches it).
+    kernels = [
+        entry("reg_stats_f64", "src/repro_torch/csrc/reg_stats.cu",
+              "src/repro/kernels/reg_stats/kernel.py:99",
+              rs_full[torch.float64]),
+        entry("predict_f32", "src/repro_torch/csrc/predict.cu",
+              "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float32]),
+        entry("predict_f64", "src/repro_torch/csrc/predict.cu",
+              "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float64]),
+    ]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

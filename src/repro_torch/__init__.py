@@ -1,0 +1,18 @@
+"""PyTorch + CUDA port of the distributed sparse-GP system (``repro``).
+
+A second package beside the JAX one, which stays the reference.  It imports
+torch and numpy, never jax or ``repro``.  Entry points run on CUDA unless
+the caller passes ``device="cpu"``; on CUDA the SE-ARD map step and the
+predict step go through hand-written kernels (``kernels/``, ``csrc/``),
+built with ``nvcc`` at first use.
+
+This slice ports the serving path: ``SGPR`` (map statistics, bound,
+optimal q(u)), ``extract_state`` / ``save_state`` / ``load_state`` and
+``PredictEngine``.
+"""
+from .core import SGPR
+from .serve import (PredictEngine, PredictiveState, extract_state, load_state,
+                    save_state, state_from_model)
+
+__all__ = ["SGPR", "PredictEngine", "PredictiveState", "extract_state",
+           "load_state", "save_state", "state_from_model"]

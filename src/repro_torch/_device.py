@@ -1,0 +1,23 @@
+"""Device resolution for the port's entry points.
+
+Every entry point (``SGPR``, ``extract_state``, ``PredictEngine``,
+``load_state``) takes ``device=``.  ``None`` means the card: the port is
+written for CUDA, so a machine without one raises instead of silently
+running the plain CPU versions.  Callers that want the CPU (the tests) say
+so with ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raise if CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain CPU versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,65 @@
+"""Wrapper of the fused serving predict kernel: ``predict_stats``.
+
+The tensor's device decides the path.  On the CPU the wrapper computes the
+plain version (``ref.py``).  On CUDA it always launches the hand-written
+kernel (``csrc/predict.cu``) and raises where the kernel cannot run; there
+is no fallback.  Prediction is forward-only.
+
+Precision: the tiles run in the query dtype, with sub-f32 lifted to f32
+(the clamp of ``repro/kernels/predict/ops.py``).  Unlike the TPU kernel, an
+f64 request is kept, through the kernel's double instantiation: an engine
+over an f64 state contracts in f64, as the JAX engine's default path does.
+Outputs come back in the query dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel as _k
+from . import ref as _ref
+
+#: launches of the CUDA kernel since the counts were last reset, by tile dtype
+LAUNCHES = {"float32": 0, "float64": 0}
+
+
+def tile_dtype(compute_dtype) -> torch.dtype:
+    """The dtype the tiles run in: sub-f32 lifted to f32, else as asked."""
+    return (torch.float32 if torch.finfo(compute_dtype).bits < 32
+            else compute_dtype)
+
+
+def predict_stats(hyp: dict, z, a_mean, g, x):
+    """``(mean, quad)``: ``ksm @ a_mean`` (t, d) and
+    ``rowsum((ksm @ g) * ksm)`` (t,) for queries x (t, q), in x's dtype;
+    the tiles run in :func:`tile_dtype` of x's dtype."""
+    dt = tile_dtype(x.dtype)
+    hp_src = (hyp["log_sf2"], hyp["log_ell"])
+    if x.device.type == "cpu":
+        mean, quad = _ref.predict_ref(*(v.to(dt) for v in hp_src),
+                                      *(v.to(dt) for v in (z, a_mean, g, x)))
+        return mean.to(x.dtype), quad.to(x.dtype)
+    operands = (z, a_mean, g, x, *hp_src)
+    if x.device.type != "cuda" or any(t.device != x.device for t in operands):
+        raise ValueError("predict_stats: every operand must be on one CUDA "
+                         f"device, got {[str(t.device) for t in operands]}")
+    t, q = x.shape
+    m, d = a_mean.shape
+    if z.shape != (m, q) or g.shape != (m, m) \
+            or hyp["log_ell"].shape != (q,) or m < 1:
+        raise ValueError(
+            f"predict_stats: shapes x {tuple(x.shape)}, z {tuple(z.shape)}, "
+            f"a_mean {tuple(a_mean.shape)}, g {tuple(g.shape)}, "
+            f"log_ell {tuple(hyp['log_ell'].shape)} do not agree")
+    if _k.smem_bytes(m, q, dt) > _k.SMEM_MAX:
+        raise ValueError(
+            f"predict_stats: m={m} at {dt} needs {_k.smem_bytes(m, q, dt)} "
+            f"bytes of shared memory for the query slab; the card gives a "
+            f"block {_k.SMEM_MAX}")
+    xs, zs, am, gs = (v.to(dt).contiguous() for v in (x, z, a_mean, g))
+    hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
+                    torch.exp(-2.0 * hyp["log_ell"])]).to(dt).contiguous()
+    mean = torch.empty((t, d), dtype=dt, device=x.device)
+    quad = torch.empty((t,), dtype=dt, device=x.device)
+    _k.predict(xs, zs, hp, am, gs, mean, quad)
+    LAUNCHES[str(dt).removeprefix("torch.")] += 1
+    return mean.to(x.dtype), quad.to(x.dtype)

@@ -1,0 +1,123 @@
+"""Batched predict engine over a frozen ``PredictiveState``.
+
+Counterpart of ``repro.serve.engine.PredictEngine`` (single device, the
+predict path).  No output row depends on the batch it arrives in.
+
+* On the CPU the JAX package's ``lax.scan`` over blocks becomes a Python
+  loop of the plain version, one block at a time, so one block's (block, m)
+  slab is live at a time.  Queries are padded with zero rows up to a
+  multiple of ``block_size``; pad rows are computed and sliced off.
+* On CUDA one launch of the fused predict kernel covers the whole batch,
+  unpadded: the kernel masks its ragged last row tile itself.  It keeps
+  each 32-row slab in shared memory and never stores a (t, m) slab, so
+  serving memory stays O(t·d + m² + m·d).
+
+A low-precision state is cast once, at engine build, to ``compute_dtype``
+(f32 for sub-f32 states), so the only loss is the storage rounding.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from . import posterior
+
+
+def _resolve_compute_dtype(state_dtype, compute_dtype) -> torch.dtype:
+    """Engine compute width: explicit > state's own (f32/f64) > f32 floor."""
+    if compute_dtype is not None:
+        return compute_dtype
+    return (state_dtype if torch.finfo(state_dtype).bits >= 32
+            else torch.float32)
+
+
+class PredictEngine:
+    """Block predict engine.
+
+    Args:
+      state: a :class:`~repro_torch.serve.posterior.PredictiveState`.
+      block_size: rows per block of the CPU loop; there queries are padded
+        to a multiple of it.  The CUDA kernel takes any batch in one launch.
+      compute_dtype: dtype every contraction runs in.  ``None`` keeps
+        f32/f64 states as they are and lifts bf16/f16 states to f32.
+      device: where the engine serves (default CUDA; ``"cpu"`` runs the
+        plain versions).
+    """
+
+    def __init__(self, state: posterior.PredictiveState, block_size: int = 256,
+                 compute_dtype=None, device=None):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.device = resolve_device(device)
+        self.block_size = block_size
+        self.compute_dtype = _resolve_compute_dtype(state.dtype, compute_dtype)
+        # The stored artifact stays as given (``.state``); every query runs
+        # on the compute-width copy on the engine's device, made once here.
+        self.state = state
+        self._cstate = state._to(device=self.device, dtype=self.compute_dtype)
+
+    def pad_queries(self, xstar) -> tuple[torch.Tensor, int]:
+        """(t, q) queries on the engine's device in ``compute_dtype``,
+        padded on the CPU with zero rows up to a multiple of ``block_size``
+        (on CUDA left as they are); returns (buffer, t)."""
+        xq = torch.as_tensor(xstar).to(device=self.device,
+                                       dtype=self.compute_dtype)
+        t = xq.shape[0]
+        pad = (-t) % self.block_size if xq.device.type == "cpu" else 0
+        if pad:
+            xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
+        return xq, t
+
+    @property
+    def compute_state(self) -> posterior.PredictiveState:
+        """The compute-width, device-placed state the queries run on."""
+        return self._cstate
+
+    def run_blocks(self, xq: torch.Tensor, cstate=None):
+        """(mean, var) of a buffer from :meth:`pad_queries`, pad rows
+        included; ``cstate`` pins a :attr:`compute_state`."""
+        st = self._cstate if cstate is None else cstate
+        if xq.device.type == "cuda":
+            return posterior.predict_mean_var(st, xq)
+        outs = [posterior.predict_mean_var(st, xq[i:i + self.block_size])
+                for i in range(0, xq.shape[0], self.block_size)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    def _noise_var(self) -> torch.Tensor:
+        return torch.exp(-self._cstate.hyp["log_beta"])
+
+    @torch.no_grad()
+    def predict(self, xstar, include_noise: bool = False):
+        """Batched diag-variance prediction: ``(mean (t, d), var (t,))``."""
+        xq, t = self.pad_queries(xstar)
+        if t == 0:
+            # An empty batch is a no-op, never a shape error.
+            return (xq.new_zeros((0, self.state.d)), xq.new_zeros((0,)))
+        mean, var = self.run_blocks(xq)
+        mean, var = mean[:t], var[:t]
+        if include_noise:
+            var = var + self._noise_var()
+        return mean, var
+
+    @torch.no_grad()
+    def predict_full_cov(self, xstar, include_noise: bool = False):
+        """Full-covariance mode: ``(mean (t, d), cov (t, t))``, in one piece
+        (cross-covariances couple all query pairs): the small-t mode."""
+        xq = torch.as_tensor(xstar).to(device=self.device,
+                                       dtype=self.compute_dtype)
+        mean, cov = posterior.predict_full_cov(self._cstate, xq)
+        if include_noise:
+            cov = cov + self._noise_var() * torch.eye(
+                xq.shape[0], dtype=cov.dtype, device=cov.device)
+        return mean, cov
+
+    def __call__(self, xstar, include_noise: bool = False,
+                 full_cov: bool = False):
+        if full_cov:
+            return self.predict_full_cov(xstar, include_noise=include_noise)
+        return self.predict(xstar, include_noise=include_noise)
+
+    def predict_np(self, xstar, include_noise: bool = False):
+        """predict, then copied to host numpy arrays."""
+        mean, var = self.predict(xstar, include_noise=include_noise)
+        return mean.cpu().numpy(), var.cpu().numpy()

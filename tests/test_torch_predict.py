@@ -1,0 +1,69 @@
+"""The port's serving predict step against the JAX package's.
+
+The same numpy inputs go through ``repro.kernels.predict.ops.predict_stats``
+(the Pallas kernel in interpret mode, f64) and through the port's wrapper on
+the CPU, where it computes the plain version: rtol 1e-12.  The CUDA kernel
+is held against the plain version on the card in ``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.predict import ops as j_p_ops
+from repro_torch.kernels.predict import ops as p_ops
+from repro_torch.kernels.predict import ref as p_ref
+
+SHAPES = [
+    (64, 16, 2, 1),     # exact tile fit after padding
+    (100, 37, 3, 2),    # nothing divides anything
+    (33, 130, 9, 5),    # m > one tile, q padded
+]
+
+
+def _inputs(seed, t, m, q, d):
+    rng = np.random.default_rng(seed)
+    hyp = {"log_sf2": np.asarray(rng.uniform(-0.5, 0.8)),
+           "log_ell": rng.uniform(-0.4, 0.4, q)}
+    z = rng.standard_normal((m, q))
+    a_mean = rng.standard_normal((m, d))
+    g = rng.standard_normal((m, m))
+    g = g + g.T                                   # symmetric like the real g
+    x = rng.standard_normal((t, q))
+    return hyp, z, a_mean, g, x
+
+
+def _torch(hyp, *arrs, device="cpu", dtype=torch.float64):
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float64)).to(device, dtype)
+    return {k: t(v) for k, v in hyp.items()}, *map(t, arrs)
+
+
+@pytest.mark.parametrize("t,m,q,d", SHAPES)
+def test_plain_matches_pallas_interpret(t, m, q, d):
+    hyp, z, a_mean, g, x = _inputs(t + m, t, m, q, d)
+    jh = {k: jnp.asarray(v) for k, v in hyp.items()}
+    want = j_p_ops.predict_stats(jh, *map(jnp.asarray, (z, a_mean, g, x)),
+                                 block_t=32, block_m=16)
+    got = p_ops.predict_stats(*_torch(hyp, z, a_mean, g, x))
+    for name, a, b in zip(("mean", "quad"), got, want):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
+                                   atol=1e-14, err_msg=name)
+
+
+def test_sub_f32_queries_compute_in_f32():
+    """The compute-dtype clamp: bf16 queries run f32 tiles and come back in
+    bf16; f32 and f64 keep their width."""
+    assert p_ops.tile_dtype(torch.bfloat16) == torch.float32
+    assert p_ops.tile_dtype(torch.float16) == torch.float32
+    assert p_ops.tile_dtype(torch.float32) == torch.float32
+    assert p_ops.tile_dtype(torch.float64) == torch.float64
+    hyp, z, a_mean, g, x = _inputs(5, 20, 7, 2, 2)
+    th, tz, ta, tg, tx = _torch(hyp, z, a_mean, g, x, dtype=torch.bfloat16)
+    mean, quad = p_ops.predict_stats(th, tz, ta, tg, tx)
+    assert mean.dtype == quad.dtype == torch.bfloat16
+    ref_mean, ref_quad = p_ref.predict_ref(
+        *(v.float() for v in (th["log_sf2"], th["log_ell"], tz, ta, tg, tx)))
+    torch.testing.assert_close(mean, ref_mean.bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(quad, ref_quad.bfloat16(), rtol=0, atol=0)

@@ -1,0 +1,117 @@
+"""The port's regression map step against the JAX package's.
+
+The same numpy inputs, made from a seed, go through ``repro`` (the fused
+Pallas kernel in interpret mode, f64, and the dense XLA formulation) and
+through ``repro_torch`` on the CPU, where the wrapper computes the plain
+version.  Both run the same f64 math, so they agree to rounding: rtol 1e-12.
+The CUDA kernel is held against the plain version on the card in
+``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import stats as j_stats
+from repro.kernels.reg_stats import ops as j_rs_ops
+from repro_torch.core import stats as t_stats
+from repro_torch.kernels.reg_stats import ops as rs_ops
+from repro_torch.kernels.reg_stats import ref as rs_ref
+
+SHAPES = [
+    (64, 16, 2, 1),     # exact tile fit after padding
+    (100, 37, 3, 2),    # nothing divides anything
+    (257, 64, 10, 5),   # q at paper-scale latent dim, multi-output
+    (32, 130, 1, 3),    # m > one tile, q=1
+]
+
+
+def _inputs(seed, n, m, q, d, masked=True):
+    rng = np.random.default_rng(seed)
+    hyp = {"log_sf2": np.asarray(rng.uniform(-0.5, 0.8)),
+           "log_ell": rng.uniform(-0.4, 0.4, q),
+           "log_beta": np.asarray(1.0)}
+    z = rng.standard_normal((m, q))
+    x = rng.standard_normal((n, q))
+    y = rng.standard_normal((n, d))
+    w = ((rng.uniform(size=n) > 0.15).astype(np.float64) if masked
+         else np.ones(n))
+    return hyp, z, x, y, w
+
+
+def _jax(hyp, *arrs):
+    return {k: jnp.asarray(v) for k, v in hyp.items()}, *map(jnp.asarray, arrs)
+
+
+def _torch(hyp, *arrs, device="cpu"):
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float64)).to(device)
+    return {k: t(v) for k, v in hyp.items()}, *map(t, arrs)
+
+
+def _close(got, want, rtol=1e-12, atol=1e-14, name=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("n,m,q,d", SHAPES)
+def test_plain_matches_pallas_interpret(n, m, q, d):
+    hyp, z, x, y, w = _inputs(n + m, n, m, q, d)
+    jh, jz, jx, jy, jw = _jax(hyp, z, x, y, w)
+    want = j_rs_ops.reg_stats(jh, jz, jx, jy, jw, block_n=64, block_m=32)
+    th, tz, tx, ty, tw = _torch(hyp, z, x, y, w)
+    got = rs_ops.reg_stats(th, tz, tx, ty, tw)
+    for name, g, e in zip("bCD", got, want):
+        assert g.dtype == torch.float64
+        _close(g, e, name=name)
+
+
+@pytest.mark.parametrize("n,m,q,d", SHAPES)
+def test_plain_and_dense_match_jax_dense(n, m, q, d):
+    hyp, z, x, y, w = _inputs(2 * n + m, n, m, q, d)
+    want = j_stats.reg_stats_dense(*_jax(hyp, z, x, y, w))
+    th, tz, tx, ty, tw = _torch(hyp, z, x, y, w)
+    for got in (rs_ref.reg_stats_ref(th["log_sf2"], th["log_ell"], tz, tx,
+                                     ty, tw),
+                t_stats.reg_stats_dense(th, tz, tx, ty, tw)):
+        for name, g, e in zip("bCD", got, want):
+            _close(g, e, name=name)
+
+
+@pytest.mark.parametrize("block_size", [13, 1000])
+def test_chunked_equals_monolithic(block_size):
+    """Zero-weight padding and the left-to-right fold: a block size that
+    divides nothing gives the monolithic statistics, as in the JAX package."""
+    n, m, q, d = 53, 9, 2, 2
+    hyp, z, x, y, w = _inputs(7, n, m, q, d)
+    th, tz, tx, ty, tw = _torch(hyp, z, x, y, w)
+    full = t_stats.partial_stats(th, tz, ty, tx, weights=tw)
+    ch = t_stats.partial_stats_chunked(th, tz, ty, tx, weights=tw,
+                                       block_size=block_size)
+    jh, jz, jx, jy, jw = _jax(hyp, z, x, y, w)
+    jch = j_stats.partial_stats_chunked(jh, jz, jy, jx, s=None, weights=jw,
+                                        latent=False, block_size=block_size)
+    for name, a, b, c in zip(full._fields, full, ch, jch):
+        _close(b, a, rtol=1e-10, atol=1e-12, name=name)
+        _close(b, c, rtol=1e-12, atol=1e-12, name=name)
+
+
+def test_partial_stats_matches_jax():
+    hyp, z, x, y, w = _inputs(11, 77, 12, 2, 3)
+    th, tz, tx, ty, tw = _torch(hyp, z, x, y, w)
+    jh, jz, jx, jy, jw = _jax(hyp, z, x, y, w)
+    got = t_stats.partial_stats(th, tz, ty, tx, weights=tw)
+    want = j_stats.partial_stats(jh, jz, jy, jx, s=None, weights=jw,
+                                 latent=False)
+    for name, g, e in zip(got._fields, got, want):
+        _close(g, e, atol=1e-12, name=name)
+    total = t_stats.reduce_stats([got, got.scale(2.0)])
+    _close(total.D, 3.0 * got.D, name="reduce")
+    _close((total - got).C, 2.0 * got.C, name="sub")
+
+
+def test_latent_branch_is_queued():
+    hyp, z, x, y, _ = _inputs(3, 10, 4, 2, 1)
+    th, tz, tx, ty = _torch(hyp, z, x, y)
+    with pytest.raises(NotImplementedError, match="GPLVM"):
+        t_stats.partial_stats(th, tz, ty, tx, s=torch.ones_like(tx))
