@@ -9,14 +9,23 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    parallel, into ``build/kernels/``) and prints the card's name and power
    limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   serving path's full-width shapes and at one ragged shape, and times both
-   with CUDA events;
-3. drives the port's serving path at ``sgpr-synth-1m`` (n = 1e6, q = 8,
-   d = 4, m = 512): ``SGPR`` -> ``log_bound`` -> ``predictive_state`` ->
-   ``save_state`` / ``load_state`` -> ``PredictEngine`` answering query
-   batches, with every launch counter set to 0 just before and read just
-   after, and checks its answers against the same path computed by the
-   plain versions in f64 on the card.
+   main paths' full-width shapes and at one ragged shape, in both dtypes,
+   and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
+   and ``gplvm-synth-100k`` shapes);
+3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
+   d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
+   plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
+   ``log_bound`` -> ``predictive_state`` -> ``save_state`` / ``load_state``
+   -> ``PredictEngine`` answering query batches, checked against the same
+   path computed by the plain versions in f64 on the card;
+3b. trains and serves the Bayesian GPLVM at ``gplvm-usps`` (n = 4649,
+   d = 256, q = 10, m = 150): value and gradient against the plain f64
+   path -> ``fit`` (10 SCG iterations; the bound must rise) ->
+   ``predictive_state`` -> ``PredictEngine`` answering the 4649 training
+   latents, checked against the plain f64 path.
+
+Every launch counter is set to 0 just before each of 3a and 3b and read
+just after; each kernel of a path must have launched in it.
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -56,6 +65,16 @@ PEAKS = {"PCIe": (51.2e12, 51.2e12, 2.0e12), "NVL": (60e12, 60e12, 3.9e12),
          "SXM": (67e12, 67e12, 3.35e12)}
 TIMED_REPS = 10
 PLAIN_ROWS = 65_536   # rows per chunk of the plain reg_stats (its (rows, m, q) diff)
+GRAD_ROWS = 32_768    # rows per checkpointed chunk of the plain SGPR gradient
+PSI_ELEMS = 1 << 25   # elements of the plain psi2's (rows, m, m, q) chunk
+# Cost of one exp, in f32 flops' worth of time at the f32 peak: f32 exps
+# run on the SFU (MUFU.EX2, 16 a clock per SM against 128 FP32 FMAs, i.e.
+# 256 flops); an f64 exp is assumed to be the ~16 DFMAs of libdevice's
+# __nv_exp (range reduction, a degree-11 polynomial, scaling), each at
+# the CUDA cores' 64 DFMAs a clock per SM.
+EXP_COST = {torch.float32: 256 / 16, torch.float64: 16 * 256 / 64}
+SGPR_FIT_ITERS, GPLVM_FIT_ITERS = 3, 10
+GRAD_RTOL = 1e-8      # value and gradient against the plain f64 path
 DEV = "cuda"
 
 
@@ -228,7 +247,206 @@ def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
     return out
 
 
-# -- phase 3: the serving path at sgpr-synth-1m ------------------------------
+def psi_rows(m, q) -> int:
+    return max(1, PSI_ELEMS // (m * m * q))
+
+
+def psi_bound(kind, n_eff, n, m, q, dtype, peaks) -> tuple[float, str]:
+    """Least time for psi2 (the upper half of D's pairs, over the rows with
+    nonzero weight: zero-weight rows are skipped) or psi1: each (row, pair
+    or point) costs 4q + 3 flops (per q a subtraction, a product and an
+    FMA) and one exp at its ``EXP_COST``; bytes read once, written once."""
+    item = 4 if dtype == torch.float32 else 8
+    peak = peaks[0] if dtype == torch.float32 else peaks[1]
+    if kind == "psi2":
+        entries = n_eff * m * (m + 1) / 2
+        nbytes = item * (n * (2 * q + 1) + m * q + 2 * q + 1) + 8 * m * m
+    else:
+        entries = n * m
+        nbytes = item * (2 * n * q + m * q + 2 * q + 1 + n * m)
+    t_ops = entries * (4 * q + 3) / peak + entries * EXP_COST[dtype] / peaks[0]
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def psi_launch_only(kind, hyp, z, mu, s, w):
+    """The bare ctypes launch of a psi kernel on operands prepared once:
+    the kernel's device time without the wrapper's casts, hyper-parameter
+    vector and allocations (the wrapper's time is ``ms``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.psi_stats import kernel as ps_k
+
+    n, m = mu.shape[0], z.shape[0]
+    hp = torch.cat([torch.exp((2.0 if kind == "psi2" else 1.0)
+                              * hyp["log_sf2"]).reshape(1),
+                    torch.exp(2.0 * hyp["log_ell"]),
+                    torch.exp(-2.0 * hyp["log_ell"])]).to(mu.dtype)
+    if kind == "psi1":
+        out = torch.empty((n, m), dtype=mu.dtype, device=DEV)
+        return lambda: ps_k.psi1(mu, s, z, hp, out)
+    n_tiles, n_slices, rows = _build.slice_plan(n, m, mu.device, ps_k.TILE,
+                                                ps_k.ROWS)
+    part = torch.empty((n_slices, n_tiles, ps_k.TILE, ps_k.TILE),
+                       dtype=mu.dtype, device=DEV)
+    d_out = torch.empty((m, m), dtype=torch.float64, device=DEV)
+    return lambda: ps_k.psi2(mu, s, w, z, hp, n_slices, rows, part, d_out)
+
+
+def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
+    """psi2 and psi1 against their plain versions in f64 on the kernel's
+    values; returns ``{"psi2": {...}, "psi1": {...}}``."""
+    rng = np.random.default_rng(SEED + n + m + q)
+    f64 = torch.float64
+
+    def tt(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(DEV, dtype)
+
+    hyp = {"log_sf2": torch.tensor(rng.uniform(-0.5, 0.8), dtype=f64,
+                                   device=DEV),
+           "log_ell": torch.full((q,), 0.5 * math.log(q), dtype=f64,
+                                 device=DEV)}
+    z, mu = tt(rng.standard_normal((m, q))), tt(rng.standard_normal((n, q)))
+    s = tt(rng.uniform(0.05, 1.0, (n, q)))
+    w = tt((rng.uniform(size=n) > 0.15) if masked else np.ones(n))
+    h64 = (hyp["log_sf2"], hyp["log_ell"])
+    z64, mu64, s64, w64 = (v.to(f64) for v in (z, mu, s, w))
+    rows = psi_rows(m, q)
+    out = {}
+    d_stat = ps_ops.psi2(hyp, z, mu, s, w)
+    plain = ps_ref.psi2_ref(*h64, z64, mu64, s64, w64, chunk=rows)
+    torch.cuda.synchronize()
+    if d_stat.shape != (m, m) or not torch.equal(d_stat, d_stat.T):
+        raise AssertionError("psi2: D has the wrong shape or is not exactly "
+                             "symmetric")
+    err, worst = check_close("psi2", d_stat, plain, plain)
+    out["psi2"] = {"max_abs_err": err, "max_err_over_bound": worst}
+    p1 = ps_ops.psi1(hyp, z, mu, s)
+    plain1 = ps_ref.psi1_ref(*h64, z64, mu64, s64, chunk=rows * m)
+    torch.cuda.synchronize()
+    if p1.shape != (n, m):
+        raise AssertionError(f"psi1 shape {tuple(p1.shape)}")
+    err, worst = check_close("psi1", p1, plain1, plain1)
+    out["psi1"] = {"max_abs_err": err, "max_err_over_bound": worst}
+    if timed:
+        n_eff = int((w != 0).sum())
+        for kind, fn, plain_fn in (
+                ("psi2", lambda: ps_ops.psi2(hyp, z, mu, s, w),
+                 lambda: ps_ref.psi2_ref(*h64, z64, mu64, s64, w64,
+                                         chunk=rows)),
+                ("psi1", lambda: ps_ops.psi1(hyp, z, mu, s),
+                 lambda: ps_ref.psi1_ref(*h64, z64, mu64, s64,
+                                         chunk=rows * m))):
+            out[kind]["ms"] = time_ms(fn)
+            out[kind]["plain_ms"] = time_ms(plain_fn, reps=3)
+            out[kind]["launch_only_ms"] = time_ms(
+                psi_launch_only(kind, hyp, z, mu, s, w))
+            out[kind]["bound_ms"], out[kind]["bound_by"] = psi_bound(
+                kind, n_eff, n, m, q, dtype, peaks)
+    for kind in ("psi2", "psi1"):
+        print(f"{kind} ", dict(shape=dict(n=n, m=m, q=q), dtype=str(dtype),
+                               masked=masked, **out[kind]), flush=True)
+    return out
+
+
+def reset_counts(*counts):
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+def timed_step(steps):
+    """``step(name, fn)``: run ``fn`` between synchronisations and record
+    its host time in ``steps[name]``."""
+    def step(name, fn):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - s
+        return out
+    return step
+
+
+def rel_diff(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def check_value_and_grad(label, model, plain_neg, step, report,
+                         reordered=()):
+    """The model's ``_neg_vg`` (kernels forward, chunked plain recompute
+    backward) against the value and gradient of ``plain_neg`` by plain
+    autograd, at the model's params: relative difference (normwise for the
+    gradient) <= GRAD_RTOL.
+
+    ``reordered``: the same plain path with its row sums taken in other
+    orders.  Where the bound's cancellation amplifies last-digit
+    differences of the statistics past GRAD_RTOL, the plain path disagrees
+    with itself by that much; the gradient limit is then that spread: the
+    kernel path must lie no further from the plain path than the plain
+    path's own reorderings do."""
+    from repro_torch.core.flat import Flat
+
+    v, g = step(f"{label}_value_and_grad_s", model._neg_vg)
+    flat = Flat(model.params)
+    x = flat.ravel(model.params)
+    vp, gp = flat.value_and_grad(plain_neg, x)
+    dv, dg = abs(v - vp) / abs(vp), rel_diff(g, gp)
+    spread = max([rel_diff(flat.value_and_grad(neg, x)[1], gp)
+                  for neg in reordered], default=0.0)
+    limit = max(GRAD_RTOL, spread)
+    report[f"{label}_value_rel_diff"] = dv
+    report[f"{label}_grad_rel_diff"] = dg
+    if reordered:
+        report[f"{label}_plain_reordered_grad_rel_diff"] = spread
+    if not (dv <= GRAD_RTOL and dg <= limit):
+        raise AssertionError(f"{label}: value {dv:.3e} / gradient {dg:.3e} "
+                             f"relative difference to the plain f64 path "
+                             f"above {GRAD_RTOL} / {limit:.3e}")
+
+
+def check_fit(label, model, iters, step, report, **kw):
+    """``fit(max_iters=iters)`` must not lower the bound."""
+    b0 = model.log_bound()
+    res = step(f"{label}_fit_{iters}_iters_s",
+               lambda: model.fit(max_iters=iters, **kw))
+    b1 = model.log_bound()
+    report[f"{label}_fit"] = {"bound_before": b0, "bound_after": b1,
+                              "iters": res.n_iters, "evals": res.n_evals}
+    if not (math.isfinite(b1) and b1 >= b0):
+        raise AssertionError(f"{label}: fit moved the bound {b0} -> {b1}")
+
+
+# -- phase 3a: SGPR training and serving at sgpr-synth-1m ---------------------
+
+def plain_sgpr_neg(model):
+    """The SGPR's negative bound through the plain f64 path on the card:
+    the plain reg_stats over checkpointed row chunks (the graph of one
+    chunk alive at a time), then the bound."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core import bound as bound_mod
+    from repro_torch.core import stats as stats_mod
+    from repro_torch.kernels.reg_stats import ref as rs_ref
+
+    x, y = model.x, model.y
+    w = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def neg(params):
+        hyp, z = params["hyp"], params["z"]
+        b = c = d_stat = 0.0
+        for lo in range(0, x.shape[0], GRAD_ROWS):
+            sl = slice(lo, lo + GRAD_ROWS)
+            bb, cc, dd = checkpoint(rs_ref.reg_stats_ref, hyp["log_sf2"],
+                                    hyp["log_ell"], z, x[sl], y[sl], w[sl],
+                                    use_reentrant=False)
+            b, c, d_stat = b + bb, c + cc, d_stat + dd
+        st = stats_mod.Stats(A=(y * y).sum(), B=b, C=c, D=d_stat,
+                             KL=torch.zeros((), dtype=x.dtype, device=x.device),
+                             n=w.sum())
+        return -bound_mod.collapsed_bound(hyp, z, st, y.shape[1],
+                                          jitter=model.jitter)
+    return neg
 
 def plain_serving(hyp, z, x, y, queries):
     """The same path computed by the plain versions, in f64 on the card."""
@@ -261,6 +479,7 @@ def rmse(a, b) -> float:
 def serving_path(rt, cfg) -> dict:
     from repro_torch.core import covariance, init_utils
     from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.psi_stats import ops as ps_ops
     from repro_torch.kernels.reg_stats import ops as rs_ops
 
     rng = np.random.default_rng(SEED)
@@ -273,21 +492,15 @@ def serving_path(rt, cfg) -> dict:
     queries = [qrng.uniform(-2.0, 2.0, (t, cfg.q)) for t in sizes]
     x_full = qrng.uniform(-2.0, 2.0, (256, cfg.q))
     steps = {"host_data_s": time.perf_counter() - t0}
+    step = timed_step(steps)
+    report = {}
 
-    def step(name, fn):
-        torch.cuda.synchronize()
-        s = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - s
-        return out
-
-    # Every launch counter to 0 just before the main path, read just after.
-    for counts in (rs_ops.LAUNCHES, p_ops.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    # Every launch counter to 0 just before the path, read just after.
+    reset_counts(rs_ops.LAUNCHES, p_ops.LAUNCHES, ps_ops.LAUNCHES)
     model = step("sgpr_init_s", lambda: rt.SGPR(x, y, hyp=hyp, z=z,
                                                 device=DEV))
+    check_value_and_grad("sgpr", model, plain_sgpr_neg(model), step, report)
+    check_fit("sgpr", model, SGPR_FIT_ITERS, step, report)
     lb = step("log_bound_s", model.log_bound)
     state = step("predictive_state_s", model.predictive_state)
     with tempfile.TemporaryDirectory() as tmp:
@@ -311,8 +524,8 @@ def serving_path(rt, cfg) -> dict:
     launches = {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"],
                 "predict_f32": p_ops.LAUNCHES["float32"]}
-    print(f"main path steps (s): {json.dumps(steps)}", flush=True)
-    print(f"main path launches: {json.dumps(launches)} (reg_stats_f32: "
+    print(f"sgpr path steps (s): {json.dumps(steps)}", flush=True)
+    print(f"sgpr path launches: {json.dumps(launches)} (reg_stats_f32: "
           f"{rs_ops.LAUNCHES['float32']}, not on the path)", flush=True)
     for name, count in launches.items():
         if count < 1:
@@ -325,9 +538,9 @@ def serving_path(rt, cfg) -> dict:
         [torch.from_numpy(q).to(DEV, f64)
          for q in list(queries) + [x_full, queries[-1]]])
     ystd = float(np.std(y))
-    sf2 = float(np.exp(hyp["log_sf2"]))
-    report = {"log_bound": lb, "plain_log_bound": plain_lb,
-              "log_bound_rel_diff": abs(lb - plain_lb) / abs(plain_lb)}
+    sf2 = float(torch.exp(model.params["hyp"]["log_sf2"]))
+    report.update({"log_bound": lb, "plain_log_bound": plain_lb,
+                   "log_bound_rel_diff": abs(lb - plain_lb) / abs(plain_lb)})
     if not math.isfinite(lb):
         raise AssertionError(f"log_bound is not finite: {lb}")
     served = list(answers) + [(full_mean, torch.diagonal(full_cov)), ans32]
@@ -345,7 +558,107 @@ def serving_path(rt, cfg) -> dict:
                                  f"{vr:.3e} outside the serving budgets")
     if not torch.allclose(full_cov, full_cov.T, rtol=0, atol=1e-9 * sf2):
         raise AssertionError("predict_full_cov is not symmetric")
-    print(f"main path vs plain f64: {json.dumps(report)}", flush=True)
+    print(f"sgpr path vs plain f64: {json.dumps(report)}", flush=True)
+    return launches
+
+
+# -- phase 3b: the Bayesian GPLVM at gplvm-usps -------------------------------
+
+def plain_latent_stats(hyp, z, y, mu, s, rows=None):
+    """The latent map step through the plain versions in f64 on the card;
+    psi2 over checkpointed chunks of ``rows`` rows (the graph of one chunk
+    alive at a time) so its gradient fits at full width."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.core import stats as stats_mod
+    from repro_torch.kernels.psi_stats import ref as ps_ref
+
+    n, q = mu.shape
+    m = z.shape[0]
+    w = torch.ones(n, dtype=mu.dtype, device=mu.device)
+    rows = rows or psi_rows(m, q)
+    d_stat = 0.0
+    for lo in range(0, n, rows):
+        sl = slice(lo, lo + rows)
+        d_stat = d_stat + checkpoint(ps_ref.psi2_ref, hyp["log_sf2"],
+                                     hyp["log_ell"], z, mu[sl], s[sl], w[sl],
+                                     use_reentrant=False)
+    p1 = ps_ref.psi1_ref(hyp["log_sf2"], hyp["log_ell"], z, mu, s)
+    return stats_mod.Stats(
+        A=(y * y).sum(), B=torch.exp(hyp["log_sf2"]) * w.sum(), C=p1.T @ y,
+        D=d_stat, KL=0.5 * (s + mu * mu - torch.log(s) - 1.0).sum(),
+        n=w.sum())
+
+
+def plain_gplvm_neg(model, rows=None):
+    from repro_torch.core import bound as bound_mod
+
+    def neg(params):
+        st = plain_latent_stats(params["hyp"], params["z"], model.y,
+                                params["mu"], torch.exp(params["log_s"]),
+                                rows)
+        return -bound_mod.collapsed_bound(params["hyp"], params["z"], st,
+                                          model.d, jitter=model.jitter)
+    return neg
+
+
+def gplvm_path(rt, cfg) -> dict:
+    from repro_torch.data import usps_like
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.predict import ref as p_ref
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+
+    t0 = time.perf_counter()
+    y, _ = usps_like(np.random.default_rng(SEED), cfg.n)
+    steps = {"host_data_s": time.perf_counter() - t0}
+    step = timed_step(steps)
+    report = {}
+
+    reset_counts(rs_ops.LAUNCHES, p_ops.LAUNCHES, ps_ops.LAUNCHES)
+    model = step("gplvm_init_s", lambda: rt.BayesianGPLVM(
+        y, q=cfg.q, num_inducing=cfg.m, device=DEV))
+    rows = psi_rows(cfg.m, cfg.q)
+    check_value_and_grad("gplvm", model, plain_gplvm_neg(model), step, report,
+                         reordered=[plain_gplvm_neg(model, r) for r in
+                                    (rows // 3 + 1, rows // 2 + 1,
+                                     2 * rows + 1)])
+    check_fit("gplvm", model, GPLVM_FIT_ITERS, step, report)
+    state = step("gplvm_predictive_state_s", model.predictive_state)
+    eng = rt.PredictEngine(state, block_size=256, device=DEV)
+    mean, var = step(f"gplvm_predict_t{cfg.n}_s", lambda: eng.predict(
+        model.params["mu"], include_noise=True))
+    launches = {"psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi1_f64": ps_ops.LAUNCHES["psi1_float64"],
+                "predict_f64": p_ops.LAUNCHES["float64"]}
+    print(f"gplvm path steps (s): {json.dumps(steps)}", flush=True)
+    print(f"gplvm path launches: {json.dumps(launches)}", flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the GPLVM path")
+
+    # -- the served latents against the plain f64 path ------------------------
+    p = model.params
+    with torch.no_grad():
+        st = plain_latent_stats(p["hyp"], p["z"], model.y, p["mu"],
+                                torch.exp(p["log_s"]))
+        pstate = rt.extract_state(p["hyp"], p["z"], st, jitter=model.jitter,
+                                  device=DEV)
+        pm, pq = p_ref.predict_ref(p["hyp"]["log_sf2"], p["hyp"]["log_ell"],
+                                   p["z"], pstate.a_mean, pstate.g, p["mu"])
+    sf2 = torch.exp(p["hyp"]["log_sf2"])
+    pv = sf2 - pq + torch.exp(-p["hyp"]["log_beta"])
+    if mean.shape != (cfg.n, cfg.d) or var.shape != (cfg.n,) \
+            or not bool(torch.isfinite(mean).all()) \
+            or not bool(torch.isfinite(var).all()):
+        raise AssertionError("gplvm served latents: bad output shapes/values")
+    mr, vr = rmse(mean, pm) / float(np.std(y)), rmse(var, pv) / float(sf2)
+    report["served_latents"] = {"mean_rmse_over_std_y": mr,
+                                "var_rmse_over_sf2": vr}
+    if mr > MEAN_BUDGET or vr > VAR_BUDGET:
+        raise AssertionError(f"gplvm served latents: mean {mr:.3e} / var "
+                             f"{vr:.3e} outside the serving budgets")
+    print(f"gplvm path vs plain f64: {json.dumps(report)}", flush=True)
     return launches
 
 
@@ -363,6 +676,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.predict import ops as p_ops
     from repro_torch.kernels.predict import ref as p_ref
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.psi_stats import ref as ps_ref
     from repro_torch.kernels.reg_stats import ops as rs_ops
     from repro_torch.kernels.reg_stats import ref as rs_ref
 
@@ -400,9 +715,22 @@ def main() -> int:
                                        cfg.m, cfg.q, cfg.d, dtype, timed=True)
         check_predict(p_ops, p_ref, peaks, 1_000, 130, 3, 5, dtype,
                       timed=False)
+    usps, synth = GP_CONFIGS["gplvm-usps"], GP_CONFIGS["gplvm-synth-100k"]
+    psi_full = {}
+    for dtype in (torch.float32, torch.float64):
+        psi_full[dtype] = check_psi(ps_ops, ps_ref, peaks, usps.n, usps.m,
+                                    usps.q, dtype, masked=False, timed=True)
+        check_psi(ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q, dtype,
+                  masked=False, timed=True)
+        check_psi(ps_ops, ps_ref, peaks, 1003, 37, 3, dtype, masked=True,
+                  timed=False)
 
-    # -- phase 3: the main path -------------------------------------------------
-    launches = serving_path(rt, cfg)
+    # -- phase 3: the main paths ------------------------------------------------
+    sgpr_launches = serving_path(rt, cfg)
+    gplvm_launches = gplvm_path(rt, usps)
+    launches = {**sgpr_launches, **gplvm_launches,
+                "predict_f64": sgpr_launches["predict_f64"]
+                + gplvm_launches["predict_f64"]}
 
     def entry(kname, source, replaces, res):
         return {"name": kname, "route": "cuda", "source": source,
@@ -411,8 +739,9 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": None}
 
-    # The kernels the main path runs (reg_stats_f32 is checked above but
-    # serves only f32 callers; the f64 model never reaches it).
+    # The kernels the main paths run (reg_stats_f32 and the psi kernels' f32
+    # instantiations are checked above but serve only f32 callers; the f64
+    # models never reach them).  Times at the main paths' shapes.
     kernels = [
         entry("reg_stats_f64", "src/repro_torch/csrc/reg_stats.cu",
               "src/repro/kernels/reg_stats/kernel.py:99",
@@ -421,6 +750,12 @@ def main() -> int:
               "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float32]),
         entry("predict_f64", "src/repro_torch/csrc/predict.cu",
               "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float64]),
+        entry("psi2_f64", "src/repro_torch/csrc/psi_stats.cu",
+              "src/repro/kernels/psi_stats/kernel.py:76",
+              psi_full[torch.float64]["psi2"]),
+        entry("psi1_f64", "src/repro_torch/csrc/psi_stats.cu",
+              "src/repro/kernels/psi_stats/kernel.py:125",
+              psi_full[torch.float64]["psi1"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,17 +2,17 @@
 
 A second package beside the JAX one, which stays the reference.  It imports
 torch and numpy, never jax or ``repro``.  Entry points run on CUDA unless
-the caller passes ``device="cpu"``; on CUDA the SE-ARD map step and the
-predict step go through hand-written kernels (``kernels/``, ``csrc/``),
-built with ``nvcc`` at first use.
+the caller passes ``device="cpu"``; on CUDA the SE-ARD map steps (regression
+and latent) and the predict step go through hand-written kernels
+(``kernels/``, ``csrc/``), built with ``nvcc`` at first use.
 
-This slice ports the serving path: ``SGPR`` (map statistics, bound,
-optimal q(u)), ``extract_state`` / ``save_state`` / ``load_state`` and
-``PredictEngine``.
+Ported so far: ``SGPR`` and ``BayesianGPLVM`` (map statistics, bound and
+gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
+``load_state`` and ``PredictEngine``.
 """
-from .core import SGPR
+from .core import SGPR, BayesianGPLVM
 from .serve import (PredictEngine, PredictiveState, extract_state, load_state,
                     save_state, state_from_model)
 
-__all__ = ["SGPR", "PredictEngine", "PredictiveState", "extract_state",
+__all__ = ["SGPR", "BayesianGPLVM", "PredictEngine", "PredictiveState", "extract_state",
            "load_state", "save_state", "state_from_model"]

@@ -1,13 +1,14 @@
 """Device resolution for the port's entry points.
 
-Every entry point (``SGPR``, ``extract_state``, ``PredictEngine``,
-``load_state``) takes ``device=``.  ``None`` means the card: the port is
+Every entry point (``SGPR``, ``BayesianGPLVM``, ``extract_state``,
+``PredictEngine``, ``load_state``) takes ``device=``.  ``None`` means the card: the port is
 written for CUDA, so a machine without one raises instead of silently
 running the plain CPU versions.  Callers that want the CPU (the tests) say
 so with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_f64(v, device) -> torch.Tensor:
+    """A tensor or array as an f64 tensor on ``device`` (arrays are copied,
+    so read-only numpy buffers are fine)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.array(v, dtype=np.float64))
+    return v.to(device=device, dtype=torch.float64)

@@ -19,11 +19,15 @@ def _tensor(v, device, dtype=None) -> torch.Tensor:
 
 def params_from_numpy(params: Mapping, device,
                       dtype=torch.float64) -> dict:
-    """``repro`` ``SGPR.params`` (``{"hyp": {...}, "z": ...}``) -> the port's
+    """``repro`` ``SGPR.params`` (``{"hyp": {...}, "z": ...}``) or
+    ``BayesianGPLVM.params`` (also ``"mu"`` and ``"log_s"``) -> the port's
     params on ``device`` in ``dtype``."""
-    return {"hyp": {k: _tensor(v, device, dtype)
-                    for k, v in params["hyp"].items()},
-            "z": _tensor(params["z"], device, dtype)}
+    out = {"hyp": {k: _tensor(v, device, dtype)
+                   for k, v in params["hyp"].items()}}
+    for k in ("z", "mu", "log_s"):
+        if k in params:
+            out[k] = _tensor(params[k], device, dtype)
+    return out
 
 
 def state_from_numpy(leaves: Mapping, device) -> PredictiveState:

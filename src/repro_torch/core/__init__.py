@@ -1,4 +1,6 @@
-"""SGPR core: covariance, map statistics, collapsed bound, the SGPR model."""
+"""GP core: covariance, map statistics, collapsed bound, SCG, and the two
+models, ``SGPR`` and ``BayesianGPLVM``."""
+from .gplvm import BayesianGPLVM
 from .sgpr import SGPR
 
-__all__ = ["SGPR"]
+__all__ = ["BayesianGPLVM", "SGPR"]

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.psi_stats import ops as psi_ops
 from . import gp_kernels as gpk
 
 _QUEUED = ("only the full-width SE-ARD kernel ({'kind': 'se', 'dims': null}) "
@@ -37,6 +38,26 @@ class SEARD:
 
     def kdiag(self, hyp: dict, a: torch.Tensor) -> torch.Tensor:
         return gpk.se_kdiag(hyp, a)
+
+    # -- psi statistics under q(X) = N(mu, diag(s)): all closed form --------
+    def psi0(self, hyp: dict, mu, s) -> torch.Tensor:
+        return gpk.se_psi0(hyp, mu, s)
+
+    def psi1(self, hyp: dict, z, mu, s) -> torch.Tensor:
+        """(n, m): the psi1 kernel on CUDA, its plain version on the CPU."""
+        return psi_ops.psi1(hyp, z, mu, s)
+
+    def psi2(self, hyp: dict, z, mu, s, w) -> torch.Tensor:
+        """Weighted Psi2, the D statistic (m, m): the psi2 kernel on CUDA,
+        its plain version on the CPU."""
+        return psi_ops.psi2(hyp, z, mu, s, w)
+
+    def psi2_per_point(self, hyp: dict, z, mu, s) -> torch.Tensor:
+        """(n, m, m) un-summed psi2 (plain; tests and oracles)."""
+        return gpk.psi2_per_point(hyp, z, mu, s)
+
+    def analytic_psi(self) -> bool:
+        return True
 
     def variance_scale(self, hyp: dict) -> torch.Tensor:
         """The signal variance, which scales the Cholesky jitter."""

@@ -1,0 +1,95 @@
+"""Flat parameter vectors for SCG, the value-and-gradient oracle, and the
+SCG fit over a parameter dict.
+
+The JAX models flatten their parameter dicts with
+``jax.flatten_util.ravel_pytree``: dict keys sorted, depth first, each leaf
+raveled in row-major order.  :class:`Flat` uses the same order, so the
+port's SCG walks the same coordinates as the JAX package's and the two
+trajectories compare coordinate for coordinate.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .scg import SCGResult, scg
+
+
+def _items(tree: dict, prefix: tuple = ()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _get(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class Flat:
+    """The layout of a (nested) dict of tensors as one f64 numpy vector."""
+
+    def __init__(self, tree: dict):
+        items = list(_items(tree))
+        self.paths = [p for p, _ in items]
+        self.shapes = [tuple(t.shape) for _, t in items]
+        self.size = sum(math.prod(s) for s in self.shapes)
+        self.device = items[0][1].device
+
+    def ravel(self, tree: dict) -> np.ndarray:
+        return torch.cat([_get(tree, p).detach().reshape(-1).double()
+                          for p in self.paths]).cpu().numpy()
+
+    def unravel(self, x, requires_grad: bool = False) -> dict:
+        """A dict of f64 leaves on the layout's device (fresh autograd leaves
+        when ``requires_grad``)."""
+        flat = torch.from_numpy(np.array(x, np.float64)).to(self.device)
+        out: dict = {}
+        off = 0
+        for path, shape in zip(self.paths, self.shapes):
+            size = math.prod(shape)
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = flat[off:off + size].reshape(shape).detach() \
+                .requires_grad_(requires_grad)
+            off += size
+        return out
+
+    def value_and_grad(self, neg, x, fixed: dict | None = None
+                       ) -> tuple[float, np.ndarray]:
+        """``neg(params)`` at the flat point ``x`` and its gradient in these
+        coordinates; ``fixed`` params join as constants.  A Cholesky that
+        fails at a wild SCG step gives NaN value and gradient, which SCG
+        counts as a failed step, as the JAX package's NaN factor does."""
+        params = self.unravel(x, requires_grad=True)
+        try:
+            value = neg({**(fixed or {}), **params})
+        except torch.linalg.LinAlgError:
+            return float("nan"), np.full(self.size, np.nan)
+        grads = torch.autograd.grad(value, [_get(params, p)
+                                            for p in self.paths])
+        return float(value.detach()), torch.cat(
+            [g.reshape(-1) for g in grads]).cpu().numpy()
+
+
+def neg_value_and_grad(neg, params: dict) -> tuple[float, np.ndarray]:
+    """``neg(params)`` and its flat gradient at ``params``."""
+    flat = Flat(params)
+    return flat.value_and_grad(neg, flat.ravel(params))
+
+
+def fit_scg(neg, params: dict, max_iters: int, fixed: dict | None = None
+            ) -> tuple[SCGResult, dict]:
+    """Minimise ``neg`` over ``params`` by SCG, ``fixed`` params held as
+    constants; returns the SCG result and the fitted params."""
+    flat = Flat(params)
+    res = scg(lambda xf: flat.value_and_grad(neg, xf, fixed=fixed),
+              flat.ravel(params), max_iters=max_iters)
+    return res, flat.unravel(res.x)

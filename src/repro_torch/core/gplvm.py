@@ -1,0 +1,131 @@
+"""Bayesian GPLVM (Titsias & Lawrence 2010) via the re-parametrised bound.
+
+Counterpart of ``repro.core.BayesianGPLVM``.  Latent inputs get a
+factorised Gaussian ``q(X_i) = N(mu_i, diag(S_i))``; the psi statistics
+(the psi1/psi2 kernels on CUDA) replace kernel evaluations and the KL term
+appears in the bound.  Optimisation follows the paper: SCG over the global
+parameters G = (hyp, Z) and the local parameters L = (mu, log S), either
+jointly (``fit(joint=True)``, what GPy does) or in the paper's alternation
+of G-steps and L-steps (``fit(joint=False)``).  The fitted model serves
+latent queries through ``predictive_state`` -> ``PredictEngine``.
+``fit_svi`` and ``reconstruct`` come in later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import as_f64, resolve_device
+from . import bound as bound_mod
+from . import covariance as cov
+from . import init_utils
+from .flat import fit_scg, neg_value_and_grad
+from .posterior_cache import PosteriorCacheMixin
+from .stats import partial_stats_chunked
+
+
+class BayesianGPLVM(PosteriorCacheMixin):
+    """``chunk_size``: if set, the map step folds rows in blocks of this
+    many points (``stats.partial_stats_chunked``); the default ``None`` maps
+    all rows at once, one launch of each psi kernel on CUDA, which never
+    stores the (n, m, m) per-point psi2.
+
+    ``device``: where the model lives (default CUDA; ``"cpu"`` runs the
+    plain versions of the kernels).  Data and parameters are f64 there,
+    and the init (PCA latents, k-means Z, data-driven hyp) is the JAX
+    package's numpy one, bit for bit.
+    """
+
+    def __init__(self, y: np.ndarray, q: int, num_inducing: int = 50,
+                 jitter: float = 1e-6, seed: int = 0, s0: float = 0.5,
+                 chunk_size: int | None = None, kernel=None, device=None):
+        self.device = resolve_device(device)
+        self.y = as_f64(y, self.device)
+        self.n, self.d = self.y.shape
+        self.q = q
+        self.jitter = jitter
+        self.chunk_size = chunk_size
+        self.kernel = cov.as_kernel(kernel)
+        mu0 = init_utils.pca(np.asarray(y), q)
+        z0 = init_utils.kmeans(mu0, num_inducing, seed=seed)
+        hyp0 = init_utils.default_hyp_for(self.kernel, np.asarray(y), q)
+        self.params = {
+            "hyp": {k: as_f64(v, self.device) for k, v in hyp0.items()},
+            "z": as_f64(z0, self.device),
+            "mu": as_f64(mu0, self.device),
+            "log_s": torch.full((self.n, q), float(np.log(s0)),
+                                dtype=torch.float64, device=self.device),
+        }
+        self._init_posterior_caches()   # stats / PredictiveState / engine
+
+    def _map_stats(self, hyp, z, y, mu, s):
+        return partial_stats_chunked(hyp, z, y, mu, s=s, latent=True,
+                                     block_size=self.chunk_size,
+                                     kernel=self.kernel)
+
+    # -- objective ----------------------------------------------------------
+    def _neg_bound(self, params) -> torch.Tensor:
+        st = self._map_stats(params["hyp"], params["z"], self.y,
+                             params["mu"], torch.exp(params["log_s"]))
+        return -bound_mod.collapsed_bound(params["hyp"], params["z"], st,
+                                          self.d, jitter=self.jitter,
+                                          kernel=self.kernel)
+
+    @torch.no_grad()
+    def log_bound(self, params=None) -> float:
+        return -float(self._neg_bound(self.params if params is None
+                                      else params))
+
+    def _neg_vg(self, params=None) -> tuple[float, np.ndarray]:
+        """The negative bound and its gradient, flattened in the JAX
+        package's ``ravel_pytree`` order: hyp/{log_beta, log_ell, log_sf2},
+        log_s, mu, z (``core.flat``)."""
+        return neg_value_and_grad(self._neg_bound, self.params
+                                  if params is None else params)
+
+    # -- optimisation --------------------------------------------------------
+    def fit(self, max_iters: int = 200, joint: bool = True,
+            outer_rounds: int = 10, verbose: bool = False):
+        if joint:
+            return self._fit_joint(max_iters, verbose)
+        return self._fit_alternating(max_iters, outer_rounds, verbose)
+
+    def _fit_joint(self, max_iters, verbose):
+        res, self.params = fit_scg(self._neg_bound, self.params, max_iters)
+        self._invalidate_posterior()
+        if verbose:
+            print(f"GPLVM fit(joint): bound={-res.f:.4f} iters={res.n_iters}")
+        return res
+
+    def _fit_alternating(self, max_iters, outer_rounds, verbose):
+        """Paper §3.2 schedule: alternate G-steps and (parallelisable)
+        L-steps, each an SCG run of ``max_iters // (2 outer_rounds)``
+        iterations with the other block held fixed."""
+        g = {"hyp": self.params["hyp"], "z": self.params["z"]}
+        l = {"mu": self.params["mu"], "log_s": self.params["log_s"]}
+        inner = max(1, max_iters // (2 * outer_rounds))
+        res = None
+        for r in range(outer_rounds):
+            _, g = fit_scg(self._neg_bound, g, inner, fixed=l)
+            res, l = fit_scg(self._neg_bound, l, inner, fixed=g)
+            if verbose:
+                print(f"  round {r}: bound={-res.f:.4f}")
+        self.params = {**g, **l}
+        self._invalidate_posterior()
+        return res
+
+    # -- posterior / diagnostics ---------------------------------------------
+    @torch.no_grad()
+    def _stats(self):
+        if self._stats_cache is None:
+            self._stats_cache = self._map_stats(
+                self.params["hyp"], self.params["z"], self.y,
+                self.params["mu"], torch.exp(self.params["log_s"]))
+        return self._stats_cache
+
+    def ard_weights(self) -> np.ndarray:
+        """1/ell^2: the per-dimension relevance the paper inspects (fig 4/7)."""
+        return torch.exp(-2.0 * self.params["hyp"]["log_ell"]).cpu().numpy()
+
+    def latent_mean(self) -> np.ndarray:
+        return self.params["mu"].cpu().numpy()

@@ -1,11 +1,24 @@
-"""Initialisation helpers (numpy): k-means for Z, data-driven hyper-parameters.
+"""Initialisation helpers (numpy): PCA for latents, k-means for Z,
+data-driven hyper-parameters.
 
 A copy of ``repro.core.init_utils`` (SE only), kept here so the port never
-imports the JAX package.
+imports the JAX package; both give bitwise-equal arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def pca(y: np.ndarray, q: int) -> np.ndarray:
+    """PCA projection of Y (n, d) to q dims, unit-variance scaled (paper init)."""
+    y = np.asarray(y, np.float64)
+    yc = y - y.mean(axis=0, keepdims=True)
+    # SVD of the centred data; principal components = U * S
+    u, s_, _ = np.linalg.svd(yc, full_matrices=False)
+    x = u[:, :q] * s_[:q]
+    std = x.std(axis=0)
+    std[std == 0] = 1.0
+    return x / std
 
 
 def kmeans(x: np.ndarray, k: int, iters: int = 20, seed: int = 0,

@@ -7,8 +7,16 @@ together; one mixin owns the attribute set so a new mutation path cannot
 forget a cache that the others clear.  (The JAX package's
 ``_refresh_posterior`` comes with the online updates, which need
 ``PredictEngine.swap_state``.)
+
+The mixin also carries what ``SGPR`` and ``BayesianGPLVM`` serve alike from
+their reduced Stats (``_stats()``) and their ``params``/``jitter``/
+``kernel``/``device``: the optimal q(u), the frozen state and an engine.
 """
 from __future__ import annotations
+
+import torch
+
+from . import bound as bound_mod
 
 
 class PosteriorCacheMixin:
@@ -24,3 +32,24 @@ class PosteriorCacheMixin:
     def _invalidate_posterior(self) -> None:
         """New params -> every cached posterior quantity is stale."""
         self._init_posterior_caches()
+
+    @torch.no_grad()
+    def qu(self) -> bound_mod.QU:
+        return bound_mod.optimal_qu(self.params["hyp"], self.params["z"],
+                                    self._stats(), jitter=self.jitter,
+                                    kernel=self.kernel)
+
+    def predictive_state(self):
+        """The frozen ``serve.PredictiveState`` for the current params,
+        extracted once and cached until a fit moves them."""
+        if self._pstate_cache is None:
+            from ..serve import state_from_model
+            self._pstate_cache = state_from_model(self)
+        return self._pstate_cache
+
+    def serve_engine(self, block_size: int = 256, compute_dtype=None):
+        """A fresh ``serve.PredictEngine`` over the current predictive state,
+        on the model's device."""
+        from ..serve import PredictEngine
+        return PredictEngine(self.predictive_state(), block_size=block_size,
+                             compute_dtype=compute_dtype, device=self.device)

@@ -1,20 +1,22 @@
 """Sparse GP regression (Titsias 2009) via the paper's re-parametrised bound.
 
-Counterpart of ``repro.core.SGPR`` for the serving path: build the reduced
-statistics once (the fused map kernel on CUDA), evaluate the bound, freeze
-the optimal q(u) into a ``PredictiveState`` and answer queries through the
-block engine.  Training (``fit``, ``fit_svi``) and the online updates
-(``update``, ``forget``) and ``sample`` come in later slices.
+Counterpart of ``repro.core.SGPR``: build the reduced statistics (the fused
+map kernel on CUDA), evaluate the bound and its gradient (autograd; the
+kernel's backward recomputes the dense map in row chunks), fit by SCG,
+freeze the optimal q(u) into a ``PredictiveState`` and answer queries
+through the block engine.  ``fit_svi``, the online updates (``update``,
+``forget``) and ``sample`` come in later slices.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import as_f64, resolve_device
 from . import bound as bound_mod
 from . import covariance as cov
 from . import init_utils
+from .flat import fit_scg, neg_value_and_grad
 from .posterior_cache import PosteriorCacheMixin
 from .stats import partial_stats_chunked
 
@@ -36,8 +38,8 @@ class SGPR(PosteriorCacheMixin):
                  jitter: float = 1e-6, seed: int = 0,
                  chunk_size: int | None = None, kernel=None, device=None):
         self.device = resolve_device(device)
-        self.x = self._f64(x)
-        self.y = self._f64(y)
+        self.x = as_f64(x, self.device)
+        self.y = as_f64(y, self.device)
         self.n, self.q = self.x.shape
         self.d = self.y.shape[1]
         self.jitter = jitter
@@ -48,17 +50,10 @@ class SGPR(PosteriorCacheMixin):
         hyp0 = (init_utils.default_hyp_for(self.kernel, np.asarray(y), self.q)
                 if hyp is None else hyp)
         self.params = {
-            "hyp": {k: self._f64(v) for k, v in hyp0.items()},
-            "z": self._f64(z0),
+            "hyp": {k: as_f64(v, self.device) for k, v in hyp0.items()},
+            "z": as_f64(z0, self.device),
         }
         self._init_posterior_caches()   # stats / PredictiveState / engine
-
-    def _f64(self, v) -> torch.Tensor:
-        """A tensor or array as an f64 tensor on the model's device (arrays
-        are copied, so read-only numpy buffers are fine)."""
-        if not isinstance(v, torch.Tensor):
-            v = torch.from_numpy(np.array(v, dtype=np.float64))
-        return v.to(device=self.device, dtype=torch.float64)
 
     def _map_stats(self, hyp, z, y, x):
         return partial_stats_chunked(hyp, z, y, x, s=None, latent=False,
@@ -66,14 +61,32 @@ class SGPR(PosteriorCacheMixin):
                                      kernel=self.kernel)
 
     # -- objective ----------------------------------------------------------
+    def _neg_bound(self, params) -> torch.Tensor:
+        st = self._map_stats(params["hyp"], params["z"], self.y, self.x)
+        return -bound_mod.collapsed_bound(params["hyp"], params["z"], st,
+                                          self.d, jitter=self.jitter,
+                                          kernel=self.kernel)
+
     @torch.no_grad()
     def log_bound(self, params=None) -> float:
         """The collapsed bound at ``params`` (default: the model's)."""
-        p = self.params if params is None else params
-        st = self._map_stats(p["hyp"], p["z"], self.y, self.x)
-        return float(bound_mod.collapsed_bound(p["hyp"], p["z"], st, self.d,
-                                               jitter=self.jitter,
-                                               kernel=self.kernel))
+        return -float(self._neg_bound(self.params if params is None
+                                      else params))
+
+    def _neg_vg(self, params=None) -> tuple[float, np.ndarray]:
+        """The negative bound and its gradient, flattened in the JAX
+        package's ``ravel_pytree`` order (``core.flat``)."""
+        return neg_value_and_grad(self._neg_bound, self.params
+                                  if params is None else params)
+
+    def fit(self, max_iters: int = 200, verbose: bool = False):
+        """SCG on every parameter (hyp, Z); drops the posterior caches."""
+        res, self.params = fit_scg(self._neg_bound, self.params, max_iters)
+        self._invalidate_posterior()
+        if verbose:
+            print(f"SGPR fit: bound={-res.f:.4f} iters={res.n_iters} "
+                  f"evals={res.n_evals} converged={res.converged}")
+        return res
 
     # -- posterior ----------------------------------------------------------
     @torch.no_grad()
@@ -82,27 +95,6 @@ class SGPR(PosteriorCacheMixin):
             self._stats_cache = self._map_stats(
                 self.params["hyp"], self.params["z"], self.y, self.x)
         return self._stats_cache
-
-    @torch.no_grad()
-    def qu(self) -> bound_mod.QU:
-        return bound_mod.optimal_qu(self.params["hyp"], self.params["z"],
-                                    self._stats(), jitter=self.jitter,
-                                    kernel=self.kernel)
-
-    def predictive_state(self):
-        """The frozen ``serve.PredictiveState`` for the current params,
-        extracted once and cached."""
-        if self._pstate_cache is None:
-            from ..serve import state_from_model
-            self._pstate_cache = state_from_model(self)
-        return self._pstate_cache
-
-    def serve_engine(self, block_size: int = 256, compute_dtype=None):
-        """A fresh ``serve.PredictEngine`` over the current predictive state,
-        on the model's device."""
-        from ..serve import PredictEngine
-        return PredictEngine(self.predictive_state(), block_size=block_size,
-                             compute_dtype=compute_dtype, device=self.device)
 
     def predict(self, xstar: np.ndarray, include_noise: bool = False,
                 full_cov: bool = False):

@@ -7,12 +7,15 @@ so an edited source builds anew and a stale library is never loaded.
 
 Nothing here runs at import time: a kernel is built at its first CUDA call
 (or by :func:`build_all`, which compiles every source in parallel), so the
-CPU tests import every module on a machine without ``nvcc``.
+CPU tests import every module on a machine without ``nvcc``.  The launch
+helpers the wrappers share (stream, error check, the map kernels' grid
+plan) live here too.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -23,6 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+MAX_GRID_Y = 65535   # gridDim.y limit of a launch
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -94,6 +98,26 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def slice_plan(n: int, m: int, device, tile: int, rows: int
+               ) -> tuple[int, int, int]:
+    """Grid of a map kernel that owns one upper ``tile``×``tile`` block of
+    an (m, m) statistic and one slice of the n rows per CUDA block, the
+    slices summed afterwards in a fixed order: (upper tiles, n-slices, rows
+    per slice, a multiple of ``rows``), enough blocks for ~4 per SM."""
+    nts = -(-m // tile)
+    n_tiles = nts * (nts + 1) // 2
+    if n_tiles > MAX_GRID_Y:
+        raise ValueError(f"m={m} needs {n_tiles} upper tiles; the kernel "
+                         f"takes at most {MAX_GRID_Y}")
+    import torch
+
+    chunks = max(1, -(-n // rows))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_slices = max(1, min(chunks, math.ceil(4 * sms / n_tiles)))
+    per_slice = -(-chunks // n_slices) * rows
+    return n_tiles, max(1, -(-n // per_slice)), per_slice
 
 
 def check(name: str, err: int) -> None:

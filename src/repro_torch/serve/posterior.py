@@ -97,8 +97,9 @@ def extract_state(hyp: dict, z, stats: Stats, jitter: float = DEFAULT_JITTER,
 
 
 def state_from_model(model) -> PredictiveState:
-    """Extract from a fitted ``SGPR``: its exact map-reduce once, then
-    :func:`extract_state` on the model's device."""
+    """Extract from a fitted ``SGPR`` or ``BayesianGPLVM``: its exact
+    map-reduce once for the reduced Stats, then :func:`extract_state` on the
+    model's device (a GPLVM's state answers latent queries)."""
     return extract_state(model.params["hyp"], model.params["z"],
                          model._stats(), jitter=model.jitter,
                          kernel=model.kernel, device=model.device)

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.data import sines_dataset
 from repro_torch.kernels.predict import ops as p_ops
 from repro_torch.kernels.predict import ref as p_ref
+from repro_torch.kernels.psi_stats import ops as ps_ops
+from repro_torch.kernels.psi_stats import ref as ps_ref
 from repro_torch.kernels.reg_stats import ops as rs_ops
 from repro_torch.kernels.reg_stats import ref as rs_ref
 
@@ -68,14 +71,126 @@ def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
     assert torch.equal(got[2], got[2].T)
 
 
-def test_reg_stats_refuses_grad(cuda):
-    z, x, y = (torch.randn(s, dtype=torch.float64, device=cuda)
-               for s in ((8, 2), (40, 2), (40, 1)))
-    hyp = {"log_sf2": torch.zeros((), dtype=torch.float64, device=cuda),
-           "log_ell": torch.zeros(2, dtype=torch.float64, device=cuda)}
-    z.requires_grad_(True)
+def _grads(fn, inputs, cotangents):
+    """Gradients of <cotangents, fn(*inputs)> with respect to every input."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, cotangents)
+
+
+def _assert_grads_close(got, want):
+    """The backward recomputes a plain f64 formulation, so the Function's
+    gradients equal plain autograd's up to f64 rounding (the recompute's
+    row chunks, and for reg_stats the dense expanded-square form): rtol
+    1e-10."""
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
+
+
+def test_reg_stats_gradient(cuda):
+    """The Function's backward (chunked dense recompute) against autograd
+    of the plain version, f64, on every input."""
+    rng = np.random.default_rng(4)
+    n, m, q, d = 300, 37, 3, 2
+    inputs = [_t(rng.uniform(-0.5, 0.8), cuda), _t(rng.uniform(-0.4, 0.4, q), cuda),
+              _t(rng.standard_normal((m, q)), cuda),
+              _t(rng.standard_normal((n, q)), cuda),
+              _t(rng.standard_normal((n, d)), cuda),
+              _t(rng.uniform(size=n) > 0.15, cuda)]
+    cts = (_t(rng.standard_normal(()), cuda), _t(rng.standard_normal((m, d)), cuda),
+           _t(rng.standard_normal((m, m)), cuda))
+
+    def kernel(log_sf2, log_ell, z, x, y, w):
+        return rs_ops.reg_stats({"log_sf2": log_sf2, "log_ell": log_ell},
+                                z, x, y, w)
+
+    _assert_grads_close(_grads(kernel, inputs, cts),
+                        _grads(rs_ref.reg_stats_ref, inputs, cts))
+
+
+def _psi_inputs(seed, n, m, q, device, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), device),
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q), device)}
+    z, mu = (_t(rng.standard_normal(sh), device, dtype)
+             for sh in ((m, q), (n, q)))
+    s = _t(rng.uniform(0.05, 0.8, (n, q)), device, dtype)
+    w = _t(rng.uniform(size=n) > 0.15, device, dtype)
+    return hyp, z, mu, s, w
+
+
+PSI_SHAPES = [(64, 16, 2), (100, 37, 3), (257, 64, 10), (32, 130, 1),
+              (1003, 37, 3), (5000, 150, 10)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,q", PSI_SHAPES)
+def test_psi2_matches_plain(cuda, n, m, q, dtype):
+    hyp, z, mu, s, w = _psi_inputs(n + m, n, m, q, cuda, dtype)
+    name = str(dtype).removeprefix("torch.")
+    before = ps_ops.LAUNCHES[f"psi2_{name}"]
+    got = ps_ops.psi2(hyp, z, mu, s, w)
+    assert ps_ops.LAUNCHES[f"psi2_{name}"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, m)
+    assert torch.equal(got, got.T)
+    args = [hyp["log_sf2"], hyp["log_ell"], *(v.double() for v in (z, mu, s, w))]
+    plain = ps_ref.psi2_ref(*args, chunk=256)
+    assert _within(got, plain, plain)     # every term is positive
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,q", PSI_SHAPES)
+def test_psi1_matches_plain(cuda, n, m, q, dtype):
+    hyp, z, mu, s, _ = _psi_inputs(2 * n + m, n, m, q, cuda, dtype)
+    name = str(dtype).removeprefix("torch.")
+    before = ps_ops.LAUNCHES[f"psi1_{name}"]
+    got = ps_ops.psi1(hyp, z, mu, s)
+    assert ps_ops.LAUNCHES[f"psi1_{name}"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, m)
+    plain = ps_ref.psi1_ref(hyp["log_sf2"], hyp["log_ell"],
+                            *(v.double() for v in (z, mu, s)))
+    assert _within(got, plain, plain)
+
+
+def test_psi2_zero_weights_and_tiles_do_not_leak(cuda):
+    """Zero-weight rows contribute nothing: D over the rows with w = 1
+    equals D over all rows with the rest masked, to f64 rounding."""
+    hyp, z, mu, s, w = _psi_inputs(3, 1003, 70, 3, cuda)
+    keep = w > 0
+    full = ps_ops.psi2(hyp, z, mu, s, w)
+    kept = ps_ops.psi2(hyp, z, mu[keep], s[keep], w[keep])
+    torch.testing.assert_close(full, kept, rtol=1e-12, atol=0)
+
+
+def test_psi_gradients(cuda):
+    """Both Functions' backward (chunked plain recompute) against autograd
+    of the plain version, f64, on every input."""
+    hyp, z, mu, s, w = _psi_inputs(5, 300, 37, 3, cuda)
+    rng = np.random.default_rng(6)
+
+    def psi2(log_sf2, log_ell, z, mu, s, w):
+        return ps_ops.psi2({"log_sf2": log_sf2, "log_ell": log_ell}, z, mu, s, w)
+
+    def psi1(log_sf2, log_ell, z, mu, s):
+        return ps_ops.psi1({"log_sf2": log_sf2, "log_ell": log_ell}, z, mu, s)
+
+    inputs = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
+    ct2 = (_t(rng.standard_normal((37, 37)), cuda),)
+    _assert_grads_close(_grads(psi2, inputs, ct2),
+                        _grads(ps_ref.psi2_ref, inputs, ct2))
+    ct1 = (_t(rng.standard_normal((300, 37)), cuda),)
+    _assert_grads_close(_grads(psi1, inputs[:5], ct1),
+                        _grads(ps_ref.psi1_ref, inputs[:5], ct1))
+
+
+def test_predict_refuses_grad(cuda):
+    hyp, z, a_mean, g, x = _predict_inputs(2, 40, 8, 2, 1, cuda, torch.float64)
+    x.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
-        rs_ops.reg_stats(hyp, z, x, y, torch.ones_like(x[:, 0]))
+        p_ops.predict_stats(hyp, z, a_mean, g, x)
+    with torch.no_grad():
+        p_ops.predict_stats(hyp, z, a_mean, g, x)
 
 
 def _predict_inputs(seed, t, m, q, d, device, dtype):
@@ -133,3 +248,60 @@ def test_slice_on_cuda_matches_cpu(cuda):
     assert abs(lb0 - lb1) <= 1e-9 * abs(lb1)
     torch.testing.assert_close(m0.cpu(), m1, rtol=1e-8, atol=1e-10)
     torch.testing.assert_close(v0.cpu(), v1, rtol=1e-8, atol=1e-10)
+
+
+def test_gplvm_slice_on_cuda_matches_cpu(cuda):
+    """BayesianGPLVM -> bound and gradient -> state -> engine on the card
+    (psi kernels, f64) against the same slice on the CPU, at the same
+    params: the init, then the card's fitted params.  The two sides sum the
+    statistics in other orders and factor Sigma = Kmm + beta D with
+    cuSOLVER and with the CPU's LAPACK; the bound's cancellation amplifies
+    that f64 rounding (on an H100: value 2.2e-10, gradient 1.3e-8
+    normwise): value and fitted bound 1e-9, gradient 1e-7, served latents
+    rtol 1e-7.  SCG itself is not compared across devices: its
+    finite-difference curvature probe turns 1e-8 gradient differences into
+    different step sizes within a few iterations."""
+    y, _ = sines_dataset(np.random.default_rng(1), n=400, noise=0.1)
+    gpu = rt.BayesianGPLVM(y, q=2, num_inducing=20, device=cuda)
+    cpu = rt.BayesianGPLVM(y, q=2, num_inducing=20, device="cpu")
+    (v0, g0), (v1, g1) = gpu._neg_vg(), cpu._neg_vg()
+    assert abs(v0 - v1) <= 1e-9 * abs(v1)
+    assert np.linalg.norm(g0 - g1) <= 1e-7 * np.linalg.norm(g1)
+    b0 = gpu.log_bound()
+    gpu.fit(max_iters=5)
+    assert gpu.log_bound() > b0
+    cpu.params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in gpu.params.items()}
+    lb0, lb1 = gpu.log_bound(), cpu.log_bound()
+    assert abs(lb0 - lb1) <= 1e-9 * abs(lb1)
+    outs = [m.serve_engine(block_size=64).predict(m.params["mu"],
+                                                  include_noise=True)
+            for m in (gpu, cpu)]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-7, atol=1e-9)
+
+
+def test_f32_psi_statistics_break_the_factorisation_at_gplvm_usps(cuda):
+    """Why the GPLVM takes the double instantiations: at gplvm-usps (n =
+    4649, d = 256, q = 10, m = 150, the model's init) the f32 psi kernels'
+    statistics (D within 1e-6 of the f64 ones) leave
+    I + beta L^-1 D L^-T indefinite, so extract_state's Cholesky fails;
+    the f64 statistics serve."""
+    from repro_torch.core import stats as st
+    from repro_torch.data import usps_like
+
+    y, _ = usps_like(np.random.default_rng(0), 4649)
+    model = rt.BayesianGPLVM(y, q=10, num_inducing=150, device=cuda)
+    p = model.params
+    s = torch.exp(p["log_s"])
+    f32 = torch.float32
+    s64 = st.partial_stats(p["hyp"], p["z"], model.y, p["mu"], s, latent=True)
+    s32 = st.partial_stats(p["hyp"], p["z"].to(f32), model.y.to(f32),
+                           p["mu"].to(f32), s.to(f32), latent=True)
+    s32 = st.Stats(*(t.double() for t in s32))
+    assert float((s32.D - s64.D).abs().max() / s64.D.abs().max()) < 1e-6
+    rt.extract_state(p["hyp"], p["z"], s64, jitter=model.jitter, device=cuda)
+    with pytest.raises(torch.linalg.LinAlgError, match="positive-definite"):
+        rt.extract_state(p["hyp"], p["z"], s32, jitter=model.jitter,
+                         device=cuda)

@@ -43,7 +43,10 @@ def _run(code: str, env_extra=None, **kw):
 
 def test_import_leaves_jax_out():
     res = _run("import sys, repro_torch, repro_torch.convert, "
-               "repro_torch.configs, repro_torch.kernels.reg_stats.kernel, "
+               "repro_torch.configs, repro_torch.data, "
+               "repro_torch.core.gplvm, repro_torch.core.scg, "
+               "repro_torch.kernels.reg_stats.kernel, "
+               "repro_torch.kernels.psi_stats.kernel, "
                "repro_torch.kernels.predict.kernel; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
@@ -57,6 +60,7 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
             "before = sorted(b.BUILD_DIR.glob('*')) if b.BUILD_DIR.exists() "
             "else None; "
             "import repro_torch.kernels.reg_stats.ops, "
+            "repro_torch.kernels.psi_stats.ops, "
             "repro_torch.kernels.predict.ops, repro_torch; "
             "assert shutil.which('nvcc') is None; "
             "after = sorted(b.BUILD_DIR.glob('*')) if b.BUILD_DIR.exists() "
@@ -79,6 +83,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     y = x[:, :1] ** 2
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rt.SGPR(x, y, num_inducing=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rt.BayesianGPLVM(y, q=1, num_inducing=4)
     model = rt.SGPR(x, y, num_inducing=4, device="cpu")
     state = model.predictive_state()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -67,3 +67,18 @@ def test_sub_f32_queries_compute_in_f32():
         *(v.float() for v in (th["log_sf2"], th["log_ell"], tz, ta, tg, tx)))
     torch.testing.assert_close(mean, ref_mean.bfloat16(), rtol=0, atol=0)
     torch.testing.assert_close(quad, ref_quad.bfloat16(), rtol=0, atol=0)
+
+
+def test_cpu_path_differentiates():
+    """The CPU path is the plain version, so autograd reaches the queries
+    (the CUDA kernel refuses inputs that require grad, test_torch_cuda)."""
+    hyp, z, a_mean, g, x = _inputs(8, 6, 5, 2, 1)
+    th, tz, ta, tg, tx = _torch(hyp, z, a_mean, g, x)
+    tx.requires_grad_(True)
+    mean, quad = p_ops.predict_stats(th, tz, ta, tg, tx)
+    (gx,) = torch.autograd.grad(mean.sum() + quad.sum(), tx)
+    want = torch.func.grad(lambda xx: sum(
+        o.sum() for o in p_ref.predict_ref(th["log_sf2"], th["log_ell"], tz,
+                                           ta, tg, xx)))(tx.detach())
+    torch.testing.assert_close(gx, want, rtol=1e-12, atol=1e-14)
+    assert bool(gx.abs().sum() > 0)

@@ -1,0 +1,193 @@
+"""The port's psi statistics against the JAX package's.
+
+The same numpy inputs, made from a seed, go through ``repro`` and through
+``repro_torch`` on the CPU, where the wrappers compute the plain versions:
+
+* f64: the port's plain psi1/psi2 against JAX ``gp_kernels.se_psi1``,
+  ``psi2_chunked`` and ``psi2_mxu``.  Both sides run the same closed forms
+  in f64, so they agree to rounding: rtol 1e-12 (``psi2_mxu`` expands the
+  square, whose cancellation at these O(1) inputs stays far below that).
+* f32: the port's wrappers on f32 tensors against the JAX Pallas kernels in
+  interpret mode (which compute in f32), at the f32 tier of
+  ``tests/test_kernels_pallas.py``: rtol 2e-4, atol 2e-5.
+* The backward helper of the CUDA Functions (``psi2_vjp``,
+  ``reg_stats_vjp``, ``psi1_vjp``), called on CPU tensors, against
+  ``torch.autograd.grad`` of the plain version: rtol 1e-10 (the same f64
+  math, summed in row chunks, or in the dense form for reg_stats).
+
+The CUDA kernels are held against the plain versions on the card in
+``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import gp_kernels as j_gpk
+from repro.kernels.psi_stats import ops as j_ps_ops
+from repro_torch.core import covariance
+from repro_torch.core import gp_kernels as t_gpk
+from repro_torch.kernels import _vjp
+from repro_torch.kernels.psi_stats import ops as ps_ops
+from repro_torch.kernels.psi_stats import ref as ps_ref
+from repro_torch.kernels.reg_stats import ops as rs_ops
+from repro_torch.kernels.reg_stats import ref as rs_ref
+
+SHAPES = [
+    (64, 16, 2),     # exact tile fit after padding
+    (100, 37, 3),    # nothing divides anything
+    (257, 64, 10),   # q at paper-scale latent dim
+    (32, 130, 1),    # m > one tile, q = 1
+]
+
+
+def _inputs(seed, n, m, q, masked=True):
+    rng = np.random.default_rng(seed)
+    hyp = {"log_sf2": np.asarray(rng.uniform(-0.5, 0.8)),
+           "log_ell": rng.uniform(-0.4, 0.4, q)}
+    z = rng.standard_normal((m, q))
+    mu = rng.standard_normal((n, q))
+    s = rng.uniform(0.05, 0.8, (n, q))
+    w = ((rng.uniform(size=n) > 0.15).astype(np.float64) if masked
+         else np.ones(n))
+    return hyp, z, mu, s, w
+
+
+def _jax(hyp, *arrs):
+    return {k: jnp.asarray(v) for k, v in hyp.items()}, *map(jnp.asarray, arrs)
+
+
+def _torch(hyp, *arrs, dtype=torch.float64):
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float64)).to(dtype=dtype)
+    return {k: t(v) for k, v in hyp.items()}, *map(t, arrs)
+
+
+def _close(got, want, rtol=1e-12, atol=1e-14):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("n,m,q", SHAPES)
+def test_plain_psi1_matches_jax(n, m, q):
+    hyp, z, mu, s, _ = _inputs(n + m, n, m, q)
+    want = j_gpk.se_psi1(*_jax(hyp, z, mu, s))
+    th, tz, tmu, ts = _torch(hyp, z, mu, s)
+    _close(ps_ops.psi1(th, tz, tmu, ts), want)
+    _close(ps_ref.psi1_ref(th["log_sf2"], th["log_ell"], tz, tmu, ts,
+                           chunk=7), want)
+    _close(t_gpk.se_psi1(th, tz, tmu, ts), want)
+
+
+@pytest.mark.parametrize("n,m,q", SHAPES)
+def test_plain_psi2_matches_jax(n, m, q):
+    """Unweighted against ``psi2_chunked``; weighted (15% zero weights)
+    against ``psi2_mxu``."""
+    hyp, z, mu, s, w = _inputs(2 * n + m, n, m, q)
+    jh, jz, jmu, js, jw = _jax(hyp, z, mu, s, w)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w)
+    want = j_gpk.psi2_chunked(jh, jz, jmu, js, chunk=64)
+    _close(ps_ops.psi2(th, tz, tmu, ts, torch.ones_like(tw)), want)
+    _close(t_gpk.psi2_chunked(th, tz, tmu, ts, chunk=64), want)
+    want_w = j_gpk.psi2_mxu(jh, jz, jmu, js, jw, chunk=64)
+    got_w = ps_ref.psi2_ref(th["log_sf2"], th["log_ell"], tz, tmu, ts, tw,
+                            chunk=33)
+    _close(got_w, want_w)
+    _close(ps_ops.psi2(th, tz, tmu, ts, tw), want_w)
+
+
+def test_per_point_and_kl_match_jax():
+    hyp, z, mu, s, _ = _inputs(3, 20, 9, 2)
+    jh, jz, jmu, js = _jax(hyp, z, mu, s)
+    th, tz, tmu, ts = _torch(hyp, z, mu, s)
+    for got in (t_gpk.psi2_per_point(th, tz, tmu, ts),
+                covariance.SE_ARD.psi2_per_point(th, tz, tmu, ts)):
+        _close(got, j_gpk.psi2_per_point(jh, jz, jmu, js))
+    assert covariance.SE_ARD.analytic_psi()
+    _close(t_gpk.kl_to_standard_normal(tmu, ts),
+           j_gpk.kl_to_standard_normal(jmu, js))
+    _close(t_gpk.se_psi0(th, tmu, ts), j_gpk.se_psi0(jh, jmu, js))
+
+
+@pytest.mark.parametrize("n,m,q", SHAPES)
+def test_f32_wrappers_match_pallas_interpret(n, m, q):
+    hyp, z, mu, s, w = _inputs(3 * n + m, n, m, q)
+    jh, jz, jmu, js, jw = _jax(hyp, z, mu, s, w)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w, dtype=torch.float32)
+    want2 = j_ps_ops.psi2(jh, jz, jmu, js, jw, block_n=64, block_m=32)
+    got2 = ps_ops.psi2(th, tz, tmu, ts, tw)
+    assert got2.dtype == torch.float32
+    _close(got2, want2, rtol=2e-4, atol=2e-5)
+    want1 = j_ps_ops.psi1(jh, jz, jmu, js, block_n=64, block_m=64)
+    got1 = ps_ops.psi1(th, tz, tmu, ts)
+    assert got1.dtype == torch.float32
+    _close(got1, want1, rtol=2e-4, atol=2e-5)
+
+
+def test_wrappers_take_bf16_through_f32():
+    """Sub-f32 inputs run the f32 plain version and come back in bf16."""
+    hyp, z, mu, s, w = _inputs(9, 30, 8, 2)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w, dtype=torch.bfloat16)
+    got = ps_ops.psi2(th, tz, tmu, ts, tw)
+    assert got.dtype == torch.bfloat16
+    want = ps_ref.psi2_ref(*(v.float() for v in (th["log_sf2"], th["log_ell"],
+                                                 tz, tmu, ts, tw)))
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+def _plain_grads(fn, inputs, cts):
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, cts)
+
+
+def _assert_grads(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("chunk", [7, 1000])
+def test_psi2_vjp_matches_autograd(chunk, monkeypatch):
+    """``psi2_vjp``, the CUDA Function's backward, on CPU tensors; a chunk
+    that divides nothing, and one chunk holding every row."""
+    monkeypatch.setattr(_vjp, "CHUNK_ELEMS", chunk * 37 * 37 * 3)
+    hyp, z, mu, s, w = _inputs(5, 100, 37, 3)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w)
+    inputs = [th["log_sf2"], th["log_ell"], tz, tmu, ts, tw]
+    ct = torch.from_numpy(np.random.default_rng(1).standard_normal((37, 37)))
+    got = ps_ops.psi2_vjp(*inputs, ct, [True] * 6)
+    _assert_grads(got, _plain_grads(ps_ref.psi2_ref, inputs, (ct,)))
+    partial = ps_ops.psi2_vjp(*inputs, ct, [False, True, False, True, False,
+                                            False])
+    assert [g is None for g in partial] == [True, False, True, False, True,
+                                            True]
+    _assert_grads([partial[1], partial[3]], [got[1], got[3]])
+
+
+def test_psi1_vjp_matches_autograd(monkeypatch):
+    monkeypatch.setattr(_vjp, "CHUNK_ELEMS", 11 * 16 * 2)
+    hyp, z, mu, s, _ = _inputs(6, 50, 16, 2)
+    th, tz, tmu, ts = _torch(hyp, z, mu, s)
+    inputs = [th["log_sf2"], th["log_ell"], tz, tmu, ts]
+    ct = torch.from_numpy(np.random.default_rng(2).standard_normal((50, 16)))
+    _assert_grads(ps_ops.psi1_vjp(*inputs, ct, [True] * 5),
+                  _plain_grads(ps_ref.psi1_ref, inputs, (ct,)))
+
+
+def test_reg_stats_vjp_matches_autograd(monkeypatch):
+    """``reg_stats_vjp`` (dense recompute, row chunks of 13) against
+    autograd of the plain version."""
+    monkeypatch.setattr(_vjp, "CHUNK_ELEMS", 13 * 12)
+    rng = np.random.default_rng(7)
+    n, m, q, d = 90, 12, 3, 2
+    inputs = [torch.from_numpy(np.asarray(a, np.float64)) for a in (
+        rng.uniform(-0.5, 0.8), rng.uniform(-0.4, 0.4, q),
+        rng.standard_normal((m, q)), rng.standard_normal((n, q)),
+        rng.standard_normal((n, d)), (rng.uniform(size=n) > 0.2) * 1.0)]
+    cts = tuple(torch.from_numpy(rng.standard_normal(sh))
+                for sh in ((), (m, d), (m, m)))
+    _assert_grads(rs_ops.reg_stats_vjp(*inputs, *cts, [True] * 6),
+                  _plain_grads(rs_ref.reg_stats_ref, inputs, cts))
