@@ -11,7 +11,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' full-width shapes and at one ragged shape, in both dtypes,
    and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
-   and ``gplvm-synth-100k`` shapes);
+   and ``gplvm-synth-100k`` shapes; flash attention, bf16 and f32, at the
+   ``llama3.2-1b`` prefill shape, one long shape and the sweep of
+   ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
+   as a yardstick);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
    plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
@@ -22,9 +25,15 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    d = 256, q = 10, m = 150): value and gradient against the plain f64
    path -> ``fit`` (10 SCG iterations; the bound must rise) ->
    ``predictive_state`` -> ``PredictEngine`` answering the 4649 training
-   latents, checked against the plain f64 path.
+   latents, checked against the plain f64 path;
+3c. serves ``llama3.2-1b`` at full width (random weights from a seed):
+   ``init_params`` -> ``make_prefill_step`` over 4 prompts of 2048 tokens
+   (twice, cold and warm) -> the caches copied into a cache with room for
+   16 more -> 16 greedy ``make_serve_step`` tokens -> the same weights
+   prefilled at f32 compute; checked against the same model with the plain
+   attention, and by teacher-forced decode against the prefill.
 
-Every launch counter is set to 0 just before each of 3a and 3b and read
+Every launch counter is set to 0 just before each of 3a, 3b and 3c and read
 just after; each kernel of a path must have launched in it.
 
 It prints one JSON line describing the kernels of the main path, then
@@ -60,9 +69,11 @@ TIERS = {torch.float32: (2e-4, 1e-5), torch.float64: (1e-10, 1e-11)}
 MEAN_BUDGET, VAR_BUDGET = 2e-2, 5e-3
 # Published dense peaks (NVIDIA H100 data sheet), by the product name
 # nvidia-smi reports: (f32 FLOP/s on the CUDA cores, f64 FLOP/s on the FP64
-# tensor cores -- the card's highest f64 rate, bytes/s).
-PEAKS = {"PCIe": (51.2e12, 51.2e12, 2.0e12), "NVL": (60e12, 60e12, 3.9e12),
-         "SXM": (67e12, 67e12, 3.35e12)}
+# tensor cores -- the card's highest f64 rate, bytes/s, bf16 FLOP/s on the
+# tensor cores).
+PEAKS = {"PCIe": (51.2e12, 51.2e12, 2.0e12, 756e12),
+         "NVL": (60e12, 60e12, 3.9e12, 835e12),
+         "SXM": (67e12, 67e12, 3.35e12, 989e12)}
 TIMED_REPS = 10
 PLAIN_ROWS = 65_536   # rows per chunk of the plain reg_stats (its (rows, m, q) diff)
 GRAD_ROWS = 32_768    # rows per checkpointed chunk of the plain SGPR gradient
@@ -75,6 +86,16 @@ PSI_ELEMS = 1 << 25   # elements of the plain psi2's (rows, m, m, q) chunk
 EXP_COST = {torch.float32: 256 / 16, torch.float64: 16 * 256 / 64}
 SGPR_FIT_ITERS, GPLVM_FIT_ITERS = 3, 10
 GRAD_RTOL = 1e-8      # value and gradient against the plain f64 path
+# Flash attention against its plain version in f64: |err| <= tol (1 +
+# |plain|), the tiers of tests/test_kernels_pallas.py.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FA_PLAIN_ELEMS = 1 << 27   # scores per query-row chunk of the plain version
+# llama3.2-1b logits against the same model with the plain attention, and
+# teacher-forced decode against the prefill: relative RMS at bf16 compute
+# (the repo's bf16 tolerance, tests/test_models_smoke.py) and at f32 compute
+# (only the attention's summation order differs).
+LOGIT_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 16
 DEV = "cuda"
 
 
@@ -662,6 +683,196 @@ def gplvm_path(rt, cfg) -> dict:
     return launches
 
 
+# -- phase 2: flash attention --------------------------------------------------
+
+def visible_pairs(b, h, t, s, causal) -> int:
+    """(query, key) pairs the mask lets through: row r sees keys
+    <= r + (S - T) when causal."""
+    if not causal:
+        return b * h * t * s
+    seen = np.clip(np.arange(t) + (s - t) + 1, 0, s)
+    return b * h * int(seen.sum())
+
+
+def flash_bound(pairs, b, h, hkv, t, s, dh, dtype, peaks) -> tuple[float, str]:
+    """Least time: 4 Dh flops per visible pair at the type's peak (bf16 on
+    the tensor cores, f32 on the CUDA cores), one exp per pair at its
+    ``EXP_COST``, or the bytes of q, k, v and o once each."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    peak = peaks[3] if dtype == torch.bfloat16 else peaks[0]
+    t_ops = max(4 * dh * pairs / peak,
+                pairs * EXP_COST[torch.float32] / peaks[0])
+    t_bytes = item * (2 * b * h * t * dh + 2 * b * hkv * s * dh) / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def plain_attention(fa_ref, q, k, v, causal=True):
+    """The plain version over query-row chunks of ``FA_PLAIN_ELEMS`` scores
+    (its (B, H, T, S) scores would not fit at T = S = 8192 in f64)."""
+    b, h, _, _ = q.shape
+    chunk = max(1, FA_PLAIN_ELEMS // (b * h * k.shape[2]))
+    return fa_ref.attention_ref(q, k, v, causal=causal, chunk=chunk)
+
+
+def library_attention(q, k, v):
+    """``scaled_dot_product_attention`` on the same inputs (its is_causal
+    aligns as the kernel does at T = S): GQA through ``enable_gqa``, or,
+    where this torch lacks it, K/V expanded once outside the timed call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        return lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    except TypeError:
+        g = q.shape[1] // k.shape[1]
+        ke, ve = (x.repeat_interleave(g, dim=1) for x in (k, v))
+        return lambda: sdpa(q, ke, ve, is_causal=True)
+
+
+def check_flash(fa_ops, fa_ref, peaks, b, h, hkv, t, s, dh, causal, dtype,
+                timed):
+    rng = np.random.default_rng(SEED + b + h + t + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh)).to(DEV, dtype)
+               for sh in ((b, h, t, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    plain = plain_attention(fa_ref, q.double(), k.double(), v.double(),
+                            causal)
+    torch.cuda.synchronize()
+    if got.shape != (b, h, t, dh) or got.dtype != dtype \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention: bad output {tuple(got.shape)} "
+                             f"{got.dtype}")
+    err = (got.double() - plain).abs()
+    worst = float((err / (FA_TOL[dtype] * (1 + plain.abs()))).max())
+    if worst > 1.0:
+        raise AssertionError(f"flash_attention {(b, h, hkv, t, s, dh)} "
+                             f"{dtype}: max |err|/tol = {worst:.3e}")
+    if causal and t > s and not bool((got[:, :, :t - s] == 0).all()):
+        raise AssertionError("flash_attention: rows without context not 0")
+    out = {"shape": dict(b=b, h=h, hkv=hkv, t=t, s=s, dh=dh, causal=causal),
+           "dtype": str(dtype), "max_abs_err": float(err.max()),
+           "max_err_over_tol": worst}
+    if timed:
+        pairs = visible_pairs(b, h, t, s, causal)
+        out["ms"] = time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                           causal=causal))
+        out["plain_ms"] = time_ms(
+            lambda: plain_attention(fa_ref, q, k, v, causal), reps=3)
+        lib = library_attention(q, k, v)
+        out["library_ms"] = time_ms(lib)
+        out["library_max_abs_err"] = float((lib().double() - plain).abs().max())
+        out["visible_pairs"] = pairs
+        out["bound_ms"], out["bound_by"] = flash_bound(
+            pairs, b, h, hkv, t, s, dh, dtype, peaks)
+    print(f"flash_attention {out}", flush=True)
+    return out
+
+
+# -- phase 3c: llama3.2-1b prefill and decode ----------------------------------
+
+def grown_caches(tf, cfg, caches, batch, size):
+    """Prefill caches (layers, B, T, ...) copied into slots 0..T-1 of empty
+    caches with room for ``size`` positions: decoding straight into the
+    prefill's T-long caches would overwrite token T-1 (ROADMAP Queue 3)."""
+    grown = tf.init_decode_cache(cfg, batch, size, device=DEV)
+    for g, c in caches.items():
+        for name, a in c.items():
+            grown[g][name][:, :, :a.shape[2]] = a
+    return grown
+
+
+def rel_rms(got, want) -> float:
+    return float(torch.linalg.norm(got.double() - want.double())
+                 / torch.linalg.norm(want.double()))
+
+
+def lm_path(fa_ops, fa_ref) -> dict:
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps as lm_steps
+
+    cfg = get_config("llama3.2-1b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    b, t, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, t))).to(DEV)
+    batch = {"tokens": tokens}
+    steps = {}
+    step = timed_step(steps)
+    prefill, serve = lm_steps.make_prefill_step(cfg), lm_steps.make_serve_step(cfg)
+    prefill32 = lm_steps.make_prefill_step(cfg32)
+    counts = fa_ops.LAUNCHES
+
+    def launched(name, fn, want):
+        before = counts["bfloat16"] + counts["float32"]
+        out = step(name, fn)
+        got = counts["bfloat16"] + counts["float32"] - before
+        if got != want:
+            raise AssertionError(f"{name}: flash_attention launched {got} "
+                                 f"times, expected {want}")
+        return out
+
+    # Every launch counter to 0 just before the path, read just after.
+    t0 = time.perf_counter()
+    reset_counts(counts)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = step("init_params_s", lambda: tf.init_params(cfg, gen, device=DEV))
+    launched("prefill_cold_s", lambda: prefill(params, batch), cfg.num_layers)
+    logits, caches = launched("prefill_s", lambda: prefill(params, batch),
+                              cfg.num_layers)
+    caches = step("grow_cache_s", lambda: grown_caches(tf, cfg, caches, b,
+                                                       t + n_new))
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(n_new):
+        pos = torch.full((b,), t + i, dtype=torch.int32, device=DEV)
+        step_logits, caches = launched(
+            f"decode_{i}_s", lambda: serve(params, caches, tok, pos), 0)
+        if not bool(torch.isfinite(step_logits).all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+        tok = step_logits.argmax(-1, keepdim=True)
+    logits32, _ = launched("prefill_f32_compute_s",
+                           lambda: prefill32(params, batch), cfg.num_layers)
+    steps["path_s"] = time.perf_counter() - t0
+    launches = {"flash_attention_bf16": counts["bfloat16"],
+                "flash_attention_f32": counts["float32"]}
+    print(f"llama3.2-1b path steps (s): {json.dumps(steps)}", flush=True)
+    print(f"llama3.2-1b path launches: {json.dumps(launches)}", flush=True)
+
+    # -- checks ---------------------------------------------------------------
+    report = {}
+    for label, lg in (("bfloat16", logits), ("float32", logits32)):
+        if lg.shape != (b, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"prefill logits ({label}): bad shape/values")
+
+    def plain(q, k, v, causal=True):
+        return plain_attention(fa_ref, q, k, v, causal)
+
+    with mock.patch.object(fa_ops, "flash_attention", plain):
+        plain_logits = {"bfloat16": prefill(params, batch)[0],
+                        "float32": prefill32(params, batch)[0]}
+    for (label, c, lg) in (("bfloat16", cfg, logits),
+                           ("float32", cfg32, logits32)):
+        report[f"{label}_vs_plain_attention"] = rel_rms(lg, plain_logits[label])
+        # teacher-forced decode: prefill T-1 tokens, decode token T-1
+        _, c_short = lm_steps.make_prefill_step(c)(
+            params, {"tokens": tokens[:, :-1]})
+        grown = grown_caches(tf, c, c_short, b, t)
+        forced, _ = lm_steps.make_serve_step(c)(
+            params, grown, tokens[:, -1:],
+            torch.full((b,), t - 1, dtype=torch.int32, device=DEV))
+        report[f"{label}_teacher_forced_vs_prefill"] = rel_rms(forced, lg)
+        for key in (f"{label}_vs_plain_attention",
+                    f"{label}_teacher_forced_vs_prefill"):
+            if not report[key] <= LOGIT_RTOL[label]:
+                raise AssertionError(f"llama3.2-1b {key}: relative RMS "
+                                     f"{report[key]:.3e} > {LOGIT_RTOL[label]}")
+    print(f"llama3.2-1b logits (relative RMS): {json.dumps(report)}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -674,6 +885,8 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.configs import GP_CONFIGS
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.predict import ops as p_ops
     from repro_torch.kernels.predict import ref as p_ref
     from repro_torch.kernels.psi_stats import ops as ps_ops
@@ -724,11 +937,24 @@ def main() -> int:
                   masked=False, timed=True)
         check_psi(ps_ops, ps_ref, peaks, 1003, 37, 3, dtype, masked=True,
                   timed=False)
+    fa_full = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        fa_full[dtype] = check_flash(fa_ops, fa_ref, peaks, LM_BATCH, 32, 8,
+                                     LM_PROMPT, LM_PROMPT, 64, True, dtype,
+                                     timed=True)
+        for shape in ((1, 32, 8, 8192, 8192, 64, True),
+                      (2, 4, 2, 64, 64, 64, True), (1, 8, 1, 70, 70, 64, True),
+                      (1, 4, 4, 33, 90, 128, True),
+                      (2, 2, 2, 96, 48, 64, False),
+                      (1, 4, 2, 64, 64, 64, True), (1, 4, 4, 1, 57, 64, True),
+                      (1, 2, 1, 96, 48, 64, True)):
+            check_flash(fa_ops, fa_ref, peaks, *shape, dtype, timed=False)
 
     # -- phase 3: the main paths ------------------------------------------------
     sgpr_launches = serving_path(rt, cfg)
     gplvm_launches = gplvm_path(rt, usps)
-    launches = {**sgpr_launches, **gplvm_launches,
+    lm_launches = lm_path(fa_ops, fa_ref)
+    launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
 
@@ -737,7 +963,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[kname],
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": None}
+                "bound_by": res["bound_by"],
+                "library_ms": res.get("library_ms")}
 
     # The kernels the main paths run (reg_stats_f32 and the psi kernels' f32
     # instantiations are checked above but serve only f32 callers; the f64
@@ -756,6 +983,12 @@ def main() -> int:
         entry("psi1_f64", "src/repro_torch/csrc/psi_stats.cu",
               "src/repro/kernels/psi_stats/kernel.py:125",
               psi_full[torch.float64]["psi1"]),
+        entry("flash_attention_bf16", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:80",
+              fa_full[torch.bfloat16]),
+        entry("flash_attention_f32", "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:80",
+              fa_full[torch.float32]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Device resolution for the port's entry points.
 
 Every entry point (``SGPR``, ``BayesianGPLVM``, ``extract_state``,
-``PredictEngine``, ``load_state``) takes ``device=``.  ``None`` means the card: the port is
-written for CUDA, so a machine without one raises instead of silently
-running the plain CPU versions.  Callers that want the CPU (the tests) say
+``PredictEngine``, ``load_state``, and for the LM ``init_params``,
+``init_decode_cache`` and ``lm_params_from_numpy``) takes ``device=``.
+``None`` means the card: the port is written for CUDA, so a machine
+without one raises instead of silently running the plain CPU versions.  Callers that want the CPU (the tests) say
 so with ``device="cpu"``.
 """
 from __future__ import annotations

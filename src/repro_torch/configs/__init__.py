@@ -1,4 +1,17 @@
-"""Workload configurations of the port."""
+"""Workload configurations of the port: the GP workloads and the LM
+architecture registry (``load_all()`` imports every ported arch module)."""
+from .base import (SHAPES, BlockGroup, ModelConfig, ShapeSpec, all_configs,
+                   get_config, register)
 from .gp_paper import GP_CONFIGS, GPConfig
 
-__all__ = ["GP_CONFIGS", "GPConfig"]
+_ARCH_MODULES = ["llama3p2_1b"]
+
+
+def load_all():
+    import importlib
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"{__name__}.{m}")
+
+
+__all__ = ["SHAPES", "BlockGroup", "ModelConfig", "ShapeSpec", "all_configs",
+           "get_config", "register", "GP_CONFIGS", "GPConfig", "load_all"]

@@ -1,7 +1,8 @@
 """Carry weights across from the JAX package, as numpy arrays.
 
 The port never imports ``repro``; a caller that has both hands over the
-JAX objects' arrays (``np.asarray`` of each leaf) and gets the port's.
+JAX objects' arrays (``np.asarray`` of each leaf) and gets the port's:
+the GP params and serving state, and the LM params.
 """
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ._device import resolve_device
+from .models.common import Leaf
+from .models.transformer import param_spec
 from .serve.posterior import _ARRAY_FIELDS, PredictiveState
 
 
@@ -38,3 +42,26 @@ def state_from_numpy(leaves: Mapping, device) -> PredictiveState:
     return PredictiveState(
         hyp={k: _tensor(v, device) for k, v in leaves["hyp"].items()},
         **{f: _tensor(leaves[f], device) for f in _ARRAY_FIELDS})
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> dict:
+    """``repro.models.transformer.init_params``' params tree, each leaf an
+    array, -> the port's params on ``device`` (None: the card), each leaf
+    keeping its dtype.  Raises ``ValueError`` where the tree's keys or
+    shapes are not those of ``cfg``."""
+    dev = resolve_device(device)
+
+    def conv(spec, sub, path):
+        if isinstance(spec, Leaf):
+            arr = np.array(sub)
+            if arr.shape != spec.shape:
+                raise ValueError(f"{path}: shape {arr.shape}, {cfg.name} "
+                                 f"has {spec.shape}")
+            return torch.from_numpy(arr).to(dev)
+        keys = sorted(sub) if isinstance(sub, Mapping) else type(sub).__name__
+        if keys != sorted(spec):
+            raise ValueError(f"{path}: keys {keys}, {cfg.name} has "
+                             f"{sorted(spec)}")
+        return {k: conv(spec[k], sub[k], f"{path}/{k}") for k in spec}
+
+    return conv(param_spec(cfg), tree, "params")

@@ -1,0 +1,65 @@
+"""Wrapper of the flash-attention kernel: ``flash_attention``.
+
+The tensor's device decides the path.  On the CPU the wrapper computes the
+plain version (``ref.py``).  On CUDA it always launches the hand-written
+kernel (``csrc/flash_attention.cu``) and raises where the kernel cannot
+run; there is no fallback.  The kernel has no backward (the Pallas kernel
+has none either), so the CUDA path refuses inputs that require grad rather
+than drop their gradient silently.
+
+Layout and masking are those of ``repro.kernels.flash_attention.ops``:
+q (B,H,T,Dh), k/v (B,Hkv,S,Dh) with H % Hkv == 0, causal queries
+suffix-aligned to the keys.  The kernel masks the ragged T and S edges
+itself, so nothing is padded; q, k and v may be strided views whose last
+axis is contiguous (the model passes (B,T,H,Dh) tensors transposed).  A
+query row that sees no key returns 0.  Scores, softmax and sums run in f32
+whatever the input dtype; the output comes back in q's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernel as _k
+from . import ref as _ref
+
+#: launches of the CUDA kernel since the counts were last reset, by dtype
+LAUNCHES = {"bfloat16": 0, "float32": 0}
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Attention of q (B,H,T,Dh) over k/v (B,Hkv,S,Dh) -> (B,H,T,Dh)."""
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal=causal)
+    operands = (q, k, v)
+    if q.device.type != "cuda" or any(t.device != q.device for t in operands):
+        raise ValueError("flash_attention: q, k and v must be on one CUDA "
+                         f"device, got {[str(t.device) for t in operands]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            "flash_attention on CUDA has no backward; call it under "
+            "torch.no_grad() or on detached tensors")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or any(t.dtype != q.dtype for t in operands):
+        raise ValueError("flash_attention: q, k and v must all be bfloat16 "
+                         "or all float32, got "
+                         f"{[str(t.dtype) for t in operands]}")
+    if any(t.ndim != 4 for t in operands):
+        raise ValueError("flash_attention: q, k and v must be 4-D")
+    b, h, t, dh = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, s_len, dh) or v.shape != k.shape or hkv < 1 \
+            or h % hkv:
+        raise ValueError(
+            f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not agree (k and v (B, Hkv, S, Dh) with "
+            "H a multiple of Hkv)")
+    if dh not in _k.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} is not one of the "
+                         f"kernel's {_k.HEAD_DIMS}")
+    if any(x.stride(3) != 1 for x in operands):
+        raise ValueError("flash_attention: the last axis of q, k and v must "
+                         "be contiguous")
+    out = torch.empty((b, h, t, dh), dtype=q.dtype, device=q.device)
+    _k.flash_attention(q, k, v, out, causal, dh ** -0.5)
+    LAUNCHES[str(q.dtype).removeprefix("torch.")] += 1
+    return out

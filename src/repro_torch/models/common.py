@@ -1,0 +1,116 @@
+"""Shared LM building blocks: parameter specs and their init, norms, RoPE.
+
+Port of ``repro.models.common``.  Parameters are nested dicts of tensors,
+as in the JAX package.  Where the JAX ``ParamBuilder`` draws each leaf from
+a split ``jax.random`` key while it builds the tree, here the modules first
+describe the tree (a :class:`Leaf` per parameter: shape and init) and
+:func:`materialize` then draws every leaf from one explicit
+``torch.Generator``, in the tree's order.  The two packages draw different
+numbers from the same seed; the tests carry the JAX package's parameters
+over (``convert.lm_params_from_numpy``) instead.  The logical-axis spec
+tree of the JAX package (sharding) has no counterpart on one card.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter: its shape and init.  ``normal`` draws N(0, std²) with
+    std = 1/sqrt(fan_in) (the first axis of a matrix, the only axis of a
+    vector) unless ``std`` is given; ``zeros`` and ``ones`` are constant."""
+    shape: tuple[int, ...]
+    init: str = "normal"
+    std: float | None = None
+
+    @property
+    def normal_std(self) -> float:
+        return 1.0 / math.sqrt(self.shape[0]) if self.std is None else self.std
+
+    def stacked(self, count: int) -> "Leaf":
+        """The same leaf for ``count`` layers (a leading ``layers`` axis);
+        the std stays that of one layer's fan-in."""
+        return Leaf((count, *self.shape), self.init, self.normal_std)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts (the params, caches, specs)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _draw(leaf: Leaf, generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
+    if leaf.init == "zeros":
+        return torch.zeros(leaf.shape, device=dev)
+    if leaf.init == "ones":
+        return torch.ones(leaf.shape, device=dev)
+    return leaf.normal_std * torch.randn(leaf.shape, generator=generator, device=dev)
+
+
+def materialize(spec, generator: torch.Generator, dtype, device):
+    """Draw every leaf of ``spec`` in the tree's order on the generator's
+    device; returns the tensor tree on ``device`` in ``dtype``."""
+    return tree_map(
+        lambda leaf: _draw(leaf, generator).to(device=device, dtype=dtype),
+        spec)
+
+
+def make_norm(cfg, dim: int) -> dict:
+    if cfg.norm_type == "layernorm":
+        return {"scale": Leaf((dim,), "ones"), "bias": Leaf((dim,), "zeros")}
+    return {"scale": Leaf((dim,), "zeros")}
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, norm_params: dict) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, norm_params["scale"], norm_params["bias"])
+    return rmsnorm(x, norm_params["scale"])
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (B, T, H, Dh) or (B, T, Dh); positions: (B, T)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
+    angles = positions[..., None].float() * freqs            # (B, T, dh/2)
+    if x.ndim == 4:
+        angles = angles[:, :, None, :]                       # (B, T, 1, dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x32 = x.float()
+    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

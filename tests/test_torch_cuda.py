@@ -4,18 +4,23 @@ This file imports no JAX, so it runs on a machine with the card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain PyTorch version in f64 on the same
-values, with a forward-error bound at the kernel's dtype tier:
+Each GP kernel is held against its plain PyTorch version in f64 on the
+same values, with a forward-error bound at the kernel's dtype tier:
 ``|err| <= rtol |plain| + atol |plain on |operands||``, the f32 tier
 (2e-4, 1e-5) or an f64 tier (1e-10, 1e-11) that a double instantiation
-computing partly in f32 would miss.
+computing partly in f32 would miss.  Flash attention is held to the tiers
+of ``tests/test_kernels_pallas.py`` (``|err| <= tol (1 + |plain|)``, tol
+2e-5 in f32, 2e-2 in bf16) against its plain version in f64.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.configs import get_config
 from repro_torch.data import sines_dataset
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.predict import ops as p_ops
 from repro_torch.kernels.predict import ref as p_ref
 from repro_torch.kernels.psi_stats import ops as ps_ops
@@ -305,3 +310,114 @@ def test_f32_psi_statistics_break_the_factorisation_at_gplvm_usps(cuda):
     with pytest.raises(torch.linalg.LinAlgError, match="positive-definite"):
         rt.extract_state(p["hyp"], p["z"], s32, jitter=model.jitter,
                          device=cuda)
+
+
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The sweep of tests/test_kernels_pallas.py, a causal T > S case whose first
+# T - S rows see no key, and llama3.2-1b's prefill attention (B 4, H 32,
+# Hkv 8, T = S = 2048, Dh 64).
+FA_SHAPES = [(2, 4, 2, 64, 64, 64, True), (1, 8, 1, 70, 70, 64, True),
+             (1, 4, 4, 33, 90, 128, True), (2, 2, 2, 96, 48, 64, False),
+             (1, 4, 2, 64, 64, 64, True), (1, 4, 4, 1, 57, 64, True),
+             (1, 2, 1, 96, 48, 64, True), (4, 32, 8, 2048, 2048, 64, True)]
+
+
+def _fa_inputs(seed, b, h, hkv, t, s, dh, device, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(_t(rng.standard_normal(sh), device, dtype)
+                 for sh in ((b, h, t, dh), (b, hkv, s, dh), (b, hkv, s, dh)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,t,s,dh,causal", FA_SHAPES)
+def test_flash_attention_matches_plain(cuda, b, h, hkv, t, s, dh, causal,
+                                       dtype):
+    q, k, v = _fa_inputs(t + s, b, h, hkv, t, s, dh, cuda, dtype)
+    name = str(dtype).removeprefix("torch.")
+    before = fa_ops.LAUNCHES[name]
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert fa_ops.LAUNCHES[name] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, t, dh)
+    plain = fa_ref.attention_ref(q.double(), k.double(), v.double(),
+                                 causal=causal, chunk=256)
+    tol = FA_TOL[dtype]
+    assert bool(((got.double() - plain).abs()
+                 <= tol * (1 + plain.abs())).all())
+    if causal and t > s:
+        assert bool((got[:, :, :t - s] == 0).all())
+        assert bool((got[:, :, t - s:].abs().amax(-1) > 0).all())
+
+
+def test_flash_attention_reads_strided_views(cuda):
+    """The model passes (B,T,H,Dh) tensors transposed to (B,H,T,Dh): the
+    kernel reads them in place and gives the contiguous result bitwise."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng.standard_normal(sh), cuda, torch.bfloat16)
+               for sh in ((2, 100, 8, 64), (2, 100, 2, 64), (2, 100, 2, 64)))
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = fa_ops.flash_attention(*views)
+    want = fa_ops.flash_attention(*(x.contiguous() for x in views))
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_refuses_what_it_cannot_run(cuda):
+    q, k, v = _fa_inputs(1, 1, 4, 2, 16, 16, 64, cuda, torch.float32)
+    for dh in (16, 96):
+        args = _fa_inputs(1, 1, 4, 2, 16, 16, dh, cuda, torch.float32)
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.flash_attention(*args)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bfloat16"):
+            fa_ops.flash_attention(*(x.to(dtype) for x in (q, k, v)))
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(q, k[:, :1].expand(1, 3, 16, 64), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(*(torch.cat([x, x], -1)[..., ::2]
+                                 for x in (q, k, v)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa_ops.flash_attention(q, k.cpu(), v)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(q, k, v)
+    with torch.no_grad():
+        fa_ops.flash_attention(q, k, v)
+
+
+def test_lm_prefill_and_decode_on_cuda_match_cpu(cuda):
+    """llama3.2-1b reduced, with head dim 64 (a kernel instantiation), in
+    f32: prefill logits and caches, then one decode step into a grown
+    cache, on the card (flash kernel) against the CPU (plain version).
+    The card and the CPU sum in other orders: rtol/atol 1e-4, as the CPU
+    parity against the JAX package."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              head_dim=64)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 77)))
+    pos = torch.full((2,), 76, dtype=torch.int32)
+    outs = []
+    for device in (cuda, "cpu"):
+        p = tree_map(lambda a, d=device: a.to(d), params)
+        before = fa_ops.LAUNCHES["float32"]
+        logits, caches = steps.make_prefill_step(cfg)(
+            p, {"tokens": tokens[:, :76].to(device)})
+        launched = fa_ops.LAUNCHES["float32"] - before
+        grown = tf.init_decode_cache(cfg, 2, 77, device=device)
+        for name, c in caches["g0"].items():
+            grown["g0"][name][:, :, :76] = c
+        logits2, _ = steps.make_serve_step(cfg)(
+            p, grown, tokens[:, 76:].to(device), pos.to(device))
+        outs.append((launched, logits.cpu(), caches["g0"]["k"].cpu(),
+                     logits2.cpu()))
+    (n_gpu, *gpu), (n_cpu, *cpu) = outs
+    assert n_gpu == cfg.num_layers and n_cpu == 0
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -47,7 +47,10 @@ def test_import_leaves_jax_out():
                "repro_torch.core.gplvm, repro_torch.core.scg, "
                "repro_torch.kernels.reg_stats.kernel, "
                "repro_torch.kernels.psi_stats.kernel, "
-               "repro_torch.kernels.predict.kernel; "
+               "repro_torch.kernels.predict.kernel, "
+               "repro_torch.kernels.flash_attention.kernel, "
+               "repro_torch.models.transformer, repro_torch.train.steps, "
+               "repro_torch.configs.llama3p2_1b; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
     assert res.returncode == 0, res.stdout + res.stderr
@@ -61,7 +64,10 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
             "else None; "
             "import repro_torch.kernels.reg_stats.ops, "
             "repro_torch.kernels.psi_stats.ops, "
-            "repro_torch.kernels.predict.ops, repro_torch; "
+            "repro_torch.kernels.predict.ops, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.models.transformer, repro_torch.train.steps, "
+            "repro_torch; "
             "assert shutil.which('nvcc') is None; "
             "after = sorted(b.BUILD_DIR.glob('*')) if b.BUILD_DIR.exists() "
             "else None; assert before == after, (before, after)")
@@ -96,6 +102,32 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     rt.save_state(tmp_path / "st", state)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rt.load_state(tmp_path / "st")
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("llama3.2-1b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf.init_decode_cache(cfg, 1, 4)
+    params = tf.init_params(cfg, gen, device="cpu")
+    tree = {"embed": params["embed"].numpy(),
+            "final_norm": {"scale": params["final_norm"]["scale"].numpy()},
+            "groups": {"g0": {k: {n: a.numpy() for n, a in v.items()}
+                              for k, v in params["groups"]["g0"].items()}}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_params_from_numpy(cfg, tree)
+    back = lm_params_from_numpy(cfg, tree, device="cpu")
+    assert torch.equal(back["groups"]["g0"]["mlp"]["w_up"],
+                       params["groups"]["g0"]["mlp"]["w_up"])
+    tree["groups"]["g0"]["mlp"].pop("w_up")
+    with pytest.raises(ValueError, match="keys"):
+        lm_params_from_numpy(cfg, tree, device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
