@@ -14,7 +14,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    and ``gplvm-synth-100k`` shapes; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
-   as a yardstick);
+   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` over a materialised K,
+   printed as a yardstick of the f64 reg_stats kernel's DMMA loop);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
    plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
@@ -169,6 +170,30 @@ def reg_stats_flops(n, m, q, d) -> float:
     return n * m * (3 * q + 2) + n * m * (m + 1) + 2 * n * m * d + n
 
 
+def reg_stats_bound(n, m, q, d, dtype, peaks) -> tuple[float, str]:
+    """Least time: the flops at the type's peak (f32 on the CUDA cores, f64
+    on the FP64 tensor cores) plus the slab's n*m exps at their
+    ``EXP_COST`` on the CUDA cores, or the bytes read and written once."""
+    item, peak = (4, peaks[0]) if dtype == torch.float32 else (8, peaks[1])
+    nbytes = item * (n * (q + d + 1) + m * q + m * m + m * d + 1)
+    t_ops = (reg_stats_flops(n, m, q, d) / peak
+             + n * m * EXP_COST[dtype] / peaks[0])
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def cublas_d_product_ms(n, m, rows=65_536) -> float:
+    """Yardstick for the f64 DMMA loop, never called by the port: the time
+    of ``torch.matmul`` for K^T (w K) over a materialised f64 K of
+    ``rows`` x m (cuBLAS on the FP64 tensor cores), scaled to n rows."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    k = torch.rand((rows, m), dtype=torch.float64, device=DEV, generator=gen)
+    wk = torch.rand((rows, 1), dtype=torch.float64, device=DEV,
+                    generator=gen) * k
+    kt = k.T
+    return time_ms(lambda: torch.matmul(kt, wk)) * n / rows
+
+
 def predict_flops(t, m, q, d) -> float:
     # slab t*m*(3q+2); quad over the symmetric g t*m(m+1)/2 pair products;
     # mean t*m*d FMAs
@@ -211,13 +236,8 @@ def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
         out["ms"] = time_ms(lambda: rs_ops.reg_stats(hyp, zk, xk, yk, wk))
         out["plain_ms"] = time_ms(
             lambda: plain_reg_stats(rs_ref, hyp, zs, xs, ys, ws), reps=3)
-        item, peak = ((4, peaks[0]) if dtype == torch.float32
-                      else (8, peaks[1]))
-        nbytes = item * (n * (q + d + 1) + m * q + m * m + m * d + 1)
-        t_ops = reg_stats_flops(n, m, q, d) / peak * 1e3
-        t_bytes = nbytes / peaks[2] * 1e3
-        out["bound_ms"] = max(t_ops, t_bytes)
-        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        out["bound_ms"], out["bound_by"] = reg_stats_bound(n, m, q, d, dtype,
+                                                           peaks)
     print(f"reg_stats {out}", flush=True)
     return out
 
@@ -728,6 +748,16 @@ def library_attention(q, k, v):
         return lambda: sdpa(q, ke, ve, is_causal=True)
 
 
+def flash_launch_only(q, k, v, causal):
+    """The bare ctypes launch on a preallocated output: the kernel's device
+    time without the wrapper's checks and allocation (``ms`` has them)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    out = torch.empty_like(q)
+    scale = q.shape[-1] ** -0.5
+    return lambda: fa_k.flash_attention(q, k, v, out, causal, scale)
+
+
 def check_flash(fa_ops, fa_ref, peaks, b, h, hkv, t, s, dh, causal, dtype,
                 timed):
     rng = np.random.default_rng(SEED + b + h + t + s)
@@ -755,6 +785,7 @@ def check_flash(fa_ops, fa_ref, peaks, b, h, hkv, t, s, dh, causal, dtype,
         pairs = visible_pairs(b, h, t, s, causal)
         out["ms"] = time_ms(lambda: fa_ops.flash_attention(q, k, v,
                                                            causal=causal))
+        out["launch_only_ms"] = time_ms(flash_launch_only(q, k, v, causal))
         out["plain_ms"] = time_ms(
             lambda: plain_attention(fa_ref, q, k, v, causal), reps=3)
         lib = library_attention(q, k, v)
@@ -923,6 +954,9 @@ def main() -> int:
                                          timed=True)
         check_reg_stats(rs_ops, rs_ref, peaks, 1_000_003, 130, 3, 5, dtype,
                         masked=True, timed=False)
+    print("cublas f64 K^T (w K), 65,536 x 512 scaled to n = 1e6 (yardstick "
+          f"of the DMMA loop, not called by the port): "
+          f"{cublas_d_product_ms(cfg.n, cfg.m):.4f} ms", flush=True)
     for dtype in (torch.float32, torch.float64):
         pr_full[dtype] = check_predict(p_ops, p_ref, peaks, 65_536,
                                        cfg.m, cfg.q, cfg.d, dtype, timed=True)

@@ -7,28 +7,27 @@
 // with knm[i, a] = sf2 * exp(-1/2 sum_q (x_iq - z_aq)^2 / ell_q^2), built
 // tile by tile in shared memory and never stored whole.
 //
-// Replaces the TPU kernel src/repro/kernels/reg_stats/kernel.py,
-// reg_stats_pallas (body _reg_stats_kernel), forward only.
+// Replaces the TPU kernel src/repro/kernels/reg_stats/kernel.py:99,
+// reg_stats_pallas (body _reg_stats_kernel, pallas_call at :112), forward
+// only.
 //
 // What bounds it on the H100: operations.  D alone is n*m*(m+1)/2
 // multiply-adds (2.6e11 at n = 1e6, m = 512) against ~52 MB of input, far
-// above the card's balance point of ~20 flop/byte in f32.  The design:
+// above the card's balance point; the slab costs q distance FMAs and one
+// exp per (row, column) it is built for.  Shared by both instantiations:
 //   * The TPU carries the D/C/b accumulators from one step of a sequential
-//     n-grid to the next.  Here blocks run in parallel and in no order, and
-//     at m = 512 there are only 36 upper 64x64 D tiles for 132 SMs, so the
-//     grid is (n-slice, upper D tile): each block owns one tile (a, b) with
-//     a <= b and one slice of rows, stages RC rows at a time, builds the
-//     (RC, 64) slabs ka*w and kb in shared memory and accumulates its 64x64
-//     tile in registers (a 4x4 micro-tile per thread, FMAs on the CUDA
-//     cores).  Only the upper tiles are computed; the lower half is their
-//     mirror.
+//     n-grid to the next.  Here blocks run in parallel and in no order, so
+//     the grid is (n-slice, upper D tile): each block owns one tile (a, b)
+//     with a <= b and one slice of rows, stages RC rows at a time and builds
+//     the slabs ka*w and kb of its tile's columns in shared memory.  Only
+//     the upper tiles are computed; the lower half is their mirror.
 //   * C is accumulated on the diagonal tiles (a == b), b on tile 0, in the
 //     same pass.  On a diagonal tile kb is ka, so its slab is built once.
 //   * A second small kernel sums the per-slice partials in a fixed order
 //     (slice 0, 1, ...) in f64 and mirrors D: no atomics, so results are
 //     deterministic, and splitting n keeps the error of a 1e6-row sum
-//     small.  Within a slice each RC-row chunk is summed on its own and
-//     folded into the running tile with Kahan compensation.
+//     small.  Within a slice, partial sums are folded into the running tile
+//     with Kahan compensation.
 //   * The exponent is evaluated directly as sum_q (x_q - z_q)^2 * inv_q
 //     (q FMAs per entry).  The Pallas kernel's expanded form alpha + M.Zc is
 //     not anchored and cancels in f32 for inputs with large offsets; the
@@ -37,16 +36,36 @@
 //     (or past the slice) carry w = 0 and x = y = 0; inducing points past m
 //     carry z = 0 and are never written out; q and d are loop bounds.  No
 //     result depends on the tile size.
-//   * One template, instantiated for float (the TPU kernel's f32 contract)
-//     and double.  At sgpr-synth-1m, f32 tiles move the served mean far
-//     outside its budget, and f32 outputs make I + beta L^-1 D L^-T
-//     indefinite, because Sigma = Kmm + beta*D is ill-conditioned (ROADMAP
-//     Queue 3).  So f64 callers get the double instantiation (34 TFLOP/s of
-//     f64 on the H100 SXM's CUDA cores, half the f32 rate).
 //
-// wgmma, TMA and pipelining are for later work.  C interface, bound with
-// ctypes from src/repro_torch/kernels/reg_stats/kernel.py.
+// f64 (what the f64 models call): D on the FP64 tensor cores.
+//   * 128 x 128 upper tiles (10 at m = 512), and as many n-slices as fill
+//     the 132 SMs once (13 at m = 512: 130 blocks, one per SM), so each
+//     (row, column) entry of the slab is built m/128 = 4 times over the
+//     grid instead of m/64 = 8 times with 64 x 64 tiles.  The slab build
+//     (q DFMAs and one libdevice exp per entry, on the CUDA cores) is then
+//     as large as the D product itself, and the two overlap: a chunk's
+//     product runs beside the next chunk's build, the slabs double
+//     buffered in shared memory.
+//   * The product is mma.sync m16n8k4 f64 (DMMA, IEEE f64 on the tensor
+//     cores): 8 warps, each a 64 x 32 part of the tile as 4 x 4 fragments
+//     in registers.  The fragments accumulate over 4,096 rows, then are
+//     folded into the running tile with Kahan compensation; running tile
+//     and compensation live in the block's own scratch in device memory
+//     (L2), each entry touched by one thread only.
+//   * The next chunk's x, y and w are in flight (cp.async, three buffers)
+//     while the current one is built and multiplied: one barrier a chunk.
+//
+// f32 (the TPU kernel's f32 contract): 64 x 64 upper tiles, an RC-row chunk
+// at a time, a 4x4 micro-tile of f32 FMAs per thread on the CUDA cores,
+// Kahan fold per chunk.  At sgpr-synth-1m, f32 tiles move the served mean
+// far outside its budget, and f32 outputs make I + beta L^-1 D L^-T
+// indefinite, because Sigma = Kmm + beta*D is ill-conditioned (ROADMAP
+// Queue 3), so f64 callers get the double instantiation.
+//
+// C interface, bound with ctypes from
+// src/repro_torch/kernels/reg_stats/kernel.py.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -55,19 +74,12 @@ constexpr int RC = 32;   // rows staged per chunk
 constexpr int NT = 256;  // threads per block: 16 x 16, a 4x4 micro-tile each
 
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
-__device__ __forceinline__ double exp_t(double v) { return exp(v); }
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
 // Four consecutive shared-memory values (16-byte aligned) into registers.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
-  const double2 lo = *reinterpret_cast<const double2*>(p);
-  const double2 hi = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
 template <typename T>
@@ -202,7 +214,7 @@ reg_stats_tiles(const T* __restrict__ x, const T* __restrict__ y,
 
 // Fixed-order f64 sum of the per-slice partials; D's lower half mirrors
 // the upper tiles, so D is exactly symmetric.
-template <typename T>
+template <typename T, int TILE>
 __global__ void reg_stats_reduce(const T* __restrict__ part_d,
                                  const T* __restrict__ part_c,
                                  const T* __restrict__ part_b,
@@ -214,18 +226,18 @@ __global__ void reg_stats_reduce(const T* __restrict__ part_d,
   if (e < (long)m * m) {
     const int r = e / m, c = e % m;
     const int lo = min(r, c), hi = max(r, c);
-    const int ta = lo / TM, tb = hi / TM;
+    const int ta = lo / TILE, tb = hi / TILE;
     const long tile = (long)ta * nts - (long)ta * (ta - 1) / 2 + (tb - ta);
-    const size_t off = (size_t)tile * TM * TM + (lo % TM) * TM + hi % TM;
+    const size_t off = (size_t)tile * TILE * TILE + (lo % TILE) * TILE + hi % TILE;
     double s = 0.0;
     for (int sl = 0; sl < n_slices; ++sl)
-      s += part_d[(size_t)sl * n_tiles * TM * TM + off];
+      s += part_d[(size_t)sl * n_tiles * TILE * TILE + off];
     D[e] = s;
   }
   if (e < (long)m * d) {
     double s = 0.0;
     for (int sl = 0; sl < n_slices; ++sl)
-      s += part_c[(size_t)sl * nts * TM * d + e];
+      s += part_c[(size_t)sl * nts * TILE * d + e];
     C[e] = s;
   }
   if (e == 0) {
@@ -233,6 +245,260 @@ __global__ void reg_stats_reduce(const T* __restrict__ part_d,
     for (int sl = 0; sl < n_slices; ++sl) s += part_b[sl];
     *b = s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// f64: DMMA
+// ---------------------------------------------------------------------------
+
+constexpr int DT = 128;          // D tile edge
+constexpr int DRC = 32;          // rows per chunk
+constexpr int DNT = 256;         // 8 warps: 2 x 4 warp tiles of 64 x 32
+constexpr int LDK = DT + 4;      // slab row stride (doubles): no bank conflicts
+constexpr int FOLD_CHUNKS = 128; // chunks (4,096 rows) between Kahan folds
+
+// c (16 x 8) += a (16 x 4) b (4 x 8) in f64.  Lane l holds a[l/4][l%4] and
+// a[l/4 + 8][l%4], b[l%4][l/4], c[l/4 (+8)][2(l%4) + {0, 1}].
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[2],
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+// 8 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__host__ __device__ constexpr size_t dmma_smem_bytes(int q, int d) {
+  return sizeof(double) * (2 * 2 * DRC * LDK          // slabs [buf][aw|b]
+                           + 2 * q * DT               // z of both tile sides
+                           + 3 * DRC * (q + d + 1)    // x, y, w [3 buffers]
+                           + q + DT * d);             // 1/ell^2, C rows
+}
+
+__global__ void __launch_bounds__(DNT, 1)
+reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
+               const double* __restrict__ w, const double* __restrict__ z,
+               const double* __restrict__ hp, int n, int m, int q, int d,
+               int rows_per_slice, int nts, double* __restrict__ part_d,
+               double* __restrict__ part_comp, double* __restrict__ part_c,
+               double* __restrict__ part_b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* slabs = reinterpret_cast<double*>(smem_raw);  // [2][2][DRC][LDK]
+  double* zaT = slabs + 4 * DRC * LDK;                  // [q][DT]
+  double* zbT = zaT + q * DT;                           // [q][DT]
+  double* xs = zbT + q * DT;                            // [3][DRC * q]
+  double* ys = xs + 3 * DRC * q;                        // [3][DRC * d]
+  double* ws = ys + 3 * DRC * d;                        // [3][DRC]
+  double* inv = ws + 3 * DRC;                           // [q]
+  double* cacc = inv + q;                               // [DT][d]
+
+  const int slice = blockIdx.x, tile = blockIdx.y;
+  int a = 0, rem = tile;
+  while (rem >= nts - a) {
+    rem -= nts - a;
+    ++a;
+  }
+  const int b = a + rem;
+  const bool diag = a == b;
+  const int a0 = a * DT, b0 = b * DT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int i0 = (warp / 4) * 64, j0 = (warp % 4) * 32;
+  const double sf2 = hp[0];
+
+  for (int e = tid; e < q; e += DNT) inv[e] = hp[1 + e];
+  for (int e = tid; e < q * DT; e += DNT) {
+    const int k = e / DT, i = e % DT;
+    zaT[e] = a0 + i < m ? z[(size_t)(a0 + i) * q + k] : 0.0;
+    zbT[e] = b0 + i < m ? z[(size_t)(b0 + i) * q + k] : 0.0;
+  }
+  if (diag)
+    for (int e = tid; e < DT * d; e += DNT) cacc[e] = 0.0;
+
+  const long lo = (long)slice * rows_per_slice;
+  const long hi = min((long)n, lo + rows_per_slice);
+  const int n_chunks = hi > lo ? (int)((hi - lo + DRC - 1) / DRC) : 0;
+
+  // x, y, w of chunk c into buffer c % 3, rows past the slice zero-filled
+  auto issue = [&](int c) {
+    if (c >= n_chunks) return;
+    const long r0 = lo + (long)c * DRC;
+    const int bf = c % 3;
+    const long xlim = (hi - r0) * q, ylim = (hi - r0) * d;
+    for (int e = tid; e < DRC * q; e += DNT)
+      cp_async8(xs + bf * DRC * q + e, e < xlim ? x + r0 * q + e : x, e < xlim);
+    for (int e = tid; e < DRC * d; e += DNT)
+      cp_async8(ys + bf * DRC * d + e, e < ylim ? y + r0 * d + e : y, e < ylim);
+    for (int e = tid; e < DRC; e += DNT)
+      cp_async8(ws + bf * DRC + e, r0 + e < hi ? w + r0 + e : w, r0 + e < hi);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // Rows [g*BG, g*BG + BG) of the slabs of chunk c, aw = w * ka and kb
+  // (kb = ka on a diagonal tile).  Each thread owns one column i of its
+  // half of the rows and takes BG/2 rows at a time, so each z and 1/ell^2
+  // it loads serves several rows.
+  constexpr int BG = 8;  // slab rows per build group
+  auto build = [&](int c, int g) {
+    const double* xb = xs + (c % 3) * DRC * q;
+    const double* wb = ws + (c % 3) * DRC;
+    double* aw = slabs + (c & 1) * 2 * DRC * LDK;
+    double* bs = aw + DRC * LDK;
+    const int i = tid % DT, r0 = g * BG + (tid / DT) * (BG / 2);
+    double sa[BG / 2], sb[BG / 2];
+#pragma unroll
+    for (int u = 0; u < BG / 2; ++u) sa[u] = sb[u] = 0.0;
+    for (int k = 0; k < q; ++k) {
+      const double za = zaT[k * DT + i], zb = zbT[k * DT + i], iv = inv[k];
+#pragma unroll
+      for (int u = 0; u < BG / 2; ++u) {
+        const double xv = xb[(r0 + u) * q + k];
+        const double da = xv - za;
+        sa[u] = fma(da * da, iv, sa[u]);
+        if (!diag) {
+          const double db = xv - zb;
+          sb[u] = fma(db * db, iv, sb[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BG / 2; ++u) {
+      const int r = r0 + u;
+      const double ka = sf2 * exp(-0.5 * sa[u]);
+      aw[r * LDK + i] = wb[r] * ka;
+      bs[r * LDK + i] = diag ? ka : sf2 * exp(-0.5 * sb[u]);
+    }
+  };
+
+  double acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0;
+  bool first_fold = true;
+  double* pd = part_d + ((size_t)slice * gridDim.y + tile) * DT * DT;
+  double* pk = part_comp + ((size_t)slice * gridDim.y + tile) * DT * DT;
+  // Kahan: running tile += acc; acc = 0.  Each entry has one owner thread.
+  auto fold = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + mt * 16 + gid + 8 * (e >> 1);
+          const int j = j0 + nt * 8 + 2 * tig + (e & 1);
+          const size_t o = (size_t)i * DT + j;
+          double tv = acc[mt][nt][e], comp = 0.0;
+          if (!first_fold) {
+            const double tot = pd[o];
+            const double yv = acc[mt][nt][e] - pk[o];
+            tv = tot + yv;
+            comp = (tv - tot) - yv;
+          }
+          pd[o] = tv;
+          pk[o] = comp;
+          acc[mt][nt][e] = 0.0;
+        }
+    first_fold = false;
+  };
+
+  double wsum = 0.0;
+  issue(0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // z, 1/ell^2, chunk 0's rows
+  issue(1);
+  if (n_chunks > 0)
+    for (int g = 0; g < DRC / BG; ++g) build(0, g);
+
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // chunk c's slabs and chunk c+1's rows are in; c-1 is done
+    issue(c + 2);
+
+    // This chunk's product on the tensor cores, interleaved with the next
+    // chunk's slab build on the CUDA cores (the other slab buffer).
+    const double* aw = slabs + (c & 1) * 2 * DRC * LDK;
+    const double* bs = aw + DRC * LDK;
+#pragma unroll
+    for (int g = 0; g < DRC / BG; ++g) {
+#pragma unroll
+      for (int kk = g * BG / 4; kk < (g + 1) * BG / 4; ++kk) {
+        const int r = 4 * kk + tig;
+        double af[4][2], bf[4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          af[mt][0] = aw[r * LDK + i0 + mt * 16 + gid];
+          af[mt][1] = aw[r * LDK + i0 + mt * 16 + gid + 8];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) bf[nt] = bs[r * LDK + j0 + nt * 8 + gid];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) dmma(acc[mt][nt], af[mt], bf[nt]);
+      }
+      if (c + 1 < n_chunks) build(c + 1, g);
+    }
+
+    if (diag) {  // C rows of this tile; each entry owned by one thread
+      const double* yb = ys + (c % 3) * DRC * d;
+      for (int e = tid; e < DT * d; e += DNT) {
+        const int i = e / d, cc = e % d;
+        double s = 0.0;
+        for (int r = 0; r < DRC; ++r) s = fma(aw[r * LDK + i], yb[r * d + cc], s);
+        cacc[e] += s;
+      }
+    }
+    if (tile == 0 && tid == 0) {
+      const double* wb = ws + (c % 3) * DRC;
+      double s = 0.0;
+      for (int r = 0; r < DRC; ++r) s += wb[r];
+      wsum += s;
+    }
+    if ((c + 1) % FOLD_CHUNKS == 0 || c + 1 == n_chunks) fold();
+  }
+  if (n_chunks == 0) fold();  // an empty slice writes zeros
+
+  if (diag) {
+    double* pc = part_c + ((size_t)slice * nts * DT + a0) * d;
+    for (int e = tid; e < DT * d; e += DNT) pc[e] = cacc[e];
+  }
+  if (tile == 0 && tid == 0) part_b[slice] = sf2 * wsum;
+}
+
+int launch_f64(const double* x, const double* y, const double* w,
+               const double* z, const double* hp, int n, int m, int q, int d,
+               int n_slices, int rows_per_slice, double* part_d,
+               double* part_comp, double* part_c, double* part_b, double* D,
+               double* C, double* b, void* stream) {
+  const int nts = (m + DT - 1) / DT;
+  const int n_tiles = nts * (nts + 1) / 2;
+  const size_t smem = dmma_smem_bytes(q, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      reg_stats_dmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  reg_stats_dmma<<<dim3(n_slices, n_tiles), DNT, smem, s>>>(
+      x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_comp,
+      part_c, part_b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long total = (long)m * m > (long)m * d ? (long)m * m : (long)m * d;
+  if (total < 1) total = 1;
+  reg_stats_reduce<double, DT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part_d, part_c, part_b, n_slices, nts, m, d, D, C, b);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -253,7 +519,7 @@ int launch(const T* x, const T* y, const T* w, const T* z, const T* hp, int n,
   if (err != cudaSuccess) return err;
   long total = (long)m * m > (long)m * d ? (long)m * m : (long)m * d;
   if (total < 1) total = 1;
-  reg_stats_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  reg_stats_reduce<T, TM><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       part_d, part_c, part_b, n_slices, nts, m, d, D, C, b);
   return cudaGetLastError();
 }
@@ -274,11 +540,16 @@ extern "C" int reg_stats_f32(const float* x, const float* y, const float* w,
                        part_d, part_c, part_b, D, C, b, stream);
 }
 
+// f64: as above, plus part_comp (n_slices, T, 128, 128) and 128-row tiles:
+// part_d (n_slices, T, 128, 128), part_c (n_slices, nts*128, d) with
+// nts = ceil(m/128).  Shared memory grows with q and d
+// (dmma_smem_bytes); past the card's 227 KB the launch fails.
 extern "C" int reg_stats_f64(const double* x, const double* y, const double* w,
                              const double* z, const double* hp, int n, int m,
                              int q, int d, int n_slices, int rows_per_slice,
-                             double* part_d, double* part_c, double* part_b,
-                             double* D, double* C, double* b, void* stream) {
-  return launch<double>(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
-                        part_d, part_c, part_b, D, C, b, stream);
+                             double* part_d, double* part_comp,
+                             double* part_c, double* part_b, double* D,
+                             double* C, double* b, void* stream) {
+  return launch_f64(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
+                    part_d, part_comp, part_c, part_b, D, C, b, stream);
 }

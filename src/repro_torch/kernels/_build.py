@@ -9,7 +9,7 @@ Nothing here runs at import time: a kernel is built at its first CUDA call
 (or by :func:`build_all`, which compiles every source in parallel), so the
 CPU tests import every module on a machine without ``nvcc``.  The launch
 helpers the wrappers share (stream, error check, the map kernels' grid
-plan) live here too.
+plans) live here too.
 """
 from __future__ import annotations
 
@@ -116,6 +116,24 @@ def slice_plan(n: int, m: int, device, tile: int, rows: int
     chunks = max(1, -(-n // rows))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_slices = max(1, min(chunks, math.ceil(4 * sms / n_tiles)))
+    per_slice = -(-chunks // n_slices) * rows
+    return n_tiles, max(1, -(-n // per_slice)), per_slice
+
+
+def fill_plan(n: int, m: int, sms: int, tile: int, rows: int
+              ) -> tuple[int, int, int]:
+    """Grid of a map kernel that runs one block per SM, each owning one
+    upper ``tile``×``tile`` block of an (m, m) statistic and one slice of
+    the n rows: as many n-slices as fill the ``sms`` SMs once (at least
+    one), the slices summed afterwards in a fixed order.  Returns (upper
+    tiles, n-slices, rows per slice, a multiple of ``rows``)."""
+    nts = -(-m // tile)
+    n_tiles = nts * (nts + 1) // 2
+    if n_tiles > MAX_GRID_Y:
+        raise ValueError(f"m={m} needs {n_tiles} upper tiles; the kernel "
+                         f"takes at most {MAX_GRID_Y}")
+    chunks = max(1, -(-n // rows))
+    n_slices = max(1, min(chunks, sms // n_tiles))
     per_slice = -(-chunks // n_slices) * rows
     return n_tiles, max(1, -(-n // per_slice)), per_slice
 

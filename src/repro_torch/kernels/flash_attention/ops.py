@@ -11,9 +11,13 @@ Layout and masking are those of ``repro.kernels.flash_attention.ops``:
 q (B,H,T,Dh), k/v (B,Hkv,S,Dh) with H % Hkv == 0, causal queries
 suffix-aligned to the keys.  The kernel masks the ragged T and S edges
 itself, so nothing is padded; q, k and v may be strided views whose last
-axis is contiguous (the model passes (B,T,H,Dh) tensors transposed).  A
-query row that sees no key returns 0.  Scores, softmax and sums run in f32
-whatever the input dtype; the output comes back in q's dtype.
+axis is contiguous (the model passes (B,T,H,Dh) tensors transposed).  The
+bf16 kernel reads them through TMA, so their base addresses and strides
+must also be multiples of 16 bytes; it raises ``ValueError`` on a view that
+breaks that (there is no second route).  A query row that sees no key
+returns 0.  Scores, softmax and sums run in f32 whatever the input dtype
+(the bf16 kernel rounds the probabilities to bf16 for the second product,
+as SDPA does); the output comes back in q's dtype.
 """
 from __future__ import annotations
 
@@ -59,6 +63,13 @@ def flash_attention(q, k, v, causal: bool = True):
     if any(x.stride(3) != 1 for x in operands):
         raise ValueError("flash_attention: the last axis of q, k and v must "
                          "be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, x in zip("qkv", operands):
+            why = _k.tma_refusal(x.data_ptr(), x.shape, x.stride(),
+                                 x.element_size())
+            if why:
+                raise ValueError(f"flash_attention: TMA cannot read {name}: "
+                                 f"{why}")
     out = torch.empty((b, h, t, dh), dtype=q.dtype, device=q.device)
     _k.flash_attention(q, k, v, out, causal, dh ** -0.5)
     LAUNCHES[str(q.dtype).removeprefix("torch.")] += 1

@@ -12,8 +12,21 @@ import torch
 
 from .. import _build
 
-TILE = 64      # D tile edge in the CUDA source (TM)
-ROWS = 32      # rows staged per chunk in the CUDA source (RC)
+TILE = 64      # D tile edge of the f32 instantiation (TM)
+ROWS = 32      # rows staged per chunk of the f32 instantiation (RC)
+TILE_F64 = 128   # D tile edge of the f64 (DMMA) instantiation (DT)
+ROWS_F64 = 32    # rows per chunk of the f64 instantiation (DRC)
+SMEM_LIMIT = 232_448   # bytes of shared memory a block may use (sm_90)
+
+
+def smem_bytes_f64(q: int, d: int) -> int:
+    """Shared memory of one f64 block (``dmma_smem_bytes`` in the source):
+    double-buffered slabs, z of both tile sides, three buffers of x, y and
+    w rows, 1/ell^2 and the C rows."""
+    ld = TILE_F64 + 4
+    return 8 * (4 * ROWS_F64 * ld + 2 * q * TILE_F64
+                + 3 * ROWS_F64 * (q + d + 1) + q + TILE_F64 * d)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -21,19 +34,25 @@ _FN = {torch.float32: "reg_stats_f32", torch.float64: "reg_stats_f64"}
 
 
 def reg_stats(x, y, w, z, hp, n_slices, rows_per_slice,
-              part_d, part_c, part_b, d_out, c_out, b_out) -> None:
+              part_d, part_c, part_b, d_out, c_out, b_out,
+              part_comp=None) -> None:
     """Launch the instantiation for x's dtype (tile pass, then the
-    fixed-order reduce) on the current stream."""
+    fixed-order reduce) on the current stream; the f64 one also takes the
+    Kahan compensation scratch ``part_comp`` (shaped as ``part_d``)."""
     fn = getattr(_build.load("reg_stats"), _FN[x.dtype])
+    f64 = x.dtype == torch.float64
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P]
+                       *([_P] * (8 if f64 else 7))]
         fn.restype = _I
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
+    scratch = [part_d.data_ptr()]
+    if f64:
+        scratch.append(part_comp.data_ptr())
     err = fn(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), z.data_ptr(), hp.data_ptr(),
-        n, m, q, d, n_slices, rows_per_slice, part_d.data_ptr(),
+        n, m, q, d, n_slices, rows_per_slice, *scratch,
         part_c.data_ptr(), part_b.data_ptr(), d_out.data_ptr(),
         c_out.data_ptr(), b_out.data_ptr(), _build.stream_handle(x.device))
     _build.check(_FN[x.dtype], err)

@@ -63,19 +63,31 @@ def _launch(log_sf2, log_ell, z, x, y, w):
     xs, ys, ws, zs = (t.to(dt).contiguous() for t in (x, y, w, z))
     hp = torch.cat([torch.exp(log_sf2).reshape(1),
                     torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
-    n_tiles, n_slices, rows = _build.slice_plan(n, m, x.device, _k.TILE,
-                                                _k.ROWS)
-    m_pad = -(-m // _k.TILE) * _k.TILE
+    if dt == f64:
+        tile, rows = _k.TILE_F64, _k.ROWS_F64
+        if _k.smem_bytes_f64(q, d) > _k.SMEM_LIMIT:
+            raise ValueError(
+                f"reg_stats: q={q}, d={d} need "
+                f"{_k.smem_bytes_f64(q, d)} bytes of shared memory per "
+                f"block; the f64 kernel has {_k.SMEM_LIMIT}")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
+    else:
+        tile, rows = _k.TILE, _k.ROWS
+        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, x.device,
+                                                         tile, rows)
+    m_pad = -(-m // tile) * tile
     dev = x.device
-    part_d = torch.empty((n_slices, n_tiles, _k.TILE, _k.TILE), dtype=dt,
+    part_d = torch.empty((n_slices, n_tiles, tile, tile), dtype=dt,
                          device=dev)
+    part_comp = torch.empty_like(part_d) if dt == f64 else None
     part_c = torch.empty((n_slices, m_pad, d), dtype=dt, device=dev)
     part_b = torch.empty((n_slices,), dtype=dt, device=dev)
     d_out = torch.empty((m, m), dtype=f64, device=dev)
     c_out = torch.empty((m, d), dtype=f64, device=dev)
     b_out = torch.empty((), dtype=f64, device=dev)
-    _k.reg_stats(xs, ys, ws, zs, hp, n_slices, rows, part_d, part_c, part_b,
-                 d_out, c_out, b_out)
+    _k.reg_stats(xs, ys, ws, zs, hp, n_slices, per_slice, part_d, part_c,
+                 part_b, d_out, c_out, b_out, part_comp)
     LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return b_out.to(x.dtype), c_out.to(x.dtype), d_out.to(x.dtype)
 

@@ -54,7 +54,11 @@ def _within(got, plain, plain_abs):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,m,q,d", [(64, 16, 2, 1), (100, 37, 3, 2),
                                      (257, 64, 10, 5), (32, 130, 1, 3),
-                                     (5000, 200, 8, 4)])
+                                     (5000, 200, 8, 4),
+                                     # edges of the f64 kernel's 128-tiles,
+                                     # ragged n (15% zero weights)
+                                     (1037, 130, 8, 4), (4099, 512, 8, 4),
+                                     (2053, 600, 3, 2)])
 def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
     rng = np.random.default_rng(n + m)
     hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
@@ -319,7 +323,13 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FA_SHAPES = [(2, 4, 2, 64, 64, 64, True), (1, 8, 1, 70, 70, 64, True),
              (1, 4, 4, 33, 90, 128, True), (2, 2, 2, 96, 48, 64, False),
              (1, 4, 2, 64, 64, 64, True), (1, 4, 4, 1, 57, 64, True),
-             (1, 2, 1, 96, 48, 64, True), (4, 32, 8, 2048, 2048, 64, True)]
+             (1, 2, 1, 96, 48, 64, True), (4, 32, 8, 2048, 2048, 64, True),
+             # across the bf16 kernel's 128-row and 128-key tile edges:
+             # group 1, 4 and 8, Dh 64 and 128, causal T > S and T < S, T = 1
+             (1, 4, 4, 127, 127, 64, True), (1, 8, 2, 129, 129, 128, True),
+             (2, 8, 1, 255, 255, 64, True), (1, 8, 1, 255, 129, 128, True),
+             (1, 4, 1, 129, 255, 64, True), (1, 4, 4, 1, 255, 128, True),
+             (1, 8, 2, 127, 255, 64, False), (1, 8, 8, 255, 127, 128, False)]
 
 
 def _fa_inputs(seed, b, h, hkv, t, s, dh, device, dtype):
@@ -348,12 +358,13 @@ def test_flash_attention_matches_plain(cuda, b, h, hkv, t, s, dh, causal,
         assert bool((got[:, :, t - s:].abs().amax(-1) > 0).all())
 
 
-def test_flash_attention_reads_strided_views(cuda):
+@pytest.mark.parametrize("t,dh", [(100, 64), (129, 128)])
+def test_flash_attention_reads_strided_views(cuda, t, dh):
     """The model passes (B,T,H,Dh) tensors transposed to (B,H,T,Dh): the
     kernel reads them in place and gives the contiguous result bitwise."""
     rng = np.random.default_rng(7)
     q, k, v = (_t(rng.standard_normal(sh), cuda, torch.bfloat16)
-               for sh in ((2, 100, 8, 64), (2, 100, 2, 64), (2, 100, 2, 64)))
+               for sh in ((2, t, 8, dh), (2, t, 2, dh), (2, t, 2, dh)))
     views = [x.transpose(1, 2) for x in (q, k, v)]
     assert not views[0].is_contiguous()
     got = fa_ops.flash_attention(*views)
@@ -377,6 +388,16 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
                                  for x in (q, k, v)))
     with pytest.raises(ValueError, match="one CUDA device"):
         fa_ops.flash_attention(q, k.cpu(), v)
+    # bf16 goes through TMA: 16-byte aligned bases and strides, or refused
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="base address is not 16-byte"):
+        fa_ops.flash_attention(shifted, kb, vb)
+    padded = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16,
+                         device=cuda)[..., :64]     # rows of 136 bytes
+    with pytest.raises(ValueError, match="stride over T is not a multiple"):
+        fa_ops.flash_attention(qb, padded, vb)
     q.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         fa_ops.flash_attention(q, k, v)

@@ -117,3 +117,48 @@ def test_reference_rows_without_context_depend_on_block_size():
     seen = slice(48, 96)
     np.testing.assert_allclose(port.numpy()[0, 0, seen], at16[0, 0, seen],
                                rtol=2e-5, atol=2e-5)
+
+
+# -- host-side helpers of the bf16 kernel (TMA tensor maps) -------------------
+
+from repro_torch.kernels.flash_attention import kernel as fa_k  # noqa: E402
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("b,h,t,dh", [(4, 32, 2048, 64), (2, 8, 100, 128),
+                                      (1, 1, 1, 64)])
+def test_tma_strides_are_the_views_strides(layout, b, h, t, dh):
+    """The tensor map's strides over (B, H, T) are the view's own where the
+    axis has more than one entry, and a contiguous layout's where it has
+    one (TMA never steps along it); every byte stride stays a multiple of
+    16 for views the model makes."""
+    x = torch.zeros((b, h, t, dh), dtype=torch.bfloat16)
+    if layout == "transposed":
+        x = torch.zeros((b, t, h, dh), dtype=torch.bfloat16).transpose(1, 2)
+    got = fa_k.tma_strides(x.shape, x.stride())
+    for size, st, own in zip((b, h, t), got, x.stride()[:3]):
+        if size > 1:
+            assert st == own
+    assert got[2] == (x.stride(2) if t > 1 else dh)
+    assert got[1] == (x.stride(1) if h > 1 else got[2] * t)
+    assert got[0] == (x.stride(0) if b > 1 else got[1] * h)
+    assert all(st * 2 % fa_k.TMA_ALIGN == 0 for st in got)
+    assert fa_k.tma_refusal(0, x.shape, x.stride(), 2) is None
+
+
+def test_tma_refusal_names_what_breaks_the_16_byte_rule():
+    """Base addresses and the strides of axes longer than 1 must be
+    multiples of 16 bytes, and the last axis contiguous."""
+    shape = (2, 4, 100, 64)
+    ok = (4 * 100 * 64, 100 * 64, 64, 1)
+    assert fa_k.tma_refusal(1024, shape, ok, 2) is None
+    assert "base address" in fa_k.tma_refusal(1026, shape, ok, 2)
+    assert "last axis" in fa_k.tma_refusal(0, shape, (*ok[:3], 2), 2)
+    odd = (4 * 100 * 68, 100 * 68, 68, 1)      # rows of 68 bf16: 136 bytes
+    assert fa_k.tma_refusal(0, shape, odd, 2).endswith(
+        "stride over T is not a multiple of 16 bytes")
+    # the same rows in f32 are 272 bytes, a multiple of 16
+    assert fa_k.tma_refusal(0, shape, odd, 4) is None
+    # a size-1 axis may carry any stride: TMA never steps along it
+    assert fa_k.tma_refusal(0, (1, 4, 100, 64), (3, *ok[1:]), 2) is None
+    assert "over B" in fa_k.tma_refusal(0, (2, 4, 100, 64), (3, *ok[1:]), 2)

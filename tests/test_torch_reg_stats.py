@@ -121,3 +121,45 @@ def test_latent_branch_is_queued():
     with pytest.raises(NotImplementedError, match="Kernel zoo"):
         t_stats.partial_stats(th, tz, ty, tx, s=torch.ones_like(tx),
                               kernel='{"kind": "matern32"}')
+
+
+# -- host-side helpers of the f64 (DMMA) kernel --------------------------------
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.reg_stats import kernel as rs_k  # noqa: E402
+
+
+@pytest.mark.parametrize("n,m,sms", [(1_000_000, 512, 132), (1_000_003, 130, 132),
+                                     (1_000_000, 600, 132), (64, 16, 132),
+                                     (5000, 200, 132), (10**6, 4096, 132),
+                                     (100, 37, 1)])
+def test_fill_plan_fills_the_sms_once_and_covers_every_row(n, m, sms):
+    """One block per SM: (upper tiles) x (n-slices) blocks, at most one per
+    SM unless a single slice already needs more; the slices are whole
+    chunks and together cover n exactly once."""
+    tile, rows = rs_k.TILE_F64, rs_k.ROWS_F64
+    n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
+    nts = -(-m // tile)
+    assert n_tiles == nts * (nts + 1) // 2
+    assert per_slice % rows == 0
+    assert (n_slices - 1) * per_slice < n <= n_slices * per_slice
+    assert n_slices == 1 or n_tiles * n_slices <= sms
+
+
+def test_fill_plan_at_sgpr_synth_1m():
+    """sgpr-synth-1m on an H100 (132 SMs): 10 upper 128-tiles x 13 slices,
+    130 blocks."""
+    assert _build.fill_plan(1_000_000, 512, 132, 128, 32) == (10, 13, 76_928)
+
+
+@pytest.mark.parametrize("q,d", [(8, 4), (1, 1), (10, 5), (3, 5)])
+def test_f64_shared_memory_fits_at_the_repos_shapes(q, d):
+    """The f64 block's shared memory (double-buffered 32 x 132 slabs, z of
+    both sides, three row buffers, C rows) fits the card's 227 KB at the
+    shapes the repo runs; sgpr-synth-1m (q 8, d 4) takes 165,696 bytes."""
+    got = rs_k.smem_bytes_f64(q, d)
+    assert got <= rs_k.SMEM_LIMIT
+    assert got == 8 * (4 * 32 * 132 + 2 * q * 128 + 3 * 32 * (q + d + 1)
+                       + q + 128 * d)
+    assert rs_k.smem_bytes_f64(8, 4) == 165_696
+    assert rs_k.smem_bytes_f64(60, 4) > rs_k.SMEM_LIMIT
