@@ -11,11 +11,14 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' full-width shapes and at one ragged shape, in both dtypes,
    and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
-   and ``gplvm-synth-100k`` shapes; flash attention, bf16 and f32, at the
+   and ``gplvm-synth-100k`` shapes; f64 reg_stats at q = 40 and at d = 64,
+   predict at m = 2048 and f64 psi at q = 160, past one 16-feature chunk or
+   one block's slab, checked untimed; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
-   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` over a materialised K,
-   printed as a yardstick of the f64 reg_stats kernel's DMMA loop);
+   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` and ``K g`` over a
+   materialised K, printed as yardsticks of the f64 reg_stats and predict
+   kernels' DMMA loops);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
    plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
@@ -200,6 +203,29 @@ def predict_flops(t, m, q, d) -> float:
     return t * m * (3 * q + 2) + t * m * (m + 1) + 2 * t * m * d
 
 
+def predict_bound(t, m, q, d, dtype, peaks) -> tuple[float, str]:
+    """Least time: the flops at the type's peak (f32 on the CUDA cores, f64
+    on the FP64 tensor cores) plus the slab's t*m exps at their
+    ``EXP_COST`` on the CUDA cores, or the bytes read and written once."""
+    item, peak = (4, peaks[0]) if dtype == torch.float32 else (8, peaks[1])
+    nbytes = item * (t * q + m * q + m * d + m * m + q + 1 + t * d + t)
+    t_ops = (predict_flops(t, m, q, d) / peak
+             + t * m * EXP_COST[dtype] / peaks[0])
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def cublas_quad_product_ms(t, m) -> float:
+    """Yardstick for the f64 predict kernel's DMMA loop, never called by the
+    port: the time of ``torch.matmul`` for K g over a materialised f64 K of
+    t x m (cuBLAS on the FP64 tensor cores; the full m x m product, no
+    slab, no exps)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    k = torch.rand((t, m), dtype=torch.float64, device=DEV, generator=gen)
+    g = torch.rand((m, m), dtype=torch.float64, device=DEV, generator=gen)
+    return time_ms(lambda: torch.matmul(k, g))
+
+
 def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
     rng = np.random.default_rng(SEED + n + m)
     dev = DEV
@@ -242,6 +268,22 @@ def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
     return out
 
 
+def predict_launch_only(hyp, z, a_mean, g, x):
+    """The bare ctypes launch of the predict kernels (pair tiles, then the
+    walk) on operands prepared once: their device time without the
+    wrapper's casts, hyper-parameter vector and allocations (the wrapper's
+    time is ``ms``)."""
+    from repro_torch.kernels.predict import kernel as p_k
+
+    (t, _), (m, d) = x.shape, a_mean.shape
+    hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
+                    torch.exp(-2.0 * hyp["log_ell"])]).to(x.dtype)
+    h, kscr = p_k.scratch(t, m, x.dtype, DEV)
+    mean = torch.empty((t, d), dtype=x.dtype, device=DEV)
+    quad = torch.empty((t,), dtype=x.dtype, device=DEV)
+    return lambda: p_k.predict(x, z, hp, a_mean, g, h, kscr, mean, quad)
+
+
 def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
     rng = np.random.default_rng(SEED + t + m)
     dev = DEV
@@ -274,16 +316,13 @@ def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
            "max_err_over_bound": max(worst_m, worst_q)}
     if timed:
         out["ms"] = time_ms(lambda: p_ops.predict_stats(hyp, z, a_mean, g, x))
+        out["launch_only_ms"] = time_ms(predict_launch_only(hyp, z, a_mean,
+                                                            g, x))
         out["plain_ms"] = time_ms(
             lambda: p_ref.predict_ref(hyp["log_sf2"], hyp["log_ell"],
                                              z, a_mean, g, x))
-        item = 4 if dtype == torch.float32 else 8
-        peak = peaks[0] if dtype == torch.float32 else peaks[1]
-        nbytes = item * (t * q + m * q + m * d + m * m + q + 1 + t * d + t)
-        t_ops = predict_flops(t, m, q, d) / peak * 1e3
-        t_bytes = nbytes / peaks[2] * 1e3
-        out["bound_ms"] = max(t_ops, t_bytes)
-        out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        out["bound_ms"], out["bound_by"] = predict_bound(t, m, q, d, dtype,
+                                                         peaks)
     print(f"predict {out}", flush=True)
     return out
 
@@ -954,6 +993,10 @@ def main() -> int:
                                          timed=True)
         check_reg_stats(rs_ops, rs_ref, peaks, 1_000_003, 130, 3, 5, dtype,
                         masked=True, timed=False)
+    # Past one 16-feature chunk, and a wide y: shared memory is fixed.
+    for q, d in ((40, 1), (8, 64)):
+        check_reg_stats(rs_ops, rs_ref, peaks, 100_003, 130, q, d,
+                        torch.float64, masked=True, timed=False)
     print("cublas f64 K^T (w K), 65,536 x 512 scaled to n = 1e6 (yardstick "
           f"of the DMMA loop, not called by the port): "
           f"{cublas_d_product_ms(cfg.n, cfg.m):.4f} ms", flush=True)
@@ -962,6 +1005,12 @@ def main() -> int:
                                        cfg.m, cfg.q, cfg.d, dtype, timed=True)
         check_predict(p_ops, p_ref, peaks, 1_000, 130, 3, 5, dtype,
                       timed=False)
+        # m past a (t, m) slab per block: the pair tiles of g stream.
+        check_predict(p_ops, p_ref, peaks, 4_096, 2_048, 8, 4, dtype,
+                      timed=False)
+    print("cublas f64 K g, 65,536 x 512 by 512 x 512 (yardstick of the "
+          "predict kernel's DMMA loop, not called by the port): "
+          f"{cublas_quad_product_ms(65_536, cfg.m):.4f} ms", flush=True)
     usps, synth = GP_CONFIGS["gplvm-usps"], GP_CONFIGS["gplvm-synth-100k"]
     psi_full = {}
     for dtype in (torch.float32, torch.float64):
@@ -971,6 +1020,9 @@ def main() -> int:
                   masked=False, timed=True)
         check_psi(ps_ops, ps_ref, peaks, 1003, 37, 3, dtype, masked=True,
                   timed=False)
+    # Ten 16-feature chunks: shared memory is fixed.
+    check_psi(ps_ops, ps_ref, peaks, 1003, 37, 160, torch.float64,
+              masked=True, timed=False)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
         fa_full[dtype] = check_flash(fa_ops, fa_ref, peaks, LM_BATCH, 32, 8,

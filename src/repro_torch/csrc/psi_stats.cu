@@ -46,6 +46,11 @@
 //   * psi1 is one pass over (32-row x 64-column) output tiles; each block
 //     stages its rows and the tile's z in shared memory and writes every
 //     output entry once, coalesced.
+//   * Shared memory is fixed, whatever q: z, mu and 1/(l^2 + c s) are
+//     staged QC = 16 features at a time and the exponents accumulate over
+//     the chunks (psi1's in the entries' registers; psi2's in registers
+//     per row, z and the row restaged chunk by chunk).  gplvm-usps
+//     (q = 10) is one chunk, staged as before.
 //   * One template, instantiated for float (the TPU kernels' f32 contract)
 //     and double: f32 map statistics break the q(u) factorisation at full
 //     width (ROADMAP Queue 3), so f64 callers get the double instantiation.
@@ -61,6 +66,7 @@ constexpr int RC = 32;   // psi2 rows staged per chunk
 constexpr int NT = 256;  // threads per block (psi2: 16 x 16, 4x4 pairs each)
 constexpr int PR = 32;   // psi1 rows per block
 constexpr int PC = 64;   // psi1 columns per block
+constexpr int QC = 16;   // features of z, mu and 1/(l^2 + c s) staged at a time
 
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
 __device__ __forceinline__ double exp_t(double v) { return exp(v); }
@@ -80,19 +86,30 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-// Stage rows [r0, r0 + nr) of q(X): mu, 1/(l^2 + c s) and the row's
-// log-normaliser -1/2 sum_q log1p(c s / l^2) (c = 2 for psi2, 1 for psi1).
+// Stage rows [r0, r0 + nr) of q(X), features [k0, k0 + kw): mu and
+// 1/(l^2 + c s) (c = 2 for psi2, 1 for psi1) into row slots [slot,
+// slot + nr) of mus/invs (row stride QC).  hp = [., l^2 (q), 1/l^2 (q)].
 template <typename T>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ mu,
-                                           const T* __restrict__ s, long r0,
-                                           int nr, int q, T c, const T* ell2,
-                                           const T* il2, T* mus, T* invs,
-                                           T* lns) {
-  for (int e = threadIdx.x; e < nr * q; e += blockDim.x) {
-    const int k = e % q;
-    mus[e] = mu[r0 * q + e];
-    invs[e] = T(1) / fma_t(c, s[r0 * q + e], ell2[k]);
+                                           const T* __restrict__ s,
+                                           const T* __restrict__ hp, int q,
+                                           long r0, int nr, int k0, int kw,
+                                           T c, int slot, T* mus, T* invs) {
+  for (int e = threadIdx.x; e < nr * kw; e += blockDim.x) {
+    const int r = e / kw, k = e % kw;
+    const long g = (r0 + r) * q + k0 + k;
+    mus[(slot + r) * QC + k] = mu[g];
+    invs[(slot + r) * QC + k] = T(1) / fma_t(c, s[g], hp[1 + k0 + k]);
   }
+}
+
+// The log-normaliser -1/2 sum_q log1p(c s / l^2) of rows [r0, r0 + nr),
+// over all q, read from device memory.
+template <typename T>
+__device__ __forceinline__ void stage_lognorm(const T* __restrict__ s,
+                                              const T* __restrict__ hp, int q,
+                                              long r0, int nr, T c, T* lns) {
+  const T* il2 = hp + 1 + q;
   for (int r = threadIdx.x; r < nr; r += blockDim.x) {
     T acc = 0;
     for (int k = 0; k < q; ++k) acc += log1p_t(c * s[(r0 + r) * q + k] * il2[k]);
@@ -107,14 +124,13 @@ psi2_tiles(const T* __restrict__ mu, const T* __restrict__ s,
            const T* __restrict__ hp, int n, int m, int q, int rows_per_slice,
            int nts, T* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* haT = reinterpret_cast<T*>(smem_raw);  // [q][TM]  z_a / 2
-  T* hbT = haT + q * TM;                    // [q][TM]  z_b / 2
-  T* mus = hbT + q * TM;                    // [RC][q]
-  T* invs = mus + RC * q;                   // [RC][q]  1 / (l^2 + 2 s)
-  T* lns = invs + RC * q;                   // [RC]     log-normaliser
+  T* haT = reinterpret_cast<T*>(smem_raw);  // [QC][TM]  z_a / 2
+  T* hbT = haT + QC * TM;                   // [QC][TM]  z_b / 2
+  T* mus = hbT + QC * TM;                   // [RC][QC]
+  T* invs = mus + RC * QC;                  // [RC][QC]  1 / (l^2 + 2 s)
+  T* lns = invs + RC * QC;                  // [RC]      log-normaliser
   T* ws = lns + RC;                         // [RC]
-  T* ell2 = ws + RC;                        // [q]
-  T* il2 = ell2 + q;                        // [q]
+  T* il2 = ws + RC;                         // [QC]      1 / l^2
 
   const int slice = blockIdx.x;
   const int tile = blockIdx.y;
@@ -127,17 +143,20 @@ psi2_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   const int a0 = a * TM, b0 = b * TM;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
+  // q > QC: z and each row's mu and 1/(l^2 + 2s) are staged a q-chunk at a
+  // time for every row, the exponent carried across the chunks in
+  // registers.  Otherwise z stays staged and rows are staged RC at a time.
+  const bool chunked = q > QC;
 
-  for (int e = tid; e < q; e += NT) {
-    ell2[e] = hp[1 + e];
-    il2[e] = hp[1 + q + e];
-  }
-  for (int e = tid; e < q * TM; e += NT) {
-    const int k = e / TM, i = e % TM;
-    haT[e] = a0 + i < m ? T(0.5) * z[(size_t)(a0 + i) * q + k] : T(0);
-    hbT[e] = b0 + i < m ? T(0.5) * z[(size_t)(b0 + i) * q + k] : T(0);
-  }
-  __syncthreads();
+  // z_a/2, z_b/2 and 1/l^2 of features [k0, k0 + kw)
+  auto stage_z = [&](int k0, int kw) {
+    for (int e = tid; e < kw; e += NT) il2[e] = hp[1 + q + k0 + e];
+    for (int e = tid; e < kw * TM; e += NT) {
+      const int k = e / TM, i = e % TM;
+      haT[e] = a0 + i < m ? T(0.5) * z[(size_t)(a0 + i) * q + k0 + k] : T(0);
+      hbT[e] = b0 + i < m ? T(0.5) * z[(size_t)(b0 + i) * q + k0 + k] : T(0);
+    }
+  };
 
   // static_ab = -(z_a - z_b)^2 / (4 l^2) = -(z_a/2 - z_b/2)^2 / l^2
   T st[4][4];
@@ -145,17 +164,23 @@ psi2_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) st[i][j] = T(0);
-  for (int k = 0; k < q; ++k) {
-    T ha[4], hb[4];
-    load4(haT + k * TM + ty * 4, ha);
-    load4(hbT + k * TM + tx * 4, hb);
+  for (int k0 = 0; k0 < q; k0 += QC) {
+    const int kw = min(QC, q - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk is consumed
+    stage_z(k0, kw);
+    __syncthreads();
+    for (int k = 0; k < kw; ++k) {
+      T ha[4], hb[4];
+      load4(haT + k * TM + ty * 4, ha);
+      load4(hbT + k * TM + tx * 4, hb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const T d = ha[i] - hb[j];
-        st[i][j] = fma_t(-(d * il2[k]), d, st[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) {
+          const T d = ha[i] - hb[j];
+          st[i][j] = fma_t(-(d * il2[k]), d, st[i][j]);
+        }
+    }
   }
 
   T tot[4][4];
@@ -168,7 +193,8 @@ psi2_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   const long hi = min((long)n, lo + rows_per_slice);
   for (long r0 = lo; r0 < hi; r0 += RC) {
     const int nr = (int)min((long)RC, hi - r0);
-    stage_rows(mu, s, r0, nr, q, T(2), ell2, il2, mus, invs, lns);
+    if (!chunked) stage_rows(mu, s, hp, q, r0, nr, 0, q, T(2), 0, mus, invs);
+    stage_lognorm(s, hp, q, r0, nr, T(2), lns);
     for (int r = tid; r < nr; r += NT) ws[r] = w[r0 + r];
     __syncthreads();
 
@@ -185,18 +211,27 @@ psi2_tiles(const T* __restrict__ mu, const T* __restrict__ s,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) e[i][j] = st[i][j] + lns[r];
-      for (int k = 0; k < q; ++k) {
-        const T mv = mus[r * q + k], iv = invs[r * q + k];
-        T ha[4], hb[4];
-        load4(haT + k * TM + ty * 4, ha);
-        load4(hbT + k * TM + tx * 4, hb);
+      for (int k0 = 0; k0 < q; k0 += QC) {
+        const int kw = min(QC, q - k0);
+        if (chunked) {
+          __syncthreads();  // the staged chunk is consumed
+          stage_z(k0, kw);
+          stage_rows(mu, s, hp, q, r0 + r, 1, k0, kw, T(2), r, mus, invs);
+          __syncthreads();
+        }
+        for (int k = 0; k < kw; ++k) {
+          const T mv = mus[r * QC + k], iv = invs[r * QC + k];
+          T ha[4], hb[4];
+          load4(haT + k * TM + ty * 4, ha);
+          load4(hbT + k * TM + tx * 4, hb);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const T ua = mv - ha[i];
+          for (int i = 0; i < 4; ++i) {
+            const T ua = mv - ha[i];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const T d = ua - hb[j];  // mu - zbar_ab
-            e[i][j] = fma_t(-(d * iv), d, e[i][j]);
+            for (int j = 0; j < 4; ++j) {
+              const T d = ua - hb[j];  // mu - zbar_ab
+              e[i][j] = fma_t(-(d * iv), d, e[i][j]);
+            }
           }
         }
       }
@@ -245,48 +280,59 @@ psi1_tiles(const T* __restrict__ mu, const T* __restrict__ s,
            const T* __restrict__ z, const T* __restrict__ hp, int n, int m,
            int q, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* zT = reinterpret_cast<T*>(smem_raw);  // [q][PC]
-  T* mus = zT + q * PC;                    // [PR][q]
-  T* invs = mus + PR * q;                  // [PR][q]  1 / (l^2 + s)
-  T* lns = invs + PR * q;                  // [PR]
-  T* ell2 = lns + PR;                      // [q]
-  T* il2 = ell2 + q;                       // [q]
+  T* zT = reinterpret_cast<T*>(smem_raw);  // [QC][PC]
+  T* mus = zT + QC * PC;                   // [PR][QC]
+  T* invs = mus + PR * QC;                 // [PR][QC]  1 / (l^2 + s)
+  T* lns = invs + PR * QC;                 // [PR]
 
   const long r0 = (long)blockIdx.x * PR;
   const int c0 = blockIdx.y * PC;
   const int nr = (int)min((long)PR, (long)n - r0);
   const int tid = threadIdx.x;
-  for (int e = tid; e < q; e += NT) {
-    ell2[e] = hp[1 + e];
-    il2[e] = hp[1 + q + e];
+  stage_lognorm(s, hp, q, r0, nr, T(1), lns);
+
+  // Each thread owns PER output entries; their exponents accumulate over
+  // q-chunks of z, mu and 1/(l^2 + s).
+  constexpr int PER = PR * PC / NT;
+  T acc[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) acc[u] = T(0);
+  for (int k0 = 0; k0 < q; k0 += QC) {
+    const int kw = min(QC, q - k0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int e = tid; e < kw * PC; e += NT) {
+      const int k = e / PC, c = e % PC;
+      zT[e] = c0 + c < m ? z[(size_t)(c0 + c) * q + k0 + k] : T(0);
+    }
+    stage_rows(mu, s, hp, q, r0, nr, k0, kw, T(1), 0, mus, invs);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = tid + u * NT, r = e / PC, c = e % PC;
+      if (r >= nr) continue;
+      for (int k = 0; k < kw; ++k) {
+        const T d = mus[r * QC + k] - zT[k * PC + c];
+        acc[u] = fma_t(d * invs[r * QC + k], d, acc[u]);
+      }
+    }
   }
-  for (int e = tid; e < q * PC; e += NT) {
-    const int k = e / PC, c = e % PC;
-    zT[e] = c0 + c < m ? z[(size_t)(c0 + c) * q + k] : T(0);
-  }
-  __syncthreads();
-  stage_rows(mu, s, r0, nr, q, T(1), ell2, il2, mus, invs, lns);
-  __syncthreads();
 
   const T sf2 = hp[0];
-  for (int e = tid; e < PR * PC; e += NT) {
-    const int r = e / PC, c = e % PC;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = tid + u * NT, r = e / PC, c = e % PC;
     if (r >= nr || c0 + c >= m) continue;
-    T acc = 0;
-    for (int k = 0; k < q; ++k) {
-      const T d = mus[r * q + k] - zT[k * PC + c];
-      acc = fma_t(d * invs[r * q + k], d, acc);
-    }
-    out[(size_t)(r0 + r) * m + c0 + c] = sf2 * exp_t(fma_t(T(-0.5), acc, lns[r]));
+    out[(size_t)(r0 + r) * m + c0 + c] = sf2 * exp_t(fma_t(T(-0.5), acc[u], lns[r]));
   }
 }
 
-size_t psi2_smem(int q, size_t item) {
-  return item * (2 * (size_t)q * TM + 2 * RC * (size_t)q + 2 * RC + 2 * (size_t)q);
+// Shared memory of one block, whatever q.
+size_t psi2_smem(size_t item) {
+  return item * (2 * QC * TM + 2 * RC * QC + 2 * RC + QC);
 }
 
-size_t psi1_smem(int q, size_t item) {
-  return item * ((size_t)q * PC + 2 * PR * (size_t)q + PR + 2 * (size_t)q);
+size_t psi1_smem(size_t item) {
+  return item * (QC * PC + 2 * PR * QC + PR);
 }
 
 template <typename T>
@@ -295,7 +341,7 @@ int launch_psi2(const T* mu, const T* s, const T* w, const T* z, const T* hp,
                 T* part, double* D, void* stream) {
   const int nts = (m + TM - 1) / TM;
   const int n_tiles = nts * (nts + 1) / 2;
-  const size_t smem = psi2_smem(q, sizeof(T));
+  const size_t smem = psi2_smem(sizeof(T));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       psi2_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -313,7 +359,7 @@ int launch_psi2(const T* mu, const T* s, const T* w, const T* z, const T* hp,
 template <typename T>
 int launch_psi1(const T* mu, const T* s, const T* z, const T* hp, int n,
                 int m, int q, T* out, void* stream) {
-  const size_t smem = psi1_smem(q, sizeof(T));
+  const size_t smem = psi1_smem(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       psi1_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

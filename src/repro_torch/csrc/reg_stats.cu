@@ -52,8 +52,15 @@
 //     folded into the running tile with Kahan compensation; running tile
 //     and compensation live in the block's own scratch in device memory
 //     (L2), each entry touched by one thread only.
-//   * The next chunk's x, y and w are in flight (cp.async, three buffers)
+//   * The next chunk's x and w are in flight (cp.async, three buffers)
 //     while the current one is built and multiplied: one barrier a chunk.
+//   * Shared memory is fixed (DMMA_SMEM_BYTES), whatever q and d: z, x and
+//     1/ell^2 are staged QC = 16 features at a time (one chunk for every
+//     config of the repo; past that the exponent sums accumulate in the
+//     slab buffers over the chunks, without the overlap above), and y and
+//     C's rows are staged DC = 8 columns wide; past that C accumulates in
+//     the diagonal block's own rows of part_c, with y read from device
+//     memory.
 //
 // f32 (the TPU kernel's f32 contract): 64 x 64 upper tiles, an RC-row chunk
 // at a time, a 4x4 micro-tile of f32 FMAs per thread on the CUDA cores,
@@ -255,6 +262,9 @@ constexpr int DT = 128;          // D tile edge
 constexpr int DRC = 32;          // rows per chunk
 constexpr int DNT = 256;         // 8 warps: 2 x 4 warp tiles of 64 x 32
 constexpr int LDK = DT + 4;      // slab row stride (doubles): no bank conflicts
+constexpr int QC = 16;           // features of z, x and 1/ell^2 staged at a time
+constexpr int DC = 8;            // y columns staged, C columns held, when d <= DC
+constexpr int BG = 8;            // slab rows per build group
 constexpr int FOLD_CHUNKS = 128; // chunks (4,096 rows) between Kahan folds
 
 // c (16 x 8) += a (16 x 4) b (4 x 8) in f64.  Lane l holds a[l/4][l%4] and
@@ -277,13 +287,24 @@ __device__ __forceinline__ void cp_async8(double* dst, const double* src,
                : "memory");
 }
 
-__host__ __device__ constexpr size_t dmma_smem_bytes(int q, int d) {
-  return sizeof(double) * (2 * 2 * DRC * LDK          // slabs [buf][aw|b]
-                           + 2 * q * DT               // z of both tile sides
-                           + 3 * DRC * (q + d + 1)    // x, y, w [3 buffers]
-                           + q + DT * d);             // 1/ell^2, C rows
-}
+// Shared memory of one block, whatever q and d: double-buffered slabs, one
+// q-chunk of z for both tile sides and of 1/ell^2, three buffers of one
+// q-chunk of x rows, of DC columns of y rows and of w, DC columns of C.
+constexpr size_t DMMA_SMEM_BYTES =
+    sizeof(double) * (2 * 2 * DRC * LDK + 2 * QC * DT + 3 * DRC * QC
+                      + 3 * DRC * DC + 3 * DRC + QC + DT * DC);
+static_assert(DMMA_SMEM_BYTES <= 232448, "f64 block over sm_90's 227 KB");
 
+// CHUNKED = false (q <= QC): z and 1/ell^2 are staged once, x and w stream
+// in through cp.async, and the next chunk's slab build is interleaved with
+// this chunk's product.  CHUNKED = true (q > QC): for each chunk, the
+// exponent sums are accumulated in the slab buffers over q-chunks of z, x
+// and 1/ell^2 staged in turn, exponentiated and weighted in place after the
+// last one, then multiplied; nothing overlaps.  A diagonal block's C rows
+// accumulate in shared memory from y rows streamed beside x when d <= DC
+// and q <= QC; otherwise in the block's own rows of part_c, with y read
+// from device memory.  Shared memory depends on neither q nor d.
+template <bool CHUNKED>
 __global__ void __launch_bounds__(DNT, 1)
 reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
                const double* __restrict__ w, const double* __restrict__ z,
@@ -293,13 +314,13 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
                double* __restrict__ part_b) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* slabs = reinterpret_cast<double*>(smem_raw);  // [2][2][DRC][LDK]
-  double* zaT = slabs + 4 * DRC * LDK;                  // [q][DT]
-  double* zbT = zaT + q * DT;                           // [q][DT]
-  double* xs = zbT + q * DT;                            // [3][DRC * q]
-  double* ys = xs + 3 * DRC * q;                        // [3][DRC * d]
-  double* ws = ys + 3 * DRC * d;                        // [3][DRC]
-  double* inv = ws + 3 * DRC;                           // [q]
-  double* cacc = inv + q;                               // [DT][d]
+  double* zaT = slabs + 4 * DRC * LDK;                  // [QC][DT]
+  double* zbT = zaT + QC * DT;                          // [QC][DT]
+  double* xs = zbT + QC * DT;                           // [3][DRC * QC]
+  double* ys = xs + 3 * DRC * QC;                       // [3][DRC * DC]
+  double* ws = ys + 3 * DRC * DC;                       // [3][DRC]
+  double* inv = ws + 3 * DRC;                           // [QC]
+  double* cacc = inv + QC;                              // [DT][DC]
 
   const int slice = blockIdx.x, tile = blockIdx.y;
   int a = 0, rem = tile;
@@ -315,52 +336,65 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
   const int i0 = (warp / 4) * 64, j0 = (warp % 4) * 32;
   const double sf2 = hp[0];
 
-  for (int e = tid; e < q; e += DNT) inv[e] = hp[1 + e];
-  for (int e = tid; e < q * DT; e += DNT) {
-    const int k = e / DT, i = e % DT;
-    zaT[e] = a0 + i < m ? z[(size_t)(a0 + i) * q + k] : 0.0;
-    zbT[e] = b0 + i < m ? z[(size_t)(b0 + i) * q + k] : 0.0;
-  }
-  if (diag)
-    for (int e = tid; e < DT * d; e += DNT) cacc[e] = 0.0;
-
   const long lo = (long)slice * rows_per_slice;
   const long hi = min((long)n, lo + rows_per_slice);
   const int n_chunks = hi > lo ? (int)((hi - lo + DRC - 1) / DRC) : 0;
+  // This slice's C rows of the tile, owned by the diagonal block: each
+  // entry is accumulated by one thread, no atomics, in shared memory
+  // (staged_y) or in part_c.
+  const bool staged_y = !CHUNKED && d <= DC;
+  double* pc = part_c + ((size_t)slice * nts * DT + a0) * d;
+  if (diag)
+    for (int e = tid; e < DT * d; e += DNT) (staged_y ? cacc : pc)[e] = 0.0;
 
-  // x, y, w of chunk c into buffer c % 3, rows past the slice zero-filled
+  // z of both tile sides and 1/ell^2, features [k0, k0 + kw)
+  auto stage_z = [&](int k0, int kw) {
+    for (int e = tid; e < kw; e += DNT) inv[e] = hp[1 + k0 + e];
+    for (int e = tid; e < kw * DT; e += DNT) {
+      const int k = e / DT, i = e % DT;
+      zaT[e] = a0 + i < m ? z[(size_t)(a0 + i) * q + k0 + k] : 0.0;
+      zbT[e] = b0 + i < m ? z[(size_t)(b0 + i) * q + k0 + k] : 0.0;
+    }
+  };
+  // x, w (and y when staged) of chunk c into buffer c % 3, rows past the
+  // slice zero-filled (q <= QC: a chunk's rows are contiguous)
   auto issue = [&](int c) {
     if (c >= n_chunks) return;
     const long r0 = lo + (long)c * DRC;
     const int bf = c % 3;
     const long xlim = (hi - r0) * q, ylim = (hi - r0) * d;
     for (int e = tid; e < DRC * q; e += DNT)
-      cp_async8(xs + bf * DRC * q + e, e < xlim ? x + r0 * q + e : x, e < xlim);
-    for (int e = tid; e < DRC * d; e += DNT)
-      cp_async8(ys + bf * DRC * d + e, e < ylim ? y + r0 * d + e : y, e < ylim);
+      cp_async8(xs + bf * DRC * QC + e, e < xlim ? x + r0 * q + e : x,
+                e < xlim);
+    if (staged_y)
+      for (int e = tid; e < DRC * d; e += DNT)
+        cp_async8(ys + bf * DRC * DC + e, e < ylim ? y + r0 * d + e : y,
+                  e < ylim);
     for (int e = tid; e < DRC; e += DNT)
       cp_async8(ws + bf * DRC + e, r0 + e < hi ? w + r0 + e : w, r0 + e < hi);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  // Rows [g*BG, g*BG + BG) of the slabs of chunk c, aw = w * ka and kb
-  // (kb = ka on a diagonal tile).  Each thread owns one column i of its
-  // half of the rows and takes BG/2 rows at a time, so each z and 1/ell^2
-  // it loads serves several rows.
-  constexpr int BG = 8;  // slab rows per build group
-  auto build = [&](int c, int g) {
-    const double* xb = xs + (c % 3) * DRC * q;
-    const double* wb = ws + (c % 3) * DRC;
-    double* aw = slabs + (c & 1) * 2 * DRC * LDK;
-    double* bs = aw + DRC * LDK;
+  // Rows [g*BG, g*BG + BG) of the slabs aw = w * ka and bs = kb (kb = ka on
+  // a diagonal tile) over the kw staged features, x rows from xb (row
+  // stride xld).  The exponent sums start at 0 (first) or at the partial
+  // sums stored in the slabs, and are exponentiated and weighted (last) or
+  // stored back.  Each thread owns one column i of its half of the rows
+  // and takes BG/2 rows at a time, so each z and 1/ell^2 it loads serves
+  // several rows.
+  auto build = [&](double* aw, double* bs, const double* xb, int xld,
+                   const double* wb, int g, int kw, bool first, bool last) {
     const int i = tid % DT, r0 = g * BG + (tid / DT) * (BG / 2);
     double sa[BG / 2], sb[BG / 2];
 #pragma unroll
-    for (int u = 0; u < BG / 2; ++u) sa[u] = sb[u] = 0.0;
-    for (int k = 0; k < q; ++k) {
+    for (int u = 0; u < BG / 2; ++u) {
+      sa[u] = first ? 0.0 : aw[(r0 + u) * LDK + i];
+      sb[u] = first || diag ? 0.0 : bs[(r0 + u) * LDK + i];
+    }
+    for (int k = 0; k < kw; ++k) {
       const double za = zaT[k * DT + i], zb = zbT[k * DT + i], iv = inv[k];
 #pragma unroll
       for (int u = 0; u < BG / 2; ++u) {
-        const double xv = xb[(r0 + u) * q + k];
+        const double xv = xb[(r0 + u) * xld + k];
         const double da = xv - za;
         sa[u] = fma(da * da, iv, sa[u]);
         if (!diag) {
@@ -372,9 +406,14 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
 #pragma unroll
     for (int u = 0; u < BG / 2; ++u) {
       const int r = r0 + u;
-      const double ka = sf2 * exp(-0.5 * sa[u]);
-      aw[r * LDK + i] = wb[r] * ka;
-      bs[r * LDK + i] = diag ? ka : sf2 * exp(-0.5 * sb[u]);
+      if (last) {
+        const double ka = sf2 * exp(-0.5 * sa[u]);
+        aw[r * LDK + i] = wb[r] * ka;
+        bs[r * LDK + i] = diag ? ka : sf2 * exp(-0.5 * sb[u]);
+      } else {
+        aw[r * LDK + i] = sa[u];
+        if (!diag) bs[r * LDK + i] = sb[u];
+      }
     }
   };
 
@@ -385,6 +424,27 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0;
+  // Rows [g*BG, g*BG + BG) of a chunk's product acc += aw^T bs on the
+  // tensor cores.
+  auto product = [&](const double* aw, const double* bs, int g) {
+#pragma unroll
+    for (int kk = g * BG / 4; kk < (g + 1) * BG / 4; ++kk) {
+      const int r = 4 * kk + tig;
+      double af[4][2], bf[4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        af[mt][0] = aw[r * LDK + i0 + mt * 16 + gid];
+        af[mt][1] = aw[r * LDK + i0 + mt * 16 + gid + 8];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) bf[nt] = bs[r * LDK + j0 + nt * 8 + gid];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) dmma(acc[mt][nt], af[mt], bf[nt]);
+    }
+  };
+
   bool first_fold = true;
   double* pd = part_d + ((size_t)slice * gridDim.y + tile) * DT * DT;
   double* pk = part_comp + ((size_t)slice * gridDim.y + tile) * DT * DT;
@@ -414,66 +474,94 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
   };
 
   double wsum = 0.0;
-  issue(0);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();  // z, 1/ell^2, chunk 0's rows
-  issue(1);
-  if (n_chunks > 0)
-    for (int g = 0; g < DRC / BG; ++g) build(0, g);
-
-  for (int c = 0; c < n_chunks; ++c) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // chunk c's slabs and chunk c+1's rows are in; c-1 is done
-    issue(c + 2);
-
-    // This chunk's product on the tensor cores, interleaved with the next
-    // chunk's slab build on the CUDA cores (the other slab buffer).
-    const double* aw = slabs + (c & 1) * 2 * DRC * LDK;
-    const double* bs = aw + DRC * LDK;
-#pragma unroll
-    for (int g = 0; g < DRC / BG; ++g) {
-#pragma unroll
-      for (int kk = g * BG / 4; kk < (g + 1) * BG / 4; ++kk) {
-        const int r = 4 * kk + tig;
-        double af[4][2], bf[4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          af[mt][0] = aw[r * LDK + i0 + mt * 16 + gid];
-          af[mt][1] = aw[r * LDK + i0 + mt * 16 + gid + 8];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) bf[nt] = bs[r * LDK + j0 + nt * 8 + gid];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) dmma(acc[mt][nt], af[mt], bf[nt]);
-      }
-      if (c + 1 < n_chunks) build(c + 1, g);
-    }
-
-    if (diag) {  // C rows of this tile; each entry owned by one thread
-      const double* yb = ys + (c % 3) * DRC * d;
+  // After chunk c's product: its C rows (diagonal tile) and its sum of w,
+  // then the Kahan fold every FOLD_CHUNKS chunks.
+  auto finish = [&](int c, const double* aw, const double* wb) {
+    if (diag && staged_y) {
+      const double* yb = ys + (c % 3) * DRC * DC;
       for (int e = tid; e < DT * d; e += DNT) {
         const int i = e / d, cc = e % d;
         double s = 0.0;
         for (int r = 0; r < DRC; ++r) s = fma(aw[r * LDK + i], yb[r * d + cc], s);
         cacc[e] += s;
       }
+    } else if (diag) {
+      const long r0 = lo + (long)c * DRC;
+      const int nr = (int)min((long)DRC, hi - r0);
+      for (int e = tid; e < DT * d; e += DNT) {
+        const int i = e / d, cc = e % d;
+        double s = 0.0;
+        for (int r = 0; r < nr; ++r) s = fma(aw[r * LDK + i], y[(r0 + r) * d + cc], s);
+        pc[e] += s;
+      }
     }
     if (tile == 0 && tid == 0) {
-      const double* wb = ws + (c % 3) * DRC;
       double s = 0.0;
       for (int r = 0; r < DRC; ++r) s += wb[r];
       wsum += s;
     }
     if ((c + 1) % FOLD_CHUNKS == 0 || c + 1 == n_chunks) fold();
+  };
+
+  if constexpr (!CHUNKED) {
+    stage_z(0, q);
+    issue(0);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // z, 1/ell^2, chunk 0's rows
+    issue(1);
+    if (n_chunks > 0)
+      for (int g = 0; g < DRC / BG; ++g)
+        build(slabs, slabs + DRC * LDK, xs, q, ws, g, q, true, true);
+
+    for (int c = 0; c < n_chunks; ++c) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // chunk c's slabs and chunk c+1's rows are in; c-1 is done
+      issue(c + 2);
+
+      // This chunk's product on the tensor cores, interleaved with the next
+      // chunk's slab build on the CUDA cores (the other slab buffer).
+      const double* aw = slabs + (c & 1) * 2 * DRC * LDK;
+      double* nxt = slabs + ((c + 1) & 1) * 2 * DRC * LDK;
+      const int nb = (c + 1) % 3;
+#pragma unroll
+      for (int g = 0; g < DRC / BG; ++g) {
+        product(aw, aw + DRC * LDK, g);
+        if (c + 1 < n_chunks)
+          build(nxt, nxt + DRC * LDK, xs + nb * DRC * QC, q, ws + nb * DRC,
+                g, q, true, true);
+      }
+      finish(c, aw, ws + (c % 3) * DRC);
+    }
+  } else {
+    double* aw = slabs;
+    double* bs = slabs + DRC * LDK;
+    for (int c = 0; c < n_chunks; ++c) {
+      const long r0 = lo + (long)c * DRC;
+      for (int k0 = 0; k0 < q; k0 += QC) {
+        const int kw = min(QC, q - k0);
+        __syncthreads();  // the staged features and the slabs are free
+        stage_z(k0, kw);
+        for (int e = tid; e < DRC * kw; e += DNT) {
+          const int r = e / kw, k = e % kw;
+          xs[r * QC + k] = r0 + r < hi ? x[(r0 + r) * q + k0 + k] : 0.0;
+        }
+        if (k0 == 0)
+          for (int e = tid; e < DRC; e += DNT)
+            ws[e] = r0 + e < hi ? w[r0 + e] : 0.0;
+        __syncthreads();
+        for (int g = 0; g < DRC / BG; ++g)
+          build(aw, bs, xs, QC, ws, g, kw, k0 == 0, k0 + QC >= q);
+      }
+      __syncthreads();  // the chunk's slabs are complete
+#pragma unroll
+      for (int g = 0; g < DRC / BG; ++g) product(aw, bs, g);
+      finish(c, aw, ws);
+    }
   }
   if (n_chunks == 0) fold();  // an empty slice writes zeros
 
-  if (diag) {
-    double* pc = part_c + ((size_t)slice * nts * DT + a0) * d;
+  if (diag && staged_y)
     for (int e = tid; e < DT * d; e += DNT) pc[e] = cacc[e];
-  }
   if (tile == 0 && tid == 0) part_b[slice] = sf2 * wsum;
 }
 
@@ -484,12 +572,13 @@ int launch_f64(const double* x, const double* y, const double* w,
                double* C, double* b, void* stream) {
   const int nts = (m + DT - 1) / DT;
   const int n_tiles = nts * (nts + 1) / 2;
-  const size_t smem = dmma_smem_bytes(q, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = q <= QC ? reg_stats_dmma<false> : reg_stats_dmma<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      reg_stats_dmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DMMA_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  reg_stats_dmma<<<dim3(n_slices, n_tiles), DNT, smem, s>>>(
+  kernel<<<dim3(n_slices, n_tiles), DNT, DMMA_SMEM_BYTES, s>>>(
       x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_comp,
       part_c, part_b);
   err = cudaGetLastError();
@@ -500,7 +589,6 @@ int launch_f64(const double* x, const double* y, const double* w,
       part_d, part_c, part_b, n_slices, nts, m, d, D, C, b);
   return cudaGetLastError();
 }
-
 template <typename T>
 int launch(const T* x, const T* y, const T* w, const T* z, const T* hp, int n,
            int m, int q, int d, int n_slices, int rows_per_slice, T* part_d,
@@ -542,8 +630,7 @@ extern "C" int reg_stats_f32(const float* x, const float* y, const float* w,
 
 // f64: as above, plus part_comp (n_slices, T, 128, 128) and 128-row tiles:
 // part_d (n_slices, T, 128, 128), part_c (n_slices, nts*128, d) with
-// nts = ceil(m/128).  Shared memory grows with q and d
-// (dmma_smem_bytes); past the card's 227 KB the launch fails.
+// nts = ceil(m/128).  Any q and d: shared memory is DMMA_SMEM_BYTES.
 extern "C" int reg_stats_f64(const double* x, const double* y, const double* w,
                              const double* z, const double* hp, int n, int m,
                              int q, int d, int n_slices, int rows_per_slice,

@@ -59,16 +59,12 @@ def predict_stats(hyp: dict, z, a_mean, g, x):
             f"predict_stats: shapes x {tuple(x.shape)}, z {tuple(z.shape)}, "
             f"a_mean {tuple(a_mean.shape)}, g {tuple(g.shape)}, "
             f"log_ell {tuple(hyp['log_ell'].shape)} do not agree")
-    if _k.smem_bytes(m, q, dt) > _k.SMEM_MAX:
-        raise ValueError(
-            f"predict_stats: m={m} at {dt} needs {_k.smem_bytes(m, q, dt)} "
-            f"bytes of shared memory for the query slab; the card gives a "
-            f"block {_k.SMEM_MAX}")
     xs, zs, am, gs = (v.to(dt).contiguous() for v in (x, z, a_mean, g))
     hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
                     torch.exp(-2.0 * hyp["log_ell"])]).to(dt).contiguous()
+    h, kscr = _k.scratch(t, m, dt, x.device)
     mean = torch.empty((t, d), dtype=dt, device=x.device)
     quad = torch.empty((t,), dtype=dt, device=x.device)
-    _k.predict(xs, zs, hp, am, gs, mean, quad)
+    _k.predict(xs, zs, hp, am, gs, h, kscr, mean, quad)
     LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return mean.to(x.dtype), quad.to(x.dtype)

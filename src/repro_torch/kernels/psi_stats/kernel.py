@@ -16,6 +16,7 @@ TILE = 64        # psi2 D tile edge in the CUDA source (TM)
 ROWS = 32        # psi2 rows staged per chunk in the CUDA source (RC)
 P1_ROWS = 32     # psi1 rows per block (PR)
 P1_COLS = 64     # psi1 columns per block (PC)
+FEATURES = 16    # features staged at a time in the CUDA source (QC)
 SMEM_MAX = 232_448   # dynamic shared memory a block may use on sm_90
 
 _P = ctypes.c_void_p
@@ -25,11 +26,13 @@ _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 
 def smem_bytes(kind: str, q: int, dtype) -> int:
     """Dynamic shared memory one block of ``psi1``/``psi2`` needs (the
-    launcher's formula)."""
+    launcher's ``psi2_smem``/``psi1_smem``).  The kernels stage q in chunks
+    of ``FEATURES``, so ``q`` does not change it."""
     item = torch.empty((), dtype=dtype).element_size()
     if kind == "psi2":
-        return item * (2 * q * TILE + 2 * ROWS * q + 2 * ROWS + 2 * q)
-    return item * (q * P1_COLS + 2 * P1_ROWS * q + P1_ROWS + 2 * q)
+        return item * (2 * FEATURES * TILE + 2 * ROWS * FEATURES + 2 * ROWS
+                       + FEATURES)
+    return item * (FEATURES * P1_COLS + 2 * P1_ROWS * FEATURES + P1_ROWS)
 
 
 def _fn(kind: str, dtype, argtypes):

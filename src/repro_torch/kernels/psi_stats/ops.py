@@ -40,7 +40,7 @@ def _tile_dtype(dtype) -> torch.dtype:
 
 
 def _check(name, hyp, z, mu, s, *more):
-    """Device, shape and shared-memory checks of the CUDA path."""
+    """Device and shape checks of the CUDA path."""
     operands = (z, mu, s, *more, hyp["log_sf2"], hyp["log_ell"])
     if mu.device.type != "cuda" or any(t.device != mu.device
                                        for t in operands):
@@ -56,11 +56,6 @@ def _check(name, hyp, z, mu, s, *more):
             f"z {tuple(z.shape)}, log_ell {tuple(hyp['log_ell'].shape)}"
             + "".join(f", w {tuple(t.shape)}" for t in more)
             + " do not agree")
-    dt = _tile_dtype(mu.dtype)
-    if _k.smem_bytes(name, q, dt) > _k.SMEM_MAX:
-        raise ValueError(f"{name}: q={q} at {dt} needs "
-                         f"{_k.smem_bytes(name, q, dt)} bytes of shared "
-                         f"memory; the card gives a block {_k.SMEM_MAX}")
 
 
 def _hp(log_sf2, log_ell, sf2_power: float, dt):

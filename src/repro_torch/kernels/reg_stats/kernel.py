@@ -16,16 +16,21 @@ TILE = 64      # D tile edge of the f32 instantiation (TM)
 ROWS = 32      # rows staged per chunk of the f32 instantiation (RC)
 TILE_F64 = 128   # D tile edge of the f64 (DMMA) instantiation (DT)
 ROWS_F64 = 32    # rows per chunk of the f64 instantiation (DRC)
+FEATURES_F64 = 16   # features of z, x and 1/ell^2 staged at a time (QC)
+COLUMNS_F64 = 8     # y columns staged and C columns held when d <= 8 (DC)
 SMEM_LIMIT = 232_448   # bytes of shared memory a block may use (sm_90)
 
 
 def smem_bytes_f64(q: int, d: int) -> int:
-    """Shared memory of one f64 block (``dmma_smem_bytes`` in the source):
-    double-buffered slabs, z of both tile sides, three buffers of x, y and
-    w rows, 1/ell^2 and the C rows."""
-    ld = TILE_F64 + 4
-    return 8 * (4 * ROWS_F64 * ld + 2 * q * TILE_F64
-                + 3 * ROWS_F64 * (q + d + 1) + q + TILE_F64 * d)
+    """Shared memory of one f64 block (``DMMA_SMEM_BYTES`` in the source):
+    double-buffered slabs, one q-chunk of z for both tile sides and of
+    1/ell^2, three buffers of one q-chunk of x rows, of 8 columns of y rows
+    and of w, and 8 columns of C rows.  The kernel stages q in chunks and,
+    past d = 8, accumulates C in device memory and reads y from there, so
+    neither ``q`` nor ``d`` changes it."""
+    ld, qc, dc = TILE_F64 + 4, FEATURES_F64, COLUMNS_F64
+    return 8 * (4 * ROWS_F64 * ld + 2 * qc * TILE_F64 + 3 * ROWS_F64 * qc
+                + 3 * ROWS_F64 * dc + 3 * ROWS_F64 + qc + TILE_F64 * dc)
 
 
 _P = ctypes.c_void_p

@@ -65,11 +65,6 @@ def _launch(log_sf2, log_ell, z, x, y, w):
                     torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
     if dt == f64:
         tile, rows = _k.TILE_F64, _k.ROWS_F64
-        if _k.smem_bytes_f64(q, d) > _k.SMEM_LIMIT:
-            raise ValueError(
-                f"reg_stats: q={q}, d={d} need "
-                f"{_k.smem_bytes_f64(q, d)} bytes of shared memory per "
-                f"block; the f64 kernel has {_k.SMEM_LIMIT}")
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
     else:

@@ -51,14 +51,19 @@ def _within(got, plain, plain_abs):
                 .le(rtol * plain.abs() + atol * plain_abs.abs()).all())
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,q,d", [(64, 16, 2, 1), (100, 37, 3, 2),
-                                     (257, 64, 10, 5), (32, 130, 1, 3),
-                                     (5000, 200, 8, 4),
-                                     # edges of the f64 kernel's 128-tiles,
-                                     # ragged n (15% zero weights)
-                                     (1037, 130, 8, 4), (4099, 512, 8, 4),
-                                     (2053, 600, 3, 2)])
+F64 = torch.float64
+RS_CASES = [(*shape, dtype) for shape in [
+    (64, 16, 2, 1), (100, 37, 3, 2), (257, 64, 10, 5), (32, 130, 1, 3),
+    (5000, 200, 8, 4),
+    # edges of the f64 kernel's 128-tiles, ragged n (15% zero weights)
+    (1037, 130, 8, 4), (4099, 512, 8, 4), (2053, 600, 3, 2)]
+    for dtype in DTYPES] + [
+    # f64 past one 16-feature chunk and with wide y: any q and d fit (at
+    # these q the kernel values sit near f32's underflow, so f64 only)
+    (1037, 130, 40, 1, F64), (1037, 130, 8, 64, F64), (517, 130, 200, 3, F64)]
+
+
+@pytest.mark.parametrize("n,m,q,d,dtype", RS_CASES)
 def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
     rng = np.random.default_rng(n + m)
     hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
@@ -129,12 +134,13 @@ def _psi_inputs(seed, n, m, q, device, dtype=torch.float64):
     return hyp, z, mu, s, w
 
 
-PSI_SHAPES = [(64, 16, 2), (100, 37, 3), (257, 64, 10), (32, 130, 1),
-              (1003, 37, 3), (5000, 150, 10)]
+PSI_CASES = [(*shape, dtype) for shape in [
+    (64, 16, 2), (100, 37, 3), (257, 64, 10), (32, 130, 1), (1003, 37, 3),
+    (5000, 150, 10)] for dtype in DTYPES] + [
+    (1003, 37, 160, F64)]    # ten 16-feature chunks
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,q", PSI_SHAPES)
+@pytest.mark.parametrize("n,m,q,dtype", PSI_CASES)
 def test_psi2_matches_plain(cuda, n, m, q, dtype):
     hyp, z, mu, s, w = _psi_inputs(n + m, n, m, q, cuda, dtype)
     name = str(dtype).removeprefix("torch.")
@@ -148,8 +154,7 @@ def test_psi2_matches_plain(cuda, n, m, q, dtype):
     assert _within(got, plain, plain)     # every term is positive
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,q", PSI_SHAPES)
+@pytest.mark.parametrize("n,m,q,dtype", PSI_CASES)
 def test_psi1_matches_plain(cuda, n, m, q, dtype):
     hyp, z, mu, s, _ = _psi_inputs(2 * n + m, n, m, q, cuda, dtype)
     name = str(dtype).removeprefix("torch.")
@@ -202,22 +207,31 @@ def test_predict_refuses_grad(cuda):
         p_ops.predict_stats(hyp, z, a_mean, g, x)
 
 
-def _predict_inputs(seed, t, m, q, d, device, dtype):
+def _predict_inputs(seed, t, m, q, d, device, dtype, symmetric=True):
+    """Queries, state and SE-ARD hyper-parameters; lengthscales grow as
+    sqrt(q), so kernel values stay O(1) (and above f32's underflow) at any
+    q."""
     rng = np.random.default_rng(seed)
     hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), device, dtype),
-           "log_ell": _t(rng.uniform(-0.4, 0.4, q), device, dtype)}
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), device,
+                         dtype)}
     g = rng.standard_normal((m, m))
     return (hyp, _t(rng.standard_normal((m, q)), device, dtype),
             _t(rng.standard_normal((m, d)), device, dtype),
-            _t(g + g.T, device, dtype),
+            _t(g + g.T if symmetric else g, device, dtype),
             _t(rng.standard_normal((t, q)), device, dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,m,q,d", [(64, 16, 2, 1), (100, 37, 3, 2),
-                                     (33, 130, 9, 5), (1000, 512, 8, 4)])
-def test_predict_matches_plain(cuda, t, m, q, d, dtype):
-    hyp, z, a_mean, g, x = _predict_inputs(t + m, t, m, q, d, cuda, dtype)
+@pytest.mark.parametrize("t,m,q,d,symmetric", [
+    (64, 16, 2, 1, True), (100, 37, 3, 2, True), (33, 130, 9, 5, True),
+    (1000, 512, 8, 4, True),
+    (1000, 512, 8, 4, False),     # g as given, not symmetric
+    # m past one block's slab, q past one 16-feature chunk
+    (300, 1024, 8, 4, True), (200, 2048, 3, 2, True), (200, 130, 300, 2, True)])
+def test_predict_matches_plain(cuda, t, m, q, d, symmetric, dtype):
+    hyp, z, a_mean, g, x = _predict_inputs(t + m, t, m, q, d, cuda, dtype,
+                                           symmetric)
     name = str(dtype).removeprefix("torch.")
     before = p_ops.LAUNCHES[name]
     got = p_ops.predict_stats(hyp, z, a_mean, g, x)
@@ -230,10 +244,11 @@ def test_predict_matches_plain(cuda, t, m, q, d, dtype):
         assert _within(r, p, pa)
 
 
+@pytest.mark.parametrize("m", [130, 1030])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_predict_rows_do_not_depend_on_padding(cuda, dtype):
+def test_predict_rows_do_not_depend_on_padding(cuda, dtype, m):
     """Output rows are bitwise the same whatever batch they arrive in."""
-    hyp, z, a_mean, g, x = _predict_inputs(9, 45, 130, 3, 2, cuda, dtype)
+    hyp, z, a_mean, g, x = _predict_inputs(9, 45, m, 3, 2, cuda, dtype)
     mean, quad = p_ops.predict_stats(hyp, z, a_mean, g, x)
     padded = torch.cat([x.flip(0), x, torch.zeros_like(x)])
     mean_p, quad_p = p_ops.predict_stats(hyp, z, a_mean, g, padded)

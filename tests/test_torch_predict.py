@@ -11,24 +11,34 @@ import pytest
 import torch
 
 from repro.kernels.predict import ops as j_p_ops
+from repro_torch.kernels.predict import kernel as p_k
 from repro_torch.kernels.predict import ops as p_ops
 from repro_torch.kernels.predict import ref as p_ref
 
+# (t, m, q, d, g symmetric, Pallas block_m)
 SHAPES = [
-    (64, 16, 2, 1),     # exact tile fit after padding
-    (100, 37, 3, 2),    # nothing divides anything
-    (33, 130, 9, 5),    # m > one tile, q padded
+    pytest.param(64, 16, 2, 1, True, 16,
+                 id="64-16-2-1"),      # exact tile fit after padding
+    pytest.param(100, 37, 3, 2, True, 16,
+                 id="100-37-3-2"),     # nothing divides anything
+    pytest.param(33, 130, 9, 5, True, 16,
+                 id="33-130-9-5"),     # m > one tile, q padded
+    pytest.param(100, 37, 3, 2, False, 16,
+                 id="100-37-3-2-nonsymmetric-g"),  # the function of any g
+    pytest.param(40, 1030, 3, 2, True, 128,
+                 id="40-1030-3-2"),    # m > 768: no (t, m) slab fits a block
 ]
 
 
-def _inputs(seed, t, m, q, d):
+def _inputs(seed, t, m, q, d, symmetric=True):
     rng = np.random.default_rng(seed)
     hyp = {"log_sf2": np.asarray(rng.uniform(-0.5, 0.8)),
            "log_ell": rng.uniform(-0.4, 0.4, q)}
     z = rng.standard_normal((m, q))
     a_mean = rng.standard_normal((m, d))
     g = rng.standard_normal((m, m))
-    g = g + g.T                                   # symmetric like the real g
+    if symmetric:
+        g = g + g.T                               # symmetric like the real g
     x = rng.standard_normal((t, q))
     return hyp, z, a_mean, g, x
 
@@ -39,12 +49,12 @@ def _torch(hyp, *arrs, device="cpu", dtype=torch.float64):
     return {k: t(v) for k, v in hyp.items()}, *map(t, arrs)
 
 
-@pytest.mark.parametrize("t,m,q,d", SHAPES)
-def test_plain_matches_pallas_interpret(t, m, q, d):
-    hyp, z, a_mean, g, x = _inputs(t + m, t, m, q, d)
+@pytest.mark.parametrize("t,m,q,d,symmetric,block_m", SHAPES)
+def test_plain_matches_pallas_interpret(t, m, q, d, symmetric, block_m):
+    hyp, z, a_mean, g, x = _inputs(t + m, t, m, q, d, symmetric)
     jh = {k: jnp.asarray(v) for k, v in hyp.items()}
     want = j_p_ops.predict_stats(jh, *map(jnp.asarray, (z, a_mean, g, x)),
-                                 block_t=32, block_m=16)
+                                 block_t=32, block_m=block_m)
     got = p_ops.predict_stats(*_torch(hyp, z, a_mean, g, x))
     for name, a, b in zip(("mean", "quad"), got, want):
         assert a.dtype == torch.float64
@@ -82,3 +92,17 @@ def test_cpu_path_differentiates():
                                            ta, tg, xx)))(tx.detach())
     torch.testing.assert_close(gx, want, rtol=1e-12, atol=1e-14)
     assert bool(gx.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [150, 512, 2048, 8192])
+def test_shared_memory_is_fixed_and_fits(m, dtype):
+    """The CUDA block's shared memory (two 32-row chunks of a pair tile and
+    the 64 x 128 slab panel, row stride 132; one 16-feature chunk of z, the
+    x rows, 1/ell^2, the quad partials) is one constant per dtype, whatever
+    m and q, and fits the card's 227 KB."""
+    item = torch.empty((), dtype=dtype).element_size()
+    want = item * (2 * 32 * 132 + 64 * 132 + 16 * 128 + 64 * 17 + 16 + 256)
+    for q in (1, 8, 300, 1000):
+        assert p_k.smem_bytes(m, q, dtype) == want <= p_k.SMEM_MAX
+    assert p_k.pair_tiles(m) == (-(-m // 128)) * (-(-m // 128) + 1) // 2

@@ -28,6 +28,7 @@ from repro.kernels.psi_stats import ops as j_ps_ops
 from repro_torch.core import covariance
 from repro_torch.core import gp_kernels as t_gpk
 from repro_torch.kernels import _vjp
+from repro_torch.kernels.psi_stats import kernel as ps_k
 from repro_torch.kernels.psi_stats import ops as ps_ops
 from repro_torch.kernels.psi_stats import ref as ps_ref
 from repro_torch.kernels.reg_stats import ops as rs_ops
@@ -191,3 +192,19 @@ def test_reg_stats_vjp_matches_autograd(monkeypatch):
                 for sh in ((), (m, d), (m, m)))
     _assert_grads(rs_ops.reg_stats_vjp(*inputs, *cts, [True] * 6),
                   _plain_grads(rs_ref.reg_stats_ref, inputs, cts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["psi2", "psi1"])
+def test_shared_memory_is_fixed_and_fits(kind, dtype):
+    """The CUDA blocks' shared memory is one constant per kernel and dtype,
+    whatever q: z, mu and 1/(l^2 + c s) are staged 16 features at a time
+    (psi2: half z of both 64-wide sides, 32 rows of mu and 1/(l^2 + 2s),
+    their log-normalisers and weights, 1/l^2; psi1: z of 64 columns, 32
+    rows of mu and 1/(l^2 + s), their log-normalisers).  It fits the card's
+    227 KB."""
+    item = torch.empty((), dtype=dtype).element_size()
+    want = item * ((2 * 16 * 64 + 2 * 32 * 16 + 2 * 32 + 16) if kind == "psi2"
+                   else (16 * 64 + 2 * 32 * 16 + 32))
+    for q in (1, 10, 150, 224, 300, 1000):
+        assert ps_k.smem_bytes(kind, q, dtype) == want <= ps_k.SMEM_MAX

@@ -154,12 +154,14 @@ def test_fill_plan_at_sgpr_synth_1m():
 
 @pytest.mark.parametrize("q,d", [(8, 4), (1, 1), (10, 5), (3, 5)])
 def test_f64_shared_memory_fits_at_the_repos_shapes(q, d):
-    """The f64 block's shared memory (double-buffered 32 x 132 slabs, z of
-    both sides, three row buffers, C rows) fits the card's 227 KB at the
-    shapes the repo runs; sgpr-synth-1m (q 8, d 4) takes 165,696 bytes."""
-    got = rs_k.smem_bytes_f64(q, d)
-    assert got <= rs_k.SMEM_LIMIT
-    assert got == 8 * (4 * 32 * 132 + 2 * q * 128 + 3 * 32 * (q + d + 1)
-                       + q + 128 * d)
-    assert rs_k.smem_bytes_f64(8, 4) == 165_696
-    assert rs_k.smem_bytes_f64(60, 4) > rs_k.SMEM_LIMIT
+    """The f64 block's shared memory (double-buffered 32 x 132 slabs, one
+    16-feature chunk of z for both sides and of 1/ell^2, three buffers of
+    one chunk of x rows, of 8 columns of y rows and of w, 8 columns of the
+    C rows) is one constant, 195,456 bytes, at the shapes the repo runs and
+    at any other q and d, and fits the card's 227 KB."""
+    want = 8 * (4 * 32 * 132 + 2 * 16 * 128 + 3 * 32 * 16 + 3 * 32 * 8
+                + 3 * 32 + 16 + 128 * 8)
+    assert rs_k.smem_bytes_f64(q, d) == want == 195_456
+    for qq in (1, 8, 300, 1000):
+        for dd in (1, 8, 300, 1000):
+            assert rs_k.smem_bytes_f64(qq, dd) == want <= rs_k.SMEM_LIMIT
