@@ -13,7 +13,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
    and ``gplvm-synth-100k`` shapes; f64 reg_stats at q = 40 and at d = 64,
    predict at m = 2048 and f64 psi at q = 160, past one 16-feature chunk or
-   one block's slab, checked untimed; flash attention, bf16 and f32, at the
+   one block's slab, checked untimed; f64 psi2 at m = 63, 65 and 151 (its
+   patch and tile edges) and where its centred exponent's terms are
+   largest against their sum, D exactly symmetric and bitwise the same on
+   a second run; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
    as a yardstick; and cuBLAS's f64 ``K^T (w K)`` and ``K g`` over a
@@ -333,18 +336,23 @@ def psi_rows(m, q) -> int:
 
 def psi_bound(kind, n_eff, n, m, q, dtype, peaks) -> tuple[float, str]:
     """Least time for psi2 (the upper half of D's pairs, over the rows with
-    nonzero weight: zero-weight rows are skipped) or psi1: each (row, pair
-    or point) costs 4q + 3 flops (per q a subtraction, a product and an
-    FMA) and one exp at its ``EXP_COST``; bytes read once, written once."""
+    nonzero weight: zero-weight rows are skipped) or psi1, each (row, pair
+    or point) at the least work its kernel's form needs, plus one exp at
+    its ``EXP_COST``; or the bytes read once, written once.  psi2's
+    centred exponent costs 2q + 5 flops a pair (per q one FMA of
+    u_a (z_b - mu)/(2c); the two alphas, the weighted exp's FMA), psi1's
+    direct one 4q + 3 (per q a subtraction, a product and an FMA)."""
     item = 4 if dtype == torch.float32 else 8
     peak = peaks[0] if dtype == torch.float32 else peaks[1]
     if kind == "psi2":
         entries = n_eff * m * (m + 1) / 2
+        flops = 2 * q + 5
         nbytes = item * (n * (2 * q + 1) + m * q + 2 * q + 1) + 8 * m * m
     else:
         entries = n * m
+        flops = 4 * q + 3
         nbytes = item * (2 * n * q + m * q + 2 * q + 1 + n * m)
-    t_ops = entries * (4 * q + 3) / peak + entries * EXP_COST[dtype] / peaks[0]
+    t_ops = entries * flops / peak + entries * EXP_COST[dtype] / peaks[0]
     t_bytes = nbytes / peaks[2]
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -353,23 +361,21 @@ def psi_launch_only(kind, hyp, z, mu, s, w):
     """The bare ctypes launch of a psi kernel on operands prepared once:
     the kernel's device time without the wrapper's casts, hyper-parameter
     vector and allocations (the wrapper's time is ``ms``)."""
-    from repro_torch.kernels import _build
     from repro_torch.kernels.psi_stats import kernel as ps_k
 
-    n, m = mu.shape[0], z.shape[0]
-    hp = torch.cat([torch.exp((2.0 if kind == "psi2" else 1.0)
-                              * hyp["log_sf2"]).reshape(1),
-                    torch.exp(2.0 * hyp["log_ell"]),
-                    torch.exp(-2.0 * hyp["log_ell"])]).to(mu.dtype)
+    n, m, q = mu.shape[0], z.shape[0], z.shape[1]
     if kind == "psi1":
+        hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
+                        torch.exp(2.0 * hyp["log_ell"]),
+                        torch.exp(-2.0 * hyp["log_ell"])]).to(mu.dtype)
         out = torch.empty((n, m), dtype=mu.dtype, device=DEV)
         return lambda: ps_k.psi1(mu, s, z, hp, out)
-    n_tiles, n_slices, rows = _build.slice_plan(n, m, mu.device, ps_k.TILE,
-                                                ps_k.ROWS)
-    part = torch.empty((n_slices, n_tiles, ps_k.TILE, ps_k.TILE),
-                       dtype=mu.dtype, device=DEV)
+    log_sf2, log_ell = (hyp[k].to(mu.dtype).contiguous()
+                        for k in ("log_sf2", "log_ell"))
+    n_slices, rows, scratch = ps_k.psi2_scratch(n, m, q, mu.dtype, mu.device)
     d_out = torch.empty((m, m), dtype=torch.float64, device=DEV)
-    return lambda: ps_k.psi2(mu, s, w, z, hp, n_slices, rows, part, d_out)
+    return lambda: ps_k.psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows,
+                             scratch, d_out)
 
 
 def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
@@ -393,11 +399,14 @@ def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
     rows = psi_rows(m, q)
     out = {}
     d_stat = ps_ops.psi2(hyp, z, mu, s, w)
+    again = ps_ops.psi2(hyp, z, mu, s, w)
     plain = ps_ref.psi2_ref(*h64, z64, mu64, s64, w64, chunk=rows)
     torch.cuda.synchronize()
     if d_stat.shape != (m, m) or not torch.equal(d_stat, d_stat.T):
         raise AssertionError("psi2: D has the wrong shape or is not exactly "
                              "symmetric")
+    if not torch.equal(d_stat, again):
+        raise AssertionError("psi2: two runs on the same inputs differ")
     err, worst = check_close("psi2", d_stat, plain, plain)
     out["psi2"] = {"max_abs_err": err, "max_err_over_bound": worst}
     p1 = ps_ops.psi1(hyp, z, mu, s)
@@ -426,6 +435,34 @@ def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
         print(f"{kind} ", dict(shape=dict(n=n, m=m, q=q), dtype=str(dtype),
                                masked=masked, **out[kind]), flush=True)
     return out
+
+
+def check_psi2_midway(ps_ops, ps_ref, n, m, q):
+    """f64 psi2 where the centred exponent's terms are largest against their
+    sum: pairs of inducing points at +-70 d_j (d_j unit vectors, l^2 = q),
+    the rows' means near 0, midway between them.  Each term alpha ~ 120
+    while mu - zbar ~ 0; D holds exp(static) ~ exp(-490) there."""
+    rng = np.random.default_rng(SEED + 7)
+    f64 = torch.float64
+    d = rng.standard_normal((m // 2, q))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.concatenate([70.0 * d, -70.0 * d])
+    mu = 1e-3 * rng.standard_normal((n, q))
+    s = rng.uniform(0.05, 1.0, (n, q))
+    w = (rng.uniform(size=n) > 0.15).astype(np.float64)
+    hyp = {"log_sf2": torch.tensor(0.3, dtype=f64, device=DEV),
+           "log_ell": torch.full((q,), 0.5 * math.log(q), dtype=f64,
+                                 device=DEV)}
+    z, mu, s, w = (torch.from_numpy(a).to(DEV) for a in (z, mu, s, w))
+    got = ps_ops.psi2(hyp, z, mu, s, w)
+    plain = ps_ref.psi2_ref(hyp["log_sf2"], hyp["log_ell"], z, mu, s, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, got.T):
+        raise AssertionError("psi2 midway: D is not exactly symmetric")
+    err, worst = check_close("psi2 midway", got, plain, plain)
+    print("psi2 midway ", dict(shape=dict(n=n, m=m, q=q), dtype=str(f64),
+                               max_abs_err=err, max_err_over_bound=worst,
+                               min_plain=float(plain.min())), flush=True)
 
 
 def reset_counts(*counts):
@@ -1023,6 +1060,12 @@ def main() -> int:
     # Ten 16-feature chunks: shared memory is fixed.
     check_psi(ps_ops, ps_ref, peaks, 1003, 37, 160, torch.float64,
               masked=True, timed=False)
+    # psi2's packed patches at the tile edges, and its centred exponent
+    # where its terms are largest against their sum.
+    for m in (63, 65, 151):
+        check_psi(ps_ops, ps_ref, peaks, 1003, m, 10, torch.float64,
+                  masked=True, timed=False)
+    check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
         fa_full[dtype] = check_flash(fa_ops, fa_ref, peaks, LM_BATCH, 32, 8,

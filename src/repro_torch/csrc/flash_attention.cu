@@ -47,18 +47,46 @@
 //   yet.
 //
 // f32 (f32 compute): every multiply-add in IEEE f32 on the CUDA cores (no
-//   tensor cores, no TF32), so its floor is the f32 FMA rate.  One block per
-//   (b, h, 64-row query tile) loops over 64-key tiles, Q staged once and K,
-//   V per tile in shared memory (Q and K transposed, so each thread reads 4
-//   rows and 4 keys as one 16-byte load); each of 256 threads owns a 4-row x
-//   4-key patch of the score tile, then the same 4 rows x Dh/16 columns of
-//   the output; P goes through shared memory between the two products.
+//   tensor cores, no TF32).  Its floor is the f32 FMA rate (128 lanes an
+//   SM a clock), and beside it shared memory, which delivers 128 bytes an
+//   SM a clock: an R x C register tile of a product whose operands both
+//   come from shared memory takes 4 (1/R + 1/C) bytes per FMA, exactly 1
+//   at 8 x 8, so the FMA pipes and the shared-memory path saturate
+//   together there (on the A100, with half the FMA lanes, 8 x 8 left
+//   shared memory half idle).  A larger tile does not fit the registers
+//   beside the output accumulator.
+//   * The query heads of one kv group share a block (hb of them, the
+//     largest power of two up to 8 dividing the group; 128 rows in all),
+//     so each K/V tile is loaded once for all of them, not once per head.
+//   * K and V tiles (64 keys at Dh 64, 32 at Dh 128) are loaded by cp.async,
+//     each in one buffer, staggered: K of tile i + 1 while tile i's P V
+//     runs, V of tile i while its scores and softmax run.  q, k and v keep
+//     their natural row layout (a thread reads 4 features of a row as one
+//     16-byte load), rows padded by 4 floats so the loads of a quarter-warp
+//     fall on distinct banks.  Views whose bases or strides are not 16-byte
+//     aligned are copied 4 bytes at a time instead.  At Dh 64 a block needs
+//     111,616 bytes, so two 128-thread blocks share an SM and one's
+//     barriers overlap the other's work (a 256-row block with a two-stage
+//     ring measured the same).
+//   * Each thread owns 8 rows x 8 keys of the score tile (8 x 4 at Dh 128)
+//     and the same 8 rows x 8 columns of the output (x 16 at Dh 128): 16
+//     FMAs per 16-byte load in both products, 1 byte per FMA.  Rows are
+//     interleaved (ty + TY i) and keys too (tx + TX j), so a quarter-warp's
+//     loads are conflict-free.  4 rows a thread with twice the threads
+//     (more warps to hide latency) measured slower: 1.5 bytes per FMA.
+//   * The softmax: the row max by shuffles across the 8 threads of a row,
+//     the row sum per thread, summed once at the end.  Each thread keeps
+//     its running max and sum in shared memory rather than registers
+//     (read once a tile; the products use the registers), and P goes
+//     through shared memory (transposed, each thread's rows contiguous)
+//     between the two products: two barriers per key tile.
 //
 // Rules both designs keep:
 //   * The TPU walks a sequential kv grid axis and carries the running max,
 //     normaliser and accumulator in VMEM scratch.  Here a block loops over
-//     the key tiles itself, the three running quantities in registers.  The
-//     kv head is h / group, so grouped K/V is read in place.
+//     the key tiles itself, the three running quantities on chip (the
+//     accumulator in registers).  The kv head is h / group, so grouped K/V
+//     is read in place.
 //   * Masked scores are -inf, not a large negative number: a tile in which
 //     a row sees nothing leaves that row's max at -inf, its exps are taken
 //     against 0 and come out exactly 0, and the row's sum stays 0, so a row
@@ -68,8 +96,9 @@
 //   * Key tiles entirely above the diagonal are never loaded.  Query tiles
 //     are issued last-first, so the longest rows of a causal launch start
 //     first.
-//   * Exps are exp2 (the SFU's ex2) of scores times scale * log2(e) minus
-//     the row max.  Scores, softmax and sums are f32; o is in q's type.
+//   * Exps are exp2 (the SFU's ex2, flush-to-zero: one instruction) of
+//     scores times scale * log2(e) minus the row max.  Scores, softmax and
+//     sums are f32; o is in q's type.
 //
 // Instantiations: Dh 64 and 128 for each type.  C interface, bound with
 // ctypes from src/repro_torch/kernels/flash_attention/kernel.py.
@@ -534,167 +563,290 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
 // f32: the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per kv tile
-constexpr int NT = 256;       // threads: 16 x 16, each 4 rows x 4 keys
-constexpr int LDT = BQ + 4;   // row stride (floats) of the transposed tiles
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+// Block shapes per head dim: TY x TX threads, each owning RPT = 8 query
+// rows (ty + TY i) x BK/TX keys (tx + TX j) of the score tile and the same
+// 8 rows x DH/TX columns (tx*4 + 4 TX c + e) of the output.
+template <int DH> struct F32Cfg;
+template <> struct F32Cfg<64> {
+  static constexpr int TY = 16, TX = 8, BK = 64;   // 128 rows, 8 x 8 scores
+};
+template <> struct F32Cfg<128> {
+  static constexpr int TY = 16, TX = 8, BK = 32;   // 128 rows, 8 x 4 scores
+};
 
 template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * DH * LDT + BK * (DH + 4) + BK * LDT);
+struct F32Layout {
+  using C = F32Cfg<DH>;
+  static constexpr int TY = C::TY, TX = C::TX, BK = C::BK, RPT = 8;
+  static constexpr int NT = TX * TY;      // threads
+  static constexpr int BR = RPT * TY;     // query rows per block
+  static constexpr int KPT = BK / TX;     // keys per thread
+  static constexpr int CPT = DH / TX;     // output columns per thread
+  static constexpr int LD = DH + 4;       // row stride of the q, k, v tiles
+  static constexpr int LDP = BR + 4;      // row stride of the p tile
+  static constexpr int Q_OFF = 0;                    // [BR][LD]
+  static constexpr int K_OFF = Q_OFF + BR * LD;      // [BK][LD]
+  static constexpr int V_OFF = K_OFF + BK * LD;      // [BK][LD]
+  static constexpr int P_OFF = V_OFF + BK * LD;      // [BK][LDP]
+  static constexpr int M_OFF = P_OFF + BK * LDP;     // [RPT][NT] running max
+  static constexpr int L_OFF = M_OFF + RPT * NT;     // [RPT][NT] running sum
+  static constexpr size_t SMEM = sizeof(float) * (L_OFF + RPT * NT);
+};
+
+// Asynchronous copies into shared memory; a source size of 0 writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int group, int t,
-          int s_len, Strides qs, Strides ks, Strides vs, int causal,
-          float scale_log2) {
-  constexpr int LDV = DH + 4;
-  constexpr int NC = DH / 64;                  // 4-column groups per thread
+// Four floats at src (16-byte aligned when vec) into dst.
+__device__ __forceinline__ void cp_row4(float* dst, const float* src, bool ok,
+                                        bool vec) {
+  if (vec) {
+    cp_async16(dst, src, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + e, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F32Layout<DH>::NT)
+fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int h,
+              int group, int hb, int t, int s_len, Strides qs, Strides ks,
+              Strides vs, int causal, float scale_log2, int vec) {
+  using L = F32Layout<DH>;
+  constexpr int TY = L::TY, TX = L::TX, BK = L::BK, NT = L::NT, BR = L::BR;
+  constexpr int RPT = L::RPT, KPT = L::KPT, CPT = L::CPT, LD = L::LD;
+  constexpr int LDP = L::LDP;
+  constexpr int D4 = DH / 4;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DH][LDT]  q tile, transposed
-  float* kt = qt + DH * LDT;                    // [DH][LDT]  k tile, transposed
-  float* vt = kt + DH * LDT;                    // [BK][LDV]  v tile
-  float* pt = vt + BK * LDV;                    // [BK][LDT]  p tile, transposed
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const qsm = sm + L::Q_OFF;
+  float* const psm = sm + L::P_OFF;
+  float* const msm = sm + L::M_OFF;
+  float* const lsm = sm + L::L_OFF;
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int hi = blockIdx.y, bi = blockIdx.z, kh = hi / group;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int rh = BR / hb;                       // rows of each head
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rh;
+  const int h0 = blockIdx.y * hb, bi = blockIdx.z;
   const int q_offset = s_len - t;
-  const T* qb = q + bi * qs.b + hi * qs.h;
-  const T* kb = k + bi * ks.b + kh * ks.h;
-  const T* vb = v + bi * vs.b + kh * vs.h;
+  const float* kb = k + bi * ks.b + (h0 / group) * ks.h;
+  const float* vb = v + bi * vs.b + (h0 / group) * vs.h;
 
-  for (int e = tid; e < BQ * DH; e += NT) {
-    const int r = e / DH, d = e % DH;
-    qt[d * LDT + r] = q0 + r < t ? to_f32(qb[(q0 + r) * qs.t + d]) : 0.f;
-  }
-  // Keys [0, kv_end) hold every key a row of this tile sees.
+  // Keys [0, kv_end) hold every key a row of this block sees.
   int kv_end = s_len;
-  if (causal) kv_end = min(s_len, max(0, min(q0 + BQ, t) + q_offset));
+  if (causal) kv_end = min(s_len, max(0, min(q0 + rh, t) + q_offset));
+  const int n_kt = (kv_end + BK - 1) / BK;
 
-  float m_i[4], l_i[4], acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  float* const kt = sm + L::K_OFF;
+  float* const vt = sm + L::V_OFF;
+  // K or V (base xb, row stride xt) of keys [k0, k0 + BK) into dst; keys
+  // past S are zeros.
+  auto load_tile = [&](float* dst, const float* xb, long long xt, int k0) {
+    for (int c = tid; c < BK * D4; c += NT) {
+      const int j = c / D4, d = (c % D4) * 4;
+      const bool ok = k0 + j < s_len;
+      cp_row4(dst + j * LD + d, xb + (ok ? k0 + j : 0) * xt + d, ok, vec);
+    }
+  };
+
+  if (n_kt > 0) {
+    // Q once (row r: head h0 + r / rh, query q0 + r % rh), then K of tile 0.
+    for (int c = tid; c < BR * D4; c += NT) {
+      const int r = c / D4, d = (c % D4) * 4;
+      const int qr = q0 + r % rh;
+      const bool ok = qr < t;
+      const float* src = q + bi * qs.b + (long long)(h0 + r / rh) * qs.h
+                         + (long long)(ok ? qr : 0) * qs.t + d;
+      cp_row4(qsm + r * LD + d, src, ok, vec);
+    }
+    load_tile(kt, kb, ks.t, 0);
+    cp_async_commit();
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's products are done with kt, vt, pt
-    for (int e = tid; e < BK * DH; e += NT) {
-      const int j = e / DH, d = e % DH;
-      const bool in = k0 + j < s_len;
-      kt[d * LDT + j] = in ? to_f32(kb[(k0 + j) * ks.t + d]) : 0.f;
-      vt[j * LDV + d] = in ? to_f32(vb[(k0 + j) * vs.t + d]) : 0.f;
-    }
-    __syncthreads();
+  // The softmax state lives in shared memory, each thread's own, so the
+  // products keep the registers.
+  float acc[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    msm[i * NT + tid] = -INFINITY;
+    lsm[i * NT + tid] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
 
-    // s = q k^T for rows ty*4 + i, keys tx*4 + j
-    float s[4][4];
+  // K of tile it loads during the products of tile it - 1, V of tile it
+  // during the scores of tile it: two barriers a tile.
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK;
+    cp_async_wait_all();
+    __syncthreads();  // K of tile it landed; tile it-1's products are done
+    load_tile(vt, vb, vs.t, k0);
+    cp_async_commit();
+
+    // s = q k^T: per 4 features, RPT + KPT 16-byte loads for 4 RPT KPT FMAs
+    float s[RPT][KPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDT + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(kt + d * LDT + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 qf[RPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(qsm + (ty + TY * i) * LD + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < KPT; ++j) {
+        const float4 kf = *reinterpret_cast<const float4*>(kt + (tx + TX * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          s[i][j] = fmaf(qf[i].x, kf.x, s[i][j]);
+          s[i][j] = fmaf(qf[i].y, kf.y, s[i][j]);
+          s[i][j] = fmaf(qf[i].z, kf.z, s[i][j]);
+          s[i][j] = fmaf(qf[i].w, kf.w, s[i][j]);
+        }
+      }
     }
 
-    // online softmax over this tile's keys, in the log2 domain
+    // online softmax over this tile's keys, in the log2 domain; the row max
+    // across the TX threads of a row by shuffles, the row sum per thread
+    const bool masked = k0 + BK > s_len || (causal && k0 + BK - 1 > q0 + q_offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RPT; ++i) {
       float mx = -INFINITY;
+      if (masked) {
+        const int last = q0 + (ty + TY * i) % rh + q_offset;  // row's last key
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool seen = col < s_len && (!causal || col <= row + q_offset);
-        s[i][j] = seen ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < KPT; ++j) {
+          const int col = k0 + tx + TX * j;
+          if (col >= s_len || (causal && col > last)) s[i][j] = -INFINITY;
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int j = 0; j < KPT; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 1; off < TX; off <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
+      const float m_old = msm[i * NT + tid];
+      const float m_new = fmaxf(m_old, mx * scale_log2);
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m_i[i] - m_use);
+      const float corr = ex2(m_old - m_use);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_use);
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] = ex2(fmaf(s[i][j], scale_log2, -m_use));
         rs += s[i][j];
       }
+      lsm[i * NT + tid] = fmaf(lsm[i * NT + tid], corr, rs);
+      msm[i * NT + tid] = m_new;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
     }
+    // p, transposed: p[key][ty * RPT + i], a thread's rows contiguous
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * LDT + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+    for (int j = 0; j < KPT; ++j)
+#pragma unroll
+      for (int i = 0; i < RPT; i += 4)
+        *reinterpret_cast<float4*>(psm + (tx + TX * j) * LDP + ty * RPT + i) =
+            make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
+    cp_async_wait_all();
+    __syncthreads();  // V landed, every row's p is written, K is free
+    if (it + 1 < n_kt) {
+      load_tile(kt, kb, ks.t, k0 + BK);
+      cp_async_commit();
+    }
 
-    // acc += p v for rows ty*4 + i, columns cc*64 + tx*4 + c
-#pragma unroll 4
+    // acc += p v: per key, (RPT + CPT) / 4 16-byte loads for RPT CPT FMAs
+#pragma unroll 8
     for (int j = 0; j < BK; ++j) {
-      const float4 a = *reinterpret_cast<const float4*>(pt + j * LDT + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+      float pv[RPT];
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const float4 b = *reinterpret_cast<const float4*>(vt + j * LDV + cc * 64 + tx * 4);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < RPT; i += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(psm + j * LDP + ty * RPT + i);
+        pv[i] = p4.x;
+        pv[i + 1] = p4.y;
+        pv[i + 2] = p4.z;
+        pv[i + 3] = p4.w;
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int c = 0; c < CPT / 4; ++c) {
+        const float4 vf = *reinterpret_cast<const float4*>(vt + j * LD + tx * 4 + 4 * TX * c);
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][cc * 4 + c] = fmaf(av[i], bv[c], acc[i][cc * 4 + c]);
+        for (int i = 0; i < RPT; ++i) {
+          acc[i][4 * c + 0] = fmaf(pv[i], vf.x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(pv[i], vf.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pv[i], vf.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pv[i], vf.w, acc[i][4 * c + 3]);
+        }
       }
     }
   }
 
-  T* ob = o + ((long long)bi * gridDim.y + hi) * t * DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= t) continue;
-    const float inv = l_i[i] > 0.f ? 1.f / l_i[i] : 0.f;
+  for (int i = 0; i < RPT; ++i) {
+    float l = lsm[i * NT + tid];
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
+    for (int off = 1; off < TX; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int r = ty + TY * i, qr = q0 + r % rh;
+    if (qr >= t) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    float* orow = o + (((long long)bi * h + h0 + r / rh) * t + qr) * DH;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        store(ob + (long long)row * DH + cc * 64 + tx * 4 + c, acc[i][cc * 4 + c] * inv);
+    for (int c = 0; c < CPT / 4; ++c)
+      *reinterpret_cast<float4*>(orow + tx * 4 + 4 * TX * c) =
+          make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
+                      acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
   }
+}
+
+bool aligned16(const void* p, Strides st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
+         st.h % 4 == 0 && st.t % 4 == 0;
 }
 
 template <int DH>
 int launch_f32(const float* q, const float* k, const float* v, float* o, int b,
                int h, int hkv, int t, int s_len, Strides qs, Strides ks,
                Strides vs, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<float, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = F32Layout<DH>;
+  // The shared-memory attribute once per device: a runtime call per launch
+  // costs host time the card waits for.
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t + BQ - 1) / BQ, h, b);
-  fa_kernel<float, DH><<<grid, NT, smem, stream>>>(
-      q, k, v, o, h / hkv, t, s_len, qs, ks, vs, causal,
-      scale * 1.4426950408889634f);
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(fa_f32_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev] = true;
+  }
+  // hb query heads of one kv group share a block (the largest power of two
+  // up to 8 dividing the group), each with BR / hb query rows.
+  const int group = h / hkv;
+  int hb = 1;
+  while (hb < 8 && group % (2 * hb) == 0) hb *= 2;
+  const int rh = L::BR / hb;
+  const int vec = aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs);
+  const dim3 grid((t + rh - 1) / rh, h / hb, b);
+  fa_f32_kernel<DH><<<grid, L::NT, L::SMEM, stream>>>(
+      q, k, v, o, h, group, hb, t, s_len, qs, ks, vs, causal,
+      scale * 1.4426950408889634f, vec);
   return cudaGetLastError();
 }
 

@@ -14,6 +14,7 @@ plans) live here too.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -84,6 +85,9 @@ def build_all() -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -100,6 +104,21 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``, looked up once per device."""
+    import torch
+
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 def slice_plan(n: int, m: int, device, tile: int, rows: int
                ) -> tuple[int, int, int]:
     """Grid of a map kernel that owns one upper ``tile``×``tile`` block of
@@ -111,10 +130,8 @@ def slice_plan(n: int, m: int, device, tile: int, rows: int
     if n_tiles > MAX_GRID_Y:
         raise ValueError(f"m={m} needs {n_tiles} upper tiles; the kernel "
                          f"takes at most {MAX_GRID_Y}")
-    import torch
-
     chunks = max(1, -(-n // rows))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(device)
     n_slices = max(1, min(chunks, math.ceil(4 * sms / n_tiles)))
     per_slice = -(-chunks // n_slices) * rows
     return n_tiles, max(1, -(-n // per_slice)), per_slice

@@ -45,7 +45,7 @@ def scratch(t: int, m: int, dtype, device):
     COLS), and ``kscr``, each persistent block's slab entries of its
     current row block (blocks, tiles, ROWS, COLS), with one block per SM
     (at most one per row block)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _build.sm_count(device)
     blocks = min(-(-t // ROWS), sms)
     h = torch.empty((pair_tiles(m), COLS, COLS), dtype=dtype, device=device)
     kscr = torch.empty((blocks, -(-m // COLS), ROWS, COLS), dtype=dtype,

@@ -13,11 +13,14 @@ import torch
 from .. import _build
 
 TILE = 64        # psi2 D tile edge in the CUDA source (TM)
+PATCH = 4        # psi2 patch edge: a thread's PATCH x PATCH pairs (PP)
 ROWS = 32        # psi2 rows staged per chunk in the CUDA source (RC)
+THREADS = 256    # threads per block (NT)
 P1_ROWS = 32     # psi1 rows per block (PR)
 P1_COLS = 64     # psi1 columns per block (PC)
 FEATURES = 16    # features staged at a time in the CUDA source (QC)
 SMEM_MAX = 232_448   # dynamic shared memory a block may use on sm_90
+UNITS_PER_SM = 8     # psi2 (tile, row slice) units per SM the plan aims at
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,9 +33,41 @@ def smem_bytes(kind: str, q: int, dtype) -> int:
     of ``FEATURES``, so ``q`` does not change it."""
     item = torch.empty((), dtype=dtype).element_size()
     if kind == "psi2":
-        return item * (2 * FEATURES * TILE + 2 * ROWS * FEATURES + 2 * ROWS
-                       + FEATURES)
+        return item * (2 * FEATURES * TILE + 2 * ROWS * TILE
+                       + PATCH * PATCH * THREADS + 2 * ROWS * FEATURES
+                       + 2 * ROWS)
     return item * (FEATURES * P1_COLS + 2 * P1_ROWS * FEATURES + P1_ROWS)
+
+
+def psi2_plan(n: int, m: int, sms: int) -> tuple[int, int, int]:
+    """psi2's work split: (upper TILE x TILE tiles of D, n-slices, rows per
+    slice, a multiple of ``ROWS``).  Units (tile, slice) go on gridDim.x
+    and are walked grid-stride past its limit, so no m is refused; there
+    are about ``UNITS_PER_SM`` per SM where n allows, so the tiles' unequal
+    work evens out across the SMs."""
+    nts = -(-m // TILE)
+    n_tiles = nts * (nts + 1) // 2
+    chunks = max(1, -(-n // ROWS))
+    n_slices = max(1, min(chunks, -(-UNITS_PER_SM * sms // n_tiles)))
+    per_slice = -(-chunks // n_slices) * ROWS
+    return n_tiles, max(1, -(-n // per_slice)), per_slice
+
+
+def psi2_scratch_len(n: int, m: int, q: int, n_slices: int) -> int:
+    """Elements of psi2's scratch (the launcher's layout): the slice
+    partials of D's upper PATCH x PATCH patches, then hp = [sf2^2, l^2]
+    (q + 1), the rows' log-normalisers (n) and 1/(2 (l^2 + 2s)) (n, q)."""
+    np_ = -(-m // PATCH)
+    return (n_slices * (np_ * (np_ + 1) // 2) * PATCH * PATCH
+            + (q + 1) * (n + 1))
+
+
+def psi2_scratch(n: int, m: int, q: int, dtype, device):
+    """(n-slices, rows per slice, scratch) of one psi2 launch."""
+    _, n_slices, rows = psi2_plan(n, m, _build.sm_count(device))
+    scratch = torch.empty((psi2_scratch_len(n, m, q, n_slices),), dtype=dtype,
+                          device=device)
+    return n_slices, rows, scratch
 
 
 def _fn(kind: str, dtype, argtypes):
@@ -44,15 +79,17 @@ def _fn(kind: str, dtype, argtypes):
     return name, fn
 
 
-def psi2(mu, s, w, z, hp, n_slices, rows_per_slice, part, d_out) -> None:
-    """Launch psi2's instantiation for mu's dtype (tile pass, then the
-    fixed-order reduce) on the current stream."""
-    name, fn = _fn("psi2", mu.dtype, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _P, _P, _P])
+def psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows_per_slice, scratch,
+         d_out) -> None:
+    """Launch psi2's instantiation for mu's dtype (hyper-parameters, tile
+    pass, fixed-order reduce) on the current stream, with the scratch of
+    :func:`psi2_scratch`."""
+    name, fn = _fn("psi2", mu.dtype, [_P] * 6 + [_I] * 5 + [_P, _P, _P])
     n, q = mu.shape
     err = fn(mu.data_ptr(), s.data_ptr(), w.data_ptr(), z.data_ptr(),
-             hp.data_ptr(), n, z.shape[0], q, n_slices, rows_per_slice,
-             part.data_ptr(), d_out.data_ptr(), _build.stream_handle(mu.device))
+             log_sf2.data_ptr(), log_ell.data_ptr(), n, z.shape[0], q,
+             n_slices, rows_per_slice, scratch.data_ptr(), d_out.data_ptr(),
+             _build.stream_handle(mu.device))
     _build.check(name, err)
 
 

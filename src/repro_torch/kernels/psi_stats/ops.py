@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
 from .. import _vjp
 from . import kernel as _k
 from . import ref as _ref
@@ -33,6 +32,7 @@ from . import ref as _ref
 #: and tile dtype
 LAUNCHES = {"psi2_float32": 0, "psi2_float64": 0,
             "psi1_float32": 0, "psi1_float64": 0}
+_PSI2_KEY = {torch.float32: "psi2_float32", torch.float64: "psi2_float64"}
 
 
 def _tile_dtype(dtype) -> torch.dtype:
@@ -80,20 +80,21 @@ def psi2(hyp: dict, z, mu, s, w):
     return _Psi2.apply(log_sf2, log_ell, z, mu, s, w)
 
 
+def _as(t, dt):
+    """``t`` in dtype ``dt``, contiguous; ``t`` itself when it already is."""
+    return t if t.dtype == dt and t.is_contiguous() else t.to(dt).contiguous()
+
+
 def _launch_psi2(log_sf2, log_ell, z, mu, s, w):
     n, q = mu.shape
     m = z.shape[0]
     dt = _tile_dtype(mu.dtype)
-    mus, ss, ws, zs = (t.to(dt).contiguous() for t in (mu, s, w, z))
-    hp = _hp(log_sf2, log_ell, 2.0, dt)
-    n_tiles, n_slices, rows = _build.slice_plan(n, m, mu.device, _k.TILE,
-                                                _k.ROWS)
-    part = torch.empty((n_slices, n_tiles, _k.TILE, _k.TILE), dtype=dt,
-                       device=mu.device)
+    args = [_as(t, dt) for t in (mu, s, w, z, log_sf2, log_ell)]
+    n_slices, rows, scratch = _k.psi2_scratch(n, m, q, dt, mu.device)
     d_out = torch.empty((m, m), dtype=torch.float64, device=mu.device)
-    _k.psi2(mus, ss, ws, zs, hp, n_slices, rows, part, d_out)
-    LAUNCHES["psi2_" + str(dt).removeprefix("torch.")] += 1
-    return d_out.to(mu.dtype)
+    _k.psi2(*args, n_slices, rows, scratch, d_out)
+    LAUNCHES[_PSI2_KEY[dt]] += 1
+    return d_out if mu.dtype == torch.float64 else d_out.to(mu.dtype)
 
 
 def psi2_vjp(log_sf2, log_ell, z, mu, s, w, g, needs):

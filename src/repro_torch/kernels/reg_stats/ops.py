@@ -65,7 +65,7 @@ def _launch(log_sf2, log_ell, z, x, y, w):
                     torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
     if dt == f64:
         tile, rows = _k.TILE_F64, _k.ROWS_F64
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        sms = _build.sm_count(x.device)
         n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
     else:
         tile, rows = _k.TILE, _k.ROWS

@@ -167,6 +167,59 @@ def test_psi1_matches_plain(cuda, n, m, q, dtype):
     assert _within(got, plain, plain)
 
 
+# psi2's packed patches across the 64-point tile and 4-point patch edges,
+# one and ten 16-feature chunks, 15% zero weights (f32 only up to q 10:
+# past that the values sit near f32's underflow at these inputs).
+PSI2_EDGE_CASES = [(m, q, dtype) for m in (1, 63, 64, 65, 150, 151)
+                   for q in (1, 2, 10, 160) for dtype in DTYPES
+                   if dtype == F64 or q <= 10]
+
+
+@pytest.mark.parametrize("m,q,dtype", PSI2_EDGE_CASES)
+def test_psi2_patch_edges_match_plain(cuda, m, q, dtype):
+    hyp, z, mu, s, w = _psi_inputs(7 * m + q, 300, m, q, cuda, dtype)
+    assert bool((w == 0).any())
+    got = ps_ops.psi2(hyp, z, mu, s, w)
+    assert got.dtype == dtype and got.shape == (m, m)
+    assert torch.equal(got, got.T)
+    args = [hyp["log_sf2"], hyp["log_ell"], *(v.double() for v in (z, mu, s, w))]
+    plain = ps_ref.psi2_ref(*args, chunk=64)
+    assert _within(got, plain, plain)
+
+
+@pytest.mark.parametrize("n,m,q", [(4649, 150, 10), (1003, 37, 160),
+                                   (100_000, 100, 2)])
+def test_psi2_is_exactly_symmetric_and_repeatable(cuda, n, m, q):
+    """D is exactly symmetric and bitwise the same across runs: the slice
+    partials and the thread groups' sums are added in a fixed order."""
+    hyp, z, mu, s, w = _psi_inputs(n + q, n, m, q, cuda)
+    first = ps_ops.psi2(hyp, z, mu, s, w)
+    assert torch.equal(first, first.T)
+    for _ in range(2):
+        assert torch.equal(ps_ops.psi2(hyp, z, mu, s, w), first)
+
+
+def test_psi2_midway_meets_the_f64_tier(cuda):
+    """Rows whose means lie midway between far-apart inducing points (pairs
+    at +-70 d_j, l^2 = q): the centred exponent's terms (~120) are largest
+    against their sum there; D reaches down to exp(-490)."""
+    rng = np.random.default_rng(12)
+    n, m, q = 1003, 150, 10
+    d = rng.standard_normal((m // 2, q))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = _t(np.concatenate([70.0 * d, -70.0 * d]), cuda)
+    mu = _t(1e-3 * rng.standard_normal((n, q)), cuda)
+    s = _t(rng.uniform(0.05, 1.0, (n, q)), cuda)
+    w = _t(rng.uniform(size=n) > 0.15, cuda)
+    hyp = {"log_sf2": _t(0.3, cuda), "log_ell": _t(np.full(q, 0.5 * np.log(q)),
+                                                   cuda)}
+    got = ps_ops.psi2(hyp, z, mu, s, w)
+    plain = ps_ref.psi2_ref(hyp["log_sf2"], hyp["log_ell"], z, mu, s, w)
+    assert float(plain.min()) > 0.0
+    assert torch.equal(got, got.T)
+    assert _within(got, plain, plain)
+
+
 def test_psi2_zero_weights_and_tiles_do_not_leak(cuda):
     """Zero-weight rows contribute nothing: D over the rows with w = 1
     equals D over all rows with the rest masked, to f64 rounding."""
@@ -371,6 +424,45 @@ def test_flash_attention_matches_plain(cuda, b, h, hkv, t, s, dh, causal,
     if causal and t > s:
         assert bool((got[:, :, :t - s] == 0).all())
         assert bool((got[:, :, t - s:].abs().amax(-1) > 0).all())
+
+
+# Across the f32 kernel's blocks: 128 query rows packed from the heads of
+# one kv group (group 1, 3, 4, 6, 8, 16: 1, 1, 4, 2, 8, 8 heads a block),
+# 64-key tiles at Dh 64, 32-key at Dh 128; T = 1, T < S, T > S (rows
+# without a visible key), non-causal.
+FA32_SHAPES = [(1, 4, 1, 257, 257, 64, True), (2, 8, 1, 33, 300, 64, True),
+               (2, 2, 2, 300, 100, 64, True), (1, 8, 8, 1, 70, 64, False),
+               (1, 8, 8, 1, 70, 64, True), (1, 8, 1, 129, 65, 128, True),
+               (1, 4, 2, 200, 333, 128, False), (1, 6, 2, 100, 100, 64, True),
+               (1, 12, 2, 70, 130, 64, True), (1, 16, 1, 65, 65, 128, True),
+               (1, 4, 1, 513, 513, 64, False)]
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,dh,causal", FA32_SHAPES)
+def test_flash_attention_f32_tiles_and_groups(cuda, b, h, hkv, t, s, dh,
+                                              causal):
+    q, k, v = _fa_inputs(3 * t + s, b, h, hkv, t, s, dh, cuda, torch.float32)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    plain = fa_ref.attention_ref(q.double(), k.double(), v.double(),
+                                 causal=causal, chunk=256)
+    assert bool(((got.double() - plain).abs()
+                 <= FA_TOL[torch.float32] * (1 + plain.abs())).all())
+    if causal and t > s:      # rows without a visible key: exactly 0
+        assert bool((got[:, :, :t - s] == 0).all())
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_attention_f32_reads_unaligned_views(cuda, offset):
+    """f32 q, k and v views whose bases or strides are not 16-byte aligned
+    (a 65-wide buffer sliced to 64) are read in place, bitwise as their
+    contiguous copies."""
+    rng = np.random.default_rng(8)
+    q, k, v = (_t(rng.standard_normal(sh), cuda, torch.float32)[..., offset:offset + 64]
+               for sh in ((2, 100, 8, 65), (2, 100, 2, 65), (2, 100, 2, 65)))
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    got = fa_ops.flash_attention(*views)
+    want = fa_ops.flash_attention(*(x.contiguous() for x in views))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("t,dh", [(100, 64), (129, 128)])

@@ -199,12 +199,131 @@ def test_reg_stats_vjp_matches_autograd(monkeypatch):
 def test_shared_memory_is_fixed_and_fits(kind, dtype):
     """The CUDA blocks' shared memory is one constant per kernel and dtype,
     whatever q: z, mu and 1/(l^2 + c s) are staged 16 features at a time
-    (psi2: half z of both 64-wide sides, 32 rows of mu and 1/(l^2 + 2s),
-    their log-normalisers and weights, 1/l^2; psi1: z of 64 columns, 32
-    rows of mu and 1/(l^2 + s), their log-normalisers).  It fits the card's
-    227 KB."""
+    (psi2: z of both 64-point tiles, the alphas of their points for 32
+    rows, each of the 256 threads' 16 running sums, 32 rows of mu and
+    1/(2 (l^2 + 2s)), their log-normalisers and weights; psi1: z of 64
+    columns, 32 rows of mu and 1/(l^2 + s), their log-normalisers).  It
+    fits the card's 227 KB."""
     item = torch.empty((), dtype=dtype).element_size()
-    want = item * ((2 * 16 * 64 + 2 * 32 * 16 + 2 * 32 + 16) if kind == "psi2"
+    want = item * ((2 * 16 * 64 + 2 * 32 * 64 + 16 * 256 + 2 * 32 * 16
+                    + 2 * 32) if kind == "psi2"
                    else (16 * 64 + 2 * 32 * 16 + 32))
     for q in (1, 10, 150, 224, 300, 1000):
         assert ps_k.smem_bytes(kind, q, dtype) == want <= ps_k.SMEM_MAX
+
+
+def _psi2_centred(log_sf2, log_ell, z, mu, s, w):
+    """psi2 through the CUDA kernel's centred exponent, in plain torch.
+    Per row i and pair (a, b), with u_a = mu_i - z_a and c = l^2 + 2 s_i:
+    lognorm_i + alpha_ia + alpha_ib + sum_q u_a (z_b - mu_i) / (2c), where
+    alpha_ia = -sum_q u_a^2 / (4c); times exp(static_ab) and sf2^2."""
+    l2 = torch.exp(2.0 * log_ell)
+    iv = 1.0 / (4.0 * s + 2.0 * l2)                       # 1 / (2c), (n, q)
+    u = mu[:, None, :] - z[None, :, :]                     # (n, m, q)
+    alpha = -0.5 * (u * (u * iv[:, None, :])).sum(-1)      # (n, m)
+    cross = torch.einsum("iaq,ibq->iab", u, -u * iv[:, None, :])
+    lognorm = -0.5 * torch.log1p(2.0 * s / l2).sum(-1)
+    static = -0.25 * ((z[:, None, :] - z[None, :, :]) ** 2 / l2).sum(-1)
+    e = lognorm[:, None, None] + alpha[:, :, None] + alpha[:, None, :] + cross
+    return (torch.exp(2.0 * log_sf2) * torch.exp(static)
+            * torch.einsum("i,iab->ab", w, torch.exp(e)))
+
+
+def _midway(seed, n, m, q, scale):
+    """Pairs of inducing points at +-scale d_j (unit d_j, l^2 = q) and
+    means near 0, midway between them: there the centred exponent's terms
+    (alpha ~ scale^2 / (4 (q + 2 s))) are largest against their sum."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((m // 2, q))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.concatenate([scale * d, -scale * d])
+    hyp = {"log_sf2": np.asarray(0.3), "log_ell": np.full(q, 0.5 * np.log(q))}
+    mu = 1e-3 * rng.standard_normal((n, q))
+    s = rng.uniform(0.05, 1.0, (n, q))
+    w = (rng.uniform(size=n) > 0.15).astype(np.float64)
+    return hyp, z, mu, s, w
+
+
+@pytest.mark.parametrize("case", [*SHAPES, (37, 151, 10), "midway"])
+def test_centred_exponent_matches_plain(case):
+    """The CUDA psi2's exponent form against the direct form of
+    ``psi2_ref``, f64, rtol 1e-12: its terms are of the size of the direct
+    form's own (u_a^2/c against (mu - zbar)^2/c + (z_a - z_b)^2/(4 l^2)),
+    so unlike the Pallas body's expansion in mu^2/c it does not cancel;
+    ``midway`` puts every row between far-apart z_a, z_b (terms ~ 120,
+    D down to exp(-490))."""
+    if case == "midway":
+        hyp, z, mu, s, w = _midway(11, 40, 24, 10, 70.0)
+    else:
+        n, m, q = case
+        hyp, z, mu, s, w = _inputs(5 * n + m, n, m, q)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w)
+    args = (th["log_sf2"], th["log_ell"], tz, tmu, ts, tw)
+    want = ps_ref.psi2_ref(*args)
+    assert float(want.min()) > 0.0
+    _close(_psi2_centred(*args), want, rtol=1e-12, atol=0.0)
+
+
+def _tile_patches(m):
+    """The global patch indices the CUDA psi2's tiles give their threads:
+    a mirror of ``psi2_tiles``' packing (a diagonal tile's triangle, a
+    ragged tile's patches below m) and of ``patch_index``."""
+    tm, pp, nt = ps_k.TILE, ps_k.PATCH, ps_k.THREADS
+    nts, np_ = -(-m // tm), -(-m // pp)
+    seen = []
+    for ta in range(nts):
+        for tb in range(ta, nts):
+            na = min(tm // pp, -(-(m - ta * tm) // pp))
+            nb = min(tm // pp, -(-(m - tb * tm) // pp))
+            count = na * (na + 1) // 2 if ta == tb else na * nb
+            groups = max(1, nt // count)
+            assert 1 <= count and groups * count <= nt
+            for lt in range(count):
+                if ta == tb:
+                    pa, r = 0, lt
+                    while r >= na - pa:
+                        r, pa = r - (na - pa), pa + 1
+                    pb = pa + r
+                else:
+                    pa, pb = divmod(lt, nb)
+                ga, gb = ta * tm // pp + pa, tb * tm // pp + pb
+                assert ga <= gb < np_
+                seen.append(ga * np_ - ga * (ga - 1) // 2 + gb - ga)
+    return seen, np_ * (np_ + 1) // 2
+
+
+@pytest.mark.parametrize("m", [1, 4, 63, 64, 65, 100, 150, 151, 300])
+def test_psi2_tiles_pack_each_upper_patch_once(m):
+    """Every upper 4x4 patch of D (pa <= pb < ceil(m/4)) belongs to
+    exactly one thread of one tile, and nothing past it: the pairs the
+    kernel evaluates are D's upper triangle up to the patches' edges."""
+    seen, n_patches = _tile_patches(m)
+    assert sorted(seen) == list(range(n_patches))
+    pairs = 16 * n_patches
+    assert pairs >= m * (m + 1) // 2
+    if m == 150:     # gplvm-usps: 11,856 pairs evaluated for 11,325
+        assert pairs == 11_856
+
+
+@pytest.mark.parametrize("n,m", [(0, 5), (1, 1), (4649, 150), (100_000, 100),
+                                 (1003, 37), (1000, 23_105), (1000, 30_000),
+                                 (50, 100_000)])
+def test_psi2_plan_covers_every_row_and_refuses_no_m(n, m):
+    """psi2's plan covers the n rows once in slices of whole 32-row chunks
+    at any m, without a launch: the units go on gridDim.x (and are walked
+    grid-stride past it), where the old grid put the tiles on gridDim.y and
+    refused m > 23,104."""
+    n_tiles, n_slices, rows = ps_k.psi2_plan(n, m, 132)
+    nts = -(-m // ps_k.TILE)
+    assert n_tiles == nts * (nts + 1) // 2
+    assert rows % ps_k.ROWS == 0 and rows >= ps_k.ROWS
+    assert n_slices >= 1 and (n_slices - 1) * rows < max(n, 1)
+    assert n_slices * rows >= n
+    if n_tiles < ps_k.UNITS_PER_SM * 132 and n >= 32 * 132 * 8:
+        # about UNITS_PER_SM units per SM, less the rounding to whole chunks
+        assert n_tiles * n_slices >= 0.9 * ps_k.UNITS_PER_SM * 132
+    np_ = -(-m // 4)
+    assert ps_k.psi2_scratch_len(n, m, 10, n_slices) == (
+        n_slices * np_ * (np_ + 1) // 2 * 16 + 11 * (n + 1))
+    if m >= 23_105:
+        assert n_tiles > 65_535
