@@ -13,15 +13,18 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
    and ``gplvm-synth-100k`` shapes; f64 reg_stats at q = 40 and at d = 64,
    predict at m = 2048 and f64 psi at q = 160, past one 16-feature chunk or
-   one block's slab, checked untimed; f64 psi2 at m = 63, 65 and 151 (its
-   patch and tile edges) and where its centred exponent's terms are
-   largest against their sum, D exactly symmetric and bitwise the same on
-   a second run; flash attention, bf16 and f32, at the
+   one block's slab, f32 reg_stats at m = 23,200 (past the old gridDim.y
+   limit) and f64 at m = 2,048 (more units than SMs), checked untimed;
+   f64 psi2 and psi1 at m = 63, 65 and 151 (psi2's patch and tile edges)
+   and psi2 where its centred exponent's terms are largest against their
+   sum, D exactly symmetric and bitwise the same on a second run; the
+   backward alone (reg_stats_vjp at sgpr-synth-1m, psi2_vjp and psi1_vjp
+   at gplvm-usps), timed; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
-   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` and ``K g`` over a
-   materialised K, printed as yardsticks of the f64 reg_stats and predict
-   kernels' DMMA loops);
+   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` and f64 and f32 ``K g``
+   over a materialised K, printed as yardsticks of the reg_stats and
+   predict kernels' product loops);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
    plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
@@ -136,6 +139,24 @@ def time_ms(fn, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20) -> float:
+    """Device time of one call of ``fn`` without its host work: ``launches``
+    calls captured in one CUDA graph, the replay timed by ``time_ms``, per
+    call.  For kernels shorter than their own launch's host work, where
+    ``time_ms`` of a bare launch measures the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay) / launches
+
+
 def make_regression(rng, n, q, d, noise=0.1):
     """The formula of tests/conftest.py::make_regression."""
     x = rng.uniform(-2.0, 2.0, size=(n, q))
@@ -218,14 +239,14 @@ def predict_bound(t, m, q, d, dtype, peaks) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def cublas_quad_product_ms(t, m) -> float:
-    """Yardstick for the f64 predict kernel's DMMA loop, never called by the
-    port: the time of ``torch.matmul`` for K g over a materialised f64 K of
-    t x m (cuBLAS on the FP64 tensor cores; the full m x m product, no
-    slab, no exps)."""
+def cublas_quad_product_ms(t, m, dtype=torch.float64) -> float:
+    """Yardstick for the predict kernels' product loops, never called by
+    the port: the time of ``torch.matmul`` for K g over a materialised K of
+    t x m (cuBLAS: f64 on the FP64 tensor cores, f32 in IEEE f32 on the
+    CUDA cores with TF32 off; the full m x m product, no slab, no exps)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    k = torch.rand((t, m), dtype=torch.float64, device=DEV, generator=gen)
-    g = torch.rand((m, m), dtype=torch.float64, device=DEV, generator=gen)
+    k = torch.rand((t, m), dtype=dtype, device=DEV, generator=gen)
+    g = torch.rand((m, m), dtype=dtype, device=DEV, generator=gen)
     return time_ms(lambda: torch.matmul(k, g))
 
 
@@ -272,19 +293,20 @@ def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
 
 
 def predict_launch_only(hyp, z, a_mean, g, x):
-    """The bare ctypes launch of the predict kernels (pair tiles, then the
-    walk) on operands prepared once: their device time without the
-    wrapper's casts, hyper-parameter vector and allocations (the wrapper's
+    """The bare ctypes launch of the predict kernels (pair tiles and
+    hyper-parameters, then the walk) on operands prepared once: their
+    device time without the wrapper's casts and allocations (the wrapper's
     time is ``ms``)."""
     from repro_torch.kernels.predict import kernel as p_k
 
-    (t, _), (m, d) = x.shape, a_mean.shape
-    hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
-                    torch.exp(-2.0 * hyp["log_ell"])]).to(x.dtype)
-    h, kscr = p_k.scratch(t, m, x.dtype, DEV)
+    (t, q), (m, d) = x.shape, a_mean.shape
+    log_sf2, log_ell = (hyp[k].to(x.dtype).contiguous()
+                        for k in ("log_sf2", "log_ell"))
+    h, kscr = p_k.scratch(t, m, q, x.dtype, DEV)
     mean = torch.empty((t, d), dtype=x.dtype, device=DEV)
     quad = torch.empty((t,), dtype=x.dtype, device=DEV)
-    return lambda: p_k.predict(x, z, hp, a_mean, g, h, kscr, mean, quad)
+    return lambda: p_k.predict(x, z, log_sf2, log_ell, a_mean, g, h, kscr,
+                               mean, quad)
 
 
 def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
@@ -319,8 +341,9 @@ def check_predict(p_ops, p_ref, peaks, t, m, q, d, dtype, timed):
            "max_err_over_bound": max(worst_m, worst_q)}
     if timed:
         out["ms"] = time_ms(lambda: p_ops.predict_stats(hyp, z, a_mean, g, x))
-        out["launch_only_ms"] = time_ms(predict_launch_only(hyp, z, a_mean,
-                                                            g, x))
+        bare = predict_launch_only(hyp, z, a_mean, g, x)
+        out["launch_only_ms"] = time_ms(bare)
+        out["device_ms"] = graph_ms(bare)
         out["plain_ms"] = time_ms(
             lambda: p_ref.predict_ref(hyp["log_sf2"], hyp["log_ell"],
                                              z, a_mean, g, x))
@@ -359,19 +382,16 @@ def psi_bound(kind, n_eff, n, m, q, dtype, peaks) -> tuple[float, str]:
 
 def psi_launch_only(kind, hyp, z, mu, s, w):
     """The bare ctypes launch of a psi kernel on operands prepared once:
-    the kernel's device time without the wrapper's casts, hyper-parameter
-    vector and allocations (the wrapper's time is ``ms``)."""
+    the kernel's device time without the wrapper's casts, autograd
+    Function and allocations (the wrapper's time is ``ms``)."""
     from repro_torch.kernels.psi_stats import kernel as ps_k
 
     n, m, q = mu.shape[0], z.shape[0], z.shape[1]
-    if kind == "psi1":
-        hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
-                        torch.exp(2.0 * hyp["log_ell"]),
-                        torch.exp(-2.0 * hyp["log_ell"])]).to(mu.dtype)
-        out = torch.empty((n, m), dtype=mu.dtype, device=DEV)
-        return lambda: ps_k.psi1(mu, s, z, hp, out)
     log_sf2, log_ell = (hyp[k].to(mu.dtype).contiguous()
                         for k in ("log_sf2", "log_ell"))
+    if kind == "psi1":
+        out = torch.empty((n, m), dtype=mu.dtype, device=DEV)
+        return lambda: ps_k.psi1(mu, s, z, log_sf2, log_ell, out)
     n_slices, rows, scratch = ps_k.psi2_scratch(n, m, q, mu.dtype, mu.device)
     d_out = torch.empty((m, m), dtype=torch.float64, device=DEV)
     return lambda: ps_k.psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows,
@@ -427,8 +447,9 @@ def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
                                          chunk=rows * m))):
             out[kind]["ms"] = time_ms(fn)
             out[kind]["plain_ms"] = time_ms(plain_fn, reps=3)
-            out[kind]["launch_only_ms"] = time_ms(
-                psi_launch_only(kind, hyp, z, mu, s, w))
+            bare = psi_launch_only(kind, hyp, z, mu, s, w)
+            out[kind]["launch_only_ms"] = time_ms(bare)
+            out[kind]["device_ms"] = graph_ms(bare)
             out[kind]["bound_ms"], out[kind]["bound_by"] = psi_bound(
                 kind, n_eff, n, m, q, dtype, peaks)
     for kind in ("psi2", "psi1"):
@@ -463,6 +484,46 @@ def check_psi2_midway(ps_ops, ps_ref, n, m, q):
     print("psi2 midway ", dict(shape=dict(n=n, m=m, q=q), dtype=str(f64),
                                max_abs_err=err, max_err_over_bound=worst,
                                min_plain=float(plain.min())), flush=True)
+
+
+def time_backward(label, vjp, primals, cotangents, needs, reps=5) -> float:
+    """CUDA-event median of one call of a kernel's backward (the plain
+    version recomputed in row chunks, ``kernels._vjp``) on the card, with
+    the inputs the training path differentiates; printed on its own line."""
+    ms = time_ms(lambda: vjp(*primals, *cotangents, needs), reps=reps)
+    print(f"backward {label}: {ms:.4f} ms (median of {reps})", flush=True)
+    return ms
+
+
+def time_backwards(rs_ops, ps_ops, sgpr, usps) -> None:
+    """The backward alone, beside the forward timed above: ``reg_stats_vjp``
+    at sgpr-synth-1m (gradients of the hyper-parameters and z, as the
+    SGPR's bound takes them), ``psi2_vjp`` and ``psi1_vjp`` at gplvm-usps
+    (the hyper-parameters, z, mu and s, as the GPLVM's)."""
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 3)
+
+    def t64(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(DEV)
+
+    n, m, q, d = sgpr.n, sgpr.m, sgpr.q, sgpr.d
+    x, y = make_regression(rng, n, q, d)
+    hyp = [t64(float(np.log(float(np.var(y))))), t64(np.full(q, 0.5 * np.log(q)))]
+    primals = [*hyp, t64(rng.uniform(-2.0, 2.0, (m, q))), t64(x), t64(y),
+               torch.ones(n, dtype=f64, device=DEV)]
+    cts = [t64(rng.standard_normal(sh)) for sh in ((), (m, d), (m, m))]
+    time_backward("reg_stats_vjp f64 sgpr-synth-1m", rs_ops.reg_stats_vjp,
+                  primals, cts, [True, True, True, False, False, False])
+    del primals, cts, x, y
+    n, m, q = usps.n, usps.m, usps.q
+    primals = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
+               t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
+               t64(rng.uniform(0.05, 1.0, (n, q))),
+               torch.ones(n, dtype=f64, device=DEV)]
+    time_backward("psi2_vjp f64 gplvm-usps", ps_ops.psi2_vjp, primals,
+                  [t64(rng.standard_normal((m, m)))], [True] * 5 + [False])
+    time_backward("psi1_vjp f64 gplvm-usps", ps_ops.psi1_vjp, primals[:5],
+                  [t64(rng.standard_normal((n, m)))], [True] * 5)
 
 
 def reset_counts(*counts):
@@ -1034,6 +1095,13 @@ def main() -> int:
     for q, d in ((40, 1), (8, 64)):
         check_reg_stats(rs_ops, rs_ref, peaks, 100_003, 130, q, d,
                         torch.float64, masked=True, timed=False)
+    # Past the old gridDim.y limit (66,066 upper 64-tiles), and more
+    # (slice, tile) units than SMs in f64 (136, one block each).
+    check_reg_stats(rs_ops, rs_ref, peaks, 1_003, 23_200, 3, 2,
+                    torch.float32, masked=True, timed=False)
+    check_reg_stats(rs_ops, rs_ref, peaks, 20_011, 2_048, 8, 4,
+                    torch.float64, masked=True, timed=False)
+    torch.cuda.empty_cache()
     print("cublas f64 K^T (w K), 65,536 x 512 scaled to n = 1e6 (yardstick "
           f"of the DMMA loop, not called by the port): "
           f"{cublas_d_product_ms(cfg.n, cfg.m):.4f} ms", flush=True)
@@ -1048,6 +1116,10 @@ def main() -> int:
     print("cublas f64 K g, 65,536 x 512 by 512 x 512 (yardstick of the "
           "predict kernel's DMMA loop, not called by the port): "
           f"{cublas_quad_product_ms(65_536, cfg.m):.4f} ms", flush=True)
+    print("cublas f32 K g, 65,536 x 512 by 512 x 512, TF32 off (yardstick of "
+          "the f32 predict kernel's FMA loop, not called by the port): "
+          f"{cublas_quad_product_ms(65_536, cfg.m, torch.float32):.4f} ms",
+          flush=True)
     usps, synth = GP_CONFIGS["gplvm-usps"], GP_CONFIGS["gplvm-synth-100k"]
     psi_full = {}
     for dtype in (torch.float32, torch.float64):
@@ -1066,6 +1138,7 @@ def main() -> int:
         check_psi(ps_ops, ps_ref, peaks, 1003, m, 10, torch.float64,
                   masked=True, timed=False)
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10)
+    time_backwards(rs_ops, ps_ops, cfg, usps)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
         fa_full[dtype] = check_flash(fa_ops, fa_ref, peaks, LM_BATCH, 32, 8,

@@ -8,9 +8,9 @@
 //                      exp(-1/2 sum_q (mu_iq - z_aq)^2 / (l_q^2 + s_iq))  (n, m)
 //
 // Replaces the TPU kernels src/repro/kernels/psi_stats/kernel.py,
-// psi2_pallas (body _psi2_kernel) and psi1_pallas (body _psi1_kernel),
-// forward only (the wrapper's autograd.Function recomputes the plain
-// version for the backward, as the JAX custom_vjp does).
+// psi2_pallas (body _psi2_kernel, :76) and psi1_pallas (body _psi1_kernel,
+// :125), forward only (the wrapper's autograd.Function recomputes the
+// plain version for the backward, as the JAX custom_vjp does).
 //
 // What bounds them on the H100:
 //   * psi2: operations, and of those the exps.  Each (row, pair a <= b)
@@ -19,8 +19,10 @@
 //     of input.  In f32 the exp runs on the SFU (16 a clock per SM); in
 //     f64 it is ~12 f64 ops on the CUDA cores (exp_pair), so the exps and
 //     the FP64 pipe set the pace.
-//   * psi1: bytes at large n (it writes the (n, m) output once, ~3q+1 flops
-//     and one exp per entry), operations at small n.
+//   * psi1: bytes (it writes the (n, m) output once: 5.6 MB f64 at
+//     gplvm-usps, 80 MB at gplvm-synth-100k, against 3q flops and one exp
+//     per entry), and at gplvm-usps the launch itself: the work is a few
+//     microseconds.
 //
 // The psi2 design:
 //   * Only the pairs D needs.  The TPU accumulates D over a sequential
@@ -71,10 +73,30 @@
 //     QC = 16 features at a time; past one chunk the exponents accumulate
 //     in registers over the chunks, z and the row restaged chunk by chunk.
 //
-// psi1 is one pass over (32-row x 64-column) output tiles; each block
-// stages its rows and the tile's z in shared memory and writes every output
-// entry once, coalesced, its exponent in the direct form, accumulated over
-// 16-feature chunks of q.
+// The psi1 design:
+//   * One launch, the hyper-parameters read as the log values the caller
+//     holds (l^2 = exp(2 log_ell), sf2 = exp(log_sf2) on the card): the
+//     wrapper builds no tensor and launches nothing else.
+//   * Units sized to m: a unit is up to P1R rows by up to P1C columns,
+//     the columns of a row cut into runs of 16 bytes (2 f64, 4 f32); the
+//     plan (kernel.py::psi1_plan) takes all of m <= 256 in one unit and as
+//     many rows as give each thread up to P1I (row, run) items, so each
+//     row's log-normaliser and 1/(l^2 + s) are computed once, not once per
+//     64-column tile (gplvm-usps: 13 rows x 150 columns, 358 units).
+//   * A warp takes consecutive runs of a row: its z loads are conflict-free
+//     16-byte vectors of the transposed tile, mu and 1/(l^2 + s) are
+//     broadcasts, and its stores are coalesced 16-byte vectors wherever the
+//     row stride m keeps the runs aligned (scalar stores otherwise).  z is
+//     read in rows (coalesced) and transposed in shared memory.
+//   * The exponent in the direct form, sum_q (mu - z)^2 / (l^2 + s), whose
+//     terms are bounded by the exponent (the Pallas body's expansion in
+//     mu^2/c, z^2/c is not; see the psi2 notes).  The bound is bytes, so a
+//     cheaper form would buy nothing.
+//   * The f64 exp is psi2's branch-free exp_pair; f32 takes expf.
+//   * Shared memory is bounded (psi1_smem, under the 48 KB default; less
+//     for q < 16, so more blocks fit an SM) and q is staged 16 features at
+//     a time, the exponents carried in registers.
+//     Rows past n and columns past m are never written.
 //
 // One template, instantiated for float (the TPU kernels' f32 contract) and
 // double: f32 map statistics break the q(u) factorisation at full width
@@ -91,9 +113,11 @@ constexpr int TM = 64;   // psi2 D tile edge
 constexpr int PP = 4;    // psi2 patch edge: a thread's PP x PP pairs
 constexpr int RC = 32;   // psi2 rows staged per chunk
 constexpr int NT = 256;  // threads per block
-constexpr int PR = 32;   // psi1 rows per block
-constexpr int PC = 64;   // psi1 columns per block
 constexpr int QC = 16;   // features of z, mu and 1/(l^2 + c s) staged at a time
+constexpr int P1R = 32;  // psi1 rows per unit, at most
+constexpr int P1C = 256; // psi1 columns per unit, at most
+constexpr int P1I = 4;   // psi1 (row, run) items per thread, at most
+constexpr int RLD = QC + 1;  // psi1 staged row stride: no bank conflicts
 
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
 __device__ __forceinline__ double exp_t(double v) { return exp(v); }
@@ -121,7 +145,8 @@ __constant__ double kExp2Frac[64] = {
     0x1.7a1cd345dcc81p-54, -0x1.5584f7e54ac3bp-56, 0x1.11065895048ddp-55, 0x1.503cbd1e949dbp-56,
     0x1.2ed02d75b3707p-55, -0x1.1a5cd4f184b5cp-54, -0x1.e9c23179c2893p-54, 0x1.9d3e12dd8a18bp-54};
 
-// psi2's exp of its exponent (at most 0 but for rounding).  f32: expf.
+// psi2's and psi1's exp of an exponent (at most 0 but for rounding).  f32:
+// expf.
 // f64: branch-free, so a thread's 16 exps interleave (libdevice's exp
 // branches on its range, which serialises them): x = (32 m + j) ln2/32 + r
 // with |r| <= ln2/64, e^r by its Taylor polynomial to r^6 (truncation
@@ -168,35 +193,18 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-// Stage rows [r0, r0 + nr) of q(X), features [k0, k0 + kw): mu and
-// 1/(l^2 + c s) (c = 2 for psi2, 1 for psi1) into row slots [slot,
-// slot + nr) of mus/invs (row stride QC).  hp = [., l^2 (q), 1/l^2 (q)].
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ mu,
-                                           const T* __restrict__ s,
-                                           const T* __restrict__ hp, int q,
-                                           long r0, int nr, int k0, int kw,
-                                           T c, int slot, T* mus, T* invs) {
-  for (int e = threadIdx.x; e < nr * kw; e += blockDim.x) {
-    const int r = e / kw, k = e % kw;
-    const long g = (r0 + r) * q + k0 + k;
-    mus[(slot + r) * QC + k] = mu[g];
-    invs[(slot + r) * QC + k] = T(1) / fma_t(c, s[g], hp[1 + k0 + k]);
-  }
+// One 16-byte vector of shared memory into registers, and of registers
+// out to device memory (both 16-byte aligned).
+__device__ __forceinline__ void loadv(const float* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void loadv(const double* p, double (&v)[2]) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  v[0] = t.x; v[1] = t.y;
 }
-
-// The log-normaliser -1/2 sum_q log1p(c s / l^2) of rows [r0, r0 + nr),
-// over all q, read from device memory.
-template <typename T>
-__device__ __forceinline__ void stage_lognorm(const T* __restrict__ s,
-                                              const T* __restrict__ hp, int q,
-                                              long r0, int nr, T c, T* lns) {
-  const T* il2 = hp + 1 + q;
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-    T acc = 0;
-    for (int k = 0; k < q; ++k) acc += log1p_t(c * s[(r0 + r) * q + k] * il2[k]);
-    lns[r] = T(-0.5) * acc;
-  }
+__device__ __forceinline__ void storev(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void storev(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
 // The upper-triangle patch (pa, pb), pa <= pb < np, as one index: the
@@ -485,55 +493,117 @@ __global__ void psi2_reduce(const T* __restrict__ part,
   }
 }
 
+// psi1 over units of (rows [r0, r0 + rows), runs [j0, j0 + rpt)) of the
+// output, a run being V = 16 / sizeof(T) consecutive columns of one row.
+// Per feature chunk the block stages z of its columns (transposed), its
+// rows' mu and 1/(l^2 + s), and their log1p(s / l^2), l^2 = exp(2 log_ell)
+// computed here from the log hyper-parameters; each thread then owns up to
+// P1I (row, run) items and accumulates their exponents in registers.  The
+// rows' log-normalisers are summed once per row, in feature order.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 psi1_tiles(const T* __restrict__ mu, const T* __restrict__ s,
-           const T* __restrict__ z, const T* __restrict__ hp, int n, int m,
-           int q, T* __restrict__ out) {
+           const T* __restrict__ z, const T* __restrict__ log_sf2,
+           const T* __restrict__ log_ell, int n, int m, int q, int rows,
+           int rpt, int col_tiles, long n_units, T* __restrict__ out) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int ZLD = P1C + V;  // zT row stride: 16-byte aligned, staggered banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* zT = reinterpret_cast<T*>(smem_raw);  // [QC][PC]
-  T* mus = zT + QC * PC;                   // [PR][QC]
-  T* invs = mus + PR * QC;                 // [PR][QC]  1 / (l^2 + s)
-  T* lns = invs + PR * QC;                 // [PR]
+  __shared__ double e2f[64];
+  const int qc = min(q, QC);                // features staged at a time
+  T* zT = reinterpret_cast<T*>(smem_raw);  // [qc][ZLD]   z of the tile's columns
+  T* mus = zT + qc * ZLD;                  // [P1R][RLD]  mu
+  T* invs = mus + P1R * RLD;               // [P1R][RLD]  1 / (l^2 + s)
+  T* lnk = invs + P1R * RLD;               // [P1R][RLD]  log1p(s / l^2)
+  T* lns = lnk + P1R * RLD;                // [P1R]       sum_q log1p(s / l^2)
 
-  const long r0 = (long)blockIdx.x * PR;
-  const int c0 = blockIdx.y * PC;
-  const int nr = (int)min((long)PR, (long)n - r0);
   const int tid = threadIdx.x;
-  stage_lognorm(s, hp, q, r0, nr, T(1), lns);
+  if (tid < 64) e2f[tid] = kExp2Frac[tid];
+  const T sf2 = exp_t(log_sf2[0]);
+  const int runs = (m + V - 1) / V;
+  const bool vec = m % V == 0;  // every run starts 16-byte aligned
+  for (long unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+    const long r0 = unit / col_tiles * rows;
+    const int j0 = (int)(unit % col_tiles) * rpt;
+    const int nr = (int)min((long)rows, (long)n - r0);
+    const int nj = min(rpt, runs - j0);
+    const int c0 = j0 * V, nc = min(nj * V, m - c0);
+    const int items = nr * nj;
+    // The thread's items tid + u NT as (row, run), stepped by (sr, sj)
+    // without a division per item.
+    const int r1 = tid / nj, j1 = tid % nj, sr = NT / nj, sj = NT % nj;
 
-  // Each thread owns PER output entries; their exponents accumulate over
-  // q-chunks of z, mu and 1/(l^2 + s).
-  constexpr int PER = PR * PC / NT;
-  T acc[PER];
+    T acc[P1I][V];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) acc[u] = T(0);
-  for (int k0 = 0; k0 < q; k0 += QC) {
-    const int kw = min(QC, q - k0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = tid; e < kw * PC; e += NT) {
-      const int k = e / PC, c = e % PC;
-      zT[e] = c0 + c < m ? z[(size_t)(c0 + c) * q + k0 + k] : T(0);
-    }
-    stage_rows(mu, s, hp, q, r0, nr, k0, kw, T(1), 0, mus, invs);
-    __syncthreads();
+    for (int u = 0; u < P1I; ++u)
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int e = tid + u * NT, r = e / PC, c = e % PC;
-      if (r >= nr) continue;
-      for (int k = 0; k < kw; ++k) {
-        const T d = mus[r * QC + k] - zT[k * PC + c];
-        acc[u] = fma_t(d * invs[r * QC + k], d, acc[u]);
+      for (int v = 0; v < V; ++v) acc[u][v] = T(0);
+    for (int k0 = 0; k0 < q; k0 += qc) {
+      const int kw = min(qc, q - k0);
+      __syncthreads();  // the previous chunk (or unit) is consumed
+      for (int e = tid; e < nj * V * kw; e += NT) {  // coalesced rows of z
+        const int c = e / kw, k = e % kw;
+        zT[k * ZLD + c] = c < nc ? z[(size_t)(c0 + c) * q + k0 + k] : T(0);
+      }
+      for (int e = tid; e < nr * kw; e += NT) {
+        const int r = e / kw, k = e % kw;
+        const size_t g = (size_t)(r0 + r) * q + k0 + k;
+        const T l2 = exp_t(T(2) * log_ell[k0 + k]), sv = s[g];
+        mus[r * RLD + k] = mu[g];
+        invs[r * RLD + k] = T(1) / (l2 + sv);
+        lnk[r * RLD + k] = log1p_t(sv / l2);
+      }
+      __syncthreads();
+      if (tid < nr) {  // each row's log-normaliser, in feature order
+        T a = k0 == 0 ? T(0) : lns[tid];
+        for (int k = 0; k < kw; ++k) a += lnk[tid * RLD + k];
+        lns[tid] = a;
+      }
+      int r = r1, j = j1;
+#pragma unroll
+      for (int u = 0; u < P1I; ++u) {
+        if (tid + u * NT >= items) break;
+        for (int k = 0; k < kw; ++k) {
+          const T mv = mus[r * RLD + k], iv = invs[r * RLD + k];
+          T zv[V];
+          loadv(zT + k * ZLD + j * V, zv);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const T d = mv - zv[v];
+            acc[u][v] = fma_t(d * iv, d, acc[u][v]);
+          }
+        }
+        j += sj;
+        r += sr + (j >= nj);
+        j -= j >= nj ? nj : 0;
       }
     }
-  }
+    __syncthreads();  // the log-normalisers are complete
 
-  const T sf2 = hp[0];
+    // sf2 exp(lognorm - 1/2 sum_q (mu - z)^2 / (l^2 + s)); a warp stores
+    // consecutive runs of a row, 16 bytes each where the row stride allows
+    int r = r1, j = j1;
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int e = tid + u * NT, r = e / PC, c = e % PC;
-    if (r >= nr || c0 + c >= m) continue;
-    out[(size_t)(r0 + r) * m + c0 + c] = sf2 * exp_t(fma_t(T(-0.5), acc[u], lns[r]));
+    for (int u = 0; u < P1I; ++u) {
+      if (tid + u * NT >= items) break;
+      const int c = c0 + j * V;
+      const T ln = T(-0.5) * lns[r];
+      T o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        o[v] = sf2 * exp_pair(fma_t(T(-0.5), acc[u][v], ln), e2f);
+      T* dst = out + (size_t)(r0 + r) * m + c;
+      if (vec && c + V <= m) {
+        storev(dst, o);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if (c + v < m) dst[v] = o[v];
+      }
+      j += sj;
+      r += sr + (j >= nj);
+      j -= j >= nj ? nj : 0;
+    }
   }
 }
 
@@ -542,8 +612,10 @@ size_t psi2_smem(size_t item) {
   return item * (2 * QC * TM + 2 * RC * TM + PP * PP * NT + 2 * RC * QC + 2 * RC);
 }
 
-size_t psi1_smem(size_t item) {
-  return item * (QC * PC + 2 * PR * QC + PR);
+// psi1: z of min(q, QC) features staged for P1C columns, so a small q
+// leaves room for more blocks per SM; at most ~45 KB (f64, q >= QC).
+size_t psi1_smem(size_t item, int q) {
+  return item * ((q < QC ? q : QC) * (P1C + 16 / item) + 3 * P1R * RLD + P1R);
 }
 
 // Scratch of psi2 in elements: the slice partials of D's upper patches,
@@ -599,15 +671,16 @@ int launch_psi2(const T* mu, const T* s, const T* w, const T* z,
 }
 
 template <typename T>
-int launch_psi1(const T* mu, const T* s, const T* z, const T* hp, int n,
-                int m, int q, T* out, void* stream) {
-  const size_t smem = psi1_smem(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      psi1_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n + PR - 1) / PR), (unsigned)((m + PC - 1) / PC));
-  psi1_tiles<T><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      mu, s, z, hp, n, m, q, out);
+int launch_psi1(const T* mu, const T* s, const T* z, const T* log_sf2,
+                const T* log_ell, int n, int m, int q, int rows, int rpt,
+                int col_tiles, T* out, void* stream) {
+  if (n == 0) return cudaSuccess;
+  // Under 48 KB of shared memory: no attribute to set.
+  const long n_units = ((long)n + rows - 1) / rows * col_tiles;
+  const unsigned grid = (unsigned)(n_units < INT_MAX ? n_units : INT_MAX);
+  psi1_tiles<T><<<grid, NT, psi1_smem(sizeof(T), q),
+                  static_cast<cudaStream_t>(stream)>>>(
+      mu, s, z, log_sf2, log_ell, n, m, q, rows, rpt, col_tiles, n_units, out);
   return cudaGetLastError();
 }
 
@@ -617,8 +690,10 @@ int launch_psi1(const T* mu, const T* s, const T* z, const T* hp, int n,
 // contiguous, one dtype.  Scratch in that dtype: n_slices rows of
 // ceil(m/4)(ceil(m/4)+1)/2 patches of 16 partial sums, then (q + 1)(n + 1)
 // for hp and the rows' terms.  Output D (m,m) f64.
-// psi1: mu, s (n,q), z (m,q), hp = [sf2, l^2 (q), 1/l^2 (q)]; output
-// (n,m) in the inputs' dtype.  Each returns cudaGetLastError().
+// psi1: mu, s (n,q), z (m,q), log_sf2 (), log_ell (q,): contiguous, one
+// dtype; units of `rows` rows by `rpt` runs of 16 / sizeof(T) columns,
+// `col_tiles` of them across m (psi1_plan in kernel.py); output (n,m) in
+// that dtype.  Each returns cudaGetLastError().
 extern "C" int psi2_f32(const float* mu, const float* s, const float* w,
                         const float* z, const float* log_sf2,
                         const float* log_ell, int n, int m, int q,
@@ -638,13 +713,17 @@ extern "C" int psi2_f64(const double* mu, const double* s, const double* w,
 }
 
 extern "C" int psi1_f32(const float* mu, const float* s, const float* z,
-                        const float* hp, int n, int m, int q, float* out,
-                        void* stream) {
-  return launch_psi1<float>(mu, s, z, hp, n, m, q, out, stream);
+                        const float* log_sf2, const float* log_ell, int n,
+                        int m, int q, int rows, int rpt, int col_tiles,
+                        float* out, void* stream) {
+  return launch_psi1<float>(mu, s, z, log_sf2, log_ell, n, m, q, rows, rpt,
+                            col_tiles, out, stream);
 }
 
 extern "C" int psi1_f64(const double* mu, const double* s, const double* z,
-                        const double* hp, int n, int m, int q, double* out,
-                        void* stream) {
-  return launch_psi1<double>(mu, s, z, hp, n, m, q, out, stream);
+                        const double* log_sf2, const double* log_ell, int n,
+                        int m, int q, int rows, int rpt, int col_tiles,
+                        double* out, void* stream) {
+  return launch_psi1<double>(mu, s, z, log_sf2, log_ell, n, m, q, rows, rpt,
+                             col_tiles, out, stream);
 }

@@ -17,10 +17,13 @@
 // exp per (row, column) it is built for.  Shared by both instantiations:
 //   * The TPU carries the D/C/b accumulators from one step of a sequential
 //     n-grid to the next.  Here blocks run in parallel and in no order, so
-//     the grid is (n-slice, upper D tile): each block owns one tile (a, b)
-//     with a <= b and one slice of rows, stages RC rows at a time and builds
-//     the slabs ka*w and kb of its tile's columns in shared memory.  Only
-//     the upper tiles are computed; the lower half is their mirror.
+//     each block owns one unit (n-slice, upper D tile): one tile (a, b)
+//     with a <= b and one slice of rows; it stages RC rows at a time and
+//     builds the slabs ka*w and kb of its tile's columns in shared memory.
+//     Only the upper tiles are computed; the lower half is their mirror.
+//     The units go on gridDim.x (unit = slice * tiles + tile, which also
+//     indexes the unit's partial), so no m is refused: gridDim.y stopped at
+//     65,535 tiles.
 //   * C is accumulated on the diagonal tiles (a == b), b on tile 0, in the
 //     same pass.  On a diagonal tile kb is ka, so its slab is built once.
 //   * A second small kernel sums the per-slice partials in a fixed order
@@ -107,8 +110,9 @@ reg_stats_tiles(const T* __restrict__ x, const T* __restrict__ y,
   T* inv = ws + RC;                         // [q]
   T* cacc = inv + q;                        // [TM][d]
 
-  const int slice = blockIdx.x;
-  const int tile = blockIdx.y;
+  const int n_tiles = nts * (nts + 1) / 2;
+  const int slice = (int)blockIdx.x / n_tiles;
+  const int tile = (int)blockIdx.x % n_tiles;
   int a = 0, rem = tile;
   while (rem >= nts - a) {
     rem -= nts - a;
@@ -207,7 +211,7 @@ reg_stats_tiles(const T* __restrict__ x, const T* __restrict__ y,
     __syncthreads();
   }
 
-  T* pd = part_d + ((size_t)slice * gridDim.y + tile) * TM * TM;
+  T* pd = part_d + (size_t)blockIdx.x * TM * TM;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -322,7 +326,8 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
   double* inv = ws + 3 * DRC;                           // [QC]
   double* cacc = inv + QC;                              // [DT][DC]
 
-  const int slice = blockIdx.x, tile = blockIdx.y;
+  const int n_tiles = nts * (nts + 1) / 2;
+  const int slice = (int)blockIdx.x / n_tiles, tile = (int)blockIdx.x % n_tiles;
   int a = 0, rem = tile;
   while (rem >= nts - a) {
     rem -= nts - a;
@@ -446,8 +451,8 @@ reg_stats_dmma(const double* __restrict__ x, const double* __restrict__ y,
   };
 
   bool first_fold = true;
-  double* pd = part_d + ((size_t)slice * gridDim.y + tile) * DT * DT;
-  double* pk = part_comp + ((size_t)slice * gridDim.y + tile) * DT * DT;
+  double* pd = part_d + (size_t)blockIdx.x * DT * DT;
+  double* pk = part_comp + (size_t)blockIdx.x * DT * DT;
   // Kahan: running tile += acc; acc = 0.  Each entry has one owner thread.
   auto fold = [&]() {
 #pragma unroll
@@ -571,14 +576,14 @@ int launch_f64(const double* x, const double* y, const double* w,
                double* part_comp, double* part_c, double* part_b, double* D,
                double* C, double* b, void* stream) {
   const int nts = (m + DT - 1) / DT;
-  const int n_tiles = nts * (nts + 1) / 2;
+  const long n_tiles = (long)nts * (nts + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto kernel = q <= QC ? reg_stats_dmma<false> : reg_stats_dmma<true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)DMMA_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(n_slices, n_tiles), DNT, DMMA_SMEM_BYTES, s>>>(
+  kernel<<<(unsigned)(n_tiles * n_slices), DNT, DMMA_SMEM_BYTES, s>>>(
       x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_comp,
       part_c, part_b);
   err = cudaGetLastError();
@@ -594,14 +599,14 @@ int launch(const T* x, const T* y, const T* w, const T* z, const T* hp, int n,
            int m, int q, int d, int n_slices, int rows_per_slice, T* part_d,
            T* part_c, T* part_b, double* D, double* C, double* b, void* stream) {
   const int nts = (m + TM - 1) / TM;
-  const int n_tiles = nts * (nts + 1) / 2;
+  const long n_tiles = (long)nts * (nts + 1) / 2;
   const size_t smem = sizeof(T) * (2 * RC * TM + 2 * q * TM + RC * q +
                                    RC * d + RC + q + TM * d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       reg_stats_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  reg_stats_tiles<T><<<dim3(n_slices, n_tiles), NT, smem, s>>>(
+  reg_stats_tiles<T><<<(unsigned)(n_tiles * n_slices), NT, smem, s>>>(
       x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_c, part_b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -617,8 +622,8 @@ int launch(const T* x, const T* y, const T* w, const T* z, const T* hp, int n,
 // x (n,q), y (n,d), w (n,), z (m,q), hp = [sf2, 1/ell^2 (q)]: contiguous, one
 // dtype.  Scratch in that dtype: part_d (n_slices, T, 64, 64), part_c
 // (n_slices, nts*64, d), part_b (n_slices,) with nts = ceil(m/64) and
-// T = nts(nts+1)/2.  Outputs D (m,m), C (m,d), b (): f64.
-// Returns cudaGetLastError().
+// T = nts(nts+1)/2, one block per (slice, tile).  Outputs D (m,m), C (m,d),
+// b (): f64.  Any m.  Returns cudaGetLastError().
 extern "C" int reg_stats_f32(const float* x, const float* y, const float* w,
                              const float* z, const float* hp, int n, int m,
                              int q, int d, int n_slices, int rows_per_slice,

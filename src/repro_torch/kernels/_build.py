@@ -27,7 +27,6 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-MAX_GRID_Y = 65535   # gridDim.y limit of a launch
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -97,6 +96,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def operand(t, dtype):
+    """``t`` in ``dtype`` and contiguous, as a kernel takes it: ``t`` itself
+    when it already is (no copy, no launch)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
 def stream_handle(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the C ``cudaStream_t``."""
     import torch
@@ -119,19 +124,17 @@ def sm_count(device) -> int:
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def slice_plan(n: int, m: int, device, tile: int, rows: int
+def slice_plan(n: int, m: int, sms: int, tile: int, rows: int
                ) -> tuple[int, int, int]:
-    """Grid of a map kernel that owns one upper ``tile``×``tile`` block of
-    an (m, m) statistic and one slice of the n rows per CUDA block, the
-    slices summed afterwards in a fixed order: (upper tiles, n-slices, rows
-    per slice, a multiple of ``rows``), enough blocks for ~4 per SM."""
+    """Work split of a map kernel whose units each own one upper
+    ``tile``×``tile`` block of an (m, m) statistic and one slice of the n
+    rows, the slices summed afterwards in a fixed order: (upper tiles,
+    n-slices, rows per slice, a multiple of ``rows``), enough units for ~4
+    per SM.  The units go on gridDim.x, one block each, so no m is
+    refused."""
     nts = -(-m // tile)
     n_tiles = nts * (nts + 1) // 2
-    if n_tiles > MAX_GRID_Y:
-        raise ValueError(f"m={m} needs {n_tiles} upper tiles; the kernel "
-                         f"takes at most {MAX_GRID_Y}")
     chunks = max(1, -(-n // rows))
-    sms = sm_count(device)
     n_slices = max(1, min(chunks, math.ceil(4 * sms / n_tiles)))
     per_slice = -(-chunks // n_slices) * rows
     return n_tiles, max(1, -(-n // per_slice)), per_slice
@@ -139,16 +142,16 @@ def slice_plan(n: int, m: int, device, tile: int, rows: int
 
 def fill_plan(n: int, m: int, sms: int, tile: int, rows: int
               ) -> tuple[int, int, int]:
-    """Grid of a map kernel that runs one block per SM, each owning one
-    upper ``tile``×``tile`` block of an (m, m) statistic and one slice of
-    the n rows: as many n-slices as fill the ``sms`` SMs once (at least
-    one), the slices summed afterwards in a fixed order.  Returns (upper
-    tiles, n-slices, rows per slice, a multiple of ``rows``)."""
+    """Work split of a map kernel that runs one block per SM, its units
+    each owning one upper ``tile``×``tile`` block of an (m, m) statistic
+    and one slice of the n rows: as many n-slices as fill the ``sms`` SMs
+    once (at least one), the slices summed afterwards in a fixed order.
+    Returns (upper tiles, n-slices, rows per slice, a multiple of
+    ``rows``).  The units go on gridDim.x, one block each (past ``sms``
+    upper tiles the card runs them in several waves), so no m is
+    refused."""
     nts = -(-m // tile)
     n_tiles = nts * (nts + 1) // 2
-    if n_tiles > MAX_GRID_Y:
-        raise ValueError(f"m={m} needs {n_tiles} upper tiles; the kernel "
-                         f"takes at most {MAX_GRID_Y}")
     chunks = max(1, -(-n // rows))
     n_slices = max(1, min(chunks, sms // n_tiles))
     per_slice = -(-chunks // n_slices) * rows

@@ -11,11 +11,14 @@ import torch
 
 from .. import _build
 
-ROWS = 64        # query rows per block in the CUDA source (BT)
 COLS = 128       # inducing points per tile (TK): g's pair tiles are COLS²
-CHUNK = 32       # rows of a pair tile per staged chunk (HK)
 FEATURES = 16    # features of z, x and 1/ell^2 staged at a time (QC)
 SMEM_MAX = 232_448   # dynamic shared memory a block may use on sm_90
+#: by tile dtype: query rows per block (BT, FBT), rows of a pair tile per
+#: staged chunk (HK, FHK), persistent blocks per SM
+ROWS = {torch.float32: 128, torch.float64: 64}
+CHUNK = {torch.float32: 16, torch.float64: 32}
+BLOCKS_PER_SM = {torch.float32: 2, torch.float64: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -23,15 +26,20 @@ _FN = {torch.float32: "predict_f32", torch.float64: "predict_f64"}
 
 
 def smem_bytes(m: int, q: int, dtype) -> int:
-    """Dynamic shared memory one block needs (``SMEM_ELEMS`` in the
-    source): two chunks of a pair tile, the slab panel, one q-chunk of z,
-    the x rows, 1/ell^2 and the rows' quad partials.  The kernel streams
-    g's tiles and stages q in chunks, so neither ``m`` nor ``q`` changes
-    it."""
+    """Dynamic shared memory one block needs (``SMEM_ELEMS``,
+    ``F32_SMEM_ELEMS`` in the source): two chunks of a pair tile (row
+    stride 132), the slab panel (f64: 64 rows of stride 132; f32: its
+    transpose, 128 columns of stride 132), one q-chunk of z, the x rows
+    (stride 17), 1/ell^2 (f32: its scaled square root) and the rows' quad
+    partials of the column warps (4 f64, 2 f32); in f32 also each of the
+    256 threads' 8 row sums.  The kernel streams g's tiles and stages q in
+    chunks, so neither ``m`` nor ``q`` changes it."""
+    rows, chunk = ROWS[dtype], CHUNK[dtype]
     ld = COLS + 4
     item = torch.empty((), dtype=dtype).element_size()
-    return item * (2 * CHUNK * ld + ROWS * ld + FEATURES * COLS
-                   + ROWS * (FEATURES + 1) + FEATURES + 4 * ROWS)
+    extra = 4 * rows if dtype == torch.float64 else 2 * rows + 8 * 256
+    return item * (2 * chunk * ld + rows * ld + FEATURES * COLS
+                   + rows * (FEATURES + 1) + FEATURES + extra)
 
 
 def pair_tiles(m: int) -> int:
@@ -40,32 +48,37 @@ def pair_tiles(m: int) -> int:
     return nts * (nts + 1) // 2
 
 
-def scratch(t: int, m: int, dtype, device):
-    """The kernel's scratch: ``h``, g's pair tiles (pair_tiles(m), COLS,
-    COLS), and ``kscr``, each persistent block's slab entries of its
-    current row block (blocks, tiles, ROWS, COLS), with one block per SM
-    (at most one per row block)."""
+def scratch(t: int, m: int, q: int, dtype, device):
+    """The kernel's scratch: ``h``, g's pair tiles (pair_tiles(m) * COLS *
+    COLS) followed by sf2 and 1/ell^2 (q + 1), and ``kscr``, each persistent
+    block's slab entries of its current row block (blocks, tiles, rows,
+    COLS), with ``BLOCKS_PER_SM`` blocks per SM (at most one per row
+    block)."""
     sms = _build.sm_count(device)
-    blocks = min(-(-t // ROWS), sms)
-    h = torch.empty((pair_tiles(m), COLS, COLS), dtype=dtype, device=device)
-    kscr = torch.empty((blocks, -(-m // COLS), ROWS, COLS), dtype=dtype,
+    rows = ROWS[dtype]
+    blocks = min(-(-t // rows), BLOCKS_PER_SM[dtype] * sms)
+    h = torch.empty((pair_tiles(m) * COLS * COLS + q + 1,), dtype=dtype,
+                    device=device)
+    kscr = torch.empty((blocks, -(-m // COLS), rows, COLS), dtype=dtype,
                        device=device)
     return h, kscr
 
 
-def predict(x, z, hp, a_mean, g, h, kscr, mean, quad) -> None:
-    """Launch the instantiation for x's dtype on the current stream, with
-    scratch ``h`` and ``kscr`` from :func:`scratch`."""
+def predict(x, z, log_sf2, log_ell, a_mean, g, h, kscr, mean, quad) -> None:
+    """Launch the kernels for x's dtype (pair tiles and hyper-parameters,
+    then the walk) on the current stream, with scratch ``h`` and ``kscr``
+    from :func:`scratch`."""
     lib = _build.load("predict")
     fn = getattr(lib, _FN[x.dtype])
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P, _P]
         fn.restype = _I
     t, q = x.shape
     m, d = a_mean.shape
-    err = fn(x.data_ptr(), z.data_ptr(), hp.data_ptr(), a_mean.data_ptr(),
-             g.data_ptr(), t, m, q, d, kscr.shape[0], h.data_ptr(),
+    err = fn(x.data_ptr(), z.data_ptr(), log_sf2.data_ptr(),
+             log_ell.data_ptr(), a_mean.data_ptr(), g.data_ptr(), t, m, q, d,
+             kscr.shape[0], h.data_ptr(),
              kscr.data_ptr(), mean.data_ptr(), quad.data_ptr(),
              _build.stream_handle(x.device))
     _build.check(_FN[x.dtype], err)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from . import kernel as _k
 from . import ref as _ref
 
@@ -59,12 +60,10 @@ def predict_stats(hyp: dict, z, a_mean, g, x):
             f"predict_stats: shapes x {tuple(x.shape)}, z {tuple(z.shape)}, "
             f"a_mean {tuple(a_mean.shape)}, g {tuple(g.shape)}, "
             f"log_ell {tuple(hyp['log_ell'].shape)} do not agree")
-    xs, zs, am, gs = (v.to(dt).contiguous() for v in (x, z, a_mean, g))
-    hp = torch.cat([torch.exp(hyp["log_sf2"]).reshape(1),
-                    torch.exp(-2.0 * hyp["log_ell"])]).to(dt).contiguous()
-    h, kscr = _k.scratch(t, m, dt, x.device)
+    h, kscr = _k.scratch(t, m, q, dt, x.device)
     mean = torch.empty((t, d), dtype=dt, device=x.device)
     quad = torch.empty((t,), dtype=dt, device=x.device)
-    _k.predict(xs, zs, hp, am, gs, h, kscr, mean, quad)
+    _k.predict(*(_build.operand(v, dt) for v in (x, z, *hp_src, a_mean, g)),
+               h, kscr, mean, quad)
     LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return mean.to(x.dtype), quad.to(x.dtype)

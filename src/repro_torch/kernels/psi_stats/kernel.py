@@ -7,6 +7,7 @@ scratch of one dtype (float32 or float64) and psi2's output float64;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,9 +17,10 @@ TILE = 64        # psi2 D tile edge in the CUDA source (TM)
 PATCH = 4        # psi2 patch edge: a thread's PATCH x PATCH pairs (PP)
 ROWS = 32        # psi2 rows staged per chunk in the CUDA source (RC)
 THREADS = 256    # threads per block (NT)
-P1_ROWS = 32     # psi1 rows per block (PR)
-P1_COLS = 64     # psi1 columns per block (PC)
 FEATURES = 16    # features staged at a time in the CUDA source (QC)
+P1_ROWS = 32     # psi1 rows per unit, at most (P1R)
+P1_COLS = 256    # psi1 columns per unit, at most (P1C)
+P1_ITEMS = 4     # psi1 (row, run) items per thread, at most (P1I)
 SMEM_MAX = 232_448   # dynamic shared memory a block may use on sm_90
 UNITS_PER_SM = 8     # psi2 (tile, row slice) units per SM the plan aims at
 
@@ -30,13 +32,32 @@ _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 def smem_bytes(kind: str, q: int, dtype) -> int:
     """Dynamic shared memory one block of ``psi1``/``psi2`` needs (the
     launcher's ``psi2_smem``/``psi1_smem``).  The kernels stage q in chunks
-    of ``FEATURES``, so ``q`` does not change it."""
+    of ``FEATURES``, so past that ``q`` does not change it; psi1 stages
+    z for min(q, ``FEATURES``) features."""
     item = torch.empty((), dtype=dtype).element_size()
     if kind == "psi2":
         return item * (2 * FEATURES * TILE + 2 * ROWS * TILE
                        + PATCH * PATCH * THREADS + 2 * ROWS * FEATURES
                        + 2 * ROWS)
-    return item * (FEATURES * P1_COLS + 2 * P1_ROWS * FEATURES + P1_ROWS)
+    vec = 16 // item
+    return item * (min(q, FEATURES) * (P1_COLS + vec)
+                   + 3 * P1_ROWS * (FEATURES + 1) + P1_ROWS)
+
+
+def psi1_plan(n: int, m: int, dtype) -> tuple[int, int, int]:
+    """psi1's units: (rows per unit, runs per unit, column tiles).  A run is
+    the 16 bytes of a row's consecutive columns (2 f64, 4 f32); a unit
+    takes up to ``P1_COLS`` columns, so all of m <= 256 in one column tile,
+    and as many rows (up to ``P1_ROWS``) as give each of the ``THREADS``
+    threads up to ``P1_ITEMS`` (row, run) items.  Unit u covers rows
+    ``(u // col_tiles) * rows ...`` and runs ``(u % col_tiles) * rpt ...``;
+    there are ``ceil(n / rows) * col_tiles`` of them."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    runs = -(-m // vec)
+    col_tiles = -(-runs // (P1_COLS // vec))
+    rpt = -(-runs // col_tiles)
+    rows = max(1, min(P1_ROWS, THREADS * P1_ITEMS // rpt))
+    return rows, rpt, col_tiles
 
 
 def psi2_plan(n: int, m: int, sms: int) -> tuple[int, int, int]:
@@ -93,10 +114,16 @@ def psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows_per_slice, scratch,
     _build.check(name, err)
 
 
-def psi1(mu, s, z, hp, out) -> None:
-    """Launch psi1's instantiation for mu's dtype on the current stream."""
-    name, fn = _fn("psi1", mu.dtype, [_P, _P, _P, _P, _I, _I, _I, _P, _P])
+def psi1(mu, s, z, log_sf2, log_ell, out) -> None:
+    """Launch psi1's instantiation for mu's dtype on the current stream, in
+    the units of :func:`psi1_plan`."""
+    name, fn = _fn("psi1", mu.dtype, [_P] * 5 + [_I] * 6 + [_P, _P])
     n, q = mu.shape
-    err = fn(mu.data_ptr(), s.data_ptr(), z.data_ptr(), hp.data_ptr(), n,
-             z.shape[0], q, out.data_ptr(), _build.stream_handle(mu.device))
+    m = z.shape[0]
+    err = fn(mu.data_ptr(), s.data_ptr(), z.data_ptr(), log_sf2.data_ptr(),
+             log_ell.data_ptr(), n, m, q, *_psi1_plan(n, m, mu.dtype),
+             out.data_ptr(), _build.stream_handle(mu.device))
     _build.check(name, err)
+
+
+_psi1_plan = functools.lru_cache(maxsize=64)(psi1_plan)

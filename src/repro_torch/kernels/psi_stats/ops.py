@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from .. import _vjp
 from . import kernel as _k
 from . import ref as _ref
@@ -33,6 +34,7 @@ from . import ref as _ref
 LAUNCHES = {"psi2_float32": 0, "psi2_float64": 0,
             "psi1_float32": 0, "psi1_float64": 0}
 _PSI2_KEY = {torch.float32: "psi2_float32", torch.float64: "psi2_float64"}
+_PSI1_KEY = {torch.float32: "psi1_float32", torch.float64: "psi1_float64"}
 
 
 def _tile_dtype(dtype) -> torch.dtype:
@@ -58,13 +60,6 @@ def _check(name, hyp, z, mu, s, *more):
             + " do not agree")
 
 
-def _hp(log_sf2, log_ell, sf2_power: float, dt):
-    """``[sf2^power, l^2 (q), 1/l^2 (q)]`` in the tile dtype."""
-    return torch.cat([torch.exp(sf2_power * log_sf2).reshape(1),
-                      torch.exp(2.0 * log_ell),
-                      torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
-
-
 # -- psi2 --------------------------------------------------------------------
 
 def psi2(hyp: dict, z, mu, s, w):
@@ -80,16 +75,11 @@ def psi2(hyp: dict, z, mu, s, w):
     return _Psi2.apply(log_sf2, log_ell, z, mu, s, w)
 
 
-def _as(t, dt):
-    """``t`` in dtype ``dt``, contiguous; ``t`` itself when it already is."""
-    return t if t.dtype == dt and t.is_contiguous() else t.to(dt).contiguous()
-
-
 def _launch_psi2(log_sf2, log_ell, z, mu, s, w):
     n, q = mu.shape
     m = z.shape[0]
     dt = _tile_dtype(mu.dtype)
-    args = [_as(t, dt) for t in (mu, s, w, z, log_sf2, log_ell)]
+    args = [_build.operand(t, dt) for t in (mu, s, w, z, log_sf2, log_ell)]
     n_slices, rows, scratch = _k.psi2_scratch(n, m, q, dt, mu.device)
     d_out = torch.empty((m, m), dtype=torch.float64, device=mu.device)
     _k.psi2(*args, n_slices, rows, scratch, d_out)
@@ -143,9 +133,9 @@ def _launch_psi1(log_sf2, log_ell, z, mu, s):
     out = torch.empty((n, m), dtype=dt, device=mu.device)
     if n == 0:
         return out.to(mu.dtype)
-    mus, ss, zs = (t.to(dt).contiguous() for t in (mu, s, z))
-    _k.psi1(mus, ss, zs, _hp(log_sf2, log_ell, 1.0, dt), out)
-    LAUNCHES["psi1_" + str(dt).removeprefix("torch.")] += 1
+    _k.psi1(*(_build.operand(t, dt) for t in (mu, s, z, log_sf2, log_ell)),
+            out)
+    LAUNCHES[_PSI1_KEY[dt]] += 1
     return out.to(mu.dtype)
 
 

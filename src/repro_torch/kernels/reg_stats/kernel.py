@@ -41,9 +41,10 @@ _FN = {torch.float32: "reg_stats_f32", torch.float64: "reg_stats_f64"}
 def reg_stats(x, y, w, z, hp, n_slices, rows_per_slice,
               part_d, part_c, part_b, d_out, c_out, b_out,
               part_comp=None) -> None:
-    """Launch the instantiation for x's dtype (tile pass, then the
-    fixed-order reduce) on the current stream; the f64 one also takes the
-    Kahan compensation scratch ``part_comp`` (shaped as ``part_d``)."""
+    """Launch the instantiation for x's dtype (one block per (slice, upper
+    tile) unit on gridDim.x, then the fixed-order reduce) on the current
+    stream; the f64 one also takes the Kahan compensation scratch
+    ``part_comp`` (shaped as ``part_d``)."""
     fn = getattr(_build.load("reg_stats"), _FN[x.dtype])
     f64 = x.dtype == torch.float64
     if fn.argtypes is None:

@@ -63,14 +63,14 @@ def _launch(log_sf2, log_ell, z, x, y, w):
     xs, ys, ws, zs = (t.to(dt).contiguous() for t in (x, y, w, z))
     hp = torch.cat([torch.exp(log_sf2).reshape(1),
                     torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
+    sms = _build.sm_count(x.device)
     if dt == f64:
         tile, rows = _k.TILE_F64, _k.ROWS_F64
-        sms = _build.sm_count(x.device)
         n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
     else:
         tile, rows = _k.TILE, _k.ROWS
-        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, x.device,
-                                                         tile, rows)
+        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, sms, tile,
+                                                         rows)
     m_pad = -(-m // tile) * tile
     dev = x.device
     part_d = torch.empty((n_slices, n_tiles, tile, tile), dtype=dt,

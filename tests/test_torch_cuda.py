@@ -85,6 +85,30 @@ def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
     assert torch.equal(got[2], got[2].T)
 
 
+@pytest.mark.parametrize("n,m,q,d,dtype", [
+    (300, 23_200, 3, 2, torch.float32),   # 66,066 upper tiles: past gridDim.y
+    (2053, 2048, 8, 4, F64)])             # 136 units on 132 SMs
+def test_reg_stats_takes_any_m(cuda, n, m, q, d, dtype):
+    """The (slice, upper tile) units on gridDim.x, one block each: past
+    the old 65,535-tile limit in f32, and more units than SMs in f64 (136
+    blocks of one per SM run in two waves), against the plain version at
+    the dtype's tier."""
+    rng = np.random.default_rng(n + m)
+    hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), cuda)}
+    z, x, y = (_t(rng.standard_normal(s), cuda, dtype)
+               for s in ((m, q), (n, q), (n, d)))
+    w = _t(rng.uniform(size=n) > 0.15, cuda, dtype)
+    got = rs_ops.reg_stats(hyp, z, x, y, w)
+    z, x, y, w = (v.double() for v in (z, x, y, w))
+    plain = rs_ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z, x, y, w)
+    plain_abs = rs_ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z, x,
+                                     y.abs(), w)
+    for g, p, pa in zip(got, plain, plain_abs):
+        assert _within(g, p, pa)
+    assert torch.equal(got[2], got[2].T)
+
+
 def _grads(fn, inputs, cotangents):
     """Gradients of <cotangents, fn(*inputs)> with respect to every input."""
     leaves = [t.detach().requires_grad_(True) for t in inputs]
@@ -161,6 +185,31 @@ def test_psi1_matches_plain(cuda, n, m, q, dtype):
     before = ps_ops.LAUNCHES[f"psi1_{name}"]
     got = ps_ops.psi1(hyp, z, mu, s)
     assert ps_ops.LAUNCHES[f"psi1_{name}"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, m)
+    plain = ps_ref.psi1_ref(hyp["log_sf2"], hyp["log_ell"],
+                            *(v.double() for v in (z, mu, s)))
+    assert _within(got, plain, plain)
+
+
+PSI1_CASES = [(n, m, q, dtype) for n, m, q in [
+    (4649, 150, 10), (1003, 37, 160), (1003, 63, 10), (1003, 65, 10),
+    (1003, 151, 10), (0, 37, 3), (1, 37, 3), (1, 1, 2), (77, 1000, 5),
+    (100_000, 100, 2)] for dtype in DTYPES]
+
+
+@pytest.mark.parametrize("n,m,q,dtype", PSI1_CASES)
+def test_psi1_units_match_plain(cuda, n, m, q, dtype):
+    """psi1's units (rows by 16-byte runs of columns, all of m <= 256 in
+    one) at gplvm-usps and gplvm-synth-100k, past one 16-feature chunk, at
+    the run and 64-column edges, odd m (scalar stores), m past one unit,
+    and n = 0, 1; lengthscales grow as sqrt(q), so values stay above f32's
+    underflow at any q."""
+    rng = np.random.default_rng(3 * n + m + q)
+    hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), cuda)}
+    z, mu = (_t(rng.standard_normal(sh), cuda, dtype) for sh in ((m, q), (n, q)))
+    s = _t(rng.uniform(0.05, 0.8, (n, q)), cuda, dtype)
+    got = ps_ops.psi1(hyp, z, mu, s)
     assert got.dtype == dtype and got.shape == (n, m)
     plain = ps_ref.psi1_ref(hyp["log_sf2"], hyp["log_ell"],
                             *(v.double() for v in (z, mu, s)))
@@ -295,6 +344,28 @@ def test_predict_matches_plain(cuda, t, m, q, d, symmetric, dtype):
     plain_abs = p_ref.predict_ref(*h64, z, a_mean.abs(), g.abs(), x)
     for r, p, pa in zip(got, plain, plain_abs):
         assert _within(r, p, pa)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [130, 1030, 2048])
+def test_predict_past_a_block_edge_matches_plain(cuda, m, dtype):
+    """t = 129, one row past the f32 kernel's 128-row block (and two f64
+    blocks), q = 300 (19 feature chunks), m past one and several 128-point
+    tiles; its rows bitwise the same inside a padded batch that puts them
+    across block edges."""
+    t, q, d = 129, 300, 2
+    hyp, z, a_mean, g, x = _predict_inputs(t + m, t, m, q, d, cuda, dtype)
+    got = p_ops.predict_stats(hyp, z, a_mean, g, x)
+    h64 = [v.double() for v in (hyp["log_sf2"], hyp["log_ell"])]
+    z64, a64, g64, x64 = (v.double() for v in (z, a_mean, g, x))
+    plain = p_ref.predict_ref(*h64, z64, a64, g64, x64)
+    plain_abs = p_ref.predict_ref(*h64, z64, a64.abs(), g64.abs(), x64)
+    for r, p, pa in zip(got, plain, plain_abs):
+        assert _within(r, p, pa)
+    padded = torch.cat([x[:100], x, x.flip(0)])
+    mean_p, quad_p = p_ops.predict_stats(hyp, z, a_mean, g, padded)
+    assert torch.equal(mean_p[100:229], got[0])
+    assert torch.equal(quad_p[100:229], got[1])
 
 
 @pytest.mark.parametrize("m", [130, 1030])

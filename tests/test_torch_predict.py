@@ -97,12 +97,22 @@ def test_cpu_path_differentiates():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m", [150, 512, 2048, 8192])
 def test_shared_memory_is_fixed_and_fits(m, dtype):
-    """The CUDA block's shared memory (two 32-row chunks of a pair tile and
-    the 64 x 128 slab panel, row stride 132; one 16-feature chunk of z, the
-    x rows, 1/ell^2, the quad partials) is one constant per dtype, whatever
-    m and q, and fits the card's 227 KB."""
+    """The CUDA block's shared memory is one constant per dtype, whatever m
+    and q, and fits the card's 227 KB.  f64: two 32-row chunks of a pair
+    tile and the 64 x 128 slab panel, row stride 132; one 16-feature chunk
+    of z, 64 x rows, 1/ell^2, the quad partials of 4 column warps.  f32:
+    two 16-row chunks, the transposed 128-row panel (128 columns of stride
+    132), z, 128 x rows, the scales, the quad partials of 2 column warps
+    and the 256 threads' 8 row sums; two such blocks (each with the 1 KB
+    the card reserves) fit an SM's 228 KB."""
     item = torch.empty((), dtype=dtype).element_size()
-    want = item * (2 * 32 * 132 + 64 * 132 + 16 * 128 + 64 * 17 + 16 + 256)
+    if dtype == torch.float64:
+        want = item * (2 * 32 * 132 + 64 * 132 + 16 * 128 + 64 * 17 + 16
+                       + 256)
+    else:
+        want = item * (2 * 16 * 132 + 128 * 132 + 16 * 128 + 128 * 17 + 16
+                       + 256 + 8 * 256)
+        assert p_k.BLOCKS_PER_SM[dtype] * (want + 1024) <= 228 * 1024
     for q in (1, 8, 300, 1000):
         assert p_k.smem_bytes(m, q, dtype) == want <= p_k.SMEM_MAX
     assert p_k.pair_tiles(m) == (-(-m // 128)) * (-(-m // 128) + 1) // 2

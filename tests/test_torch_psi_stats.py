@@ -18,6 +18,8 @@ The same numpy inputs, made from a seed, go through ``repro`` and through
 The CUDA kernels are held against the plain versions on the card in
 ``test_torch_cuda.py``.
 """
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,19 +199,27 @@ def test_reg_stats_vjp_matches_autograd(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["psi2", "psi1"])
 def test_shared_memory_is_fixed_and_fits(kind, dtype):
-    """The CUDA blocks' shared memory is one constant per kernel and dtype,
-    whatever q: z, mu and 1/(l^2 + c s) are staged 16 features at a time
-    (psi2: z of both 64-point tiles, the alphas of their points for 32
-    rows, each of the 256 threads' 16 running sums, 32 rows of mu and
-    1/(2 (l^2 + 2s)), their log-normalisers and weights; psi1: z of 64
-    columns, 32 rows of mu and 1/(l^2 + s), their log-normalisers).  It
-    fits the card's 227 KB."""
+    """The CUDA blocks' shared memory is one constant per kernel and dtype
+    for q >= 16, and no more below: z, mu and 1/(l^2 + c s) are staged 16
+    features at a time (psi2: z of both 64-point tiles, the alphas of their
+    points for 32 rows, each of the 256 threads' 16 running sums, 32 rows
+    of mu and 1/(2 (l^2 + 2s)), their log-normalisers and weights; psi1: z
+    of 256 columns transposed, row stride 256 + one 16-byte run, for
+    min(q, 16) features, and 32 rows of mu, 1/(l^2 + s) and log1p(s / l^2),
+    row stride 17, and the rows' log-normalisers).  It fits the card's
+    227 KB; psi1's, with its 512-byte exp table, fits the 48 KB a launch
+    gets without an attribute call."""
     item = torch.empty((), dtype=dtype).element_size()
-    want = item * ((2 * 16 * 64 + 2 * 32 * 64 + 16 * 256 + 2 * 32 * 16
-                    + 2 * 32) if kind == "psi2"
-                   else (16 * 64 + 2 * 32 * 16 + 32))
     for q in (1, 10, 150, 224, 300, 1000):
+        want = item * ((2 * 16 * 64 + 2 * 32 * 64 + 16 * 256 + 2 * 32 * 16
+                        + 2 * 32) if kind == "psi2"
+                       else (min(q, 16) * (256 + 16 // item) + 3 * 32 * 17
+                             + 32))
         assert ps_k.smem_bytes(kind, q, dtype) == want <= ps_k.SMEM_MAX
+        if kind == "psi1":
+            assert want + 512 <= 48 * 1024
+    assert ps_k.smem_bytes(kind, 10 ** 6, dtype) == ps_k.smem_bytes(kind, 16,
+                                                                    dtype)
 
 
 def _psi2_centred(log_sf2, log_ell, z, mu, s, w):
@@ -327,3 +337,112 @@ def test_psi2_plan_covers_every_row_and_refuses_no_m(n, m):
         n_slices * np_ * (np_ + 1) // 2 * 16 + 11 * (n + 1))
     if m >= 23_105:
         assert n_tiles > 65_535
+
+
+def _psi1_cover(n, m, dtype):
+    """How often the CUDA psi1 writes each (row, column): a mirror of
+    ``psi1_tiles``' units, items and runs over :func:`psi1_plan`."""
+    rows, rpt, col_tiles = ps_k.psi1_plan(n, m, dtype)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    runs = -(-m // vec)
+    assert 1 <= rows <= ps_k.P1_ROWS and 1 <= rpt * vec <= ps_k.P1_COLS + vec
+    assert rows * rpt <= ps_k.THREADS * ps_k.P1_ITEMS
+    count = np.zeros(n * m, np.int64)
+    unit = np.arange(-(-n // rows) * col_tiles)[:, None]
+    it = np.arange(ps_k.THREADS * ps_k.P1_ITEMS)[None, :]
+    r0, j0 = unit // col_tiles * rows, unit % col_tiles * rpt
+    nr, nj = np.minimum(rows, n - r0), np.minimum(rpt, runs - j0)
+    r, j = it // nj, it % nj
+    for v in range(vec):
+        col = (j0 + j) * vec + v
+        ok = (it < nr * nj) & (col < m)
+        np.add.at(count, ((r0 + r) * m + col)[ok], 1)
+    return count, rows, rpt, col_tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(4649, 150), (100_000, 100),
+                                 *[(n, m) for n in (0, 1, 31, 33)
+                                   for m in (1, 37, 63, 65, 151)],
+                                 (40, 257), (5, 1000)])
+def test_psi1_plan_covers_every_entry_once(n, m, dtype):
+    """psi1's units write every (row, column) of the (n, m) output exactly
+    once and nothing past it.  At gplvm-usps a unit is 13 f64 rows of all
+    150 columns (358 units for 132 SMs), and 26 f32 rows."""
+    count, rows, rpt, col_tiles = _psi1_cover(n, m, dtype)
+    assert np.all(count == 1)
+    if (n, m) == (4649, 150):
+        assert (rows, col_tiles) == ((13, 1) if dtype == torch.float64
+                                     else (26, 1))
+        assert -(-n // rows) * col_tiles >= 132
+
+
+def _exp_table():
+    """2^(j/32) as hi + lo, read from the CUDA source's kExp2Frac."""
+    src = (pathlib.Path(ps_k.__file__).resolve().parents[2] / "csrc"
+           / "psi_stats.cu").read_text()
+    body = src.split("kExp2Frac[64] = {")[1].split("};")[0]
+    vals = [float.fromhex(v.strip()) for v in body.split(",") if v.strip()]
+    assert len(vals) == 64
+    return np.array(vals[:32]), np.array(vals[32:])
+
+
+def _exp_pair(x):
+    """The CUDA exp_pair in numpy (its fused multiply-adds rounded twice)."""
+    hi_t, lo_t = _exp_table()
+    x = np.maximum(x, -750.0)
+    shift = float.fromhex("0x1.8p+52")
+    nd = (x * float.fromhex("0x1.71547652b82fep+5") + shift) - shift
+    n = nd.astype(np.int64)
+    r = x - nd * float.fromhex("0x1.62e42fef00000p-6")
+    r = r - nd * float.fromhex("0x1.473de6af278edp-39")
+    p = r * (1.0 / 720) + 1.0 / 120
+    for c in (1.0 / 24, 1.0 / 6, 0.5, 1.0):
+        p = p * r + c
+    hi, lo = hi_t[n & 31], lo_t[n & 31]
+    e = hi + (hi * (p * r) + lo)
+    mm = n >> 5
+    m1 = mm >> 1
+    return np.ldexp(np.ldexp(e, m1), mm - m1)
+
+
+def _psi1_kernel_form(log_sf2, log_ell, z, mu, s):
+    """psi1 as the CUDA kernel forms it, f64 numpy: 1/(l^2 + s) multiplied,
+    log1p(s / l^2) summed in feature order, exp_pair."""
+    l2 = np.exp(2.0 * log_ell)
+    inv = 1.0 / (l2 + s)                                  # (n, q)
+    ln = np.zeros(mu.shape[0])
+    for k in range(mu.shape[1]):
+        ln = ln + np.log1p(s[:, k] / l2[k])
+    acc = np.zeros((mu.shape[0], z.shape[0]))
+    for k in range(mu.shape[1]):
+        d = mu[:, k:k + 1] - z[None, :, k]
+        acc = (d * inv[:, k:k + 1]) * d + acc
+    return np.exp(log_sf2) * _exp_pair(-0.5 * acc + (-0.5 * ln)[:, None])
+
+
+@pytest.mark.parametrize("case", [*SHAPES, (37, 151, 10), "far"])
+def test_psi1_exponent_and_exp_match_plain(case):
+    """The CUDA psi1's f64 arithmetic (direct exponent, branch-free exp)
+    against ``psi1_ref`` at the f64 tier of the card's checks, 1e-10
+    |plain| + 1e-11 |plain|; ``far`` puts rows 25-30 lengthscales from
+    every inducing point (psi1 down to ~1e-200, still normal f64) and one
+    row so far that both give exactly 0."""
+    if case == "far":
+        hyp, z, mu, s, _ = _inputs(13, 40, 24, 10)
+        direction = mu / np.linalg.norm(mu, axis=1, keepdims=True)
+        mu = np.concatenate([z[:8] + 0.1 * mu[:8],
+                             (25.0 + 5.0 * np.linspace(0, 1, 31))[:, None]
+                             * direction[8:39] * np.exp(hyp["log_ell"]),
+                             400.0 * direction[39:]])
+    else:
+        n, m, q = case
+        hyp, z, mu, s, _ = _inputs(7 * n + m, n, m, q)
+    th, tz, tmu, ts = _torch(hyp, z, mu, s)
+    want = ps_ref.psi1_ref(th["log_sf2"], th["log_ell"], tz, tmu, ts).numpy()
+    got = _psi1_kernel_form(hyp["log_sf2"], hyp["log_ell"], z, mu, s)
+    err = np.abs(got - want)
+    assert np.all(err <= 1e-10 * np.abs(want) + 1e-11 * np.abs(want))
+    if case == "far":
+        assert want[8:39].min() > 1e-300 and want[8:39].max() < 1e-60
+        assert np.all(want[39:] == 0.0) and np.all(got[39:] == 0.0)

@@ -165,3 +165,54 @@ def test_f64_shared_memory_fits_at_the_repos_shapes(q, d):
     for qq in (1, 8, 300, 1000):
         for dd in (1, 8, 300, 1000):
             assert rs_k.smem_bytes_f64(qq, dd) == want <= rs_k.SMEM_LIMIT
+
+
+def _kernel_tile(tile, nts):
+    """The upper tile (a, b) of unit index ``tile``: a mirror of the CUDA
+    kernels' decode."""
+    a, rem = 0, tile
+    while rem >= nts - a:
+        rem, a = rem - (nts - a), a + 1
+    return a, a + rem
+
+
+@pytest.mark.parametrize("dtype,n,m", [
+    (torch.float32, 1_000, 23_200),   # 66,066 upper 64-tiles: past gridDim.y
+    (torch.float64, 1_000, 46_400),   # 66,066 upper 128-tiles
+    (torch.float64, 1_000_000, 2_048),   # 136 units on 132 SMs
+    (torch.float32, 1_000_000, 512), (torch.float64, 1_000_000, 512)])
+def test_plans_refuse_no_m_and_units_cover_every_tile_and_row(dtype, n, m):
+    """The plans take any m.  Units (slice, upper tile) go on gridDim.x,
+    one block each: unit = slice * tiles + tile, decoded as the kernels
+    decode it, covers every upper tile once per slice, and the slices
+    cover the n rows once."""
+    sms = 132
+    if dtype == torch.float64:
+        tile_edge, rows = rs_k.TILE_F64, rs_k.ROWS_F64
+        n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile_edge,
+                                                        rows)
+    else:
+        tile_edge, rows = rs_k.TILE, rs_k.ROWS
+        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, sms,
+                                                         tile_edge, rows)
+    nts = -(-m // tile_edge)
+    assert n_tiles == nts * (nts + 1) // 2
+    # every upper tile once: the reduce's index of (a, b) is a bijection
+    # onto the units' tile indices, and the kernels' decode inverts it
+    a, b = np.triu_indices(nts)
+    index = a * nts - a * (a - 1) // 2 + (b - a)
+    assert np.array_equal(np.sort(index), np.arange(n_tiles))
+    for t in {0, 1, nts - 1, nts, n_tiles // 2, n_tiles - 2, n_tiles - 1,
+              *range(0, n_tiles, 997)}:
+        ka, kb = _kernel_tile(t, nts)
+        assert ka <= kb < nts
+        assert index[np.flatnonzero((a == ka) & (b == kb))[0]] == t
+    # every row once
+    assert per_slice % rows == 0
+    assert (n_slices - 1) * per_slice < n <= n_slices * per_slice
+    n_units = n_tiles * n_slices
+    assert n_units < 2 ** 31          # gridDim.x
+    if m >= 23_200:
+        assert n_tiles > 65_535       # past the old gridDim.y limit
+    if (dtype, m) == (torch.float64, 2_048):
+        assert n_units == 136 > sms   # the card runs the blocks in two waves
