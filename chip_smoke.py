@@ -31,6 +31,18 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``log_bound`` -> ``predictive_state`` -> ``save_state`` / ``load_state``
    -> ``PredictEngine`` answering query batches, checked against the same
    path computed by the plain versions in f64 on the card;
+3d. runs the distributed Map-Reduce (``DistributedGP`` through
+   ``make_gp_train_step``): in a world of one over NCCL at
+   ``sgpr-synth-1m``, value and gradient against ``SGPR._neg_vg`` (1e-9 /
+   1e-8 relative), a 3-iteration SCG fit (the bound must rise) and
+   ``predictive_state`` against the model's (1e-10), the NCCL all_reduce's
+   bytes and time; the latent map at ``gplvm-usps`` against
+   ``BayesianGPLVM._neg_vg`` (the gradient within the plain path's own
+   spread, 3.42e-7); then 4 ranks spawned on the one card over gloo, each
+   holding n / 4 rows: fmasks (1,1,1,1) drop, (1,0,1,1) drop and rescale
+   against one process with the same masked weights (1e-9 / 1e-8), and 3
+   SCG iterations under ``FailureSimulator(4, 0.01, seed=3)`` with every
+   rank's bounds bitwise equal, and the ranks' ``StepTimer`` summary;
 3b. trains and serves the Bayesian GPLVM at ``gplvm-usps`` (n = 4649,
    d = 256, q = 10, m = 150): value and gradient against the plain f64
    path -> ``fit`` (10 SCG iterations; the bound must rise) ->
@@ -43,8 +55,9 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    prefilled at f32 compute; checked against the same model with the plain
    attention, and by teacher-forced decode against the prefill.
 
-Every launch counter is set to 0 just before each of 3a, 3b and 3c and read
-just after; each kernel of a path must have launched in it.
+Every launch counter is set to 0 just before each of 3a, 3d, 3b and 3c
+and read just after; each kernel of a path must have launched in it (3d's
+ranks count their own launches and report them).
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -155,6 +168,12 @@ def graph_ms(fn, launches: int = 20) -> float:
         for _ in range(launches):
             fn()
     return time_ms(graph.replay) / launches
+
+
+def t64(a, device=None):
+    """An f64 tensor of ``a`` on ``device`` (default DEV)."""
+    return torch.as_tensor(np.asarray(a, np.float64),
+                           device=DEV if device is None else device)
 
 
 def make_regression(rng, n, q, d, noise=0.1):
@@ -502,10 +521,6 @@ def time_backwards(rs_ops, ps_ops, sgpr, usps) -> None:
     (the hyper-parameters, z, mu and s, as the GPLVM's)."""
     f64 = torch.float64
     rng = np.random.default_rng(SEED + 3)
-
-    def t64(a):
-        return torch.from_numpy(np.asarray(a, np.float64)).to(DEV)
-
     n, m, q, d = sgpr.n, sgpr.m, sgpr.q, sgpr.d
     x, y = make_regression(rng, n, q, d)
     hyp = [t64(float(np.log(float(np.var(y))))), t64(np.full(q, 0.5 * np.log(q)))]
@@ -654,17 +669,23 @@ def rmse(a, b) -> float:
     return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
 
 
-def serving_path(rt, cfg) -> dict:
+def sgpr_inputs(n, q, d, m):
+    """The SGPR's data, Z (k-means on the first 8,192 rows) and
+    hyper-parameters (``default_hyp_for``), from SEED."""
     from repro_torch.core import covariance, init_utils
+
+    x, y = make_regression(np.random.default_rng(SEED), n, q, d)
+    z = init_utils.kmeans(x[:8192], m, iters=5, seed=SEED)
+    return x, y, z, init_utils.default_hyp_for(covariance.SE_ARD, y, q)
+
+
+def serving_path(rt, cfg) -> dict:
     from repro_torch.kernels.predict import ops as p_ops
     from repro_torch.kernels.psi_stats import ops as ps_ops
     from repro_torch.kernels.reg_stats import ops as rs_ops
 
-    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    x, y = make_regression(rng, cfg.n, cfg.q, cfg.d)
-    z = init_utils.kmeans(x[:8192], cfg.m, iters=5, seed=SEED)
-    hyp = init_utils.default_hyp_for(covariance.SE_ARD, y, cfg.q)
+    x, y, z, hyp = sgpr_inputs(cfg.n, cfg.q, cfg.d, cfg.m)
     qrng = np.random.default_rng(SEED + 1)
     sizes = (1, 1_000, 65_536)
     queries = [qrng.uniform(-2.0, 2.0, (t, cfg.q)) for t in sizes]
@@ -837,6 +858,340 @@ def gplvm_path(rt, cfg) -> dict:
         raise AssertionError(f"gplvm served latents: mean {mr:.3e} / var "
                              f"{vr:.3e} outside the serving budgets")
     print(f"gplvm path vs plain f64: {json.dumps(report)}", flush=True)
+    return launches
+
+
+# -- phase 3d: the distributed Map-Reduce (core.distributed) ------------------
+
+DIST_WORLD = 4          # ranks sharing the one card, over gloo
+# (fmask, failure mode) of the four-rank run's checks
+DIST_FMASKS = (((1.0, 1.0, 1.0, 1.0), "drop"), ((1.0, 0.0, 1.0, 1.0), "drop"),
+               ((1.0, 0.0, 1.0, 1.0), "rescale"))
+DIST_DEADLINE_S = 600   # for the spawned ranks, all together
+DIST_GROUP_TIMEOUT_S = 120
+STATE_RTOL = 1e-10      # predictive_state against the model's
+# The GPLVM gradient's limit: the plain path's own spread at the
+# gplvm-usps init (ROADMAP Queue 3 item 3).
+GPLVM_GRAD_SPREAD = 3.42e-7
+STATE_FIELDS = ("chol_kmm", "chol_sigma", "c2", "a_mean", "g")
+
+
+def flat_step(vg, flat, data, w, fmask, n_full, record=None):
+    """SCG's ``fg`` over a distributed SGPR step: the flat point -> (value,
+    flat gradient); ``record(value, seconds)`` sees each evaluation."""
+    def fg(xf):
+        p = flat.unravel(xf)
+        if w.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, (gh, gz) = vg(p["hyp"], p["z"], data["mu"], None, data["y"], w,
+                         fmask() if callable(fmask) else fmask, n_full)
+        g = flat.ravel({"hyp": gh, "z": gz})
+        if record is not None:
+            record(float(v), time.perf_counter() - t0)
+        return float(v), g
+    return fg
+
+
+def masked_neg_vg(x, y, w, z, hyp, n_full, mode):
+    """One process on the card: the negative bound and its flat gradient
+    over all rows with per-row weights ``w``, under the failure mode's n
+    handling (the reference of the four-rank run)."""
+    from repro_torch.core import bound as bound_mod
+    from repro_torch.core.flat import Flat
+    from repro_torch.core.stats import Stats, partial_stats
+
+    params = {"hyp": {k: t64(v) for k, v in hyp.items()}, "z": t64(z)}
+    nf = t64(n_full)
+
+    def neg(p):
+        st = partial_stats(p["hyp"], p["z"], y, x, weights=w)
+        if mode == "rescale":
+            live = st.n / nf
+            st = Stats(A=st.A / live, B=st.B / live, C=st.C / live,
+                       D=st.D / live, KL=st.KL / live, n=nf)
+        else:
+            st = st._replace(n=nf)
+        return -bound_mod.collapsed_bound(p["hyp"], p["z"], st, y.shape[1])
+    flat = Flat(params)
+    return flat.value_and_grad(neg, flat.ravel(params))
+
+
+def dist_rank(rank, world, store_path, out_dir, shape, device):
+    """One rank of phase 3d's gloo run (a spawned process): its n / world
+    rows of the SGPR data, the value and gradient under each of
+    DIST_FMASKS, then SGPR_FIT_ITERS SCG iterations under
+    FailureSimulator(world, 0.01, seed=3); writes ``rank<k>.npz``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.flat import Flat
+    from repro_torch.core.scg import scg
+    from repro_torch.distributed import FailureSimulator
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+    from repro_torch.launch import make_data_group
+    from repro_torch.train.steps import make_gp_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = make_data_group(device, backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S))
+    n, q, d, m = shape
+    x, y, z, hyp = sgpr_inputs(n, q, d, m)
+    params = {"hyp": {k: t64(v, device) for k, v in hyp.items()},
+              "z": t64(z, device)}
+    flat = Flat(params)
+    x0 = flat.ravel(params)
+    reset_counts(rs_ops.LAUNCHES)
+    out, data = {}, None
+    for i, (fmask, mode) in enumerate(DIST_FMASKS):
+        eng, vg = make_gp_train_step(group, d, failure_mode=mode,
+                                     device=device)
+        if data is None:
+            data, w = eng.put_data(y=y, mu=x)
+        v, g = flat_step(vg, flat, data, w, np.asarray(fmask), float(n))(x0)
+        out[f"value{i}"], out[f"grad{i}"] = v, g
+    sim = FailureSimulator(world, rate=0.01, seed=3)
+    bounds, times, masks = [], [], []
+
+    def draw():
+        masks.append(sim.mask())
+        return masks[-1]
+
+    def record(v, sec):
+        bounds.append(-v)
+        times.append(sec)
+    scg(flat_step(vg, flat, data, w, draw, float(n), record), x0,
+        max_iters=SGPR_FIT_ITERS)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", bounds=bounds,
+             masks=np.array(masks), times=times,
+             launches=rs_ops.LAUNCHES["float64"], **out)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world, shape, device) -> list[dict]:
+    """Run ``dist_rank`` in ``world`` spawned processes; every one must exit
+    0 before DIST_DEADLINE_S.  Returns their results; kills what is left
+    running."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=dist_rank, args=(
+            r, world, f"{tmp}/store", tmp, shape, device))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(max(0.0, DIST_DEADLINE_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"phase 3d: rank exit codes {codes} "
+                                 f"after {time.perf_counter() - t0:.1f} s")
+        return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
+
+
+def four_ranks(cfg, report) -> int:
+    """DIST_WORLD gloo ranks on the one card, each holding n / DIST_WORLD
+    rows of the SGPR data: value and gradient under each fmask against one
+    process with the same masked weights, and bitwise-equal bounds on every
+    rank through the SCG steps.  Returns the ranks' reg_stats launches."""
+    from repro_torch.core.distributed import pad_and_shard
+    from repro_torch.distributed import StepTimer
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(DIST_WORLD, (cfg.n, cfg.q, cfg.d, cfg.m),
+                      str(torch.device(DEV, 0)))
+    report["four_ranks_wall_s"] = time.perf_counter() - t0
+    for r, rr in enumerate(res[1:], 1):
+        for k in res[0]:
+            if k not in ("times", "launches") and \
+                    rr[k].tobytes() != res[0][k].tobytes():
+                raise AssertionError(f"phase 3d: rank {r}'s {k} differs "
+                                     "from rank 0's")
+    x, y, z, hyp = sgpr_inputs(cfg.n, cfg.q, cfg.d, cfg.m)
+    padded, w = pad_and_shard({"y": y, "mu": x}, DIST_WORLD)
+    xt, yt = t64(padded["mu"]), t64(padded["y"])
+    rows = w.shape[0] // DIST_WORLD
+    for i, (fmask, mode) in enumerate(DIST_FMASKS):
+        wt = t64(w * np.repeat(fmask, rows))
+        vp, gp = masked_neg_vg(xt, yt, wt, z, hyp, float(cfg.n), mode)
+        dv = abs(float(res[0][f"value{i}"]) - vp) / abs(vp)
+        dg = rel_diff(res[0][f"grad{i}"], gp)
+        report[f"fmask{''.join(str(int(f)) for f in fmask)}_{mode}"] = {
+            "value_rel_diff": dv, "grad_rel_diff": dg}
+        if not (dv <= 1e-9 and dg <= GRAD_RTOL):
+            raise AssertionError(f"phase 3d fmask {fmask} {mode}: value "
+                                 f"{dv:.3e} / gradient {dg:.3e} against one "
+                                 f"process, above 1e-9 / {GRAD_RTOL}")
+    # A NaN is a wild SCG step whose Cholesky failed, on every rank at once.
+    bounds = res[0]["bounds"]
+    if not (len(bounds) > SGPR_FIT_ITERS and np.isfinite(bounds[0])):
+        raise AssertionError(f"phase 3d SCG bounds {bounds}")
+    report["scg_under_failures"] = {
+        "bounds": bounds.tolist(), "evals": len(bounds),
+        "masks_with_a_failure": int((res[0]["masks"] < 1).any(1).sum()),
+        "bitwise_equal_on_every_rank": True}
+    timer = StepTimer()
+    for i in range(len(bounds)):
+        timer.record([float(rr["times"][i]) for rr in res])
+    print(f"distributed path (3d) StepTimer over the {DIST_WORLD} ranks' "
+          f"steps (s): {json.dumps(timer.summary())} -- the {DIST_WORLD} "
+          "ranks share one card, so this is not the paper's Fig. 5 load "
+          "balance", flush=True)
+    return int(sum(int(rr["launches"]) for rr in res))
+
+
+def distributed_path(rt, cfg, usps) -> dict:
+    """Phase 3d: ``DistributedGP`` through ``make_gp_train_step`` in a world
+    of one over NCCL at ``cfg`` (value and gradient against
+    ``SGPR._neg_vg``, a 3-iteration SCG fit, ``predictive_state`` against
+    the model's), the latent map at ``usps`` against
+    ``BayesianGPLVM._neg_vg``, then DIST_WORLD ranks over gloo on the card
+    (``four_ranks``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.flat import Flat
+    from repro_torch.core.scg import scg
+    from repro_torch.data import usps_like
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+    from repro_torch.launch import make_data_group
+    from repro_torch.train.steps import make_gp_train_step
+
+    x, y, z, hyp = sgpr_inputs(cfg.n, cfg.q, cfg.d, cfg.m)
+    yl, _ = usps_like(np.random.default_rng(SEED), usps.n)
+    steps, report = {}, {}
+    step = timed_step(steps)
+    ones = np.ones(1)
+
+    def counts():
+        return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
+
+    # Only the engine's calls count: the references (SGPR, BayesianGPLVM)
+    # launch the same kernels in between.
+    launches = {k: 0 for k in counts()}
+    last = {}
+
+    def engine(fn):
+        """``fn``, with the launches it makes added to ``launches``."""
+        def run(*args):
+            before = counts()
+            out = fn(*args)
+            last.clear()
+            for k, c in counts().items():
+                last[k] = c - before[k]
+                launches[k] += last[k]
+            return out
+        return run
+
+    reset_counts(rs_ops.LAUNCHES, p_ops.LAUNCHES, ps_ops.LAUNCHES)
+    group = make_data_group(DEV)
+    try:
+        report["backend"] = dist.get_backend(group)
+        eng, vg = make_gp_train_step(group, cfg.d, device=DEV)
+        data, w = eng.put_data(y=y, mu=x)
+        params = {"hyp": {k: t64(v) for k, v in hyp.items()}, "z": t64(z)}
+        flat = Flat(params)
+        x0 = flat.ravel(params)
+        fg = engine(flat_step(vg, flat, data, w, ones, float(cfg.n)))
+        fg(x0)                                       # first call: set-up
+        v, g = step("dist_value_and_grad_s", lambda: fg(x0))
+        report["reg_stats_launches_per_evaluation"] = last["reg_stats_f64"]
+        if last["reg_stats_f64"] != 1:
+            raise AssertionError(f"phase 3d: {last['reg_stats_f64']} "
+                                 "reg_stats launches in one evaluation, not 1")
+        model = rt.SGPR(x, y, hyp=hyp, z=z, device=DEV)
+        model._neg_vg()
+        vr, gr = step("sgpr_neg_vg_s", model._neg_vg)
+        report["sgpr_value_rel_diff"] = dv = abs(v - vr) / abs(vr)
+        report["sgpr_grad_rel_diff"] = dg = rel_diff(g, gr)
+        if not (dv <= 1e-9 and dg <= GRAD_RTOL):
+            raise AssertionError(f"phase 3d: value {dv:.3e} / gradient "
+                                 f"{dg:.3e} against SGPR._neg_vg")
+        res = step(f"dist_scg_{SGPR_FIT_ITERS}_iters_s",
+                   lambda: scg(fg, x0, max_iters=SGPR_FIT_ITERS))
+        report["scg"] = {"bound_before": -v, "bound_after": -res.f,
+                         "evals": res.n_evals}
+        if not (math.isfinite(res.f) and res.f < v):
+            raise AssertionError(f"phase 3d: SCG moved the bound {-v} -> "
+                                 f"{-res.f}")
+        ps = step("dist_predictive_state_s", lambda: engine(
+            eng.predictive_state)(params["hyp"], params["z"], data["y"],
+                                  data["mu"], None, w))
+        ms = model.predictive_state()
+        for f in STATE_FIELDS:
+            diff = rel_diff(getattr(ps, f).cpu(), getattr(ms, f).cpu())
+            report[f"state_{f}_rel_diff"] = diff
+            if not diff <= STATE_RTOL:
+                raise AssertionError(f"phase 3d: predictive_state.{f} "
+                                     f"{diff:.3e} from the model's")
+        buf = torch.zeros(cfg.m * cfg.m + cfg.m * cfg.d + 4,
+                          dtype=torch.float64, device=DEV)
+        report["all_reduce"] = {"bytes": buf.numel() * 8,
+                                "ms": time_ms(lambda: dist.all_reduce(buf))}
+        report["world_of_one_launches"] = dict(launches)
+
+        # -- the latent map at gplvm-usps ---------------------------------------
+        gm = rt.BayesianGPLVM(yl, q=usps.q, num_inducing=usps.m, device=DEV)
+        p = gm.params
+        leng, lvg = make_gp_train_step(group, usps.d, latent=True,
+                                       argnums=(0, 1, 2, 3), device=DEV)
+        ldata, lw = leng.put_data(y=yl, mu=p["mu"].cpu().numpy(),
+                                  s=torch.exp(p["log_s"]).cpu().numpy())
+        lv, (gh, gz, gmu, gs) = step("dist_gplvm_value_and_grad_s", lambda:
+                                     engine(lvg)(p["hyp"], p["z"],
+                                                 ldata["mu"], ldata["s"],
+                                                 ldata["y"], lw, ones,
+                                                 float(usps.n)))
+        report["psi_launches_per_evaluation"] = {
+            k: last[k] for k in ("psi2_f64", "psi1_f64")}
+        if min(last["psi2_f64"], last["psi1_f64"]) < 1:
+            raise AssertionError("phase 3d latent: psi launches "
+                                 f"{report['psi_launches_per_evaluation']}")
+        gm._neg_vg()
+        lvr, lgr = step("gplvm_neg_vg_s", gm._neg_vg)
+        lg = Flat(p).ravel({"hyp": gh, "z": gz, "mu": gmu,
+                            "log_s": gs * ldata["s"]})
+        report["gplvm_value_rel_diff"] = dv = abs(float(lv) - lvr) / abs(lvr)
+        report["gplvm_grad_rel_diff"] = dg = rel_diff(lg, lgr)
+        if not (dv <= 1e-9 and dg <= GPLVM_GRAD_SPREAD):
+            raise AssertionError(f"phase 3d latent: value {dv:.3e} / "
+                                 f"gradient {dg:.3e} against "
+                                 "BayesianGPLVM._neg_vg")
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed path (3d) steps (s): {json.dumps(steps)}", flush=True)
+    print(f"distributed path (3d) world of one ({report['backend']}): "
+          f"{json.dumps(report)}", flush=True)
+    del model, gm, eng, leng, data, ldata
+    ranks = {}
+    rank_launches = four_ranks(cfg, ranks)
+    ranks["reg_stats_launches"] = rank_launches
+    launches["reg_stats_f64"] += rank_launches
+    print(f"distributed path (3d) {DIST_WORLD} gloo ranks on one card: "
+          f"{json.dumps(ranks)}", flush=True)
+    print(f"distributed path (3d) launches: {json.dumps(launches)}",
+          flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "distributed path")
     return launches
 
 
@@ -1154,11 +1509,14 @@ def main() -> int:
 
     # -- phase 3: the main paths ------------------------------------------------
     sgpr_launches = serving_path(rt, cfg)
+    dist_launches = distributed_path(rt, cfg, usps)
     gplvm_launches = gplvm_path(rt, usps)
     lm_launches = lm_path(fa_ops, fa_ref)
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
+    for kname, count in dist_launches.items():
+        launches[kname] += count
 
     def entry(kname, source, replaces, res):
         return {"name": kname, "route": "cuda", "source": source,

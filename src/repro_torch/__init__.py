@@ -9,12 +9,16 @@ use.
 
 Ported so far: ``SGPR`` and ``BayesianGPLVM`` (map statistics, bound and
 gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
-``load_state`` and ``PredictEngine``; LM serving of ``llama3.2-1b``
+``load_state`` and ``PredictEngine``; the distributed Map-Reduce
+``DistributedGP`` on ``torch.distributed`` with the §5.2 failure masks
+(``distributed``, ``launch.make_data_group``,
+``train.steps.make_gp_train_step``); LM serving of ``llama3.2-1b``
 (``models``, ``train.steps.make_prefill_step`` / ``make_serve_step``).
 """
-from .core import SGPR, BayesianGPLVM
+from .core import SGPR, BayesianGPLVM, DistributedGP
 from .serve import (PredictEngine, PredictiveState, extract_state, load_state,
                     save_state, state_from_model)
 
-__all__ = ["SGPR", "BayesianGPLVM", "PredictEngine", "PredictiveState", "extract_state",
-           "load_state", "save_state", "state_from_model"]
+__all__ = ["SGPR", "BayesianGPLVM", "DistributedGP", "PredictEngine",
+           "PredictiveState", "extract_state", "load_state", "save_state",
+           "state_from_model"]

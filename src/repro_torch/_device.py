@@ -9,6 +9,8 @@ so with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -22,6 +24,19 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain CPU versions")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def rank_device(device=None) -> torch.device:
+    """Like :func:`resolve_device`, but ``None`` is this process's card:
+    ``cuda:{LOCAL_RANK}`` under a launcher (``torchrun``), else the current
+    CUDA device; a CUDA device always comes back with its index.  The
+    distributed entry points resolve through it."""
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        local = os.environ.get("LOCAL_RANK") if device is None else None
+        dev = torch.device("cuda", int(local) if local is not None
+                           else torch.cuda.current_device())
     return dev
 
 

@@ -12,7 +12,9 @@ Each worker holds a shard ``(Y_k, mu_k, S_k)`` (regression: ``S_k = 0``,
 whose size is independent of n.  ``weights`` masks rows (padding, failed
 nodes) without changing shapes: a zero weight removes row i from every
 statistic.  Counterpart of ``repro.core.stats``; the SVI mode, ``init=``
-and ``block_reduce_fn`` come in later slices.
+and ``block_reduce_fn`` come in later slices.  :func:`pack_stats` /
+:func:`unpack_stats` flatten the Stats for the distributed reduce
+(``core.distributed``).
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ def zero_stats(m: int, d: int, dtype=torch.float64, device=None) -> Stats:
 
 def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                           latent: bool = False, block_size: int | None = 1024,
-                          kernel=None) -> Stats:
+                          kernel=None, force_scan: bool = False) -> Stats:
     """Streaming map step: :func:`partial_stats` folded over row blocks.
 
     Exact mode: rows are padded up to a multiple of ``block_size`` with zero
@@ -102,10 +104,12 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
     Stats are folded left to right into a constant-size accumulator, as the
     JAX package's ``lax.scan`` does, so peak memory is O(block_size * m) +
     O(m^2).  ``block_size=None`` (or ``n <= block_size``) computes the
-    statistics in one piece.
+    statistics in one piece; ``force_scan`` (the distributed engine's
+    setting, as in the JAX package) folds even a single block into the
+    zero accumulator.  No-op when ``block_size`` is None.
     """
     n_k = y.shape[0]
-    if block_size is None or n_k <= block_size:
+    if block_size is None or (n_k <= block_size and not force_scan):
         return partial_stats(hyp, z, y, mu, s, weights=weights,
                              latent=latent, kernel=kernel)
     w = (torch.ones((n_k,), dtype=y.dtype, device=y.device) if weights is None
@@ -133,6 +137,20 @@ def reduce_stats(parts: list[Stats]) -> Stats:
     for p in parts[1:]:
         out = out + p
     return out
+
+
+def pack_stats(st: Stats) -> torch.Tensor:
+    """The Stats as one flat buffer ``(A, B, KL, n, C, D)`` of m² + m·d + 4
+    numbers: what the distributed reduce sums in one ``all_reduce``."""
+    return torch.cat([torch.stack([st.A, st.B, st.KL, st.n]),
+                      st.C.reshape(-1), st.D.reshape(-1)])
+
+
+def unpack_stats(buf: torch.Tensor, m: int, d: int) -> Stats:
+    """Inverse of :func:`pack_stats` (views of ``buf``)."""
+    return Stats(A=buf[0], B=buf[1], KL=buf[2], n=buf[3],
+                 C=buf[4:4 + m * d].reshape(m, d),
+                 D=buf[4 + m * d:].reshape(m, m))
 
 
 # -- online folds: every Stats field is a plain sum over points -------------

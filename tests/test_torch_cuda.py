@@ -27,6 +27,7 @@ from repro_torch.kernels.psi_stats import ops as ps_ops
 from repro_torch.kernels.psi_stats import ref as ps_ref
 from repro_torch.kernels.reg_stats import ops as rs_ops
 from repro_torch.kernels.reg_stats import ref as rs_ref
+from test_torch_spawn import spawn_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -620,3 +621,110 @@ def test_lm_prefill_and_decode_on_cuda_match_cpu(cuda):
     assert n_gpu == cfg.num_layers and n_cpu == 0
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- the distributed engine on the card --------------------------------------
+
+def _dist_inputs(n=3001, m=40, q=3, d=2):
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-2.0, 2.0, (n, q))
+    y = np.sin(x @ rng.standard_normal((q, d))) + 0.1 * rng.standard_normal(
+        (n, d))
+    z = x[rng.choice(n, m, replace=False)]
+    hyp = {"log_sf2": np.float64(0.2), "log_ell": np.full(q, 0.1),
+           "log_beta": np.float64(2.0)}
+    return x, y, z, hyp
+
+
+def _dist_args(eng, x, y, z, hyp):
+    data, w = eng.put_data(y=y, mu=x)
+    params = ({k: _t(v, eng.device) for k, v in hyp.items()},
+              _t(z, eng.device))
+    return params, data, w
+
+
+def test_distributed_world_of_one_over_nccl_matches_sgpr(cuda):
+    """A world of one over NCCL: value and gradient against
+    ``SGPR._neg_vg`` at the same params (value 1e-9, gradient 1e-8
+    relative), the map through the reg_stats kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.core.flat import Flat
+    from repro_torch.launch import make_data_group
+
+    x, y, z, hyp = _dist_inputs()
+    group = make_data_group(cuda)
+    try:
+        assert dist.get_backend(group) == "nccl"
+        eng = rt.DistributedGP(group, device=cuda)
+        (h, zz), data, w = _dist_args(eng, x, y, z, hyp)
+        before = rs_ops.LAUNCHES["float64"]
+        v, (gh, gz) = eng.make_value_and_grad(y.shape[1])(
+            h, zz, data["mu"], None, data["y"], w, np.ones(1), float(len(x)))
+        assert rs_ops.LAUNCHES["float64"] == before + 1
+    finally:
+        dist.destroy_process_group()
+    model = rt.SGPR(x, y, hyp=hyp, z=z, device=cuda)
+    v_ref, g_ref = model._neg_vg()
+    g = Flat(model.params).ravel({"hyp": gh, "z": gz})
+    assert abs(float(v) - v_ref) <= 1e-9 * abs(v_ref)
+    assert np.linalg.norm(g - g_ref) <= 1e-8 * np.linalg.norm(g_ref)
+
+
+def _gloo_rank_on_card(rank, world, store_path, out_dir):
+    import datetime
+    import pathlib
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_data_group
+
+    group = make_data_group("cuda:0", backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    x, y, z, hyp = _dist_inputs()
+    eng = rt.DistributedGP(group, device="cuda:0")
+    (h, zz), data, w = _dist_args(eng, x, y, z, hyp)
+    v, (gh, gz) = eng.make_value_and_grad(y.shape[1])(
+        h, zz, data["mu"], None, data["y"], w, np.array([1.0, 0.0]),
+        float(len(x)))
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", v=v.cpu().numpy(),
+             gz=gz.cpu().numpy(),
+             **{k: g.cpu().numpy() for k, g in gh.items()})
+    dist.destroy_process_group()
+
+
+def test_distributed_two_gloo_ranks_on_one_card_with_a_failed_rank(
+        cuda, tmp_path):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), fmask (1, 0) under drop: every rank's value and gradient equal a
+    single process's with rank 1's rows weighted 0 (value 1e-9, gradient
+    1e-8 relative), and the ranks agree bitwise."""
+    from repro_torch.core import bound as bound_mod
+    from repro_torch.core.distributed import pad_and_shard
+    from repro_torch.core.stats import partial_stats
+
+    codes, _ = spawn_ranks(_gloo_rank_on_card, 2, tmp_path)
+    assert codes == [0, 0], codes
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for k in got[0]:
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+
+    x, y, z, hyp = _dist_inputs()
+    padded, w = pad_and_shard({"y": y, "mu": x}, 2)
+    w[w.shape[0] // 2:] = 0.0                     # rank 1 failed
+    h = {k: _t(v, cuda).requires_grad_() for k, v in hyp.items()}
+    zz = _t(z, cuda).requires_grad_()
+    st = partial_stats(h, zz, _t(padded["y"], cuda), _t(padded["mu"], cuda),
+                       weights=_t(w, cuda))
+    neg = -bound_mod.collapsed_bound(h, zz, st._replace(
+        n=torch.tensor(float(len(x)), dtype=torch.float64, device=cuda)),
+        y.shape[1])
+    grads = torch.autograd.grad(neg, [*h.values(), zz])
+    neg = float(neg.detach())
+    assert abs(float(got[0]["v"]) - neg) <= 1e-9 * abs(neg)
+    want = np.concatenate([g.cpu().numpy().ravel() for g in grads])
+    have = np.concatenate([np.ravel(got[0][k]) for k in h]
+                          + [got[0]["gz"].ravel()])
+    assert np.linalg.norm(have - want) <= 1e-8 * np.linalg.norm(want)

@@ -50,7 +50,12 @@ def test_import_leaves_jax_out():
                "repro_torch.kernels.predict.kernel, "
                "repro_torch.kernels.flash_attention.kernel, "
                "repro_torch.models.transformer, repro_torch.train.steps, "
-               "repro_torch.configs.llama3p2_1b; "
+               "repro_torch.configs.llama3p2_1b, "
+               "repro_torch.core.distributed, repro_torch.data.stream, "
+               "repro_torch.distributed.fault, repro_torch.launch.mesh, "
+               "repro_torch.examples.quickstart, "
+               "repro_torch.examples.serve_sgpr, "
+               "repro_torch.examples.distributed_sgpr; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
     assert res.returncode == 0, res.stdout + res.stderr
