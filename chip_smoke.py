@@ -43,6 +43,25 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    against one process with the same masked weights (1e-9 / 1e-8), and 3
    SCG iterations under ``FailureSimulator(4, 0.01, seed=3)`` with every
    rank's bounds bitwise equal, and the ranks' ``StepTimer`` summary;
+3e. runs the paper's 2M-row flight regression streamed from host
+   (``examples/flight_scale.py``'s defaults, uncut: ``flight_like`` n =
+   2,000,000, q = 8, d = 1, m = 64, 2,048-row blocks): ``DistributedGP``
+   in a world of one over NCCL, ``put_data(stream=...)``, an exact
+   ``streamed_bound``, 60 ``streamed_svi_value_and_grad`` Adam steps of 4
+   chunks, the bound again (it must rise), ``streamed_predictive_state``
+   and 40,960 ``flight_like(seed=99)`` queries through
+   ``PredictEngine.predict_stream``; then, on the same rows in memory:
+   ``streamed_stats``, the bound and the state bitwise, the streamed
+   gradient and the full-batch streamed SVI step (value 1e-12) within
+   1e-8, each streamed batch bitwise ``predict``'s and the served answers
+   within the serving budgets of the plain f64 path; it prints the SVI's
+   rows/s touched, an exact pass's time and its host reads' time;
+   ``SGPR.fit_svi`` at ``sgpr-synth-1m`` and ``BayesianGPLVM.fit_svi`` at
+   ``gplvm-usps`` (the exact bound must rise), ``DistributedGP(
+   batch_blocks=4)`` against the SGPR's SVI objective on the same blocks;
+   then 4 gloo ranks on the card streaming n = 262,144 rows, each reading
+   n / 4, bitwise equal on every rank and within 1e-9 / 1e-8 of the world
+   of one;
 3b. trains and serves the Bayesian GPLVM at ``gplvm-usps`` (n = 4649,
    d = 256, q = 10, m = 150): value and gradient against the plain f64
    path -> ``fit`` (10 SCG iterations; the bound must rise) ->
@@ -55,9 +74,12 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    prefilled at f32 compute; checked against the same model with the plain
    attention, and by teacher-forced decode against the prefill.
 
-Every launch counter is set to 0 just before each of 3a, 3d, 3b and 3c
-and read just after; each kernel of a path must have launched in it (3d's
-ranks count their own launches and report them).
+Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b and
+3c and read just after; each kernel of a path must have launched in it
+(3d's and 3e's ranks count their own launches and report them; 3d and 3e
+count only the port's own calls, not the references run beside them, and
+3e asserts the counts its calls imply: one reg_stats launch a block a
+pass, one predict launch or more a served batch).
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -973,15 +995,16 @@ def dist_rank(rank, world, store_path, out_dir, shape, device):
     dist.destroy_process_group()
 
 
-def spawn_ranks(world, shape, device) -> list[dict]:
-    """Run ``dist_rank`` in ``world`` spawned processes; every one must exit
-    0 before DIST_DEADLINE_S.  Returns their results; kills what is left
-    running."""
+def spawn_ranks(world, shape, device, target=None) -> list[dict]:
+    """Run ``target`` (default ``dist_rank``) as ``target(rank, world,
+    store_path, out_dir, shape, device)`` in ``world`` spawned processes;
+    every one must exit 0 before DIST_DEADLINE_S.  Returns their
+    ``rank<k>.npz`` results; kills what is left running."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=dist_rank, args=(
+        procs = [ctx.Process(target=target or dist_rank, args=(
             r, world, f"{tmp}/store", tmp, shape, device))
             for r in range(world)]
         t0 = time.perf_counter()
@@ -997,7 +1020,7 @@ def spawn_ranks(world, shape, device) -> list[dict]:
                     p.join()
         codes = [p.exitcode for p in procs]
         if codes != [0] * world:
-            raise AssertionError(f"phase 3d: rank exit codes {codes} "
+            raise AssertionError(f"ranks: exit codes {codes} "
                                  f"after {time.perf_counter() - t0:.1f} s")
         return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
 
@@ -1192,6 +1215,480 @@ def distributed_path(rt, cfg, usps) -> dict:
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "distributed path")
+    return launches
+
+
+# -- phase 3e: SVI and host streaming, the paper's 2M-row flight regression ---
+
+# examples/flight_scale.py's defaults, uncut: flight_like (q 8, d 1), m 64,
+# 2,048-row blocks, one block a chunk, 4 chunks an SVI step, 60 steps;
+# 40,960 flight_like(seed=99) queries served in batches of 4,096.
+FLIGHT_N, FLIGHT_M, FLIGHT_CHUNK = 2_000_000, 64, 2048
+FLIGHT_BATCH_CHUNKS, FLIGHT_STEPS, FLIGHT_LR = 4, 60, 2e-2
+FLIGHT_QUERIES, FLIGHT_QUERY_BATCH = 40_960, 4096
+STREAM_RANKS_N = 262_144   # the 4-rank check's n (its only cut)
+STREAM_SEED = 1            # the SVI draws' generator seed
+# SVI on the paper's models: (steps, lr, chunk_size, batch_blocks)
+SGPR_SVI = (5, 1e-2, 1024, 4)
+GPLVM_SVI = (5, 1e-2, 1024, 2)
+SVI_ENGINE_CHUNK = 1000    # divides sgpr-synth-1m's n: the sampled n is n
+
+
+class TimedSource:
+    """A block source whose reads add their seconds to ``seconds`` (in the
+    prefetch worker's thread): the host reads of a streamed pass alone."""
+
+    def __init__(self, src):
+        self.src, self.n, self.fields, self.seconds = src, src.n, src.fields, 0.0
+
+    def read(self, start, stop):
+        t0 = time.perf_counter()
+        out = self.src.read(start, stop)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def device_busy_s(fn) -> float:
+    """Seconds of device time of every kernel and copy ``fn`` issues
+    (``torch.profiler``, CUDA activity only): the card's busy time,
+    whatever the host's; 0.0 where the profiler sees no device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e6
+
+
+def flight_params(device):
+    """examples/flight_scale.py's initial (hyp, z): z from the first rows'
+    covariates, drawn with rng(0)."""
+    from repro_torch.data import flight_like
+
+    first = flight_like(n=FLIGHT_M + 256, seed=0).read(0, max(FLIGHT_M, 256))
+    z0 = first["mu"][np.random.default_rng(0).choice(first["mu"].shape[0],
+                                                     FLIGHT_M, replace=False)]
+    return ({"log_sf2": t64(0.0, device), "log_ell": t64(np.zeros(8), device),
+             "log_beta": t64(1.0, device)}, t64(z0, device))
+
+
+def flat_grads(hyp, z):
+    """(hyp, z) gradients as one vector in ``core.flat`` order."""
+    from repro_torch.core.flat import Flat
+
+    tree = {"hyp": hyp, "z": z}
+    return Flat(tree).ravel(tree)
+
+
+def stream_rank(rank, world, store_path, out_dir, n, device):
+    """One rank of phase 3e's gloo run (a spawned process): an exact
+    streamed bound over flight_like(n) (after one untimed set-up pass; its
+    rows read and launches counted) and a streamed SVI step drawn from a
+    generator seeded STREAM_SEED on every rank (after one untimed);
+    writes ``rank<k>.npz``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DistributedGP
+    from repro_torch.data import flight_like
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+    from repro_torch.launch import make_data_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = make_data_group(device, backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S))
+    eng = DistributedGP(group, chunk_size=FLIGHT_CHUNK, device=device)
+    stream = eng.put_data(stream=flight_like(n=n, seed=0))
+    hyp, z = flight_params(device)
+    eng.streamed_bound(hyp, z, stream, d=1)   # first call: set-up
+    eng.rows_read = 0
+    reset_counts(rs_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bound = float(eng.streamed_bound(hyp, z, stream, d=1))
+    t_bound = time.perf_counter() - t0
+    rows, launches = eng.rows_read, rs_ops.LAUNCHES["float64"]
+    step = eng.streamed_svi_value_and_grad(1, FLIGHT_BATCH_CHUNKS)
+    step(hyp, z, stream, torch.Generator().manual_seed(STREAM_SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, (gh, gz) = step(hyp, z, stream,
+                       torch.Generator().manual_seed(STREAM_SEED))
+    t_step = time.perf_counter() - t0
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", bound=bound,
+             value=float(v), grad=flat_grads(gh, gz), rows_read=rows,
+             pass_launches=launches, launches=rs_ops.LAUNCHES["float64"],
+             n_chunks=stream.n_chunks, bound_s=t_bound, step_s=t_step)
+    dist.destroy_process_group()
+
+
+def stream_ranks_reference(eng) -> dict:
+    """``eng``'s world of one over flight_like(STREAM_RANKS_N): the exact
+    streamed bound, and the SVI step over the rows of the DIST_WORLD ranks'
+    step (its chunks k * n_chunks + c for the ranks' chunks c, k the rank;
+    the same n_chunks / B scale)."""
+    from repro_torch.core.stats import sample_block_indices
+    from repro_torch.data import flight_like
+
+    n = STREAM_RANKS_N
+    hyp, z = flight_params(DEV)
+    stream = eng.put_data(stream=flight_like(n=n, seed=0))
+    bound = float(eng.streamed_bound(hyp, z, stream, d=1))
+    nc = stream.n_chunks // DIST_WORLD
+    picked = sample_block_indices(torch.Generator().manual_seed(STREAM_SEED),
+                                  nc, FLIGHT_BATCH_CHUNKS).tolist()
+    same_rows = [k * nc + c for c in picked for k in range(DIST_WORLD)]
+    v, (gh, gz) = eng.streamed_svi_value_and_grad(1, len(same_rows))(
+        hyp, z, stream, same_rows)
+    return {"n": n, "bound": bound, "value": float(v),
+            "grad": flat_grads(gh, gz)}
+
+
+def check_stream_ranks(ref, report) -> int:
+    """DIST_WORLD gloo ranks on the one card streaming flight_like(
+    STREAM_RANKS_N), each reading only its n / DIST_WORLD rows: the bound
+    and the SVI step bitwise equal on every rank, and within 1e-9 (value) /
+    GRAD_RTOL (gradient) of the world of one (``ref``).  Returns the ranks'
+    reg_stats launches."""
+    n, bound1, v1, g1 = ref["n"], ref["bound"], ref["value"], ref["grad"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(DIST_WORLD, n, str(torch.device(DEV, 0)),
+                      target=stream_rank)
+    report["four_ranks_wall_s"] = time.perf_counter() - t0
+    for r, rr in enumerate(res[1:], 1):
+        for k in ("bound", "value", "grad"):
+            if rr[k].tobytes() != res[0][k].tobytes():
+                raise AssertionError(f"phase 3e: rank {r}'s {k} differs from "
+                                     "rank 0's")
+    rows = [int(rr["rows_read"]) for rr in res]
+    if rows != [n // DIST_WORLD] * DIST_WORLD:
+        raise AssertionError(f"phase 3e: rows read per rank {rows}, not "
+                             f"{n // DIST_WORLD} each")
+    launches = [int(rr["pass_launches"]) for rr in res]
+    if launches != [int(res[0]["n_chunks"])] * DIST_WORLD:
+        raise AssertionError(f"phase 3e: reg_stats launches per rank in an "
+                             f"exact pass {launches}")
+    db = abs(float(res[0]["bound"]) - bound1) / abs(bound1)
+    dv = abs(float(res[0]["value"]) - v1) / abs(v1)
+    dg = rel_diff(res[0]["grad"], g1)
+    report["four_ranks"] = {
+        "n": n, "rows_read_per_rank": rows, "exact_pass_launches": launches,
+        "bound_rel_diff": db, "svi_value_rel_diff": dv,
+        "svi_grad_rel_diff": dg, "bitwise_equal_on_every_rank": True,
+        "bound_s": [float(rr["bound_s"]) for rr in res],
+        "svi_step_s": [float(rr["step_s"]) for rr in res]}
+    if not (db <= 1e-9 and dv <= 1e-9 and dg <= GRAD_RTOL):
+        raise AssertionError(f"phase 3e ranks: bound {db:.3e} / value "
+                             f"{dv:.3e} / gradient {dg:.3e} against the "
+                             "world of one")
+    return int(sum(int(rr["launches"]) for rr in res))
+
+
+def svi_models(rt, cfg, usps, report, count) -> None:
+    """``SGPR.fit_svi`` at ``cfg`` and ``BayesianGPLVM.fit_svi`` at
+    ``usps`` (the exact bound must rise), and ``DistributedGP(batch_blocks)``
+    with explicit block indices against the SGPR's SVI objective."""
+    from repro_torch.core.distributed import DistributedGP
+    from repro_torch.core.stats import sample_block_indices
+    from repro_torch.data import usps_like
+    from repro_torch.train.svi import value_and_grad
+
+    x, y, z, hyp = sgpr_inputs(cfg.n, cfg.q, cfg.d, cfg.m)
+    steps, lr, chunk, bb = SGPR_SVI
+    model = rt.SGPR(x, y, hyp=hyp, z=z, chunk_size=chunk, batch_blocks=bb,
+                    device=DEV)
+    b0 = model.log_bound()
+    res = count("sgpr_fit_svi", lambda: model.fit_svi(steps=steps, lr=lr))
+    b1 = model.log_bound()
+    report["sgpr_fit_svi"] = {"bound_before": b0, "bound_after": b1,
+                              "history": res.history}
+    if not (math.isfinite(b1) and b1 > b0):
+        raise AssertionError(f"phase 3e: SGPR.fit_svi moved the exact bound "
+                             f"{b0} -> {b1}")
+    del model
+
+    yl, _ = usps_like(np.random.default_rng(SEED), usps.n)
+    steps, lr, chunk, bb = GPLVM_SVI
+    gm = rt.BayesianGPLVM(yl, q=usps.q, num_inducing=usps.m,
+                          chunk_size=chunk, batch_blocks=bb, device=DEV)
+    b0 = gm.log_bound()
+    res = count("gplvm_fit_svi", lambda: gm.fit_svi(steps=steps, lr=lr))
+    b1 = gm.log_bound()
+    report["gplvm_fit_svi"] = {"bound_before": b0, "bound_after": b1,
+                               "history": res.history}
+    if not (math.isfinite(b1) and b1 > b0):
+        raise AssertionError(f"phase 3e: BayesianGPLVM.fit_svi moved the "
+                             f"exact bound {b0} -> {b1}")
+    del gm
+
+    # the engine's SVI step against the SGPR's SVI objective, same blocks
+    bb = SGPR_SVI[3]
+    eng = DistributedGP(chunk_size=SVI_ENGINE_CHUNK, batch_blocks=bb,
+                        device=DEV)
+    data, w = eng.put_data(y=y, mu=x)
+    idx = sample_block_indices(torch.Generator().manual_seed(STREAM_SEED),
+                               cfg.n // SVI_ENGINE_CHUNK, bb)
+    params = {"hyp": {k: t64(v) for k, v in hyp.items()}, "z": t64(z)}
+    v, (gh, gz) = count("dist_svi_step", lambda: eng.make_value_and_grad(
+        cfg.d)(params["hyp"], params["z"], data["mu"], None, data["y"], w,
+               np.ones(1), float(cfg.n), idx))
+    ref = rt.SGPR(x, y, hyp=hyp, z=z, chunk_size=SVI_ENGINE_CHUNK,
+                  device=DEV)
+    vr, gr = value_and_grad(lambda p: ref._neg_bound(
+        p, batch_blocks=bb, block_indices=idx), params)
+    dv = abs(float(v) - float(vr)) / abs(float(vr))
+    dg = rel_diff(flat_grads(gh, gz), flat_grads(gr["hyp"], gr["z"]))
+    report["dist_svi_vs_sgpr_objective"] = {"value_rel_diff": dv,
+                                            "grad_rel_diff": dg}
+    if not (dv <= 1e-9 and dg <= GRAD_RTOL):
+        raise AssertionError(f"phase 3e: DistributedGP SVI value {dv:.3e} / "
+                             f"gradient {dg:.3e} against SGPR's objective")
+
+
+def streaming_path(rt, cfg, usps) -> dict:
+    """Phase 3e: the paper's 2M-row flight regression streamed from host
+    through ``DistributedGP`` in a world of one over NCCL (60 SVI steps
+    between two exact streamed bounds, the streamed predictive state, a
+    served query stream), each streamed result against the in-memory
+    engine on the same rows; SVI on the paper's models; then DIST_WORLD
+    gloo ranks streaming on the one card (``check_stream_ranks``).
+
+    The generator runs three exact passes over the 2M rows (the bounds
+    before and after, the state) and materialises them once for the
+    in-memory engine; the other streamed checks read the materialised rows
+    (``ArraySource``), so they pay no generation."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DistributedGP
+    from repro_torch.data import flight_like
+    from repro_torch.data.stream import ArraySource, prefetch, stage_to_device
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+    from repro_torch.launch import make_data_group
+    from repro_torch.train.svi import adam_init, adam_step
+
+    steps, report = {}, {}
+    step = timed_step(steps)
+
+    def counts():
+        return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "predict_f64": p_ops.LAUNCHES["float64"],
+                "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
+
+    # Only the port's own calls count, not the in-memory and plain
+    # references run beside them.
+    launches = {k: 0 for k in counts()}
+    per_call = {}
+
+    def count(name, fn):
+        """``step(name, fn)``, its launches added to ``launches``."""
+        before = counts()
+        out = step(name, fn)
+        per_call[name] = {k: c - before[k] for k, c in counts().items()}
+        for k, c in per_call[name].items():
+            launches[k] += c
+        return out
+
+    reset_counts(rs_ops.LAUNCHES, p_ops.LAUNCHES, ps_ops.LAUNCHES)
+    group = make_data_group(DEV)
+    try:
+        eng = DistributedGP(group, chunk_size=FLIGHT_CHUNK, device=DEV)
+        src = TimedSource(flight_like(n=FLIGHT_N, seed=0))
+        stream = eng.put_data(stream=src, blocks_per_chunk=1)
+        nc = stream.n_chunks
+        hyp, z = flight_params(DEV)
+        params = {"hyp": hyp, "z": z}
+
+        # -- exact pass 1: the bound before, its host reads alone -------------
+        src.seconds, eng.rows_read = 0.0, 0
+        before = float(count("exact_pass_bound_before_s", lambda:
+                             eng.streamed_bound(hyp, z, stream, d=1)))
+        report["exact_pass"] = {
+            "s": steps["exact_pass_bound_before_s"],
+            "host_reads_s": src.seconds, "rows_read": eng.rows_read,
+            "reg_stats_launches": per_call["exact_pass_bound_before_s"][
+                "reg_stats_f64"]}
+        if per_call["exact_pass_bound_before_s"]["reg_stats_f64"] != nc \
+                or eng.rows_read != FLIGHT_N:
+            raise AssertionError(f"phase 3e: an exact pass launched "
+                                 f"{report['exact_pass']} (expected {nc} "
+                                 f"launches, {FLIGHT_N} rows)")
+
+        # -- 60 streamed SVI Adam steps, FLIGHT_BATCH_CHUNKS chunks each --------
+        svi = eng.streamed_svi_value_and_grad(1, FLIGHT_BATCH_CHUNKS)
+        gen = torch.Generator().manual_seed(STREAM_SEED)
+        opt = adam_init(params)
+        history = []
+
+        def run_svi():
+            nonlocal params, opt
+            for _ in range(FLIGHT_STEPS):
+                v, (gh, gz) = svi(params["hyp"], params["z"], stream, gen)
+                params, opt = adam_step(params, {"hyp": gh, "z": gz}, opt,
+                                        lr=FLIGHT_LR)
+                history.append(-float(v))
+        count(f"svi_{FLIGHT_STEPS}_steps_s", run_svi)
+        dt = steps[f"svi_{FLIGHT_STEPS}_steps_s"]
+        rows = FLIGHT_STEPS * FLIGHT_BATCH_CHUNKS * stream.chunk_rows
+        report["svi"] = {"steps": FLIGHT_STEPS, "s": dt,
+                         "rows_per_s_touched": rows / dt,
+                         "stochastic_bounds": history[::10] + history[-1:]}
+        want = FLIGHT_STEPS * FLIGHT_BATCH_CHUNKS
+        if per_call[f"svi_{FLIGHT_STEPS}_steps_s"]["reg_stats_f64"] != want:
+            raise AssertionError(f"phase 3e: SVI launched "
+                                 f"{per_call[f'svi_{FLIGHT_STEPS}_steps_s']}"
+                                 " (expected "
+                                 f"{want} reg_stats)")
+        hyp, z = params["hyp"], params["z"]
+
+        # -- exact passes 2 and 3: the bound after, the predictive state -------
+        after = float(count("exact_pass_bound_after_s", lambda:
+                            eng.streamed_bound(hyp, z, stream, d=1)))
+        report["bound_before_after"] = (before, after)
+        if not (math.isfinite(after) and after > before):
+            raise AssertionError(f"phase 3e: SVI moved the exact bound "
+                                 f"{before} -> {after}")
+        state = count("exact_pass_predictive_state_s", lambda:
+                      eng.streamed_predictive_state(hyp, z, stream))
+
+        # -- the in-memory engine on the same rows ------------------------------
+        rows = step("host_generation_2m_s",
+                    lambda: flight_like(n=FLIGHT_N, seed=0).read(0, FLIGHT_N))
+        mem = ArraySource(rows)
+        data, w = eng.put_data(y=rows["y"], mu=rows["mu"])
+        ones = np.ones(1)
+        st_mem = step("in_memory_reduced_stats_s", lambda: eng.reduced_stats(
+            1)(hyp, z, data["y"], data["mu"], None, w, ones))
+        b_mem = float(eng.bound_fn(1)(hyp, z, data["y"], data["mu"], None, w,
+                                      ones, float(FLIGHT_N)))
+        st_str = count("array_pass_streamed_stats_s", lambda:
+                       eng.streamed_stats(hyp, z, eng.open_stream(mem)))
+        # Where a streamed chunk's host time goes: the staging alone (host
+        # reads, pinned copy, side-stream copy; no fold), and the pass with
+        # 8 blocks a chunk (a chunk's costs spread over 8 blocks).
+        stager = stage_to_device(DEV)
+
+        def staging_only():
+            for staged in prefetch(eng.open_stream(mem).chunks(), stager):
+                stager.ready(staged)
+        step("array_staging_only_s", staging_only)
+        st_8 = count("array_pass_8_blocks_a_chunk_s", lambda:
+                     eng.streamed_stats(hyp, z, eng.open_stream(
+                         mem, blocks_per_chunk=8)))
+        busy = device_busy_s(lambda: eng.streamed_stats(
+            hyp, z, eng.open_stream(mem)))
+        report["array_pass_device"] = {
+            "busy_s": busy,
+            "busy_share": busy / steps["array_pass_streamed_stats_s"]}
+        ps_mem = eng.predictive_state(hyp, z, data["y"], data["mu"], None, w)
+        bitwise = {
+            "streamed_stats": all(torch.equal(a, b)
+                                  for a, b in zip(st_str, st_mem)),
+            "streamed_stats_8_blocks_a_chunk": all(
+                torch.equal(a, b) for a, b in zip(st_8, st_mem)),
+            "streamed_bound": after == b_mem,
+            "streamed_predictive_state": all(
+                torch.equal(getattr(state, f), getattr(ps_mem, f))
+                for f in STATE_FIELDS)}
+        report["bitwise_in_memory"] = bitwise
+        if not all(bitwise.values()):
+            raise AssertionError(f"phase 3e: streamed against in memory "
+                                 f"{bitwise}")
+        v_mem, (gh, gz) = step("in_memory_value_and_grad_s", lambda:
+                               eng.make_value_and_grad(1)(
+                                   hyp, z, data["mu"], None, data["y"], w,
+                                   ones, float(FLIGHT_N)))
+        g_mem = flat_grads(gh, gz)
+        v_str, (gh, gz) = count("array_passes_value_and_grad_s", lambda:
+                                eng.streamed_value_and_grad(1)(
+                                    hyp, z, eng.open_stream(mem)))
+        dg_str = rel_diff(flat_grads(gh, gz), g_mem)
+        v_full, (gh, gz) = count("array_pass_svi_full_batch_s", lambda:
+                                 eng.streamed_svi_value_and_grad(1, nc)(
+                                     hyp, z, eng.open_stream(mem),
+                                     torch.Generator()))
+        dv_full = abs(float(v_full) - float(v_mem)) / abs(float(v_mem))
+        dg_full = rel_diff(flat_grads(gh, gz), g_mem)
+        report["streamed_vs_in_memory"] = {
+            "value_and_grad": {"value_bitwise": float(v_str) == float(v_mem),
+                               "grad_rel_diff": dg_str},
+            "svi_full_batch": {"value_rel_diff": dv_full,
+                               "grad_rel_diff": dg_full}}
+        if not (float(v_str) == float(v_mem) and dg_str <= GRAD_RTOL
+                and dv_full <= 1e-12 and dg_full <= GRAD_RTOL):
+            raise AssertionError(f"phase 3e: {report['streamed_vs_in_memory']}")
+        for name, want in (("array_passes_value_and_grad_s", 2 * nc),
+                           ("array_pass_svi_full_batch_s", nc)):
+            if per_call[name]["reg_stats_f64"] != want:
+                raise AssertionError(f"phase 3e: {name} launched "
+                                     f"{per_call[name]} (expected {want})")
+
+        # -- serving: a query stream through predict_stream -------------------
+        serve = rt.PredictEngine(state, block_size=512, device=DEV)
+        q_src = flight_like(n=FLIGHT_QUERIES, seed=99)
+        batches = [q_src.read(i, i + FLIGHT_QUERY_BATCH)["mu"]
+                   for i in range(0, FLIGHT_QUERIES, FLIGHT_QUERY_BATCH)]
+        served = count("predict_stream_s", lambda: list(
+            serve.predict_stream(iter(batches), include_noise=True)))
+        if per_call["predict_stream_s"]["predict_f64"] < len(batches):
+            raise AssertionError(f"phase 3e: predict_stream launched "
+                                 f"{per_call['predict_stream_s']}")
+        for xb, (mean, var) in zip(batches, served):
+            m_ref, v_ref = serve.predict(xb, include_noise=True)
+            if not (torch.equal(mean, m_ref) and torch.equal(var, v_ref)):
+                raise AssertionError("phase 3e: a predict_stream batch "
+                                     "differs from predict")
+        plain_lb, plain = plain_serving(
+            hyp, z, data["mu"][:FLIGHT_N], data["y"][:FLIGHT_N],
+            [torch.from_numpy(b).to(DEV, torch.float64) for b in batches])
+        mean = torch.cat([m for m, _ in served])
+        var = torch.cat([v for _, v in served])
+        pm = torch.cat([m for m, _ in plain])
+        pv = torch.cat([v for _, v in plain])
+        sf2 = float(torch.exp(hyp["log_sf2"]))
+        mr = rmse(mean, pm) / float(np.std(rows["y"]))
+        vr = rmse(var, pv) / sf2
+        report["served"] = {"queries": FLIGHT_QUERIES,
+                            "mean_rmse_over_std_y": mr,
+                            "var_rmse_over_sf2": vr,
+                            "plain_log_bound": plain_lb}
+        if mean.shape != (FLIGHT_QUERIES, 1) or not (
+                bool(torch.isfinite(mean).all())
+                and bool(torch.isfinite(var).all())) \
+                or mr > MEAN_BUDGET or vr > VAR_BUDGET:
+            raise AssertionError(f"phase 3e: served {report['served']}")
+        del data, w, serve, st_mem, st_str, st_8
+        torch.cuda.empty_cache()
+
+        # -- SVI on the paper's models -----------------------------------------
+        svi_models(rt, cfg, usps, report, count)
+        if per_call["gplvm_fit_svi"]["psi2_f64"] < GPLVM_SVI[0] \
+                or per_call["gplvm_fit_svi"]["psi1_f64"] < GPLVM_SVI[0]:
+            raise AssertionError(f"phase 3e: GPLVM fit_svi launched "
+                                 f"{per_call['gplvm_fit_svi']}")
+        ref = stream_ranks_reference(eng)
+    finally:
+        dist.destroy_process_group()
+    launches["reg_stats_f64"] += check_stream_ranks(ref, report)
+    print(f"streaming path (3e) steps (s): {json.dumps(steps)}", flush=True)
+    print(f"streaming path (3e) launches per call: {json.dumps(per_call)}",
+          flush=True)
+    print(f"streaming path (3e): {json.dumps(report)}", flush=True)
+    print(f"streaming path (3e) launches: {json.dumps(launches)}", flush=True)
+    for name, c in launches.items():
+        if c < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "streaming path")
     return launches
 
 
@@ -1510,12 +2007,13 @@ def main() -> int:
     # -- phase 3: the main paths ------------------------------------------------
     sgpr_launches = serving_path(rt, cfg)
     dist_launches = distributed_path(rt, cfg, usps)
+    stream_launches = streaming_path(rt, cfg, usps)
     gplvm_launches = gplvm_path(rt, usps)
     lm_launches = lm_path(fa_ops, fa_ref)
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
-    for kname, count in dist_launches.items():
+    for kname, count in (*dist_launches.items(), *stream_launches.items()):
         launches[kname] += count
 
     def entry(kname, source, replaces, res):

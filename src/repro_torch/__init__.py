@@ -12,8 +12,11 @@ gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
 ``load_state`` and ``PredictEngine``; the distributed Map-Reduce
 ``DistributedGP`` on ``torch.distributed`` with the §5.2 failure masks
 (``distributed``, ``launch.make_data_group``,
-``train.steps.make_gp_train_step``); LM serving of ``llama3.2-1b``
-(``models``, ``train.steps.make_prefill_step`` / ``make_serve_step``).
+``train.steps.make_gp_train_step``); SVI (``fit_svi``, ``train.svi``,
+``DistributedGP(batch_blocks=...)``) and host streaming (``data.stream``,
+the ``streamed_*`` methods, ``PredictEngine.predict_stream``); LM serving
+of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step`` /
+``make_serve_step``).
 """
 from .core import SGPR, BayesianGPLVM, DistributedGP
 from .serve import (PredictEngine, PredictiveState, extract_state, load_state,

@@ -36,10 +36,27 @@ every rank at once (same bits) and gives a NaN value and gradient, and
 every rank still enters the gradient's all_reduce.  A rank that dies fails
 the others' collective at the group's timeout.
 
-Ported: the default configuration of the JAX engine (serial reduce,
-in-memory data, the exact bound, SE-ARD, ``chunk_size`` None or an
-integer), regression and latent.  Each option not ported yet raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item.
+SVI (``batch_blocks``): each rank folds ``batch_blocks`` of its own row
+blocks a step, drawn independently per rank, and scales its Stats by
+``n_local_blocks / batch_blocks`` before the one all_reduce; the step's
+trailing ``draw`` is a ``torch.Generator`` (each rank derives its own
+stream from it and its rank, as JAX folds the shard index into the step
+key) or this rank's explicit ``(batch_blocks,)`` block indices.
+
+Host streaming (``put_data(stream=...)``): a ``data.stream.BlockStream``
+over a host source; each rank reads only its own window of each chunk
+(``n / W`` rows a pass), stages it on its device (pinned memory, a side
+stream) one chunk ahead of the fold, and threads a constant-size carry
+through ``stats.partial_stats_chunked(init=...)``; one all_reduce follows
+the last chunk.  Streamed Stats, bound and predictive state are bitwise the
+in-memory engine's over the same rows; the exact streamed gradient takes a
+second pass (f64 tolerance), the streamed SVI step one pass over the
+sampled chunks.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+Queue 1 item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11), the
+``psi2_fn``/``reg_stats_fn`` hooks (items 5 and 6), ``predict_engine``
+(4), the online updates (7), ``multi_predict_engine`` (8).
 """
 from __future__ import annotations
 
@@ -48,10 +65,11 @@ import torch
 import torch.distributed as dist
 
 from .._device import as_f64, rank_device
-from ..data.stream import padded_rows
+from ..data.stream import BlockStream, padded_rows, prefetch, stage_to_device
 from . import covariance as cov
 from .bound import DEFAULT_JITTER, collapsed_bound
-from .stats import Stats, pack_stats, partial_stats_chunked, unpack_stats
+from .stats import (Stats, fold_in, pack_stats, partial_stats_chunked,
+                    sample_block_indices, unpack_stats, zero_stats)
 
 
 def num_shards(group=None) -> int:
@@ -119,8 +137,10 @@ def _grads(outputs, inputs, grad_outputs=None):
     return out
 
 
+
+
 class DistributedGP:
-    """Distributed bound, gradient and serving handoff for SGPR
+    """Distributed bound, gradient, streaming and serving handoff for SGPR
     (``latent=False``) and the Bayesian GPLVM (``latent=True``).
 
     ``group``: the process group whose ranks are the data shards (default:
@@ -131,10 +151,17 @@ class DistributedGP:
 
     ``chunk_size``: each rank's map folds its rows in blocks of this many
     (``stats.partial_stats_chunked``); ``put_data`` then pads n to a
-    multiple of ``n_shards * chunk_size``.  Not ported: ``batch_blocks``
-    (ROADMAP Queue 1 item 3), ``reduce_mode`` other than ``"serial"`` (item
-    11), the ``psi2_fn``/``reg_stats_fn`` hooks (items 5 and 6), and
-    kernels other than SE-ARD (item 6, raised by ``covariance``).
+    multiple of ``n_shards * chunk_size``, and streaming needs it.
+
+    ``batch_blocks`` (needs ``chunk_size``): the SVI bound; :meth:`bound_fn`
+    and :meth:`make_value_and_grad`'s step then take a trailing ``draw``
+    per step (a generator, or this rank's block indices).
+
+    Not ported: ``reduce_mode`` other than ``"serial"`` (ROADMAP Queue 1
+    item 11), the ``psi2_fn``/``reg_stats_fn`` hooks (items 5 and 6), and
+    kernels other than SE-ARD (item 6, raised by ``covariance``).  Invalid
+    arguments raise ``ValueError`` as the JAX engine's do, before any
+    valid but unported value is refused.
     """
 
     def __init__(self, group=None, latent: bool = False,
@@ -144,13 +171,25 @@ class DistributedGP:
                  reg_stats_fn=None):
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        if batch_blocks is not None:
+            if chunk_size is None:
+                raise ValueError(
+                    "batch_blocks (SVI mode) requires chunk_size: the "
+                    "minibatch is a subset of the streaming row blocks")
+            if batch_blocks < 1:
+                raise ValueError(
+                    f"batch_blocks must be >= 1, got {batch_blocks}")
+        if reduce_mode not in ("serial", "overlap", "overlap_eager"):
+            raise ValueError(
+                "reduce_mode must be 'serial', 'overlap' or 'overlap_eager'"
+                f", got {reduce_mode!r}")
+        if reduce_mode != "serial" and chunk_size is None:
+            raise ValueError(
+                "reduce_mode='overlap' requires chunk_size: the per-block "
+                "collective needs scan blocks to hide behind")
         if failure_mode not in ("drop", "rescale"):
             raise ValueError("failure_mode must be 'drop' or 'rescale', got "
                              f"{failure_mode!r}")
-        if batch_blocks is not None:
-            raise NotImplementedError("DistributedGP(batch_blocks=...), the "
-                                      "SVI bound, is not ported yet (ROADMAP "
-                                      "Queue 1 item 3)")
         if reduce_mode != "serial":
             raise NotImplementedError(f"reduce_mode={reduce_mode!r} is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
@@ -169,29 +208,81 @@ class DistributedGP:
         self.latent = latent
         self.failure_mode = failure_mode
         self.chunk_size = chunk_size
+        self.batch_blocks = batch_blocks
         self._via_host = (group is not None and self.device.type == "cuda"
                           and dist.get_backend(group) == "gloo")
+        #: real rows this rank has read from streams (the read path's count)
+        self.rows_read = 0
 
     # -- data -----------------------------------------------------------------
-    def put_data(self, stream=None, **arrs):
-        """Pad the full host arrays (``y=``, ``mu=``, ``s=``) as the JAX
-        engine does and keep this rank's contiguous block of n_pad / W rows,
-        and its weights, in f64 on the engine's device: ``(dict, w)``."""
+    def put_data(self, stream=None, blocks_per_chunk: int = 1, **arrs):
+        """In memory (``put_data(y=..., mu=..., s=...)``): pad the full host
+        arrays as the JAX engine does and keep this rank's contiguous block
+        of n_pad / W rows, and its weights, in f64 on the engine's device:
+        ``(dict, w)``.
+
+        Streaming (``put_data(stream=source)``): nothing is staged; returns
+        :meth:`open_stream`'s ``BlockStream`` of ``blocks_per_chunk`` blocks
+        per shard per chunk, for the ``streamed_*`` methods."""
         if stream is not None:
-            raise NotImplementedError("put_data(stream=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
+            if arrs:
+                raise ValueError("put_data takes either stream=... or "
+                                 "in-memory arrays, not both")
+            return self.open_stream(stream, blocks_per_chunk=blocks_per_chunk)
         padded, w = pad_and_shard(arrs, self.n_shards, block=self.chunk_size)
         rows = w.shape[0] // self.n_shards
         mine = slice(self.rank * rows, (self.rank + 1) * rows)
         return ({k: as_f64(v[mine], self.device) for k, v in padded.items()},
                 as_f64(w[mine], self.device))
 
+    def open_stream(self, source, blocks_per_chunk: int = 1) -> BlockStream:
+        """A ``BlockStream`` of ``source`` (a dict of host arrays, a
+        ``MemmapSource``/``SyntheticSource``, any ``(n, fields, read)``) with
+        this engine's geometry (``n_shards`` shards, ``chunk_size``-row
+        blocks): the layout under which streaming is bitwise the in-memory
+        path.  A ``BlockStream`` of that geometry passes through."""
+        if self.chunk_size is None:
+            raise ValueError("streaming requires chunk_size: the host chunks "
+                             "are multiples of the fold's block")
+        if isinstance(source, BlockStream):
+            if (source.n_shards != self.n_shards
+                    or source.block_size != self.chunk_size):
+                raise ValueError(
+                    f"stream geometry ({source.n_shards} shards x "
+                    f"{source.block_size}-row blocks) does not match the "
+                    f"engine ({self.n_shards} x {self.chunk_size}): open the "
+                    "stream through this engine")
+            return source
+        return BlockStream(source, n_shards=self.n_shards,
+                           block_size=self.chunk_size,
+                           blocks_per_chunk=blocks_per_chunk)
+
     # -- the map, the reduce, the global step -----------------------------------
-    def _local_stats(self, hyp, z, y, mu, s, w) -> Stats:
+    def _draw(self, draw):
+        """This rank's SVI draw: ``(generator, block_indices)``."""
+        if draw is None:
+            raise ValueError("SVI mode (batch_blocks) needs a per-step draw: "
+                             "a torch.Generator, or this rank's "
+                             "(batch_blocks,) block indices")
+        if isinstance(draw, torch.Generator):
+            return fold_in(draw, self.rank), None
+        return None, draw
+
+    def _local_stats(self, hyp, z, y, mu, s, w, draw=None, exact=False,
+                     init=None) -> Stats:
+        """This rank's map: under ``batch_blocks`` the sampled and
+        reweighted fold of ``draw``, else (or ``exact``) the exact fold,
+        continuing ``init``."""
+        svi = self.batch_blocks is not None and not exact
+        gen, idx = self._draw(draw) if svi else (None, None)
         return partial_stats_chunked(hyp, z, y, mu, s, weights=w,
                                      latent=self.latent,
                                      block_size=self.chunk_size,
-                                     kernel=self.kernel, force_scan=True)
+                                     kernel=self.kernel, force_scan=True,
+                                     batch_blocks=self.batch_blocks
+                                     if svi else None,
+                                     generator=gen, block_indices=idx,
+                                     init=init)
 
     def _all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """The constant-size sum over ranks (the paper's reduce)."""
@@ -201,45 +292,144 @@ class DistributedGP:
         dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
         return host.to(buf.device) if self._via_host else host
 
+    def _reduce(self, local: Stats, live_w=None):
+        """One all_reduce of the packed local Stats -> ``(Stats, n_live)``.
+        ``live_w`` (SVI): this rank's pre-sampling weights, whose sum rides
+        in the same buffer as the deterministic live count; else n_live is
+        None and the reduced ``n`` is the live count."""
+        m, d = local.C.shape
+        buf = pack_stats(local).detach()
+        if live_w is not None:
+            buf = torch.cat([buf, live_w.sum().reshape(1)])
+        buf = self._all_reduce(buf)
+        if live_w is None:
+            return unpack_stats(buf, m, d), None
+        return unpack_stats(buf[:-1], m, d), buf[-1]
+
     def _masked(self, w, fmask):
-        """This rank's weights with its entry of the failure mask."""
-        return w * torch.as_tensor(fmask, dtype=w.dtype,
-                                   device=w.device)[self.rank]
+        """This rank's weights with its entry of the failure mask (a host
+        scalar: no copy to the device for each streamed chunk)."""
+        return w * float(fmask[self.rank])
 
     def _reduced(self, hyp, z, y, mu, s, w, fmask) -> Stats:
+        """The exact reduced Stats (whatever ``batch_blocks`` is)."""
         with torch.no_grad():
-            st = self._local_stats(hyp, z, y, mu, s, self._masked(w, fmask))
-            return unpack_stats(self._all_reduce(pack_stats(st)),
-                                z.shape[0], y.shape[1])
+            st = self._local_stats(hyp, z, y, mu, s, self._masked(w, fmask),
+                                   exact=True)
+            return self._reduce(st)[0]
 
-    def _bound(self, hyp, z, st: Stats, d: int, n_full):
-        """The failure mode's n handling, then the collapsed bound."""
+    def _bound(self, hyp, z, st: Stats, d: int, n_full, n_live=None):
+        """The failure mode's n handling, then the collapsed bound.  Under
+        ``rescale`` the sums are divided by n_live / n_full, n_live the
+        reduced ``n``, or under SVI the deterministic pre-sampling live
+        count (the sampled ``n`` is an estimate)."""
         n_full = torch.as_tensor(n_full, dtype=st.n.dtype, device=st.n.device)
         if self.failure_mode == "rescale":
-            live = st.n / n_full
+            live = (st.n if n_live is None else n_live) / n_full
             st = Stats(A=st.A / live, B=st.B / live, C=st.C / live,
                        D=st.D / live, KL=st.KL / live, n=n_full)
         else:
             st = st._replace(n=n_full)
         return collapsed_bound(hyp, z, st, d, kernel=self.kernel)
 
+    def _safe_bound(self, hyp, z, st, d, n_full, n_live=None):
+        """:meth:`_bound` without a graph; NaN where its Cholesky fails."""
+        with torch.no_grad():
+            try:
+                return self._bound(hyp, z, st, d, n_full, n_live)
+            except torch.linalg.LinAlgError:
+                return torch.full((), float("nan"), dtype=st.n.dtype,
+                                  device=st.n.device)
+
     def bound_fn(self, d: int):
         """The bound, the same on every rank: ``(hyp, z, y, mu, s, w,
-        fmask, n_full) -> ()``; NaN where the global step's Cholesky fails.
+        fmask, n_full) -> ()``, plus a trailing ``draw`` under
+        ``batch_blocks``; NaN where the global step's Cholesky fails.
         Value only: the gradient is :meth:`make_value_and_grad`'s."""
-        def bound(hyp, z, y, mu, s, w, fmask, n_full):
-            st = self._reduced(hyp, z, y, mu, s, w, fmask)
+        def bound(hyp, z, y, mu, s, w, fmask, n_full, draw=None):
+            svi = self.batch_blocks is not None
             with torch.no_grad():
-                try:
-                    return self._bound(hyp, z, st, d, n_full)
-                except torch.linalg.LinAlgError:
-                    return torch.full((), float("nan"), dtype=st.n.dtype,
-                                      device=st.n.device)
+                wm = self._masked(w, fmask)
+                local = self._local_stats(hyp, z, y, mu, s, wm, draw)
+                st, n_live = self._reduce(local, wm if svi else None)
+            return self._safe_bound(hyp, z, st, d, n_full, n_live)
         return bound
+
+    # -- the gradient: the paper's step 3, by hand --------------------------------
+    def _direct(self, hyp, z, st: Stats, d: int, n_full, n_live, theta):
+        """The negative bound of the reduced Stats taken as leaves:
+        ``(value, dF/dtheta direct, dF/dS)``, the same on every rank; NaN
+        where the Cholesky fails."""
+        st = Stats(*(t.detach().requires_grad_() for t in st))
+        try:
+            with torch.enable_grad():
+                neg = -self._bound(hyp, z, st, d, n_full, n_live)
+                direct = _grads([neg], theta + list(st))
+        except torch.linalg.LinAlgError:
+            neg = torch.full((), float("nan"), dtype=st.n.dtype,
+                             device=st.n.device)
+            direct = [torch.full_like(t, float("nan"))
+                      for t in theta + list(st)]
+        return neg.detach(), direct[:len(theta)], direct[len(theta):]
+
+    @staticmethod
+    def _pull(local: Stats, g_st, inputs):
+        """dF/dS pulled back through a map's graph: the gradients of
+        ``<local, g_st>`` with respect to ``inputs``."""
+        outs = [(o, g) for o, g in zip(local, g_st) if o.requires_grad]
+        return _grads([o for o, _ in outs], inputs, [g for _, g in outs])
+
+    def _summed(self, g_direct, pulled, keys):
+        """One all_reduce of the ranks' pulled-back (hyp, z) parts, then the
+        direct part added once: ``(hyp grads dict, z grad)``."""
+        parts = self._all_reduce(torch.cat([g.reshape(-1) for g in pulled]))
+        summed = [g + p.reshape(g.shape) for g, p in zip(
+            g_direct, parts.split([g.numel() for g in g_direct]))]
+        return dict(zip(keys, summed[:-1])), summed[-1]
+
+    def _value_and_grad(self, d, argnums, hyp, z, mu, s, n_full, local_fn,
+                        live_w=None):
+        """(value, grads) of the negative bound of ``local_fn(hyp, z, mu,
+        s)``, this rank's Stats, through the reduce: steps 1-5 below."""
+        if 3 in argnums and s is None:
+            raise ValueError("argnums holds 3 (s), but s is None")
+        hyp, z, mu, s = (_leaf(p, i in argnums)
+                         for i, p in enumerate((hyp, z, mu, s)))
+        keys = sorted(hyp)
+        theta = [hyp[k] for k in keys] + [z]              # global params
+        rows = [mu] + ([] if s is None else [s])          # this rank's
+        # 1. the map on this rank's rows, its graph kept for step 3
+        with torch.enable_grad():
+            local = local_fn(hyp, z, mu, s)
+        # 2. the reduce; the bound of the reduced Stats as leaves gives
+        #    dF/dS and the direct dF/dtheta, the same on every rank
+        st, n_live = self._reduce(local, live_w)
+        neg, g_theta, g_st = self._direct(hyp, z, st, d, n_full, n_live,
+                                          theta)
+        # 3. dF/dS pulled back through this rank's map
+        pulled = self._pull(local, g_st, theta + rows)
+        grads = {i: g for i, g in zip((2, 3), pulled[len(theta):])}
+        # 4. one all_reduce of the ranks' (hyp, z) parts; 5. the direct
+        #    part added once
+        if {0, 1} & set(argnums):
+            grads[0], grads[1] = self._summed(g_theta, pulled[:len(theta)],
+                                              keys)
+        return neg, tuple(grads[i] for i in argnums)
+
+    @staticmethod
+    def _argnums(argnums, allowed):
+        single = isinstance(argnums, int)
+        argnums = (argnums,) if single else tuple(argnums)
+        if not set(argnums) <= set(allowed):
+            raise ValueError(f"argnums must index {allowed} of (hyp, z, mu, "
+                             f"s), got {argnums}")
+        return single, argnums
 
     def make_value_and_grad(self, d: int, argnums=(0, 1)):
         """(value, grad) of the NEGATIVE bound with respect to the chosen
-        arguments: ``step(hyp, z, mu, s, y, w, fmask, n_full)``.
+        arguments: ``step(hyp, z, mu, s, y, w, fmask, n_full)``, plus a
+        trailing ``draw`` under ``batch_blocks`` (an unbiased estimate
+        then).
 
         ``argnums`` indexes (hyp, z, mu, s): (0, 1) for the SGPR, add 2 and
         3 for the GPLVM (gradients with respect to the variances s).  The
@@ -247,63 +437,189 @@ class DistributedGP:
         hyp's as a dict.  hyp and z gradients are the same on every rank;
         mu and s gradients are this rank's rows.
         """
-        single = isinstance(argnums, int)
-        argnums = (argnums,) if single else tuple(argnums)
-        if not set(argnums) <= {0, 1, 2, 3}:
-            raise ValueError(f"argnums must index (hyp, z, mu, s), got "
-                             f"{argnums}")
+        single, argnums = self._argnums(argnums, (0, 1, 2, 3))
 
-        def step(hyp, z, mu, s, y, w, fmask, n_full):
-            if 3 in argnums and s is None:
-                raise ValueError("argnums holds 3 (s), but s is None")
-            hyp, z, mu, s = (_leaf(p, i in argnums)
-                             for i, p in enumerate((hyp, z, mu, s)))
-            keys = sorted(hyp)
-            theta = [hyp[k] for k in keys] + [z]          # global params
-            rows = [mu] + ([] if s is None else [s])      # this rank's
-            # 1. the map on this rank's rows, its graph kept for step 3
-            with torch.enable_grad():
-                local = self._local_stats(hyp, z, y, mu, s,
-                                          self._masked(w, fmask))
-            # 2. the reduce; the bound of the reduced Stats as leaves gives
-            #    dF/dS and the direct dF/dtheta, the same on every rank
-            st = unpack_stats(self._all_reduce(pack_stats(local).detach()),
-                              z.shape[0], y.shape[1])
-            st = Stats(*(t.detach().requires_grad_() for t in st))
-            try:
-                with torch.enable_grad():
-                    neg = -self._bound(hyp, z, st, d, n_full)
-                    direct = _grads([neg], theta + list(st))
-            except torch.linalg.LinAlgError:
-                neg = torch.full((), float("nan"), dtype=st.n.dtype,
-                                 device=st.n.device)
-                direct = [torch.full_like(t, float("nan"))
-                          for t in theta + list(st)]
-            g_theta, g_st = direct[:len(theta)], direct[len(theta):]
-            # 3. dF/dS pulled back through this rank's map
-            outs = [(o, g) for o, g in zip(local, g_st) if o.requires_grad]
-            pulled = _grads([o for o, _ in outs], theta + rows,
-                            [g for _, g in outs])
-            grads = {i: g for i, g in zip((2, 3), pulled[len(theta):])}
-            # 4. one all_reduce of the ranks' (hyp, z) parts; 5. the direct
-            #    part added once
-            if {0, 1} & set(argnums):
-                parts = self._all_reduce(torch.cat(
-                    [g.reshape(-1) for g in pulled[:len(theta)]]))
-                summed = [g + p.reshape(g.shape) for g, p in zip(
-                    g_theta, parts.split([t.numel() for t in theta]))]
-                grads[0] = dict(zip(keys, summed[:-1]))
-                grads[1] = summed[-1]
-            out = tuple(grads[i] for i in argnums)
-            return neg.detach(), (out[0] if single else out)
+        def step(hyp, z, mu, s, y, w, fmask, n_full, draw=None):
+            svi = self.batch_blocks is not None
+            wm = self._masked(w, fmask)
+            neg, out = self._value_and_grad(
+                d, argnums, hyp, z, mu, s, n_full,
+                lambda h, zz, m, ss: self._local_stats(h, zz, y, m, ss, wm,
+                                                       draw),
+                wm if svi else None)
+            return neg, (out[0] if single else out)
 
         return step
 
     def reduced_stats(self, d: int):
-        """The reduced Stats, the same on every rank: ``(hyp, z, y, mu, s,
-        w, fmask) -> Stats`` (the failure mask applied, n the live count)."""
+        """The exact reduced Stats, the same on every rank: ``(hyp, z, y,
+        mu, s, w, fmask) -> Stats`` (the failure mask applied, n the live
+        count), whatever ``batch_blocks`` is."""
         del d
         return self._reduced
+
+    # -- host streaming -----------------------------------------------------------
+    def _read(self, stream: BlockStream, indices=None):
+        """This rank's windows of the stream's chunks (all, or ``indices``),
+        read from the host source in order: n / W real rows a full pass,
+        counted in :attr:`rows_read`."""
+        for c in range(stream.n_chunks) if indices is None else indices:
+            arrs, w = stream.shard_chunk(int(c), self.rank)
+            self.rows_read += int(np.count_nonzero(w))
+            yield arrs, w
+
+    def _staged(self, stream: BlockStream, prefetch_depth: int):
+        """This rank's chunks on its device, each staged one chunk (or
+        ``prefetch_depth``) ahead of the caller's fold."""
+        stager = stage_to_device(self.device, depth=prefetch_depth)
+        it = prefetch(self._read(stream), stager, depth=prefetch_depth)
+        try:
+            for staged in it:
+                yield stager.ready(staged)
+        finally:
+            it.close()
+
+    def _stream_args(self, stream, fmask, n_full):
+        stream = self.open_stream(stream)
+        fmask = np.ones((self.n_shards,)) if fmask is None else fmask
+        return stream, fmask, float(stream.n) if n_full is None else n_full
+
+    def _stream_carry(self, hyp, z, stream, fmask, prefetch_depth) -> Stats:
+        """Every chunk of this rank folded into one local carry, no
+        collective yet: the in-memory fold's additions, in its order."""
+        carry = None
+        with torch.no_grad():
+            for arrs, w in self._staged(stream, prefetch_depth):
+                carry = self._local_stats(hyp, z, arrs["y"], arrs["mu"],
+                                          arrs.get("s"),
+                                          self._masked(w, fmask),
+                                          exact=True, init=carry)
+        if carry is None:   # a stream has at least one chunk; kept total
+            carry = zero_stats(z.shape[0], stream.fields["y"][0],
+                               device=self.device)
+        return carry
+
+    def streamed_stats(self, hyp, z, stream, fmask=None,
+                       prefetch_depth: int = 2) -> Stats:
+        """The exact reduced Stats from a host stream: bitwise
+        :meth:`reduced_stats` over the same rows, with O(chunk) rows on the
+        device.  ``stream``: anything :meth:`open_stream` takes."""
+        stream, fmask, _ = self._stream_args(stream, fmask, None)
+        carry = self._stream_carry(hyp, z, stream, fmask, prefetch_depth)
+        with torch.no_grad():
+            return self._reduce(carry)[0]
+
+    def streamed_bound(self, hyp, z, stream, d: int, fmask=None,
+                       n_full=None, prefetch_depth: int = 2):
+        """The bound from a host stream: bitwise :meth:`bound_fn` (exact) on
+        the same rows in memory.  ``n_full`` defaults to the stream's n."""
+        stream, fmask, n_full = self._stream_args(stream, fmask, n_full)
+        st = self.streamed_stats(hyp, z, stream, fmask, prefetch_depth)
+        return self._safe_bound(hyp, z, st, d, n_full)
+
+    def streamed_value_and_grad(self, d: int, argnums=(0, 1)):
+        """The exact streamed (value, grad) of the NEGATIVE bound with
+        respect to (hyp, z), in two passes: pass 1 builds the reduced Stats
+        S (bitwise the in-memory ones) and the bound of S as leaves gives
+        dF/dS and the direct dF/dtheta; pass 2 pulls dF/dS back through each
+        chunk's map and sums the (hyp, z) parts on this rank; one
+        all_reduce after the last chunk, and the direct part added once.
+        The value is bitwise :meth:`make_value_and_grad`'s, the gradient
+        equal to f64 rounding (the per-chunk sums associate otherwise).
+
+        Returns ``step(hyp, z, stream, fmask=None, n_full=None,
+        prefetch_depth=2) -> (value, grads)``; ``argnums`` within (0, 1):
+        mu and s gradients are data-sized, which streaming avoids.
+        """
+        single, argnums = self._argnums(argnums, (0, 1))
+
+        def step(hyp, z, stream, fmask=None, n_full=None,
+                 prefetch_depth: int = 2):
+            stream, fmask, n_full = self._stream_args(stream, fmask, n_full)
+            hyp, z = _leaf(hyp, True), _leaf(z, True)
+            keys = sorted(hyp)
+            theta = [hyp[k] for k in keys] + [z]
+            st = self.streamed_stats(hyp, z, stream, fmask, prefetch_depth)
+            neg, g_theta, g_st = self._direct(hyp, z, st, d, n_full, None,
+                                              theta)
+            parts = [torch.zeros_like(t) for t in theta]
+            for arrs, w in self._staged(stream, prefetch_depth):
+                with torch.enable_grad():
+                    local = self._local_stats(hyp, z, arrs["y"], arrs["mu"],
+                                              arrs.get("s"),
+                                              self._masked(w, fmask),
+                                              exact=True)
+                parts = [p + g for p, g in zip(
+                    parts, self._pull(local, g_st, theta))]
+            g_hyp, g_z = self._summed(g_theta, parts, keys)
+            grads = tuple((g_hyp, g_z)[a] for a in argnums)
+            return neg, (grads[0] if single else grads)
+
+        return step
+
+    def streamed_svi_value_and_grad(self, d: int, batch_chunks: int,
+                                    argnums=(0, 1)):
+        """The minibatch streamed step: ``batch_chunks`` of the stream's
+        chunks a step, the SAME chunk indices on every rank (a generator in
+        the same state on every rank, or explicit indices), one pass over
+        them, their rows concatenated and folded exactly, every field
+        scaled by ``n_chunks / batch_chunks``: an unbiased (value, grad) of
+        the NEGATIVE bound at O(batch_chunks * chunk) rows a step.  With
+        ``batch_chunks >= n_chunks`` it is the exact step.  ``failure_mode=
+        "rescale"`` is refused: its deterministic live count would need a
+        full pass.
+
+        Returns ``step(hyp, z, stream, draw, fmask=None, n_full=None) ->
+        (value, grads)``, ``draw`` a ``torch.Generator`` or the chunk
+        indices.
+        """
+        single, argnums = self._argnums(argnums, (0, 1))
+        if batch_chunks < 1:
+            raise ValueError(f"batch_chunks must be >= 1, got {batch_chunks}")
+        if self.failure_mode == "rescale":
+            raise NotImplementedError(
+                "streamed SVI supports failure_mode='drop' only: rescale "
+                "needs the deterministic live count, a full data pass")
+
+        def step(hyp, z, stream, draw, fmask=None, n_full=None):
+            stream, fmask, n_full = self._stream_args(stream, fmask, n_full)
+            nc = stream.n_chunks
+            if isinstance(draw, torch.Generator):
+                b = min(batch_chunks, nc)
+                idx = (sample_block_indices(draw, nc, b).tolist() if b < nc
+                       else list(range(nc)))
+            else:
+                idx = [int(c) for c in np.asarray(draw).reshape(-1)]
+            chunks = list(self._read(stream, idx))
+            stager = stage_to_device(self.device, depth=1)
+            arrs, w = stager.ready(stager((
+                {k: np.concatenate([c[0][k] for c in chunks])
+                 for k in stream.fields},
+                np.concatenate([c[1] for c in chunks]))))
+            wm, scale = self._masked(w, fmask), nc / len(idx)
+
+            def local(h, zz, mu, s):
+                st = self._local_stats(h, zz, arrs["y"], mu, s, wm,
+                                       exact=True)
+                return st.scale(scale) if scale != 1.0 else st
+
+            neg, out = self._value_and_grad(d, argnums, hyp, z, arrs["mu"],
+                                            arrs.get("s"), n_full, local)
+            return neg, (out[0] if single else out)
+
+        return step
+
+    def streamed_predictive_state(self, hyp, z, stream, fmask=None,
+                                  jitter: float = DEFAULT_JITTER,
+                                  prefetch_depth: int = 2):
+        """One streamed exact map-reduce -> the frozen
+        ``serve.PredictiveState``: bitwise :meth:`predictive_state` over the
+        same rows in memory."""
+        from ..serve import extract_state
+
+        st = self.streamed_stats(hyp, z, stream, fmask, prefetch_depth)
+        return extract_state(hyp, z, st, jitter=jitter, kernel=self.kernel,
+                             device=self.device)
 
     # -- serving ----------------------------------------------------------------
     def predictive_state(self, hyp, z, y, mu, s, w, fmask=None,
@@ -325,9 +641,3 @@ class DistributedGP:
     update_stats_fn = _not_ported("update_stats_fn", 7)
     update_predictive_state = _not_ported("update_predictive_state", 7)
     downdate_predictive_state = _not_ported("downdate_predictive_state", 7)
-    open_stream = _not_ported("open_stream", 9)
-    streamed_stats = _not_ported("streamed_stats", 9)
-    streamed_bound = _not_ported("streamed_bound", 9)
-    streamed_value_and_grad = _not_ported("streamed_value_and_grad", 9)
-    streamed_svi_value_and_grad = _not_ported("streamed_svi_value_and_grad", 9)
-    streamed_predictive_state = _not_ported("streamed_predictive_state", 9)

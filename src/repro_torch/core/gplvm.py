@@ -8,7 +8,8 @@ parameters G = (hyp, Z) and the local parameters L = (mu, log S), either
 jointly (``fit(joint=True)``, what GPy does) or in the paper's alternation
 of G-steps and L-steps (``fit(joint=False)``).  The fitted model serves
 latent queries through ``predictive_state`` -> ``PredictEngine``.
-``fit_svi`` and ``reconstruct`` come in later slices.
+``fit_svi`` trains every parameter by minibatch SVI (Adam).
+``reconstruct`` comes in a later slice.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ class BayesianGPLVM(PosteriorCacheMixin):
     all rows at once, one launch of each psi kernel on CUDA, which never
     stores the (n, m, m) per-point psi2.
 
+    ``batch_blocks``: the default blocks a ``fit_svi`` step samples.
+
     ``device``: where the model lives (default CUDA; ``"cpu"`` runs the
     plain versions of the kernels).  Data and parameters are f64 there,
     and the init (PCA latents, k-means Z, data-driven hyp) is the JAX
@@ -38,13 +41,15 @@ class BayesianGPLVM(PosteriorCacheMixin):
 
     def __init__(self, y: np.ndarray, q: int, num_inducing: int = 50,
                  jitter: float = 1e-6, seed: int = 0, s0: float = 0.5,
-                 chunk_size: int | None = None, kernel=None, device=None):
+                 chunk_size: int | None = None,
+                 batch_blocks: int | None = None, kernel=None, device=None):
         self.device = resolve_device(device)
         self.y = as_f64(y, self.device)
         self.n, self.d = self.y.shape
         self.q = q
         self.jitter = jitter
         self.chunk_size = chunk_size
+        self.batch_blocks = batch_blocks
         self.kernel = cov.as_kernel(kernel)
         mu0 = init_utils.pca(np.asarray(y), q)
         z0 = init_utils.kmeans(mu0, num_inducing, seed=seed)
@@ -58,15 +63,21 @@ class BayesianGPLVM(PosteriorCacheMixin):
         }
         self._init_posterior_caches()   # stats / PredictiveState / engine
 
-    def _map_stats(self, hyp, z, y, mu, s):
+    def _map_stats(self, hyp, z, y, mu, s, batch_blocks=None, generator=None,
+                   block_indices=None):
         return partial_stats_chunked(hyp, z, y, mu, s=s, latent=True,
                                      block_size=self.chunk_size,
+                                     batch_blocks=batch_blocks,
+                                     generator=generator,
+                                     block_indices=block_indices,
                                      kernel=self.kernel)
 
     # -- objective ----------------------------------------------------------
-    def _neg_bound(self, params) -> torch.Tensor:
+    def _neg_bound(self, params, **svi) -> torch.Tensor:
+        """The negative bound; ``svi`` (``batch_blocks``, ``generator``,
+        ``block_indices``) makes it the SVI estimate."""
         st = self._map_stats(params["hyp"], params["z"], self.y,
-                             params["mu"], torch.exp(params["log_s"]))
+                             params["mu"], torch.exp(params["log_s"]), **svi)
         return -bound_mod.collapsed_bound(params["hyp"], params["z"], st,
                                           self.d, jitter=self.jitter,
                                           kernel=self.kernel)
@@ -95,6 +106,35 @@ class BayesianGPLVM(PosteriorCacheMixin):
         self._invalidate_posterior()
         if verbose:
             print(f"GPLVM fit(joint): bound={-res.f:.4f} iters={res.n_iters}")
+        return res
+
+    def fit_svi(self, steps: int = 500, lr: float = 1e-2,
+                batch_blocks: int | None = None, seed: int = 0,
+                verbose: bool = False):
+        """Minibatch SVI of every parameter (hyp, Z, mu, log S): the
+        estimator of ``SGPR.fit_svi``, the per-point KL reweighted with the
+        data terms.  A step gives gradients only to the sampled blocks'
+        (mu, log S) rows; the others coast on Adam's decaying momentum.
+        Needs ``chunk_size``; returns a ``train.svi.SVIResult``."""
+        from ..train.svi import svi_fit, value_and_grad
+
+        bb = self.batch_blocks if batch_blocks is None else batch_blocks
+        if self.chunk_size is None or bb is None:
+            raise ValueError(
+                "fit_svi needs chunk_size and batch_blocks, e.g. "
+                "BayesianGPLVM(..., chunk_size=1024, batch_blocks=4)")
+
+        def neg_vg(params, generator):
+            return value_and_grad(lambda p: self._neg_bound(
+                p, batch_blocks=bb, generator=generator), params)
+
+        res = svi_fit(neg_vg, self.params, torch.Generator().manual_seed(seed),
+                      steps=steps, lr=lr)
+        self.params = res.params
+        self._invalidate_posterior()
+        if verbose:
+            print(f"GPLVM fit_svi: est. bound={-res.history[-1]:.4f} "
+                  f"steps={res.n_steps} (B={bb} blocks/step)")
         return res
 
     def _fit_alternating(self, max_iters, outer_rounds, verbose):

@@ -4,8 +4,9 @@ Counterpart of ``repro.core.SGPR``: build the reduced statistics (the fused
 map kernel on CUDA), evaluate the bound and its gradient (autograd; the
 kernel's backward recomputes the dense map in row chunks), fit by SCG,
 freeze the optimal q(u) into a ``PredictiveState`` and answer queries
-through the block engine.  ``fit_svi``, the online updates (``update``,
-``forget``) and ``sample`` come in later slices.
+through the block engine; or train by minibatch SVI (``fit_svi``, Adam on
+the reweighted bound of ``batch_blocks`` sampled row blocks).  The online
+updates (``update``, ``forget``) and ``sample`` come in later slices.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ class SGPR(PosteriorCacheMixin):
     maps all rows at once, which on CUDA is one launch of the fused kernel
     (it never stores the (n, m) slab); on the CPU it holds the slab.
 
+    ``batch_blocks``: the default blocks a ``fit_svi`` step samples.
+
     ``device``: where the model lives (default CUDA; ``"cpu"`` runs the
     plain versions of the kernels).  Data and parameters are f64 there.
     """
@@ -36,7 +39,8 @@ class SGPR(PosteriorCacheMixin):
     def __init__(self, x: np.ndarray, y: np.ndarray, num_inducing: int = 50,
                  hyp: dict | None = None, z: np.ndarray | None = None,
                  jitter: float = 1e-6, seed: int = 0,
-                 chunk_size: int | None = None, kernel=None, device=None):
+                 chunk_size: int | None = None,
+                 batch_blocks: int | None = None, kernel=None, device=None):
         self.device = resolve_device(device)
         self.x = as_f64(x, self.device)
         self.y = as_f64(y, self.device)
@@ -44,6 +48,7 @@ class SGPR(PosteriorCacheMixin):
         self.d = self.y.shape[1]
         self.jitter = jitter
         self.chunk_size = chunk_size
+        self.batch_blocks = batch_blocks
         self.kernel = cov.as_kernel(kernel)
         z0 = (init_utils.kmeans(np.asarray(x), num_inducing, seed=seed)
               if z is None else z)
@@ -55,14 +60,21 @@ class SGPR(PosteriorCacheMixin):
         }
         self._init_posterior_caches()   # stats / PredictiveState / engine
 
-    def _map_stats(self, hyp, z, y, x):
+    def _map_stats(self, hyp, z, y, x, batch_blocks=None, generator=None,
+                   block_indices=None):
         return partial_stats_chunked(hyp, z, y, x, s=None, latent=False,
                                      block_size=self.chunk_size,
+                                     batch_blocks=batch_blocks,
+                                     generator=generator,
+                                     block_indices=block_indices,
                                      kernel=self.kernel)
 
     # -- objective ----------------------------------------------------------
-    def _neg_bound(self, params) -> torch.Tensor:
-        st = self._map_stats(params["hyp"], params["z"], self.y, self.x)
+    def _neg_bound(self, params, **svi) -> torch.Tensor:
+        """The negative bound; ``svi`` (``batch_blocks``, ``generator``,
+        ``block_indices``) makes it the SVI estimate."""
+        st = self._map_stats(params["hyp"], params["z"], self.y, self.x,
+                             **svi)
         return -bound_mod.collapsed_bound(params["hyp"], params["z"], st,
                                           self.d, jitter=self.jitter,
                                           kernel=self.kernel)
@@ -86,6 +98,39 @@ class SGPR(PosteriorCacheMixin):
         if verbose:
             print(f"SGPR fit: bound={-res.f:.4f} iters={res.n_iters} "
                   f"evals={res.n_evals} converged={res.converged}")
+        return res
+
+    def fit_svi(self, steps: int = 500, lr: float = 1e-2,
+                batch_blocks: int | None = None, seed: int = 0,
+                verbose: bool = False):
+        """Minibatch SVI (Hensman et al.): each Adam step samples
+        ``batch_blocks`` of the ``ceil(n / chunk_size)`` row blocks and
+        reweights their Stats by ``n_blocks / batch_blocks``, an unbiased
+        estimate of the exact ones, so a step costs O(batch_blocks *
+        chunk_size * m) whatever n is.  Draws come from a generator seeded
+        with ``seed``.  Needs ``chunk_size``; ``batch_blocks`` defaults to
+        the constructor's.  Returns a ``train.svi.SVIResult``; drops the
+        posterior caches."""
+        from ..train.svi import svi_fit, value_and_grad
+
+        bb = self.batch_blocks if batch_blocks is None else batch_blocks
+        if self.chunk_size is None or bb is None:
+            raise ValueError(
+                "fit_svi needs chunk_size (the block size) and batch_blocks "
+                "(blocks per step), e.g. SGPR(..., chunk_size=1024, "
+                "batch_blocks=4)")
+
+        def neg_vg(params, generator):
+            return value_and_grad(lambda p: self._neg_bound(
+                p, batch_blocks=bb, generator=generator), params)
+
+        res = svi_fit(neg_vg, self.params, torch.Generator().manual_seed(seed),
+                      steps=steps, lr=lr)
+        self.params = res.params
+        self._invalidate_posterior()
+        if verbose:
+            print(f"SGPR fit_svi: est. bound={-res.history[-1]:.4f} "
+                  f"steps={res.n_steps} (B={bb} blocks/step)")
         return res
 
     # -- posterior ----------------------------------------------------------

@@ -11,15 +11,23 @@ Each worker holds a shard ``(Y_k, mu_k, S_k)`` (regression: ``S_k = 0``,
 
 whose size is independent of n.  ``weights`` masks rows (padding, failed
 nodes) without changing shapes: a zero weight removes row i from every
-statistic.  Counterpart of ``repro.core.stats``; the SVI mode, ``init=``
-and ``block_reduce_fn`` come in later slices.  :func:`pack_stats` /
+statistic.  Counterpart of ``repro.core.stats``, with the minibatch (SVI)
+mode (``batch_blocks``) and the host-fed carry (``init=``) of
+:func:`partial_stats_chunked`; the overlapped reduce (``block_reduce_fn``)
+comes with ROADMAP Queue 1 item 11.  :func:`pack_stats` /
 :func:`unpack_stats` flatten the Stats for the distributed reduce
 (``core.distributed``).
+
+Randomness: ``jax.random`` keys become CPU generators
+(``torch.Generator``).  :func:`sample_block_indices` draws from one, and
+:func:`fold_in` derives an independent generator from one and an integer,
+as ``jax.random.fold_in`` derives a key.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels.reg_stats import ops as rs_ops
@@ -94,9 +102,36 @@ def zero_stats(m: int, d: int, dtype=torch.float64, device=None) -> Stats:
                  D=torch.zeros((m, m), dtype=dtype, device=device), KL=zf, n=zf)
 
 
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new CPU generator seeded by one draw of ``generator`` mixed with
+    ``data`` (``numpy.random.SeedSequence``): the counterpart of
+    ``jax.random.fold_in``.  Two calls with the same generator state and
+    ``data`` give generators of the same stream; other ``data`` give
+    independent ones.  The draw advances ``generator``."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    mixed = np.random.SeedSequence((seed, int(data))).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(mixed))
+
+
+def sample_block_indices(generator: torch.Generator, n_blocks: int,
+                         batch_blocks: int) -> torch.Tensor:
+    """Uniform size-``batch_blocks`` subset of ``range(n_blocks)``, without
+    replacement: the SVI block sampler.  Without replacement, the sum over
+    the sampled blocks has expectation ``batch_blocks / n_blocks`` times the
+    sum over all blocks, which makes the ``n_blocks / batch_blocks``
+    reweighting of :func:`partial_stats_chunked` unbiased.  Returns
+    ``(batch_blocks,)`` int64 indices on the CPU."""
+    return torch.randperm(n_blocks, generator=generator)[:batch_blocks]
+
+
 def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                           latent: bool = False, block_size: int | None = 1024,
-                          kernel=None, force_scan: bool = False) -> Stats:
+                          kernel=None, force_scan: bool = False,
+                          batch_blocks: int | None = None,
+                          generator: torch.Generator | None = None,
+                          block_indices=None, init: Stats | None = None
+                          ) -> Stats:
     """Streaming map step: :func:`partial_stats` folded over row blocks.
 
     Exact mode: rows are padded up to a multiple of ``block_size`` with zero
@@ -106,29 +141,78 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
     O(m^2).  ``block_size=None`` (or ``n <= block_size``) computes the
     statistics in one piece; ``force_scan`` (the distributed engine's
     setting, as in the JAX package) folds even a single block into the
-    zero accumulator.  No-op when ``block_size`` is None.
+    accumulator.
+
+    ``init``: the accumulator the fold starts from (default zero).  A host
+    loop that threads ``init`` through consecutive row chunks adds the same
+    bits, in the same order, as one call over all the rows: the streaming
+    engine's bitwise contract (``core.distributed``).
+
+    Minibatch (SVI) mode, ``batch_blocks``: only ``batch_blocks`` of the
+    ``nb = ceil(n / block_size)`` blocks are folded, drawn without
+    replacement from ``generator`` (:func:`sample_block_indices`) or given
+    as ``block_indices`` (honoured even when ``batch_blocks >= nb``), and
+    every field, ``n`` included, is scaled by ``nb / batch_blocks``: every
+    Stats field is a sum over points, so the scaled Stats are unbiased for
+    the exact ones.  Only the sampled blocks are read, so a call costs
+    O(batch_blocks * block_size) whatever n is.  Without ``block_indices``,
+    ``batch_blocks >= nb`` is the exact fold.
     """
     n_k = y.shape[0]
+    if batch_blocks is not None:
+        if block_size is None:
+            raise ValueError(
+                "batch_blocks (SVI mode) requires block_size: the minibatch "
+                "is a subset of the streaming row blocks")
+        if batch_blocks < 1:
+            raise ValueError(f"batch_blocks must be >= 1, got {batch_blocks}")
+        if init is not None:
+            raise ValueError(
+                "init cannot be combined with batch_blocks: the SVI "
+                "reweighting scales the whole carry, prior chunks included")
     if block_size is None or (n_k <= block_size and not force_scan):
-        return partial_stats(hyp, z, y, mu, s, weights=weights,
-                             latent=latent, kernel=kernel)
+        st = partial_stats(hyp, z, y, mu, s, weights=weights,
+                           latent=latent, kernel=kernel)
+        return st if init is None else fold_stats(init, st)
     w = (torch.ones((n_k,), dtype=y.dtype, device=y.device) if weights is None
          else weights.to(y.dtype))
-    pad = (-n_k) % block_size
+    nb = -(-n_k // block_size)
 
-    def padded(t, value=0.0):
-        return torch.cat([t, t.new_full((pad,) + t.shape[1:], value)])
+    def block(i):
+        """Rows of block i, the ragged last one padded: the block the JAX
+        package's padded (nb, block_size) view holds."""
+        lo, hi = i * block_size, min((i + 1) * block_size, n_k)
+        pad = block_size - (hi - lo)
 
-    y_p, mu_p, w_p = padded(y), padded(mu), padded(w)
-    s_p = None if s is None else padded(s, 1.0)
-    acc = zero_stats(z.shape[0], y.shape[1], dtype=y.dtype, device=y.device)
-    for lo in range(0, n_k + pad, block_size):
-        sl = slice(lo, lo + block_size)
-        acc = acc + partial_stats(hyp, z, y_p[sl], mu_p[sl],
-                                  None if s_p is None else s_p[sl],
-                                  weights=w_p[sl], latent=latent,
-                                  kernel=kernel)
-    return acc
+        def take(t, value=0.0):
+            if not pad:
+                return t[lo:hi]
+            return torch.cat([t[lo:hi], t.new_full((pad,) + t.shape[1:],
+                                                   value)])
+        return (take(y), take(mu), None if s is None else take(s, 1.0),
+                take(w))
+
+    order, scale = range(nb), 1.0
+    if batch_blocks is not None and (batch_blocks < nb
+                                     or block_indices is not None):
+        if block_indices is None:
+            if generator is None:
+                raise ValueError("SVI mode needs a generator (or explicit "
+                                 "block_indices)")
+            block_indices = sample_block_indices(generator, nb, batch_blocks)
+        idx = (block_indices if isinstance(block_indices, torch.Tensor)
+               else torch.from_numpy(np.array(block_indices, np.int64)))
+        if tuple(idx.shape) != (batch_blocks,):
+            raise ValueError(f"block_indices must have shape "
+                             f"({batch_blocks},), got {tuple(idx.shape)}")
+        order, scale = [int(i) for i in idx.tolist()], nb / batch_blocks
+    acc = (zero_stats(z.shape[0], y.shape[1], dtype=y.dtype, device=y.device)
+           if init is None else init)
+    for i in order:
+        yb, mub, sb, wb = block(i)
+        acc = acc + partial_stats(hyp, z, yb, mub, sb, weights=wb,
+                                  latent=latent, kernel=kernel)
+    return acc.scale(scale) if scale != 1.0 else acc
 
 
 def reduce_stats(parts: list[Stats]) -> Stats:

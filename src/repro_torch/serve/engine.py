@@ -14,12 +14,16 @@ predict path).  No output row depends on the batch it arrives in.
 
 A low-precision state is cast once, at engine build, to ``compute_dtype``
 (f32 for sub-f32 states), so the only loss is the storage rounding.
+
+``predict_stream`` serves an iterator of query batches, staging batch
+``i+1`` in a background thread while batch ``i`` computes;
+``sample_stream`` waits for the sampling of ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
 import torch
 
-from .._device import resolve_device
+from .._device import rank_device, resolve_device
 from . import posterior
 
 
@@ -87,9 +91,8 @@ class PredictEngine:
         return torch.exp(-self._cstate.hyp["log_beta"])
 
     @torch.no_grad()
-    def predict(self, xstar, include_noise: bool = False):
-        """Batched diag-variance prediction: ``(mean (t, d), var (t,))``."""
-        xq, t = self.pad_queries(xstar)
+    def _answer(self, xq, t: int, include_noise: bool):
+        """(mean, var) of the first ``t`` rows of a padded buffer."""
         if t == 0:
             # An empty batch is a no-op, never a shape error.
             return (xq.new_zeros((0, self.state.d)), xq.new_zeros((0,)))
@@ -98,6 +101,10 @@ class PredictEngine:
         if include_noise:
             var = var + self._noise_var()
         return mean, var
+
+    def predict(self, xstar, include_noise: bool = False):
+        """Batched diag-variance prediction: ``(mean (t, d), var (t,))``."""
+        return self._answer(*self.pad_queries(xstar), include_noise)
 
     @torch.no_grad()
     def predict_full_cov(self, xstar, include_noise: bool = False):
@@ -116,6 +123,27 @@ class PredictEngine:
         if full_cov:
             return self.predict_full_cov(xstar, include_noise=include_noise)
         return self.predict(xstar, include_noise=include_noise)
+
+    def predict_stream(self, queries, include_noise: bool = False,
+                       prefetch_depth: int = 2):
+        """Serve an iterator of query batches: yields one ``(mean, var)``
+        per batch, in order, each bitwise what :meth:`predict` returns for
+        it; only ``prefetch_depth`` + 1 batches are on the device at once.
+        :meth:`pad_queries` runs in a ``data.stream.prefetch`` worker, bound
+        to the engine's device, while the caller's batch computes; a
+        failure there raises here."""
+        from ..data.stream import prefetch
+
+        dev = rank_device(self.device)   # with its index, for the worker
+
+        def stage(xstar):
+            if dev.type != "cuda":
+                return self.pad_queries(xstar)
+            with torch.cuda.device(dev):   # the current device is per thread
+                return self.pad_queries(xstar)
+
+        for xq, t in prefetch(iter(queries), stage, depth=prefetch_depth):
+            yield self._answer(xq, t, include_noise)
 
     def predict_np(self, xstar, include_noise: bool = False):
         """predict, then copied to host numpy arrays."""

@@ -728,3 +728,90 @@ def test_distributed_two_gloo_ranks_on_one_card_with_a_failed_rank(
     have = np.concatenate([np.ravel(got[0][k]) for k in h]
                           + [got[0]["gz"].ravel()])
     assert np.linalg.norm(have - want) <= 1e-8 * np.linalg.norm(want)
+
+
+# -- SVI and host streaming on the card ------------------------------------------
+
+def test_streamed_equals_in_memory_bitwise_on_the_card(cuda):
+    """A stream staged chunk by chunk (pinned memory, a side stream) folds
+    to the in-memory engine's Stats, bound and predictive state bitwise,
+    through the reg_stats kernel: one launch a block a pass."""
+    from repro_torch.data import flight_like
+
+    n, chunk, m = 20_000, 512, 32
+    rows = flight_like(n=n, seed=0).read(0, n)
+    rng = np.random.default_rng(0)
+    z = _t(rows["mu"][rng.choice(n, m, replace=False)], cuda)
+    hyp = {"log_sf2": _t(0.0, cuda), "log_ell": _t(np.zeros(8), cuda),
+           "log_beta": _t(1.0, cuda)}
+    eng = rt.DistributedGP(chunk_size=chunk, device=cuda)
+    data, w = eng.put_data(**rows)
+    ones = np.ones(1)
+    stream = eng.put_data(stream=flight_like(n=n, seed=0), blocks_per_chunk=3)
+    before = rs_ops.LAUNCHES["float64"]
+    st = eng.streamed_stats(hyp, z, stream)
+    # the tail chunk tops up with zero-weight blocks
+    assert rs_ops.LAUNCHES["float64"] - before \
+        == stream.n_chunks * stream.blocks_per_chunk
+    st_mem = eng.reduced_stats(1)(hyp, z, data["y"], data["mu"], None, w, ones)
+    for a, b in zip(st, st_mem):
+        assert torch.equal(a, b)
+    assert float(eng.streamed_bound(hyp, z, stream, d=1)) == float(
+        eng.bound_fn(1)(hyp, z, data["y"], data["mu"], None, w, ones,
+                        float(n)))
+    ps = eng.streamed_predictive_state(hyp, z, stream)
+    pm = eng.predictive_state(hyp, z, data["y"], data["mu"], None, w)
+    for f in ("chol_kmm", "chol_sigma", "c2", "a_mean", "g"):
+        assert torch.equal(getattr(ps, f), getattr(pm, f)), f
+    serve = rt.PredictEngine(ps, device=cuda)
+    batches = [rows["mu"][i:i + 700] for i in range(0, 2800, 700)]
+    for xb, (mean, var) in zip(batches, serve.predict_stream(iter(batches))):
+        m_ref, v_ref = serve.predict(xb)
+        assert torch.equal(mean, m_ref) and torch.equal(var, v_ref)
+
+
+def test_staged_chunk_unchanged_while_the_consumer_stream_is_busy(cuda):
+    """A long kernel holds the consumer's stream while more chunks are
+    staged than there are pinned buffers: no buffer is refilled before its
+    copy completes, no staged tensor's memory is handed out before the
+    consumer's work on it, so every chunk arrives as it was."""
+    from repro_torch.data.stream import prefetch, stage_to_device
+
+    chunks = [({"y": np.full((4096, 3), float(i))}, np.full(4096, float(i)))
+              for i in range(16)]
+    stager = stage_to_device(cuda, depth=2)
+    torch.cuda._sleep(int(5e8))            # spins the current stream
+    outs = []
+    for staged in prefetch(iter(chunks), stager, depth=2):
+        arrs, w = stager.ready(staged)
+        outs.append((arrs["y"].sum(), w.sum()))   # queued behind the sleep
+        del arrs, w
+    torch.cuda.synchronize()
+    for i, (y, w) in enumerate(outs):
+        assert float(y) == 3 * 4096 * i and float(w) == 4096 * i
+
+
+def test_fit_svi_on_the_card(cuda):
+    """SGPR and GPLVM fit_svi on the card: the same draws (a CPU generator)
+    as on the CPU, so 5 steps match the CPU's history to 1e-9; the exact
+    bound rises; the map runs the kernels."""
+    x, y = _dist_inputs()[:2]
+    hist = {}
+    for dev in ("cpu", cuda):
+        gp = rt.SGPR(x, y, num_inducing=16, seed=0, chunk_size=64,
+                     batch_blocks=3, device=dev)
+        b0 = gp.log_bound()
+        before = rs_ops.LAUNCHES["float64"]
+        hist[str(dev)] = gp.fit_svi(steps=5, lr=2e-2, seed=0).history
+        launched = rs_ops.LAUNCHES["float64"] - before
+        assert gp.log_bound() > b0
+    assert launched == 5 * 3                # the card's: 3 blocks a step
+    np.testing.assert_allclose(hist[str(cuda)], hist["cpu"], rtol=1e-9)
+    yl = np.random.default_rng(0).standard_normal((200, 5))
+    lv = rt.BayesianGPLVM(yl, q=2, num_inducing=8, chunk_size=32,
+                          batch_blocks=2, device=cuda)
+    b0 = lv.log_bound()
+    before = ps_ops.LAUNCHES["psi2_float64"]
+    lv.fit_svi(steps=10, lr=2e-2, seed=0)
+    assert ps_ops.LAUNCHES["psi2_float64"] - before == 10 * 2
+    assert lv.log_bound() > b0

@@ -373,19 +373,11 @@ def _engine(**kw):
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda: _engine(batch_blocks=2, chunk_size=4), "item 3"),
     (lambda: _engine(chunk_size=4, reduce_mode="overlap"), "item 11"),
     (lambda: _engine(chunk_size=4, reduce_mode="overlap_eager"), "item 11"),
     (lambda: _engine(psi2_fn=lambda *a: None), "items 5 and 6"),
     (lambda: _engine(reg_stats_fn=lambda *a: None), "items 5 and 6"),
     (lambda: _engine(kernel={"kind": "matern32"}), "Kernel zoo"),
-    (lambda: _engine().put_data(stream=object()), "item 9"),
-    (lambda: _engine().open_stream(object()), "item 9"),
-    (lambda: _engine().streamed_stats(None, None, None), "item 9"),
-    (lambda: _engine().streamed_bound(None, None, None, 1), "item 9"),
-    (lambda: _engine().streamed_value_and_grad(1), "item 9"),
-    (lambda: _engine().streamed_svi_value_and_grad(1, 1), "item 9"),
-    (lambda: _engine().streamed_predictive_state(None, None, None), "item 9"),
     (lambda: _engine().update_stats_fn(1), "item 7"),
     (lambda: _engine().update_predictive_state(None, None, None), "item 7"),
     (lambda: _engine().downdate_predictive_state(None, None, None), "item 7"),
@@ -400,12 +392,37 @@ def test_unported_options_raise_naming_their_roadmap_item(make, item):
 def test_make_gp_train_step_refuses_unported_options():
     from repro_torch.train.steps import make_gp_train_step
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_gp_train_step(None, 1, chunk_size=4, batch_blocks=1,
-                           device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         make_gp_train_step(None, 1, chunk_size=4, reduce_mode="overlap",
                            device="cpu")
+
+
+# The reference's three invalid arguments (src/repro/core/distributed.py:
+# 229-247), each a ValueError there and in the port: (kwargs, message).
+INVALID = {
+    "batch_blocks_without_chunk_size": (dict(batch_blocks=2),
+                                        "requires chunk_size"),
+    "unknown_reduce_mode": (dict(chunk_size=4, reduce_mode="bogus"),
+                            "reduce_mode must be"),
+    "overlap_without_chunk_size": (dict(reduce_mode="overlap"),
+                                   "requires chunk_size"),
+}
+
+
+@pytest.mark.parametrize("case", list(INVALID))
+def test_invalid_arguments_raise_value_error_as_jax_does(case):
+    """Validity first, as the reference checks it: an invalid value is a
+    ValueError in both packages, never "not ported yet"."""
+    from repro.launch.mesh import make_compat_mesh
+    from repro_torch.train.steps import make_gp_train_step
+
+    kwargs, message = INVALID[case]
+    with pytest.raises(ValueError, match=message):
+        jdist.DistributedGP(make_compat_mesh((1,), ("data",)), **kwargs)
+    with pytest.raises(ValueError, match=message):
+        _engine(**kwargs)
+    with pytest.raises(ValueError, match=message):
+        make_gp_train_step(None, 1, device="cpu", **kwargs)
 
 
 def test_bad_arguments_raise():

@@ -1,7 +1,10 @@
 """The port's examples (``repro_torch.examples``) run on the CPU at their own
-sizes: quickstart and serve_sgpr in this process (serve_sgpr asserts that
-the served posterior is the model's own to 1e-9), distributed_sgpr on 2
-spawned gloo ranks, each rank printing and returning the same bounds."""
+sizes: quickstart, serve_sgpr and svi_sgpr in this process (serve_sgpr
+asserts that the served posterior is the model's own to 1e-9; svi_sgpr's
+SVI must raise the exact bound), distributed_sgpr on 2 spawned gloo ranks,
+each rank printing and returning the same bounds, and flight_scale --tiny
+in this process and on 2 spawned gloo ranks (the same bound and RMSE on
+every rank)."""
 import datetime
 import json
 import pathlib
@@ -48,3 +51,40 @@ def test_distributed_sgpr_on_two_gloo_ranks(tmp_path):
     assert b[0] == b[1], "the ranks took different SCG paths"
     initial, final = b[0]
     assert np.isfinite(final) and final > initial
+
+
+def test_svi_sgpr(capsys):
+    from repro_torch.examples import svi_sgpr
+
+    b0, b1, rmse = svi_sgpr.main(["--device", "cpu"])
+    assert "SGPR fit_svi: est. bound=" in capsys.readouterr().out
+    assert b1 > b0 and rmse < 0.05
+
+
+def test_flight_scale_tiny(capsys):
+    from repro_torch.examples import flight_scale
+
+    bound, rmse = flight_scale.main(["--tiny", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "10 SVI steps" in out and "served 4,096 streamed queries" in out
+    assert np.isfinite(bound) and rmse < 1.0
+
+
+def _flight_rank(rank, world, store_path, out_dir):
+    torch.set_num_threads(1)   # ranks share the cores: no oversubscription
+    from repro_torch.examples import flight_scale
+    from repro_torch.launch import make_data_group
+
+    make_data_group("cpu", store=dist.FileStore(store_path, world), rank=rank,
+                    world_size=world, timeout=datetime.timedelta(seconds=60))
+    out = flight_scale.main(["--tiny", "--device", "cpu"])
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def test_flight_scale_tiny_on_two_gloo_ranks(tmp_path):
+    codes, _ = spawn_ranks(_flight_rank, 2, tmp_path)
+    assert codes == [0, 0], codes
+    out = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in (0, 1)]
+    assert out[0] == out[1], "the ranks disagree"
+    assert np.isfinite(out[0][0]) and out[0][1] < 1.0
