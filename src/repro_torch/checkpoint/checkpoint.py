@@ -12,13 +12,18 @@ package loads the other's files:
 
 Trees are frozen dataclasses and dicts of tensors; dataclass fields that
 are not tensors or dicts (e.g. a kernel expression) are static and not
-saved.  Writes are atomic: temporary files, then rename.
+saved.  Writes are atomic: temporary files, then rename.  A path whose stem
+is ``<base>_step<N>`` rotates: ``save(..., keep=k)`` leaves the k newest
+steps of ``<base>``, and :func:`latest` names the newest.
+:class:`AsyncCheckpointer` writes on a background thread.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import pathlib
+import re
+import threading
 
 import numpy as np
 import torch
@@ -61,12 +66,24 @@ def _to_tensor(arr: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
-def save(path: str | pathlib.Path, tree, metadata: dict | None = None
-         ) -> pathlib.Path:
-    """Atomic checkpoint write; returns the ``.npz`` path."""
-    path = pathlib.Path(path)
+def _host_leaves(tree) -> dict:
+    """The tree's leaves as host arrays, keyed by path; copies, so the
+    caller may change its tensors once this returns."""
+    return {k: np.array(_to_numpy(v))
+            for k, v in _flatten_with_paths(tree).items()}
+
+
+def save(path: str | pathlib.Path, tree, metadata: dict | None = None,
+         keep: int = 3) -> pathlib.Path:
+    """Atomic checkpoint write; returns the ``.npz`` path.  Under a
+    ``<base>_step<N>`` stem, only the ``keep`` newest steps of ``<base>``
+    are left."""
+    return _write(pathlib.Path(path), _host_leaves(tree), metadata, keep)
+
+
+def _write(path: pathlib.Path, flat: dict, metadata, keep: int
+           ) -> pathlib.Path:
     path.parent.mkdir(parents=True, exist_ok=True)
-    flat = {k: _to_numpy(v) for k, v in _flatten_with_paths(tree).items()}
     tmp = path.with_suffix(".tmp.npz")
     np.savez(tmp, **flat)
     tmp_meta = path.with_suffix(".tmp.json")
@@ -74,7 +91,67 @@ def save(path: str | pathlib.Path, tree, metadata: dict | None = None
                                     "n_leaves": len(flat)}))
     tmp.rename(path.with_suffix(".npz"))
     tmp_meta.rename(path.with_suffix(".json"))
+    _rotate(path.parent, path.stem, keep)
     return path.with_suffix(".npz")
+
+
+def _step(p: pathlib.Path) -> int:
+    return int(re.search(r"_step(\d+)", p.stem).group(1))
+
+
+def _steps(d: pathlib.Path, base: str) -> list:
+    """The ``<base>_step<N>.npz`` files of ``d``, oldest step first."""
+    return sorted(d.glob(f"{base}_step*.npz"), key=_step)
+
+
+def _rotate(d: pathlib.Path, stem: str, keep: int) -> None:
+    m = re.match(r"(.*)_step(\d+)$", stem)
+    if not m:
+        return
+    for old in _steps(d, m.group(1))[:-keep]:
+        old.unlink(missing_ok=True)
+        old.with_suffix(".json").unlink(missing_ok=True)
+
+
+def latest(d: str | pathlib.Path, base: str = "ckpt") -> pathlib.Path | None:
+    """The newest ``<base>_step<N>`` checkpoint of ``d`` (the path without
+    suffix), or None."""
+    ckpts = _steps(pathlib.Path(d), base)
+    return ckpts[-1].with_suffix("") if ckpts else None
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes on one background thread, at most one in flight.
+
+    ``save`` waits for the previous write, copies the tree's leaves to host
+    arrays on the caller's thread (the device-to-host copy), starts the
+    write and returns: the caller may change its tensors at once.  ``wait``
+    joins the write in flight; a write that failed raises there."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, path, tree, metadata=None, keep: int = 3) -> None:
+        self.wait()
+        flat = _host_leaves(tree)
+
+        def work():
+            try:
+                _write(pathlib.Path(path), flat, metadata, keep)
+            except Exception as e:   # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def _unflatten(like, data, device, prefix: str = ""):

@@ -53,10 +53,14 @@ in-memory engine's over the same rows; the exact streamed gradient takes a
 second pass (f64 tolerance), the streamed SVI step one pass over the
 sampled chunks.
 
+Serving: :meth:`DistributedGP.predict_engine` shards query batches over
+the same group (``serve.PredictEngine(group=...)``): each rank computes its
+W-th of the rows, one all_gather gives every rank all of them.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 Queue 1 item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11), the
-``psi2_fn``/``reg_stats_fn`` hooks (items 5 and 6), ``predict_engine``
-(4), the online updates (7), ``multi_predict_engine`` (8).
+``reg_stats_fn`` hook (item 6), the online updates (7),
+``multi_predict_engine`` (8).
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ import torch.distributed as dist
 
 from .._device import as_f64, rank_device
 from ..data.stream import BlockStream, padded_rows, prefetch, stage_to_device
+from ..launch.mesh import via_host
 from . import covariance as cov
 from .bound import DEFAULT_JITTER, collapsed_bound
 from .stats import (Stats, fold_in, pack_stats, partial_stats_chunked,
@@ -157,9 +162,14 @@ class DistributedGP:
     and :meth:`make_value_and_grad`'s step then take a trailing ``draw``
     per step (a generator, or this rank's block indices).
 
+    ``psi2_fn``: replaces the kernel's psi2 in every latent map (in
+    memory, SVI and streamed), as ``core.stats.partial_stats`` takes it;
+    e.g. ``kernels.psi_stats.psi2_fn_for_engine()`` (the same kernel as
+    the default) or ``core.gp_kernels.psi2_mxu``.
+
     Not ported: ``reduce_mode`` other than ``"serial"`` (ROADMAP Queue 1
-    item 11), the ``psi2_fn``/``reg_stats_fn`` hooks (items 5 and 6), and
-    kernels other than SE-ARD (item 6, raised by ``covariance``).  Invalid
+    item 11), the ``reg_stats_fn`` hook and kernels other than SE-ARD
+    (item 6, the latter raised by ``covariance``).  Invalid
     arguments raise ``ValueError`` as the JAX engine's do, before any
     valid but unported value is refused.
     """
@@ -193,11 +203,11 @@ class DistributedGP:
         if reduce_mode != "serial":
             raise NotImplementedError(f"reduce_mode={reduce_mode!r} is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
-        if psi2_fn is not None or reg_stats_fn is not None:
-            raise NotImplementedError("the psi2_fn/reg_stats_fn hooks are not "
-                                      "ported yet (ROADMAP Queue 1 items 5 "
-                                      "and 6); CUDA tensors always take the "
-                                      "hand-written kernels")
+        if reg_stats_fn is not None:
+            raise NotImplementedError("the reg_stats_fn hook is not ported "
+                                      "yet (ROADMAP Queue 1 item 6); CUDA "
+                                      "tensors always take the hand-written "
+                                      "reg_stats kernel")
         self.kernel = cov.as_kernel(kernel)
         self.device = rank_device(device)
         if group is None and dist.is_available() and dist.is_initialized():
@@ -206,11 +216,11 @@ class DistributedGP:
         self.rank = 0 if group is None else dist.get_rank(group)
         self.n_shards = num_shards(group)
         self.latent = latent
+        self.psi2_fn = psi2_fn
         self.failure_mode = failure_mode
         self.chunk_size = chunk_size
         self.batch_blocks = batch_blocks
-        self._via_host = (group is not None and self.device.type == "cuda"
-                          and dist.get_backend(group) == "gloo")
+        self._via_host = via_host(group, self.device)
         #: real rows this rank has read from streams (the read path's count)
         self.rows_read = 0
 
@@ -282,7 +292,7 @@ class DistributedGP:
                                      batch_blocks=self.batch_blocks
                                      if svi else None,
                                      generator=gen, block_indices=idx,
-                                     init=init)
+                                     init=init, psi2_fn=self.psi2_fn)
 
     def _all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """The constant-size sum over ranks (the paper's reduce)."""
@@ -635,8 +645,19 @@ class DistributedGP:
         return extract_state(hyp, z, st, jitter=jitter, kernel=self.kernel,
                              device=self.device)
 
+    def predict_engine(self, state, block_size: int = 256,
+                       donate: bool = False):
+        """A ``serve.PredictEngine`` over ``state`` (the same on every rank)
+        on this engine's device, sharding each query batch's rows over the
+        engine's group: rank r computes its W-th, one all_gather gives every
+        rank all rows.  ``donate`` changes nothing (torch donates no
+        buffers); a caller's queries are never consumed."""
+        from ..serve import PredictEngine
+
+        return PredictEngine(state, block_size=block_size, device=self.device,
+                             group=self.group, donate=donate)
+
     # -- not ported yet ---------------------------------------------------------
-    predict_engine = _not_ported("predict_engine", 4)
     multi_predict_engine = _not_ported("multi_predict_engine", 8)
     update_stats_fn = _not_ported("update_stats_fn", 7)
     update_predictive_state = _not_ported("update_predictive_state", 7)

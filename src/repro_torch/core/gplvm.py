@@ -9,7 +9,8 @@ jointly (``fit(joint=True)``, what GPy does) or in the paper's alternation
 of G-steps and L-steps (``fit(joint=False)``).  The fitted model serves
 latent queries through ``predictive_state`` -> ``PredictEngine``.
 ``fit_svi`` trains every parameter by minibatch SVI (Adam).
-``reconstruct`` comes in a later slice.
+``reconstruct`` fills in the missing dimensions of new points (the paper's
+§4.5 USPS experiment).
 """
 from __future__ import annotations
 
@@ -169,3 +170,78 @@ class BayesianGPLVM(PosteriorCacheMixin):
 
     def latent_mean(self) -> np.ndarray:
         return self.params["mu"].cpu().numpy()
+
+    # -- reconstruction (paper §4.5) ----------------------------------------
+    #: elements of the (rows, n, d) block of the nearest-neighbour search
+    NN_ELEMS = 1 << 24
+
+    def _nearest(self, yp: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
+        """For each row of ``yp``, the training point whose observed
+        dimensions come nearest (masked squared distance), in blocks of
+        rows: the JAX package's (t, n, d) arithmetic, element for element,
+        without the whole (t, n, d) array."""
+        rows = max(1, self.NN_ELEMS // max(1, self.n * self.d))
+        out = []
+        for lo in range(0, yp.shape[0], rows):
+            diff = yp[lo:lo + rows, None, :] - self.y[None, :, :]
+            d2 = torch.where(obs[None, None, :], diff * diff,
+                             torch.zeros((), dtype=diff.dtype,
+                                         device=diff.device)).sum(-1)
+            out.append(torch.argmin(d2, dim=1))
+        return torch.cat(out)
+
+    def _reconstruct_objective(self, yp, obs, state):
+        """The negative of the observed dimensions' expected
+        log-likelihood under q(X*) = N(mu, diag(exp(log_s))) plus its KL,
+        through the trained posterior's mean and variance: a function of
+        ``{"mu", "log_s"}``."""
+        from ..serve import posterior
+
+        hyp = self.params["hyp"]
+        t = yp.shape[0]
+        n_obs = obs.sum().to(yp.dtype)
+        zero = torch.zeros((), dtype=yp.dtype, device=yp.device)
+
+        def neg(local):
+            mu, log_s = local["mu"], local["log_s"]
+            # Differentiated in mu: the plain composition, not the kernel.
+            mean, var = posterior.predict_mean_var_plain(state, mu)
+            beta = torch.exp(hyp["log_beta"])
+            resid = torch.where(obs[None, :], yp - mean, zero)
+            ll = (-0.5 * beta * (resid * resid).sum()
+                  - 0.5 * beta * n_obs * var.sum()
+                  + 0.5 * t * n_obs * hyp["log_beta"])
+            s = torch.exp(log_s)
+            kl = 0.5 * (s + mu * mu - log_s - 1.0).sum()
+            return -(ll - kl)
+        return neg
+
+    def _reconstruct_init(self, yp, obs) -> dict:
+        """q(X*) starts at the nearest training latent, ``log_s = log 0.1``:
+        more data, denser latent coverage, better reconstructions (the
+        paper's §4.5 finding)."""
+        nn = self._nearest(yp, obs)
+        return {"log_s": torch.full((yp.shape[0], self.q), float(np.log(0.1)),
+                                    dtype=torch.float64, device=self.device),
+                "mu": self.params["mu"][nn]}
+
+    def reconstruct(self, y_partial: np.ndarray, observed: np.ndarray,
+                    iters: int = 50) -> np.ndarray:
+        """Reconstruct the missing dimensions of new points (USPS-style,
+        paper §4.5): optimise a q(X*) for each row of ``y_partial`` (t, d)
+        against its ``observed`` (d,) dimensions only, by SCG over the flat
+        ``(mu, log_s)``, then predict every output dimension from the
+        served state (the predict kernel on the card).  Returns the
+        predicted mean (t, d)."""
+        from ..serve import posterior
+
+        obs = torch.as_tensor(np.asarray(observed, bool), device=self.device)
+        yp = as_f64(y_partial, self.device)
+        if yp.shape[0] == 0:
+            return np.zeros((0, self.d))
+        state = self.predictive_state()
+        _, local = fit_scg(self._reconstruct_objective(yp, obs, state),
+                           self._reconstruct_init(yp, obs), iters)
+        with torch.no_grad():
+            mean, _ = posterior.predict_mean_var(state, local["mu"])
+        return mean.cpu().numpy()

@@ -47,9 +47,14 @@ class PosteriorCacheMixin:
             self._pstate_cache = state_from_model(self)
         return self._pstate_cache
 
-    def serve_engine(self, block_size: int = 256, compute_dtype=None):
+    def serve_engine(self, block_size: int = 256, compute_dtype=None,
+                     group=None, donate: bool = False):
         """A fresh ``serve.PredictEngine`` over the current predictive state,
-        on the model's device."""
+        on the model's device; ``group`` shards each batch's rows over a
+        process group's ranks (each holding the same model), ``donate`` is
+        the JAX engine's flag and changes nothing.  A GPLVM's engine answers
+        latent queries (pair it with ``reconstruct`` for observed ones)."""
         from ..serve import PredictEngine
         return PredictEngine(self.predictive_state(), block_size=block_size,
-                             compute_dtype=compute_dtype, device=self.device)
+                             compute_dtype=compute_dtype, device=self.device,
+                             group=group, donate=donate)

@@ -68,7 +68,7 @@ class Stats(NamedTuple):
 
 
 def partial_stats(hyp: dict, z, y, mu, s=None, weights=None,
-                  latent: bool = False, kernel=None) -> Stats:
+                  latent: bool = False, kernel=None, psi2_fn=None) -> Stats:
     """Shard-local statistics (the map function).
 
     ``s`` (n, q) are the q(X) variances, or None for regression.  The
@@ -77,6 +77,10 @@ def partial_stats(hyp: dict, z, y, mu, s=None, weights=None,
     versions on CPU ones: ``kernels.reg_stats`` for regression,
     ``kernels.psi_stats`` (psi1, psi2) for the latent map, whose C is a
     plain matmul as in the JAX package.  ``latent`` adds the KL of q(X).
+    ``psi2_fn(hyp, z, mu, s, w) -> (m, m)`` replaces the kernel's psi2
+    (e.g. ``kernels.psi_stats.psi2_fn_for_engine()`` or
+    ``gp_kernels.psi2_mxu``); it is expected to compute the expression's
+    own psi2.
     """
     kernel = cov.as_kernel(kernel)   # raises for an expression not yet ported
     n_k = y.shape[0]
@@ -89,7 +93,7 @@ def partial_stats(hyp: dict, z, y, mu, s=None, weights=None,
                      n=w.sum())
     b = (w * kernel.psi0(hyp, mu, s)).sum()
     c = kernel.psi1(hyp, z, mu, s).T @ (w[:, None] * y)       # (m, d)
-    d_stat = kernel.psi2(hyp, z, mu, s, w)
+    d_stat = (kernel.psi2 if psi2_fn is None else psi2_fn)(hyp, z, mu, s, w)
     kl_i = 0.5 * (s + mu * mu - torch.log(s) - 1.0).sum(-1)
     kl = (w * kl_i).sum() if latent else torch.zeros_like(a)
     return Stats(A=a, B=b, C=c, D=d_stat, KL=kl, n=w.sum())
@@ -130,8 +134,8 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                           kernel=None, force_scan: bool = False,
                           batch_blocks: int | None = None,
                           generator: torch.Generator | None = None,
-                          block_indices=None, init: Stats | None = None
-                          ) -> Stats:
+                          block_indices=None, init: Stats | None = None,
+                          psi2_fn=None) -> Stats:
     """Streaming map step: :func:`partial_stats` folded over row blocks.
 
     Exact mode: rows are padded up to a multiple of ``block_size`` with zero
@@ -157,6 +161,8 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
     the exact ones.  Only the sampled blocks are read, so a call costs
     O(batch_blocks * block_size) whatever n is.  Without ``block_indices``,
     ``batch_blocks >= nb`` is the exact fold.
+
+    ``psi2_fn``: :func:`partial_stats`' hook, called once a block.
     """
     n_k = y.shape[0]
     if batch_blocks is not None:
@@ -172,7 +178,7 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                 "reweighting scales the whole carry, prior chunks included")
     if block_size is None or (n_k <= block_size and not force_scan):
         st = partial_stats(hyp, z, y, mu, s, weights=weights,
-                           latent=latent, kernel=kernel)
+                           latent=latent, kernel=kernel, psi2_fn=psi2_fn)
         return st if init is None else fold_stats(init, st)
     w = (torch.ones((n_k,), dtype=y.dtype, device=y.device) if weights is None
          else weights.to(y.dtype))
@@ -211,7 +217,8 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
     for i in order:
         yb, mub, sb, wb = block(i)
         acc = acc + partial_stats(hyp, z, yb, mub, sb, weights=wb,
-                                  latent=latent, kernel=kernel)
+                                  latent=latent, kernel=kernel,
+                                  psi2_fn=psi2_fn)
     return acc.scale(scale) if scale != 1.0 else acc
 
 

@@ -1,11 +1,13 @@
 """Synthetic datasets of the paper's GPLVM experiments (numpy).
 
-Copies of ``repro.data.synthetic`` (``sines_dataset``, ``usps_like``,
-``drop_pixels``, ``flight_like``), kept here so the port never imports the
+Copies of ``repro.data.synthetic`` (``sines_dataset``, ``oilflow_like``,
+``usps_like``, ``drop_pixels``, ``flight_like``), kept here so the port never imports the
 JAX package; the same generator gives the same arrays.
 
 * ``sines_dataset`` — the paper §4.2/fig 1 data: a 1D latent space mapped to
   3D observations "through linear functions with sines superimposed".
+* ``oilflow_like`` — a 12-D, 3-class stand-in for the oil-flow set of
+  Titsias & Lawrence (the paper's fig 4 embedding).
 * ``usps_like`` — 16x16 synthetic digit-ish images (d=256) for the §4.5
   USPS model (``gplvm-usps``).
 * ``drop_pixels`` — the §4.5 reconstruction protocol's fixed pixel mask.
@@ -28,6 +30,17 @@ def sines_dataset(rng: np.random.Generator, n: int = 100_000,
     y = t @ w + np.sin(1.7 * t @ a + ph)
     y = y + noise * rng.standard_normal(y.shape)
     return y, t
+
+
+def oilflow_like(rng: np.random.Generator, n: int = 1000):
+    """12-D, 3-class nonlinear embedding of a 2-D latent. Returns (Y, labels)."""
+    labels = rng.integers(0, 3, size=n)
+    centres = np.array([[-2.0, 0.0], [2.0, 0.5], [0.0, 2.2]])
+    lat = centres[labels] + 0.35 * rng.standard_normal((n, 2))
+    w1 = rng.standard_normal((2, 12)) * 0.9
+    w2 = rng.standard_normal((2, 12)) * 0.7
+    y = np.tanh(lat @ w1) + np.sin(lat @ w2) + 0.05 * rng.standard_normal((n, 12))
+    return y, labels
 
 
 def usps_like(rng: np.random.Generator, n: int = 4649, side: int = 16):

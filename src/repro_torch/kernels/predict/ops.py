@@ -4,10 +4,12 @@ The tensor's device decides the path.  On the CPU the wrapper computes the
 plain version (``ref.py``).  On CUDA it always launches the hand-written
 kernel (``csrc/predict.cu``) and raises where the kernel cannot run; there
 is no fallback.  Prediction is forward-only on CUDA: the kernel has no
-backward yet (it comes with ``BayesianGPLVM.reconstruct``, which optimises
-q(X*) through the predict step), so the CUDA path refuses inputs that
-require grad rather than drop their gradient silently.  The CPU path is
-plain autograd and differentiates.
+backward, as the JAX package's Pallas predict has none
+(``src/repro/kernels/predict/ops.py:13-17``), so the CUDA path refuses
+inputs that require grad rather than drop their gradient silently.  A
+caller that differentiates (``BayesianGPLVM.reconstruct``) takes the plain
+composition, ``serve.posterior.predict_mean_var_plain``, as the JAX
+package's does.  The CPU path is plain autograd and differentiates.
 
 Precision: the tiles run in the query dtype, with sub-f32 lifted to f32
 (the clamp of ``repro/kernels/predict/ops.py``).  Unlike the TPU kernel, an
@@ -49,9 +51,10 @@ def predict_stats(hyp: dict, z, a_mean, g, x):
                          f"device, got {[str(t.device) for t in operands]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise RuntimeError(
-            "predict_stats on CUDA has no backward yet (it comes with "
-            "reconstruct); call it under torch.no_grad() or on detached "
-            "tensors")
+            "predict_stats on CUDA has no backward, as the JAX package's "
+            "Pallas predict has none; differentiate the plain composition "
+            "(serve.posterior.predict_mean_var_plain), or call this under "
+            "torch.no_grad() or on detached tensors")
     t, q = x.shape
     m, d = a_mean.shape
     if z.shape != (m, q) or g.shape != (m, m) \

@@ -1,5 +1,5 @@
 """Psi statistics of the latent map step: ``ops.psi2`` and ``ops.psi1``
-(CUDA kernels or their plain versions)."""
-from .ops import psi1, psi2
+(CUDA kernels or their plain versions), and the ``psi2_fn`` hook."""
+from .ops import psi1, psi2, psi2_fn_for_engine
 
-__all__ = ["psi1", "psi2"]
+__all__ = ["psi1", "psi2", "psi2_fn_for_engine"]

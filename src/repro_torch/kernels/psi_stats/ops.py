@@ -163,3 +163,15 @@ class _Psi1(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return tuple(psi1_vjp(*ctx.saved_tensors, g, ctx.needs_input_grad))
+
+
+def psi2_fn_for_engine(kernel=None):
+    """The ``psi2_fn`` hook of ``core.stats.partial_stats`` and
+    ``DistributedGP`` for ``kernel`` (None: SE-ARD): :func:`psi2`, the
+    CUDA kernel on the card and its plain version on the CPU.  Only the
+    full-width SE-ARD is ported; any other expression raises naming the
+    kernel zoo (ROADMAP Queue 1 item 6)."""
+    from ...core.covariance import as_kernel
+
+    as_kernel(kernel)
+    return psi2

@@ -62,3 +62,10 @@ def make_data_group(device=None, *, backend: str | None = None, store=None,
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1, timeout=timeout)
     return dist.group.WORLD
+
+
+def via_host(group, device) -> bool:
+    """Whether a collective over ``group`` must move ``device``'s buffers
+    through host copies: gloo cannot reduce or gather CUDA tensors."""
+    return (group is not None and torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo")

@@ -1,7 +1,8 @@
 """Batched predict engine over a frozen ``PredictiveState``.
 
-Counterpart of ``repro.serve.engine.PredictEngine`` (single device, the
-predict path).  No output row depends on the batch it arrives in.
+Counterpart of ``repro.serve.engine.PredictEngine`` (the predict path, on
+one device or sharded over a process group).  No output row depends on the
+batch it arrives in.
 
 * On the CPU the JAX package's ``lax.scan`` over blocks becomes a Python
   loop of the plain version, one block at a time, so one block's (block, m)
@@ -15,6 +16,15 @@ predict path).  No output row depends on the batch it arrives in.
 A low-precision state is cast once, at engine build, to ``compute_dtype``
 (f32 for sub-f32 states), so the only loss is the storage rounding.
 
+Sharding (``group=``, the counterpart of ``mesh=``/``data_axes=``): every
+rank of a ``torch.distributed`` group holds the same state and is given
+the same batch.  The batch is padded to a multiple of the group's W ranks
+(W · ``block_size`` on the CPU), rank r computes only its contiguous W-th
+of the rows, as ``shard_map`` over ``P(data)`` gives device r, and one
+``all_gather`` of the packed ``(mean, var)`` hands every rank all the rows:
+what ``np.asarray`` of the JAX engine's global array holds.  Over gloo,
+CUDA buffers go through host copies.  The gather is the only collective.
+
 ``predict_stream`` serves an iterator of query batches, staging batch
 ``i+1`` in a background thread while batch ``i`` computes;
 ``sample_stream`` waits for the sampling of ROADMAP Queue 1 item 8.
@@ -22,8 +32,10 @@ A low-precision state is cast once, at engine build, to ``compute_dtype``
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .._device import rank_device, resolve_device
+from ..launch.mesh import via_host
 from . import posterior
 
 
@@ -46,14 +58,26 @@ class PredictEngine:
         f32/f64 states as they are and lifts bf16/f16 states to f32.
       device: where the engine serves (default CUDA; ``"cpu"`` runs the
         plain versions).
+      group: a ``torch.distributed`` process group whose ranks shard each
+        batch's rows (module docstring); None serves alone.  Every rank
+        must make the same calls with the same batches.
+      donate: accepted for the JAX engine's signature, and changes nothing:
+        torch has no buffer donation to a compiled program.  As in the JAX
+        engine, a caller's own query buffer is never consumed or changed.
     """
 
     def __init__(self, state: posterior.PredictiveState, block_size: int = 256,
-                 compute_dtype=None, device=None):
+                 compute_dtype=None, device=None, group=None,
+                 donate: bool = False):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.device = resolve_device(device)
         self.block_size = block_size
+        self.donate = donate
+        self.group = group
+        self.n_shards = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self._via_host = via_host(group, self.device)
         self.compute_dtype = _resolve_compute_dtype(state.dtype, compute_dtype)
         # The stored artifact stays as given (``.state``); every query runs
         # on the compute-width copy on the engine's device, made once here.
@@ -62,12 +86,14 @@ class PredictEngine:
 
     def pad_queries(self, xstar) -> tuple[torch.Tensor, int]:
         """(t, q) queries on the engine's device in ``compute_dtype``,
-        padded on the CPU with zero rows up to a multiple of ``block_size``
-        (on CUDA left as they are); returns (buffer, t)."""
+        padded with zero rows up to a multiple of ``n_shards`` (times
+        ``block_size`` on the CPU); returns (buffer, t)."""
         xq = torch.as_tensor(xstar).to(device=self.device,
                                        dtype=self.compute_dtype)
         t = xq.shape[0]
-        pad = (-t) % self.block_size if xq.device.type == "cpu" else 0
+        mult = self.n_shards * (self.block_size if xq.device.type == "cpu"
+                                else 1)
+        pad = (-t) % mult
         if pad:
             xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
         return xq, t
@@ -79,13 +105,32 @@ class PredictEngine:
 
     def run_blocks(self, xq: torch.Tensor, cstate=None):
         """(mean, var) of a buffer from :meth:`pad_queries`, pad rows
-        included; ``cstate`` pins a :attr:`compute_state`."""
+        included; ``cstate`` pins a :attr:`compute_state`.  Under a group
+        this rank computes its W-th of the rows and every rank gets all."""
         st = self._cstate if cstate is None else cstate
-        if xq.device.type == "cuda":
-            return posterior.predict_mean_var(st, xq)
-        outs = [posterior.predict_mean_var(st, xq[i:i + self.block_size])
-                for i in range(0, xq.shape[0], self.block_size)]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        rows = xq.shape[0] // self.n_shards
+        mine = xq[self.rank * rows:(self.rank + 1) * rows]
+        if mine.device.type == "cuda":
+            mean, var = posterior.predict_mean_var(st, mine)
+        else:
+            outs = [posterior.predict_mean_var(st, mine[i:i + self.block_size])
+                    for i in range(0, rows, self.block_size)]
+            mean = torch.cat([o[0] for o in outs])
+            var = torch.cat([o[1] for o in outs])
+        return self._gather(mean, var)
+
+    def _gather(self, mean, var):
+        """Every rank's rows of (mean, var), in rank order, on every rank:
+        one ``all_gather`` of the packed (rows, d + 1) buffer."""
+        if self.group is None:
+            return mean, var
+        packed = torch.cat([mean, var[:, None]], 1)
+        if self._via_host:
+            packed = packed.cpu()
+        parts = [torch.empty_like(packed) for _ in range(self.n_shards)]
+        dist.all_gather(parts, packed, group=self.group)
+        full = torch.cat(parts).to(mean.device)
+        return full[:, :-1], full[:, -1]
 
     def _noise_var(self) -> torch.Tensor:
         return torch.exp(-self._cstate.hyp["log_beta"])

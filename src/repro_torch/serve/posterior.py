@@ -19,6 +19,7 @@ import dataclasses
 import json
 import pathlib
 
+import numpy as np
 import torch
 
 from .. import checkpoint as ckpt
@@ -63,17 +64,50 @@ class PredictiveState:
     def dtype(self) -> torch.dtype:
         return self.z.dtype
 
+    def astype(self, dtype) -> "PredictiveState":
+        """Every leaf, hyper-parameters included, quantized (or widened) to
+        ``dtype``, on the leaves' own device: the wire and disk format a
+        server is shipped (``astype(torch.bfloat16)`` quarters the f64
+        bytes).  An engine lifts a sub-f32 state once to its compute dtype,
+        so the loss is the storage rounding alone.
+
+        Rounds as the JAX package's ``astype`` does, bit for bit: torch's
+        cast rounds an f64 to f16 through f32, twice (a few values in 1e5
+        land one f16 step off), where JAX rounds once; f16 is therefore
+        rounded on the host by numpy, which rounds once.  The other dtypes
+        take torch's cast, which gives JAX's bits."""
+        return self._map(lambda t: _cast(t, dtype))
+
+    @property
+    def nbytes(self) -> int:
+        """Total bytes of the state's leaves (what ships to a server)."""
+        return sum(t.numel() * t.element_size() for t in self._leaves())
+
+    def _leaves(self):
+        return [*self.hyp.values(), *(getattr(self, f) for f in _ARRAY_FIELDS)]
+
+    def _map(self, fn) -> "PredictiveState":
+        return dataclasses.replace(
+            self, hyp={k: fn(v) for k, v in self.hyp.items()},
+            **{f: fn(getattr(self, f)) for f in _ARRAY_FIELDS})
+
     def _to(self, device=None, dtype=None) -> "PredictiveState":
         """Every leaf, hypers included, moved/cast; what the engine needs to
         hold its compute-width copy on its device."""
-        def conv(t):
-            return t.to(device=device, dtype=dtype)
-        return dataclasses.replace(
-            self, hyp={k: conv(v) for k, v in self.hyp.items()},
-            **{f: conv(getattr(self, f)) for f in _ARRAY_FIELDS})
+        return self._map(lambda t: t.to(device=device, dtype=dtype))
 
 
 _ARRAY_FIELDS = ("z", "chol_kmm", "chol_sigma", "c2", "a_mean", "g")
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, rounded once (see ``PredictiveState.astype``)."""
+    if dtype != torch.float16 or t.dtype in (torch.float16, torch.float32):
+        return t.to(dtype)
+    host = t.detach().cpu()
+    if host.dtype == torch.bfloat16:   # numpy has no bf16; f32 holds it exactly
+        host = host.float()
+    return torch.from_numpy(host.numpy().astype(np.float16)).to(t.device)
 
 
 @torch.no_grad()
@@ -116,6 +150,23 @@ def predict_mean_var(state: PredictiveState, xstar):
     return mean, state.kernel.kdiag(state.hyp, xstar) - quad
 
 
+def predict_mean_var_plain(state: PredictiveState, xstar):
+    """:func:`predict_mean_var` as plain torch matmuls on any device, which
+    autograd differentiates in ``xstar``: ``(mean (t, d), var (t,))``,
+    noise-free.
+
+    The differentiable route of ``BayesianGPLVM.reconstruct``'s objective.
+    The JAX package's Pallas predict has no VJP either
+    (``src/repro/kernels/predict/ops.py:13-17``), and its ``reconstruct``
+    differentiates the plain XLA composition of these same products
+    (``src/repro/serve/posterior.py:158-169``); so does this one.  A
+    prediction that needs no gradient takes the kernel."""
+    ksm = state.kernel.K(state.hyp, xstar, state.z)          # (t, m)
+    mean = ksm @ state.a_mean
+    quad = ((ksm @ state.g) * ksm).sum(1)
+    return mean, state.kernel.kdiag(state.hyp, xstar) - quad
+
+
 def predict_full_cov(state: PredictiveState, xstar):
     """Full predictive covariance: ``(mean (t, d), cov (t, t))``, noise-free.
     Cross-covariances couple every query pair, so this is one piece (the
@@ -136,19 +187,28 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def save_state(path: str | pathlib.Path, state: PredictiveState,
-               metadata: dict | None = None) -> pathlib.Path:
-    """Atomic write; shape metadata rides in the sidecar so
-    :func:`load_state` needs no template.  ``m``/``q``/``d``/``dtype``/
-    ``kernel`` are reserved for that template."""
+def state_metadata(state: PredictiveState, metadata: dict | None = None
+                   ) -> dict:
+    """The sidecar of a saved state: ``metadata`` plus the restore
+    template's ``m``/``q``/``d``/``dtype``/``kernel``, which it may not
+    shadow.  ``checkpoint.save`` (or ``AsyncCheckpointer.save``) of a state
+    with this metadata is what :func:`save_state` writes."""
     clash = _RESERVED & set(metadata or ())
     if clash:
         raise ValueError(
             f"metadata keys {sorted(clash)} are reserved for the restore "
             "template — rename them")
-    meta = {**(metadata or {}), "m": state.m, "q": state.q, "d": state.d,
+    return {**(metadata or {}), "m": state.m, "q": state.q, "d": state.d,
             "dtype": _dtype_name(state.dtype), "kernel": state.kernel.to_spec()}
-    return ckpt.save(path, state, metadata=meta)
+
+
+def save_state(path: str | pathlib.Path, state: PredictiveState,
+               metadata: dict | None = None) -> pathlib.Path:
+    """Atomic write; shape metadata rides in the sidecar so
+    :func:`load_state` needs no template.  ``m``/``q``/``d``/``dtype``/
+    ``kernel`` are reserved for that template.  A ``<base>_step<N>`` path
+    rotates as ``checkpoint.save`` does (3 kept)."""
+    return ckpt.save(path, state, metadata=state_metadata(state, metadata))
 
 
 def load_state(path: str | pathlib.Path, device=None

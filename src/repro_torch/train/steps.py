@@ -30,10 +30,11 @@ def make_gp_train_step(group, d: int, *, latent: bool = False,
     (``launch.make_data_group``; None: the default group, or a world of
     one).  ``batch_blocks`` (with ``chunk_size``) makes it the SVI step,
     which takes a trailing per-step ``draw`` (a ``torch.Generator``, or
-    this rank's block indices).  ``reduce_mode`` other than ``"serial"``
-    and the ``psi2_fn``/``reg_stats_fn`` hooks are not ported yet:
-    ``DistributedGP`` refuses them, naming their ROADMAP items, after
-    refusing invalid values with ``ValueError`` as the JAX engine does.
+    this rank's block indices).  ``psi2_fn`` replaces the kernel's psi2 in
+    the latent map.  ``reduce_mode`` other than ``"serial"`` and the
+    ``reg_stats_fn`` hook are not ported yet: ``DistributedGP`` refuses
+    them, naming their ROADMAP items, after refusing invalid values with
+    ``ValueError`` as the JAX engine does.
     """
     from ..core.distributed import DistributedGP
 

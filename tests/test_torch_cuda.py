@@ -815,3 +815,122 @@ def test_fit_svi_on_the_card(cuda):
     lv.fit_svi(steps=10, lr=2e-2, seed=0)
     assert ps_ops.LAUNCHES["psi2_float64"] - before == 10 * 2
     assert lv.log_bound() > b0
+
+
+# -- sharded and quantized serving, reconstruct on the card ----------------------
+
+def _serving_state(device):
+    x, y = _dist_inputs()[:2]
+    return rt.SGPR(x, y, num_inducing=24, seed=0,
+                   device=device).predictive_state()
+
+
+def test_sharded_engine_world_of_one_over_nccl_is_the_plain_engine(cuda):
+    """``DistributedGP.predict_engine`` in a world of one over NCCL: every
+    batch bitwise ``PredictEngine``'s, one predict launch a batch."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_data_group
+
+    state = _serving_state(cuda)
+    rng = np.random.default_rng(1)
+    group = make_data_group(cuda)
+    try:
+        eng = rt.DistributedGP(group, device=cuda).predict_engine(state)
+        plain = rt.PredictEngine(state, device=cuda)
+        for t in (1, 257, 4096):
+            xq = rng.uniform(-2, 2, (t, state.q))
+            before = p_ops.LAUNCHES["float64"]
+            got = eng.predict(xq, include_noise=True)
+            assert p_ops.LAUNCHES["float64"] == before + 1
+            for a, b in zip(got, plain.predict(xq, include_noise=True)):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serving_rank_on_card(rank, world, store_path, out_dir):
+    import datetime
+    import pathlib
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_data_group
+
+    group = make_data_group("cuda:0", backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    state = _serving_state("cuda:0")
+    xq = np.random.default_rng(2).uniform(-2, 2, (1001, state.q))
+    eng = rt.PredictEngine(state, device="cuda:0", group=group)
+    before = p_ops.LAUNCHES["float64"]
+    mean, var = eng.predict(xq)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz",
+             mean=mean.cpu().numpy(), var=var.cpu().numpy(),
+             launches=p_ops.LAUNCHES["float64"] - before)
+    dist.destroy_process_group()
+
+
+def test_sharded_engine_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on the card: each launches the kernel once on its half
+    of the rows, and every rank returns all 1,001 rows bitwise equal to one
+    engine's."""
+    codes, _ = spawn_ranks(_serving_rank_on_card, 2, tmp_path)
+    assert codes == [0, 0], codes
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    state = _serving_state(cuda)
+    xq = np.random.default_rng(2).uniform(-2, 2, (1001, state.q))
+    mean, var = rt.PredictEngine(state, device=cuda).predict(xq)
+    for r in got:
+        assert int(r["launches"]) == 1
+        np.testing.assert_array_equal(r["mean"], mean.cpu().numpy())
+        np.testing.assert_array_equal(r["var"], var.cpu().numpy())
+
+
+def test_astype_float16_on_the_card_rounds_once(cuda):
+    """f64 -> f16 of a state on the card gives numpy's correctly rounded
+    bits (torch's own cast rounds through f32), and serves through the f32
+    predict kernel."""
+    a = np.random.default_rng(0).standard_normal(1_000_000)
+    state = _serving_state(cuda)
+    big = rt.PredictiveState(hyp=state.hyp, z=_t(a.reshape(-1, 1), cuda),
+                             chol_kmm=state.chol_kmm,
+                             chol_sigma=state.chol_sigma, c2=state.c2,
+                             a_mean=state.a_mean, g=state.g)
+    got = big.astype(torch.float16).z
+    assert got.device.type == "cuda"
+    want = a.reshape(-1, 1).astype(np.float16)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint16),
+                                  want.view(np.uint16))
+    eng = rt.PredictEngine(state.astype(torch.float16), device=cuda)
+    before = p_ops.LAUNCHES["float32"]
+    mean, _ = eng.predict(np.zeros((5, state.q)))
+    assert p_ops.LAUNCHES["float32"] == before + 1
+    assert mean.dtype == torch.float32
+
+
+def test_reconstruct_on_the_card_matches_cpu(cuda):
+    """``reconstruct`` on the card (objective through the plain
+    composition, the final prediction through the predict kernel) against
+    the same model on the CPU, its parameters fitted there: 1e-8 relative
+    after 20 SCG iterations."""
+    y_all, _ = sines_dataset(np.random.default_rng(0), n=200, noise=0.05)
+    observed = np.array([True, True, False])
+    ytest, _ = sines_dataset(np.random.default_rng(1), n=10, noise=0.0)
+    fitted = rt.BayesianGPLVM(y_all, q=2, num_inducing=12, seed=1,
+                              device="cpu")
+    fitted.fit(max_iters=20)
+    rec = {}
+    for dev in ("cpu", cuda):
+        lv = rt.BayesianGPLVM(y_all, q=2, num_inducing=12, seed=1,
+                              device=dev)
+        lv.params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                         if isinstance(v, dict) else v.to(dev))
+                     for k, v in fitted.params.items()}
+        before = p_ops.LAUNCHES["float64"]
+        rec[str(dev)] = lv.reconstruct(ytest * observed, observed, iters=20)
+        launched = p_ops.LAUNCHES["float64"] - before
+    assert launched == 1
+    np.testing.assert_allclose(rec[str(cuda)], rec["cpu"], rtol=1e-8,
+                               atol=1e-10)

@@ -375,13 +375,11 @@ def _engine(**kw):
 @pytest.mark.parametrize("make, item", [
     (lambda: _engine(chunk_size=4, reduce_mode="overlap"), "item 11"),
     (lambda: _engine(chunk_size=4, reduce_mode="overlap_eager"), "item 11"),
-    (lambda: _engine(psi2_fn=lambda *a: None), "items 5 and 6"),
-    (lambda: _engine(reg_stats_fn=lambda *a: None), "items 5 and 6"),
+    (lambda: _engine(reg_stats_fn=lambda *a: None), "item 6"),
     (lambda: _engine(kernel={"kind": "matern32"}), "Kernel zoo"),
     (lambda: _engine().update_stats_fn(1), "item 7"),
     (lambda: _engine().update_predictive_state(None, None, None), "item 7"),
     (lambda: _engine().downdate_predictive_state(None, None, None), "item 7"),
-    (lambda: _engine().predict_engine(None), "item 4"),
     (lambda: _engine().multi_predict_engine([None]), "item 8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(make, item):

@@ -2,9 +2,10 @@
 sizes: quickstart, serve_sgpr and svi_sgpr in this process (serve_sgpr
 asserts that the served posterior is the model's own to 1e-9; svi_sgpr's
 SVI must raise the exact bound), distributed_sgpr on 2 spawned gloo ranks,
-each rank printing and returning the same bounds, and flight_scale --tiny
+each rank printing and returning the same bounds, flight_scale --tiny
 in this process and on 2 spawned gloo ranks (the same bound and RMSE on
-every rank)."""
+every rank), and gplvm_embedding --tiny (the classes separate in the
+top two ARD dimensions; the embedding lands where the caller asks)."""
 import datetime
 import json
 import pathlib
@@ -88,3 +89,16 @@ def test_flight_scale_tiny_on_two_gloo_ranks(tmp_path):
     out = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in (0, 1)]
     assert out[0] == out[1], "the ranks disagree"
     assert np.isfinite(out[0][0]) and out[0][1] < 1.0
+
+
+def test_gplvm_embedding_tiny(capsys, tmp_path):
+    from repro_torch.examples import gplvm_embedding
+
+    out = tmp_path / "emb.npy"
+    ratio, eff = gplvm_embedding.main(["--tiny", "--device", "cpu",
+                                       "--out", str(out)])
+    printed = capsys.readouterr().out
+    assert "class separation (between/within)" in printed
+    assert f"embedding saved to {out}" in printed
+    assert np.load(out).shape == (120, 2)
+    assert ratio > 2.0 and 1 <= eff <= 4

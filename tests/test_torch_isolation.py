@@ -58,7 +58,9 @@ def test_import_leaves_jax_out():
                "repro_torch.examples.serve_sgpr, "
                "repro_torch.examples.distributed_sgpr, "
                "repro_torch.examples.svi_sgpr, "
-               "repro_torch.examples.flight_scale; "
+               "repro_torch.examples.flight_scale, "
+               "repro_torch.examples.gplvm_embedding, "
+               "repro_torch.checkpoint; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
     assert res.returncode == 0, res.stdout + res.stderr
