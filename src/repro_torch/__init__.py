@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, which stays the reference.  It imports
 torch and numpy, never jax or ``repro``.  Entry points run on CUDA unless
-the caller passes ``device="cpu"``; on CUDA the SE-ARD map steps (regression
-and latent), the predict step and LM prefill attention go through
-hand-written kernels (``kernels/``, ``csrc/``), built with ``nvcc`` at first
-use.
+the caller passes ``device="cpu"``.  The device and the kernel expression
+pick the route: on CUDA the full-width SE-ARD's map steps (regression and
+latent) and predict step, and LM prefill attention, go through hand-written
+kernels (``kernels/``, ``csrc/``), built with ``nvcc`` at first use; every
+other covariance expression takes the plain torch math, as on the CPU.
 
 Ported so far: ``SGPR`` and ``BayesianGPLVM`` (map statistics, bound and
 gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
@@ -14,9 +15,11 @@ gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
 (``distributed``, ``launch.make_data_group``,
 ``train.steps.make_gp_train_step``); SVI (``fit_svi``, ``train.svi``,
 ``DistributedGP(batch_blocks=...)``) and host streaming (``data.stream``,
-the ``streamed_*`` methods, ``PredictEngine.predict_stream``); LM serving
-of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step`` /
-``make_serve_step``).
+the ``streamed_*`` methods, ``PredictEngine.predict_stream``); the kernel
+zoo (``core.covariance``) and online updates (``SGPR.update`` / ``forget``,
+``serve.online``, ``PredictEngine.ingest`` / ``forget`` / ``swap_state``);
+LM serving of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step``
+/ ``make_serve_step``).
 """
 from .core import SGPR, BayesianGPLVM, DistributedGP
 from .serve import (PredictEngine, PredictiveState, extract_state, load_state,

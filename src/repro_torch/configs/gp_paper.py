@@ -1,9 +1,9 @@
 """The GP workload configurations the port runs (copy of ``repro.configs.gp_paper``).
 
-This slice carries the SE-ARD configurations: the three GPLVM ones (the
-paper's oil-flow, 100k sines and USPS models) and the full-width SGPR.
-``chip_smoke.py`` drives ``sgpr-synth-1m`` and ``gplvm-usps`` on the card.
-The kernel-zoo entry comes with its slice.
+The three GPLVM configurations (the paper's oil-flow, 100k sines and USPS
+models), the full-width SGPR and the kernel-zoo composite
+``sgpr-zoo-trend``.  ``chip_smoke.py`` drives ``sgpr-synth-1m``,
+``gplvm-usps`` and ``sgpr-zoo-trend`` on the card.
 """
 from __future__ import annotations
 
@@ -23,6 +23,11 @@ class GPConfig:
     kernel: str = "se"
     source: str = ""
 
+    def kernel_expr(self):
+        """The parsed covariance expression (``core.covariance.Kernel``)."""
+        from ..core.covariance import as_kernel
+        return as_kernel(self.kernel)
+
 
 GP_CONFIGS: dict[str, GPConfig] = {
     c.name: c for c in [
@@ -34,5 +39,12 @@ GP_CONFIGS: dict[str, GPConfig] = {
                  source="paper §4.5 USPS"),
         GPConfig("sgpr-synth-1m", n=1_000_000, d=4, q=8, m=512, latent=False,
                  source="beyond-paper scale point (512-chip headroom)"),
+        GPConfig("sgpr-zoo-trend", n=100_000, d=2, q=4, m=128, latent=False,
+                 kernel='{"kind": "sum", "parts": ['
+                        '{"kind": "se", "dims": [0, 1]}, '
+                        '{"kind": "linear", "dims": [2, 3]}], '
+                        '"quad_order": 11}',
+                 source="kernel-zoo composite (smooth + linear trend), "
+                        "docs/kernels.md#kernel-zoo"),
     ]
 }

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .core.covariance import as_kernel
+from .core.flat import tree_map
 from .models.common import Leaf
 from .models.transformer import param_spec
 from .serve.posterior import _ARRAY_FIELDS, PredictiveState
@@ -25,23 +27,26 @@ def params_from_numpy(params: Mapping, device,
                       dtype=torch.float64) -> dict:
     """``repro`` ``SGPR.params`` (``{"hyp": {...}, "z": ...}``) or
     ``BayesianGPLVM.params`` (also ``"mu"`` and ``"log_s"``) -> the port's
-    params on ``device`` in ``dtype``."""
-    out = {"hyp": {k: _tensor(v, device, dtype)
-                   for k, v in params["hyp"].items()}}
+    params on ``device`` in ``dtype``; ``hyp`` may nest (a combinator's
+    children under ``"k0"``, ...)."""
+    out = {"hyp": tree_map(lambda v: _tensor(v, device, dtype),
+                           dict(params["hyp"]))}
     for k in ("z", "mu", "log_s"):
         if k in params:
             out[k] = _tensor(params[k], device, dtype)
     return out
 
 
-def state_from_numpy(leaves: Mapping, device) -> PredictiveState:
+def state_from_numpy(leaves: Mapping, device, kernel=None) -> PredictiveState:
     """A ``repro`` ``PredictiveState``'s leaves, as a mapping of field name
-    to array (``hyp`` a mapping of its own), -> the port's state on
-    ``device``, each leaf keeping its dtype.  The kernel is SE-ARD, the
-    only one this slice ports."""
+    to array (``hyp`` a mapping of its own, nested for a combinator), and
+    its kernel expression (a spec or an expression, the state's
+    ``kernel.to_spec()``; None: SE-ARD) -> the port's state on ``device``,
+    each leaf keeping its dtype."""
     return PredictiveState(
-        hyp={k: _tensor(v, device) for k, v in leaves["hyp"].items()},
-        **{f: _tensor(leaves[f], device) for f in _ARRAY_FIELDS})
+        hyp=tree_map(lambda v: _tensor(v, device), dict(leaves["hyp"])),
+        **{f: _tensor(leaves[f], device) for f in _ARRAY_FIELDS},
+        kernel=as_kernel(kernel))
 
 
 def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> dict:

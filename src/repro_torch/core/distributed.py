@@ -57,9 +57,20 @@ Serving: :meth:`DistributedGP.predict_engine` shards query batches over
 the same group (``serve.PredictEngine(group=...)``): each rank computes its
 W-th of the rows, one all_gather gives every rank all of them.
 
+Online updates: :meth:`DistributedGP.update_stats_fn` folds a new sharded
+block into reduced Stats (each rank maps its slice with the exact fold, one
+all_reduce, the base added); :meth:`update_predictive_state` and
+:meth:`downdate_predictive_state` refresh a served state by the rank-k
+path of ``serve.online``, with no collective.
+
+The kernel expression picks the map's route through the ``reg_stats_fn``
+and ``psi2_fn`` hooks (default: ``kernels.reg_stats.
+reg_stats_fn_for_engine`` and ``kernels.psi_stats.psi2_fn_for_engine`` of
+the engine's kernel): the hand-written kernels for the full-width SE-ARD on
+CUDA, the expression's plain math otherwise.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11), the
-``reg_stats_fn`` hook (item 6), the online updates (7),
+Queue 1 item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11),
 ``multi_predict_engine`` (8).
 """
 from __future__ import annotations
@@ -73,8 +84,10 @@ from ..data.stream import BlockStream, padded_rows, prefetch, stage_to_device
 from ..launch.mesh import via_host
 from . import covariance as cov
 from .bound import DEFAULT_JITTER, collapsed_bound
-from .stats import (Stats, fold_in, pack_stats, partial_stats_chunked,
-                    sample_block_indices, unpack_stats, zero_stats)
+from .flat import tree_items, tree_map, tree_unflatten
+from .stats import (Stats, fold_in, fold_stats, pack_stats,
+                    partial_stats_chunked, sample_block_indices, unpack_stats,
+                    zero_stats)
 
 
 def num_shards(group=None) -> int:
@@ -123,9 +136,7 @@ def _leaf(t, need: bool):
     """A fresh autograd leaf of ``t`` (each leaf of a dict), or ``t``."""
     if t is None or not need:
         return t
-    if isinstance(t, dict):
-        return {k: v.detach().requires_grad_() for k, v in t.items()}
-    return t.detach().requires_grad_()
+    return tree_map(lambda v: v.detach().requires_grad_(), t)
 
 
 def _grads(outputs, inputs, grad_outputs=None):
@@ -162,16 +173,18 @@ class DistributedGP:
     and :meth:`make_value_and_grad`'s step then take a trailing ``draw``
     per step (a generator, or this rank's block indices).
 
-    ``psi2_fn``: replaces the kernel's psi2 in every latent map (in
-    memory, SVI and streamed), as ``core.stats.partial_stats`` takes it;
-    e.g. ``kernels.psi_stats.psi2_fn_for_engine()`` (the same kernel as
-    the default) or ``core.gp_kernels.psi2_mxu``.
+    ``kernel``: any ``core.covariance`` expression or its spec (default
+    the full-width SE-ARD).  ``psi2_fn`` / ``reg_stats_fn``: the latent
+    and regression map hooks of ``core.stats.partial_stats`` (in memory,
+    SVI and streamed), bound to the expression; by default the shims
+    ``kernels.psi_stats.psi2_fn_for_engine(kernel=...)`` and
+    ``kernels.reg_stats.reg_stats_fn_for_engine(kernel=...)``, which the
+    JAX engine installs for its Pallas backend.  A given hook replaces its
+    shim (e.g. ``core.gp_kernels.psi2_mxu``).
 
     Not ported: ``reduce_mode`` other than ``"serial"`` (ROADMAP Queue 1
-    item 11), the ``reg_stats_fn`` hook and kernels other than SE-ARD
-    (item 6, the latter raised by ``covariance``).  Invalid
-    arguments raise ``ValueError`` as the JAX engine's do, before any
-    valid but unported value is refused.
+    item 11).  Invalid arguments raise ``ValueError`` as the JAX engine's
+    do, before any valid but unported value is refused.
     """
 
     def __init__(self, group=None, latent: bool = False,
@@ -203,11 +216,9 @@ class DistributedGP:
         if reduce_mode != "serial":
             raise NotImplementedError(f"reduce_mode={reduce_mode!r} is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
-        if reg_stats_fn is not None:
-            raise NotImplementedError("the reg_stats_fn hook is not ported "
-                                      "yet (ROADMAP Queue 1 item 6); CUDA "
-                                      "tensors always take the hand-written "
-                                      "reg_stats kernel")
+        from ..kernels.psi_stats.ops import psi2_fn_for_engine
+        from ..kernels.reg_stats.ops import reg_stats_fn_for_engine
+
         self.kernel = cov.as_kernel(kernel)
         self.device = rank_device(device)
         if group is None and dist.is_available() and dist.is_initialized():
@@ -216,7 +227,9 @@ class DistributedGP:
         self.rank = 0 if group is None else dist.get_rank(group)
         self.n_shards = num_shards(group)
         self.latent = latent
-        self.psi2_fn = psi2_fn
+        self.psi2_fn = psi2_fn or psi2_fn_for_engine(kernel=self.kernel)
+        self.reg_stats_fn = reg_stats_fn or reg_stats_fn_for_engine(
+            kernel=self.kernel)
         self.failure_mode = failure_mode
         self.chunk_size = chunk_size
         self.batch_blocks = batch_blocks
@@ -292,7 +305,8 @@ class DistributedGP:
                                      batch_blocks=self.batch_blocks
                                      if svi else None,
                                      generator=gen, block_indices=idx,
-                                     init=init, psi2_fn=self.psi2_fn)
+                                     init=init, psi2_fn=self.psi2_fn,
+                                     reg_stats_fn=self.reg_stats_fn)
 
     def _all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """The constant-size sum over ranks (the paper's reduce)."""
@@ -389,13 +403,14 @@ class DistributedGP:
         outs = [(o, g) for o, g in zip(local, g_st) if o.requires_grad]
         return _grads([o for o, _ in outs], inputs, [g for _, g in outs])
 
-    def _summed(self, g_direct, pulled, keys):
+    def _summed(self, g_direct, pulled, paths):
         """One all_reduce of the ranks' pulled-back (hyp, z) parts, then the
-        direct part added once: ``(hyp grads dict, z grad)``."""
+        direct part added once: ``(hyp grads dict, z grad)``, hyp's nested
+        as the hyper-parameters are (``paths``)."""
         parts = self._all_reduce(torch.cat([g.reshape(-1) for g in pulled]))
         summed = [g + p.reshape(g.shape) for g, p in zip(
             g_direct, parts.split([g.numel() for g in g_direct]))]
-        return dict(zip(keys, summed[:-1])), summed[-1]
+        return tree_unflatten(paths, summed[:-1]), summed[-1]
 
     def _value_and_grad(self, d, argnums, hyp, z, mu, s, n_full, local_fn,
                         live_w=None):
@@ -405,8 +420,8 @@ class DistributedGP:
             raise ValueError("argnums holds 3 (s), but s is None")
         hyp, z, mu, s = (_leaf(p, i in argnums)
                          for i, p in enumerate((hyp, z, mu, s)))
-        keys = sorted(hyp)
-        theta = [hyp[k] for k in keys] + [z]              # global params
+        paths, leaves = zip(*tree_items(hyp))
+        theta = [*leaves, z]                              # global params
         rows = [mu] + ([] if s is None else [s])          # this rank's
         # 1. the map on this rank's rows, its graph kept for step 3
         with torch.enable_grad():
@@ -423,7 +438,7 @@ class DistributedGP:
         #    part added once
         if {0, 1} & set(argnums):
             grads[0], grads[1] = self._summed(g_theta, pulled[:len(theta)],
-                                              keys)
+                                              paths)
         return neg, tuple(grads[i] for i in argnums)
 
     @staticmethod
@@ -547,8 +562,8 @@ class DistributedGP:
                  prefetch_depth: int = 2):
             stream, fmask, n_full = self._stream_args(stream, fmask, n_full)
             hyp, z = _leaf(hyp, True), _leaf(z, True)
-            keys = sorted(hyp)
-            theta = [hyp[k] for k in keys] + [z]
+            paths, leaves = zip(*tree_items(hyp))
+            theta = [*leaves, z]
             st = self.streamed_stats(hyp, z, stream, fmask, prefetch_depth)
             neg, g_theta, g_st = self._direct(hyp, z, st, d, n_full, None,
                                               theta)
@@ -561,7 +576,7 @@ class DistributedGP:
                                               exact=True)
                 parts = [p + g for p, g in zip(
                     parts, self._pull(local, g_st, theta))]
-            g_hyp, g_z = self._summed(g_theta, parts, keys)
+            g_hyp, g_z = self._summed(g_theta, parts, paths)
             grads = tuple((g_hyp, g_z)[a] for a in argnums)
             return neg, (grads[0] if single else grads)
 
@@ -657,8 +672,44 @@ class DistributedGP:
         return PredictEngine(state, block_size=block_size, device=self.device,
                              group=self.group, donate=donate)
 
+    # -- online updates -----------------------------------------------------------
+    def update_stats_fn(self, d: int):
+        """The distributed fold of a new sharded block into reduced Stats:
+        ``fold(base, hyp, z, y_new, mu_new, s_new, w_new, fmask) -> Stats``,
+        with ``y_new``, ``mu_new``, ``s_new``, ``w_new`` this rank's slice
+        from :meth:`put_data` and ``base`` the same on every rank.  Each
+        rank maps its slice with the exact fold (fold and downdate hold for
+        unscaled Stats only, whatever ``batch_blocks`` is), one all_reduce
+        sums them, and ``base`` is added (``stats.fold_stats``): O(k / W ·
+        m²) map and O(m² + md) reduce, whatever ``base`` summarises.  To
+        forget a block, subtract its :meth:`reduced_stats`
+        (``stats.downdate_stats``)."""
+        del d
+
+        def fold(base, hyp, z, y, mu, s, w, fmask):
+            with torch.no_grad():
+                local = self._local_stats(hyp, z, y, mu, s,
+                                          self._masked(w, fmask), exact=True)
+                return fold_stats(base, self._reduce(local)[0])
+        return fold
+
+    def update_predictive_state(self, state, x_new, y_new, weights=None):
+        """Absorb a block of k events, the same on every rank, into a
+        served state by the rank-k refresh of ``serve.online`` on this
+        rank's device, with no collective: the serving tier ingests events,
+        not training shards.  Returns ``online.RefreshResult``; the
+        training-side Stats are :meth:`update_stats_fn`'s."""
+        from ..serve import online
+
+        return online.update_state(state, x_new, y_new, weights)
+
+    def downdate_predictive_state(self, state, x_old, y_old, weights=None):
+        """Forget a block (the same on every rank) from a served state: the
+        rank-k downdate with the guarded refactorisation fallback, no
+        collective, as :meth:`update_predictive_state`."""
+        from ..serve import online
+
+        return online.downdate_state(state, x_old, y_old, weights)
+
     # -- not ported yet ---------------------------------------------------------
     multi_predict_engine = _not_ported("multi_predict_engine", 8)
-    update_stats_fn = _not_ported("update_stats_fn", 7)
-    update_predictive_state = _not_ported("update_predictive_state", 7)
-    downdate_predictive_state = _not_ported("downdate_predictive_state", 7)

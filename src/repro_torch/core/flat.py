@@ -1,5 +1,6 @@
-"""Flat parameter vectors for SCG, the value-and-gradient oracle, and the
-SCG fit over a parameter dict.
+"""Flat parameter vectors for SCG, the value-and-gradient oracle, the SCG
+fit over a parameter dict, and maps over nested parameter dicts (a
+combinator's hyper-parameters nest each child's under ``"k0"``, ...).
 
 The JAX models flatten their parameter dicts with
 ``jax.flatten_util.ravel_pytree``: dict keys sorted, depth first, each leaf
@@ -17,13 +18,42 @@ import torch
 from .scg import SCGResult, scg
 
 
-def _items(tree: dict, prefix: tuple = ()):
+def tree_items(tree: dict, prefix: tuple = ()):
+    """``(path, leaf)`` of a (nested) dict, keys sorted, depth first: the
+    ``ravel_pytree`` order."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            yield from _items(v, prefix + (k,))
+            yield from tree_items(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def tree_unflatten(paths, leaves) -> dict:
+    """The nested dict holding ``leaves`` at ``paths``: the inverse of
+    :func:`tree_items`."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of (nested) dicts of the same structure, in a
+    dict of that structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree: dict) -> list:
+    """The leaves of a (nested) dict, keys sorted, depth first: the
+    ``ravel_pytree`` order."""
+    return [v for _, v in tree_items(tree)]
 
 
 def _get(tree: dict, path: tuple):
@@ -36,7 +66,7 @@ class Flat:
     """The layout of a (nested) dict of tensors as one f64 numpy vector."""
 
     def __init__(self, tree: dict):
-        items = list(_items(tree))
+        items = list(tree_items(tree))
         self.paths = [p for p, _ in items]
         self.shapes = [tuple(t.shape) for _, t in items]
         self.size = sum(math.prod(s) for s in self.shapes)
@@ -50,17 +80,10 @@ class Flat:
         """A dict of f64 leaves on the layout's device (fresh autograd leaves
         when ``requires_grad``)."""
         flat = torch.from_numpy(np.array(x, np.float64)).to(self.device)
-        out: dict = {}
-        off = 0
-        for path, shape in zip(self.paths, self.shapes):
-            size = math.prod(shape)
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = flat[off:off + size].reshape(shape).detach() \
-                .requires_grad_(requires_grad)
-            off += size
-        return out
+        parts = flat.split([math.prod(s) for s in self.shapes])
+        return tree_unflatten(self.paths, [
+            p.reshape(s).detach().requires_grad_(requires_grad)
+            for p, s in zip(parts, self.shapes)])
 
     def value_and_grad(self, neg, x, fixed: dict | None = None
                        ) -> tuple[float, np.ndarray]:

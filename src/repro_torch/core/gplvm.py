@@ -21,7 +21,7 @@ from .._device import as_f64, resolve_device
 from . import bound as bound_mod
 from . import covariance as cov
 from . import init_utils
-from .flat import fit_scg, neg_value_and_grad
+from .flat import fit_scg, neg_value_and_grad, tree_map
 from .posterior_cache import PosteriorCacheMixin
 from .stats import partial_stats_chunked
 
@@ -56,7 +56,7 @@ class BayesianGPLVM(PosteriorCacheMixin):
         z0 = init_utils.kmeans(mu0, num_inducing, seed=seed)
         hyp0 = init_utils.default_hyp_for(self.kernel, np.asarray(y), q)
         self.params = {
-            "hyp": {k: as_f64(v, self.device) for k, v in hyp0.items()},
+            "hyp": tree_map(lambda v: as_f64(v, self.device), hyp0),
             "z": as_f64(z0, self.device),
             "mu": as_f64(mu0, self.device),
             "log_s": torch.full((self.n, q), float(np.log(s0)),
@@ -165,7 +165,14 @@ class BayesianGPLVM(PosteriorCacheMixin):
         return self._stats_cache
 
     def ard_weights(self) -> np.ndarray:
-        """1/ell^2: the per-dimension relevance the paper inspects (fig 4/7)."""
+        """1/ell^2: the per-dimension relevance the paper inspects (fig 4/7),
+        for a kernel with top-level ARD lengthscales; any other expression
+        raises ``ValueError``."""
+        if "log_ell" not in self.params["hyp"]:
+            raise ValueError(
+                "ard_weights needs a kernel with top-level ARD lengthscales "
+                f"(hyp has {sorted(self.params['hyp'])}); inspect the "
+                "expression's own subtree instead")
         return torch.exp(-2.0 * self.params["hyp"]["log_ell"]).cpu().numpy()
 
     def latent_mean(self) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Initialisation helpers (numpy): PCA for latents, k-means for Z,
 data-driven hyper-parameters.
 
-A copy of ``repro.core.init_utils`` (SE only), kept here so the port never
-imports the JAX package; both give bitwise-equal arrays.
+A copy of ``repro.core.init_utils``, kept here so the port never imports
+the JAX package; both give bitwise-equal arrays.
 """
 from __future__ import annotations
 
@@ -61,8 +61,9 @@ def default_hyp(y: np.ndarray, q: int) -> dict:
 
 
 def default_hyp_for(kernel, y: np.ndarray, q: int) -> dict:
-    """The kernel's own parameter subtree plus the noise precision;
-    equals :func:`default_hyp` for SE-ARD."""
+    """Data-driven init for any covariance expression: its own (possibly
+    nested) parameter subtree plus the noise precision; equals
+    :func:`default_hyp` for SE-ARD."""
     from .covariance import as_kernel
 
     var_y = _var_y(y)

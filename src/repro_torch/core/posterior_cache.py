@@ -2,11 +2,10 @@
 
 The model memoises the posterior chain: reduced Stats -> ``PredictiveState``
 (the q(u) factor solves) -> the default ``PredictEngine`` holding that
-state.  Every parameter- or data-mutating path must reset the whole chain
-together; one mixin owns the attribute set so a new mutation path cannot
-forget a cache that the others clear.  (The JAX package's
-``_refresh_posterior`` comes with the online updates, which need
-``PredictEngine.swap_state``.)
+state.  Every parameter- or data-mutating path (``fit``, ``fit_svi``,
+``update``, ``forget``) must reset or refresh the whole chain together; one
+mixin owns the attribute set so a new mutation path cannot forget a cache
+that the others clear.
 
 The mixin also carries what ``SGPR`` and ``BayesianGPLVM`` serve alike from
 their reduced Stats (``_stats()``) and their ``params``/``jitter``/
@@ -30,8 +29,22 @@ class PosteriorCacheMixin:
             setattr(self, name, None)
 
     def _invalidate_posterior(self) -> None:
-        """New params -> every cached posterior quantity is stale."""
+        """New params (or new data without an incremental refresh) -> every
+        cached posterior quantity is stale.  Every mutation path goes
+        through here or through :meth:`_refresh_posterior`."""
         self._init_posterior_caches()
+
+    def _refresh_posterior(self, stats, pstate) -> None:
+        """The online-update alternative to invalidation: install folded
+        Stats and an incrementally refreshed state, and swap the state into
+        the live engine (``PredictEngine.swap_state``).  ``pstate=None``
+        drops the downstream caches instead; they rebuild from the Stats."""
+        self._stats_cache = stats
+        self._pstate_cache = pstate
+        if pstate is None:
+            self._engine_cache = None
+        elif self._engine_cache is not None:
+            self._engine_cache.swap_state(pstate)
 
     @torch.no_grad()
     def qu(self) -> bound_mod.QU:

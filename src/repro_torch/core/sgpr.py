@@ -5,8 +5,10 @@ map kernel on CUDA), evaluate the bound and its gradient (autograd; the
 kernel's backward recomputes the dense map in row chunks), fit by SCG,
 freeze the optimal q(u) into a ``PredictiveState`` and answer queries
 through the block engine; or train by minibatch SVI (``fit_svi``, Adam on
-the reweighted bound of ``batch_blocks`` sampled row blocks).  The online
-updates (``update``, ``forget``) and ``sample`` come in later slices.
+the reweighted bound of ``batch_blocks`` sampled row blocks); absorb or
+forget a block of rows without re-scanning the rest (``update``,
+``forget``: the Stats fold, the serving factors take a rank-k refresh).
+``sample`` comes with ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -17,13 +19,17 @@ from .._device import as_f64, resolve_device
 from . import bound as bound_mod
 from . import covariance as cov
 from . import init_utils
-from .flat import fit_scg, neg_value_and_grad
+from .flat import fit_scg, neg_value_and_grad, tree_map
 from .posterior_cache import PosteriorCacheMixin
-from .stats import partial_stats_chunked
+from .stats import downdate_stats, fold_stats, partial_stats_chunked
 
 
 class SGPR(PosteriorCacheMixin):
-    """Sparse GP regression with inducing points Z (SE-ARD covariance).
+    """Sparse GP regression with inducing points Z and a covariance
+    expression (``kernel=``: a ``core.covariance`` expression or its spec;
+    default the full-width SE-ARD, the paper's).  The expression picks the
+    map's route: the full-width SE-ARD takes the fused kernel on CUDA,
+    every other expression its own plain ``K``/``kdiag``.
 
     ``chunk_size``: if set, the map step folds the n rows in blocks of this
     many points (``stats.partial_stats_chunked``).  The default ``None``
@@ -55,10 +61,13 @@ class SGPR(PosteriorCacheMixin):
         hyp0 = (init_utils.default_hyp_for(self.kernel, np.asarray(y), self.q)
                 if hyp is None else hyp)
         self.params = {
-            "hyp": {k: as_f64(v, self.device) for k, v in hyp0.items()},
+            "hyp": tree_map(lambda v: as_f64(v, self.device), hyp0),
             "z": as_f64(z0, self.device),
         }
         self._init_posterior_caches()   # stats / PredictiveState / engine
+        # [start, stop) rows of each block folded so far (block 0: the
+        # constructor's data); ``forget`` pops one and renumbers the rest.
+        self._blocks: list[tuple[int, int]] = [(0, self.n)]
 
     def _map_stats(self, hyp, z, y, x, batch_blocks=None, generator=None,
                    block_indices=None):
@@ -132,6 +141,75 @@ class SGPR(PosteriorCacheMixin):
             print(f"SGPR fit_svi: est. bound={-res.history[-1]:.4f} "
                   f"steps={res.n_steps} (B={bb} blocks/step)")
         return res
+
+    # -- online updates ---------------------------------------------------------
+    @torch.no_grad()
+    def update(self, x_new: np.ndarray, y_new: np.ndarray) -> int:
+        """Absorb a new block of k rows without re-scanning the history:
+        its exact Stats (the map's route: the fused kernel for the
+        full-width SE-ARD on CUDA) fold into the cached reduced Stats, and a
+        cached ``PredictiveState`` takes the rank-k refresh
+        (``serve.online``, O(m²k), no m×m factorisation), swapped into the
+        live engine.  Parameters stay; a later ``fit`` starts from them on
+        all the data.  Returns the block's index for :meth:`forget`."""
+        x_new = torch.atleast_2d(as_f64(x_new, self.device))
+        y_new = torch.atleast_2d(as_f64(y_new, self.device))
+        if x_new.shape[0] != y_new.shape[0]:
+            raise ValueError(f"x_new/y_new row mismatch: {x_new.shape[0]} "
+                             f"vs {y_new.shape[0]}")
+        if x_new.shape[1] != self.q or y_new.shape[1] != self.d:
+            raise ValueError(
+                f"expected (k, {self.q}) inputs and (k, {self.d}) outputs, "
+                f"got {tuple(x_new.shape)} / {tuple(y_new.shape)}")
+        # Both scans exact: fold and downdate hold for unscaled Stats only.
+        base = self._stats()
+        delta = self._map_stats(self.params["hyp"], self.params["z"], y_new,
+                                x_new)
+        pstate = self._pstate_cache
+        if pstate is not None:
+            from ..serve import online
+            pstate = online.update_state(pstate, x_new, y_new).state
+        self.x = torch.cat([self.x, x_new])
+        self.y = torch.cat([self.y, y_new])
+        self.n = self.x.shape[0]
+        self._blocks.append((self.n - x_new.shape[0], self.n))
+        self._refresh_posterior(fold_stats(base, delta), pstate)
+        return len(self._blocks) - 1
+
+    @torch.no_grad()
+    def forget(self, block: int):
+        """Remove a block folded before (0: the constructor's data; negative
+        indices count from the newest): its Stats are subtracted, a cached
+        state takes the rank-k downdate (with the guarded refactorisation
+        fallback), and later blocks renumber down by one, as ``list.pop``
+        does.  Returns the removed ``(x, y)`` as numpy arrays."""
+        nblocks = len(self._blocks)
+        if not -nblocks <= block < nblocks:
+            raise IndexError(
+                f"block {block} out of range ({nblocks} blocks held)")
+        start, stop = self._blocks[block % nblocks]
+        x_old, y_old = self.x[start:stop], self.y[start:stop]
+        base = self._stats()
+        delta = self._map_stats(self.params["hyp"], self.params["z"], y_old,
+                                x_old)
+        pstate = self._pstate_cache
+        if pstate is not None:
+            from ..serve import online
+            pstate = online.downdate_state(pstate, x_old, y_old).state
+        k = stop - start
+        self.x = torch.cat([self.x[:start], self.x[stop:]])
+        self.y = torch.cat([self.y[:start], self.y[stop:]])
+        self.n = self.x.shape[0]
+        del self._blocks[block % nblocks]
+        self._blocks = [(s - k, e - k) if s >= stop else (s, e)
+                        for s, e in self._blocks]
+        self._refresh_posterior(downdate_stats(base, delta), pstate)
+        return x_old.cpu().numpy(), y_old.cpu().numpy()
+
+    @property
+    def num_blocks(self) -> int:
+        """How many data blocks the model holds (fold order)."""
+        return len(self._blocks)
 
     # -- posterior ----------------------------------------------------------
     @torch.no_grad()

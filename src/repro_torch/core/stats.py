@@ -68,27 +68,33 @@ class Stats(NamedTuple):
 
 
 def partial_stats(hyp: dict, z, y, mu, s=None, weights=None,
-                  latent: bool = False, kernel=None, psi2_fn=None) -> Stats:
+                  latent: bool = False, kernel=None, psi2_fn=None,
+                  reg_stats_fn=None) -> Stats:
     """Shard-local statistics (the map function).
 
     ``s`` (n, q) are the q(X) variances, or None for regression.  The
-    full-width SE-ARD map (the only expression this slice ports) goes
-    through the hand-written kernels on CUDA tensors and their plain
-    versions on CPU ones: ``kernels.reg_stats`` for regression,
-    ``kernels.psi_stats`` (psi1, psi2) for the latent map, whose C is a
-    plain matmul as in the JAX package.  ``latent`` adds the KL of q(X).
-    ``psi2_fn(hyp, z, mu, s, w) -> (m, m)`` replaces the kernel's psi2
-    (e.g. ``kernels.psi_stats.psi2_fn_for_engine()`` or
-    ``gp_kernels.psi2_mxu``); it is expected to compute the expression's
-    own psi2.
+    expression picks the route: the full-width SE-ARD map goes through the
+    hand-written kernels on CUDA tensors and their plain versions on CPU
+    ones (``kernels.reg_stats`` for regression, the psi kernels behind
+    ``SEARD.psi1``/``psi2`` for the latent map, whose C is a plain matmul
+    as in the JAX package); any other expression takes its own plain
+    ``K``/``kdiag`` (:func:`reg_stats_dense`) and psi statistics on any
+    device.  ``latent`` adds the KL of q(X).  The hooks replace the
+    default accumulations and are expected to be bound to the expression:
+    ``psi2_fn(hyp, z, mu, s, w) -> (m, m)`` (e.g.
+    ``kernels.psi_stats.psi2_fn_for_engine(kernel=...)`` or
+    ``gp_kernels.psi2_mxu``) and ``reg_stats_fn(hyp, z, x, y, w) -> (b, C,
+    D)`` (e.g. ``kernels.reg_stats.reg_stats_fn_for_engine(kernel=...)``).
     """
-    kernel = cov.as_kernel(kernel)   # raises for an expression not yet ported
+    kernel = cov.as_kernel(kernel)
     n_k = y.shape[0]
     w = (torch.ones((n_k,), dtype=y.dtype, device=y.device) if weights is None
          else weights.to(y.dtype))
     a = (w * (y * y).sum(-1)).sum()
     if s is None:
-        b, c, d_stat = rs_ops.reg_stats(hyp, z, mu, y, w)
+        fn = (rs_ops.reg_stats_fn_for_engine(kernel=kernel)
+              if reg_stats_fn is None else reg_stats_fn)
+        b, c, d_stat = fn(hyp, z, mu, y, w)
         return Stats(A=a, B=b, C=c, D=d_stat, KL=torch.zeros_like(a),
                      n=w.sum())
     b = (w * kernel.psi0(hyp, mu, s)).sum()
@@ -135,7 +141,7 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                           batch_blocks: int | None = None,
                           generator: torch.Generator | None = None,
                           block_indices=None, init: Stats | None = None,
-                          psi2_fn=None) -> Stats:
+                          psi2_fn=None, reg_stats_fn=None) -> Stats:
     """Streaming map step: :func:`partial_stats` folded over row blocks.
 
     Exact mode: rows are padded up to a multiple of ``block_size`` with zero
@@ -162,7 +168,8 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
     O(batch_blocks * block_size) whatever n is.  Without ``block_indices``,
     ``batch_blocks >= nb`` is the exact fold.
 
-    ``psi2_fn``: :func:`partial_stats`' hook, called once a block.
+    ``psi2_fn``, ``reg_stats_fn``: :func:`partial_stats`' hooks, called
+    once a block.
     """
     n_k = y.shape[0]
     if batch_blocks is not None:
@@ -178,7 +185,8 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                 "reweighting scales the whole carry, prior chunks included")
     if block_size is None or (n_k <= block_size and not force_scan):
         st = partial_stats(hyp, z, y, mu, s, weights=weights,
-                           latent=latent, kernel=kernel, psi2_fn=psi2_fn)
+                           latent=latent, kernel=kernel, psi2_fn=psi2_fn,
+                           reg_stats_fn=reg_stats_fn)
         return st if init is None else fold_stats(init, st)
     w = (torch.ones((n_k,), dtype=y.dtype, device=y.device) if weights is None
          else weights.to(y.dtype))
@@ -218,7 +226,7 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
         yb, mub, sb, wb = block(i)
         acc = acc + partial_stats(hyp, z, yb, mub, sb, weights=wb,
                                   latent=latent, kernel=kernel,
-                                  psi2_fn=psi2_fn)
+                                  psi2_fn=psi2_fn, reg_stats_fn=reg_stats_fn)
     return acc.scale(scale) if scale != 1.0 else acc
 
 

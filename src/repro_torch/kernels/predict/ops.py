@@ -1,4 +1,5 @@
-"""Wrapper of the fused serving predict kernel: ``predict_stats``.
+"""Wrapper of the fused serving predict kernel: ``predict_stats``, and the
+engine's dispatch shim ``predict_fn_for_engine``.
 
 The tensor's device decides the path.  On the CPU the wrapper computes the
 plain version (``ref.py``).  On CUDA it always launches the hand-written
@@ -70,3 +71,25 @@ def predict_stats(hyp: dict, z, a_mean, g, x):
                h, kscr, mean, quad)
     LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return mean.to(x.dtype), quad.to(x.dtype)
+
+
+def predict_fn_for_engine(kernel=None):
+    """The engine's per-block function for a state of ``kernel`` (None:
+    SE-ARD), ``fn(state, x) -> (mean (t, d), var (t,))`` noise-free: for the
+    full-width SE-ARD, which the kernel specialises, :func:`predict_stats`
+    (the kernel on CUDA, its plain version on the CPU); for every other
+    expression the plain serving math
+    (``serve.posterior.predict_mean_var_plain``) on any device, as the JAX
+    package's shim routes them."""
+    from ...core.covariance import as_kernel, is_fused_se
+
+    if not is_fused_se(as_kernel(kernel)):
+        from ...serve.posterior import predict_mean_var_plain
+        return predict_mean_var_plain
+
+    def fn(state, x):
+        mean, quad = predict_stats(state.hyp, state.z, state.a_mean, state.g,
+                                   x)
+        return mean, state.kernel.kdiag(state.hyp, x) - quad
+
+    return fn

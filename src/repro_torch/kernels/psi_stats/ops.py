@@ -166,12 +166,12 @@ class _Psi1(torch.autograd.Function):
 
 
 def psi2_fn_for_engine(kernel=None):
-    """The ``psi2_fn`` hook of ``core.stats.partial_stats`` and
-    ``DistributedGP`` for ``kernel`` (None: SE-ARD): :func:`psi2`, the
-    CUDA kernel on the card and its plain version on the CPU.  Only the
-    full-width SE-ARD is ported; any other expression raises naming the
-    kernel zoo (ROADMAP Queue 1 item 6)."""
-    from ...core.covariance import as_kernel
+    """The ``psi2_fn`` hook of ``core.partial_stats`` and ``DistributedGP``
+    for ``kernel`` (None: SE-ARD): :func:`psi2` (the kernel on CUDA, its
+    plain version on the CPU) for the full-width SE-ARD, and the
+    expression's own ``psi2`` (analytic or quadrature, plain torch) for
+    every other one, as the JAX package's shim routes them."""
+    from ...core.covariance import as_kernel, is_fused_se
 
-    as_kernel(kernel)
-    return psi2
+    kernel = as_kernel(kernel)
+    return psi2 if is_fused_se(kernel) else kernel.psi2

@@ -1,4 +1,5 @@
-"""Wrapper of the fused regression-statistics kernel: ``reg_stats``.
+"""Wrapper of the fused regression-statistics kernel: ``reg_stats``, and
+the map's dispatch shim ``reg_stats_fn_for_engine``.
 
 The tensor's device decides the path.  On the CPU the wrapper computes the
 plain version (``ref.py``).  On CUDA it always launches the hand-written
@@ -85,6 +86,26 @@ def _launch(log_sf2, log_ell, z, x, y, w):
                  part_b, d_out, c_out, b_out, part_comp)
     LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return b_out.to(x.dtype), c_out.to(x.dtype), d_out.to(x.dtype)
+
+
+def reg_stats_fn_for_engine(kernel=None):
+    """The ``reg_stats_fn`` hook of ``core.stats.partial_stats`` and
+    ``DistributedGP`` for ``kernel`` (None: SE-ARD), ``fn(hyp, z, x, y, w)
+    -> (b, C, D)``: :func:`reg_stats` (the kernel on CUDA) for the
+    full-width SE-ARD, which the kernel specialises, and the expression's
+    own plain ``K``/``kdiag`` (``core.stats.reg_stats_dense``) on any device
+    for every other one, as the JAX package's shim routes them."""
+    from ...core.covariance import as_kernel, is_fused_se
+    from ...core.stats import reg_stats_dense
+
+    kernel = as_kernel(kernel)
+    if is_fused_se(kernel):
+        return reg_stats
+
+    def fn(hyp, z, x, y, w):
+        return reg_stats_dense(hyp, z, x, y, w, kernel=kernel)
+
+    return fn
 
 
 def _dense(log_sf2, log_ell, z, x, y, w):

@@ -1,8 +1,9 @@
 """Batched predict engine over a frozen ``PredictiveState``.
 
 Counterpart of ``repro.serve.engine.PredictEngine`` (the predict path, on
-one device or sharded over a process group).  No output row depends on the
-batch it arrives in.
+one device or sharded over a process group, and the online ``ingest`` /
+``forget`` / ``swap_state``).  No output row depends on the batch it
+arrives in.
 
 * On the CPU the JAX package's ``lax.scan`` over blocks becomes a Python
   loop of the plain version, one block at a time, so one block's (block, m)
@@ -11,7 +12,9 @@ batch it arrives in.
 * On CUDA one launch of the fused predict kernel covers the whole batch,
   unpadded: the kernel masks its ragged last row tile itself.  It keeps
   each 32-row slab in shared memory and never stores a (t, m) slab, so
-  serving memory stays O(t·d + m² + m·d).
+  serving memory stays O(t·d + m² + m·d).  A state of any other kernel
+  expression takes the plain serving math (``kernels.predict.
+  predict_fn_for_engine``) block by block, as on the CPU, unpadded.
 
 A low-precision state is cast once, at engine build, to ``compute_dtype``
 (f32 for sub-f32 states), so the only loss is the storage rounding.
@@ -35,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import rank_device, resolve_device
+from ..core.covariance import is_fused_se
 from ..launch.mesh import via_host
 from . import posterior
 
@@ -110,7 +114,7 @@ class PredictEngine:
         st = self._cstate if cstate is None else cstate
         rows = xq.shape[0] // self.n_shards
         mine = xq[self.rank * rows:(self.rank + 1) * rows]
-        if mine.device.type == "cuda":
+        if mine.device.type == "cuda" and is_fused_se(st.kernel):
             mean, var = posterior.predict_mean_var(st, mine)
         else:
             outs = [posterior.predict_mean_var(st, mine[i:i + self.block_size])
@@ -118,6 +122,47 @@ class PredictEngine:
             mean = torch.cat([o[0] for o in outs])
             var = torch.cat([o[1] for o in outs])
         return self._gather(mean, var)
+
+    # -- online updates (ingest-update-serve) -------------------------------
+    def swap_state(self, state: posterior.PredictiveState) -> None:
+        """Replace the served state with one of the same kernel expression
+        and leaf shapes (``ValueError`` otherwise), rebuilding the
+        compute-width copy on the engine's device; an engine built with
+        ``group=`` keeps sharding its queries over that group.  The serving
+        half of an online update: refresh the factors (``serve.online``) or
+        re-extract after a fit, then swap."""
+        if state.kernel != self.state.kernel:
+            raise ValueError(
+                "swap_state needs the same kernel expression "
+                f"({self.state.kernel} vs {state.kernel}); build a new "
+                "engine for a different covariance")
+        for a, b in zip(self.state._leaves(), state._leaves()):
+            if a.shape != b.shape:
+                raise ValueError(
+                    "swap_state needs identical leaf shapes (same m, q, d), "
+                    f"got {tuple(a.shape)} vs {tuple(b.shape)}; build a new "
+                    "engine for a reshaped state")
+        self._cstate = state._to(device=self.device, dtype=self.compute_dtype)
+        self.state = state
+
+    def ingest(self, x_new, y_new, weights=None):
+        """Absorb a block of k observations into the served posterior in
+        O(m²k) (``serve.online.update_state``, then :meth:`swap_state`);
+        the hyper-parameters stay.  Returns the ``online.RefreshResult``."""
+        from . import online
+        res = online.update_state(self.state, x_new, y_new, weights)
+        self.swap_state(res.state)
+        return res
+
+    def forget(self, x_old, y_old, weights=None):
+        """Remove a block ingested before (``serve.online.downdate_state``,
+        with its guarded refactorisation fallback, then
+        :meth:`swap_state`).  Returns the ``online.RefreshResult``; read
+        ``.fallback`` for telemetry."""
+        from . import online
+        res = online.downdate_state(self.state, x_old, y_old, weights)
+        self.swap_state(res.state)
+        return res
 
     def _gather(self, mean, var):
         """Every rank's rows of (mean, var), in rank order, on every rank:

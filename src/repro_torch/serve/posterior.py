@@ -26,6 +26,7 @@ from .. import checkpoint as ckpt
 from .._device import resolve_device
 from ..core import covariance as cov
 from ..core.bound import DEFAULT_JITTER, _whitened
+from ..core.flat import tree_leaves, tree_map
 from ..core.stats import Stats
 from ..kernels.predict import ops as p_ops
 
@@ -39,14 +40,14 @@ class PredictiveState:
     (it rides in the checkpoint sidecar as its spec, not as a leaf).
     """
 
-    hyp: dict                  # {"log_sf2", "log_ell", "log_beta"}
+    hyp: dict                  # the expression's (nested) tree + "log_beta"
     z: torch.Tensor            # (m, q) inducing inputs
     chol_kmm: torch.Tensor     # (m, m) L = chol(Kmm + jitter)
     chol_sigma: torch.Tensor   # (m, m) LB = chol(I + b L^-1 D L^-T)
     c2: torch.Tensor           # (m, d) LB^-1 L^-1 C
     a_mean: torch.Tensor       # (m, d) b L^-T LB^-T c2
     g: torch.Tensor            # (m, m) Kmm^-1 - Sigma^-1
-    kernel: cov.SEARD = cov.SE_ARD
+    kernel: cov.Kernel = cov.SE_ARD
 
     @property
     def m(self) -> int:
@@ -84,11 +85,12 @@ class PredictiveState:
         return sum(t.numel() * t.element_size() for t in self._leaves())
 
     def _leaves(self):
-        return [*self.hyp.values(), *(getattr(self, f) for f in _ARRAY_FIELDS)]
+        return [*tree_leaves(self.hyp),
+                *(getattr(self, f) for f in _ARRAY_FIELDS)]
 
     def _map(self, fn) -> "PredictiveState":
         return dataclasses.replace(
-            self, hyp={k: fn(v) for k, v in self.hyp.items()},
+            self, hyp=tree_map(fn, self.hyp),
             **{f: fn(getattr(self, f)) for f in _ARRAY_FIELDS})
 
     def _to(self, device=None, dtype=None) -> "PredictiveState":
@@ -117,7 +119,7 @@ def extract_state(hyp: dict, z, stats: Stats, jitter: float = DEFAULT_JITTER,
     (O(m^3) once), in the inputs' dtype, on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     kernel = cov.as_kernel(kernel)
-    hyp = {k: v.to(dev) for k, v in hyp.items()}
+    hyp = tree_map(lambda v: v.to(dev), hyp)
     z = z.to(dev)
     stats = Stats(*(t.to(dev) for t in stats))
     beta = torch.exp(hyp["log_beta"])
@@ -143,11 +145,12 @@ def state_from_model(model) -> PredictiveState:
 
 def predict_mean_var(state: PredictiveState, xstar):
     """Diag-variance predictive posterior at ``xstar`` (t, q): noise-free
-    ``(mean (t, d), var (t,))``.  ``mean``/``quad`` come from the fused
-    predict kernel on CUDA, from its plain version on the CPU."""
-    mean, quad = p_ops.predict_stats(state.hyp, state.z, state.a_mean,
-                                     state.g, xstar)
-    return mean, state.kernel.kdiag(state.hyp, xstar) - quad
+    ``(mean (t, d), var (t,))``.  The state's expression picks the route
+    (``kernels.predict.predict_fn_for_engine``): for the full-width SE-ARD
+    ``mean``/``quad`` come from the fused predict kernel on CUDA and its
+    plain version on the CPU; every other expression answers through
+    :func:`predict_mean_var_plain` on any device."""
+    return p_ops.predict_fn_for_engine(state.kernel)(state, xstar)
 
 
 def predict_mean_var_plain(state: PredictiveState, xstar):
@@ -170,10 +173,12 @@ def predict_mean_var_plain(state: PredictiveState, xstar):
 def predict_full_cov(state: PredictiveState, xstar):
     """Full predictive covariance: ``(mean (t, d), cov (t, t))``, noise-free.
     Cross-covariances couple every query pair, so this is one piece (the
-    small-t mode); the mean comes from the predict kernel."""
-    mean, _ = p_ops.predict_stats(state.hyp, state.z, state.a_mean, state.g,
-                                  xstar)
+    small-t mode); the mean comes from the predict kernel for the full-width
+    SE-ARD, from the plain product otherwise."""
     ksm = state.kernel.K(state.hyp, xstar, state.z)
+    mean = (p_ops.predict_stats(state.hyp, state.z, state.a_mean, state.g,
+                                xstar)[0] if cov.is_fused_se(state.kernel)
+            else ksm @ state.a_mean)
     kss = state.kernel.K(state.hyp, xstar, xstar)
     return mean, kss - ksm @ state.g @ ksm.T
 
@@ -223,12 +228,11 @@ def load_state(path: str | pathlib.Path, device=None
     dt = getattr(torch, md.get("dtype", "float64"))
     kernel = cov.kernel_from_spec(md.get("kernel", {"kind": "se"}))
 
-    def like(*shape):
+    def like(shape):
         return torch.empty(shape, dtype=dt, device="meta")
 
     template = PredictiveState(
-        hyp={**{k: like(*s) for k, s in kernel.hyp_shapes(q).items()},
-             "log_beta": like()},
-        z=like(m, q), chol_kmm=like(m, m), chol_sigma=like(m, m),
-        c2=like(m, d), a_mean=like(m, d), g=like(m, m), kernel=kernel)
+        hyp=tree_map(like, cov.full_hyp_shapes(kernel, q)),
+        z=like((m, q)), chol_kmm=like((m, m)), chol_sigma=like((m, m)),
+        c2=like((m, d)), a_mean=like((m, d)), g=like((m, m)), kernel=kernel)
     return ckpt.restore(path, template, dev)

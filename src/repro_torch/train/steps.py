@@ -1,10 +1,11 @@
 """Step builders (port of ``repro.train.steps``): the distributed GP train
-step, and the prefill and serve steps of the LM substrate.
+and online-update steps, and the prefill and serve steps of the LM
+substrate.
 
 The LM builders return plain functions over the caller's tensors, run under
 ``torch.no_grad()``: serving takes no gradient, and the flash kernel has no
 backward.  The LM train step comes with training (ROADMAP Queue 1 item
-12), the async and update GP steps with items 11 and 7.
+12), the async GP step with item 11.
 """
 from __future__ import annotations
 
@@ -31,10 +32,11 @@ def make_gp_train_step(group, d: int, *, latent: bool = False,
     one).  ``batch_blocks`` (with ``chunk_size``) makes it the SVI step,
     which takes a trailing per-step ``draw`` (a ``torch.Generator``, or
     this rank's block indices).  ``psi2_fn`` replaces the kernel's psi2 in
-    the latent map.  ``reduce_mode`` other than ``"serial"`` and the
-    ``reg_stats_fn`` hook are not ported yet: ``DistributedGP`` refuses
-    them, naming their ROADMAP items, after refusing invalid values with
-    ``ValueError`` as the JAX engine does.
+    the latent map, ``reg_stats_fn`` the regression map (default: the
+    shims of the engine's ``kernel``).  ``reduce_mode`` other than
+    ``"serial"`` is not ported yet: ``DistributedGP`` refuses it, naming
+    its ROADMAP item, after refusing invalid values with ``ValueError`` as
+    the JAX engine does.
     """
     from ..core.distributed import DistributedGP
 
@@ -43,6 +45,27 @@ def make_gp_train_step(group, d: int, *, latent: bool = False,
                         batch_blocks=batch_blocks, reduce_mode=reduce_mode,
                         psi2_fn=psi2_fn, reg_stats_fn=reg_stats_fn)
     return eng, eng.make_value_and_grad(d, argnums=argnums)
+
+
+def make_gp_update_step(group, d: int, *, latent: bool = False,
+                        psi2_fn=None, reg_stats_fn=None,
+                        chunk_size: int | None = None, kernel=None,
+                        device=None):
+    """Distributed online-update step: ``(engine, fold_step)``,
+    ``fold_step(base_stats, hyp, z, y_new, mu_new, s_new, w_new, fmask) ->
+    Stats`` absorbing a new sharded block (this rank's slice from
+    ``engine.put_data``) into reduced Stats: each rank maps its slice with
+    the exact fold, one all_reduce, the base added
+    (``DistributedGP.update_stats_fn``).  Pair it with
+    ``engine.update_predictive_state`` for the serving factors and with
+    ``core.stats.downdate_stats`` to forget.  No ``batch_blocks``: fold and
+    downdate need the exact block statistics."""
+    from ..core.distributed import DistributedGP
+
+    eng = DistributedGP(group, latent=latent, chunk_size=chunk_size,
+                        kernel=kernel, device=device, psi2_fn=psi2_fn,
+                        reg_stats_fn=reg_stats_fn)
+    return eng, eng.update_stats_fn(d)
 
 
 def make_prefill_step(cfg: ModelConfig):

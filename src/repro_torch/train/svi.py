@@ -18,6 +18,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..core.flat import tree_map
 from ..core.stats import fold_in
 
 
@@ -27,18 +28,10 @@ class SVIResult(NamedTuple):
     n_steps: int
 
 
-def _map(fn, *trees):
-    """``fn`` over the leaves of dicts of the same structure."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
-
-
 def adam_init(params: dict) -> dict:
     """Zero first and second moments of each leaf's shape, dtype and device."""
-    return {"m": _map(torch.zeros_like, params),
-            "v": _map(torch.zeros_like, params), "step": 0}
+    return {"m": tree_map(torch.zeros_like, params),
+            "v": tree_map(torch.zeros_like, params), "step": 0}
 
 
 @torch.no_grad()
@@ -55,25 +48,25 @@ def adam_step(params: dict, grads: dict, opt: dict, lr: float,
         delta = (lr * (m2 / b1c) / (torch.sqrt(v2 / b2c) + eps)).to(p.dtype)
         return p - delta, m2, v2
 
-    out = _map(upd, params, grads, opt["m"], opt["v"])
-    new, m2, v2 = (_map(lambda o, i=i: o[i], out) for i in range(3))
+    out = tree_map(upd, params, grads, opt["m"], opt["v"])
+    new, m2, v2 = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     return new, {"m": m2, "v": v2, "step": t}
 
 
 def value_and_grad(neg: Callable, params: dict):
     """``neg(params)`` (a scalar tensor) and its gradient with respect to
     every leaf of ``params``, as a dict of the same structure."""
-    leaves = _map(lambda p: p.detach().requires_grad_(), params)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         value = neg(leaves)
     flat = []
-    _map(flat.append, leaves)
+    tree_map(flat.append, leaves)
     got = iter(torch.autograd.grad(value, flat, allow_unused=True))
 
     def grad_of(p):
         g = next(got)
         return torch.zeros_like(p) if g is None else g
-    return value.detach(), _map(grad_of, leaves)
+    return value.detach(), tree_map(grad_of, leaves)
 
 
 def svi_fit(neg_vg: Callable, params: dict, generator: torch.Generator,

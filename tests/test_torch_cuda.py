@@ -934,3 +934,105 @@ def test_reconstruct_on_the_card_matches_cpu(cuda):
     assert launched == 1
     np.testing.assert_allclose(rec[str(cuda)], rec["cpu"], rtol=1e-8,
                                atol=1e-10)
+
+
+# -- the kernel zoo and online updates on the card ---------------------------------
+
+@pytest.mark.parametrize("m,k", [(64, 100), (130, 7), (512, 256)])
+def test_rank_k_sweep_on_the_card_matches_cpu(cuda, m, k):
+    """The rank-k update, then the downdate of the same columns, on the
+    card against the CPU: the same flags, factors within 1e-12 relative;
+    an indefinite downdate flags on both."""
+    from repro_torch.core import chol_update as cu
+
+    rng = np.random.default_rng(m + k)
+    a = rng.standard_normal((m, m))
+    L = np.linalg.cholesky(a @ a.T + m * np.eye(m))
+    V = rng.standard_normal((m, k))
+    up, ok = cu.chol_update_rank_k(_t(L, cuda), _t(V, cuda))
+    up_cpu, ok_cpu = cu.chol_update_rank_k(_t(L, "cpu"), _t(V, "cpu"))
+    assert bool(ok) and bool(ok_cpu)
+    np.testing.assert_allclose(up.cpu().numpy(), up_cpu.numpy(), rtol=1e-12,
+                               atol=1e-12 * np.abs(up_cpu.numpy()).max())
+    back, ok = cu.chol_downdate_rank_k(up, _t(V, cuda))
+    assert bool(ok)
+    np.testing.assert_allclose(back.cpu().numpy(), L, rtol=1e-10, atol=1e-11)
+    _, ok = cu.chol_downdate_rank_k(_t(L, cuda), _t(10.0 * V, cuda))
+    _, ok_cpu = cu.chol_downdate_rank_k(_t(L, "cpu"), _t(10.0 * V, "cpu"))
+    assert bool(ok) is bool(ok_cpu) is False
+
+
+def test_update_and_forget_on_the_card_match_cpu(cuda):
+    """``SGPR.update``/``forget`` on the card: one reg_stats f64 launch per
+    block, the refreshed engine one predict f64 launch a batch, and the
+    answers of the CPU's update within ``test_slice_on_cuda_matches_cpu``'s
+    rtol 1e-8 / atol 1e-10 on the same problem; an illegitimate forget
+    through ``online.downdate_state`` falls back and raises nothing."""
+    from repro_torch.serve import online
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2.0, 2.0, (3000, 3))
+    y = np.sin(x @ rng.standard_normal((3, 2))) + 0.1 * rng.standard_normal(
+        (3000, 2))
+    xb, yb = rng.uniform(-2, 2, (300, 3)), rng.standard_normal((300, 2))
+    xs = rng.uniform(-2, 2, (257, 3))
+    gpu = rt.SGPR(x, y, num_inducing=40, device=cuda)
+    cpu = rt.SGPR(x, y, num_inducing=40, device="cpu")
+    for mdl in (gpu, cpu):
+        mdl.predict(xs)
+    rs0, p0 = rs_ops.LAUNCHES["float64"], p_ops.LAUNCHES["float64"]
+    assert gpu.update(xb, yb) == cpu.update(xb, yb) == 1
+    assert rs_ops.LAUNCHES["float64"] == rs0 + 1
+    got, want = gpu.predict(xs, include_noise=True), \
+        cpu.predict(xs, include_noise=True)
+    assert p_ops.LAUNCHES["float64"] == p0 + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+    gpu.forget(-1)
+    cpu.forget(-1)
+    for a, b in zip(gpu.predict(xs), cpu.predict(xs)):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+    res = online.downdate_state(gpu.predictive_state(),
+                                rng.standard_normal((50, 3)),
+                                5.0 * rng.standard_normal((50, 2)),
+                                weights=50.0 * torch.ones(50, device=cuda,
+                                                          dtype=torch.float64))
+    assert res.fallback is True
+
+
+def test_zoo_routes_are_counted(cuda):
+    """The route by expression on the card: a composite SGPR launches no
+    reg_stats and no predict kernel; the full-width SE-ARD launches both; a
+    GPLVM over ``Sum(SEARD(), Linear(dims=(1,)))`` reaches the psi1 kernel
+    through its full-width SE child and no psi2 (quadrature), and one over
+    disjoint children reaches no psi kernel."""
+    from repro_torch.core.covariance import SEARD, Linear, Sum
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-2, 2, (500, 2))
+    y = np.concatenate([np.sin(x[:, :1]) + 0.5 * x[:, 1:], np.cos(x[:, :1])],
+                       1)
+    counts = {"reg_stats": rs_ops.LAUNCHES, "predict": p_ops.LAUNCHES,
+              "psi": ps_ops.LAUNCHES}
+
+    def launched(fn):
+        before = {n: dict(c) for n, c in counts.items()}
+        fn()
+        return {f"{n}_{k}": c[k] - before[n][k] for n, c in counts.items()
+                for k in c if c[k] != before[n][k]}
+
+    zoo = rt.SGPR(x, y, num_inducing=16, kernel=Sum(SEARD(dims=(0,)),
+                                                    Linear(dims=(1,))),
+                  device=cuda)
+    assert launched(lambda: zoo.predict(x[:64])) == {}
+    se = rt.SGPR(x, y, num_inducing=16, kernel="se", device=cuda)
+    assert launched(lambda: se.predict(x[:64])) == {
+        "reg_stats_float64": 1, "predict_float64": 1}
+    child = rt.BayesianGPLVM(y, q=2, num_inducing=8,
+                             kernel=Sum(SEARD(), Linear(dims=(1,))),
+                             device=cuda)
+    assert launched(child.log_bound) == {"psi_psi1_float64": 1}
+    disjoint = rt.BayesianGPLVM(y, q=2, num_inducing=8,
+                                kernel=Sum(SEARD(dims=(0,)),
+                                           Linear(dims=(1,))), device=cuda)
+    assert launched(disjoint.log_bound) == {}

@@ -9,7 +9,11 @@ test workers).  Both take the same numpy inputs, at the shape of
 ``tests/_dist_worker.py`` (n 101, ragged over 4 shards), and write their
 values, gradients, reduced Stats and predictive states to ``.npz`` files.
 Tolerances are ``_dist_worker``'s: value 1e-9 relative, gradients rtol 1e-8 /
-atol 1e-10, reduced Stats and states 1e-10.
+atol 1e-10, reduced Stats and states 1e-10.  The same spawn also runs the
+kernel zoo's cases (a ``Sum`` regression and a Matern-3/2 GPLVM, ROADMAP
+Queue 1 item 6) and the online fold of a new 19-row block into reduced
+Stats (``update_stats_fn``, item 7), the latter at rtol 1e-11
+(``tests/test_online_updates.py:165``).
 """
 import datetime
 import os
@@ -46,6 +50,19 @@ CASES = {
 STATE_CASES = ("reg_fail_drop", "lat_ones")
 STATE_FIELDS = ("chol_kmm", "chol_sigma", "c2", "a_mean", "g")
 STATS_FIELDS = ("A", "B", "C", "D", "KL", "n")
+# The kernel zoo through the engine: name: (latent, kernel spec, argnums).
+SUM_SPEC = {"kind": "sum", "parts": [{"kind": "se", "dims": [0]},
+                                     {"kind": "linear", "dims": [1]}],
+            "quad_order": 11}
+ZOO_CASES = {
+    "reg_sum": (False, SUM_SPEC, (0, 1)),
+    "lat_matern32": (True, {"kind": "matern32", "dims": [0, 1],
+                            "quad_order": 11}, (0, 1, 2, 3)),
+}
+# The online fold: name: (kernel spec, fmask); the new block has K_NEW rows.
+FOLD_CASES = {"fold_se": (None, (1, 1, 1, 1)),
+              "fold_sum_fail": (SUM_SPEC, (1, 0, 1, 1))}
+K_NEW = 19   # odd: the new block pads unevenly over 4 shards
 
 
 def _inputs():
@@ -60,12 +77,33 @@ def _inputs():
 
 
 def _flatten(prefix, out, argnums, grads):
-    for i, g in zip(argnums, grads):
+    def put(key, g):
         if isinstance(g, dict):
             for k, v in g.items():
-                out[f"{prefix}/g{i}/{k}"] = np.asarray(v)
+                put(f"{key}/{k}", v)
         else:
-            out[f"{prefix}/g{i}"] = np.asarray(g)
+            out[key] = np.asarray(g)
+    for i, g in zip(argnums, grads):
+        put(f"{prefix}/g{i}", g)
+
+
+def _zoo_hyp(spec, hyp):
+    """``hyp`` laid out for a kernel spec: nested under k0/k1 for the Sum."""
+    if spec["kind"] != "sum":
+        return hyp
+    return {"k0": {"log_sf2": hyp["log_sf2"], "log_ell": hyp["log_ell"][:1]},
+            "k1": {"log_sv2": hyp["log_ell"][1:] - 0.3},
+            "log_beta": hyp["log_beta"]}
+
+
+def _new_block():
+    rng = np.random.default_rng(11)
+    return rng.standard_normal((K_NEW, Q)), rng.standard_normal((K_NEW, D))
+
+
+def _map_tree(fn, tree):
+    return ({k: _map_tree(fn, v) for k, v in tree.items()}
+            if isinstance(tree, dict) else fn(tree))
 
 
 # -- the JAX reference, in a subprocess on 4 placeholder devices -------------
@@ -107,6 +145,32 @@ for name, (latent, mode, chunk, fmask, argnums) in t.CASES.items():
                                   sd, w, fm)
         for f in t.STATE_FIELDS:
             out[name + "/state/" + f] = np.asarray(getattr(ps, f))
+for name, (latent, spec, argnums) in t.ZOO_CASES.items():
+    eng = DistributedGP(mesh, data_axes=("data",), latent=latent,
+                        kernel=spec)
+    data, w = eng.put_data(**(dict(y=y, mu=x, s=s) if latent
+                              else dict(y=y, mu=x)))
+    h = t._map_tree(jnp.asarray, t._zoo_hyp(spec, t._inputs()[4]))
+    ones = jnp.ones((t.W,))
+    v, g = eng.make_value_and_grad(t.D, argnums=argnums)(
+        h, jnp.asarray(z), data["mu"], data.get("s"), data["y"], w, ones,
+        jnp.asarray(float(t.N)))
+    out[name + "/value"] = np.asarray(v)
+    t._flatten(name, out, argnums, g)
+xn, yn = t._new_block()
+for name, (spec, fmask) in t.FOLD_CASES.items():
+    eng = DistributedGP(mesh, data_axes=("data",), kernel=spec)
+    h = t._map_tree(jnp.asarray, t._zoo_hyp(spec or {{"kind": "se"}},
+                                             t._inputs()[4]))
+    fm = jnp.asarray(fmask, jnp.float64)
+    data, w = eng.put_data(y=y, mu=x)
+    base = eng.reduced_stats(t.D)(h, jnp.asarray(z), data["y"], data["mu"],
+                                  None, w, fm)
+    new, wn = eng.put_data(y=yn, mu=xn)
+    st = eng.update_stats_fn(t.D)(base, h, jnp.asarray(z), new["y"],
+                                  new["mu"], None, wn, fm)
+    for f in t.STATS_FIELDS:
+        out[name + "/stats/" + f] = np.asarray(getattr(st, f))
 np.savez({out!r}, **out)
 print("JAX-REF-OK")
 """
@@ -161,6 +225,30 @@ def _rank_main(rank, world, store_path, out_dir):
                                       fm)
             for f in STATE_FIELDS:
                 out[f"{name}/state/{f}"] = getattr(ps, f).numpy()
+    for name, (latent, spec, argnums) in ZOO_CASES.items():
+        eng = DistributedGP(group, latent=latent, kernel=spec, device="cpu")
+        data, w = eng.put_data(**(dict(y=y, mu=x, s=s) if latent
+                                  else dict(y=y, mu=x)))
+        h = _map_tree(lambda v: torch.as_tensor(v, dtype=torch.float64),
+                      _zoo_hyp(spec, _inputs()[4]))
+        v, g = eng.make_value_and_grad(D, argnums=argnums)(
+            h, zt, data["mu"], data.get("s"), data["y"], w, np.ones(W),
+            float(N))
+        out[name + "/value"] = v.numpy()
+        _flatten(name, out, argnums, g)
+    xn, yn = _new_block()
+    for name, (spec, fmask) in FOLD_CASES.items():
+        eng = DistributedGP(group, kernel=spec, device="cpu")
+        h = _map_tree(lambda v: torch.as_tensor(v, dtype=torch.float64),
+                      _zoo_hyp(spec or {"kind": "se"}, _inputs()[4]))
+        fm = np.asarray(fmask, np.float64)
+        data, w = eng.put_data(y=y, mu=x)
+        base = eng.reduced_stats(D)(h, zt, data["y"], data["mu"], None, w, fm)
+        new, wn = eng.put_data(y=yn, mu=xn)
+        st = eng.update_stats_fn(D)(base, h, zt, new["y"], new["mu"], None,
+                                    wn, fm)
+        for f in STATS_FIELDS:
+            out[f"{name}/stats/{f}"] = getattr(st, f).numpy()
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
@@ -228,6 +316,37 @@ def test_reduced_stats_and_predictive_state_match_jax(case, what, ranks,
         for k in keys:
             np.testing.assert_allclose(r[k], jax_ref[k], rtol=1e-10,
                                        atol=1e-10, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(ZOO_CASES))
+def test_kernel_zoo_value_and_grad_match_jax_on_four_ranks(case, ranks,
+                                                           jax_ref):
+    """A non-SE expression through the engine (nested hyper-parameters for
+    the Sum): its value and gradients as JAX's engine gives them."""
+    keys = [k for k in jax_ref if k.startswith(f"{case}/g")]
+    assert len(keys) == len([k for k in ranks[0]
+                             if k.startswith(f"{case}/g")]) >= 4
+    want = float(jax_ref[f"{case}/value"])
+    for r in ranks:
+        assert abs(float(r[f"{case}/value"]) - want) <= 1e-9 * abs(want)
+    for k in keys:
+        got = _gathered(ranks, k) if k.endswith(("/g2", "/g3")) \
+            else ranks[0][k]
+        np.testing.assert_allclose(got, jax_ref[k], rtol=1e-8, atol=1e-10,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_online_fold_matches_jax_on_four_ranks(case, ranks, jax_ref):
+    """``update_stats_fn`` on 4 gloo ranks (a ragged 19-row block, with and
+    without a failed shard) against JAX's on 4 placeholder devices, and the
+    same bits on every rank."""
+    for f in STATS_FIELDS:
+        k = f"{case}/stats/{f}"
+        np.testing.assert_allclose(ranks[0][k], jax_ref[k], rtol=1e-11,
+                                   atol=1e-11, err_msg=k)
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[k], ranks[0][k], err_msg=k)
 
 
 def test_every_rank_sees_the_same_bits(ranks):
@@ -375,16 +494,137 @@ def _engine(**kw):
 @pytest.mark.parametrize("make, item", [
     (lambda: _engine(chunk_size=4, reduce_mode="overlap"), "item 11"),
     (lambda: _engine(chunk_size=4, reduce_mode="overlap_eager"), "item 11"),
-    (lambda: _engine(reg_stats_fn=lambda *a: None), "item 6"),
-    (lambda: _engine(kernel={"kind": "matern32"}), "Kernel zoo"),
-    (lambda: _engine().update_stats_fn(1), "item 7"),
-    (lambda: _engine().update_predictive_state(None, None, None), "item 7"),
-    (lambda: _engine().downdate_predictive_state(None, None, None), "item 7"),
     (lambda: _engine().multi_predict_engine([None]), "item 8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
+
+
+def _sequential_jax(hyp, x, y, z, kernel=None):
+    """The JAX package's sequential map, bound and state (no mesh)."""
+    import jax
+
+    from repro.serve import extract_state as j_extract
+
+    jh = _map_tree(jnp.asarray, hyp)
+    st = j_partial_stats(jh, jnp.asarray(z), jnp.asarray(y), jnp.asarray(x),
+                         s=None, latent=False, kernel=kernel)
+
+    def neg(h, zz):
+        return -j_collapsed_bound(h, zz, j_partial_stats(
+            h, zz, jnp.asarray(y), jnp.asarray(x), s=None, latent=False,
+            kernel=kernel), D, kernel=kernel)
+
+    v, g = jax.value_and_grad(neg, argnums=(0, 1))(jh, jnp.asarray(z))
+    return st, v, g, j_extract(jh, jnp.asarray(z), st, kernel=kernel)
+
+
+def _assert_tree_close(got, want, **tol):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _assert_tree_close(got[k], want[k], **tol)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def _ported_reg_stats_fn(eng, hyp, zt, data, w, x, y, z):
+    """The hook is called, once per map, and its Stats drive the bound:
+    a hook that counts around the dense map gives JAX's bound."""
+    from repro_torch.core.stats import reg_stats_dense
+
+    calls = []
+
+    def hook(*args):
+        calls.append(1)
+        return reg_stats_dense(*args)
+
+    hooked = _engine(reg_stats_fn=hook)
+    assert hooked.reg_stats_fn is hook
+    v, _ = hooked.make_value_and_grad(D)(hyp, zt, data["mu"], None,
+                                         data["y"], w, np.ones(1), float(N))
+    _, v_ref, _, _ = _sequential_jax(_inputs()[4], x, y, z)
+    assert calls == [1]
+    assert abs(float(v) - float(v_ref)) <= 1e-9 * abs(float(v_ref))
+
+
+def _ported_kernel(eng, hyp, zt, data, w, x, y, z):
+    """A Matern-3/2 engine: value and gradient as JAX's sequential ones."""
+    spec = {"kind": "matern32"}
+    m32 = _engine(kernel=spec)
+    v, (gh, gz) = m32.make_value_and_grad(D)(hyp, zt, data["mu"], None,
+                                             data["y"], w, np.ones(1),
+                                             float(N))
+    from repro.core.covariance import kernel_from_spec
+
+    _, v_ref, (gh_ref, gz_ref), _ = _sequential_jax(
+        _inputs()[4], x, y, z, kernel=kernel_from_spec(spec))
+    assert abs(float(v) - float(v_ref)) <= 1e-9 * abs(float(v_ref))
+    np.testing.assert_allclose(gz.numpy(), np.asarray(gz_ref), rtol=1e-8,
+                               atol=1e-10)
+    _assert_tree_close(gh, gh_ref, rtol=1e-8, atol=1e-10)
+
+
+def _ported_update_stats_fn(eng, hyp, zt, data, w, x, y, z):
+    """The fold of a new block into the base: JAX's Stats of the union."""
+    xn, yn = _new_block()
+    base = eng.reduced_stats(D)(hyp, zt, data["y"], data["mu"], None, w,
+                                np.ones(1))
+    new, wn = eng.put_data(y=yn, mu=xn)
+    got = eng.update_stats_fn(D)(base, hyp, zt, new["y"], new["mu"], None,
+                                 wn, np.ones(1))
+    want, _, _, _ = _sequential_jax(_inputs()[4], np.vstack([x, xn]),
+                                    np.vstack([y, yn]), z)
+    for f in STATS_FIELDS:
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-11,
+                                   atol=1e-11, err_msg=f)
+
+
+def _ported_update_predictive_state(eng, hyp, zt, data, w, x, y, z):
+    """The served state refreshed by a new block: JAX's state of the
+    union (``tests/_dist_worker.py``: 1e-8 / 1e-9)."""
+    xn, yn = _new_block()
+    state = eng.predictive_state(hyp, zt, data["y"], data["mu"], None, w)
+    res = eng.update_predictive_state(state, xn, yn)
+    _, _, _, want = _sequential_jax(_inputs()[4], np.vstack([x, xn]),
+                                    np.vstack([y, yn]), z)
+    assert res.fallback is False
+    for f in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(res.state, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-8,
+                                   atol=1e-9, err_msg=f)
+
+
+def _ported_downdate_predictive_state(eng, hyp, zt, data, w, x, y, z):
+    """Forgetting the block the state holds: JAX's state without it
+    (``tests/_dist_worker.py``: 1e-9 / 1e-10)."""
+    xn, yn = _new_block()
+    union, wu = eng.put_data(y=np.vstack([y, yn]), mu=np.vstack([x, xn]))
+    state = eng.predictive_state(hyp, zt, union["y"], union["mu"], None, wu)
+    res = eng.downdate_predictive_state(state, xn, yn)
+    _, _, _, want = _sequential_jax(_inputs()[4], x, y, z)
+    assert res.fallback is False
+    for f in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(res.state, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-9,
+                                   atol=1e-10, err_msg=f)
+
+
+@pytest.mark.parametrize("check", [
+    _ported_reg_stats_fn, _ported_kernel, _ported_update_stats_fn,
+    _ported_update_predictive_state, _ported_downdate_predictive_state,
+], ids=lambda f: f.__name__.removeprefix("_ported_"))
+def test_ported_options_match_jax_sequential(check):
+    """The options that raised until the kernel zoo and the online updates
+    were ported (ROADMAP Queue 1 items 6 and 7), each now against the JAX
+    package's sequential math, in a world of one without a group."""
+    x, y, _, z, hyp = _inputs()
+    eng = _engine()
+    data, w = eng.put_data(y=y, mu=x)
+    th = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in hyp.items()}
+    check(eng, th, torch.from_numpy(z), data, w, x, y, z)
 
 
 def test_make_gp_train_step_refuses_unported_options():

@@ -5,7 +5,10 @@ SVI must raise the exact bound), distributed_sgpr on 2 spawned gloo ranks,
 each rank printing and returning the same bounds, flight_scale --tiny
 in this process and on 2 spawned gloo ranks (the same bound and RMSE on
 every rank), and gplvm_embedding --tiny (the classes separate in the
-top two ARD dimensions; the embedding lands where the caller asks)."""
+top two ARD dimensions; the embedding lands where the caller asks),
+kernel_zoo (the composite beats SE-ARD's bound and serves the same answers
+after a save/load round trip) and online_update (incremental updates equal
+a full rebuild to 1e-8)."""
 import datetime
 import json
 import pathlib
@@ -102,3 +105,22 @@ def test_gplvm_embedding_tiny(capsys, tmp_path):
     assert f"embedding saved to {out}" in printed
     assert np.load(out).shape == (120, 2)
     assert ratio > 2.0 and 1 <= eff <= 4
+
+
+def test_kernel_zoo(capsys):
+    from repro_torch.examples import kernel_zoo
+
+    bounds, rmse = kernel_zoo.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert 'restored kernel from sidecar: {"kind": "sum"' in out
+    assert bounds["composite"] > bounds["se-ard"]
+    assert rmse["composite"] < 0.05 and rmse["served"] == rmse["composite"]
+
+
+def test_online_update(capsys):
+    from repro_torch.examples import online_update
+
+    err, bound = online_update.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "forgot block 2 -> n=500, blocks held=3" in out
+    assert err < 1e-8 and np.isfinite(bound)

@@ -162,8 +162,19 @@ def test_psi2_fn_through_chunked_map_matches_jax(hook, block):
 
 
 def test_psi2_fn_for_engine_refuses_other_kernels():
-    with pytest.raises(NotImplementedError, match="Kernel zoo"):
-        psi2_fn_for_engine(kernel={"kind": "matern32"})
+    """Since the kernel zoo (ROADMAP Queue 1 item 6) the shim no longer
+    refuses another expression: it hands back that expression's own psi2,
+    the JAX shim's closure at 1e-12."""
+    from repro.core.covariance import kernel_from_spec as j_spec
+    from repro.kernels.psi_stats import psi2_fn_for_engine as j_shim
+
+    spec = {"kind": "matern32", "dims": None, "quad_order": 5}
+    hyp, z, mu, s, w, _ = _inputs()
+    got = psi2_fn_for_engine(kernel=spec)(_t(hyp), _t(z), _t(mu), _t(s),
+                                          _t(w))
+    want = j_shim(kernel=j_spec(spec))(_j(hyp), _j(z), _j(mu), _j(s), _j(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                               atol=1e-12)
 
 
 # -- the hook through DistributedGP ---------------------------------------------

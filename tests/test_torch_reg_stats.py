@@ -111,16 +111,22 @@ def test_partial_stats_matches_jax():
 
 
 def test_latent_branch_is_queued():
-    """The latent branch is ported for SE-ARD; for any other covariance
-    expression it stays queued (ROADMAP Queue 1, 'Kernel zoo')."""
+    """The latent branch, for SE-ARD and (since the kernel zoo, ROADMAP
+    Queue 1 item 6, which this test once found queued) for another
+    expression, Matern-3/2 by quadrature: JAX's Stats at 1e-12."""
     hyp, z, x, y, _ = _inputs(3, 10, 4, 2, 1)
     th, tz, tx, ty = _torch(hyp, z, x, y)
+    jh, jz, jx, jy = _jax(hyp, z, x, y)
     st = t_stats.partial_stats(th, tz, ty, tx, s=torch.ones_like(tx),
                                latent=True)
     assert bool(torch.isfinite(st.D).all()) and float(st.KL) > 0.0
-    with pytest.raises(NotImplementedError, match="Kernel zoo"):
-        t_stats.partial_stats(th, tz, ty, tx, s=torch.ones_like(tx),
-                              kernel='{"kind": "matern32"}')
+    spec = '{"kind": "matern32"}'
+    got = t_stats.partial_stats(th, tz, ty, tx, s=0.1 * torch.ones_like(tx),
+                                latent=True, kernel=spec)
+    want = j_stats.partial_stats(jh, jz, jy, jx, s=0.1 * jnp.ones_like(jx),
+                                 latent=True, kernel=spec)
+    for name, g, e in zip(got._fields, got, want):
+        _close(g, e, atol=1e-12, name=name)
 
 
 # -- host-side helpers of the f64 (DMMA) kernel --------------------------------
