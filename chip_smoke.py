@@ -105,6 +105,28 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``fit`` (10 SCG iterations: the first 7 are rejected steps there), the 65,536 answers bitwise through ``save_state`` /
    ``load_state``, an update against re-extraction, all with no kernel
    launch; the same data under ``kernel="se"`` launches reg_stats;
+3h. posterior sampling, the fleet engine and the async front-end (after
+   3g, on 3a's fitted model and queries): ``PredictEngine.sample`` of
+   4,096 queries (16 blocks of 256) with 256 draws, the same bits for the
+   same seed and through ``sample_stream`` over four 1,024-row batches,
+   ``_sample_from_normals`` on the card within 1e-10 of the CPU on the
+   same normals, the draws' means within 5 standard errors of ``predict``
+   and one block's covariance within 6 of ``predict_full_cov``,
+   ``include_noise`` adding 1/beta, an f32 state sampling and a bf16 one
+   refused; ``MultiPredictEngine`` over 3a's state and the states after
+   1, 2 and 3 ``update``s of fresh 2,048-row blocks answering the 65,536
+   queries, each model's rows bitwise its own ``PredictEngine``'s, 4
+   predict launches a batch, ``predict_mixture`` within 1e-12 of the plain
+   f64 mixture, ``swap_slot``, and ``DistributedGP.multi_predict_engine``
+   (and a sharded engine's ``sample``) bitwise in an NCCL world of one;
+   a ``Frontend`` over 3a's engine (``warmup``, a burst of 2,000 requests
+   of 1-128 rows, ``max_batch_rows`` 8,192, ``max_wait_ms`` 2, a
+   ``swap_state`` to the fleet's second state mid-burst), every response
+   bitwise a direct ``predict`` under its generation's state, requests
+   past their deadline failing with ``SLOExceeded`` and launching nothing,
+   the predict launches equal to the flushes plus the warmup shapes; the
+   same over the fleet engine; it prints the SLO summary and
+   ``load_summary()``;
 3c. serves ``llama3.2-1b`` at full width (random weights from a seed):
    ``init_params`` -> ``make_prefill_step`` over 4 prompts of 2048 tokens
    (twice, cold and warm) -> the caches copied into a cache with room for
@@ -113,13 +135,14 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    attention, and by teacher-forced decode against the prefill.
 
 Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b, 3f,
-3g and 3c and read just after; each kernel of a path must have launched in
-it (3d's, 3e's and 3f's ranks count their own launches and report them;
-3d, 3e, 3f and 3g count only the port's own calls, not the references
-run beside them, and 3e, 3f and 3g assert the counts their calls imply:
-one reg_stats launch a block a pass, one predict launch or more a served
-batch, one on each rank of a sharded batch, one in ``reconstruct``, none
-on the zoo's route).
+3g, 3h and 3c and read just after; each kernel of a path must have
+launched in it (3d's, 3e's and 3f's ranks count their own launches and
+report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
+the references run beside them, and 3e, 3f, 3g and 3h assert the counts
+their calls imply: one reg_stats launch a block a pass, one predict launch
+or more a served batch, one on each rank of a sharded batch, one in
+``reconstruct``, none on the zoo's route or in sampling, one a model a
+fleet batch and a front-end flush).
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -129,6 +152,7 @@ or no ``src/repro_torch`` beside it.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -2494,6 +2518,423 @@ def online_zoo_path(rt, cfg, zc, sgpr) -> dict:
     return launches
 
 
+# -- phase 3h: posterior sampling, the fleet engine and the front-end ---------
+
+# 4,096 of 3a's queries (16 blocks of 256), 256 draws each.
+SAMPLE_T, SAMPLE_BLOCK, SAMPLE_DRAWS, SAMPLE_SEED = 4096, 256, 256, 11
+# _sample_from_normals on the card against the CPU on the same normals:
+# max |card - CPU| / max |CPU|.
+SAMPLE_REL = 1e-10
+# Monte-Carlo checks, in standard errors of the estimator at 256 draws
+# (tests/test_serving_sampling.py: 5 for means, 6 for covariances and
+# variances).
+MEAN_SE, COV_SE = 5.0, 6.0
+# The fleet: 3a's state and the states after 1, 2 and 3 updates of fresh
+# 2,048-row blocks (3a's generator; seeds after 3g's ONLINE_SEED).
+FLEET_SEEDS = (2, 3, 4)
+MIX_REL = 1e-12   # predict_mixture against mixture_moments in plain f64
+# The front-end's burst: requests of 1-128 rows of 3a's queries (sizes and
+# offsets from FE_SEED), a swap to the fleet's second state after request
+# FE_SWAP_AT (once the first response is back, so flushes of both
+# generations are in flight), then FE_EXPIRED requests whose deadline has
+# passed; a
+# fleet front-end answers the first FE_FLEET requests.  The queue holds the
+# whole burst (~129,000 rows), which arrives at once.
+FE_REQUESTS, FE_MAX_ROWS, FE_SEED, FE_SWAP_AT = 2000, 128, 12, 1000
+FE_BATCH_ROWS, FE_WAIT_MS, FE_EXPIRED, FE_FLEET = 8192, 2.0, 5, 200
+FE_QUEUE_ROWS = 1 << 18
+
+
+def sampling_3h(rt, sgpr, count, report):
+    """``PredictEngine.sample`` / ``sample_stream`` at 3a's state: repeated
+    bits, the stream's bits, the card against the CPU on the same normals,
+    the draws' moments against ``predict`` and ``predict_full_cov``,
+    ``include_noise``, an f32 state and a refused bf16 one."""
+    from repro_torch.serve import posterior
+
+    state = sgpr["state"]
+    xq = t64(sgpr["queries"][:SAMPLE_T])
+    S, bs = SAMPLE_DRAWS, SAMPLE_BLOCK
+    eng = rt.PredictEngine(state, block_size=bs, device=DEV)
+    draws = count("sample_t4096_s", lambda: eng.sample(xq, S, SAMPLE_SEED))
+    if draws.shape != (S, SAMPLE_T, state.d) \
+            or not bool(torch.isfinite(draws).all()):
+        raise AssertionError(f"phase 3h: draws {tuple(draws.shape)}")
+    report["sample_same_seed_bitwise"] = torch.equal(
+        draws, count("sample_again_s", lambda: eng.sample(xq, S,
+                                                          SAMPLE_SEED)))
+    streamed = count("sample_stream_4x1024_s", lambda: torch.cat(list(
+        eng.sample_stream([xq[i:i + 1024] for i in range(0, SAMPLE_T, 1024)],
+                          S, SAMPLE_SEED)), 1))
+    report["sample_stream_bitwise"] = torch.equal(streamed, draws)
+    if not (report["sample_same_seed_bitwise"]
+            and report["sample_stream_bitwise"]):
+        raise AssertionError(f"phase 3h: sampling bits {report}")
+    report["sample_ms"] = {
+        "t4096": count("sample_timed_t4096_s", lambda: time_ms(
+            lambda: eng.sample(xq, S, SAMPLE_SEED), reps=3)),
+        "one_block": count("sample_timed_block_s", lambda: time_ms(
+            lambda: eng.sample(xq[:bs], S, SAMPLE_SEED), reps=5))}
+
+    # -- the card against the CPU, the same normals --------------------------
+    eps = np.random.default_rng(SAMPLE_SEED).standard_normal((S, bs, state.d))
+    got = posterior._sample_from_normals(state, xq[:bs], t64(eps))
+    want = posterior._sample_from_normals(state._to(device="cpu"),
+                                          xq[:bs].cpu(), t64(eps, "cpu"))
+    rel = report["sample_card_vs_cpu_rel"] = float(
+        (got.cpu() - want).abs().max() / want.abs().max())
+    if rel > SAMPLE_REL:
+        raise AssertionError(f"phase 3h: card against CPU {rel:.3e}")
+
+    # -- moments -------------------------------------------------------------
+    sf2 = float(torch.exp(state.hyp["log_sf2"]))
+    jit = eng.sample_jitter * sf2 + 1e-12   # the factor's diagonal jitter
+    mean, var = eng.predict(xq)
+    zmean = ((draws.mean(0) - mean).abs()
+             / ((var + jit) / S).sqrt()[:, None])
+    report["sample_mean_max_se"] = float(zmean.max())
+    fmean, fcov = eng.predict_full_cov(xq[:bs])
+    c = fcov + jit * torch.eye(bs, dtype=fcov.dtype, device=fcov.device)
+    sd2 = torch.diagonal(c)
+    se_cov = ((sd2[:, None] * sd2[None, :] + c ** 2) / S).sqrt()
+    r = draws[:, :bs] - fmean[None]
+    zcov = max(float(((torch.einsum("si,sj->ij", r[..., j], r[..., j]) / S
+                       - c).abs() / se_cov).max()) for j in range(state.d))
+    report["sample_block_cov_max_se"] = zcov
+    noisy = eng.sample(xq[:bs], S, SAMPLE_SEED + 1, include_noise=True)
+    _, vn = eng.predict(xq[:bs], include_noise=True)
+    vt = vn + jit
+    zvar = ((noisy.var(0, correction=0) - vt[:, None]).abs()
+            / (math.sqrt(2.0 / S) * vt)[:, None])
+    report["sample_noise_var_max_se"] = float(zvar.max())
+    report["noise_var_over_latent_var"] = float((vn / var[:bs]).mean())
+    if not (zmean.max() <= MEAN_SE and zcov <= COV_SE
+            and zvar.max() <= COV_SE):
+        raise AssertionError(f"phase 3h: moments {report}")
+
+    # -- storage widths --------------------------------------------------------
+    eng32 = rt.PredictEngine(state.astype(torch.float32), block_size=bs,
+                             device=DEV)
+    s32 = count("sample_f32_state_s", lambda: eng32.sample(xq[:bs], 16,
+                                                           SAMPLE_SEED))
+    if s32.dtype != torch.float32 or not bool(torch.isfinite(s32).all()):
+        raise AssertionError("phase 3h: the f32 state's draws")
+    refused = None
+    try:
+        rt.PredictEngine(state.astype(torch.bfloat16), device=DEV).sample(
+            xq[:bs], 2, SAMPLE_SEED)
+    except ValueError as e:
+        refused = str(e)
+    report["bf16_refused"] = refused is not None
+    if refused is None:
+        raise AssertionError("phase 3h: a bf16 state sampled")
+
+
+def fleet_3h(rt, cfg, sgpr, count, report):
+    """``MultiPredictEngine`` over 3a's state and the states after 1, 2 and
+    3 updates: rows bitwise each model's own engine, one predict launch a
+    model a batch, ``predict_mixture`` against ``mixture_moments`` in plain
+    f64, ``swap_slot``, and ``DistributedGP.multi_predict_engine`` (and a
+    sharded engine's ``sample``) in an NCCL world of one.  Returns the
+    fleet's states."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_data_group
+    from repro_torch.serve import MultiPredictEngine
+
+    model, xq = sgpr["model"], t64(sgpr["queries"])
+    states = [sgpr["state"]]
+    for seed in FLEET_SEEDS:
+        x_new, y_new = make_regression(np.random.default_rng(seed), ONLINE_K,
+                                       cfg.q, cfg.d)
+        count(f"fleet_update_seed{seed}_s", lambda: model.update(x_new, y_new))
+        states.append(model._pstate_cache)
+    n = len(states)
+    eng = count("fleet_engine_s", lambda: MultiPredictEngine(states,
+                                                             device=DEV))
+    mean, var = count("fleet_predict_t65536_s",
+                      lambda: eng.predict(xq, include_noise=True))
+    report["fleet_batch_ms"] = count(
+        "fleet_timed_s", lambda: time_ms(lambda: eng.predict(xq), reps=5))
+    singles = [rt.PredictEngine(s, device=DEV) for s in states]
+    report["fleet_single_ms"] = time_ms(lambda: singles[0].predict(xq),
+                                        reps=5)
+    bitwise = []
+    for k, one in enumerate(singles):
+        m1, v1 = one.predict(xq, include_noise=True)
+        bitwise.append(torch.equal(mean[k], m1) and torch.equal(var[k], v1))
+    report["fleet_rows_bitwise"] = bitwise
+    if not all(bitwise):
+        raise AssertionError(f"phase 3h: fleet rows bitwise {bitwise}")
+
+    mu, v = count("fleet_mixture_s", lambda: eng.predict_mixture(xq))
+    m_np, v_np = (a.cpu().numpy() for a in eng.predict(xq))
+    mu_ref = m_np.mean(0)
+    v_ref = np.maximum(v_np, 0.0).mean(0)[:, None] + m_np.var(0)
+    report["fleet_mixture_rel"] = {
+        "mean": float(np.abs(mu.cpu().numpy() - mu_ref).max()
+                      / np.abs(mu_ref).max()),
+        "var": float(np.abs(v.cpu().numpy() - v_ref).max()
+                     / np.abs(v_ref).max())}
+    if max(report["fleet_mixture_rel"].values()) > MIX_REL:
+        raise AssertionError(f"phase 3h: {report['fleet_mixture_rel']}")
+
+    count("fleet_swap_slot_s", lambda: eng.swap_slot(2, states[0]))
+    m2, v2 = count("fleet_predict_after_swap_s",
+                   lambda: eng.predict(xq, include_noise=True))
+    moved = [not (torch.equal(m2[k], mean[k]) and torch.equal(v2[k], var[k]))
+             for k in range(n)]
+    report["fleet_swap_slot"] = {
+        "slot_is_new_state": torch.equal(m2[2], mean[0])
+        and torch.equal(v2[2], var[0]),
+        "moved": moved}
+    if not report["fleet_swap_slot"]["slot_is_new_state"] \
+            or moved != [False, False, True, False]:
+        raise AssertionError(f"phase 3h: swap_slot {report['fleet_swap_slot']}")
+
+    group = make_data_group(DEV)
+    try:
+        dgp = rt.DistributedGP(group, device=DEV)
+        deng = dgp.multi_predict_engine(states)
+        got = count("fleet_dist_predict_s",
+                    lambda: deng.predict(xq, include_noise=True))
+        report["fleet_dist_bitwise"] = all(
+            torch.equal(a, b) for a, b in zip(got, (mean, var)))
+        seng = dgp.predict_engine(states[0])
+        sd = count("sample_dist_t4096_s", lambda: seng.sample(
+            xq[:SAMPLE_T], SAMPLE_DRAWS, SAMPLE_SEED))
+        report["sample_dist_bitwise"] = torch.equal(sd, rt.PredictEngine(
+            states[0], device=DEV).sample(xq[:SAMPLE_T], SAMPLE_DRAWS,
+                                          SAMPLE_SEED))
+    finally:
+        dist.destroy_process_group()
+    if not (report["fleet_dist_bitwise"] and report["sample_dist_bitwise"]):
+        raise AssertionError(f"phase 3h: NCCL world of one {report}")
+    return states
+
+
+def frontend_3h(rt, sgpr, states, count, report):
+    """A ``Frontend`` over 3a's f64 engine: ``warmup``, a burst of
+    FE_REQUESTS requests with a ``swap_state`` to the fleet's second state
+    after request FE_SWAP_AT, every response bitwise a direct ``predict``
+    under its generation's state, expired requests launching nothing, the
+    predict launches equal to the flushes plus the warmup shapes; then the
+    same front-end over the fleet engine."""
+    import asyncio
+
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.serve import Frontend, MultiPredictEngine, SLOExceeded
+
+    xall = sgpr["queries"]
+    rng = np.random.default_rng(FE_SEED)
+    sizes = rng.integers(1, FE_MAX_ROWS + 1, FE_REQUESTS)
+    offsets = rng.integers(0, xall.shape[0] - FE_MAX_ROWS, FE_REQUESTS)
+    reqs = [xall[o:o + s] for o, s in zip(offsets, sizes)]
+
+    pauses = []   # the garbage collector's pauses during a burst, seconds
+
+    def on_gc(phase, info):
+        if phase == "start":
+            on_gc.t0 = time.perf_counter()
+        else:
+            pauses.append(time.perf_counter() - on_gc.t0)
+
+    async def session(eng, n_req, swap_to=None):
+        out = {}
+        async with Frontend(eng, max_batch_rows=FE_BATCH_ROWS,
+                            max_wait_ms=FE_WAIT_MS,
+                            max_queue_rows=FE_QUEUE_ROWS) as fe:
+            out["shapes"] = fe.warmup()
+            pauses.clear()
+            gc.callbacks.append(on_gc)
+            t0 = time.perf_counter()
+            if swap_to is None:
+                futs = [asyncio.ensure_future(fe.submit(x)) for x in
+                        reqs[:n_req]]
+            else:
+                futs = [asyncio.ensure_future(fe.submit(
+                    x, include_noise=i % 2 == 0))
+                    for i, x in enumerate(reqs[:FE_SWAP_AT])]
+                await futs[0]   # the first flush answered, later ones queued
+                ts = time.perf_counter()
+                out["swap_generation"] = fe.swap_state(swap_to)
+                out["swap_ms"] = 1e3 * (time.perf_counter() - ts)
+                futs += [asyncio.ensure_future(fe.submit(
+                    x, include_noise=i % 2 == 0))
+                    for i, x in enumerate(reqs[FE_SWAP_AT:n_req], FE_SWAP_AT)]
+            out["results"] = await asyncio.gather(*futs)
+            out["burst_s"] = time.perf_counter() - t0
+            gc.callbacks.remove(on_gc)
+            out["gc_pauses_ms"] = [1e3 * p for p in pauses]
+            out["flush_ms"] = [1e3 * r[0] for r in fe.timer.records]
+            if swap_to is not None:
+                before = p_ops.LAUNCHES["float64"]
+                out["expired"] = await asyncio.gather(
+                    *[fe.submit(x, deadline_ms=-1.0)
+                      for x in reqs[:FE_EXPIRED]], return_exceptions=True)
+                out["expired_launches"] = p_ops.LAUNCHES["float64"] - before
+            out["summary"] = fe.metrics.summary()
+            out["load"] = fe.load_summary()
+        return out
+
+    eng = rt.PredictEngine(sgpr["state"], device=DEV)
+    res = count("frontend_burst_s", lambda: asyncio.run(
+        session(eng, FE_REQUESTS, swap_to=states[1])))
+    summ, c = res["summary"], res["summary"]["counters"]
+    rows = int(sizes.sum())
+    report["frontend"] = {
+        "warmup_shapes": res["shapes"], "flushes": c["flushes"],
+        "requests": FE_REQUESTS, "rows": rows, "burst_s": res["burst_s"],
+        "rows_per_s": rows / res["burst_s"],
+        "requests_per_s": FE_REQUESTS / res["burst_s"],
+        "e2e_p50_ms": 1e3 * summ["e2e"]["p50"],
+        "e2e_p99_ms": 1e3 * summ["e2e"]["p99"],
+        "wait_p99_ms": 1e3 * summ["wait"]["p99"],
+        "engine_p50_ms": 1e3 * summ["engine"]["p50"],
+        "mean_batch_requests": summ["mean_batch_requests"],
+        "pad_fraction": summ["pad_fraction"], "counters": c,
+        "generations": {g: sum(r.generation == g for r in res["results"])
+                        for g in (0, 1)},
+        "expired_launches": res["expired_launches"],
+        "swap_ms": res["swap_ms"], "flush_ms": res["flush_ms"],
+        "gc_pauses_ms": res["gc_pauses_ms"]}
+    report["frontend_load_summary"] = res["load"]
+    launched = count.per_call["frontend_burst_s"]["predict_f64"]
+    if launched != c["flushes"] + res["shapes"]:
+        raise AssertionError(f"phase 3h: front-end launched {launched}, "
+                             f"flushes {c['flushes']} + warmup "
+                             f"{res['shapes']}")
+    if res["expired_launches"] or c["expired"] != FE_EXPIRED or not all(
+            isinstance(e, SLOExceeded) for e in res["expired"]):
+        raise AssertionError(f"phase 3h: expired requests {res['expired']}")
+    refs = {0: rt.PredictEngine(sgpr["state"], device=DEV),
+            1: rt.PredictEngine(states[1], device=DEV)}
+    bad = 0
+    for i, (x, r) in enumerate(zip(reqs, res["results"])):
+        m_ref, v_ref = refs[r.generation].predict(x, include_noise=i % 2 == 0)
+        bad += not (np.array_equal(r.mean, m_ref.cpu().numpy())
+                    and np.array_equal(r.var, v_ref.cpu().numpy()))
+    report["frontend"]["responses_not_bitwise"] = bad
+    if bad or c["completed"] != FE_REQUESTS or res["swap_generation"] != 1 \
+            or 0 in report["frontend"]["generations"].values():
+        raise AssertionError(f"phase 3h: front-end {report['frontend']}")
+
+    # The same burst again on a fresh front-end over the same engine (no
+    # swap, no expired requests): the warm numbers beside the first burst's.
+    wres = count("frontend_warm_burst_s", lambda: asyncio.run(
+        session(eng, FE_REQUESTS)))
+    wsum = wres["summary"]
+    report["frontend_warm"] = {
+        "flushes": wsum["counters"]["flushes"], "burst_s": wres["burst_s"],
+        "rows_per_s": rows / wres["burst_s"],
+        "e2e_p50_ms": 1e3 * wsum["e2e"]["p50"],
+        "e2e_p99_ms": 1e3 * wsum["e2e"]["p99"],
+        "flush_ms": wres["flush_ms"], "gc_pauses_ms": wres["gc_pauses_ms"]}
+    wl = count.per_call["frontend_warm_burst_s"]["predict_f64"]
+    if wl != wsum["counters"]["flushes"] + wres["shapes"] \
+            or wsum["counters"]["completed"] != FE_REQUESTS:
+        raise AssertionError(f"phase 3h: warm burst {report['frontend_warm']}"
+                             f", {wl} launches")
+
+    feng = MultiPredictEngine(states, device=DEV)
+    fres = count("frontend_fleet_s", lambda: asyncio.run(
+        session(feng, FE_FLEET)))
+    fc = fres["summary"]["counters"]
+    fbad = 0
+    for x, r in zip(reqs, fres["results"]):
+        m_ref, v_ref = feng.predict(x)
+        fbad += not (r.mean.shape == (len(states), x.shape[0],
+                                      sgpr["state"].d)
+                     and np.array_equal(r.mean, m_ref.cpu().numpy())
+                     and np.array_equal(r.var, v_ref.cpu().numpy()))
+    report["frontend_fleet"] = {
+        "flushes": fc["flushes"], "warmup_shapes": fres["shapes"],
+        "responses_not_bitwise": fbad,
+        "e2e_p99_ms": 1e3 * fres["summary"]["e2e"]["p99"]}
+    flaunched = count.per_call["frontend_fleet_s"]["predict_f64"]
+    if fbad or flaunched != len(states) * (fc["flushes"] + fres["shapes"]):
+        raise AssertionError(f"phase 3h: fleet front-end "
+                             f"{report['frontend_fleet']}, {flaunched} "
+                             "launches")
+
+
+def serving_ext_path(rt, cfg, sgpr) -> dict:
+    """Phase 3h on 3a's fitted model: sampling (``sampling_3h``), the fleet
+    engine (``fleet_3h``) and the front-end (``frontend_3h``).  Every
+    launch counter is 0 just before and read just after; only the port's
+    own calls count (the reference engines the checks build launch the
+    same kernel and are left out), and each call's count is checked: one
+    reg_stats launch an update, one predict launch a model a batch, one a
+    model a front-end flush and a warmup shape, none in sampling."""
+    from repro_torch.kernels.predict import ops as p_ops
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+
+    steps, report = {}, {}
+    step = timed_step(steps)
+
+    def counts():
+        return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "predict_f64": p_ops.LAUNCHES["float64"]}
+
+    launches = {k: 0 for k in counts()}
+
+    def count(name, fn):
+        before = counts()
+        out = step(name, fn)
+        count.per_call[name] = {k: c - before[k] for k, c in counts().items()}
+        for k, c in count.per_call[name].items():
+            launches[k] += c
+        return out
+
+    count.per_call = {}
+    reset_counts(rs_ops.LAUNCHES, p_ops.LAUNCHES, ps_ops.LAUNCHES)
+    try:
+        sampling_3h(rt, sgpr, count, report)
+        states = fleet_3h(rt, cfg, sgpr, count, report)
+        frontend_3h(rt, sgpr, states, count, report)
+        pc = count.per_call
+        n = len(states)
+        # what each call implies: (call, kernel, launches)
+        implied = [(name, "predict_f64", 0) for name in pc
+                   if name.startswith("sample")]
+        implied += [(f"fleet_update_seed{s}_s", "reg_stats_f64", 1)
+                    for s in FLEET_SEEDS]
+        implied += [("fleet_predict_t65536_s", "predict_f64", n),
+                    ("fleet_timed_s", "predict_f64", 6 * n),
+                    ("fleet_mixture_s", "predict_f64", n),
+                    ("fleet_predict_after_swap_s", "predict_f64", n),
+                    ("fleet_dist_predict_s", "predict_f64", n)]
+        wrong = {name: pc[name] for name, k, c in implied if pc[name][k] != c}
+        if wrong:
+            raise AssertionError(f"phase 3h: launches {wrong}")
+    finally:   # what was measured, also when a check failed
+        print(f"serving extensions path (3h) steps (s): {json.dumps(steps)}",
+              flush=True)
+        print(f"serving extensions path (3h) launches per call: "
+              f"{json.dumps(count.per_call)}", flush=True)
+        for key, val in report.items():
+            print(f"serving extensions path (3h) {key}: {json.dumps(val)}",
+                  flush=True)
+        print(f"serving extensions path (3h) card: {nvidia_smi()}",
+              flush=True)
+    fe = report["frontend"]
+    for label, r in (("burst", fe), ("warm burst", report["frontend_warm"])):
+        print(f"front-end (3h) SLO, {label}: p50 e2e {r['e2e_p50_ms']:.3f} "
+              f"ms, p99 e2e {r['e2e_p99_ms']:.3f} ms, {r['rows_per_s']:.0f} "
+              f"rows/s, {r['flushes']} flushes; card {nvidia_smi()}",
+              flush=True)
+    print(f"front-end (3h) load_summary(): "
+          f"{json.dumps(report['frontend_load_summary'])}", flush=True)
+    print(f"serving extensions path (3h) launches: {json.dumps(launches)}",
+          flush=True)
+    for name, c in launches.items():
+        if c < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "serving extensions path")
+    return launches
+
+
 # -- phase 2: flash attention --------------------------------------------------
 
 def visible_pairs(b, h, t, s, causal) -> int:
@@ -2815,6 +3256,7 @@ def main() -> int:
                                                 gplvm_model)
     online_launches = online_zoo_path(rt, cfg, GP_CONFIGS["sgpr-zoo-trend"],
                                       sgpr)
+    ext_launches = serving_ext_path(rt, cfg, sgpr)
     del sgpr, gplvm_model
     torch.cuda.empty_cache()
     lm_launches = lm_path(fa_ops, fa_ref)
@@ -2823,7 +3265,7 @@ def main() -> int:
                 + gplvm_launches["predict_f64"]}
     for kname, count in (*dist_launches.items(), *stream_launches.items(),
                          *remainder_launches.items(),
-                         *online_launches.items()):
+                         *online_launches.items(), *ext_launches.items()):
         launches[kname] += count
 
     def entry(kname, source, replaces, res):

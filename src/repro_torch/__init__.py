@@ -18,7 +18,9 @@ gradient, SCG ``fit``, optimal q(u)), ``extract_state`` / ``save_state`` /
 the ``streamed_*`` methods, ``PredictEngine.predict_stream``); the kernel
 zoo (``core.covariance``) and online updates (``SGPR.update`` / ``forget``,
 ``serve.online``, ``PredictEngine.ingest`` / ``forget`` / ``swap_state``);
-LM serving of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step``
+posterior sampling (``PredictEngine.sample`` / ``sample_stream``,
+``SGPR.sample``), the fleet engine (``serve.MultiPredictEngine``) and the
+async serving front-end (``serve.Frontend``, ``serve.slo``); LM serving of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step``
 / ``make_serve_step``).
 """
 from .core import SGPR, BayesianGPLVM, DistributedGP

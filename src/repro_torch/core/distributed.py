@@ -69,9 +69,11 @@ reg_stats_fn_for_engine`` and ``kernels.psi_stats.psi2_fn_for_engine`` of
 the engine's kernel): the hand-written kernels for the full-width SE-ARD on
 CUDA, the expression's plain math otherwise.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11),
-``multi_predict_engine`` (8).
+Serving: :meth:`DistributedGP.predict_engine` and
+:meth:`multi_predict_engine` shard each query batch's rows over the group.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP Queue 1
+item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11).
 """
 from __future__ import annotations
 
@@ -122,14 +124,6 @@ def unpad(arrs, n: int):
     if isinstance(arrs, dict):
         return {k: a[:n] for k, a in arrs.items()}
     return arrs[:n]
-
-
-def _not_ported(name: str, item: int):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"DistributedGP.{name} is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
-    method.__name__ = name
-    return method
 
 
 def _leaf(t, need: bool):
@@ -672,6 +666,19 @@ class DistributedGP:
         return PredictEngine(state, block_size=block_size, device=self.device,
                              group=self.group, donate=donate)
 
+    def multi_predict_engine(self, states, block_size: int = 256,
+                             donate: bool = False, compute_dtype=None):
+        """A ``serve.MultiPredictEngine`` serving N stacked states (an
+        ensemble or an A/B fleet, the same on every rank) on this engine's
+        device, sharding each batch's rows over the engine's group as
+        :meth:`predict_engine` does."""
+        from ..serve import MultiPredictEngine
+
+        return MultiPredictEngine(states, block_size=block_size,
+                                  compute_dtype=compute_dtype,
+                                  device=self.device, group=self.group,
+                                  donate=donate)
+
     # -- online updates -----------------------------------------------------------
     def update_stats_fn(self, d: int):
         """The distributed fold of a new sharded block into reduced Stats:
@@ -710,6 +717,3 @@ class DistributedGP:
         from ..serve import online
 
         return online.downdate_state(state, x_old, y_old, weights)
-
-    # -- not ported yet ---------------------------------------------------------
-    multi_predict_engine = _not_ported("multi_predict_engine", 8)

@@ -7,8 +7,8 @@ freeze the optimal q(u) into a ``PredictiveState`` and answer queries
 through the block engine; or train by minibatch SVI (``fit_svi``, Adam on
 the reweighted bound of ``batch_blocks`` sampled row blocks); absorb or
 forget a block of rows without re-scanning the rest (``update``,
-``forget``: the Stats fold, the serving factors take a rank-k refresh).
-``sample`` comes with ROADMAP Queue 1 item 8.
+``forget``: the Stats fold, the serving factors take a rank-k refresh);
+draw posterior functions (``sample``, through the engine's block sampler).
 """
 from __future__ import annotations
 
@@ -228,3 +228,19 @@ class SGPR(PosteriorCacheMixin):
                                  include_noise=include_noise,
                                  full_cov=full_cov)
         return tuple(o.cpu().numpy() for o in out)
+
+    def sample(self, xstar: np.ndarray, num_samples: int, seed: int = 0,
+               generator: torch.Generator | None = None,
+               include_noise: bool = False) -> np.ndarray:
+        """Posterior function draws at ``xstar``: (num_samples, t, d), a
+        numpy array.  Delegates to the cached engine's
+        ``PredictEngine.sample``: joint within each query block (the
+        engine's block size), independent across blocks.  ``generator``
+        (a ``torch.Generator``) takes the place of ``seed`` where given."""
+        if self._engine_cache is None:
+            self._engine_cache = self.serve_engine()
+        smp = self._engine_cache.sample(
+            torch.as_tensor(xstar, dtype=torch.float64), num_samples,
+            seed if generator is None else generator,
+            include_noise=include_noise)
+        return smp.cpu().numpy()

@@ -12,6 +12,13 @@ and folds them into the two serving contractions the per-query path uses,
 
 so a server answers queries with no triangular solve.  ``save_state`` /
 ``load_state`` write the JAX package's checkpoint format, leaf for leaf.
+
+``sample_block`` / ``sample_joint`` draw joint posterior functions through
+the stored factors (``_mean_cov_from_factors``) and a jittered f64
+Cholesky; ``_sample_from_normals`` is their body given the standard
+normals, so tests can feed both packages the same draws (torch's and
+``jax.random``'s generators differ).  Where JAX's Cholesky of an
+indefinite block returns NaN draws, torch's raises.
 """
 from __future__ import annotations
 
@@ -49,17 +56,19 @@ class PredictiveState:
     g: torch.Tensor            # (m, m) Kmm^-1 - Sigma^-1
     kernel: cov.Kernel = cov.SE_ARD
 
+    # Counted from the right, so a stacked state (``serve.stack_states``:
+    # a leading model axis) reads the same m, q and d.
     @property
     def m(self) -> int:
-        return self.z.shape[0]
+        return self.z.shape[-2]
 
     @property
     def q(self) -> int:
-        return self.z.shape[1]
+        return self.z.shape[-1]
 
     @property
     def d(self) -> int:
-        return self.c2.shape[1]
+        return self.c2.shape[-1]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -181,6 +190,98 @@ def predict_full_cov(state: PredictiveState, xstar):
             else ksm @ state.a_mean)
     kss = state.kernel.K(state.hyp, xstar, xstar)
     return mean, kss - ksm @ state.g @ ksm.T
+
+
+# -- posterior sampling ---------------------------------------------------------
+
+def _mean_cov_from_factors(state: PredictiveState, xstar):
+    """Joint moments through the stored Cholesky factors, not ``g``:
+    ``cov = kss - a1^T a1 + a2^T a2`` with ``a1 = L^-1 Km*`` and
+    ``a2 = LB^-1 a1``.  Every intermediate stays O(kss), where ``g``'s
+    O(cond(Kmm)) entries cancel: fine for a variance read once, fatal for a
+    matrix that must stay positive definite enough to factor."""
+    ksm = state.kernel.K(state.hyp, xstar, state.z)
+    mean = ksm @ state.a_mean
+    a1 = torch.linalg.solve_triangular(state.chol_kmm, ksm.T, upper=False)
+    a2 = torch.linalg.solve_triangular(state.chol_sigma, a1, upper=False)
+    kss = state.kernel.K(state.hyp, xstar, xstar)
+    return mean, kss - a1.T @ a1 + a2.T @ a2
+
+
+def _jittered_chol(state: PredictiveState, covm, t: int, jitter: float,
+                   include_noise: bool):
+    """``chol(cov + jitter * vs * I [+ I / beta])``, the sampling factor.
+    The jitter is scaled by the expression's signal variance (the
+    ``_chol_kmm`` convention); it also keeps the factor defined on a padded
+    block, whose duplicated zero rows make ``cov`` exactly singular."""
+    diag = jitter * state.kernel.variance_scale(state.hyp) + 1e-12
+    if include_noise:
+        diag = diag + torch.exp(-state.hyp["log_beta"])
+    eye = torch.eye(t, dtype=covm.dtype, device=covm.device)
+    return torch.linalg.cholesky(covm + diag * eye)
+
+
+def _check_sampling_state(state: PredictiveState) -> None:
+    if torch.finfo(state.dtype).bits < 32:
+        raise ValueError(
+            "sampling rebuilds the predictive covariance from the stored "
+            "chol factors, and sub-f32 storage rounding can make it "
+            "indefinite beyond any reasonable jitter; sample from an "
+            "f32/f64 PredictiveState (quantized states serve mean/var only)")
+
+
+def _sample_from_normals(state: PredictiveState, x_blk, eps,
+                         jitter: float = DEFAULT_JITTER,
+                         include_noise: bool = False):
+    """Joint draws over one query block from given standard normals:
+    ``mean + chol(cov) @ eps`` for ``eps`` (num_samples, t, d), in
+    ``x_blk``'s dtype.  The moments and the factor are computed in f64
+    whatever the compute dtype (the covariance of nearby queries is
+    near-singular by nature), and the draws are cast back.  Row i of a
+    draw reads covariance rows 0..i only (the factor is lower-triangular),
+    so pad rows after the real ones never change them."""
+    _check_sampling_state(state)
+    f64 = torch.float64
+    st = state if state.dtype == f64 else state._to(dtype=f64)
+    mean, covm = _mean_cov_from_factors(st, x_blk.to(f64))
+    lc = _jittered_chol(st, covm, x_blk.shape[0], jitter, include_noise)
+    draws = mean[None] + torch.einsum("ij,sjd->sid", lc, eps.to(f64))
+    return draws.to(x_blk.dtype)
+
+
+def _generator(key, device) -> torch.Generator:
+    """A ``torch.Generator`` as given, or a fresh one on ``device`` seeded
+    with the integer ``key``."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
+def sample_block(state: PredictiveState, x_blk, key, num_samples: int,
+                 jitter: float = DEFAULT_JITTER, include_noise: bool = False):
+    """Joint posterior samples over one query block: (num_samples, t, d).
+
+    ``key`` is a ``torch.Generator`` on the state's device or an integer
+    seed (the counterpart of a ``jax.random`` key); the standard normals
+    are drawn from it in f64 on the state's device, then
+    :func:`_sample_from_normals` turns them into draws.  The output dims
+    share one (t, t) factor (the SGPR predictive factorises over d)."""
+    dev = state.z.device
+    eps = torch.randn((num_samples, x_blk.shape[0], state.d),
+                      generator=_generator(key, dev), dtype=torch.float64,
+                      device=dev)
+    return _sample_from_normals(state, x_blk, eps, jitter, include_noise)
+
+
+def sample_joint(state: PredictiveState, xstar, key, num_samples: int,
+                 jitter: float = DEFAULT_JITTER, include_noise: bool = False):
+    """One-piece joint samples over all queries: (num_samples, t, d), the
+    small-t analogue of :func:`predict_full_cov` (O(t^2) memory, O(t^3)
+    factor).  ``PredictEngine.sample`` draws jointly within fixed-size
+    blocks and independently across them."""
+    x = torch.as_tensor(xstar).to(device=state.z.device, dtype=state.dtype)
+    return sample_block(state, x, key, num_samples, jitter=jitter,
+                        include_noise=include_noise)
 
 
 # -- persistence (the JAX package's checkpoint format) -----------------------

@@ -1036,3 +1036,117 @@ def test_zoo_routes_are_counted(cuda):
                                 kernel=Sum(SEARD(dims=(0,)),
                                            Linear(dims=(1,))), device=cuda)
     assert launched(disjoint.log_bound) == {}
+
+
+# -- posterior sampling, the fleet engine and the front-end on the card -----------
+
+def _fleet_states(device, n_models=3):
+    """Same-shape states of three hyper-parameter settings (a fleet)."""
+    x, y = _dist_inputs()[:2]
+    base = rt.SGPR(x, y, num_inducing=24, seed=0, device=device)
+    states = []
+    for k in range(n_models):
+        hyp = {kk: v.clone() for kk, v in base.params["hyp"].items()}
+        hyp["log_sf2"] = hyp["log_sf2"] + 0.1 * k
+        hyp["log_beta"] = hyp["log_beta"] + 0.2 * k
+        states.append(rt.SGPR(x, y, hyp=hyp, z=base.params["z"],
+                              device=device).predictive_state())
+    return states
+
+
+def test_sample_on_the_card_matches_cpu_through_the_same_normals(cuda):
+    """``_sample_from_normals`` on the card against the CPU on the same
+    normals (1e-10 relative to the draws' scale); ``PredictEngine.sample``
+    repeats its bits for a seed, ``sample_stream`` over whole blocks gives
+    the one-shot bits, an f32 engine samples and a bf16 state is refused."""
+    from repro_torch.serve import posterior
+
+    state = _fleet_states(cuda, 1)[0]
+    cpu_state = state._to(device="cpu")
+    rng = np.random.default_rng(5)
+    xb = rng.uniform(-2, 2, (256, state.q))
+    eps = rng.standard_normal((64, 256, state.d))
+    got = posterior._sample_from_normals(state, _t(xb, cuda), _t(eps, cuda))
+    want = posterior._sample_from_normals(cpu_state, _t(xb, "cpu"),
+                                          _t(eps, "cpu"))
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-10 * scale)
+    eng = rt.PredictEngine(state, block_size=256, device=cuda)
+    xq = rng.uniform(-2, 2, (1024, state.q))
+    one = eng.sample(xq, 16, 7)
+    assert one.shape == (16, 1024, state.d) and one.device.type == "cuda"
+    assert torch.equal(one, eng.sample(xq, 16, 7))
+    assert not torch.equal(one, eng.sample(xq, 16, 8))
+    streamed = torch.cat(list(eng.sample_stream(
+        [xq[:512], xq[512:768], xq[768:]], 16, 7)), 1)
+    assert torch.equal(streamed, one)
+    assert torch.equal(eng.sample(xq[:300], 16, 7), one[:, :300])
+    eng32 = rt.PredictEngine(state, device=cuda, compute_dtype=torch.float32)
+    s32 = eng32.sample(xq, 4, 7)
+    assert s32.dtype == torch.float32 and bool(torch.isfinite(s32).all())
+    with pytest.raises(ValueError, match="storage"):
+        rt.PredictEngine(state.astype(torch.bfloat16), device=cuda).sample(
+            xq, 2, 0)
+
+
+def test_fleet_rows_bitwise_single_engines_on_the_card(cuda):
+    """``MultiPredictEngine`` on the card: one predict f64 launch per model
+    a batch, every model's rows bitwise its own ``PredictEngine``'s, noise
+    included; after ``swap_slot`` the slot answers as the new state and the
+    others do not move."""
+    from repro_torch.serve import MultiPredictEngine
+
+    states = _fleet_states(cuda)
+    eng = MultiPredictEngine(states, device=cuda)
+    singles = [rt.PredictEngine(s, device=cuda) for s in states]
+    rng = np.random.default_rng(6)
+    for t in (1, 257, 4096):
+        xq = rng.uniform(-2, 2, (t, states[0].q))
+        before = p_ops.LAUNCHES["float64"]
+        mean, var = eng.predict(xq, include_noise=True)
+        assert p_ops.LAUNCHES["float64"] == before + len(states)
+        for k, one in enumerate(singles):
+            m1, v1 = one.predict(xq, include_noise=True)
+            assert torch.equal(mean[k], m1) and torch.equal(var[k], v1)
+    eng.swap_slot(1, states[2])
+    m2, _ = eng.predict(xq)
+    assert torch.equal(m2[1], singles[2].predict(xq)[0])
+    assert torch.equal(m2[0], mean[0]) and torch.equal(m2[2], mean[2])
+
+
+def test_frontend_responses_bitwise_on_the_card(cuda):
+    """A ``Frontend`` over an engine on the card: every response bitwise a
+    direct ``predict`` of its rows (noise included), the predict launches
+    equal to the flushes plus the warmup shapes; over the fleet engine the
+    (N, t, d) responses bitwise too."""
+    import asyncio
+
+    from repro_torch.serve import Frontend, MultiPredictEngine
+
+    states = _fleet_states(cuda)
+    rng = np.random.default_rng(7)
+    xs = [rng.uniform(-2, 2, (int(t), states[0].q))
+          for t in rng.integers(1, 65, 40)]
+    for eng, per_batch in ((rt.PredictEngine(states[0], block_size=64,
+                                             device=cuda), 1),
+                           (MultiPredictEngine(states, block_size=64,
+                                               device=cuda), len(states))):
+        async def main():
+            async with Frontend(eng, max_wait_ms=5.0,
+                                max_batch_rows=512) as fe:
+                before = p_ops.LAUNCHES["float64"]
+                shapes = fe.warmup()
+                out = await asyncio.gather(*[
+                    fe.submit(x, include_noise=(i % 2 == 0))
+                    for i, x in enumerate(xs)])
+                return (out, shapes, fe.metrics.summary()["counters"],
+                        p_ops.LAUNCHES["float64"] - before)
+
+        out, shapes, counters, launched = asyncio.run(main())
+        assert shapes == 8
+        assert launched == per_batch * (counters["flushes"] + shapes)
+        for i, (x, res) in enumerate(zip(xs, out)):
+            m_ref, v_ref = eng.predict(x, include_noise=(i % 2 == 0))
+            np.testing.assert_array_equal(res.mean, m_ref.cpu().numpy())
+            np.testing.assert_array_equal(res.var, v_ref.cpu().numpy())

@@ -494,7 +494,6 @@ def _engine(**kw):
 @pytest.mark.parametrize("make, item", [
     (lambda: _engine(chunk_size=4, reduce_mode="overlap"), "item 11"),
     (lambda: _engine(chunk_size=4, reduce_mode="overlap_eager"), "item 11"),
-    (lambda: _engine().multi_predict_engine([None]), "item 8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -612,14 +611,41 @@ def _ported_downdate_predictive_state(eng, hyp, zt, data, w, x, y, z):
                                    atol=1e-10, err_msg=f)
 
 
+def _ported_multi_predict_engine(eng, hyp, zt, data, w, x, y, z):
+    """The fleet engine over the engine's states (the sequential state and
+    one of a shifted ``log_sf2``): JAX's ``MultiPredictEngine`` answers on
+    JAX's own states, at ``tests/test_torch_serving.py``'s engine
+    tolerances (each package extracts its states)."""
+    from repro.serve import MultiPredictEngine as JMulti
+
+    hyp2 = {**hyp, "log_sf2": hyp["log_sf2"] + 0.3}
+    states = [eng.predictive_state(h, zt, data["y"], data["mu"], None, w)
+              for h in (hyp, hyp2)]
+    fleet = eng.multi_predict_engine(states, block_size=4)
+    assert fleet.n_models == 2 and fleet.group is None
+    xs = np.random.default_rng(7).standard_normal((13, Q))
+    mean, var = fleet.predict(xs, include_noise=True)
+    raw = _inputs()[4]
+    jstates = [_sequential_jax(h, x, y, z)[3] for h in
+               (raw, {**raw, "log_sf2": raw["log_sf2"] + 0.3})]
+    want_m, want_v = JMulti(jstates, block_size=4).predict(
+        jnp.asarray(xs), include_noise=True)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_m), rtol=1e-9,
+                               atol=1e-11)
+    np.testing.assert_allclose(var.numpy(), np.asarray(want_v), rtol=1e-8,
+                               atol=1e-10)
+
+
 @pytest.mark.parametrize("check", [
     _ported_reg_stats_fn, _ported_kernel, _ported_update_stats_fn,
     _ported_update_predictive_state, _ported_downdate_predictive_state,
+    _ported_multi_predict_engine,
 ], ids=lambda f: f.__name__.removeprefix("_ported_"))
 def test_ported_options_match_jax_sequential(check):
-    """The options that raised until the kernel zoo and the online updates
-    were ported (ROADMAP Queue 1 items 6 and 7), each now against the JAX
-    package's sequential math, in a world of one without a group."""
+    """The options that raised until the kernel zoo, the online updates and
+    the serving extensions were ported (ROADMAP Queue 1 items 6, 7 and 8),
+    each now against the JAX package's sequential math, in a world of one
+    without a group."""
     x, y, _, z, hyp = _inputs()
     eng = _engine()
     data, w = eng.put_data(y=y, mu=x)

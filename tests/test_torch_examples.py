@@ -7,8 +7,11 @@ in this process and on 2 spawned gloo ranks (the same bound and RMSE on
 every rank), and gplvm_embedding --tiny (the classes separate in the
 top two ARD dimensions; the embedding lands where the caller asks),
 kernel_zoo (the composite beats SE-ARD's bound and serves the same answers
-after a save/load round trip) and online_update (incremental updates equal
-a full rebuild to 1e-8)."""
+after a save/load round trip), online_update (incremental updates equal
+a full rebuild to 1e-8), ensemble_serve (a bf16 fleet's mixture within
+0.2 of the truth, 64 draws within 6 standard errors of the mean) and
+serve_frontend (every response of a burst and a hot swap bitwise its
+generation's engine)."""
 import datetime
 import json
 import pathlib
@@ -124,3 +127,22 @@ def test_online_update(capsys):
     out = capsys.readouterr().out
     assert "forgot block 2 -> n=500, blocks held=3" in out
     assert err < 1e-8 and np.isfinite(bound)
+
+
+def test_ensemble_serve(capsys):
+    from repro_torch.examples import ensemble_serve
+
+    rmse, gap, bound = ensemble_serve.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "fleet engine: 3 models, storage torch.bfloat16" in out
+    assert "ensemble served, sampled, and sanity-checked: OK" in out
+    assert rmse < 0.2 and gap < bound
+
+
+def test_serve_frontend(capsys):
+    from repro_torch.examples import serve_frontend
+
+    counters = serve_frontend.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "all responses bitwise-match their generation's state: OK" in out
+    assert counters["completed"] == 81 and counters["expired"] == 0

@@ -125,6 +125,9 @@ ALIASES = [("ard_kernel", "se_kernel", lambda h, z, mu, s: (h, mu, z)),
 @pytest.mark.parametrize("old,new,args", ALIASES, ids=[a[0] for a in ALIASES])
 def test_deprecated_aliases_warn_once_and_match(old, new, args, monkeypatch):
     monkeypatch.setattr(t_gpk, "_DEPRECATION_WARNED", set())
+    # The reference warns once per process too: another test file on the
+    # same worker may have used its alias already.
+    monkeypatch.setattr(j_gpk, "_DEPRECATION_WARNED", set())
     hyp, z, mu, s, _, _ = _inputs()
     with pytest.warns(DeprecationWarning, match=f"{old} is deprecated; use "
                       f"gp_kernels.{new}"):

@@ -64,6 +64,9 @@ def test_import_leaves_jax_out():
                "repro_torch.examples.online_update, "
                "repro_torch.core.chol_update, repro_torch.core.ref_naive, "
                "repro_torch.serve.online, "
+               "repro_torch.serve.frontend, repro_torch.serve.slo, "
+               "repro_torch.examples.ensemble_serve, "
+               "repro_torch.examples.serve_frontend, "
                "repro_torch.checkpoint; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
@@ -109,6 +112,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     state = model.predictive_state()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rt.PredictEngine(state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rt.serve.MultiPredictEngine([state, state])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rt.extract_state(model.params["hyp"], model.params["z"],
                          partial_stats(model.params["hyp"], model.params["z"],

@@ -1,6 +1,6 @@
 """Sharded serving (``PredictEngine(group=...)``,
-``DistributedGP.predict_engine``) and checkpoint rotation against the JAX
-package.
+``DistributedGP.predict_engine``, ``sample`` under the group) and
+checkpoint rotation against the JAX package.
 
 The reference runs in one subprocess on 4 placeholder devices:
 ``PredictEngine(state, mesh=...)`` over axis ``"data"`` for ragged batch
@@ -141,6 +141,18 @@ def _rank_main(rank, world, store_path, out_dir):
     padded, t = eng.pad_queries(queries[257])
     out["padded_rows"] = np.asarray([padded.shape[0], t])
     out["run_blocks_rows"] = np.asarray(eng.run_blocks(padded)[0].shape[0])
+    # sample: each rank draws its own contiguous blocks, one all_gather
+    sampled = []   # rows each sample_block call drew on this rank
+    plain_block = posterior.sample_block
+
+    def counted_block(st, x, *args, **kwargs):
+        sampled.append(x.shape[0])
+        return plain_block(st, x, *args, **kwargs)
+    posterior.sample_block = counted_block
+    out["sample"] = eng.sample(queries[257], 5, 3).numpy()
+    out["sample_rows"] = np.asarray(sum(sampled))
+    out["sample_stream"] = torch.cat(list(eng.sample_stream(
+        iter([queries[1000][:256], queries[1000][256:512]]), 5, 3)), 1).numpy()
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
@@ -178,6 +190,25 @@ def test_every_rank_returns_the_same_bits_computing_its_own_rows(ranks,
     padded = -(-t // mult) * mult
     for r in ranks:   # each rank computed a quarter of the padded rows
         assert int(r[f"rows/{block}/{t}"]) == padded // W
+
+
+def test_sharded_sample_is_the_world_of_ones_bits(ranks, jax_ref):
+    """``PredictEngine.sample`` under the group: every rank returns all 257
+    rows, bitwise a world of one's draws (block i's normals depend on the
+    key and i alone), each rank drawing only its own 2 of the 8 padded
+    blocks of 64; ``sample_stream`` over whole blocks is the one-shot."""
+    from repro_torch.serve import PredictEngine
+
+    state = _state(jax_ref)
+    _, _, queries = _problem()
+    one = PredictEngine(state, block_size=64, device="cpu")
+    want = one.sample(queries[257], 5, 3).numpy()
+    stream = one.sample(queries[1000][:512], 5, 3).numpy()
+    for r in ranks:
+        assert r["sample"].shape == (5, 257, 3)
+        np.testing.assert_array_equal(r["sample"], want)
+        np.testing.assert_array_equal(r["sample_stream"], stream)
+        assert int(r["sample_rows"]) == 2 * 64
 
 
 def test_predict_engine_and_its_entry_points_on_four_ranks(ranks, jax_ref):
