@@ -72,8 +72,20 @@ CUDA, the expression's plain math otherwise.
 Serving: :meth:`DistributedGP.predict_engine` and
 :meth:`multi_predict_engine` shard each query batch's rows over the group.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP Queue 1
-item: ``reduce_mode`` "overlap" / "overlap_eager" (item 11).
+The overlapped reduce (``reduce_mode="overlap"``, needs ``chunk_size``):
+:meth:`bound_fn` and :meth:`make_value_and_grad` reduce each block's packed
+Stats with an async ``all_reduce`` as soon as the block is mapped, waited
+on one block later, after the next block's map is launched
+(``"overlap_eager"``: in its own block), and fold the reduced values in
+block order (``stats.partial_stats_chunked(block_reduce_fn=...)``): one
+collective a block instead of one after the map, each riding behind the
+next block's map.  The gradient is step 3 as above: ∂F/∂S from the
+overlapped Stats, pulled back through the rank's own unreduced fold of the
+blocks, one all_reduce of the pulled (hyp, z) parts.  In a world of one it
+is bitwise the serial step; across ranks the sums associate per block,
+equal to f64 rounding.  The exact-Stats programs (:meth:`reduced_stats`,
+:meth:`predictive_state`, :meth:`update_stats_fn`, the ``streamed_*``
+methods) keep the one serial reduce, as the JAX engine's do.
 """
 from __future__ import annotations
 
@@ -176,9 +188,12 @@ class DistributedGP:
     JAX engine installs for its Pallas backend.  A given hook replaces its
     shim (e.g. ``core.gp_kernels.psi2_mxu``).
 
-    Not ported: ``reduce_mode`` other than ``"serial"`` (ROADMAP Queue 1
-    item 11).  Invalid arguments raise ``ValueError`` as the JAX engine's
-    do, before any valid but unported value is refused.
+    ``reduce_mode``: ``"serial"`` (one all_reduce after the map),
+    ``"overlap"`` (one a block, waited on one block later) or
+    ``"overlap_eager"`` (one a block, waited on in its block: the same
+    bits as ``"overlap"``); the non-serial modes need ``chunk_size``
+    (module docstring).  Invalid arguments raise ``ValueError`` as the JAX
+    engine's do.
     """
 
     def __init__(self, group=None, latent: bool = False,
@@ -207,9 +222,6 @@ class DistributedGP:
         if failure_mode not in ("drop", "rescale"):
             raise ValueError("failure_mode must be 'drop' or 'rescale', got "
                              f"{failure_mode!r}")
-        if reduce_mode != "serial":
-            raise NotImplementedError(f"reduce_mode={reduce_mode!r} is not "
-                                      "ported yet (ROADMAP Queue 1 item 11)")
         from ..kernels.psi_stats.ops import psi2_fn_for_engine
         from ..kernels.reg_stats.ops import reg_stats_fn_for_engine
 
@@ -227,6 +239,7 @@ class DistributedGP:
         self.failure_mode = failure_mode
         self.chunk_size = chunk_size
         self.batch_blocks = batch_blocks
+        self.reduce_mode = reduce_mode
         self._via_host = via_host(group, self.device)
         #: real rows this rank has read from streams (the read path's count)
         self.rows_read = 0
@@ -286,10 +299,11 @@ class DistributedGP:
         return None, draw
 
     def _local_stats(self, hyp, z, y, mu, s, w, draw=None, exact=False,
-                     init=None) -> Stats:
+                     init=None, block_reduce_fn=None) -> Stats:
         """This rank's map: under ``batch_blocks`` the sampled and
         reweighted fold of ``draw``, else (or ``exact``) the exact fold,
-        continuing ``init``."""
+        continuing ``init``; each block reduced by ``block_reduce_fn`` in
+        the engine's overlap mode if it is given."""
         svi = self.batch_blocks is not None and not exact
         gen, idx = self._draw(draw) if svi else (None, None)
         return partial_stats_chunked(hyp, z, y, mu, s, weights=w,
@@ -300,15 +314,68 @@ class DistributedGP:
                                      if svi else None,
                                      generator=gen, block_indices=idx,
                                      init=init, psi2_fn=self.psi2_fn,
-                                     reg_stats_fn=self.reg_stats_fn)
+                                     reg_stats_fn=self.reg_stats_fn,
+                                     block_reduce_fn=block_reduce_fn,
+                                     reduce_buffered=self.reduce_mode
+                                     != "overlap_eager")
 
     def _all_reduce(self, buf: torch.Tensor) -> torch.Tensor:
         """The constant-size sum over ranks (the paper's reduce)."""
+        return self._all_reduce_start(buf)()
+
+    def _all_reduce_start(self, buf: torch.Tensor):
+        """Start the sum over ranks of ``buf`` (``async_op``); returns a
+        callable that waits for it and returns the sum on ``buf``'s device.
+        Over gloo the host copy is made before the call and the copy back
+        after the wait."""
         if self.group is None:
-            return buf
+            return lambda: buf
         host = buf.cpu() if self._via_host else buf
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
-        return host.to(buf.device) if self._via_host else host
+        work = dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group,
+                               async_op=True)
+
+        def wait():
+            work.wait()
+            return host.to(buf.device) if self._via_host else host
+        return wait
+
+    def _overlapped(self, hyp, z, y, mu, s, w, draw=None):
+        """This rank's map under the overlapped reduce: ``(local,
+        reduced)``.  Each block's Stats go, packed and detached, into an
+        async all_reduce as soon as the block is mapped; ``reduced`` is the
+        fold of the reduced blocks in block order, ``local`` this rank's
+        own fold of the same blocks, with their graph (the gradient's
+        pull-back), scaled as the SVI map scales."""
+        m, d = z.shape[0], y.shape[1]
+        raws = []
+
+        def reduce_block(raw: Stats):
+            raws.append(raw)
+            with torch.no_grad():
+                wait = self._all_reduce_start(pack_stats(raw))
+            return lambda: unpack_stats(wait(), m, d)
+
+        reduced = self._local_stats(hyp, z, y, mu, s, w, draw,
+                                    block_reduce_fn=reduce_block)
+        local = zero_stats(m, d, dtype=y.dtype, device=y.device)
+        for raw in raws:
+            local = local + raw
+        scale = -(-y.shape[0] // self.chunk_size) / len(raws)
+        return (local.scale(scale) if scale != 1.0 else local), reduced
+
+    def _map_reduce(self, hyp, z, y, mu, s, wm, draw):
+        """This rank's map and the reduce, in the engine's ``reduce_mode``:
+        ``(local, reduced, n_live)``, n_live the SVI's deterministic live
+        count (None outside SVI), which rides in the serial reduce's buffer
+        and takes a scalar all_reduce of its own when overlapped."""
+        live_w = wm if self.batch_blocks is not None else None
+        if self.reduce_mode == "serial":
+            local = self._local_stats(hyp, z, y, mu, s, wm, draw)
+            return (local, *self._reduce(local, live_w))
+        local, st = self._overlapped(hyp, z, y, mu, s, wm, draw)
+        n_live = (None if live_w is None
+                  else self._all_reduce(live_w.sum().reshape(1))[0])
+        return local, st, n_live
 
     def _reduce(self, local: Stats, live_w=None):
         """One all_reduce of the packed local Stats -> ``(Stats, n_live)``.
@@ -365,11 +432,9 @@ class DistributedGP:
         ``batch_blocks``; NaN where the global step's Cholesky fails.
         Value only: the gradient is :meth:`make_value_and_grad`'s."""
         def bound(hyp, z, y, mu, s, w, fmask, n_full, draw=None):
-            svi = self.batch_blocks is not None
             with torch.no_grad():
-                wm = self._masked(w, fmask)
-                local = self._local_stats(hyp, z, y, mu, s, wm, draw)
-                st, n_live = self._reduce(local, wm if svi else None)
+                _, st, n_live = self._map_reduce(hyp, z, y, mu, s,
+                                                 self._masked(w, fmask), draw)
             return self._safe_bound(hyp, z, st, d, n_full, n_live)
         return bound
 
@@ -406,10 +471,10 @@ class DistributedGP:
             g_direct, parts.split([g.numel() for g in g_direct]))]
         return tree_unflatten(paths, summed[:-1]), summed[-1]
 
-    def _value_and_grad(self, d, argnums, hyp, z, mu, s, n_full, local_fn,
-                        live_w=None):
-        """(value, grads) of the negative bound of ``local_fn(hyp, z, mu,
-        s)``, this rank's Stats, through the reduce: steps 1-5 below."""
+    def _value_and_grad(self, d, argnums, hyp, z, mu, s, n_full, map_fn):
+        """(value, grads) of the negative bound through the reduce:
+        ``map_fn(hyp, z, mu, s) -> (local, reduced, n_live)``, this rank's
+        Stats and their reduce (:meth:`_map_reduce`); steps 1-5 below."""
         if 3 in argnums and s is None:
             raise ValueError("argnums holds 3 (s), but s is None")
         hyp, z, mu, s = (_leaf(p, i in argnums)
@@ -417,12 +482,12 @@ class DistributedGP:
         paths, leaves = zip(*tree_items(hyp))
         theta = [*leaves, z]                              # global params
         rows = [mu] + ([] if s is None else [s])          # this rank's
-        # 1. the map on this rank's rows, its graph kept for step 3
+        # 1. the map on this rank's rows, its graph kept for step 3, and
+        #    the reduce
         with torch.enable_grad():
-            local = local_fn(hyp, z, mu, s)
-        # 2. the reduce; the bound of the reduced Stats as leaves gives
-        #    dF/dS and the direct dF/dtheta, the same on every rank
-        st, n_live = self._reduce(local, live_w)
+            local, st, n_live = map_fn(hyp, z, mu, s)
+        # 2. the bound of the reduced Stats as leaves gives dF/dS and the
+        #    direct dF/dtheta, the same on every rank
         neg, g_theta, g_st = self._direct(hyp, z, st, d, n_full, n_live,
                                           theta)
         # 3. dF/dS pulled back through this rank's map
@@ -459,13 +524,11 @@ class DistributedGP:
         single, argnums = self._argnums(argnums, (0, 1, 2, 3))
 
         def step(hyp, z, mu, s, y, w, fmask, n_full, draw=None):
-            svi = self.batch_blocks is not None
             wm = self._masked(w, fmask)
             neg, out = self._value_and_grad(
                 d, argnums, hyp, z, mu, s, n_full,
-                lambda h, zz, m, ss: self._local_stats(h, zz, y, m, ss, wm,
-                                                       draw),
-                wm if svi else None)
+                lambda h, zz, m, ss: self._map_reduce(h, zz, y, m, ss, wm,
+                                                      draw))
             return neg, (out[0] if single else out)
 
         return step
@@ -620,7 +683,8 @@ class DistributedGP:
             def local(h, zz, mu, s):
                 st = self._local_stats(h, zz, arrs["y"], mu, s, wm,
                                        exact=True)
-                return st.scale(scale) if scale != 1.0 else st
+                st = st.scale(scale) if scale != 1.0 else st
+                return (st, *self._reduce(st))   # the serial reduce
 
             neg, out = self._value_and_grad(d, argnums, hyp, z, arrs["mu"],
                                             arrs.get("s"), n_full, local)

@@ -12,9 +12,9 @@ Each worker holds a shard ``(Y_k, mu_k, S_k)`` (regression: ``S_k = 0``,
 whose size is independent of n.  ``weights`` masks rows (padding, failed
 nodes) without changing shapes: a zero weight removes row i from every
 statistic.  Counterpart of ``repro.core.stats``, with the minibatch (SVI)
-mode (``batch_blocks``) and the host-fed carry (``init=``) of
-:func:`partial_stats_chunked`; the overlapped reduce (``block_reduce_fn``)
-comes with ROADMAP Queue 1 item 11.  :func:`pack_stats` /
+mode (``batch_blocks``), the host-fed carry (``init=``) and the
+overlapped reduce hook (``block_reduce_fn``) of
+:func:`partial_stats_chunked`.  :func:`pack_stats` /
 :func:`unpack_stats` flatten the Stats for the distributed reduce
 (``core.distributed``).
 
@@ -141,7 +141,9 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
                           batch_blocks: int | None = None,
                           generator: torch.Generator | None = None,
                           block_indices=None, init: Stats | None = None,
-                          psi2_fn=None, reg_stats_fn=None) -> Stats:
+                          psi2_fn=None, reg_stats_fn=None,
+                          block_reduce_fn=None,
+                          reduce_buffered: bool = True) -> Stats:
     """Streaming map step: :func:`partial_stats` folded over row blocks.
 
     Exact mode: rows are padded up to a multiple of ``block_size`` with zero
@@ -170,6 +172,20 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
 
     ``psi2_fn``, ``reg_stats_fn``: :func:`partial_stats`' hooks, called
     once a block.
+
+    ``block_reduce_fn``: the overlapped reduce.  Each block's raw Stats go
+    through it as soon as the block is mapped, and the accumulator folds
+    the reduced values left to right from zero, so the result is already
+    reduced (callers must not reduce it again).  It returns the reduced
+    Stats, or a zero-argument callable that returns them once a collective
+    in flight completes (``core.distributed``'s async ``all_reduce``).
+    ``reduce_buffered`` (default) resolves block t's reduce after block
+    t+1 is mapped, so the collective rides behind the next block's map;
+    False resolves it in its own block.  Both fold the same values in the
+    same order, so they are bitwise equal.  Needs ``block_size``, forces
+    the fold even for one block, refuses ``init`` (a prior carry is
+    unreduced); under ``batch_blocks`` the ``nb / batch_blocks`` scale is
+    applied to the reduced accumulator.
     """
     n_k = y.shape[0]
     if batch_blocks is not None:
@@ -183,6 +199,17 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
             raise ValueError(
                 "init cannot be combined with batch_blocks: the SVI "
                 "reweighting scales the whole carry, prior chunks included")
+    if block_reduce_fn is not None:
+        if block_size is None:
+            raise ValueError(
+                "block_reduce_fn (overlapped reduce) requires block_size: "
+                "the per-block collective needs blocks to hide behind")
+        if init is not None:
+            raise ValueError(
+                "init cannot be combined with block_reduce_fn: a prior-"
+                "chunk carry is shard-local, the overlapped carry is "
+                "already reduced")
+        force_scan = True
     if block_size is None or (n_k <= block_size and not force_scan):
         st = partial_stats(hyp, z, y, mu, s, weights=weights,
                            latent=latent, kernel=kernel, psi2_fn=psi2_fn,
@@ -222,12 +249,29 @@ def partial_stats_chunked(hyp: dict, z, y, mu, s=None, weights=None,
         order, scale = [int(i) for i in idx.tolist()], nb / batch_blocks
     acc = (zero_stats(z.shape[0], y.shape[1], dtype=y.dtype, device=y.device)
            if init is None else init)
+    pending = None   # the buffered reduce of the previous block
     for i in order:
         yb, mub, sb, wb = block(i)
-        acc = acc + partial_stats(hyp, z, yb, mub, sb, weights=wb,
-                                  latent=latent, kernel=kernel,
-                                  psi2_fn=psi2_fn, reg_stats_fn=reg_stats_fn)
+        st = partial_stats(hyp, z, yb, mub, sb, weights=wb, latent=latent,
+                           kernel=kernel, psi2_fn=psi2_fn,
+                           reg_stats_fn=reg_stats_fn)
+        if block_reduce_fn is None:
+            acc = acc + st
+            continue
+        reduced = block_reduce_fn(st)
+        if reduce_buffered:
+            reduced, pending = pending, reduced
+        if reduced is not None:
+            acc = acc + _resolved(reduced)
+    if pending is not None:
+        acc = acc + _resolved(pending)
     return acc.scale(scale) if scale != 1.0 else acc
+
+
+def _resolved(reduced) -> Stats:
+    """A ``block_reduce_fn`` result: Stats, or a callable that waits for
+    them."""
+    return reduced() if callable(reduced) else reduced
 
 
 def reduce_stats(parts: list[Stats]) -> Stats:

@@ -7,15 +7,24 @@ a re-fitted state mid-traffic.  Every response is checked bitwise against
 a direct engine call on the state of the generation it was served under.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_frontend [--device cpu]
+
+Under a launcher the engine is sharded over the ranks: rank 0 runs the
+front-end, the other ranks ``serve_follower`` (each rank fits the same
+states from the same seed):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node=4 \
+      -m repro_torch.examples.serve_frontend --device cpu
 """
 import asyncio
+import os
 import tempfile
 
 import numpy as np
 
 from repro_torch.core import SGPR
 from repro_torch.examples import device_args
-from repro_torch.serve import Frontend, PredictEngine, load_state, save_state
+from repro_torch.serve import (Frontend, PredictEngine, load_state,
+                               save_state, serve_follower)
 
 
 def fit_state(rng, wiggle, device):
@@ -27,13 +36,14 @@ def fit_state(rng, wiggle, device):
     return model.predictive_state()
 
 
-async def serve(state_a, ckpt_b, rng, device):
-    engine = PredictEngine(state_a, block_size=128, device=device)
-    async with Frontend(engine, max_wait_ms=2.0, max_batch_rows=128,
-                        default_deadline_ms=250.0) as fe:
+async def serve(engine, state_a, ckpt_b, rng, device):
+    fe = Frontend(engine, max_wait_ms=2.0, max_batch_rows=128,
+                  default_deadline_ms=250.0)
+    async with fe:
         n_shapes = fe.warmup()        # run every padded batch size once
-        print(f"frontend up: block 128, batches <= 128 rows, "
-              f"{n_shapes} shapes warmed")
+        print(f"frontend up: block 128 on {engine.n_shards} rank(s), "
+              f"batches <= {fe.max_batch_rows} rows, {n_shapes} shapes "
+              "warmed")
 
         # -- a concurrent burst: 60 clients, mixed request sizes ------------
         queries = [rng.uniform(-3, 3, size=(rng.integers(1, 9), 1))
@@ -75,7 +85,8 @@ async def serve(state_a, ckpt_b, rng, device):
         print(f"engine load (per flush): min {lo['min'] * 1e3:.2f} ms, "
               f"mean {lo['mean'] * 1e3:.2f} ms, max {lo['max'] * 1e3:.2f} ms")
         assert summ["counters"]["completed"] == 81    # 60 + 20 + 1, none lost
-        return summ["counters"]
+    fe.close()   # ends the followers' loop (nothing to do alone)
+    return summ["counters"]
 
 
 def main(argv=None):
@@ -84,9 +95,25 @@ def main(argv=None):
     print("fitting generation-0 and generation-1 models ...")
     state_a = fit_state(rng, 2.0, args.device)
     state_b = fit_state(rng, 2.4, args.device)   # the "re-fit" to roll out
-    ckpt_dir = tempfile.mkdtemp(prefix="serve_frontend_")
-    ckpt_b = save_state(f"{ckpt_dir}/refit", state_b)
-    return asyncio.run(serve(state_a, str(ckpt_b), rng, args.device))
+    group = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:   # under a launcher
+        from repro_torch.launch import make_data_group
+        group = make_data_group(args.device)
+    try:
+        engine = PredictEngine(state_a, block_size=128, device=args.device,
+                               group=group)
+        if engine.rank:
+            print(f"rank {engine.rank}: served {serve_follower(engine)} "
+                  "batches")
+            return None
+        ckpt_dir = tempfile.mkdtemp(prefix="serve_frontend_")
+        ckpt_b = save_state(f"{ckpt_dir}/refit", state_b)
+        return asyncio.run(serve(engine, state_a, str(ckpt_b), rng,
+                                 args.device))
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

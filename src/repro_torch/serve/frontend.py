@@ -36,28 +36,40 @@ no compile to pay: :meth:`Frontend.warmup` runs every padded batch shape
 once, so the kernel's library is built or loaded and the allocator holds
 its blocks before the first flush.
 
-An engine sharded over a process group of more than one rank cannot be
-driven by one front-end (every rank must make the same calls with the same
-batches): ROADMAP Queue 1 item 15.  All request-path methods (``submit``,
-``start``, ``stop``) belong to one event loop; ``swap_state`` may be called
-from any thread.
+An engine sharded over a process group (``PredictEngine(group=)``,
+``MultiPredictEngine(group=)``) needs every rank to make the same calls
+with the same batches, where the JAX package's front-end drives a mesh
+from one process.  So rank 0 runs the :class:`Frontend`, and each other
+rank runs :func:`serve_follower` on its engine.  Every flush broadcasts
+a small header (operation, rows, generation) and the padded batch, then
+every rank calls ``run_blocks`` on it, whose ``all_gather`` hands rank 0
+every row; a ``swap_state`` broadcasts the new compute state's leaves;
+:meth:`Frontend.close` sends the message that ends the followers' loop.
+Over gloo the broadcasts go through the host, over NCCL on the card.  A
+world of one serves as without a group.  All request-path methods
+(``submit``, ``start``, ``stop``, ``close``) belong to one event loop;
+``swap_state`` may be called from any thread.
 """
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import pathlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import rank_device
+from ..core.flat import tree_items, tree_unflatten
 from ..distributed.fault import StepTimer
 from .engine import MultiPredictEngine, PredictEngine
-from .posterior import load_state
+from .posterior import _ARRAY_FIELDS, load_state
 from .slo import SLOMetrics
 
 _NUMPY_DTYPES = {torch.float64: np.float64, torch.float32: np.float32,
@@ -100,13 +112,98 @@ class _Request:
 
 _CLOSE = object()   # queue sentinel: drain and stop
 
+# The operations rank 0 broadcasts to the followers of a sharded engine.
+_OP_RUN, _OP_SWAP, _OP_STOP = 1, 2, 3
+
+
+def _buffer(engine, shape, dtype) -> torch.Tensor:
+    """A buffer to receive a broadcast in: on the host over gloo, on the
+    engine's device over NCCL."""
+    on_host = engine._via_host or engine.device.type == "cpu"
+    return torch.empty(shape, dtype=dtype,
+                       device="cpu" if on_host else engine.device)
+
+
+def _broadcast(engine, t: torch.Tensor) -> torch.Tensor:
+    """``t`` from rank 0 to every rank of the engine's group (a follower
+    passes a :func:`_buffer` to receive into); returns it on the engine's
+    device.  NCCL takes contiguous tensors only, and a state's factors on
+    the card may be column-major (the Cholesky's layout)."""
+    on_host = engine._via_host or engine.device.type == "cpu"
+    buf = (t.cpu() if on_host else t.to(engine.device)).contiguous()
+    dist.broadcast(buf, src=dist.get_global_rank(engine.group, 0),
+                   group=engine.group)
+    return buf.to(engine.device)
+
+
+def _send_header(engine, op: int, rows: int = 0, generation: int = 0):
+    _broadcast(engine, torch.tensor([op, rows, generation],
+                                    dtype=torch.int64))
+
+
+def _from_leaves(template, leaves):
+    """A state of ``template``'s layout holding ``leaves`` (its
+    ``_leaves()`` order)."""
+    paths = [p for p, _ in tree_items(template.hyp)]
+    k = len(paths)
+    return dataclasses.replace(template,
+                               hyp=tree_unflatten(paths, leaves[:k]),
+                               **dict(zip(_ARRAY_FIELDS, leaves[k:])))
+
+
+def _bound_device(device):
+    """The engine's card as the current device of this thread (it is per
+    thread), or nothing on the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def serve_follower(engine: PredictEngine | MultiPredictEngine) -> int:
+    """The loop of a follower rank (rank > 0) of an engine sharded over a
+    process group, in lockstep with rank 0's :class:`Frontend` over the
+    same engine: each flush's padded batch goes through ``run_blocks``
+    under the state of the flush's generation (its ``all_gather`` hands
+    rank 0 every row), each ``swap_state`` replaces the state, and rank
+    0's :meth:`Frontend.close` ends the loop.  The engine must start from
+    the state rank 0's engine holds when its front-end is built.  Returns
+    the number of batches served."""
+    if engine.n_shards == 1 or engine.rank == 0:
+        raise ValueError(
+            "serve_follower runs on the ranks > 0 of an engine sharded "
+            "over a process group; rank 0 runs the Frontend")
+    # Generation -> compute state: a flush dispatched before a swap may
+    # reach the followers after it, under its own generation.
+    states = {0: engine.compute_state}
+    served = 0
+    with _bound_device(rank_device(engine.device)), torch.no_grad():
+        while True:
+            op, rows, gen = _broadcast(
+                engine, _buffer(engine, (3,), torch.int64)).tolist()
+            if op == _OP_STOP:
+                return served
+            if op == _OP_SWAP:
+                leaves = [_broadcast(engine, _buffer(engine, t.shape,
+                                                     t.dtype))
+                          for t in engine.compute_state._leaves()]
+                engine.swap_state(_from_leaves(engine.compute_state, leaves))
+                states[gen] = engine.compute_state
+                continue
+            x = _broadcast(engine, _buffer(engine, (rows, engine.state.q),
+                                           engine.compute_dtype))
+            for g in [g for g in states if g < gen]:
+                del states[g]    # flushes come in generation order
+            engine.run_blocks(x, states[gen])
+            served += 1
+
 
 class Frontend:
     """Continuous micro-batching front-end over a predict engine.
 
     Args:
-      engine: a :class:`PredictEngine` or :class:`MultiPredictEngine`
-        (alone, or in a process group of one rank).
+      engine: a :class:`PredictEngine` or :class:`MultiPredictEngine`,
+        alone or sharded over a process group; a sharded engine's
+        front-end runs on rank 0 and the other ranks run
+        :func:`serve_follower` (module docstring).
       max_batch_rows: flush as soon as a batch holds this many rows
         (rounded up to the engine's ``n_shards * block_size``, so a full
         flush needs no pad rows).  A hard cap: a request that would push
@@ -132,13 +229,10 @@ class Frontend:
                  default_deadline_ms: float | None = None,
                  metrics: SLOMetrics | None = None,
                  timer: StepTimer | None = None):
-        if engine.n_shards > 1:
-            raise NotImplementedError(
-                "a Frontend over an engine sharded across "
-                f"{engine.n_shards} ranks is not ported yet (ROADMAP Queue 1 "
-                "item 15): every rank must make the same calls with the "
-                "same batches, so rank 0's front-end would have to "
-                "broadcast each flush to the others")
+        if engine.n_shards > 1 and engine.rank != 0:
+            raise ValueError(
+                "the Frontend of an engine sharded over a process group runs "
+                f"on rank 0; run serve_follower(engine) on rank {engine.rank}")
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if max_queue_rows < 1:
@@ -184,10 +278,18 @@ class Frontend:
                          self._noise_of(engine.compute_state))
         self._task: asyncio.Task | None = None
         self._closed = False
+        # A sharded engine: rank 0's messages to the followers, one at a
+        # time (a flush and a swap from another thread must not interleave
+        # their collectives).
+        self._sharded = engine.n_shards > 1
+        self._send_lock = threading.Lock()
+        self._shut = False
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Frontend":
         """Start the dispatch loop on the running event loop (idempotent)."""
+        if self._shut:
+            raise FrontendError("Frontend is closed")
         if self._task is None:
             self._closed = False
             self._task = asyncio.get_running_loop().create_task(
@@ -204,6 +306,17 @@ class Frontend:
         await self._task
         self._task = None
 
+    def close(self) -> None:
+        """Send the followers of a sharded engine the message that ends
+        their :func:`serve_follower` loop; call it after :meth:`stop`, once
+        serving is over.  Idempotent; nothing to do in a world of one."""
+        if self._task is not None:
+            raise FrontendError("stop() the Frontend before close()")
+        if self._sharded and not self._shut:
+            with self._send_lock:
+                _send_header(self.engine, _OP_STOP)
+        self._shut = True
+
     async def __aenter__(self) -> "Frontend":
         return self.start()
 
@@ -215,12 +328,14 @@ class Frontend:
         multiple of the padding multiple up to ``max_batch_rows``) once, so
         no flush pays the kernel library's build or load, or the
         allocator's first blocks of its shape.  Blocking; call before
-        taking load.  Returns the number of shapes run."""
-        cstate = self._current[1]
+        taking load.  A sharded engine's followers run every shape too.
+        Returns the number of shapes run."""
+        gen, cstate, _ = self._current
         n = 0
         for rows in range(self._row_mult, self.max_batch_rows + 1,
                           self._row_mult):
-            self._run_batch(cstate, np.zeros((rows, self._q), self._np_dtype))
+            self._run_batch(gen, cstate,
+                            np.zeros((rows, self._q), self._np_dtype))
             n += 1
         return n
 
@@ -292,21 +407,32 @@ class Frontend:
         ``serve.load_state``: a rollout host needs no model code).  ``slot``
         selects one model of a :class:`MultiPredictEngine` fleet
         (``swap_slot``); ``None`` replaces the whole state.  A flush in
-        flight completes against the state it was dispatched with.
+        flight completes against the state it was dispatched with.  A
+        sharded engine's followers are sent the new compute state's leaves.
         """
         state = state_or_path
         if isinstance(state, (str, pathlib.Path)):
             state, _ = load_state(state, device=self.engine.device)
-        if slot is None:
-            self.engine.swap_state(state)
-        else:
-            if not self._multi:
-                raise ValueError(
-                    "slot= is only meaningful for a MultiPredictEngine fleet")
-            self.engine.swap_slot(slot, state)
-        self._generation += 1
-        cstate = self.engine.compute_state
-        self._current = (self._generation, cstate, self._noise_of(cstate))
+        if slot is not None and not self._multi:
+            raise ValueError(
+                "slot= is only meaningful for a MultiPredictEngine fleet")
+        if self._shut:
+            raise FrontendError("Frontend is closed")
+        with self._send_lock:
+            if slot is None:
+                self.engine.swap_state(state)
+            else:
+                self.engine.swap_slot(slot, state)
+            self._generation += 1
+            cstate = self.engine.compute_state
+            if self._sharded:
+                with _bound_device(self._device):
+                    _send_header(self.engine, _OP_SWAP,
+                                 generation=self._generation)
+                    for leaf in cstate._leaves():
+                        _broadcast(self.engine, leaf)
+            self._current = (self._generation, cstate,
+                             self._noise_of(cstate))
         return self._generation
 
     # -- the dispatch loop --------------------------------------------------
@@ -386,7 +512,7 @@ class Frontend:
         pad_rows = (-rows) % self._row_mult
         t0 = time.perf_counter()
         mean, var = await asyncio.get_running_loop().run_in_executor(
-            None, self._run_batch, cstate, xcat)
+            None, self._run_batch, gen, cstate, xcat)
         engine_s = time.perf_counter() - t0
         self.timer.record([engine_s])
         self.metrics.observe_flush(len(live), rows, pad_rows, engine_s)
@@ -403,12 +529,14 @@ class Frontend:
             late = r.deadline is not None and done > r.deadline
             self.metrics.observe_complete(done - r.enqueue, late=late)
 
-    def _run_batch(self, cstate, xcat: np.ndarray):
-        """Worker-thread body against the fenced state snapshot: pad in
-        numpy, one host-to-device copy, ``run_blocks``, one device-to-host
-        copy of the packed (mean, var), pad rows sliced off.  Every torch
-        op here hands the GIL to the event loop and back, so the op count
-        of this thread is latency under load."""
+    def _run_batch(self, gen: int, cstate, xcat: np.ndarray):
+        """Worker-thread body against the fenced state snapshot of
+        generation ``gen``: pad in numpy, one host-to-device copy,
+        ``run_blocks``, one device-to-host copy of the packed (mean, var),
+        pad rows sliced off; a sharded engine's followers are sent the
+        header and the padded batch first.  Every torch op here hands the
+        GIL to the event loop and back, so the op count of this thread is
+        latency under load."""
         t = xcat.shape[0]
         pad = (-t) % self._row_mult
         if pad:
@@ -416,12 +544,18 @@ class Frontend:
             xq[:t] = xcat
         else:
             xq = xcat
-        with (torch.cuda.device(self._device)
-              if self._device.type == "cuda" else contextlib.nullcontext()):
-            with torch.no_grad():
+        with _bound_device(self._device), torch.no_grad():
+            if self._sharded:
+                with self._send_lock:
+                    if self._shut:
+                        raise FrontendError("Frontend is closed")
+                    _send_header(self.engine, _OP_RUN, xq.shape[0], gen)
+                    mean, var = self.engine.run_blocks(
+                        _broadcast(self.engine, torch.from_numpy(xq)), cstate)
+            else:
                 mean, var = self.engine.run_blocks(
                     torch.from_numpy(xq).to(self._device), cstate)
-                out = torch.cat([mean, var[..., None]], -1).cpu().numpy()
+            out = torch.cat([mean, var[..., None]], -1).cpu().numpy()
         return out[..., :t, :-1], out[..., :t, -1]
 
     def _noise_of(self, cstate) -> np.ndarray:

@@ -1,11 +1,11 @@
-"""Step builders (port of ``repro.train.steps``): the distributed GP train
-and online-update steps, and the prefill and serve steps of the LM
-substrate.
+"""Step builders (port of ``repro.train.steps``): the distributed GP train,
+barrier-free async and online-update steps, and the prefill and serve
+steps of the LM substrate.
 
 The LM builders return plain functions over the caller's tensors, run under
 ``torch.no_grad()``: serving takes no gradient, and the flash kernel has no
 backward.  The LM train step comes with training (ROADMAP Queue 1 item
-12), the async GP step with item 11.
+12).
 """
 from __future__ import annotations
 
@@ -33,10 +33,10 @@ def make_gp_train_step(group, d: int, *, latent: bool = False,
     which takes a trailing per-step ``draw`` (a ``torch.Generator``, or
     this rank's block indices).  ``psi2_fn`` replaces the kernel's psi2 in
     the latent map, ``reg_stats_fn`` the regression map (default: the
-    shims of the engine's ``kernel``).  ``reduce_mode`` other than
-    ``"serial"`` is not ported yet: ``DistributedGP`` refuses it, naming
-    its ROADMAP item, after refusing invalid values with ``ValueError`` as
-    the JAX engine does.
+    shims of the engine's ``kernel``).  ``reduce_mode`` ``"overlap"`` /
+    ``"overlap_eager"`` (with ``chunk_size``) reduces each block's Stats
+    as it is mapped, the collective riding behind the next block's map
+    (``core.distributed.DistributedGP``).
     """
     from ..core.distributed import DistributedGP
 
@@ -45,6 +45,34 @@ def make_gp_train_step(group, d: int, *, latent: bool = False,
                         batch_blocks=batch_blocks, reduce_mode=reduce_mode,
                         psi2_fn=psi2_fn, reg_stats_fn=reg_stats_fn)
     return eng, eng.make_value_and_grad(d, argnums=argnums)
+
+
+def make_gp_async_step(shards, d: int, *, staleness: int = 2,
+                       reweight: str = "drop", refresh: int = 1,
+                       failure=None, timer=None,
+                       chunk_size: int | None = None,
+                       batch_blocks: int | None = None,
+                       latent: bool = False, kernel=None,
+                       clip: float | None = None, device=None):
+    """Barrier-free async analogue of :func:`make_gp_train_step`:
+    ``(engine, step)``, ``engine`` a ``distributed.AsyncEngine`` over
+    ``shards`` (a list of ``{"y", "mu", optional "s"/"w"}`` dicts, ragged
+    row counts allowed, moved to ``device``) and ``step(hyp, z, draw=None)
+    -> (neg_bound, (g_hyp, g_z))``.  Each step refreshes only ``refresh``
+    alive shards (round-robin; ``failure``, a ``FailureSimulator``, vetoes
+    dead ones) and folds the others' stale contributions, at most
+    ``staleness`` steps old, reweighted by ``reweight`` ("drop",
+    "rescale" or "probs"; ``distributed.async_stats``): the map costs
+    O(refresh · n_k m²) a step instead of O(K · n_k m²).  ``clip`` bounds
+    the returned gradient's global norm (recommended for plain SGD on
+    stale folds); ``None`` returns it raw."""
+    from ..distributed.async_stats import AsyncEngine
+
+    eng = AsyncEngine(shards, d, staleness=staleness, reweight=reweight,
+                      refresh=refresh, failure=failure, timer=timer,
+                      chunk_size=chunk_size, batch_blocks=batch_blocks,
+                      latent=latent, kernel=kernel, clip=clip, device=device)
+    return eng, eng.step
 
 
 def make_gp_update_step(group, d: int, *, latent: bool = False,

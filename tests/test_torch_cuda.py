@@ -671,6 +671,67 @@ def test_distributed_world_of_one_over_nccl_matches_sgpr(cuda):
     assert np.linalg.norm(g - g_ref) <= 1e-8 * np.linalg.norm(g_ref)
 
 
+def test_overlapped_reduce_world_of_one_over_nccl_is_serial(cuda):
+    """``reduce_mode`` "overlap" and "overlap_eager" in a world of one over
+    NCCL (each block's async all_reduce on NCCL's stream, waited on one
+    block later): value and gradient bitwise the serial step's, one
+    reg_stats launch a block."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_data_group
+
+    x, y, z, hyp = _dist_inputs()
+    group = make_data_group(cuda)
+    out = {}
+    try:
+        for mode in ("serial", "overlap", "overlap_eager"):
+            eng = rt.DistributedGP(group, device=cuda, chunk_size=512,
+                                   reduce_mode=mode)
+            (h, zz), data, w = _dist_args(eng, x, y, z, hyp)
+            before = rs_ops.LAUNCHES["float64"]
+            out[mode] = eng.make_value_and_grad(y.shape[1])(
+                h, zz, data["mu"], None, data["y"], w, np.ones(1),
+                float(len(x)))
+            assert rs_ops.LAUNCHES["float64"] == before + 6   # 3,072 rows
+    finally:
+        dist.destroy_process_group()
+    v0, (gh0, gz0) = out["serial"]
+    for mode in ("overlap", "overlap_eager"):
+        v, (gh, gz) = out[mode]
+        assert torch.equal(v, v0) and torch.equal(gz, gz0), mode
+        for k in gh0:
+            assert torch.equal(gh[k], gh0[k]), (mode, k)
+
+
+def test_async_engine_all_fresh_on_the_card_matches_cpu(cuda):
+    """``AsyncEngine`` all fresh on the card (the maps through reg_stats)
+    against the same engine on the CPU (plain map): value 1e-9, gradient
+    1e-8 relative; and its exact reference likewise."""
+    from repro_torch.distributed import AsyncEngine
+
+    x, y, z, hyp = _dist_inputs()
+    shards = [{"y": y[i::4], "mu": x[i::4]} for i in range(4)]
+    res = {}
+    for device in (cuda, "cpu"):
+        eng = AsyncEngine(shards, y.shape[1], staleness=4, refresh=4,
+                          chunk_size=256, device=device)
+        h = {k: _t(v, device) for k, v in hyp.items()}
+        before = rs_ops.LAUNCHES["float64"]
+        step = eng.step(h, _t(z, device))
+        launched = rs_ops.LAUNCHES["float64"] - before
+        res[device if device == "cpu" else "cuda"] = (
+            step, eng.exact_value_and_grad(h, _t(z, device)), launched)
+    assert res["cuda"][2] == 4 * 3 and res["cpu"][2] == 0
+    for i in (0, 1):
+        (v, (gh, gz)), (vc, (ghc, gzc)) = res["cuda"][i], res["cpu"][i]
+        assert abs(float(v) - float(vc)) <= 1e-9 * abs(float(vc))
+        g = torch.cat([gz.cpu().reshape(-1)]
+                      + [gh[k].cpu().reshape(-1) for k in sorted(gh)])
+        gc = torch.cat([gzc.reshape(-1)]
+                       + [ghc[k].reshape(-1) for k in sorted(ghc)])
+        assert float((g - gc).norm()) <= 1e-8 * float(gc.norm())
+
+
 def _gloo_rank_on_card(rank, world, store_path, out_dir):
     import datetime
     import pathlib

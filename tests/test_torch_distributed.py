@@ -13,7 +13,10 @@ atol 1e-10, reduced Stats and states 1e-10.  The same spawn also runs the
 kernel zoo's cases (a ``Sum`` regression and a Matern-3/2 GPLVM, ROADMAP
 Queue 1 item 6) and the online fold of a new 19-row block into reduced
 Stats (``update_stats_fn``, item 7), the latter at rtol 1e-11
-(``tests/test_online_updates.py:165``).
+(``tests/test_online_updates.py:165``), and the overlapped reduce (item
+11: ``reduce_mode`` "overlap" and "overlap_eager", regression in blocks of
+4 and the latent map under (1, 0, 1, 1) rescale) at the file's
+tolerances, ``overlap`` bitwise ``overlap_eager`` on every rank.
 """
 import datetime
 import os
@@ -46,6 +49,19 @@ CASES = {
     "lat_ones": (True, "drop", None, (1, 1, 1, 1), (0, 1, 2, 3)),
     "lat_fail_drop": (True, "drop", None, (1, 0, 1, 1), (0, 1, 2, 3)),
 }
+# The overlapped reduce: name: CASES' fields, then the reduce_mode.
+OVERLAP_CASES = {
+    "reg_chunk4_overlap": (False, "drop", 4, (1, 1, 1, 1), (0, 1),
+                           "overlap"),
+    "reg_chunk4_overlap_eager": (False, "drop", 4, (1, 1, 1, 1), (0, 1),
+                                 "overlap_eager"),
+    "lat_fail_rescale_overlap": (True, "rescale", 4, (1, 0, 1, 1),
+                                 (0, 1, 2, 3), "overlap"),
+    "lat_fail_rescale_overlap_eager": (True, "rescale", 4, (1, 0, 1, 1),
+                                       (0, 1, 2, 3), "overlap_eager"),
+}
+ALL_CASES = {**{k: v + ("serial",) for k, v in CASES.items()},
+             **OVERLAP_CASES}
 # The cases whose reduced Stats and predictive state are compared too.
 STATE_CASES = ("reg_fail_drop", "lat_ones")
 STATE_FIELDS = ("chol_kmm", "chol_sigma", "c2", "a_mean", "g")
@@ -122,9 +138,10 @@ mesh = make_compat_mesh((t.W,), ("data",))
 x, y, s, z, hyp = t._inputs()
 hyp = {{k: jnp.asarray(v) for k, v in hyp.items()}}
 out = {{}}
-for name, (latent, mode, chunk, fmask, argnums) in t.CASES.items():
+for name, (latent, mode, chunk, fmask, argnums, reduce) in t.ALL_CASES.items():
     eng = DistributedGP(mesh, data_axes=("data",), latent=latent,
-                        failure_mode=mode, chunk_size=chunk)
+                        failure_mode=mode, chunk_size=chunk,
+                        reduce_mode=reduce)
     data, w = eng.put_data(**(dict(y=y, mu=x, s=s) if latent
                               else dict(y=y, mu=x)))
     sd = data.get("s")
@@ -203,9 +220,11 @@ def _rank_main(rank, world, store_path, out_dir):
     hyp = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in hyp.items()}
     zt = torch.from_numpy(z)
     out = {}
-    for name, (latent, mode, chunk, fmask, argnums) in CASES.items():
+    for name, (latent, mode, chunk, fmask, argnums, reduce) in \
+            ALL_CASES.items():
         eng = DistributedGP(group, latent=latent, failure_mode=mode,
-                            chunk_size=chunk, device="cpu")
+                            chunk_size=chunk, reduce_mode=reduce,
+                            device="cpu")
         data, w = eng.put_data(**(dict(y=y, mu=x, s=s) if latent
                                   else dict(y=y, mu=x)))
         sd = data.get("s")
@@ -287,9 +306,9 @@ def _gathered(ranks, key):
     return np.concatenate([r[key] for r in ranks])
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_value_and_grad_match_jax_on_four_ranks(case, ranks, jax_ref):
-    argnums = CASES[case][4]
+    argnums = ALL_CASES[case][4]
     for r in ranks:
         for key in ("value", "bound"):
             want = float(jax_ref[f"{case}/{key}"])
@@ -356,6 +375,20 @@ def test_every_rank_sees_the_same_bits(ranks):
     for r in ranks[1:]:
         for k in shared:
             np.testing.assert_array_equal(r[k], ranks[0][k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["reg_chunk4", "lat_fail_rescale"])
+def test_overlap_is_bitwise_overlap_eager_on_every_rank(case, ranks):
+    """The double buffer only moves each block's wait: both modes fold the
+    same reduced values in the same order, value, bound and every
+    gradient bitwise, on every rank."""
+    ov, eager = f"{case}_overlap/", f"{case}_overlap_eager/"
+    keys = [k for k in ranks[0] if k.startswith(ov)]
+    assert len(keys) >= 4
+    for r in ranks:
+        for k in keys:
+            np.testing.assert_array_equal(r[k], r[eager + k[len(ov):]],
+                                          err_msg=k)
 
 
 def test_failed_rank_fails_the_run_within_the_timeout(tmp_path):
@@ -491,13 +524,26 @@ def _engine(**kw):
     return DistributedGP(device="cpu", **kw)
 
 
-@pytest.mark.parametrize("make, item", [
-    (lambda: _engine(chunk_size=4, reduce_mode="overlap"), "item 11"),
-    (lambda: _engine(chunk_size=4, reduce_mode="overlap_eager"), "item 11"),
-])
-def test_unported_options_raise_naming_their_roadmap_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+@pytest.mark.parametrize("mode", ["overlap", "overlap_eager"])
+def test_unported_options_raise_naming_their_roadmap_item(mode):
+    """The options this test once held refused (``reduce_mode`` "overlap"
+    and "overlap_eager", ROADMAP Queue 1 item 11) are ported: each builds
+    and steps without a group, bitwise the serial step, as JAX's
+    one-device engine does (``tests/test_overlap_reduce.py``)."""
+    x, y, _, z, hyp = _inputs()
+    th = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in hyp.items()}
+    out = {}
+    for m in ("serial", mode):
+        eng = _engine(chunk_size=4, reduce_mode=m)
+        assert eng.reduce_mode == m
+        data, w = eng.put_data(y=y, mu=x)
+        out[m] = eng.make_value_and_grad(D)(th, torch.from_numpy(z),
+                                            data["mu"], None, data["y"], w,
+                                            np.ones(1), float(N))
+    assert torch.equal(out[mode][0], out["serial"][0])
+    assert torch.equal(out[mode][1][1], out["serial"][1][1])
+    for k in hyp:
+        assert torch.equal(out[mode][1][0][k], out["serial"][1][0][k])
 
 
 def _sequential_jax(hyp, x, y, z, kernel=None):
@@ -653,12 +699,23 @@ def test_ported_options_match_jax_sequential(check):
     check(eng, th, torch.from_numpy(z), data, w, x, y, z)
 
 
-def test_make_gp_train_step_refuses_unported_options():
+@pytest.mark.parametrize("mode", ["overlap", "overlap_eager"])
+def test_make_gp_train_step_refuses_unported_options(mode):
+    """``make_gp_train_step`` once refused ``reduce_mode`` (item 11); it
+    now passes it through to the engine, whose step is the one returned."""
     from repro_torch.train.steps import make_gp_train_step
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_gp_train_step(None, 1, chunk_size=4, reduce_mode="overlap",
-                           device="cpu")
+    eng, step = make_gp_train_step(None, 1, chunk_size=4, reduce_mode=mode,
+                                   device="cpu")
+    assert eng.reduce_mode == mode and eng.chunk_size == 4
+    x, y, _, z, hyp = _inputs()
+    data, w = eng.put_data(y=y[:, :1], mu=x)
+    args = ({k: torch.as_tensor(v, dtype=torch.float64)
+             for k, v in hyp.items()}, torch.from_numpy(z), data["mu"], None,
+            data["y"], w, np.ones(1), float(N))
+    v, g = step(*args)
+    v_ref, g_ref = eng.make_value_and_grad(1)(*args)
+    assert torch.equal(v, v_ref) and torch.equal(g[1], g_ref[1])
 
 
 # The reference's three invalid arguments (src/repro/core/distributed.py:

@@ -119,14 +119,21 @@ def test_timeless_counters_equal_jaxs_on_the_same_scenario(ref):
 
 
 def test_a_sharded_engine_is_refused_naming_its_roadmap_item(rng):
-    """A front-end cannot drive an engine of more than one rank (every rank
-    must make the same calls); a world of one is served."""
+    """A sharded engine, once refused naming ROADMAP Queue 1 item 15, is
+    served now: its front-end runs on rank 0 (another rank is told to run
+    ``serve_follower``, which refuses rank 0 and a world of one), and a
+    world of one is served as without a group, ``close()`` a no-op.  The
+    4-rank front-end rides in ``tests/test_torch_serving_shard.py``."""
     import torch.distributed as dist
 
     from repro_torch.launch import make_data_group
+    from repro_torch.serve import serve_follower
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Frontend(types.SimpleNamespace(n_shards=4))
+    with pytest.raises(ValueError, match="serve_follower"):
+        Frontend(types.SimpleNamespace(n_shards=4, rank=1))
+    for shards, rank in ((4, 0), (1, 0)):
+        with pytest.raises(ValueError, match="ranks > 0"):
+            serve_follower(types.SimpleNamespace(n_shards=shards, rank=rank))
     state = _state(rng)
     group = make_data_group(CPU)
     try:
@@ -140,6 +147,11 @@ def test_a_sharded_engine_is_refused_naming_its_roadmap_item(rng):
 
         res = asyncio.run(main())
         np.testing.assert_array_equal(res.mean, _direct(eng, x)[0])
+        fe = Frontend(eng)
+        fe.close()
+        fe.close()
+        with pytest.raises(FrontendError, match="closed"):
+            fe.start()
     finally:
         dist.destroy_process_group()
 

@@ -67,6 +67,8 @@ def test_import_leaves_jax_out():
                "repro_torch.serve.frontend, repro_torch.serve.slo, "
                "repro_torch.examples.ensemble_serve, "
                "repro_torch.examples.serve_frontend, "
+               "repro_torch.distributed, "
+               "repro_torch.distributed.async_stats, "
                "repro_torch.checkpoint; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")

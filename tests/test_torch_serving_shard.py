@@ -10,8 +10,14 @@ sizes t (0, 1, 257, 1,000) and block sizes 1, 64 and 256.  The port runs
 must return every row, the same bits on every rank, within f64 rounding of
 the reference (rtol 1e-9 / atol 1e-11 on the mean, 1e-8 / 1e-10 on the
 variance, as ``tests/test_torch_serving.py``), and compute only its own
-quarter of the rows.  Checkpoint directories written by either package
-give the other the same ``latest`` and the same leaves, bit for bit.
+quarter of the rows.  The same spawn serves a ``Frontend`` over the
+sharded engine (ROADMAP Queue 1 item 15): rank 0 takes 40 requests of
+1-30 rows with a ``swap_state`` to the reference's refitted state midway
+and ``close()``s, ranks 1-3 run ``serve_follower``; every response is
+bitwise a world of one's answer under its generation's state, within the
+tolerances above of JAX's mesh engine, and every follower exits 0.
+Checkpoint directories written by either package give the other the same
+``latest`` and the same leaves, bit for bit.
 """
 import datetime
 import os
@@ -44,6 +50,17 @@ def _problem():
     return x, y, queries
 
 
+FE_REQUESTS, FE_SWAP_AT, FE_BLOCK = 40, 20, 8
+FLEET_REQUESTS, FLEET_SWAP_AT = 20, 10   # the fleet front-end's share
+
+
+def _fe_requests():
+    """The front-end's requests: 40 of 1-30 rows."""
+    rng = np.random.default_rng(12)
+    return [rng.uniform(-2.5, 2.5, (int(t), 2))
+            for t in rng.integers(1, 31, FE_REQUESTS)]
+
+
 _JAX_WORKER = """
 import sys
 import jax.numpy as jnp
@@ -61,6 +78,16 @@ state = model.predictive_state()
 out = {{"hyp/" + k: np.asarray(v) for k, v in state.hyp.items()}}
 out.update({{"state/" + f: np.asarray(getattr(state, f)) for f in t.FIELDS}})
 mesh = make_compat_mesh((t.W,), ("data",))
+model.fit(max_iters=3)
+state2 = model.predictive_state()   # the front-end's hot swap
+out.update({{"hyp2/" + k: np.asarray(v) for k, v in state2.hyp.items()}})
+out.update({{"state2/" + f: np.asarray(getattr(state2, f)) for f in t.FIELDS}})
+rows = jnp.asarray(np.concatenate(t._fe_requests()))
+for g, st in enumerate((state, state2)):
+    eng = PredictEngine(st, block_size=t.FE_BLOCK, mesh=mesh,
+                        data_axes=("data",))
+    mean, var = eng.predict(rows)
+    out[f"fe_mean/{{g}}"], out[f"fe_var/{{g}}"] = np.asarray(mean), np.asarray(var)
 for b in t.BLOCKS:
     eng = PredictEngine(state, block_size=b, mesh=mesh, data_axes=("data",))
     for n, xq in queries.items():
@@ -86,13 +113,83 @@ def jax_ref(tmp_path_factory):
     return dict(np.load(out))
 
 
-def _state(ref):
+def _state(ref, tag=""):
+    """The reference's state (``tag`` "2": the refitted one) on the CPU."""
     from repro_torch import convert
 
-    leaves = {"hyp": {k[4:]: v for k, v in ref.items()
-                      if k.startswith("hyp/")},
-              **{f: ref[f"state/{f}"] for f in FIELDS}}
+    hyp = f"hyp{tag}/"
+    leaves = {"hyp": {k[len(hyp):]: v for k, v in ref.items()
+                      if k.startswith(hyp)},
+              **{f: ref[f"state{tag}/{f}"] for f in FIELDS}}
     return convert.state_from_numpy(leaves, "cpu")
+
+
+def _frontend_rank(rank, group, ref, out):
+    """Rank 0: a ``Frontend`` over the sharded engine, 40 requests, a swap
+    midway, ``close()``; then one over a sharded fleet of the two states,
+    20 requests, a ``swap_slot`` midway; the other ranks: ``serve_follower``
+    for each.  Every tensor handed to ``dist.broadcast`` is recorded: NCCL
+    takes contiguous ones only, and the swapped state holds a column-major
+    factor, as a Cholesky on the card returns it."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.serve import (Frontend, MultiPredictEngine,
+                                   PredictEngine, serve_follower)
+
+    eng = PredictEngine(_state(ref), block_size=FE_BLOCK, device="cpu",
+                        group=group)
+    fleet = MultiPredictEngine([_state(ref), _state(ref, "2")],
+                               block_size=FE_BLOCK, device="cpu", group=group)
+    real = dist.broadcast
+    contiguous = []
+
+    def recorded(t, *args, **kwargs):
+        contiguous.append(t.is_contiguous())
+        return real(t, *args, **kwargs)
+    dist.broadcast = recorded
+    if rank:
+        out["fe_served"] = np.asarray(serve_follower(eng))
+        out["fleet_served"] = np.asarray(serve_follower(fleet))
+        out["fe_contiguous"] = np.asarray(contiguous)
+        return
+    xs = _fe_requests()
+    swap = _state(ref, "2")
+    swap = dataclasses.replace(swap, chol_kmm=swap.chol_kmm.T.contiguous().T)
+    assert not swap.chol_kmm.is_contiguous()
+
+    async def main():
+        async with Frontend(eng, max_wait_ms=5.0, max_batch_rows=64) as fe:
+            fe.warmup()
+            first = await asyncio.gather(*[fe.submit(x)
+                                           for x in xs[:FE_SWAP_AT]])
+            fe.swap_state(swap)
+            rest = await asyncio.gather(*[fe.submit(x)
+                                          for x in xs[FE_SWAP_AT:]])
+            res = first + rest
+        fe.close()
+        fe.close()   # idempotent
+        return res
+
+    async def fleet_main():
+        async with Frontend(fleet, max_wait_ms=5.0, max_batch_rows=64) as fe:
+            first = await asyncio.gather(*[fe.submit(x)
+                                           for x in xs[:FLEET_SWAP_AT]])
+            fe.swap_state(swap, slot=0)
+            rest = await asyncio.gather(*[
+                fe.submit(x) for x in xs[FLEET_SWAP_AT:FLEET_REQUESTS]])
+        fe.close()
+        return first + rest
+
+    res = asyncio.run(main())
+    out["fe_mean"] = np.concatenate([r.mean for r in res])
+    out["fe_var"] = np.concatenate([r.var for r in res])
+    out["fe_generation"] = np.asarray([r.generation for r in res])
+    res = asyncio.run(fleet_main())
+    out["fleet_mean"] = np.concatenate([r.mean for r in res], 1)
+    out["fleet_var"] = np.concatenate([r.var for r in res], 1)
+    out["fleet_generation"] = np.asarray([r.generation for r in res])
+    out["fe_contiguous"] = np.asarray(contiguous)
 
 
 # -- the port, 4 gloo ranks ------------------------------------------------------
@@ -153,6 +250,8 @@ def _rank_main(rank, world, store_path, out_dir):
     out["sample_rows"] = np.asarray(sum(sampled))
     out["sample_stream"] = torch.cat(list(eng.sample_stream(
         iter([queries[1000][:256], queries[1000][256:512]]), 5, 3)), 1).numpy()
+    _frontend_rank(rank, group, dict(np.load(pathlib.Path(out_dir)
+                                             / "ref.npz")), out)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
@@ -209,6 +308,66 @@ def test_sharded_sample_is_the_world_of_ones_bits(ranks, jax_ref):
         np.testing.assert_array_equal(r["sample"], want)
         np.testing.assert_array_equal(r["sample_stream"], stream)
         assert int(r["sample_rows"]) == 2 * 64
+
+
+def test_frontend_over_four_ranks_answers_as_a_world_of_one(ranks, jax_ref):
+    """Rank 0's front-end over the sharded engine: every response bitwise
+    a world of one's answer under its generation's state (the front-end's
+    contract, ``tests/test_torch_frontend.py``), both generations served,
+    within the file's tolerances of JAX's mesh engine; the followers served
+    the same flushes (the warmup's 2 shapes included) and exited 0."""
+    from repro_torch.serve import PredictEngine
+
+    xs = _fe_requests()
+    gens = ranks[0]["fe_generation"]
+    assert gens.tolist() == [0] * FE_SWAP_AT + [1] * (FE_REQUESTS
+                                                      - FE_SWAP_AT)
+    one = [PredictEngine(_state(jax_ref, tag), block_size=FE_BLOCK,
+                         device="cpu") for tag in ("", "2")]
+    lo = 0
+    for x, g in zip(xs, gens):
+        hi = lo + x.shape[0]
+        m, v = one[g].predict(x)
+        np.testing.assert_array_equal(ranks[0]["fe_mean"][lo:hi], m.numpy())
+        np.testing.assert_array_equal(ranks[0]["fe_var"][lo:hi], v.numpy())
+        np.testing.assert_allclose(ranks[0]["fe_mean"][lo:hi],
+                                   jax_ref[f"fe_mean/{g}"][lo:hi], rtol=1e-9,
+                                   atol=1e-11)
+        np.testing.assert_allclose(ranks[0]["fe_var"][lo:hi],
+                                   jax_ref[f"fe_var/{g}"][lo:hi], rtol=1e-8,
+                                   atol=1e-10)
+        lo = hi
+    served = {int(r["fe_served"]) for r in ranks[1:]}
+    assert len(served) == 1 and served.pop() >= 2 + 2
+    for r in ranks:   # NCCL's condition, held over gloo
+        assert r["fe_contiguous"].size > 0 and r["fe_contiguous"].all()
+
+
+def test_fleet_frontend_over_four_ranks_answers_as_a_world_of_one(ranks,
+                                                                 jax_ref):
+    """The same over a sharded ``MultiPredictEngine`` of the two states:
+    a ``swap_slot`` midway sends the followers the whole stacked state;
+    every response bitwise a world of one's fleet under its generation."""
+    from repro_torch.serve import MultiPredictEngine
+
+    xs = _fe_requests()[:FLEET_REQUESTS]
+    gens = ranks[0]["fleet_generation"]
+    assert gens.tolist() == [0] * FLEET_SWAP_AT + [1] * (FLEET_REQUESTS
+                                                         - FLEET_SWAP_AT)
+    a, b = _state(jax_ref), _state(jax_ref, "2")
+    one = [MultiPredictEngine(states, block_size=FE_BLOCK, device="cpu")
+           for states in ([a, b], [b, b])]
+    lo = 0
+    for x, g in zip(xs, gens):
+        hi = lo + x.shape[0]
+        m, v = one[g].predict(x)
+        np.testing.assert_array_equal(ranks[0]["fleet_mean"][:, lo:hi],
+                                      m.numpy())
+        np.testing.assert_array_equal(ranks[0]["fleet_var"][:, lo:hi],
+                                      v.numpy())
+        lo = hi
+    served = {int(r["fleet_served"]) for r in ranks[1:]}
+    assert len(served) == 1 and served.pop() >= 2   # a flush a half at least
 
 
 def test_predict_engine_and_its_entry_points_on_four_ranks(ranks, jax_ref):

@@ -1,0 +1,189 @@
+"""The overlapped reduce and the front-end over a process group, one rank a
+card over NCCL (what ``chip_smoke.py`` phase 3i cannot run on one card:
+NCCL refuses two ranks on one GPU):
+
+    python3 -c "import sys; sys.path.insert(0, 'src'); \\
+        from repro_torch.kernels import _build; _build.build_all()"
+    torchrun --standalone --nproc-per-node=4 tools/four_cards.py
+    # the same on the CPU over gloo, at a small size:
+    torchrun --standalone --nproc-per-node=4 tools/four_cards.py --cpu
+
+Each rank holds n / 4 rows of ``sgpr-synth-1m`` (3a's data and init,
+``chunk_size`` 65,536: 4 blocks a rank) and takes the distributed step in
+each ``reduce_mode``: every rank's bits the same, ``overlap`` bitwise
+``overlap_eager``, within 1e-9 / 1e-8 of ``serial``, one all_reduce a
+block; each mode's step time (host clock, synchronised, median of 5).
+Then every rank extracts the predictive state at the init and at a second
+``log_beta`` (``DistributedGP.predictive_state``, the same bits on every
+rank); rank 0 serves the first 500 of phase 3h's requests through a
+``Frontend`` over ``predict_engine`` with a ``swap_state`` to the second
+state midway and ``close()``, the other ranks run ``serve_follower``:
+every response bitwise a world of one's on rank 0's card.  Rank 0 prints
+a JSON line for each part and the cards' name and power limit; any failed
+check raises.
+"""
+import asyncio
+import json
+import pathlib
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.configs import GP_CONFIGS, GPConfig  # noqa: E402
+from repro_torch.core.distributed import DistributedGP  # noqa: E402
+from repro_torch.launch import make_data_group  # noqa: E402
+from repro_torch.serve import (Frontend, PredictEngine,  # noqa: E402
+                               serve_follower)
+from repro_torch.train.steps import make_gp_train_step  # noqa: E402
+
+MODES = ("serial", "overlap", "overlap_eager")
+
+
+def steps(group, cfg, chunk, device, report):
+    """Each reduce mode's step: value and flat gradient, all_reduce calls,
+    median step time."""
+    x, y, z, hyp = cs.sgpr_inputs(cfg.n, cfg.q, cfg.d, cfg.m)
+    h, zz = {k: cs.t64(v, device) for k, v in hyp.items()}, cs.t64(z, device)
+    out, calls = {}, []
+    undo = cs.counting_all_reduce(calls)
+    try:
+        for mode in MODES:
+            eng, vg = make_gp_train_step(group, cfg.d, chunk_size=chunk,
+                                         reduce_mode=mode, device=device)
+            data, w = eng.put_data(y=y, mu=x)
+
+            def run():
+                return vg(h, zz, data["mu"], None, data["y"], w,
+                          np.ones(eng.n_shards), float(cfg.n))
+            calls.clear()
+            v, (gh, gz) = run()
+            report[f"{mode}_all_reduces"] = len(calls)
+            out[mode] = (float(v), cs.flat_grads(gh, gz))
+            report[f"{mode}_step_s"] = cs.median_step_s(run)
+    finally:
+        undo()
+    return out, (x, y, z, hyp)
+
+
+def main():
+    cpu = "--cpu" in sys.argv
+    device = "cpu" if cpu else None
+    if cpu:
+        torch.cuda.synchronize = lambda *a, **k: None
+        cs.DEV = "cpu"
+        cfg, chunk = GPConfig("tiny", 8192, 4, 8, 16, False), 512
+    else:
+        cfg, chunk = GP_CONFIGS["sgpr-synth-1m"], cs.OVERLAP_CHUNK
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = make_data_group(device)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    dev = torch.device("cpu") if cpu else torch.device(
+        "cuda", torch.cuda.current_device())
+    report = {"backend": dist.get_backend(group), "world": world}
+    out, (x, y, z, hyp) = steps(group, cfg, chunk, dev, report)
+    # -- the bits: every rank's the same, overlap's eager's, near serial's --
+    mine = np.concatenate([[out[m][0]] + list(out[m][1]) for m in MODES])
+    every = [None] * world
+    dist.all_gather_object(every, mine, group=group)
+    if any(e.tobytes() != mine.tobytes() for e in every):
+        raise AssertionError("the ranks' values and gradients differ")
+    for k in (0, 1):
+        if np.asarray(out["overlap"][k]).tobytes() != \
+                np.asarray(out["overlap_eager"][k]).tobytes():
+            raise AssertionError("overlap is not bitwise overlap_eager")
+    dv = abs(out["overlap"][0] - out["serial"][0]) / abs(out["serial"][0])
+    dg = cs.rel_diff(out["overlap"][1], out["serial"][1])
+    report["overlap_vs_serial"] = {"value_rel_diff": dv,
+                                   "grad_rel_diff": dg}
+    blocks = -(-cfg.n // (world * chunk))
+    if not (dv <= 1e-9 and dg <= cs.GRAD_RTOL
+            and report["serial_all_reduces"] == 2
+            and report["overlap_all_reduces"] == blocks + 1):
+        raise AssertionError(f"overlapped reduce: {report}")
+    if rank == 0:
+        print(json.dumps(report), flush=True)
+
+    # -- the front-end over the ranks ------------------------------------------
+    eng = DistributedGP(group, chunk_size=chunk, device=device)
+    data, w = eng.put_data(y=y, mu=x)
+    h = {k: cs.t64(v, dev) for k, v in hyp.items()}
+    states = [eng.predictive_state(hh, cs.t64(z, dev), data["y"], data["mu"],
+                                   None, w)
+              for hh in (h, {**h, "log_beta": h["log_beta"] + 0.1})]
+    del data, w
+    peng = eng.predict_engine(states[0])
+    if rank:
+        serve_follower(peng)
+        dist.destroy_process_group()
+        return
+    queries = np.random.default_rng(cs.SEED + 1).uniform(
+        -2.0, 2.0, (65_536, cfg.q))
+    reqs = cs.fe_rank_requests(queries)
+    sent = []
+    real = dist.broadcast
+
+    def timed_broadcast(t, *args, **kwargs):
+        t0 = time.perf_counter()
+        res = real(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        sent.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return res
+    dist.broadcast = timed_broadcast
+
+    async def session():
+        async with Frontend(peng, max_batch_rows=cs.FE_BATCH_ROWS,
+                            max_wait_ms=cs.FE_WAIT_MS,
+                            max_queue_rows=cs.FE_QUEUE_ROWS) as fe:
+            shapes = fe.warmup()
+            sent.clear()
+            t0 = time.perf_counter()
+            first = await asyncio.gather(*[
+                fe.submit(q) for q in reqs[:cs.FE_RANK_SWAP_AT]])
+            fe.swap_state(states[1])
+            rest = await asyncio.gather(*[
+                fe.submit(q) for q in reqs[cs.FE_RANK_SWAP_AT:]])
+            burst = time.perf_counter() - t0
+        fe.close()
+        return first + rest, shapes, burst, fe
+    try:
+        res, shapes, burst, fe = asyncio.run(session())
+    finally:
+        dist.broadcast = real
+    one = [PredictEngine(s, device=dev) for s in states]
+    bad = 0
+    for q, r in zip(reqs, res):
+        m, v = one[r.generation].predict(q)
+        bad += not (np.array_equal(r.mean, m.cpu().numpy())
+                    and np.array_equal(r.var, v.cpu().numpy()))
+    summ = fe.metrics.summary()
+    rows = sum(q.shape[0] for q in reqs)
+    report = {"frontend": {
+        "requests": len(reqs), "rows": rows,
+        "flushes": summ["counters"]["flushes"], "warmup_shapes": shapes,
+        "burst_s": burst, "rows_per_s": rows / burst,
+        "e2e_p50_ms": 1e3 * summ["e2e"]["p50"],
+        "e2e_p99_ms": 1e3 * summ["e2e"]["p99"],
+        "flush_ms": [1e3 * r[0] for r in fe.timer.records],
+        "broadcasts": len(sent), "broadcast_bytes": sum(b for b, _ in sent),
+        "broadcast_ms": 1e3 * sum(s for _, s in sent),
+        "generations": [sum(r.generation == g for r in res) for g in (0, 1)],
+        "responses_not_bitwise": bad}}
+    print(json.dumps(report), flush=True)
+    if bad or 0 in report["frontend"]["generations"]:
+        raise AssertionError(f"front-end over {world} ranks: "
+                             f"{report['frontend']}")
+    if not cpu:
+        print(cs.nvidia_smi(), flush=True)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
