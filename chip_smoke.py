@@ -158,17 +158,38 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    (twice, cold and warm) -> the caches copied into a cache with room for
    16 more -> 16 greedy ``make_serve_step`` tokens -> the same weights
    prefilled at f32 compute; checked against the same model with the plain
-   attention, and by teacher-forced decode against the prefill.
+   attention, and by teacher-forced decode against the prefill (the
+   registered config trains and prefills through the query-chunked
+   attention, as the JAX package's does: the flash kernel is asked for
+   with ``dataclasses.replace(cfg, use_flash=True)``);
+3j. trains LM configs (after 3c; no flash launch): (a) ``llama3.2-1b`` and
+   ``starcoder2-3b`` reduced, f32 with TF32 off, ``forward_train``'s loss
+   and every gradient leaf and one ``make_train_step`` state on the card
+   against the CPU (relative RMS 1e-4); (b) ``llama3.2-1b`` at full width
+   (f32 params, bf16 compute, remat; B 4, T 2048, ``train_4k`` cut to one
+   card): at f32 compute the query-chunked attention and the chunked
+   cross-entropy against one chunk each (loss and gradients within 1e-4),
+   bf16 against f32 compute (loss and grad norm within 2e-2, the
+   gradient's relative RMS printed by leaf), then 10 Adam steps on one
+   repeated batch (the loss must fall), with the step time's median,
+   tokens/s, the MFU (``launch.roofline.model_flops`` over the step time
+   and the bf16 peak) and the peak memory; (c) 3 steps of ``qwen2-1.5b``
+   at full width (``launch/train.py``'s default arch), timed;
+   (d) ``launch.train.main`` at ``--reduced``: 8 steps straight against 4,
+   a checkpoint and a resume to 8 (final losses within 1e-4, bitwise or
+   not printed), and a ``--compress-grads`` run (finite, its last 4 losses
+   below its first 4).
 
 Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b, 3f,
-3g, 3h, 3i and 3c and read just after; each kernel of a path must have
+3g, 3h, 3i, 3c and 3j and read just after; each kernel of a path must have
 launched in it (3d's, 3e's, 3f's and 3i's ranks count their own launches and
 report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
 the references run beside them, and 3e, 3f, 3g and 3h assert the counts
 their calls imply: one reg_stats launch a block a pass, one predict launch
 or more a served batch, one on each rank of a sharded batch, one in
 ``reconstruct``, none on the zoo's route or in sampling, one a model a
-fleet batch and a front-end flush).
+fleet batch and a front-end flush; 3j, which trains through the
+query-chunked attention, must launch no kernel).
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -667,7 +688,7 @@ def timed_step(steps):
         s = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        steps[name] = time.perf_counter() - s
+        steps[name] = step.last = time.perf_counter() - s
         return out
     return step
 
@@ -3629,7 +3650,9 @@ def lm_path(fa_ops, fa_ref) -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.train import steps as lm_steps
 
-    cfg = get_config("llama3.2-1b")
+    # The registered config prefills through the query-chunked attention,
+    # as the JAX package's does; serving asks for the flash kernel.
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), use_flash=True)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     b, t, n_new = LM_BATCH, LM_PROMPT, LM_NEW
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
@@ -3709,6 +3732,260 @@ def lm_path(fa_ops, fa_ref) -> dict:
     return launches
 
 
+# -- phase 3j: LM training ------------------------------------------------------
+
+LM_TRAIN_STEPS = 10        # Adam steps on one repeated batch (full width)
+QWEN_TRAIN_STEPS = 3
+TRAIN_ARGS = ["--reduced", "--batch", "2", "--seq", "32"]
+COMPRESS_ARGS = ["--reduced", "--batch", "8", "--seq", "128", "--steps", "24",
+                 "--compress-grads"]
+
+
+def lm_loss_and_grads(tf, cfg, params, batch):
+    """forward_train's loss and its gradient in every leaf, keyed by path."""
+    from repro_torch.core.flat import tree_items
+
+    paths, leaves = zip(*tree_items(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, _ = tf.forward_train(cfg, params, batch)
+    return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+
+def lm_batch(cfg, b, t, device, seed=SEED):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
+                                             dtype=np.int32)).to(device)
+            for k in ("tokens", "labels")}
+
+
+def get_lm_config(name):
+    from repro_torch.configs import get_config
+    return get_config(name)
+
+
+def flat_tree(tree) -> dict:
+    from repro_torch.core.flat import tree_items
+    return dict(tree_items(tree))
+
+
+def leaf_rels(got: dict, want: dict) -> dict:
+    """Each leaf's relative RMS, keyed by its path joined with "/" (``got``
+    may lie on another device than ``want``)."""
+    return {"/".join(k): rel_rms(got[k].detach().to(want[k].device),
+                                 want[k].detach()) for k in want}
+
+
+def max_leaf_rel(got: dict, want: dict) -> float:
+    return max(leaf_rels(got, want).values())
+
+
+def lm_card_vs_cpu(tf, lm_steps, adam, report):
+    """(a) Reduced configs in f32 (TF32 off): forward_train's loss and
+    every gradient leaf, then one train step's state and metrics, on the
+    card against the same calls on the CPU."""
+    from repro_torch.models.common import tree_map
+
+    for arch in ("llama3.2-1b", "starcoder2-3b"):
+        cfg = get_lm_config(arch).reduced()
+        params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                device="cpu")
+        batch = lm_batch(cfg, 4, 256, "cpu")
+        batch["labels"][0, :5] = -1
+        out = {}
+        for dev in (DEV, "cpu"):
+            p = tree_map(lambda a, d=dev: a.to(d), params)
+            bd = {k: v.to(dev) for k, v in batch.items()}
+            loss, grads = lm_loss_and_grads(tf, cfg, p, bd)
+            state = {"params": tree_map(lambda a: a.detach().clone(), p),
+                     "opt": adam.init_opt_state(p)}
+            state, m = lm_steps.make_train_step(cfg)(state, bd)
+            out[dev] = (loss, grads, state, m)
+        (loss, grads, state, m), (loss_c, grads_c, state_c, m_c) = (
+            out[DEV], out["cpu"])
+        by_leaf = leaf_rels(flat_tree(state["params"]),
+                            flat_tree(state_c["params"]))
+        res = {"loss": rel_rms(loss.cpu(), loss_c),
+               "grad_leaf_max": max_leaf_rel(grads, grads_c),
+               "params_leaf_max": max(by_leaf.values()),
+               "m_leaf_max": max_leaf_rel(flat_tree(state["opt"]["m"]),
+                                          flat_tree(state_c["opt"]["m"])),
+               "v_leaf_max": max_leaf_rel(flat_tree(state["opt"]["v"]),
+                                          flat_tree(state_c["opt"]["v"])),
+               "step_loss": rel_rms(m["loss"].cpu(), m_c["loss"]),
+               "step_grad_norm": rel_rms(m["grad_norm"].cpu(),
+                                         m_c["grad_norm"])}
+        report[f"card_vs_cpu_{arch}"] = res
+        report[f"card_vs_cpu_{arch}_params_by_leaf"] = by_leaf
+        if not all(v <= LOGIT_RTOL["float32"] for v in res.values()):
+            raise AssertionError(f"phase 3j (a) {arch}: card against CPU "
+                                 f"{res}")
+
+
+def lm_full_width(tf, attn, lm_steps, adam, roofline, peaks, step, report):
+    """(b) llama3.2-1b at full width (f32 params, bf16 compute, remat), B 4,
+    T 2048: the chunkings against one chunk and bf16 against f32 compute
+    (loss and gradients), then LM_TRAIN_STEPS Adam steps on the batch."""
+    import dataclasses
+    import functools
+    from unittest import mock
+
+    from repro_torch.configs import ShapeSpec
+
+    cfg = get_lm_config("llama3.2-1b")
+    assert cfg.remat and not cfg.use_flash and cfg.param_dtype == "float32"
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    b, t = LM_BATCH, LM_PROMPT
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = step("train_init_params_s",
+                  lambda: tf.init_params(cfg, gen, device=DEV))
+    batch = lm_batch(cfg, b, t, DEV)
+
+    # f32 compute: the default chunks (512 query rows, 512 CE rows) against
+    # one chunk of each.
+    loss32, grads32 = step("f32_loss_and_grads_s", lambda: lm_loss_and_grads(
+        tf, cfg32, params, batch))
+    one_attn = functools.partial(attn._attend_chunked, chunk=t)
+    one_ce = functools.partial(tf.cross_entropy_chunked, chunk=t)
+    with mock.patch.object(attn, "_attend_chunked", one_attn), \
+            mock.patch.object(tf, "cross_entropy_chunked", one_ce):
+        loss1, grads1 = step("f32_one_chunk_loss_and_grads_s",
+                             lambda: lm_loss_and_grads(tf, cfg32, params,
+                                                       batch))
+    chunks = {"loss": rel_rms(loss32, loss1),
+              "grad_leaf_max": max_leaf_rel(grads32, grads1)}
+    report["chunked_vs_one_chunk_f32"] = chunks
+    if not all(v <= LOGIT_RTOL["float32"] for v in chunks.values()):
+        raise AssertionError(f"phase 3j (b): chunked against one chunk "
+                             f"{chunks}")
+    del grads1
+    torch.cuda.empty_cache()
+
+    # bf16 compute against f32 compute on the same params and batch.
+    loss16, grads16 = step("bf16_loss_and_grads_s", lambda: lm_loss_and_grads(
+        tf, cfg, params, batch))
+    gn16, gn32 = adam.global_norm(grads16), adam.global_norm(grads32)
+    groups: dict = {}
+    for path, g in grads32.items():
+        key = "/".join(path[2:] if path[0] == "groups" else path)
+        groups[key] = rel_rms(grads16[path], g)
+    bf = {"loss": rel_rms(loss16, loss32), "grad_norm": rel_rms(gn16, gn32),
+          "loss_bf16": float(loss16), "loss_f32": float(loss32),
+          "grad_rel_rms_by_leaf": groups}
+    report["bf16_vs_f32_compute"] = bf
+    if not (bf["loss"] <= LOGIT_RTOL["bfloat16"]
+            and bf["grad_norm"] <= LOGIT_RTOL["bfloat16"]):
+        raise AssertionError(f"phase 3j (b): bf16 against f32 compute {bf}")
+    del grads16, grads32
+    torch.cuda.empty_cache()
+
+    # LM_TRAIN_STEPS Adam steps on the repeated batch: the loss must fall.
+    state = {"params": params, "opt": adam.init_opt_state(params)}
+    train = lm_steps.make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(LM_TRAIN_STEPS):
+        state, m = step(f"train_step_{i}_s", lambda: train(state, batch))
+        times.append(step.last)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    flops = roofline.model_flops(cfg, ShapeSpec("train_cut", t, b, "train"),
+                                 1)
+    report["full_width_train"] = {
+        "batch": b, "seq": t, "steps": LM_TRAIN_STEPS, "losses": losses,
+        "step_s": times, "step_median_s": med, "tokens_per_s": b * t / med,
+        "model_flops": flops, "mfu": flops / med / peaks[3],
+        "bound_s": flops / peaks[3],
+        "peak_memory_gb": peak / 1e9}
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 3j (b): losses {losses}")
+
+
+def lm_qwen(tf, lm_steps, adam, step, report):
+    """(c) qwen2-1.5b (launch/train.py's default arch) at full width, B 4,
+    T 2048: QWEN_TRAIN_STEPS steps, the loss finite."""
+    cfg = get_lm_config("qwen2-1.5b")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    state = lm_steps.init_train_state(cfg, gen, device=DEV)
+    batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, DEV)
+    train = lm_steps.make_train_step(cfg)
+    times, losses = [], []
+    for i in range(QWEN_TRAIN_STEPS):
+        state, m = step(f"qwen_step_{i}_s", lambda: train(state, batch))
+        times.append(step.last)
+        losses.append(float(m["loss"]))
+    report["qwen2_full_width"] = {"losses": losses, "step_s": times}
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"phase 3j (c): qwen2-1.5b losses {losses}")
+
+
+def lm_launch_train(report):
+    """(d) ``launch.train.main`` on the card at --reduced: 8 steps straight
+    against 4, a checkpoint and a resume to 8 (final losses within 1e-4),
+    and a --compress-grads run (finite, falling)."""
+    from repro_torch.launch import train as launch_train
+
+    dev = ["--device", DEV]
+    with tempfile.TemporaryDirectory() as d:
+        d = pathlib.Path(d)
+        straight = launch_train.main(TRAIN_ARGS + dev + [
+            "--steps", "8", "--ckpt-dir", str(d / "a"), "--ckpt-every",
+            "100"])
+        launch_train.main(TRAIN_ARGS + dev + [
+            "--steps", "4", "--ckpt-dir", str(d / "b"), "--ckpt-every", "4"])
+        resumed = launch_train.main(TRAIN_ARGS + dev + [
+            "--steps", "8", "--ckpt-dir", str(d / "b"), "--ckpt-every",
+            "100"])
+    compressed = launch_train.main(COMPRESS_ARGS + dev)
+    res = {"straight_final": straight[-1], "resumed_final": resumed[-1],
+           "resumed_rel_diff": abs(resumed[-1] - straight[-1])
+           / abs(straight[-1]),
+           "bitwise": resumed[-1] == straight[-1],
+           "compressed_losses": compressed}
+    report["launch_train"] = res
+    first, last = np.mean(compressed[:4]), np.mean(compressed[-4:])
+    if not (len(resumed) == 4 and res["resumed_rel_diff"] <= 1e-4
+            and np.all(np.isfinite(compressed)) and last < first):
+        raise AssertionError(f"phase 3j (d): {res}")
+
+
+def lm_train_path(fa_ops, peaks) -> dict:
+    from repro_torch.launch import roofline
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as lm_steps
+
+    steps = {}
+    step = timed_step(steps)
+    report = {}
+    counts = fa_ops.LAUNCHES
+    # Every launch counter to 0 just before the path, read just after.
+    t0 = time.perf_counter()
+    reset_counts(counts)
+    lm_card_vs_cpu(tf, lm_steps, adam, report)
+    lm_full_width(tf, attn, lm_steps, adam, roofline, peaks, step, report)
+    torch.cuda.empty_cache()
+    lm_qwen(tf, lm_steps, adam, step, report)
+    torch.cuda.empty_cache()
+    lm_launch_train(report)
+    launches = {"flash_attention_bf16": counts["bfloat16"],
+                "flash_attention_f32": counts["float32"]}
+    total = time.perf_counter() - t0
+    print(f"LM training path (3j) steps (s): {json.dumps(steps)}", flush=True)
+    for key, val in report.items():
+        print(f"LM training path (3j) {key}: {json.dumps(val)}", flush=True)
+    print(f"LM training path (3j) launches: {json.dumps(launches)}",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"phase 3j: the training path launched the "
+                             f"flash kernel {launches}")
+    print(f"LM training path (3j) card: {nvidia_smi()}; phase 3j took "
+          f"{total:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3717,6 +3994,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout (src/repro_torch missing)",
               file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
     from repro_torch.configs import GP_CONFIGS
@@ -3836,6 +4114,8 @@ def main() -> int:
     del sgpr
     torch.cuda.empty_cache()
     lm_launches = lm_path(fa_ops, fa_ref)
+    torch.cuda.empty_cache()
+    lm_train_path(fa_ops, peaks)
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
@@ -3877,6 +4157,8 @@ def main() -> int:
               "src/repro/kernels/flash_attention/kernel.py:80",
               fa_full[torch.float32]),
     ]
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ from .base import (SHAPES, BlockGroup, ModelConfig, ShapeSpec, all_configs,
                    get_config, register)
 from .gp_paper import GP_CONFIGS, GPConfig
 
-_ARCH_MODULES = ["llama3p2_1b"]
+_ARCH_MODULES = ["qwen2_1p5b", "llama3p2_1b", "starcoder2_3b",
+                 "codeqwen1p5_7b", "chameleon_34b"]
 
 
 def load_all():

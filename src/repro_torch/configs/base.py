@@ -3,9 +3,11 @@
 
 The port keeps its own registry, apart from the JAX package's: a config
 module of ``repro_torch.configs`` registers here only.  ``reduced()``
-derives the CPU test config (same family/topology, tiny dims).  Only
-``llama3.2-1b`` is ported so far; the other nine architectures of the JAX
-registry wait (ROADMAP, Queue 1 item 12).
+derives the CPU test config (same family/topology, tiny dims).  The
+dense configs of ``attn``/``mlp`` blocks are ported (qwen2-1.5b,
+llama3.2-1b, starcoder2-3b, codeqwen1.5-7b, chameleon-34b); the other five
+architectures of the JAX registry wait for their mixers (ROADMAP, Queue 1
+item 12b).
 """
 from __future__ import annotations
 
@@ -145,7 +147,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    if not _REGISTRY:
+    if name not in _REGISTRY:
         from . import load_all  # lazy populate
         load_all()
     return _REGISTRY[name]

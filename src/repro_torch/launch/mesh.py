@@ -3,9 +3,9 @@
 
 JAX runs one SPMD program over a mesh of devices; the port runs one process
 per data shard, joined in a ``torch.distributed`` process group whose ranks
-are the shards (``core.distributed.DistributedGP``).  The rest of the
-launch tooling (``launch/train.py``, the roofline and HLO tools) is queued
-in ROADMAP Queue 1 item 13.
+are the shards (``core.distributed.DistributedGP``).  ``launch/train.py``
+and the roofline's analytic half are ported beside it; the HLO tools and
+the roofline over their artifacts are queued in ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 

@@ -1,0 +1,120 @@
+"""Analytic model FLOPs of the LM configs (port of the analytic half of
+``repro.launch.roofline``), and the H100's peaks they are held against.
+
+``model_flops`` counts the useful work of a step, 6 * N_active * tokens
+(train) or 2 * N_active * tokens (forward only), plus attention;
+``chip_smoke.py`` divides it by a train step's time and the bf16 peak for
+the MFU.  The roofline over the TPU dry-run's HLO artifacts
+(``load_cells``, ``roofline_row``, ``render_md``) waits for the HLO tools
+(ROADMAP Queue 1 item 13).
+
+Hardware: one NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense, without
+sparsity): 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3, 900
+GB/s of NVLink 4 per card -- the SXM row of ``chip_smoke.py``'s ``PEAKS``.
+"""
+from __future__ import annotations
+
+PEAK_FLOPS = 989e12       # bf16 FLOP/s / card
+HBM_BW = 3.35e12          # B/s / card
+LINK_BW = 900e9           # B/s / card, NVLink 4, all links
+
+
+def _active_params(cfg) -> tuple[int, int]:
+    """(total params, active-per-token params) from the config, analytic."""
+    d = cfg.d_model
+    v = cfg.vocab_size
+    emb = v * d * (1 if cfg.tie_embeddings else 2)
+    total = emb
+    active = emb
+    for g in cfg.blocks:
+        per = 0
+        per_active = 0
+        if g.mixer in ("attn", "lattn"):
+            dh = cfg.head_dim or d // cfg.num_heads
+            a = d * cfg.num_heads * dh * 2 + d * cfg.num_kv_heads * dh * 2
+            per += a
+            per_active += a
+        elif g.mixer == "mla":
+            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            a = (d * cfg.q_lora_rank + cfg.q_lora_rank * cfg.num_heads * qk
+                 + d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+                 + cfg.kv_lora_rank * cfg.num_heads
+                 * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+                 + cfg.num_heads * cfg.v_head_dim * d)
+            per += a
+            per_active += a
+        elif g.mixer == "ssd":
+            d_inner = cfg.ssm_expand * d
+            n = cfg.ssm_state_dim
+            a = d * (2 * d_inner + 2 * n + d_inner // cfg.ssm_head_dim) \
+                + d_inner * d
+            per += a
+            per_active += a
+        elif g.mixer == "rglru":
+            lru = cfg.lru_width or d
+            a = d * lru * 2 + lru * lru * 2 + lru * d
+            per += a
+            per_active += a
+        if g.ffn == "mlp":
+            mult = 3 if cfg.mlp_type == "swiglu" else 2
+            a = mult * d * cfg.d_ff
+            per += a
+            per_active += a
+        elif g.ffn == "moe":
+            routed = 3 * d * cfg.moe_d_ff
+            per += cfg.num_experts * routed + d * cfg.num_experts
+            per_active += cfg.experts_per_token * routed
+            if cfg.num_shared_experts:
+                sh = 3 * d * (cfg.num_shared_experts * cfg.moe_d_ff)
+                per += sh
+                per_active += sh
+        total += per * g.count
+        active += per_active * g.count
+    if cfg.family == "encdec":
+        dh = cfg.head_dim or d // cfg.num_heads
+        enc = cfg.encoder_layers * (
+            d * cfg.num_heads * dh * 2 + d * cfg.num_kv_heads * dh * 2
+            + 2 * d * cfg.d_ff)
+        xattn = sum(g.count for g in cfg.blocks) * (
+            d * cfg.num_heads * dh * 2 + d * cfg.num_kv_heads * dh * 2)
+        total += enc + xattn
+        active += enc + xattn
+    return total, active
+
+
+def model_flops(cfg, shape, n_dev: int) -> float:
+    """Analytic useful FLOPs per device per step (attention included)."""
+    _, act = _active_params(cfg)
+    b, t = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        tokens = b * t
+        f = 6.0 * act * tokens
+        f += _attn_flops(cfg, b, t, t, train=True)
+    elif shape.kind == "prefill":
+        tokens = b * t
+        f = 2.0 * act * tokens
+        f += _attn_flops(cfg, b, t, t, train=False)
+    else:  # decode: one token against a length-t cache
+        f = 2.0 * act * b
+        f += _attn_flops(cfg, b, 1, t, train=False)
+    return f / n_dev
+
+
+def _attn_flops(cfg, b, t_q, t_kv, train: bool) -> float:
+    mult = 3.0 if train else 1.0       # fwd + ~2x bwd
+    f = 0.0
+    for g in cfg.blocks:
+        if g.mixer in ("attn", "lattn", "mla"):
+            if g.mixer == "mla":
+                dh_qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                dh_v = cfg.v_head_dim
+            else:
+                dh_qk = dh_v = cfg.head_dim or cfg.d_model // cfg.num_heads
+            kv = t_kv
+            if g.mixer == "lattn" and cfg.local_window:
+                kv = min(cfg.local_window, t_kv)
+            # causal halves the average context for full self-attention
+            eff = kv / 2.0 if (t_q == t_kv and g.mixer != "lattn") else kv
+            f += g.count * 2.0 * b * cfg.num_heads * t_q * eff \
+                * (dh_qk + dh_v) * mult
+    return f

@@ -1,11 +1,22 @@
-"""GQA attention: prefill through the flash kernel, single-token decode.
+"""GQA attention: train and prefill (query-chunked, or the flash kernel),
+single-token decode.
 
-Port of the GQA part of ``repro.models.attention``.  Prefill attention goes
-through ``kernels/flash_attention/ops.py``: the hand-written kernel for
-CUDA tensors, its plain version for CPU tensors.  Decode attention is plain
-torch in f32 over the cache, as the JAX package computes it outside any
-kernel.  Not ported yet (ROADMAP Queue 1 item 12): the query-chunked path
-(``use_flash=False``), local windows, MLA and cross-attention.  The JAX
+Port of the GQA part of ``repro.models.attention``.  Train/prefill
+attention takes one of two routes, as in the JAX package:
+
+* ``use_flash=False`` (every registered config): ``_attend_chunked``, plain
+  torch under autograd, in query chunks so no (T, S) score tensor is made
+  whole; scores, softmax and PV in f32, the output in q's dtype.  This is
+  the training path.
+* ``use_flash=True``: ``kernels/flash_attention/ops.py``, the hand-written
+  kernel for CUDA tensors, its plain version for CPU tensors.  The kernel
+  has no backward (neither has the JAX package's Pallas op) and no local
+  window; a window there is refused, where the JAX package drops it
+  (ROADMAP Queue 3 item 18).
+
+Decode attention is plain torch in f32 over the cache, as the JAX package
+computes it outside any kernel.  Not ported yet (ROADMAP Queue 1 item 12):
+the rolling local-window cache, MLA and cross-attention.  The JAX
 package's sharding constraints have no counterpart on one card.
 """
 from __future__ import annotations
@@ -57,18 +68,62 @@ def _qkv(cfg, p, x, positions):
     return tuple(_heads(cfg, p, x, positions, n) for n in "qkv")
 
 
+def _attend_chunked(q, k, v, *, causal: bool, window: int | None,
+                    chunk: int = 512):
+    """q: (B,T,H,Dh); k/v: (B,S,Hkv,Dh).  Suffix-aligned causal (query row
+    i sits at absolute position i + S - T).  -> (B,T,H,Dh) in q's dtype.
+
+    Queries go in chunks of ``chunk`` rows (a ragged last chunk is padded,
+    then sliced off), each against every key: scores, the masked softmax
+    (``NEG_INF``) and PV in f32.  Query head h reads K/V head
+    h // (H / Hkv), the JAX package's fused-head order; the grouped einsum
+    reads each K/V head in place instead of broadcasting it to H heads."""
+    b, t, h, dh = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = h // hkv
+    scale = dh ** -0.5
+    offset = s_len - t
+    c = min(chunk, t)
+    pad = (-t) % c
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    k32, v32 = k.float(), v.float()
+    col = torch.arange(s_len, device=q.device)
+    outs = []
+    for start in range(0, t + pad, c):
+        qi = q[:, start:start + c].float().reshape(b, c, hkv, group, dh)
+        sc = torch.einsum("bcngd,bsnd->bngcs", qi, k32) * scale
+        row = start + torch.arange(c, device=q.device) + offset
+        valid = torch.ones((c, s_len), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= col[None, :] <= row[:, None]
+        if window is not None:
+            valid &= col[None, :] > row[:, None] - window
+        sc = torch.where(valid, sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bngcs,bsnd->bcngd", p, v32)
+        outs.append(o.reshape(b, c, h, dv).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :t]
+
+
 def gqa_forward(cfg, p, x, positions, *, causal=True, window=None):
     """Train/prefill GQA: x (B,T,D), positions (B,T) -> (B,T,D)."""
-    if not cfg.use_flash:
-        raise _not_ported("query-chunked attention (use_flash=False)")
-    if window is not None:
-        raise _not_ported("local-window attention")
     b, t, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    # (B,T,H,Dh) -> (B,H,T,Dh) views: the kernel reads them in place.
-    out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal)
-    out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * head_dim(cfg))
+    if cfg.use_flash:
+        if window is not None:
+            raise NotImplementedError(
+                "local-window attention through the flash kernel: the "
+                "kernel has no window, and the JAX package's flash route "
+                "drops it (ROADMAP Queue 3 item 18)")
+        # (B,T,H,Dh) -> (B,H,T,Dh) views: the kernel reads them in place.
+        out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal)
+        out = out.transpose(1, 2)
+    else:
+        out = _attend_chunked(q, k, v, causal=causal, window=window)
+    out = out.reshape(b, t, cfg.num_heads * head_dim(cfg))
     return out @ p["wo"].to(x.dtype)
 
 

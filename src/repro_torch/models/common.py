@@ -1,4 +1,5 @@
-"""Shared LM building blocks: parameter specs and their init, norms, RoPE.
+"""Shared LM building blocks: parameter specs and their init, norms, RoPE,
+the chunked cross-entropy.
 
 Port of ``repro.models.common``.  Parameters are nested dicts of tensors,
 as in the JAX package.  Where the JAX ``ParamBuilder`` draws each leaf from
@@ -16,6 +17,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -114,3 +116,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(hc, lc, w_unembed):
+    """(summed CE over the chunk's valid labels, their count), f32."""
+    logits = hc.float() @ w_unembed.float()                  # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return torch.stack([torch.sum((lse - gold) * valid), torch.sum(valid)])
+
+
+def cross_entropy_chunked(h: torch.Tensor, w_unembed: torch.Tensor,
+                          labels: torch.Tensor, chunk: int = 512):
+    """Mean CE over tokens with labels >= 0, computed in sequence chunks so
+    the (B, T, V) logits tensor is never made whole: each chunk's f32
+    logits are recomputed in the backward (``torch.utils.checkpoint``).  A
+    ragged T is padded with label -1.  Divides by max(count, 1)."""
+    b, t, _ = h.shape
+    c = min(chunk, t)
+    pad = (-t) % c
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros(2, device=h.device)
+    for start in range(0, t + pad, c):
+        tot = tot + checkpoint(_ce_chunk, h[:, start:start + c],
+                               labels[:, start:start + c], w_unembed,
+                               use_reentrant=False, preserve_rng_state=False)
+    return tot[0] / torch.clamp(tot[1], min=1.0)

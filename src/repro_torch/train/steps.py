@@ -1,18 +1,57 @@
 """Step builders (port of ``repro.train.steps``): the distributed GP train,
-barrier-free async and online-update steps, and the prefill and serve
-steps of the LM substrate.
+barrier-free async and online-update steps, and the train, prefill and
+serve steps of the LM substrate.
 
-The LM builders return plain functions over the caller's tensors, run under
-``torch.no_grad()``: serving takes no gradient, and the flash kernel has no
-backward.  The LM train step comes with training (ROADMAP Queue 1 item
-12).
+The LM ``make_*_step`` functions return plain functions over the
+caller's tensors.  The train state is the JAX package's tree,
+``{"params", "opt": {"m", "v", "step"}}``, so ``checkpoint`` reads and
+writes either package's files; the train step updates it in place
+(``optim.adam``).  Prefill and serve run under ``torch.no_grad()``:
+serving takes no gradient, and the flash kernel has no backward.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.flat import tree_items, tree_unflatten
 from ..models import transformer as tf
+from ..optim import adam as adam_mod
+
+
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     device=None) -> dict:
+    """Random params drawn from ``generator`` and zero Adam moments on
+    ``device`` (None: the card).  Unlike the JAX package, no spec tree
+    comes back."""
+    params = tf.init_params(cfg, generator, device=device)
+    return {"params": params, "opt": adam_mod.init_opt_state(params)}
+
+
+def make_train_step(cfg: ModelConfig,
+                    adam_cfg: adam_mod.AdamConfig | None = None,
+                    compression=None):
+    """``train_step(state, batch) -> (state, metrics)``: the loss's
+    gradient in every param (autograd through ``forward_train``), passed
+    through ``compression`` (grads -> grads) when given, then one AdamW
+    update, in place.  Metrics: ``loss``, ``load_balance``, ``router_z``,
+    ``grad_norm``, ``lr``, as 0-d tensors on the params' device."""
+    adam_cfg = adam_cfg or adam_mod.AdamConfig()
+
+    def train_step(state, batch):
+        paths, leaves = zip(*tree_items(state["params"]))
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, metrics = tf.forward_train(cfg, state["params"], batch)
+        grads = tree_unflatten(paths, torch.autograd.grad(loss, leaves))
+        if compression is not None:
+            grads = compression(grads)
+        params, opt, opt_metrics = adam_mod.adam_update(
+            adam_cfg, state["params"], grads, state["opt"])
+        metrics = {k: v.detach() for k, v in {**metrics, **opt_metrics}.items()}
+        return {"params": params, "opt": opt}, metrics
+
+    return train_step
 
 
 def make_gp_train_step(group, d: int, *, latent: bool = False,

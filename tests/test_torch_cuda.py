@@ -597,7 +597,7 @@ def test_lm_prefill_and_decode_on_cuda_match_cpu(cuda):
     from repro_torch.train import steps
 
     cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                              head_dim=64)
+                              head_dim=64, use_flash=True)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
@@ -621,6 +621,87 @@ def test_lm_prefill_and_decode_on_cuda_match_cpu(cuda):
     assert n_gpu == cfg.num_layers and n_cpu == 0
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _lm_loss_and_grads(cfg, params, batch):
+    from repro_torch.core.flat import tree_items, tree_unflatten
+    from repro_torch.models import transformer as tf
+
+    paths, leaves = zip(*tree_items(params))
+    leaves = [a.detach().clone().requires_grad_(True) for a in leaves]
+    loss, _ = tf.forward_train(cfg, tree_unflatten(paths, leaves), batch)
+    return loss, dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+
+def _lm_train_inputs(arch="llama3.2-1b"):
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(arch).reduced()
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40),
+                                              dtype=np.int32))
+             for k in ("tokens", "labels")}
+    batch["labels"][0, :3] = -1
+    return cfg, params, batch
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "starcoder2-3b"])
+def test_lm_train_step_on_cuda_matches_cpu(cuda, arch):
+    """The reduced config in f32 (TF32 off) on the card against the CPU:
+    forward_train's loss and every gradient leaf, then 2 train steps'
+    losses and grad norms, within 1e-4 relative; no flash launch."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adam import AdamConfig, init_opt_state
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, batch = _lm_train_inputs(arch)
+    before = dict(fa_ops.LAUNCHES)
+    out = {}
+    for device in (cuda, "cpu"):
+        p = tree_map(lambda a, d=device: a.to(d), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, grads = _lm_loss_and_grads(cfg, p, b)
+        state = {"params": p, "opt": init_opt_state(p)}
+        step = steps.make_train_step(cfg, AdamConfig(warmup_steps=2))
+        ms = []
+        for _ in range(2):
+            state, m = step(state, b)
+            ms.append((m["loss"].item(), m["grad_norm"].item()))
+        out[str(device)] = (loss, grads, ms)
+    assert dict(fa_ops.LAUNCHES) == before
+    (loss, grads, ms), (loss_c, grads_c, ms_c) = out["cuda"], out["cpu"]
+    assert _rel(loss, loss_c) <= 1e-4
+    for path, g in grads_c.items():
+        assert _rel(grads[path], g) <= 1e-4, path
+    np.testing.assert_allclose(ms, ms_c, rtol=1e-4)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_lm_remat_on_cuda_matches_no_remat(cuda, policy):
+    """Remat on a stacked group against remat off, on the card: the loss
+    bitwise and every gradient within 1e-6."""
+    import dataclasses
+
+    from repro_torch.models.common import tree_map
+
+    cfg, params, batch = _lm_train_inputs()
+    p = tree_map(lambda a: a.to(cuda), params)
+    b = {k: v.to(cuda) for k, v in batch.items()}
+    off = _lm_loss_and_grads(cfg, p, b)
+    on = _lm_loss_and_grads(dataclasses.replace(cfg, remat=True,
+                                                remat_policy=policy), p, b)
+    assert on[0].item() == off[0].item()
+    for path, g in off[1].items():
+        torch.testing.assert_close(on[1][path], g, rtol=1e-6, atol=1e-6,
+                                   msg=str(path))
 
 
 # -- the distributed engine on the card --------------------------------------

@@ -11,7 +11,8 @@ after a save/load round trip), online_update (incremental updates equal
 a full rebuild to 1e-8), ensemble_serve (a bf16 fleet's mixture within
 0.2 of the truth, 64 draws within 6 standard errors of the mean) and
 serve_frontend (every response of a burst and a hot swap bitwise its
-generation's engine)."""
+generation's engine), and lm_pretrain at 8 steps (trains, "crashes" and
+resumes from its checkpoint in the directory the caller names)."""
 import datetime
 import json
 import pathlib
@@ -146,3 +147,17 @@ def test_serve_frontend(capsys):
     out = capsys.readouterr().out
     assert "all responses bitwise-match their generation's state: OK" in out
     assert counters["completed"] == 81 and counters["expired"] == 0
+
+
+def test_lm_pretrain(capsys, tmp_path):
+    from repro_torch.examples import lm_pretrain
+
+    ckdir = tmp_path / "ckpt"
+    losses = lm_pretrain.main(["--steps", "8", "--device", "cpu",
+                               "--ckpt-dir", str(ckdir)])
+    out = capsys.readouterr().out
+    assert "resumed from" in out and "ckpt_step4" in out
+    assert "trained 8 steps total across a restart" in out
+    assert len(losses) == 4 and np.all(np.isfinite(losses))
+    assert sorted(p.name for p in ckdir.glob("*.npz")) == [
+        "ckpt_step4.npz", "ckpt_step8.npz"]

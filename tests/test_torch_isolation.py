@@ -69,7 +69,15 @@ def test_import_leaves_jax_out():
                "repro_torch.examples.serve_frontend, "
                "repro_torch.distributed, "
                "repro_torch.distributed.async_stats, "
-               "repro_torch.checkpoint; "
+               "repro_torch.checkpoint, repro_torch.optim, "
+               "repro_torch.optim.adam, repro_torch.optim.compression, "
+               "repro_torch.data.tokens, repro_torch.launch.train, "
+               "repro_torch.launch.roofline, "
+               "repro_torch.examples.lm_pretrain, "
+               "repro_torch.configs.qwen2_1p5b, "
+               "repro_torch.configs.starcoder2_3b, "
+               "repro_torch.configs.codeqwen1p5_7b, "
+               "repro_torch.configs.chameleon_34b; "
                "bad = [m for m in sys.modules if m.split('.')[0] in "
                "('jax', 'repro')]; print(bad); assert not bad")
     assert res.returncode == 0, res.stdout + res.stderr
@@ -149,6 +157,31 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     tree["groups"]["g0"]["mlp"].pop("w_up")
     with pytest.raises(ValueError, match="keys"):
         lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+def test_lm_training_entry_points_raise_without_cuda(no_cuda):
+    """The trainer, its state, its stream and the example default
+    to the card; ``--device cpu`` / ``device="cpu"`` run them here."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.examples import lm_pretrain
+    from repro_torch.launch import train
+    from repro_torch.train import steps
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.init_train_state(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TokenStream(cfg.vocab_size, 8, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_pretrain.main(["--steps", "2"])
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    assert state["opt"]["step"].device.type == "cpu"
+    assert TokenStream(cfg.vocab_size, 8, 2, device="cpu").batch(0)[
+        "tokens"].shape == (2, 8)
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):

@@ -7,9 +7,11 @@ with numpy.  Both run in f32 on the CPU (the reduced config computes in
 f32): bf16 rounds at other places in XLA and torch, so bf16 is held only on
 the card, kernel against plain.  Tolerance 1e-4 (relative and absolute):
 the two frameworks sum the same f32 products in other orders, through two
-layers.  The JAX side runs with ``use_flash=True`` (the Pallas kernel in
-interpret mode), as the port does; ``gqa_forward`` is also held against
-the JAX package's query-chunked path.
+layers.  Both packages' registered config trains and prefills through the
+query-chunked attention; the serving path here asks for the flash route
+with ``dataclasses.replace(cfg, use_flash=True)`` in both (the Pallas
+kernel in interpret mode on the JAX side), and ``gqa_forward`` is held on
+each route against the JAX package's same route.
 """
 import dataclasses
 
@@ -25,6 +27,7 @@ from repro.models import common as j_common
 from repro.models import mlp as j_mlp
 from repro.models import transformer as j_tf
 from repro.train import steps as j_steps
+from repro_torch.configs import all_configs as torch_configs
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import attention as attn
@@ -36,10 +39,13 @@ from repro_torch.train import steps
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, T = 2, 8
 
+DENSE = ["qwen2-1.5b", "llama3.2-1b", "starcoder2-3b", "codeqwen1.5-7b",
+         "chameleon-34b"]
+
 load_all()
 J_CFG = dataclasses.replace(all_configs()["llama3.2-1b"].reduced(),
                             use_flash=True)
-CFG = get_config("llama3.2-1b").reduced()
+CFG = dataclasses.replace(get_config("llama3.2-1b").reduced(), use_flash=True)
 
 
 @pytest.fixture(scope="module")
@@ -96,11 +102,16 @@ def _grow(caches, size, like):
 
 
 def test_config_is_jax_config_with_flash():
-    """The port's own copy of the config (its own registry), field by
-    field the JAX package's with use_flash=True, full and reduced."""
-    j_full = dataclasses.replace(all_configs()["llama3.2-1b"], use_flash=True)
+    """The port's own copies of the five dense configs (its own registry),
+    field by field the JAX package's as registered (use_flash False), full
+    and reduced; the serving variant here is the same replace() of each."""
     asdict = dataclasses.asdict
-    assert asdict(get_config("llama3.2-1b")) == asdict(j_full)
+    assert sorted(torch_configs()) == sorted(DENSE)
+    for name in DENSE:
+        assert asdict(get_config(name)) == asdict(all_configs()[name]), name
+        assert not get_config(name).use_flash
+        assert asdict(get_config(name).reduced()) == \
+            asdict(all_configs()[name].reduced()), name
     assert asdict(CFG) == asdict(J_CFG)
 
 
@@ -165,21 +176,33 @@ def test_gqa_forward_matches_both_jax_paths(params, use_flash):
     pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
     want = j_attn.gqa_forward(dataclasses.replace(J_CFG, use_flash=use_flash),
                               j_layer, jnp.asarray(x), jnp.asarray(pos))
-    got = attn.gqa_forward(CFG, layer, torch.from_numpy(x),
-                           torch.from_numpy(pos))
+    got = attn.gqa_forward(dataclasses.replace(CFG, use_flash=use_flash),
+                           layer, torch.from_numpy(x), torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_unported_paths_raise(params):
-    _, p = params
+    """The query-chunked route (``use_flash=False``), once refused, now
+    held against the JAX package's, with and without a local window; a
+    window on the flash route stays refused (the kernel has none; the JAX
+    package drops it, ROADMAP Queue 3 item 18), and so does MLA."""
+    jp, p = params
+    j_layer = jax.tree.map(lambda a: a[0], jp["groups"]["g0"]["attn"])
     layer = {k: v[0] for k, v in p["groups"]["g0"]["attn"].items()}
-    x = torch.zeros((1, 4, CFG.d_model))
-    pos = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        attn.gqa_forward(dataclasses.replace(CFG, use_flash=False), layer,
-                         x, pos)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        attn.gqa_forward(CFG, layer, x, pos, window=4)
+    x = np.random.default_rng(5).standard_normal(
+        (1, 12, CFG.d_model)).astype(np.float32)
+    pos = np.arange(12, dtype=np.int32)[None]
+    chunked = dataclasses.replace(CFG, use_flash=False)
+    j_chunked = dataclasses.replace(J_CFG, use_flash=False)
+    for window in (None, 4):
+        want = j_attn.gqa_forward(j_chunked, j_layer, jnp.asarray(x),
+                                  jnp.asarray(pos), window=window)
+        got = attn.gqa_forward(chunked, layer, torch.from_numpy(x),
+                               torch.from_numpy(pos), window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(NotImplementedError, match="Queue 3 item 18"):
+        attn.gqa_forward(CFG, layer, torch.from_numpy(x),
+                         torch.from_numpy(pos), window=4)
     mla = get_config("llama3.2-1b").reduced()
     mla = dataclasses.replace(mla, blocks=(dataclasses.replace(
         mla.blocks[0], mixer="mla"),))

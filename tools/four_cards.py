@@ -15,12 +15,16 @@ each ``reduce_mode``: every rank's bits the same, ``overlap`` bitwise
 block; each mode's step time (host clock, synchronised, median of 5).
 Then every rank extracts the predictive state at the init and at a second
 ``log_beta`` (``DistributedGP.predictive_state``, the same bits on every
-rank); rank 0 serves the first 500 of phase 3h's requests through a
-``Frontend`` over ``predict_engine`` with a ``swap_state`` to the second
-state midway and ``close()``, the other ranks run ``serve_follower``:
-every response bitwise a world of one's on rank 0's card.  Rank 0 prints
-a JSON line for each part and the cards' name and power limit; any failed
-check raises.
+rank) and serves over the ranks, each answer bitwise a world of one's on
+the rank's own card and the same on every rank: the fleet
+(``multi_predict_engine`` of the two states) on 65,536 of phase 3h's
+queries, before and after a ``swap_slot`` of slot 1; the sharded
+``sample`` of 4,096 queries x 256 draws (phase 3h's seed); then rank 0
+serves the first 500 of phase 3h's requests through a ``Frontend`` over
+``predict_engine`` with a ``swap_state`` to the second state midway and
+``close()``, the other ranks run ``serve_follower``: every response bitwise
+a world of one's on rank 0's card.  Rank 0 prints a JSON line for each
+part and the cards' name and power limit; any failed check raises.
 """
 import asyncio
 import json
@@ -40,8 +44,8 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import GP_CONFIGS, GPConfig  # noqa: E402
 from repro_torch.core.distributed import DistributedGP  # noqa: E402
 from repro_torch.launch import make_data_group  # noqa: E402
-from repro_torch.serve import (Frontend, PredictEngine,  # noqa: E402
-                               serve_follower)
+from repro_torch.serve import (Frontend, MultiPredictEngine,  # noqa: E402
+                               PredictEngine, serve_follower)
 from repro_torch.train.steps import make_gp_train_step  # noqa: E402
 
 MODES = ("serial", "overlap", "overlap_eager")
@@ -71,6 +75,44 @@ def steps(group, cfg, chunk, device, report):
     finally:
         undo()
     return out, (x, y, z, hyp)
+
+
+def same_on_every_rank(group, arrays) -> bool:
+    """Whether every rank holds the same bits in ``arrays``."""
+    mine = b"".join(np.ascontiguousarray(a).tobytes() for a in arrays)
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, mine, group=group)
+    return all(e == mine for e in every)
+
+
+def fleet_and_sample(eng, group, states, queries, dev, report):
+    """The fleet over the ranks (before and after a ``swap_slot``) and the
+    sharded ``sample``, each bitwise a world of one's on this rank's card
+    and the same on every rank."""
+    xq = torch.from_numpy(queries).to(dev)
+    fleet = eng.multi_predict_engine(states)
+    one = MultiPredictEngine(states, device=dev)
+    got, want = [], []
+    for swapped in (False, True):
+        if swapped:
+            fleet.swap_slot(1, states[0])
+            one.swap_slot(1, states[0])
+        got += [a.cpu().numpy() for a in fleet.predict(xq)]
+        want += [a.cpu().numpy() for a in one.predict(xq)]
+    xs = xq[:cs.SAMPLE_T]
+    draws = eng.predict_engine(states[0]).sample(xs, cs.SAMPLE_DRAWS,
+                                                 cs.SAMPLE_SEED)
+    got.append(draws.cpu().numpy())
+    want.append(PredictEngine(states[0], device=dev).sample(
+        xs, cs.SAMPLE_DRAWS, cs.SAMPLE_SEED).cpu().numpy())
+    res = {"fleet_queries": xq.shape[0], "fleet_models": fleet.n_models,
+           "sample_shape": list(draws.shape),
+           "bitwise_world_of_one": [bool(np.array_equal(a, b))
+                                    for a, b in zip(got, want)],
+           "same_on_every_rank": same_on_every_rank(group, got)}
+    if not (all(res["bitwise_world_of_one"]) and res["same_on_every_rank"]):
+        raise AssertionError(f"fleet and sample over the ranks: {res}")
+    report["fleet_and_sample"] = res
 
 
 def main():
@@ -119,13 +161,17 @@ def main():
                                    None, w)
               for hh in (h, {**h, "log_beta": h["log_beta"] + 0.1})]
     del data, w
+    queries = np.random.default_rng(cs.SEED + 1).uniform(
+        -2.0, 2.0, (65_536, cfg.q))
+    report = {}
+    fleet_and_sample(eng, group, states, queries, dev, report)
+    if rank == 0:
+        print(json.dumps(report), flush=True)
     peng = eng.predict_engine(states[0])
     if rank:
         serve_follower(peng)
         dist.destroy_process_group()
         return
-    queries = np.random.default_rng(cs.SEED + 1).uniform(
-        -2.0, 2.0, (65_536, cfg.q))
     reqs = cs.fe_rank_requests(queries)
     sent = []
     real = dist.broadcast
