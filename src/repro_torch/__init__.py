@@ -20,8 +20,10 @@ zoo (``core.covariance``) and online updates (``SGPR.update`` / ``forget``,
 ``serve.online``, ``PredictEngine.ingest`` / ``forget`` / ``swap_state``);
 posterior sampling (``PredictEngine.sample`` / ``sample_stream``,
 ``SGPR.sample``), the fleet engine (``serve.MultiPredictEngine``) and the
-async serving front-end (``serve.Frontend``, ``serve.slo``); LM serving of ``llama3.2-1b`` (``models``, ``train.steps.make_prefill_step``
-/ ``make_serve_step``).
+async serving front-end (``serve.Frontend``, ``serve.slo``); the LM
+substrate's ten configs, trained and served (``models``: GQA, local
+windows, MLA, SSD, RG-LRU, dense MoE, enc-dec; ``train.steps``,
+``launch.train``).
 """
 from .core import SGPR, BayesianGPLVM, DistributedGP
 from .serve import (PredictEngine, PredictiveState, extract_state, load_state,

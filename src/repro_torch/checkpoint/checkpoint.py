@@ -10,7 +10,8 @@ package loads the other's files:
   view and restored through the template's dtype;
 * the sidecar is ``{"metadata": {...}, "n_leaves": N}``.
 
-Trees are frozen dataclasses and dicts of tensors; dataclass fields that
+Trees are frozen dataclasses, dicts and lists of tensors (a list entry's
+key is its index, as JAX prints it); dataclass fields that
 are not tensors or dicts (e.g. a kernel expression) are static and not
 saved.  Writes are atomic: temporary files, then rename.  A path whose stem
 is ``<base>_step<N>`` rotates: ``save(..., keep=k)`` leaves the k newest
@@ -33,6 +34,8 @@ def _children(tree):
     """(key, child) pairs of a tree node, or None for a leaf."""
     if isinstance(tree, dict):
         return [(str(k), v) for k, v in sorted(tree.items())]
+    if isinstance(tree, list):
+        return [(str(i), v) for i, v in enumerate(tree)]
     if dataclasses.is_dataclass(tree):
         return [("." + f.name, getattr(tree, f.name))
                 for f in dataclasses.fields(tree)
@@ -166,6 +169,8 @@ def _unflatten(like, data, device, prefix: str = ""):
            for key, child in kids}
     if isinstance(like, dict):
         return {k: out[str(k)] for k in like}
+    if isinstance(like, list):
+        return [out[str(i)] for i in range(len(like))]
     return dataclasses.replace(like, **{k[1:]: v for k, v in out.items()})
 
 

@@ -1,11 +1,14 @@
 """Workload configurations of the port: the GP workloads and the LM
-architecture registry (``load_all()`` imports every ported arch module)."""
+architecture registry (``load_all()`` imports every arch module)."""
 from .base import (SHAPES, BlockGroup, ModelConfig, ShapeSpec, all_configs,
-                   get_config, register)
+                   cells, get_config, register)
 from .gp_paper import GP_CONFIGS, GPConfig
 
-_ARCH_MODULES = ["qwen2_1p5b", "llama3p2_1b", "starcoder2_3b",
-                 "codeqwen1p5_7b", "chameleon_34b"]
+_ARCH_MODULES = [
+    "qwen2_1p5b", "llama3p2_1b", "starcoder2_3b", "codeqwen1p5_7b",
+    "whisper_medium", "deepseek_v2_236b", "qwen3_moe_235b", "chameleon_34b",
+    "recurrentgemma_9b", "mamba2_370m",
+]
 
 
 def load_all():
@@ -15,4 +18,5 @@ def load_all():
 
 
 __all__ = ["SHAPES", "BlockGroup", "ModelConfig", "ShapeSpec", "all_configs",
-           "get_config", "register", "GP_CONFIGS", "GPConfig", "load_all"]
+           "cells", "get_config", "register", "GP_CONFIGS", "GPConfig",
+           "load_all"]

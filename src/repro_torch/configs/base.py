@@ -2,12 +2,11 @@
 (copy of ``repro.configs.base``).
 
 The port keeps its own registry, apart from the JAX package's: a config
-module of ``repro_torch.configs`` registers here only.  ``reduced()``
-derives the CPU test config (same family/topology, tiny dims).  The
-dense configs of ``attn``/``mlp`` blocks are ported (qwen2-1.5b,
-llama3.2-1b, starcoder2-3b, codeqwen1.5-7b, chameleon-34b); the other five
-architectures of the JAX registry wait for their mixers (ROADMAP, Queue 1
-item 12b).
+module of ``repro_torch.configs`` registers here only.  It holds the JAX
+registry's ten architectures with the same numbers.  ``reduced()``
+derives the CPU test config (same family/topology, tiny dims).  Input
+shapes are the four ``SHAPES`` cells; ``long_500k`` is only
+``runs_long``-eligible for sub-quadratic families (:func:`cells`).
 """
 from __future__ import annotations
 
@@ -158,3 +157,11 @@ def all_configs() -> dict[str, ModelConfig]:
         from . import load_all
         load_all()
     return dict(_REGISTRY)
+
+
+def cells(cfg: ModelConfig) -> list[str]:
+    """The shape cells this arch runs (long_500k only if sub-quadratic)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.runs_long:
+        out.append("long_500k")
+    return out

@@ -63,6 +63,12 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> dict:
                 raise ValueError(f"{path}: shape {arr.shape}, {cfg.name} "
                                  f"has {spec.shape}")
             return torch.from_numpy(arr).to(dev)
+        if isinstance(spec, list):
+            if not isinstance(sub, (list, tuple)) or len(sub) != len(spec):
+                raise ValueError(f"{path}: {type(sub).__name__}, {cfg.name} "
+                                 f"has a list of {len(spec)} layers")
+            return [conv(s, u, f"{path}/{i}")
+                    for i, (s, u) in enumerate(zip(spec, sub))]
         keys = sorted(sub) if isinstance(sub, Mapping) else type(sub).__name__
         if keys != sorted(spec):
             raise ValueError(f"{path}: keys {keys}, {cfg.name} has "

@@ -18,41 +18,59 @@ import torch
 from .scg import SCGResult, scg
 
 
-def tree_items(tree: dict, prefix: tuple = ()):
-    """``(path, leaf)`` of a (nested) dict, keys sorted, depth first: the
+def tree_items(tree, prefix: tuple = ()):
+    """``(path, leaf)`` of nested dicts and lists, dict keys sorted, list
+    entries in order (their index in the path), depth first: the
     ``ravel_pytree`` order."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
+    kids = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+    for k, v in kids:
+        if isinstance(v, (dict, list)):
             yield from tree_items(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
 
+def _child(node, key, empty):
+    """``node[key]``, made ``empty`` first where it is missing: a list's
+    entries come in order, so a missing one is the next."""
+    if isinstance(node, list):
+        if key == len(node):
+            node.append(empty)
+        return node[key]
+    return node.setdefault(key, empty)
+
+
 def tree_unflatten(paths, leaves) -> dict:
-    """The nested dict holding ``leaves`` at ``paths``: the inverse of
-    :func:`tree_items`."""
+    """The nested dicts and lists holding ``leaves`` at ``paths``: the
+    inverse of :func:`tree_items` (an int in a path indexes a list, whose
+    entries come in order)."""
     out: dict = {}
     for path, leaf in zip(paths, leaves):
         node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
+        for key, nxt in zip(path[:-1], path[1:]):
+            node = _child(node, key, [] if isinstance(nxt, int) else {})
+        if isinstance(node, list):
+            node.append(leaf)
+        else:
+            node[path[-1]] = leaf
     return out
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of (nested) dicts of the same structure, in a
-    dict of that structure."""
+    """``fn`` over the leaves of nested dicts and lists of the same
+    structure, in a tree of that structure."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *(t[i] for t in trees))
+                for i in range(len(first))]
     return fn(*trees)
 
 
 def tree_leaves(tree: dict) -> list:
-    """The leaves of a (nested) dict, keys sorted, depth first: the
-    ``ravel_pytree`` order."""
+    """The leaves of nested dicts and lists in the ``ravel_pytree``
+    order."""
     return [v for _, v in tree_items(tree)]
 
 

@@ -40,9 +40,12 @@ class Leaf:
 
 
 def tree_map(fn, tree):
-    """``fn`` on every leaf of nested dicts (the params, caches, specs)."""
+    """``fn`` on every leaf of nested dicts and lists (the params, caches,
+    specs; an unstacked group holds a list of layers)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -1,22 +1,34 @@
-"""Model assembly: init, train forward, prefill and decode of dense GQA
-transformers.
+"""Model assembly: init, train forward, prefill and decode for all families.
 
-Port of ``repro.models.transformer`` for groups of ``attn`` mixers with
-``mlp`` FFNs (the dense configs).  The parameter and cache trees are the
-JAX package's: a group with ``scan=True`` and more than one layer holds its
+Port of ``repro.models.transformer``.  Layers are organised in BlockGroups
+(``configs/base.py``).  The parameter and cache trees are the JAX
+package's: a group with ``scan=True`` and more than one layer holds its
 params and caches stacked on a leading ``layers`` axis, and a Python loop
-over that axis takes the place of ``lax.scan``.  Per layer, pre-norm
-residual:
+over that axis takes the place of ``lax.scan``; a group with ``scan=False``
+and more than one layer holds them as ``{"unstacked": [layer, ...]}`` (its
+caches as a list).  Per layer, pre-norm residual:
 
-    x += attn(norm1(x));  x += mlp(norm2(x))
+    x += mixer(norm1(x));  [x += xattn(normx(x))];  x += ffn(norm2(x))
+
+The mixer is GQA attention (``attn``), local-window attention (``lattn``),
+MLA (``mla``), Mamba-2 SSD (``ssd``) or RG-LRU (``rglru``); the FFN an MLP,
+a MoE (plus a shared MLP) or none.  Whisper (family ``encdec``) runs a
+non-causal encoder over stub frame embeddings first and gives every
+decoder layer a cross-attention reading the encoder output; its K/V are
+cached at prefill (``xk``/``xv``) and never recomputed in decode.
 
 Training (``forward_train``) runs under torch autograd through the
 query-chunked attention and the chunked cross-entropy; with ``cfg.remat``
-each layer of a stacked group is recomputed in the backward
-(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the JAX
-package's scan body.  Not ported yet (ROADMAP Queue 1 item 12): the other
-mixers (``mla``, ``ssd``, ``rglru``, ``lattn``), MoE FFNs, enc-dec,
-unstacked groups and sharding.  Each raises ``NotImplementedError``.
+each layer of a stacked group (and of the encoder) is recomputed in the
+backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the
+JAX package's scan body.  MoE layers add their load-balance and router
+z-losses to the total.
+
+A local-window layer's prefill cache holds position p at slot
+p % window, the slot decode writes it to, so decoding straight after a
+prefill of any length matches a longer prefill; the JAX package keeps the
+last ``window`` positions at slots 0..window-1 instead, which agrees only
+when the window divides the prompt length (ROADMAP Queue 3 item 19).
 """
 from __future__ import annotations
 
@@ -27,9 +39,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
+from ..configs.base import BlockGroup
 from . import attention as attn
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .common import (Leaf, apply_norm, cross_entropy_chunked, make_norm,
-                     materialize, tree_map)
+                     materialize, rmsnorm, tree_map)
 from .mlp import init_mlp, mlp_forward
 
 
@@ -38,18 +54,16 @@ def _dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _check_ported(cfg):
-    if cfg.family == "encdec":
-        raise attn._not_ported("the enc-dec family")
-    for g in cfg.blocks:
-        if g.mixer != "attn" or g.ffn != "mlp":
-            raise attn._not_ported(f"a {g.mixer}/{g.ffn} block")
-        if g.count > 1 and not g.scan:
-            raise attn._not_ported("an unstacked block group")
-
-
 def _stacked(g) -> bool:
     return g.scan and g.count > 1
+
+
+def _unstacked(g) -> bool:
+    return not g.scan and g.count > 1
+
+
+def _encoder_group(cfg) -> BlockGroup:
+    return BlockGroup("attn", "mlp", cfg.encoder_layers, True)
 
 
 def _unstack(tree, count: int) -> list:
@@ -70,20 +84,56 @@ def _stack(trees: list):
 # init
 # ---------------------------------------------------------------------------
 
+def _layer_spec(cfg, mixer: str, ffn: str, cross: bool) -> dict:
+    layer = {"norm1": make_norm(cfg, cfg.d_model)}
+    if mixer in ("attn", "lattn"):
+        layer["attn"] = attn.init_gqa(cfg)
+    elif mixer == "mla":
+        layer["attn"] = attn.init_mla(cfg)
+    elif mixer == "ssd":
+        layer["ssd"] = ssm_mod.init_ssd(cfg)
+    elif mixer == "rglru":
+        layer["rglru"] = rglru_mod.init_rglru(cfg)
+    else:
+        raise ValueError(mixer)
+    if cross:
+        layer["normx"] = make_norm(cfg, cfg.d_model)
+        layer["xattn"] = attn.init_cross(cfg)
+    if ffn != "none":
+        layer["norm2"] = make_norm(cfg, cfg.d_model)
+    if ffn == "mlp":
+        layer["mlp"] = init_mlp(cfg)
+    elif ffn == "moe":
+        layer["moe"] = moe_mod.init_moe(cfg)
+        if cfg.num_shared_experts:
+            layer["shared_mlp"] = init_mlp(
+                cfg, d_ff=cfg.num_shared_experts * cfg.moe_d_ff)
+    return layer
+
+
+def _group_spec(cfg, g, cross: bool):
+    layer = _layer_spec(cfg, g.mixer, g.ffn, cross)
+    if _stacked(g):
+        return tree_map(lambda leaf, n=g.count: leaf.stacked(n), layer)
+    if _unstacked(g):
+        return {"unstacked": [layer] * g.count}
+    return layer
+
+
 def param_spec(cfg) -> dict:
     """The parameter tree of ``cfg`` as :class:`~.common.Leaf` specs: the
     shapes and inits of ``repro.models.transformer.init_params``."""
-    _check_ported(cfg)
     spec = {"embed": Leaf((cfg.vocab_size, cfg.d_model), std=0.02)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size))
     spec["final_norm"] = make_norm(cfg, cfg.d_model)
-    layer = {"norm1": make_norm(cfg, cfg.d_model), "attn": attn.init_gqa(cfg),
-             "norm2": make_norm(cfg, cfg.d_model), "mlp": init_mlp(cfg)}
-    spec["groups"] = {
-        f"g{gi}": (tree_map(lambda leaf, n=g.count: leaf.stacked(n), layer)
-                   if _stacked(g) else layer)
-        for gi, g in enumerate(cfg.blocks)}
+    cross = cfg.family == "encdec"
+    if cross:
+        spec["encoder"] = {
+            "layers": _group_spec(cfg, _encoder_group(cfg), cross=False),
+            "final_norm": make_norm(cfg, cfg.d_model)}
+    spec["groups"] = {f"g{gi}": _group_spec(cfg, g, cross)
+                      for gi, g in enumerate(cfg.blocks)}
     return spec
 
 
@@ -100,21 +150,80 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _layer_fwd(cfg, p, x, positions, collect_cache: bool):
+def _ffn(cfg, ffn, p, x):
+    """x += ffn(norm2(x)); returns (x, aux: the MoE losses, or {})."""
+    aux = {}
+    if ffn == "mlp":
+        x = x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, x, p["norm2"]))
+    elif ffn == "moe":
+        h2 = apply_norm(cfg, x, p["norm2"])
+        y_moe, aux = moe_mod.moe_forward(cfg, p["moe"], h2)
+        if cfg.num_shared_experts:
+            y_moe = y_moe + mlp_forward(cfg, p["shared_mlp"], h2)
+        x = x + y_moe
+    return x, aux
+
+
+def _layer_fwd(cfg, mixer, ffn, cross, p, x, positions, enc_out,
+               collect_cache: bool):
+    """One layer: (x, its decode cache or None, its aux losses)."""
     h = apply_norm(cfg, x, p["norm1"])
-    y = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True)
-    cache = (_gqa_cache_from_seq(cfg, p["attn"], h, positions)
-             if collect_cache else None)
+    cache = None
+    if mixer == "attn":
+        y = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True)
+        if collect_cache:
+            cache = _gqa_cache_from_seq(cfg, p["attn"], h, positions)
+    elif mixer == "lattn":
+        y = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True,
+                             window=cfg.local_window)
+        if collect_cache:
+            cache = _gqa_cache_from_seq(cfg, p["attn"], h, positions,
+                                        window=cfg.local_window)
+    elif mixer == "mla":
+        y = attn.mla_forward(cfg, p["attn"], h, positions)
+        if collect_cache:
+            cache = _mla_cache_from_seq(cfg, p["attn"], h, positions)
+    elif mixer == "ssd":
+        y, st = ssm_mod.ssd_forward(cfg, p["ssd"], h)
+        cache = st if collect_cache else None
+    elif mixer == "rglru":
+        y, st = rglru_mod.rglru_forward(cfg, p["rglru"], h)
+        cache = st if collect_cache else None
+    else:
+        raise ValueError(mixer)
     x = x + y
-    h2 = apply_norm(cfg, x, p["norm2"])
-    return x + mlp_forward(cfg, p["mlp"], h2), cache
+    if cross:
+        hx = apply_norm(cfg, x, p["normx"])
+        kv = attn.encode_kv(cfg, p["xattn"], enc_out)
+        x = x + attn.cross_forward(cfg, p["xattn"], hx, kv)
+        if collect_cache:
+            cache = {**cache, "xk": kv[0], "xv": kv[1]}
+    x, aux = _ffn(cfg, ffn, p, x)
+    return x, cache, aux
 
 
-def _gqa_cache_from_seq(cfg, p, h, positions):
-    """Build a decode cache from a prefilled sequence (train-path K/V)."""
-    return {"k": attn._heads(cfg, p, h, positions, "k"),
-            "v": attn._heads(cfg, p, h, positions, "v"),
-            "pos": positions.to(torch.int32)}
+def _gqa_cache_from_seq(cfg, p, h, positions, window=None):
+    """A decode cache from a prefilled sequence (train-path K/V).  With a
+    window, the last min(window, T) positions, position p at slot
+    p % min(window, T): the JAX package's slots rolled by T % window
+    (ROADMAP Queue 3 item 19)."""
+    k = attn._heads(cfg, p, h, positions, "k")
+    v = attn._heads(cfg, p, h, positions, "v")
+    pos = positions.to(torch.int32)
+    if window:
+        t = h.shape[1]
+        w = min(window, t)
+        k, v, pos = (torch.roll(a[:, -w:], shifts=t % w, dims=1)
+                     for a in (k, v, pos))
+    return {"k": k, "v": v, "pos": pos}
+
+
+def _mla_cache_from_seq(cfg, p, h, positions):
+    kv_a = h @ p["wkv_a"].to(h.dtype)
+    c_kv = rmsnorm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = attn.apply_rope(kv_a[..., cfg.kv_lora_rank:], positions,
+                             cfg.rope_theta)
+    return {"c_kv": c_kv, "k_rope": k_rope, "pos": positions.to(torch.int32)}
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -137,27 +246,40 @@ def _remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def _run_groups(cfg, params, x, positions, collect_cache: bool = False):
-    """Run all block groups; returns (x, caches per group), the caches
-    None without ``collect_cache``.  With ``cfg.remat``, each layer of a
-    stacked group is recomputed in the backward (no effect without a
-    gradient)."""
+def _run_groups(cfg, params, x, positions, enc_out, collect_cache=False):
+    """Run all block groups; returns (x, caches per group, aux sums).  The
+    caches are None without ``collect_cache``.  With ``cfg.remat``, each
+    layer of a stacked group is recomputed in the backward (no effect
+    without a gradient)."""
     caches = {}
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_tot = {"load_balance": zero, "router_z": zero}
+    cross = cfg.family == "encdec"
     for gi, g in enumerate(cfg.blocks):
         p_g = params["groups"][f"g{gi}"]
-        one = functools.partial(_layer_fwd, cfg, positions=positions,
+        one = functools.partial(_layer_fwd, cfg, g.mixer, g.ffn, cross,
+                                positions=positions, enc_out=enc_out,
                                 collect_cache=collect_cache)
-        if not _stacked(g):
-            x, caches[f"g{gi}"] = one(p_g, x)
-            continue
-        if cfg.remat and torch.is_grad_enabled():
-            one = _remat(cfg, one)
+        if _stacked(g):
+            if cfg.remat and torch.is_grad_enabled():
+                one = _remat(cfg, one)
+            layers = _unstack(p_g, g.count)
+        else:
+            layers = p_g["unstacked"] if _unstacked(g) else [p_g]
         layer_caches = []
-        for p in _unstack(p_g, g.count):
-            x, c = one(p, x)
+        for p in layers:
+            x, c, aux = one(p, x)
             layer_caches.append(c)
-        caches[f"g{gi}"] = _stack(layer_caches) if collect_cache else None
-    return x, caches
+            aux_tot = {k: v + aux[k] if k in aux else v
+                       for k, v in aux_tot.items()}
+        if not collect_cache:
+            caches[f"g{gi}"] = None
+        elif _stacked(g):
+            caches[f"g{gi}"] = _stack(layer_caches)
+        else:
+            caches[f"g{gi}"] = (layer_caches if _unstacked(g)
+                                else layer_caches[0])
+    return x, caches, aux_tot
 
 
 def _embed(cfg, params, tokens):
@@ -176,40 +298,72 @@ def _logits(cfg, params, x_last):
     return x[:, 0].float() @ _unembed_weight(cfg, params).float()
 
 
+def _encoder_layer(cfg, p, x, pos):
+    h = apply_norm(cfg, x, p["norm1"])
+    x = x + attn.gqa_forward(cfg, p["attn"], h, pos, causal=False)
+    return x + mlp_forward(cfg, p["mlp"], apply_norm(cfg, x, p["norm2"]))
+
+
+def _encode(cfg, params, frames):
+    """The non-causal encoder over frame embeddings (B,F,D) -> (B,F,D).
+    With ``cfg.remat`` each layer is recomputed in the backward, as in the
+    JAX package's encoder scan (which recomputes it whole whatever
+    ``remat_policy``: the values are the same)."""
+    x = frames.to(_dtype(cfg.compute_dtype))
+    b, f, _ = x.shape
+    pos = torch.arange(f, dtype=torch.int32, device=x.device).expand(b, f)
+    enc = params["encoder"]
+    g = _encoder_group(cfg)
+    one = functools.partial(_encoder_layer, cfg, pos=pos)
+    if cfg.remat and torch.is_grad_enabled():
+        one = _remat(cfg, one)
+    layers = _unstack(enc["layers"], g.count) if _stacked(g) \
+        else [enc["layers"]]
+    for p in layers:
+        x = one(p, x)
+    return apply_norm(cfg, x, enc["final_norm"])
+
+
+def _positions(tokens):
+    b, t = tokens.shape
+    return torch.arange(t, dtype=torch.int32, device=tokens.device).expand(b, t)
+
+
 def forward_train(cfg, params, batch):
-    """batch: tokens (B,T), labels (B,T) -> (loss, metrics), both f32 and
-    differentiable in ``params``.  Labels < 0 are masked.  The metrics are
-    the JAX package's for a dense config: ``loss``, and ``load_balance``
-    and ``router_z`` at 0.  Trains through the query-chunked attention:
-    the flash kernel has no backward, so ``cfg.use_flash`` raises."""
-    _check_ported(cfg)
+    """batch: tokens (B,T), labels (B,T) [, frames (B,F,D) for enc-dec] ->
+    (total, metrics), both f32 and differentiable in ``params``.  Labels < 0
+    are masked.  The metrics are ``loss`` and the MoE layers' summed
+    ``load_balance`` and ``router_z`` (0 without MoE); the total adds
+    0.01 load_balance + 1e-4 router_z to the loss for a MoE config.  Trains
+    through the query-chunked attention: the flash kernel has no backward,
+    so ``cfg.use_flash`` raises."""
     if cfg.use_flash:
         raise NotImplementedError(
             "forward_train with use_flash=True: the flash kernel has no "
             "backward (nor has the JAX package's); train with "
             "use_flash=False, the query-chunked attention")
     tokens = batch["tokens"]
-    b, t = tokens.shape
-    positions = torch.arange(t, dtype=torch.int32,
-                             device=tokens.device).expand(b, t)
+    enc_out = (_encode(cfg, params, batch["frames"])
+               if cfg.family == "encdec" else None)
     x = _embed(cfg, params, tokens)
-    x, _ = _run_groups(cfg, params, x, positions)
+    x, _, aux = _run_groups(cfg, params, x, _positions(tokens), enc_out)
     x = apply_norm(cfg, x, params["final_norm"])
     loss = cross_entropy_chunked(x, _unembed_weight(cfg, params),
                                  batch["labels"])
-    zero = torch.zeros((), device=loss.device)
-    return loss, {"loss": loss, "load_balance": zero, "router_z": zero}
+    total = loss
+    if cfg.num_experts:
+        total = total + 0.01 * aux["load_balance"] + 1e-4 * aux["router_z"]
+    return total, {"loss": loss, **aux}
 
 
 def forward_prefill(cfg, params, batch):
     """Prefill: full-sequence pass that returns (last-token logits, caches)."""
-    _check_ported(cfg)
     tokens = batch["tokens"]
-    b, t = tokens.shape
-    positions = torch.arange(t, dtype=torch.int32,
-                             device=tokens.device).expand(b, t)
+    enc_out = (_encode(cfg, params, batch["frames"])
+               if cfg.family == "encdec" else None)
     x = _embed(cfg, params, tokens)
-    x, caches = _run_groups(cfg, params, x, positions, collect_cache=True)
+    x, caches, _ = _run_groups(cfg, params, x, _positions(tokens), enc_out,
+                               collect_cache=True)
     return _logits(cfg, params, x[:, -1:, :]), caches
 
 
@@ -217,43 +371,124 @@ def forward_prefill(cfg, params, batch):
 # decode
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg, mixer, batch, max_len, dtype, device) -> dict:
+    if mixer in ("attn", "lattn"):
+        c = attn.init_gqa_cache(cfg, batch, max_len, dtype, device)
+    elif mixer == "mla":
+        c = attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+    elif mixer == "ssd":
+        c = ssm_mod.init_ssd_cache(cfg, batch, dtype, device)
+    elif mixer == "rglru":
+        c = rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
+    else:
+        raise ValueError(mixer)
+    if cfg.family == "encdec":
+        shape = (batch, cfg.num_frames, cfg.num_kv_heads, attn.head_dim(cfg))
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
 def init_decode_cache(cfg, batch: int, max_len: int, device=None):
-    """Empty decode caches (pos -1) with room for ``max_len`` positions, in
-    the layout ``forward_prefill`` returns, on ``device`` (None: the
-    card)."""
-    _check_ported(cfg)
+    """Empty decode caches (pos -1, zero states) with room for ``max_len``
+    positions (a window layer: min(window, max_len)), in the layout
+    ``forward_prefill`` returns, on ``device`` (None: the card)."""
     dev = resolve_device(device)
     cd = _dtype(cfg.compute_dtype)
     caches = {}
     for gi, g in enumerate(cfg.blocks):
-        c = attn.init_gqa_cache(cfg, batch, max_len, cd, dev)
-        caches[f"g{gi}"] = _stack([c] * g.count) if _stacked(g) else c
+        layers = [_layer_cache(cfg, g.mixer, batch, max_len, cd, dev)
+                  for _ in range(g.count)]
+        if _stacked(g):
+            caches[f"g{gi}"] = _stack(layers)
+        else:
+            caches[f"g{gi}"] = layers if _unstacked(g) else layers[0]
     return caches
 
 
-def _layer_decode(cfg, p, x_t, cache, pos):
+# The cache leaves of each mixer that hold one slot a position; every other
+# leaf (SSD and RG-LRU states, cross K/V) has no sequence axis.
+_SEQ_LEAVES = {"attn": ("k", "v", "pos"), "lattn": ("k", "v", "pos"),
+               "mla": ("c_kv", "k_rope", "pos")}
+
+
+def grow_decode_cache(cfg, caches, max_len: int):
+    """``forward_prefill``'s caches of T positions copied into empty caches
+    with room for ``max_len``: each attention leaf into the first T slots of
+    its sequence axis, every other leaf whole.  A window cache of a prompt
+    of T >= window positions already holds its window, position p at slot
+    p % window, and is copied whole.  Decoding straight into the prefill's
+    caches would overwrite token T-1 (ROADMAP Queue 3 item 5)."""
+    first = caches["g0"]
+    first = first[0] if isinstance(first, list) else first
+    stacked0 = _stacked(cfg.blocks[0])
+    leaf = next(iter(first.values()))
+    empty = init_decode_cache(cfg, leaf.shape[1 if stacked0 else 0], max_len,
+                              device=leaf.device)
+
+    for gi, g in enumerate(cfg.blocks):
+        ax = 2 if _stacked(g) else 1
+        seq = _SEQ_LEAVES.get(g.mixer, ())
+
+        def grow(old, new):
+            for name, a in old.items():
+                if name in seq:
+                    new[name][(slice(None),) * ax
+                              + (slice(0, a.shape[ax]),)] = a
+                else:
+                    new[name] = a
+            return new
+        old, new = caches[f"g{gi}"], empty[f"g{gi}"]
+        empty[f"g{gi}"] = ([grow(o, n) for o, n in zip(old, new)]
+                           if _unstacked(g) else grow(old, new))
+    return empty
+
+
+def _layer_decode(cfg, mixer, ffn, cross, p, x_t, cache, pos):
     h = apply_norm(cfg, x_t, p["norm1"])
-    y, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos)
+    if cross:   # cross K/V were cached at prefill, never recomputed
+        xkv = (cache["xk"], cache["xv"])
+        cache = {k: v for k, v in cache.items() if k not in ("xk", "xv")}
+    if mixer in ("attn", "lattn"):
+        y, cache = attn.gqa_decode(cfg, p["attn"], h, cache, pos)
+    elif mixer == "mla":
+        y, cache = attn.mla_decode(cfg, p["attn"], h, cache, pos)
+    elif mixer == "ssd":
+        y, cache = ssm_mod.ssd_decode(cfg, p["ssd"], h, cache)
+    elif mixer == "rglru":
+        y, cache = rglru_mod.rglru_decode(cfg, p["rglru"], h, cache)
+    else:
+        raise ValueError(mixer)
     x_t = x_t + y
-    h2 = apply_norm(cfg, x_t, p["norm2"])
-    return x_t + mlp_forward(cfg, p["mlp"], h2), cache
+    if cross:
+        hx = apply_norm(cfg, x_t, p["normx"])
+        x_t = x_t + attn.cross_forward(cfg, p["xattn"], hx, xkv)
+        cache = {**cache, "xk": xkv[0], "xv": xkv[1]}
+    x_t, _ = _ffn(cfg, ffn, p, x_t)
+    return x_t, cache
 
 
 def decode_step(cfg, params, caches, tokens_t, pos):
     """One decode step: tokens_t (B,1), pos (B,) -> (logits (B,V), caches).
     The caches passed in are left as they were."""
-    _check_ported(cfg)
     x = _embed(cfg, params, tokens_t)
+    cross = cfg.family == "encdec"
     new_caches = {}
     for gi, g in enumerate(cfg.blocks):
         p_g = params["groups"][f"g{gi}"]
         c_g = caches[f"g{gi}"]
-        if not _stacked(g):
-            x, new_caches[f"g{gi}"] = _layer_decode(cfg, p_g, x, c_g, pos)
-            continue
+        if _stacked(g):
+            pairs = zip(_unstack(p_g, g.count), _unstack(c_g, g.count))
+        elif _unstacked(g):
+            pairs = zip(p_g["unstacked"], c_g)
+        else:
+            pairs = [(p_g, c_g)]
         outs = []
-        for p, c in zip(_unstack(p_g, g.count), _unstack(c_g, g.count)):
-            x, c = _layer_decode(cfg, p, x, c, pos)
+        for p, c in pairs:
+            x, c = _layer_decode(cfg, g.mixer, g.ffn, cross, p, x, c, pos)
             outs.append(c)
-        new_caches[f"g{gi}"] = _stack(outs)
+        if _stacked(g):
+            new_caches[f"g{gi}"] = _stack(outs)
+        else:
+            new_caches[f"g{gi}"] = outs if _unstacked(g) else outs[0]
     return _logits(cfg, params, x), new_caches

@@ -704,6 +704,117 @@ def test_lm_remat_on_cuda_matches_no_remat(cuda, policy):
                                    msg=str(path))
 
 
+NEW_ARCHS = ["whisper-medium", "deepseek-v2-236b", "qwen3-moe-235b-a22b",
+             "recurrentgemma-9b", "mamba2-370m"]
+
+
+def _mixer_case(name):
+    """(function of (params, x) -> output tree, params, x) of one mixer at
+    its config's reduced widths, every leaf drawn N(0, 1/fan_in)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common
+    from repro_torch.models import moe, rglru, ssm
+
+    arch, init, fn = {
+        "ssd": ("mamba2-370m", ssm.init_ssd,
+                lambda c, p, x: ssm.ssd_forward(c, p, x)),
+        "rglru": ("recurrentgemma-9b", rglru.init_rglru,
+                  lambda c, p, x: rglru.rglru_forward(c, p, x)),
+        "lattn": ("recurrentgemma-9b", attn.init_gqa,
+                  lambda c, p, x: attn.gqa_forward(
+                      c, p, x, _positions(x), window=c.local_window)),
+        "mla": ("deepseek-v2-236b", attn.init_mla,
+                lambda c, p, x: attn.mla_forward(c, p, x, _positions(x))),
+        "cross": ("whisper-medium", attn.init_cross,
+                  lambda c, p, x: attn.cross_forward(
+                      c, p, x, attn.encode_kv(c, p, x[:, :16]))),
+        "moe": ("qwen3-moe-235b-a22b", moe.init_moe,
+                lambda c, p, x: moe.moe_dense(c, p, x)),
+    }[name]
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(0)
+    params = common.tree_map(lambda leaf: torch.from_numpy(
+        rng.standard_normal(leaf.shape) * leaf.normal_std).float(),
+        init(cfg))
+    x = torch.from_numpy(rng.standard_normal((2, 70, cfg.d_model))).float()
+    return (lambda p, xx: fn(cfg, p, xx)), params, x
+
+
+def _positions(x):
+    b, t = x.shape[:2]
+    return torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+
+
+def _out_and_grads(fn, params, x, device):
+    """The mixer's outputs and the gradient of their sum of squares in x
+    and every parameter, on ``device``."""
+    from repro_torch.core.flat import tree_items, tree_unflatten
+
+    paths, leaves = zip(*tree_items(params))
+    leaves = [a.to(device).requires_grad_(True) for a in leaves]
+    xx = x.to(device).requires_grad_(True)
+    out = fn(tree_unflatten(paths, leaves), xx)
+    flat = [o for o in (out if isinstance(out, tuple) else (out,))]
+    flat = [v for o in flat for v in (o.values() if isinstance(o, dict)
+                                      else (o,))]
+    scalar = sum(torch.sum(o.float() ** 2) for o in flat)
+    grads = torch.autograd.grad(scalar, [xx, *leaves])
+    return [o.detach() for o in flat], grads
+
+
+@pytest.mark.parametrize("mixer", ["ssd", "rglru", "lattn", "mla", "cross",
+                                   "moe"])
+def test_lm_mixer_on_cuda_matches_cpu(cuda, mixer):
+    """Each mixer the slice adds (SSD, RG-LRU's log-depth scan, local
+    attention, MLA, cross-attention, the dense MoE) at reduced widths in
+    f32 (TF32 off), T 70: its outputs and the gradient of their sum of
+    squares in x and every parameter, on the card against the CPU, within
+    1e-4 relative; no flash launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn, params, x = _mixer_case(mixer)
+    before = dict(fa_ops.LAUNCHES)
+    outs, grads = _out_and_grads(fn, params, x, cuda)
+    outs_c, grads_c = _out_and_grads(fn, params, x, "cpu")
+    assert dict(fa_ops.LAUNCHES) == before
+    for a, b in zip(outs + list(grads), outs_c + list(grads_c)):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_lm_arch_on_cuda_matches_cpu(cuda, arch):
+    """Each new architecture reduced, in f32 (TF32 off): forward_train's
+    total and every gradient leaf, then the prefill's logits and one
+    decode step into caches grown to one more position (the query-chunked
+    attention), on the card against the CPU, within 1e-4 relative."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, batch = _lm_train_inputs(arch)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(np.random.default_rng(1)
+                                           .standard_normal((2, 16, 64))).float()
+    out = []
+    for device in (cuda, "cpu"):
+        p = tree_map(lambda a, d=device: a.to(d), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, grads = _lm_loss_and_grads(cfg, p, b)
+        prompt = {k: v for k, v in b.items() if k != "labels"}
+        logits, caches = steps.make_prefill_step(cfg)(p, prompt)
+        grown = tf.grow_decode_cache(cfg, caches, 41)
+        pos = torch.full((2,), 40, dtype=torch.int32, device=device)
+        logits2, _ = steps.make_serve_step(cfg)(p, grown, b["tokens"][:, :1],
+                                                pos)
+        out.append((loss, grads, logits, logits2))
+    (loss, grads, logits, logits2), (loss_c, grads_c, logits_c, logits2_c) = out
+    assert _rel(loss, loss_c) <= 1e-4
+    for path, g in grads_c.items():
+        assert _rel(grads[path], g) <= 1e-4, path
+    assert _rel(logits, logits_c) <= 1e-4
+    assert _rel(logits2, logits2_c) <= 1e-4
+
+
 # -- the distributed engine on the card --------------------------------------
 
 def _dist_inputs(n=3001, m=40, q=3, d=2):

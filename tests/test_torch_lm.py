@@ -94,20 +94,18 @@ def _grow(caches, size, like):
         empty = j_tf.init_decode_cache(J_CFG, B, size)
         return {g: {k: empty[g][k].at[:, :, :a.shape[2]].set(a)
                     for k, a in c.items()} for g, c in caches.items()}
-    grown = tf.init_decode_cache(CFG, B, size, device="cpu")
-    for g, c in caches.items():
-        for k, a in c.items():
-            grown[g][k][:, :, :a.shape[2]] = a
-    return grown
+    return tf.grow_decode_cache(CFG, caches, size)
 
 
 def test_config_is_jax_config_with_flash():
-    """The port's own copies of the five dense configs (its own registry),
-    field by field the JAX package's as registered (use_flash False), full
-    and reduced; the serving variant here is the same replace() of each."""
+    """The port's own copies of the JAX registry's ten configs (its own
+    registry), field by field the JAX package's as registered (use_flash
+    False), full and reduced; the serving variant here is the same
+    replace() of each."""
     asdict = dataclasses.asdict
-    assert sorted(torch_configs()) == sorted(DENSE)
-    for name in DENSE:
+    assert sorted(torch_configs()) == sorted(all_configs())
+    assert set(DENSE) < set(torch_configs())
+    for name in all_configs():
         assert asdict(get_config(name)) == asdict(all_configs()[name]), name
         assert not get_config(name).use_flash
         assert asdict(get_config(name).reduced()) == \
@@ -181,11 +179,14 @@ def test_gqa_forward_matches_both_jax_paths(params, use_flash):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_unported_paths_raise(params):
+def test_unported_paths_raise(params, monkeypatch):
     """The query-chunked route (``use_flash=False``), once refused, now
     held against the JAX package's, with and without a local window; a
     window on the flash route stays refused (the kernel has none; the JAX
-    package drops it, ROADMAP Queue 3 item 18), and so does MLA."""
+    package drops it, ROADMAP Queue 3 item 18).  Every mixer, MoE, enc-dec
+    and unstacked groups are ported; what still raises is the
+    expert-parallel MoE schedule over a process group, and it names item
+    12c."""
     jp, p = params
     j_layer = jax.tree.map(lambda a: a[0], jp["groups"]["g0"]["attn"])
     layer = {k: v[0] for k, v in p["groups"]["g0"]["attn"].items()}
@@ -203,11 +204,18 @@ def test_unported_paths_raise(params):
     with pytest.raises(NotImplementedError, match="Queue 3 item 18"):
         attn.gqa_forward(CFG, layer, torch.from_numpy(x),
                          torch.from_numpy(pos), window=4)
-    mla = get_config("llama3.2-1b").reduced()
-    mla = dataclasses.replace(mla, blocks=(dataclasses.replace(
-        mla.blocks[0], mixer="mla"),))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tf.param_spec(mla)
+    mla = get_config("deepseek-v2-236b").reduced()
+    assert "wkv_a" in tf.param_spec(mla)["groups"]["g1"]["attn"]
+    moe_cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                                  moe_impl="sharded")
+    moe_p = tf.init_params(moe_cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    steps.make_prefill_step(moe_cfg)(moe_p, {"tokens": tokens})
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
+        steps.make_prefill_step(moe_cfg)(moe_p, {"tokens": tokens})
 
 
 def test_prefill_and_decode_match_jax(params, tokens, j_prefill, j_serve):

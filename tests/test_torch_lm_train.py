@@ -87,7 +87,9 @@ def _port_loss_and_grads(cfg, params, batch):
 
 
 def test_registry_holds_the_five_dense_configs():
-    assert sorted(all_configs()) == sorted(DENSE)
+    """The five dense configs, among the JAX registry's ten."""
+    assert set(DENSE) < set(all_configs())
+    assert sorted(all_configs()) == sorted(j_all_configs())
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -255,7 +257,7 @@ def test_model_flops_match_jax(arch):
     the same fields) and every ``SHAPES`` cell, and for the port's own
     registered configs."""
     j_cfg = j_all_configs()[arch]
-    cfgs = [j_cfg] + ([get_config(arch)] if arch in DENSE else [])
+    cfgs = [j_cfg, get_config(arch)]
     assert sorted(SHAPES) == sorted(J_SHAPES)
     for cfg in cfgs:
         assert roofline._active_params(cfg) == \
