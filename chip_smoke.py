@@ -203,12 +203,32 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    tokens/s and the peak memory beside the card's name and power limit;
    then each of the five ``reduced()`` configs, f32, ``forward_train``'s
    total, aux metrics and every gradient leaf on the card against the CPU
-   (1e-4).  Phase 2 times the flash kernel at 3k's three new shapes.
+   (1e-4).  Phase 2 times the flash kernel at 3k's three new shapes;
+3l. serves ``qwen3-moe-235b-a22b`` (after 3k; 4 of 94 layers at full
+   width, bf16, the flash kernel) through the expert-parallel MoE on a
+   (1, 4) ("data", "model") mesh of 4 ranks spawned on the card over gloo
+   (``launch.make_compat_mesh``; each rank 32 of 128 experts a layer,
+   ``train.steps.init_params_sharded``): (1) capacity factor 16 (no drop),
+   B 1, top-k pinned to a dense one-process run of the same weights: each
+   MoE layer's output and the last logits within 2e-2 relative RMS at
+   bf16, the logits within 1e-4 at f32; (2) every rank's logits bitwise
+   the same after each prefill and decode step; (3) the config's capacity
+   factor 1.25, B 4 x 2,048 then 16 decode steps: each layer's kept
+   (token, choice) pairs identical to the schedule's plain one-process
+   re-computation on the same inputs (``plain_ep_moe``), its output within
+   2e-2, the dropped share printed; (4) the int8 wire, each layer on the
+   same inputs within ``tests/test_moe.py``'s bound scaled to the output;
+   (5) the reduced config's f32 train step under the mesh, no drop: each
+   gradient leaf of the cross-entropy within 1e-4 of the dense path's,
+   the int8 backward's finite and nonzero.  It prints prefill s and
+   decode-step ms (native, int8), each collective's bytes and ms a layer,
+   peak memory and flash launches per rank, beside the card's name and
+   power limit.
 
 Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b, 3f,
-3g, 3h, 3i, 3c, 3j and 3k and read just after; each kernel of a path must have
-launched in it (3d's, 3e's, 3f's and 3i's ranks count their own launches and
-report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
+3g, 3h, 3i, 3c, 3j, 3k and 3l and read just after; each kernel of a path
+must have launched in it (3d's, 3e's, 3f's, 3i's and 3l's ranks count
+their own launches and report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
 the references run beside them, and 3e, 3f, 3g and 3h assert the counts
 their calls imply: one reg_stats launch a block a pass, one predict launch
 or more a served batch, one on each rank of a sharded batch, one in
@@ -4398,6 +4418,508 @@ def arch_serving_path(fa_ops, fa_ref) -> dict:
     return launches
 
 
+# -- phase 3l: qwen3-moe served expert-parallel on 4 ranks of the card --------
+
+EP_NAME = "qwen3-moe-235b-a22b"
+EP_MESH = (1, 4)             # ("data", "model"): 4 gloo ranks sharing the card
+EP_NODROP_CF = 16.0          # E / k: an expert can take every token of a slice
+EP_NODROP_BATCH = 1          # check 1's prompts: (128, 512, 4096) dispatch buffers
+EP_TRAIN = (2, 64)           # B, T of the reduced train step (check 5)
+EP_GRAD_RTOL = 1e-4          # check 5: each gradient leaf's relative RMS
+# tests/test_moe.py:45-46 holds the int8 wire within 5e-2 max |err| of the
+# dense output, whose max |y| is 0.09238 on its problem (held by
+# tests/test_torch_moe_sharded.py): a bound of 0.5412 max |y|.
+INT8_MAX_ERR_OVER_MAX_Y = 5e-2 / 0.09238
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ep_config(moe_impl="sharded"):
+    """qwen3-moe at full width as phase 3k cuts it (4 of 94 layers, the
+    flash kernel), bf16 compute."""
+    import dataclasses
+    return dataclasses.replace(arch_config(EP_NAME), moe_impl=moe_impl)
+
+
+def ep_train_config():
+    """The reduced qwen3-moe, f32, through the sharded path with no drop
+    (capacity factor E / k)."""
+    import dataclasses
+    cfg = get_lm_config(EP_NAME).reduced()
+    return dataclasses.replace(
+        cfg, moe_impl="sharded",
+        capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def recording_moe(moe_mod, record):
+    """``moe.moe_forward`` that also keeps each call's input and output."""
+    real = moe_mod.moe_forward
+
+    def forward(cfg, p, x):
+        y, aux = real(cfg, p, x)
+        record.append((x.detach(), y.detach()))
+        return y, aux
+    return forward
+
+
+def counting_collectives(moe_mod, record, dev):
+    """Patches ``moe._all_to_all`` / ``moe._all_gather`` to keep each call's
+    (kind, bytes this rank sends in, seconds between synchronisations)."""
+    from unittest import mock
+
+    def wrap(kind, real):
+        def call(t, group):
+            sync(dev)
+            s = time.perf_counter()
+            out = real(t, group)
+            sync(dev)
+            record.append((kind, t.numel() * t.element_size(),
+                           time.perf_counter() - s))
+            return out
+        return call
+    return mock.patch.multiple(
+        moe_mod, _all_to_all=wrap("all_to_all", moe_mod._all_to_all),
+        _all_gather=wrap("all_gather", moe_mod._all_gather))
+
+
+def per_layer(record, layers) -> dict:
+    """Bytes and ms a MoE layer of each collective kind."""
+    out = {}
+    for kind in ("all_to_all", "all_gather"):
+        calls = [r for r in record if r[0] == kind]
+        out[f"{kind}_calls"] = len(calls) / layers
+        out[f"{kind}_bytes"] = sum(r[1] for r in calls) / layers
+        out[f"{kind}_ms"] = 1e3 * sum(r[2] for r in calls) / layers
+    return out
+
+
+def bf16_bits(t) -> np.ndarray:
+    return t.detach().contiguous().view(torch.int16).cpu().numpy()
+
+
+def from_bits(a, device) -> torch.Tensor:
+    return torch.from_numpy(a).view(torch.bfloat16).to(device)
+
+
+def ep_rank(rank, world, store_path, out_dir, job, device):
+    """One rank of phase 3l's gloo run (a spawned process) on the (1, 4)
+    mesh: the params of ``init_params`` with this rank's 32 experts a
+    layer, then (1) the no-drop prefill (B 1, routing pinned to the dense
+    run's) at bf16 and f32 compute, each MoE layer's output kept; the
+    config's capacity factor: (2) prefill B 4 (cold, warm), 16 greedy
+    decode steps, each one's logits kept, the MoE layers' inputs, outputs
+    and kept pairs, the collectives' bytes and times; (4) the same through
+    the int8 wire, and each MoE layer on the native run's inputs through
+    both wires; (5) the reduced config's cross-entropy gradient under the
+    mesh against the dense path's, the int8 backward's, one train step.
+    Writes ``rank<k>.npz``."""
+    import dataclasses
+    import datetime
+    import os
+    from unittest import mock
+
+    # Before this process touches the card: freed whole expert leaves must
+    # go back to it, not stay in segments that a kept shard pins.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as lm_steps
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)   # CPU ranks share the cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_compat_mesh(EP_MESH, ("data", "model"), dev, backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S))
+    i = sharding.mesh_coordinate(mesh)["model"]
+    cfg, b, t, n_new = job["cfg"], job["batch"], job["prompt"], job["new"]
+    layers = cfg.num_layers
+    reset_counts(fa_ops.LAUNCHES)
+    out = {}
+
+    def timed(fn):
+        sync(dev)
+        s = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - s
+
+    # A stacked expert leaf is drawn whole (12.9 GB in f32): one rank at a
+    # time, each keeping its shard and handing the rest back to the card.
+    t_init = time.perf_counter()
+    for r in range(world):
+        if r == rank:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            params = lm_steps.init_params_sharded(cfg, gen, mesh, device=dev)
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    out["init_s"] = time.perf_counter() - t_init
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    moe_p = params["groups"]["g0"]["moe"]
+
+    # -- (1) no drop, routing pinned to the dense run's ----------------------
+    b1 = arch_batch(cfg, EP_NODROP_BATCH, t, dev)
+    per = EP_NODROP_BATCH * t // EP_MESH[1]
+    for label in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, capacity_factor=EP_NODROP_CF,
+                                compute_dtype=label)
+        mine = [e[i * per:(i + 1) * per].to(dev) for e in job["choices"][label]]
+        rec = []
+        with sharding.use_mesh(mesh), \
+                mock.patch.object(moe_mod, "_route",
+                                  pinned_route(moe_mod, mine)), \
+                mock.patch.object(moe_mod, "moe_forward",
+                                  recording_moe(moe_mod, rec)):
+            (logits, _), s = timed(lambda: lm_steps.make_prefill_step(c)(
+                params, b1))
+        out[f"nodrop_{label}_logits"] = logits.float().cpu().numpy()
+        out[f"nodrop_{label}_prefill_s"] = s
+        if rank == 0:
+            out[f"nodrop_{label}_layers"] = torch.stack(
+                [y for _, y in rec]).float().cpu().numpy()
+        del rec
+
+    # -- (2) the config's capacity factor, native and int8 wires -------------
+    for wire in ("native", "int8"):
+        c = dataclasses.replace(cfg, moe_dispatch_dtype=wire)
+        prefill = lm_steps.make_prefill_step(c)
+        serve = lm_steps.make_serve_step(c)
+        batch = arch_batch(cfg, b, t, dev)
+        rec, packed, coll, coll_dec = [], [], [], []
+        real_pack = moe_mod._pack_local
+
+        def recording_pack(cfg_, xs, gates, eids, cap):
+            buf, meta = real_pack(cfg_, xs, gates, eids, cap)
+            packed.append(moe_mod.kept_pairs(meta, *eids.shape))
+            return buf, meta
+        with sharding.use_mesh(mesh):
+            _, out[f"{wire}_prefill_cold_s"] = timed(
+                lambda: prefill(params, batch))
+            with mock.patch.object(moe_mod, "moe_forward",
+                                   recording_moe(moe_mod, rec)), \
+                    mock.patch.object(moe_mod, "_pack_local", recording_pack):
+                (logits, caches), out[f"{wire}_prefill_s"] = timed(
+                    lambda: prefill(params, batch))
+            with counting_collectives(moe_mod, coll, dev):
+                prefill(params, batch)
+            caches = tf.grow_decode_cache(c, caches, t + n_new)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            steps_s, dec_logits = [], [logits.float().cpu().numpy()]
+            for s_i in range(n_new):
+                pos = torch.full((b,), t + s_i, dtype=torch.int32, device=dev)
+                with counting_collectives(moe_mod, coll_dec if s_i == 0
+                                          else [], dev):
+                    (lg, caches), s = timed(lambda: serve(params, caches, tok,
+                                                          pos))
+                steps_s.append(s)
+                dec_logits.append(lg.float().cpu().numpy())
+                tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            del caches
+        out[f"{wire}_logits"] = np.stack(dec_logits)
+        out[f"{wire}_decode_step_ms"] = 1e3 * statistics.median(steps_s[1:])
+        out[f"{wire}_decode_first_ms"] = 1e3 * steps_s[0]
+        for k, v in per_layer(coll, layers).items():
+            out[f"{wire}_prefill_{k}"] = v
+        for k, v in per_layer(coll_dec, layers).items():
+            out[f"{wire}_decode_{k}"] = v
+        if wire == "native":
+            out["kept"] = torch.stack(packed).cpu().numpy()
+            moe_in = [x for x, _ in rec]
+            moe_out = [y for _, y in rec]
+            if rank == 0:
+                out["moe_in_bits"] = np.stack([bf16_bits(x) for x in moe_in])
+                out["moe_out_bits"] = np.stack([bf16_bits(y) for y in moe_out])
+        del rec, packed
+
+    # each MoE layer on the native run's inputs, through both wires
+    c8 = dataclasses.replace(cfg, moe_dispatch_dtype="int8")
+    rel, worst = [], []
+    with torch.no_grad(), sharding.use_mesh(mesh):
+        for layer, (x, y) in enumerate(zip(moe_in, moe_out)):
+            p_l = {k: v[layer] for k, v in moe_p.items()}
+            y8, _ = moe_mod.moe_sharded(c8, p_l, x)
+            rel.append(rel_rms(y8.float(), y.float()))
+            worst.append(float((y8.float() - y.float()).abs().max()
+                               / y.float().abs().max()))
+    out["layers_int8_rel_rms"] = np.asarray(rel)
+    out["layers_int8_max_err_over_max_y"] = np.asarray(worst)
+    del moe_in, moe_out
+    out["serving_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else 0.0)
+    out["flash_bf16"] = fa_ops.LAUNCHES["bfloat16"]
+    out["flash_f32"] = fa_ops.LAUNCHES["float32"]
+    del params, moe_p
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (5) a reduced train step under the mesh, f32, no drop ---------------
+    red = job["train_cfg"]
+    bt, tt = EP_TRAIN
+    tb = lm_batch(red, bt, tt, dev, seed=SEED + 1)
+    dense = tf.init_params(dataclasses.replace(red, moe_impl="dense"),
+                           torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    want = ce_grads(tf, dataclasses.replace(red, moe_impl="dense"), dense,
+                    tb)
+    logical = flat_tree(tf.param_logical_axes(red))
+    rels = {}
+    for wire in ("native", "int8"):
+        ep = lm_steps.init_params_sharded(
+            dataclasses.replace(red, moe_dispatch_dtype=wire),
+            torch.Generator(device=dev).manual_seed(SEED), mesh, device=dev)
+        with sharding.use_mesh(mesh):
+            got = ce_grads(tf, dataclasses.replace(
+                red, moe_dispatch_dtype=wire), ep, tb)
+        if wire == "int8":
+            out["train_int8_grads_finite"] = all(
+                bool(torch.isfinite(g).all()) for g in got.values())
+            out["train_int8_grads_sq"] = float(sum(
+                (g.double() ** 2).sum() for g in got.values()))
+            continue
+        coord = sharding.mesh_coordinate(mesh)
+        for k, g in got.items():
+            w = want[k]
+            if "experts" in logical[k]:
+                w = w[sharding.shard_slices(logical[k], w.shape, mesh, coord,
+                                            moe_mod.EXPERT_RULES)]
+            rels["/".join(k)] = rel_rms(g, w)
+        state = {"params": ep, "opt": adam.init_opt_state(ep)}
+        with sharding.use_mesh(mesh):
+            state, metrics = lm_steps.make_train_step(red)(state, tb)
+        out["train_step_loss"] = float(metrics["loss"])
+        out["train_step_finite"] = all(
+            bool(torch.isfinite(v).all()) for v in metrics.values())
+    out["train_grad_leaf_max"] = max(rels.values())
+    out["train_grad_worst_leaf"] = max(rels, key=rels.get)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def ce_grads(tf, cfg, params, batch) -> dict:
+    """The gradient of forward_train's cross-entropy (not its aux losses,
+    which under a mesh are each token slice's, ROADMAP Queue 3 item 22) in
+    every leaf, keyed by path."""
+    from repro_torch.core.flat import tree_items
+
+    paths, leaves = zip(*tree_items(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    _, metrics = tf.forward_train(cfg, params, batch)
+    return dict(zip(paths, torch.autograd.grad(metrics["loss"], leaves)))
+
+
+def plain_ep_moe(moe_mod, cfg, p, x, em):
+    """The expert-parallel schedule in one process, no collective: the
+    same token slices, routing, stable sort and capacity, every expert on
+    its slice's packed buffer.  Returns (y, each slice's kept pairs)."""
+    b, t, d = x.shape
+    n = b * t
+    xf = torch.nn.functional.pad(x.reshape(n, d), (0, 0, 0, (-n) % em))
+    per = xf.shape[0] // em
+    ys, kept = [], []
+    for i in range(em):
+        xs = xf[i * per:(i + 1) * per]
+        gates, eids, _ = moe_mod._route(cfg, p["router"], xs)
+        tok = i * per + torch.arange(per, device=x.device)
+        gates = torch.where((tok < n)[:, None], gates, torch.zeros_like(gates))
+        cap = moe_mod._capacity(cfg, per)
+        buf, meta = moe_mod._pack_local(cfg, xs, gates, eids, cap)
+        yb = moe_mod._expert_ffn(p["w_gate"], p["w_up"], p["w_down"],
+                                 buf.reshape(cfg.num_experts, cap, d),
+                                 x.dtype)
+        ys.append(moe_mod._unpack_local(
+            cfg, yb.reshape(cfg.num_experts * cap, d), meta, per, d))
+        kept.append(moe_mod.kept_pairs(meta, per, cfg.experts_per_token))
+    return torch.cat(ys)[:n].reshape(b, t, d), kept
+
+
+def ep_dense_reference(moe_mod, tf, lm_steps, cfg, b1) -> dict:
+    """Phase 3l's one-process reference: the dense path on the same
+    weights, B 1, at bf16 and f32 compute: the last logits, each MoE
+    layer's output and its top-k choices."""
+    import dataclasses
+    from unittest import mock
+
+    dense = ep_config("dense")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = tf.init_params(dense, gen, device=DEV)
+    ref = {}
+    for label in ("bfloat16", "float32"):
+        c = dataclasses.replace(dense, compute_dtype=label)
+        routes, rec = [], []
+        with mock.patch.object(moe_mod, "_route",
+                               recording_route(moe_mod, routes)), \
+                mock.patch.object(moe_mod, "moe_forward",
+                                  recording_moe(moe_mod, rec)):
+            logits, _ = lm_steps.make_prefill_step(c)(params, b1)
+        ref[label] = {"logits": logits.float().cpu(),
+                      "layers": [y.float().cpu() for _, y in rec],
+                      "choices": [e.cpu() for e in routes]}
+        del rec
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def ep_serving_path(fa_ops) -> dict:
+    """Phase 3l: ``qwen3-moe-235b-a22b`` at full width (4 of 94 layers)
+    served through the expert-parallel MoE on a (1, 4) mesh of 4 gloo
+    ranks sharing the card (``ep_rank``), held against the dense path in
+    one process and the schedule's plain re-computation (module doc)."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps as lm_steps
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg = ep_config()
+    b, t, n_new = LM_BATCH, LM_PROMPT, LM_NEW
+    em = EP_MESH[1]
+    ref = ep_dense_reference(moe_mod, tf, lm_steps, cfg,
+                             arch_batch(cfg, EP_NODROP_BATCH, t, DEV))
+    job = {"cfg": cfg, "batch": b, "prompt": t, "new": n_new,
+           "train_cfg": ep_train_config(),
+           "choices": {k: v["choices"] for k, v in ref.items()}}
+    t_ranks = time.perf_counter()
+    ranks = spawn_ranks(em, job, str(torch.device(DEV, 0)), target=ep_rank)
+    report = {"config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                         "experts": cfg.num_experts,
+                         "top_k": cfg.experts_per_token, "mesh": EP_MESH,
+                         "batch": b, "prompt": t, "new": n_new,
+                         "capacity_factor": cfg.capacity_factor,
+                         "capacity": moe_mod._capacity(cfg, b * t // em)},
+              "ranks_wall_s": time.perf_counter() - t_ranks}
+    failed = []
+    r0 = ranks[0]
+
+    # (2) every rank's logits bitwise the same
+    keys = [k for k in r0 if k.endswith("logits")]
+    report["logits_bitwise_on_every_rank"] = {
+        k: all(np.array_equal(r[k], r0[k]) for r in ranks[1:]) for k in keys}
+    if not all(report["logits_bitwise_on_every_rank"].values()):
+        failed.append(f"logits differ between ranks "
+                      f"{report['logits_bitwise_on_every_rank']}")
+    # (1) no drop, routing pinned: against the dense path in one process
+    for label in ("bfloat16", "float32"):
+        lim = LOGIT_RTOL[label]
+        got = torch.from_numpy(r0[f"nodrop_{label}_logits"])
+        lg = rel_rms(got, ref[label]["logits"])
+        lay = [rel_rms(torch.from_numpy(y), want) for y, want in
+               zip(r0[f"nodrop_{label}_layers"], ref[label]["layers"])]
+        report[f"nodrop_{label}"] = {"logits_rel_rms": lg,
+                                     "moe_layers_rel_rms": lay,
+                                     "prefill_s": float(
+                                         r0[f"nodrop_{label}_prefill_s"])}
+        if not (lg <= lim and max(lay) <= lim):
+            failed.append(f"no-drop {label}: logits {lg:.3e}, layers {lay} "
+                          f"against {lim}")
+    del ref
+    # (3) capacity factor 1.25 against the schedule's plain re-computation
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = tf.init_params(cfg, gen, device=DEV)
+    moe_p = params["groups"]["g0"]["moe"]
+    kept_same, out_rel, dropped = [], [], []
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            x = from_bits(r0["moe_in_bits"][layer], DEV)
+            y = from_bits(r0["moe_out_bits"][layer], DEV)
+            p_l = {k: v[layer] for k, v in moe_p.items()}
+            y_plain, kept = plain_ep_moe(moe_mod, cfg, p_l, x, em)
+            kept_same.append(all(
+                np.array_equal(ranks[i]["kept"][layer], kept[i].cpu().numpy())
+                for i in range(em)))
+            out_rel.append(rel_rms(y.float(), y_plain.float()))
+            dropped.append(float(np.mean([~r["kept"][layer] for r in ranks])))
+    del params, moe_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["capacity_factor_1.25"] = {"kept_pairs_identical": kept_same,
+                                      "moe_layers_rel_rms": out_rel,
+                                      "dropped_share": dropped}
+    if not (all(kept_same) and max(out_rel) <= LOGIT_RTOL["bfloat16"]):
+        failed.append(f"capacity factor 1.25: kept identical {kept_same}, "
+                      f"outputs {out_rel}")
+    # (4) the int8 wire
+    worst = max(float(r["layers_int8_max_err_over_max_y"].max())
+                for r in ranks)
+    report["int8_wire"] = {
+        "layer_rel_rms": r0["layers_int8_rel_rms"].tolist(),
+        "layer_max_err_over_max_y": worst,
+        "bound_max_err_over_max_y": INT8_MAX_ERR_OVER_MAX_Y,
+        "logits_rel_rms_vs_native": rel_rms(
+            torch.from_numpy(r0["int8_logits"][0]),
+            torch.from_numpy(r0["native_logits"][0]))}
+    if not worst <= INT8_MAX_ERR_OVER_MAX_Y:
+        failed.append(f"int8: max |err| / max |y| {worst:.3e}")
+    # (5) the reduced train step
+    report["train"] = {
+        "grad_leaf_max_rel_rms": max(float(r["train_grad_leaf_max"])
+                                     for r in ranks),
+        "worst_leaf": str(r0["train_grad_worst_leaf"]),
+        "int8_grads_finite": all(bool(r["train_int8_grads_finite"])
+                                 for r in ranks),
+        "int8_grads_nonzero": all(float(r["train_int8_grads_sq"]) > 0
+                                  for r in ranks),
+        "train_step_finite": all(bool(r["train_step_finite"]) for r in ranks),
+        "train_step_loss": float(r0["train_step_loss"])}
+    tr = report["train"]
+    if not (tr["grad_leaf_max_rel_rms"] <= EP_GRAD_RTOL
+            and tr["int8_grads_finite"] and tr["int8_grads_nonzero"]
+            and tr["train_step_finite"]):
+        failed.append(f"train step: {tr}")
+    # times, bytes, memory, launches
+    for wire in ("native", "int8"):
+        report[wire] = {k[len(wire) + 1:]: float(r0[k]) for k in r0
+                        if k.startswith(wire + "_") and not
+                        k.endswith("logits")}
+    report["serving_peak_gb_per_rank"] = [float(r["serving_peak_gb"])
+                                          for r in ranks]
+    report["init_s"] = float(r0["init_s"])
+    # a flash launch a layer a prefill: no-drop bf16, and cold, warm and
+    # counted for each wire; no-drop f32
+    want_bf16, want_f32 = 7 * flash_layers(cfg), flash_layers(cfg)
+    launches = {"flash_attention_bf16": sum(int(r["flash_bf16"])
+                                            for r in ranks),
+                "flash_attention_f32": sum(int(r["flash_f32"])
+                                           for r in ranks)}
+    report["flash_launches_per_rank"] = [
+        [int(r["flash_bf16"]), int(r["flash_f32"])] for r in ranks]
+    if any(v != [want_bf16, want_f32]
+           for v in report["flash_launches_per_rank"]):
+        failed.append(f"flash launches per rank "
+                      f"{report['flash_launches_per_rank']}, expected "
+                      f"[{want_bf16}, {want_f32}]")
+    total = time.perf_counter() - t0
+    report["phase_s"] = total
+    for key, val in report.items():
+        print(f"expert-parallel MoE (3l) {key} ({smi}): {json.dumps(val)}",
+              flush=True)
+    print(f"expert-parallel MoE (3l) card: {smi}; phase 3l took "
+          f"{total:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 3l: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4532,13 +5054,17 @@ def main() -> int:
     lm_train_path(fa_ops, peaks)
     torch.cuda.empty_cache()
     arch_launches = arch_serving_path(fa_ops, fa_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_launches = ep_serving_path(fa_ops)
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
     for kname, count in (*dist_launches.items(), *stream_launches.items(),
                          *remainder_launches.items(),
                          *online_launches.items(), *ext_launches.items(),
-                         *async_launches.items(), *arch_launches.items()):
+                         *async_launches.items(), *arch_launches.items(),
+                         *ep_launches.items()):
         launches[kname] += count
 
     def entry(kname, source, replaces, res):

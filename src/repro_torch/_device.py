@@ -22,7 +22,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain CPU versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

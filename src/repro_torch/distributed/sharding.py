@@ -1,0 +1,227 @@
+"""Logical-axis sharding: MaxText-style rules with divisibility fallback.
+
+Port of ``repro.distributed.sharding``.  Every parameter is described with
+a tuple of *logical* axis names (``models.common.Leaf.logical``).  The
+rules below resolve logical names to the axes of a mesh; an assignment
+whose dimension is not divisible by the mesh axis's size falls back to
+replication (e.g. kv_heads=2 under model=16).
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+dimensions (``launch.mesh.make_compat_mesh``), or any object whose
+``.shape`` is a dict of axis sizes (what the rules read).  A resolved spec
+is the reference's ``PartitionSpec`` as a plain tuple: one entry a tensor
+dimension, ``None`` (replicated), an axis name, or a tuple of names (the
+first-named axis major), trailing ``None``s trimmed.
+
+``set_mesh`` / ``use_mesh`` set the module's mesh context, which
+``models.moe.moe_sharded`` reads for its ``model`` axis.  ``constrain`` is
+the identity: the reference's is a layout hint to XLA's SPMD partitioner
+(``with_sharding_constraint``) that changes no value, and the port has no
+partitioner.  Its call sites stay where the reference has them.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Sequence
+
+import torch
+
+# logical axis -> preferred mesh axis (order tried first-to-last)
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    # tensor-parallel dims
+    "vocab": ("model",),
+    "mlp": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "heads_group": ("model",),   # the H/Hkv group dim of unfused GQA scores
+    "experts": ("model",),
+    "lru": ("model",),
+    "inner": ("model",),       # ssm d_inner / conv channels
+    # fsdp dims (weight shards over the data axis)
+    "embed": ("data",),
+    "moe_mlp": ("data",),
+    "qk": (), "v": (), "rank": (),   # MLA small dims: replicate
+    # never sharded
+    "layers": (), "state": (), "conv": (), "pos": (), "frames": (),
+    # activations
+    "batch": ("pod", "data"),
+    "seq": (),
+    "seq_model": ("model",),   # Megatron-style sequence parallelism between blocks
+    # KV-cache sequence dim: prefer model (batch usually owns data); decode
+    # softmax over the sharded S axis costs two small per-layer all-reduces
+    # and cuts per-device cache by the TP degree.
+    "seq_shard": ("model", "data"),
+}
+
+_CTX: dict[str, Any] = {"mesh": None, "rules": dict(DEFAULT_RULES)}
+
+
+def set_mesh(mesh, rules: dict | None = None):
+    _CTX["mesh"] = mesh
+    _CTX["rules"] = dict(DEFAULT_RULES) if rules is None else dict(rules)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: dict | None = None):
+    old = dict(_CTX)
+    set_mesh(mesh, rules)
+    try:
+        yield
+    finally:
+        _CTX.update(old)
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size: a ``DeviceMesh``'s ``shape`` is a tuple in the
+    order of ``mesh_dim_names``; a duck-typed mesh's ``shape`` is the dict."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes_for(logical: str | None, dim_size: int, sizes: dict[str, int],
+              rules: dict, used: set[str]) -> tuple[str, ...] | None:
+    if logical is None:
+        return None
+    # "name:quantum" — the dim may only be split in units of ``quantum``
+    # (e.g. "heads:128" keeps whole attention heads on one shard).
+    name, _, quantum_s = logical.partition(":")
+    quantum = int(quantum_s) if quantum_s else 1
+    units = dim_size // max(quantum, 1)
+    picked = []
+    size = 1
+    for ax in rules.get(name, ()):
+        if ax in used or ax not in sizes:
+            continue
+        if units % (size * sizes[ax]) == 0:
+            picked.append(ax)
+            size *= sizes[ax]
+    return tuple(picked) or None
+
+
+def spec_for(logical_axes: Sequence[str | None], shape: Sequence[int],
+             mesh=None, rules: dict | None = None) -> tuple:
+    """Resolve a logical-axis tuple into the entries of a PartitionSpec for
+    ``mesh`` (the context mesh if None; ``()`` with no mesh)."""
+    mesh = _CTX["mesh"] if mesh is None else mesh
+    rules = _CTX["rules"] if rules is None else rules
+    if mesh is None:
+        return ()
+    sizes = mesh_sizes(mesh)
+    used: set[str] = set()
+    entries = []
+    for name, dim in zip(logical_axes, shape):
+        axes = _axes_for(name, dim, sizes, rules, used)
+        if axes:
+            used.update(axes)
+            entries.append(axes if len(axes) > 1 else axes[0])
+        else:
+            entries.append(None)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def axis_divides(logical: str, size: int) -> bool:
+    """True iff ``size`` is divisible by the mesh extent mapped to
+    ``logical`` (False when no mesh/axis)."""
+    mesh = _CTX["mesh"]
+    if mesh is None:
+        return False
+    sizes = mesh_sizes(mesh)
+    ext = 1
+    for ax in _CTX["rules"].get(logical, ()):
+        if ax in sizes:
+            ext *= sizes[ax]
+    return ext > 1 and size % ext == 0
+
+
+def constrain(x, logical_axes: Sequence[str | None]):
+    """The identity, with or without a mesh.  The reference pins ``x``'s
+    layout for XLA's SPMD partitioner (``with_sharding_constraint``), which
+    changes no value; the port has no partitioner, and the layers that are
+    held whole on each rank have no layout to pin."""
+    del logical_axes
+    return x
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_slices(logical: Sequence[str | None], shape: Sequence[int], mesh,
+                 coord: dict[str, int], rules: dict | None = None) -> tuple:
+    """The slice of each dimension of a whole tensor of ``shape`` that the
+    mesh position ``coord`` (axis name -> index) holds under ``logical``:
+    the blocks of ``NamedSharding(mesh, spec).devices_indices_map``, the
+    first-named axis of a dimension major."""
+    sizes = mesh_sizes(mesh)
+    spec = spec_for(logical, shape, mesh, rules)
+    out = []
+    for d, dim in enumerate(shape):
+        axes = _entry_axes(spec[d]) if d < len(spec) else ()
+        parts, idx = 1, 0
+        for ax in axes:
+            idx = idx * sizes[ax] + coord[ax]
+            parts *= sizes[ax]
+        step = dim // parts
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def mesh_coordinate(mesh) -> dict[str, int]:
+    """This process's index along each named axis of ``mesh``."""
+    names = getattr(mesh, "mesh_dim_names", None) or tuple(mesh_sizes(mesh))
+    return dict(zip(names, mesh.get_coordinate()))
+
+
+def local_shard(t: torch.Tensor, logical: Sequence[str | None], mesh,
+                rules: dict | None = None) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``logical`` (a
+    contiguous copy; ``t`` itself where nothing is sharded): the port's
+    ``jax.device_put(t, NamedSharding(mesh, spec))``."""
+    sl = shard_slices(logical, t.shape, mesh, mesh_coordinate(mesh), rules)
+    if all(s.start == 0 and s.stop == n for s, n in zip(sl, t.shape)):
+        return t
+    return t[sl].contiguous()
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def _tree_map2(fn, spec_tree, shape_tree):
+    if _is_spec(spec_tree):
+        return fn(spec_tree, shape_tree)
+    if isinstance(spec_tree, dict):
+        return {k: _tree_map2(fn, v, shape_tree[k])
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [_tree_map2(fn, v, s) for v, s in zip(spec_tree, shape_tree)]
+    raise TypeError(f"not a logical-axes tree node: {spec_tree!r}")
+
+
+def tree_shardings(spec_tree, shape_tree, mesh, rules: dict | None = None):
+    """Map a logical-axes tree and a matching tree of tensors (or of
+    shapes) to each leaf's DTensor placements on ``mesh``: a list, one
+    ``Shard(dim)`` or ``Replicate()`` a mesh dimension.  Where one tensor
+    dimension takes two mesh axes, DTensor lays the shards out in the
+    mesh's dimension order, JAX in the spec's (first-named major); the
+    two agree when the spec names them in mesh order.  ``local_shard``
+    follows JAX's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh_sizes(mesh))
+
+    def one(logical, leaf):
+        shape = leaf.shape if hasattr(leaf, "shape") else tuple(leaf)
+        spec = spec_for(logical, shape, mesh, rules)
+        dim_of = {ax: d for d, e in enumerate(spec) for ax in _entry_axes(e)}
+        return [Shard(dim_of[n]) if n in dim_of else Replicate()
+                for n in names]
+
+    return _tree_map2(one, spec_tree, shape_tree)
+

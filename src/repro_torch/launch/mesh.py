@@ -1,16 +1,24 @@
-"""The data-parallel process group: the port's counterpart of
-``repro.launch.mesh.make_compat_mesh`` for the distributed engine.
+"""Process groups and device meshes: the port's counterpart of
+``repro.launch.mesh``.
 
 JAX runs one SPMD program over a mesh of devices; the port runs one process
-per data shard, joined in a ``torch.distributed`` process group whose ranks
-are the shards (``core.distributed.DistributedGP``).  ``launch/train.py``
-and the roofline's analytic half are ported beside it; the HLO tools and
-the roofline over their artifacts are queued in ROADMAP Queue 1 item 13.
+a rank, joined in a ``torch.distributed`` process group.  The distributed
+GP engine (``core.distributed.DistributedGP``) takes the flat group of data
+shards (``make_data_group``).  The LM substrate takes a named
+``DeviceMesh`` over the same world (``make_compat_mesh``), whose ``model``
+axis carries the expert-parallel MoE (``models.moe.moe_sharded``) and whose
+axes the logical-axis rules read (``distributed.sharding``).
+``make_production_mesh`` / ``make_gp_mesh`` / ``gp_data_axes`` mirror the
+reference's 256- and 512-chip layouts; they are built only under a
+launcher with that world.  The HLO tools and the roofline over their
+artifacts are queued in ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
 import datetime
+import math
 import os
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
@@ -69,3 +77,44 @@ def via_host(group, device) -> bool:
     through host copies: gloo cannot reduce or gather CUDA tensors."""
     return (group is not None and torch.device(device).type == "cuda"
             and dist.get_backend(group) == "gloo")
+
+
+def make_compat_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                     device=None, **group_kw):
+    """A ``DeviceMesh`` of ``shape`` with dimensions named ``axis_names``
+    over the world of ``make_data_group(device, **group_kw)`` (the same
+    ``backend=``, ``store=``, ``rank=``, ``world_size=`` and ``timeout=``),
+    rank r at the row-major position r, the last axis fastest.  Raises
+    ``ValueError`` unless prod(shape) is the world size."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"make_compat_mesh: shape {shape} and axis names "
+                         f"{axis_names} differ in length")
+    dev = rank_device(device)
+    group = make_data_group(dev, **group_kw)
+    world = dist.get_world_size(group)
+    if math.prod(shape) != world:
+        raise ValueError(f"make_compat_mesh: a mesh of shape {shape} needs "
+                         f"{math.prod(shape)} ranks, the world has {world}")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         **group_kw):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_compat_mesh(shape, axes, device, **group_kw)
+
+
+def make_gp_mesh(*, multi_pod: bool = False, device=None, **group_kw):
+    """The GP map-reduce uses every rank as a data shard (the paper's 1-D
+    decomposition); same fleet, flat data axis factored per pod."""
+    return make_production_mesh(multi_pod=multi_pod, device=device,
+                                **group_kw)
+
+
+def gp_data_axes(mesh) -> tuple[str, ...]:
+    """GP shards n over ALL mesh axes (512-way at multi-pod)."""
+    return tuple(mesh.mesh_dim_names)

@@ -21,12 +21,14 @@ torch in f32 over the cache, as the JAX package computes it outside any
 kernel: a local-window layer keeps a rolling cache of ``window`` slots
 (position p at slot p % window), and MLA decodes in the absorbed form
 against its compressed ``c_kv`` cache.  The JAX package's sharding
-constraints have no counterpart on one card.
+constraints stay at their sites through ``distributed.sharding.constrain``,
+the identity in the port (the layers are held whole on each rank).
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import axis_divides, constrain
 from ..kernels.flash_attention import ops as fa
 from .common import Leaf, apply_rope, rmsnorm
 
@@ -37,38 +39,48 @@ def head_dim(cfg) -> int:
     return cfg.head_dim or cfg.d_model // cfg.num_heads
 
 
+def _projections(cfg) -> dict:
+    """wq, wk, wv, wo of GQA and cross-attention; their head dims split
+    only in whole heads (``heads:Dh``)."""
+    dh, d = head_dim(cfg), cfg.d_model
+    hq, hkv = f"heads:{dh}", f"kv_heads:{dh}"
+    return {"wq": Leaf((d, cfg.num_heads * dh), logical=("embed", hq)),
+            "wk": Leaf((d, cfg.num_kv_heads * dh), logical=("embed", hkv)),
+            "wv": Leaf((d, cfg.num_kv_heads * dh), logical=("embed", hkv)),
+            "wo": Leaf((cfg.num_heads * dh, d), logical=(hq, "embed"))}
+
+
 def init_gqa(cfg) -> dict:
-    dh = head_dim(cfg)
-    spec = {"wq": Leaf((cfg.d_model, cfg.num_heads * dh)),
-            "wk": Leaf((cfg.d_model, cfg.num_kv_heads * dh)),
-            "wv": Leaf((cfg.d_model, cfg.num_kv_heads * dh)),
-            "wo": Leaf((cfg.num_heads * dh, cfg.d_model))}
+    spec = _projections(cfg)
     if cfg.qkv_bias:
-        spec["bq"] = Leaf((cfg.num_heads * dh,), "zeros")
-        spec["bk"] = Leaf((cfg.num_kv_heads * dh,), "zeros")
-        spec["bv"] = Leaf((cfg.num_kv_heads * dh,), "zeros")
+        dh = head_dim(cfg)
+        hq, hkv = f"heads:{dh}", f"kv_heads:{dh}"
+        spec["bq"] = Leaf((cfg.num_heads * dh,), "zeros", logical=(hq,))
+        spec["bk"] = Leaf((cfg.num_kv_heads * dh,), "zeros", logical=(hkv,))
+        spec["bv"] = Leaf((cfg.num_kv_heads * dh,), "zeros", logical=(hkv,))
     return spec
 
 
 def init_mla(cfg) -> dict:
     h, d = cfg.num_heads, cfg.d_model
     qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    return {"wq_a": Leaf((d, cfg.q_lora_rank)),
-            "q_norm": Leaf((cfg.q_lora_rank,), "zeros"),
-            "wq_b": Leaf((cfg.q_lora_rank, h * qk)),
-            "wkv_a": Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
-            "kv_norm": Leaf((cfg.kv_lora_rank,), "zeros"),
-            "wk_b": Leaf((cfg.kv_lora_rank, h * cfg.qk_nope_head_dim)),
-            "wv_b": Leaf((cfg.kv_lora_rank, h * cfg.v_head_dim)),
-            "wo": Leaf((h * cfg.v_head_dim, d))}
+    nope, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return {"wq_a": Leaf((d, cfg.q_lora_rank), logical=("embed", "rank")),
+            "q_norm": Leaf((cfg.q_lora_rank,), "zeros", logical=(None,)),
+            "wq_b": Leaf((cfg.q_lora_rank, h * qk),
+                         logical=("rank", f"heads:{qk}")),
+            "wkv_a": Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                          logical=("embed", "rank")),
+            "kv_norm": Leaf((cfg.kv_lora_rank,), "zeros", logical=(None,)),
+            "wk_b": Leaf((cfg.kv_lora_rank, h * nope),
+                         logical=("rank", f"heads:{nope}")),
+            "wv_b": Leaf((cfg.kv_lora_rank, h * dv),
+                         logical=("rank", f"heads:{dv}")),
+            "wo": Leaf((h * dv, d), logical=(f"heads:{dv}", "embed"))}
 
 
 def init_cross(cfg) -> dict:
-    dh = head_dim(cfg)
-    return {"wq": Leaf((cfg.d_model, cfg.num_heads * dh)),
-            "wk": Leaf((cfg.d_model, cfg.num_kv_heads * dh)),
-            "wv": Leaf((cfg.d_model, cfg.num_kv_heads * dh)),
-            "wo": Leaf((cfg.num_heads * dh, cfg.d_model))}
+    return _projections(cfg)
 
 
 def _heads(cfg, p, x, positions, name: str):
@@ -110,9 +122,14 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int | None,
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
     k32, v32 = k.float(), v.float()
     col = torch.arange(s_len, device=q.device)
+    # The reference's constraint sites (asserted only when H divides the
+    # tensor-parallel extent); ``constrain`` is the identity here.
+    tp_ok = axis_divides("heads", h)
+    cst = constrain if tp_ok else (lambda x_, _ax: x_)
     outs = []
     for start in range(0, t + pad, c):
-        qi = q[:, start:start + c].float().reshape(b, c, hkv, group, dh)
+        qi = cst(q[:, start:start + c], ("batch", None, "heads", None))
+        qi = qi.float().reshape(b, c, hkv, group, dh)
         sc = torch.einsum("bcngd,bsnd->bngcs", qi, k32) * scale
         row = start + torch.arange(c, device=q.device) + offset
         valid = torch.ones((c, s_len), dtype=torch.bool, device=q.device)
@@ -122,8 +139,8 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int | None,
             valid &= col[None, :] > row[:, None] - window
         sc = torch.where(valid, sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
-        o = torch.einsum("bngcs,bsnd->bcngd", p, v32)
-        outs.append(o.reshape(b, c, h, dv).to(q.dtype))
+        o = torch.einsum("bngcs,bsnd->bcngd", p, v32).reshape(b, c, h, dv)
+        outs.append(cst(o, ("batch", None, "heads", None)).to(q.dtype))
     return torch.cat(outs, dim=1)[:, :t]
 
 
@@ -131,6 +148,7 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, window=None):
     """Train/prefill GQA: x (B,T,D), positions (B,T) -> (B,T,D)."""
     b, t, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
+    q = constrain(q, ("batch", None, "heads", None))
     if cfg.use_flash:
         if window is not None:
             raise NotImplementedError(
@@ -207,12 +225,14 @@ def gqa_decode(cfg, p, x_t, cache: dict, pos):
     group = cfg.num_heads // cfg.num_kv_heads
     qb = q.reshape(b, cfg.num_kv_heads, group, dh)
     sc = torch.einsum("bhgd,bshd->bhgs", qb.float(), ck.float()) * dh ** -0.5
+    sc = constrain(sc, ("batch", "kv_heads", "heads_group", None))
     valid = (cpos >= 0) & (cpos <= pos[:, None])
     if cfg.local_window:
         valid &= cpos > (pos[:, None] - cfg.local_window)
     sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
     pr = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", pr, cv.float())
+    o = constrain(o, ("batch", "kv_heads", "heads_group", None))
     o = o.reshape(b, 1, cfg.num_heads * dh).to(x_t.dtype)
     return o @ p["wo"].to(x_t.dtype), {"k": ck, "v": cv, "pos": cpos}
 

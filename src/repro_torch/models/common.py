@@ -8,13 +8,16 @@ describe the tree (a :class:`Leaf` per parameter: shape and init) and
 :func:`materialize` then draws every leaf from one explicit
 ``torch.Generator``, in the tree's order.  The two packages draw different
 numbers from the same seed; the tests carry the JAX package's parameters
-over (``convert.lm_params_from_numpy``) instead.  The logical-axis spec
-tree of the JAX package (sharding) has no counterpart on one card.
+over (``convert.lm_params_from_numpy``) instead.  Each leaf also carries
+the reference's logical axes (``Leaf.logical``), so the spec tree of the
+JAX package's ``init_params`` comes from the same description
+(``transformer.param_logical_axes``) and ``distributed.sharding``
+resolves it on a mesh.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -22,12 +25,15 @@ from torch.utils.checkpoint import checkpoint
 
 @dataclass(frozen=True)
 class Leaf:
-    """One parameter: its shape and init.  ``normal`` draws N(0, std²) with
-    std = 1/sqrt(fan_in) (the first axis of a matrix, the only axis of a
-    vector) unless ``std`` is given; ``zeros`` and ``ones`` are constant."""
+    """One parameter: its shape, init and logical axes.  ``normal`` draws
+    N(0, std²) with std = 1/sqrt(fan_in) (the first axis of a matrix, the
+    only axis of a vector) unless ``std`` is given; ``zeros`` and ``ones``
+    are constant.  ``logical``: one logical axis name (or None) a dimension,
+    the reference's ``ParamBuilder.make`` argument."""
     shape: tuple[int, ...]
     init: str = "normal"
     std: float | None = None
+    logical: tuple[str | None, ...] = field(kw_only=True)
 
     @property
     def normal_std(self) -> float:
@@ -36,7 +42,8 @@ class Leaf:
     def stacked(self, count: int) -> "Leaf":
         """The same leaf for ``count`` layers (a leading ``layers`` axis);
         the std stays that of one layer's fan-in."""
-        return Leaf((count, *self.shape), self.init, self.normal_std)
+        return Leaf((count, *self.shape), self.init, self.normal_std,
+                    logical=("layers", *self.logical))
 
 
 def tree_map(fn, tree):
@@ -55,21 +62,28 @@ def _draw(leaf: Leaf, generator: torch.Generator) -> torch.Tensor:
         return torch.zeros(leaf.shape, device=dev)
     if leaf.init == "ones":
         return torch.ones(leaf.shape, device=dev)
-    return leaf.normal_std * torch.randn(leaf.shape, generator=generator, device=dev)
+    # in place: no second leaf-sized transient (the same products)
+    return torch.randn(leaf.shape, generator=generator,
+                       device=dev).mul_(leaf.normal_std)
 
 
-def materialize(spec, generator: torch.Generator, dtype, device):
+def materialize(spec, generator: torch.Generator, dtype, device,
+                keep=None):
     """Draw every leaf of ``spec`` in the tree's order on the generator's
-    device; returns the tensor tree on ``device`` in ``dtype``."""
-    return tree_map(
-        lambda leaf: _draw(leaf, generator).to(device=device, dtype=dtype),
-        spec)
+    device; returns the tensor tree on ``device`` in ``dtype``.
+    ``keep(leaf, tensor)``, when given, maps each tensor (e.g. to this
+    rank's shard) before the next leaf is drawn."""
+    def one(leaf):
+        t = _draw(leaf, generator).to(device=device, dtype=dtype)
+        return t if keep is None else keep(leaf, t)
+    return tree_map(one, spec)
 
 
 def make_norm(cfg, dim: int) -> dict:
     if cfg.norm_type == "layernorm":
-        return {"scale": Leaf((dim,), "ones"), "bias": Leaf((dim,), "zeros")}
-    return {"scale": Leaf((dim,), "zeros")}
+        return {"scale": Leaf((dim,), "ones", logical=(None,)),
+                "bias": Leaf((dim,), "zeros", logical=(None,))}
+    return {"scale": Leaf((dim,), "zeros", logical=(None,))}
 
 
 # ---------------------------------------------------------------------------

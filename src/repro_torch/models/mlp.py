@@ -10,14 +10,15 @@ from .common import Leaf
 
 def init_mlp(cfg, d_ff: int | None = None) -> dict:
     d_ff = cfg.d_ff if d_ff is None else d_ff
+    d = cfg.d_model
     if cfg.mlp_type == "swiglu":
-        return {"w_gate": Leaf((cfg.d_model, d_ff)),
-                "w_up": Leaf((cfg.d_model, d_ff)),
-                "w_down": Leaf((d_ff, cfg.d_model))}
-    return {"w_up": Leaf((cfg.d_model, d_ff)),
-            "b_up": Leaf((d_ff,), "zeros"),
-            "w_down": Leaf((d_ff, cfg.d_model)),
-            "b_down": Leaf((cfg.d_model,), "zeros")}
+        return {"w_gate": Leaf((d, d_ff), logical=("embed", "mlp")),
+                "w_up": Leaf((d, d_ff), logical=("embed", "mlp")),
+                "w_down": Leaf((d_ff, d), logical=("mlp", "embed"))}
+    return {"w_up": Leaf((d, d_ff), logical=("embed", "mlp")),
+            "b_up": Leaf((d_ff,), "zeros", logical=("mlp",)),
+            "w_down": Leaf((d_ff, d), logical=("mlp", "embed")),
+            "b_down": Leaf((d,), "zeros", logical=(None,))}
 
 
 def mlp_forward(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:

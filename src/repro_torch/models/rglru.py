@@ -27,12 +27,16 @@ _C = 8.0
 def init_rglru(cfg) -> dict:
     lru = cfg.lru_width or cfg.d_model
     d = cfg.d_model
-    return {"w_x": Leaf((d, lru)), "w_gate": Leaf((d, lru)),
-            "conv_w": Leaf((lru, cfg.conv_kernel)),
-            "conv_b": Leaf((lru,), "zeros"),
-            "w_a": Leaf((lru, lru)), "b_a": Leaf((lru,), "zeros"),
-            "w_i": Leaf((lru, lru)), "b_i": Leaf((lru,), "zeros"),
-            "lam": Leaf((lru,), "ones"), "w_out": Leaf((lru, d))}
+    return {"w_x": Leaf((d, lru), logical=("embed", "lru")),
+            "w_gate": Leaf((d, lru), logical=("embed", "lru")),
+            "conv_w": Leaf((lru, cfg.conv_kernel), logical=("lru", "conv")),
+            "conv_b": Leaf((lru,), "zeros", logical=("lru",)),
+            "w_a": Leaf((lru, lru), logical=("lru", None)),
+            "b_a": Leaf((lru,), "zeros", logical=(None,)),
+            "w_i": Leaf((lru, lru), logical=("lru", None)),
+            "b_i": Leaf((lru,), "zeros", logical=(None,)),
+            "lam": Leaf((lru,), "ones", logical=(None,)),
+            "w_out": Leaf((lru, d), logical=("lru", "embed"))}
 
 
 def _gates(p, xc):

@@ -29,14 +29,16 @@ def dims(cfg):
 def init_ssd(cfg) -> dict:
     d_inner, h, _, n = dims(cfg)
     conv_dim = d_inner + 2 * n
-    return {"w_in": Leaf((cfg.d_model, 2 * d_inner + 2 * n + h)),
-            "conv_w": Leaf((conv_dim, cfg.conv_kernel)),
-            "conv_b": Leaf((conv_dim,), "zeros"),
-            "a_log": Leaf((h,), "zeros"),
-            "dt_bias": Leaf((h,), "zeros"),
-            "d_skip": Leaf((h,), "ones"),
-            "norm": Leaf((d_inner,), "zeros"),
-            "w_out": Leaf((d_inner, cfg.d_model))}
+    return {"w_in": Leaf((cfg.d_model, 2 * d_inner + 2 * n + h),
+                         logical=("embed", "inner")),
+            "conv_w": Leaf((conv_dim, cfg.conv_kernel),
+                           logical=("inner", "conv")),
+            "conv_b": Leaf((conv_dim,), "zeros", logical=("inner",)),
+            "a_log": Leaf((h,), "zeros", logical=(None,)),
+            "dt_bias": Leaf((h,), "zeros", logical=(None,)),
+            "d_skip": Leaf((h,), "ones", logical=(None,)),
+            "norm": Leaf((d_inner,), "zeros", logical=(None,)),
+            "w_out": Leaf((d_inner, cfg.d_model), logical=("inner", "embed"))}
 
 
 def _causal_conv(x, w, b):

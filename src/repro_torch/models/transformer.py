@@ -123,9 +123,11 @@ def _group_spec(cfg, g, cross: bool):
 def param_spec(cfg) -> dict:
     """The parameter tree of ``cfg`` as :class:`~.common.Leaf` specs: the
     shapes and inits of ``repro.models.transformer.init_params``."""
-    spec = {"embed": Leaf((cfg.vocab_size, cfg.d_model), std=0.02)}
+    spec = {"embed": Leaf((cfg.vocab_size, cfg.d_model), std=0.02,
+                          logical=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size))
+        spec["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size),
+                               logical=("embed", "vocab"))
     spec["final_norm"] = make_norm(cfg, cfg.d_model)
     cross = cfg.family == "encdec"
     if cross:
@@ -137,10 +139,18 @@ def param_spec(cfg) -> dict:
     return spec
 
 
+def param_logical_axes(cfg) -> dict:
+    """The logical-axes spec tree of ``cfg``'s params: the second value of
+    ``repro.models.transformer.init_params``, leaf for leaf (an unstacked
+    group's list included), for ``distributed.sharding``."""
+    return tree_map(lambda leaf: leaf.logical, param_spec(cfg))
+
+
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     """Random params of ``cfg`` drawn from ``generator`` (on its device) and
-    placed on ``device`` (None: the card) in ``cfg.param_dtype``.  Unlike
-    the JAX package, no logical-axis spec tree comes back."""
+    placed on ``device`` (None: the card) in ``cfg.param_dtype``.  The
+    logical-axes spec tree, which the JAX package returns beside them, is
+    ``param_logical_axes(cfg)``."""
     dev = resolve_device(device)
     return materialize(param_spec(cfg), generator, _dtype(cfg.param_dtype),
                        dev)

@@ -1,31 +1,57 @@
 """Step builders (port of ``repro.train.steps``): the distributed GP train,
-barrier-free async and online-update steps, and the train, prefill and
-serve steps of the LM substrate.
+barrier-free async and online-update steps, the train, prefill and serve
+steps of the LM substrate, and the abstract inputs and logical-axes trees
+the sharding rules read.
 
 The LM ``make_*_step`` functions return plain functions over the
 caller's tensors.  The train state is the JAX package's tree,
 ``{"params", "opt": {"m", "v", "step"}}``, so ``checkpoint`` reads and
 writes either package's files; the train step updates it in place
 (``optim.adam``).  Prefill and serve run under ``torch.no_grad()``:
-serving takes no gradient, and the flash kernel has no backward.
+serving takes no gradient, and the flash kernel has no backward.  Run
+under ``distributed.sharding.use_mesh(mesh)``, the steps take the MoE
+layers through the expert-parallel schedule over the mesh's ``model``
+axis (``models.moe.moe_sharded``); the mean of the gradients over the
+``data`` axis stays the caller's, as with ``launch.make_data_group``.
 """
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
-from ..configs.base import ModelConfig
+from .._device import resolve_device
+from ..configs.base import ModelConfig, ShapeSpec
 from ..core.flat import tree_items, tree_unflatten
+from ..distributed import sharding as shlib
+from ..models import moe as moe_mod
 from ..models import transformer as tf
+from ..models.common import materialize, tree_map
 from ..optim import adam as adam_mod
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
                      device=None) -> dict:
     """Random params drawn from ``generator`` and zero Adam moments on
-    ``device`` (None: the card).  Unlike the JAX package, no spec tree
-    comes back."""
+    ``device`` (None: the card).  The spec tree, which the JAX package
+    returns beside the state, is ``abstract_state(cfg)[1]``."""
     params = tf.init_params(cfg, generator, device=device)
     return {"params": params, "opt": adam_mod.init_opt_state(params)}
+
+
+def init_params_sharded(cfg: ModelConfig, generator: torch.Generator, mesh,
+                        device=None) -> dict:
+    """``tf.init_params``'s params (the same draws), each expert leaf cut
+    to this rank's block over ``mesh``'s ``model`` axis
+    (``moe.EXPERT_RULES``) as soon as it is drawn, so no rank holds every
+    expert at once; every other leaf whole."""
+    def keep(leaf, t):
+        if "experts" not in leaf.logical:
+            return t
+        return shlib.local_shard(t, leaf.logical, mesh, moe_mod.EXPERT_RULES)
+    return materialize(tf.param_spec(cfg), generator,
+                       tf._dtype(cfg.param_dtype), resolve_device(device),
+                       keep=keep)
 
 
 def make_train_step(cfg: ModelConfig,
@@ -149,3 +175,91 @@ def make_serve_step(cfg: ModelConfig):
             return tf.decode_step(cfg, params, caches, tokens_t, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs and logical-axes trees (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, Any]:
+    """Abstract batch for (cfg, shape), as ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct``s).  Training/prefill: full sequences;
+    decode: one new token + the KV/state cache at shape.seq_len."""
+    b, t = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _meta((b, t), torch.int32),
+                 "labels": _meta((b, t), torch.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = _meta((b, cfg.num_frames, cfg.d_model),
+                                    torch.bfloat16)
+        if shape.kind == "prefill":
+            del batch["labels"]
+        return batch
+    return {"tokens_t": _meta((b, 1), torch.int32),
+            "pos": _meta((b,), torch.int32),
+            "caches": tf.init_decode_cache(cfg, b, t, device="meta")}
+
+
+_CACHE_LOGICAL = {
+    # decode-cache leaf name -> logical axes (rank-matched, padded with None)
+    "k": ("batch", "seq_shard", "kv_heads", None),
+    "v": ("batch", "seq_shard", "kv_heads", None),
+    "pos": ("batch", None),
+    "c_kv": ("batch", "seq_shard", None),
+    "k_rope": ("batch", "seq_shard", None),
+    "ssd": ("batch", "heads", None, None),
+    "conv": ("batch", None, "inner"),
+    "h": ("batch", "lru"),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+}
+
+
+def cache_specs(cfg: ModelConfig, caches) -> Any:
+    """Logical-axes tree matching a (meta or real) decode-cache tree: each
+    leaf by its name (the nearest dict key above it), with a leading
+    ``layers`` axis where it is stacked."""
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        base = _CACHE_LOGICAL.get(name, ())
+        if node.ndim == len(base):
+            return tuple(base)
+        if node.ndim == len(base) + 1:      # stacked over layers
+            return ("layers",) + tuple(base)
+        return (None,) * node.ndim
+    return walk(caches, None)
+
+
+def batch_specs(cfg: ModelConfig, batch) -> Any:
+    """Logical axes for a train/prefill/decode input batch."""
+    out = {}
+    for k, v in batch.items():
+        if k == "caches":
+            out[k] = cache_specs(cfg, v)
+        elif k == "frames":
+            out[k] = ("batch", None, None)
+        elif k == "pos":
+            out[k] = ("batch",)
+        else:  # tokens / labels / tokens_t
+            out[k] = ("batch", None)[:v.ndim] + (None,) * max(v.ndim - 2, 0)
+    return out
+
+
+def abstract_state(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(the train state as ``meta`` tensors, its logical spec tree): the
+    reference's ``ShapeDtypeStruct`` state and spec tree."""
+    params = tree_map(lambda leaf: _meta(leaf.shape,
+                                         tf._dtype(cfg.param_dtype)),
+                      tf.param_spec(cfg))
+    pspecs = tf.param_logical_axes(cfg)
+    state = {"params": params, "opt": adam_mod.init_opt_state(params)}
+    specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "step": ()}}
+    return state, specs

@@ -1141,6 +1141,93 @@ def test_sharded_engine_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
         np.testing.assert_array_equal(r["var"], var.cpu().numpy())
 
 
+def _ep_rank_on_card(rank, world, store_path, out_dir):
+    """The expert-parallel MoE on a (1, 2) mesh of gloo ranks on the card
+    and, on the same mesh, on the CPU: y, the kept pairs and the gradients
+    of sum y**2, at capacity factors 4 (no drop) and 1.25."""
+    import dataclasses
+    import datetime
+    import pathlib
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_compat_mesh((1, world), ("data", "model"), "cuda:0",
+                            backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    base = get_config("qwen3-moe-235b-a22b").reduced()
+    spec = moe.init_moe(base)
+    rng = np.random.default_rng(40)
+    x = rng.standard_normal((2, 24, base.d_model)).astype(np.float32)
+    p = {k: (rng.standard_normal(leaf.shape) * leaf.normal_std).astype(
+        np.float32) for k, leaf in spec.items()}
+    packed = []
+    real = moe._pack_local
+
+    def recording(cfg, xs, gates, eids, cap):
+        buf, meta = real(cfg, xs, gates, eids, cap)
+        packed.append(moe.kept_pairs(meta, *eids.shape).cpu().numpy())
+        return buf, meta
+    moe._pack_local = recording
+    out = {}
+    for cf in (4.0, 1.25):
+        cfg = dataclasses.replace(base, moe_impl="sharded", capacity_factor=cf)
+        for dev in ("cuda:0", "cpu"):
+            xt = torch.from_numpy(x).to(dev).requires_grad_()
+            pt = {k: sharding.local_shard(torch.from_numpy(v).to(dev),
+                                          spec[k].logical, mesh,
+                                          moe.EXPERT_RULES).requires_grad_()
+                  for k, v in p.items()}
+            packed.clear()
+            with sharding.use_mesh(mesh):
+                y, _ = moe.moe_forward(cfg, pt, xt)
+                grads = torch.autograd.grad((y ** 2).sum(),
+                                            [xt] + list(pt.values()))
+            tag = f"{cf}/{dev[:3]}"
+            out[tag + "/y"] = y.detach().cpu().numpy()
+            out[tag + "/kept"] = np.stack(packed)
+            for k, g in zip(["x"] + list(pt), grads):
+                out[f"{tag}/grad/{k}"] = g.cpu().numpy()
+            if cf == 4.0 and dev == "cuda:0":
+                with torch.no_grad():
+                    out["dense"] = moe.moe_dense(
+                        cfg, {k: torch.from_numpy(v).to(dev)
+                              for k, v in p.items()},
+                        xt)[0].cpu().numpy()
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def test_moe_sharded_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """The expert-parallel MoE on the card (2 gloo ranks, each 4 of 8
+    experts, collectives through host copies) against the same schedule
+    on the CPU: y and every gradient within 1e-5 of the largest entry
+    (f32, TF32 off), the kept pairs identical, the ranks' y bitwise; with
+    no drop, y within 1e-5 of the dense path on the card."""
+    codes, _ = spawn_ranks(_ep_rank_on_card, 2, tmp_path)
+    assert codes == [0, 0], codes
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for cf in (4.0, 1.25):
+        np.testing.assert_array_equal(got[0][f"{cf}/cud/y"],
+                                      got[1][f"{cf}/cud/y"])
+        for r in got:
+            for k in r:
+                if k.startswith(f"{cf}/cud/"):
+                    want = r[k.replace("/cud/", "/cpu/")]
+                    if k.endswith("/kept"):
+                        np.testing.assert_array_equal(r[k], want)
+                    else:
+                        assert np.abs(r[k] - want).max() <= \
+                            1e-5 * np.abs(want).max(), k
+    assert np.abs(got[0]["4.0/cud/y"] - got[0]["dense"]).max() <= 1e-5
+
+
 def test_astype_float16_on_the_card_rounds_once(cuda):
     """f64 -> f16 of a state on the card gives numpy's correctly rounded
     bits (torch's own cast rounds through f32), and serves through the f32

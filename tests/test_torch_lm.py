@@ -184,9 +184,10 @@ def test_unported_paths_raise(params, monkeypatch):
     held against the JAX package's, with and without a local window; a
     window on the flash route stays refused (the kernel has none; the JAX
     package drops it, ROADMAP Queue 3 item 18).  Every mixer, MoE, enc-dec
-    and unstacked groups are ported; what still raises is the
-    expert-parallel MoE schedule over a process group, and it names item
-    12c."""
+    and unstacked groups are ported; the expert-parallel MoE schedule
+    follows the mesh, not the process group: in a world of 4 with no mesh
+    the sharded config's prefill is the dense one's, as the reference's
+    with no mesh."""
     jp, p = params
     j_layer = jax.tree.map(lambda a: a[0], jp["groups"]["g0"]["attn"])
     layer = {k: v[0] for k, v in p["groups"]["g0"]["attn"].items()}
@@ -211,11 +212,12 @@ def test_unported_paths_raise(params, monkeypatch):
     moe_p = tf.init_params(moe_cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    steps.make_prefill_step(moe_cfg)(moe_p, {"tokens": tokens})
+    dense = steps.make_prefill_step(dataclasses.replace(
+        moe_cfg, moe_impl="dense"))(moe_p, {"tokens": tokens})[0]
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
-        steps.make_prefill_step(moe_cfg)(moe_p, {"tokens": tokens})
+    got = steps.make_prefill_step(moe_cfg)(moe_p, {"tokens": tokens})[0]
+    assert torch.equal(got, dense)
 
 
 def test_prefill_and_decode_match_jax(params, tokens, j_prefill, j_serve):

@@ -541,17 +541,3 @@ def test_moe_dense_gate_normalisation():
            * (x @ p["w_up"][0])) @ p["w_down"][0]
     torch.testing.assert_close(y, one, rtol=1e-4, atol=1e-5)
     assert float(aux["load_balance"]) >= 1.0 - 1e-6
-
-
-def test_moe_sharded_refuses_a_process_group(monkeypatch):
-    """The expert-parallel schedule is item 12c: in a world of more than one
-    rank the sharded path raises (naming it) instead of replicating every
-    expert on every rank."""
-    cfg = get_config("qwen3-moe-235b-a22b").reduced()
-    cfg = dataclasses.replace(cfg, moe_impl="sharded")
-    p = common.tree_map(torch.from_numpy, _np_params(moe.init_moe(cfg), 37))
-    x = torch.from_numpy(_x(38, 1, 4, cfg.d_model))
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
-        moe.moe_forward(cfg, p, x)

@@ -1,12 +1,14 @@
-"""The overlapped reduce and the front-end over a process group, one rank a
-card over NCCL (what ``chip_smoke.py`` phase 3i cannot run on one card:
-NCCL refuses two ranks on one GPU):
+"""The overlapped reduce, the front-end and the expert-parallel MoE over a
+process group, one rank a card over NCCL (what ``chip_smoke.py`` phases 3i
+and 3l cannot run on one card: NCCL refuses two ranks on one GPU):
 
     python3 -c "import sys; sys.path.insert(0, 'src'); \\
         from repro_torch.kernels import _build; _build.build_all()"
     torchrun --standalone --nproc-per-node=4 tools/four_cards.py
     # the same on the CPU over gloo, at a small size:
     torchrun --standalone --nproc-per-node=4 tools/four_cards.py --cpu
+    # the expert-parallel prefill alone (either device):
+    torchrun --standalone --nproc-per-node=4 tools/four_cards.py --ep-only
 
 Each rank holds n / 4 rows of ``sgpr-synth-1m`` (3a's data and init,
 ``chunk_size`` 65,536: 4 blocks a rank) and takes the distributed step in
@@ -23,8 +25,14 @@ queries, before and after a ``swap_slot`` of slot 1; the sharded
 serves the first 500 of phase 3h's requests through a ``Frontend`` over
 ``predict_engine`` with a ``swap_state`` to the second state midway and
 ``close()``, the other ranks run ``serve_follower``: every response bitwise
-a world of one's on rank 0's card.  Rank 0 prints a JSON line for each
-part and the cards' name and power limit; any failed check raises.
+a world of one's on rank 0's card.  Between the two, phase 3l's prefill
+(``qwen3-moe-235b-a22b``, 4 of 94 layers, B 4 x 2,048, bf16, flash, the
+config's capacity factor) through the expert-parallel MoE on a (1, 4)
+mesh over the default group (NCCL) and on a (1, 4) mesh of gloo groups
+over the same ranks (``DeviceMesh.from_group``, host copies): every rank's
+logits bitwise the same on each, the two within 2e-2 relative RMS
+(``--cpu``: the reduced config, B 2 x 16).  Rank 0 prints a JSON line for
+each part and the cards' name and power limit; any failed check raises.
 """
 import asyncio
 import json
@@ -115,6 +123,63 @@ def fleet_and_sample(eng, group, states, queries, dev, report):
     report["fleet_and_sample"] = res
 
 
+def ep_prefill(group, cpu, dev, report):
+    """Phase 3l's prefill through the expert-parallel MoE on a (1, world)
+    mesh over the default group and on one over gloo groups of the same
+    ranks: each mesh's logits the same bits on every rank, the two meshes'
+    within 2e-2."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.train import steps as lm_steps
+
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if cpu:
+        cfg = dataclasses.replace(cs.ep_train_config(),
+                                  capacity_factor=1.25,
+                                  compute_dtype="bfloat16")
+        b, t = 2, 16
+    else:
+        cfg, b, t = cs.ep_config(), cs.LM_BATCH, cs.LM_PROMPT
+    singles = [dist.new_group([r], backend="gloo") for r in range(world)]
+    meshes = {
+        dist.get_backend(group): make_compat_mesh((1, world),
+                                                  ("data", "model"), dev),
+        "gloo groups": DeviceMesh.from_group(
+            [singles[rank], dist.new_group(list(range(world)),
+                                           backend="gloo")],
+            dev.type, mesh=torch.arange(world).reshape(1, world),
+            mesh_dim_names=("data", "model"))}
+    params = lm_steps.init_params_sharded(
+        cfg, torch.Generator(device=dev).manual_seed(cs.SEED),
+        meshes["gloo groups"], device=dev)
+    batch = cs.arch_batch(cfg, b, t, dev)
+    prefill = lm_steps.make_prefill_step(cfg)
+    logits, res = {}, {}
+    for name, mesh in meshes.items():
+        with sharding.use_mesh(mesh):
+            prefill(params, batch)                      # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = prefill(params, batch)
+            torch.cuda.synchronize()
+        res[f"{name}_prefill_s"] = time.perf_counter() - t0
+        logits[name] = lg.float().cpu()
+        res[f"{name}_same_on_every_rank"] = same_on_every_rank(
+            group, [logits[name].numpy()])
+    a, g = logits.values()
+    res["rel_rms_between_meshes"] = cs.rel_rms(a, g)
+    res["config"] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "experts": cfg.num_experts, "batch": b, "prompt": t}
+    report["ep_prefill"] = res
+    if not (all(v for k, v in res.items() if k.endswith("every_rank"))
+            and res["rel_rms_between_meshes"] <= cs.LOGIT_RTOL["bfloat16"]):
+        raise AssertionError(f"expert-parallel prefill over the ranks: {res}")
+
+
 def main():
     cpu = "--cpu" in sys.argv
     device = "cpu" if cpu else None
@@ -129,6 +194,15 @@ def main():
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     dev = torch.device("cpu") if cpu else torch.device(
         "cuda", torch.cuda.current_device())
+    if "--ep-only" in sys.argv:
+        report = {}
+        ep_prefill(group, cpu, dev, report)
+        if rank == 0:
+            print(json.dumps(report), flush=True)
+            if not cpu:
+                print(cs.nvidia_smi(), flush=True)
+        dist.destroy_process_group()
+        return
     report = {"backend": dist.get_backend(group), "world": world}
     out, (x, y, z, hyp) = steps(group, cfg, chunk, dev, report)
     # -- the bits: every rank's the same, overlap's eager's, near serial's --
@@ -165,6 +239,10 @@ def main():
         -2.0, 2.0, (65_536, cfg.q))
     report = {}
     fleet_and_sample(eng, group, states, queries, dev, report)
+    if rank == 0:
+        print(json.dumps(report), flush=True)
+    report = {}
+    ep_prefill(group, cpu, dev, report)
     if rank == 0:
         print(json.dumps(report), flush=True)
     peng = eng.predict_engine(states[0])
