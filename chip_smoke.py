@@ -220,14 +220,29 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    same inputs within ``tests/test_moe.py``'s bound scaled to the output;
    (5) the reduced config's f32 train step under the mesh, no drop: each
    gradient leaf of the cross-entropy within 1e-4 of the dense path's,
-   the int8 backward's finite and nonzero.  It prints prefill s and
-   decode-step ms (native, int8), each collective's bytes and ms a layer,
-   peak memory and flash launches per rank, beside the card's name and
-   power limit.
+   the int8 backward's finite and nonzero.  Its attention and vocab are
+   tensor-parallel over the same ``model`` axis (every leaf cut by the
+   rules).  It prints prefill s and decode-step ms (native, int8), each
+   MoE collective's bytes and ms a layer, peak memory and flash launches
+   per rank, beside the card's name and power limit;
+3m. serves ``llama3.2-1b`` at full width tensor-parallel (after 3l; f32
+   params, bf16 compute, the flash kernel, B 4 x 2,048) on 4 ranks
+   spawned on the card over gloo: on a (1, 4) ("data", "model") mesh a
+   warm-up prefill of 128 tokens, the prefill, 16 teacher-forced decode
+   steps, the teacher-forced check and an f32-compute prefill; on (2, 2)
+   (FSDP over ``data``) the prefill and 4 decode steps.  Against one
+   process on the card with the same weights: logits and each decode step
+   within relative RMS 2e-2 at bf16, 1e-5 at f32; every rank of a ``model``
+   group bitwise the same; 16 flash launches a prefill on each rank's
+   heads; the collectives' calls and bytes a prefill and a decode step
+   equal to ``tp_expected_collectives``' to the byte.  It prints times,
+   per-rank params and peak memory beside the card's name and power
+   limit.
 
 Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b, 3f,
-3g, 3h, 3i, 3c, 3j, 3k and 3l and read just after; each kernel of a path
-must have launched in it (3d's, 3e's, 3f's, 3i's and 3l's ranks count
+3g, 3h, 3i, 3c, 3j, 3k, 3l and 3m and read just after; each kernel of a
+path must have launched in it (3d's, 3e's, 3f's, 3i's, 3l's and 3m's
+ranks count
 their own launches and report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
 the references run beside them, and 3e, 3f, 3g and 3h assert the counts
 their calls imply: one reg_stats launch a block a pass, one predict launch
@@ -4089,8 +4104,8 @@ def recording_route(moe_mod, record):
     """``moe._route`` that also keeps each call's expert ids."""
     real = moe_mod._route
 
-    def route(cfg, router_w, x_flat):
-        out = real(cfg, router_w, x_flat)
+    def route(cfg, router_w, x_flat, **kw):
+        out = real(cfg, router_w, x_flat, **kw)
         record.append(out[1])
         return out
     return route
@@ -4118,8 +4133,8 @@ def pinned_route(moe_mod, choices):
     real = moe_mod._route
     calls = iter(choices)
 
-    def route(cfg, router_w, x_flat):
-        _, _, aux = real(cfg, router_w, x_flat)
+    def route(cfg, router_w, x_flat, **kw):
+        _, _, aux = real(cfg, router_w, x_flat, **kw)
         eids = next(calls)
         probs = torch.softmax((x_flat @ router_w.to(x_flat.dtype)).float(),
                               dim=-1)
@@ -4466,23 +4481,29 @@ def recording_moe(moe_mod, record):
 
 
 def counting_collectives(moe_mod, record, dev):
-    """Patches ``moe._all_to_all`` / ``moe._all_gather`` to keep each call's
-    (kind, bytes this rank sends in, seconds between synchronisations)."""
+    """Patches the MoE's ``all_to_all`` / ``all_gather`` (its own view of
+    ``distributed.tensor_parallel``) to keep each call's (kind, bytes this
+    rank sends in, seconds between synchronisations); the attention's and
+    vocab's collectives are not counted here."""
+    import types
     from unittest import mock
 
+    tp = moe_mod.tp
+
     def wrap(kind, real):
-        def call(t, group):
+        def call(t, group, *args):
             sync(dev)
             s = time.perf_counter()
-            out = real(t, group)
+            out = real(t, group, *args)
             sync(dev)
             record.append((kind, t.numel() * t.element_size(),
                            time.perf_counter() - s))
             return out
         return call
-    return mock.patch.multiple(
-        moe_mod, _all_to_all=wrap("all_to_all", moe_mod._all_to_all),
-        _all_gather=wrap("all_gather", moe_mod._all_gather))
+    view = types.SimpleNamespace(**{
+        **vars(tp), "all_to_all": wrap("all_to_all", tp.all_to_all),
+        "all_gather": wrap("all_gather", tp.all_gather)})
+    return mock.patch.object(moe_mod, "tp", view)
 
 
 def per_layer(record, layers) -> dict:
@@ -4694,10 +4715,8 @@ def ep_rank(rank, world, store_path, out_dir, job, device):
             continue
         coord = sharding.mesh_coordinate(mesh)
         for k, g in got.items():
-            w = want[k]
-            if "experts" in logical[k]:
-                w = w[sharding.shard_slices(logical[k], w.shape, mesh, coord,
-                                            moe_mod.EXPERT_RULES)]
+            w = want[k][sharding.shard_slices(logical[k], want[k].shape,
+                                              mesh, coord)]
             rels["/".join(k)] = rel_rms(g, w)
         state = {"params": ep, "opt": adam.init_opt_state(ep)}
         with sharding.use_mesh(mesh):
@@ -4920,6 +4939,338 @@ def ep_serving_path(fa_ops) -> dict:
     return launches
 
 
+# -- phase 3m: llama3.2-1b tensor-parallel on 4 ranks -------------------------
+
+TP_NAME = "llama3.2-1b"
+TP_NEW = {(1, 4): LM_NEW, (2, 2): 4}   # teacher-forced decode steps a mesh
+TP_F32_RTOL = 1e-5                     # f32 compute against one process
+
+
+def tp_config(compute="bfloat16"):
+    """llama3.2-1b at full width, f32 params, the flash kernel."""
+    import dataclasses
+    return dataclasses.replace(get_lm_config(TP_NAME), use_flash=True,
+                               compute_dtype=compute)
+
+
+def tp_tokens(cfg, n_new) -> np.ndarray:
+    """The prompts and the tokens the decode steps are fed (B, T + n)."""
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + n_new), dtype=np.int32)
+
+
+def tp_expected_collectives(cfg, mesh_shape, b_loc, t_q, act_bytes) -> dict:
+    """Calls and bytes of each collective kind in one prefill (t_q = T)
+    or decode step (t_q = 1) on a rank of ``mesh_shape``, from the
+    layout: after each row-parallel product (2 a layer) an all_to_all of
+    the (B/data, t_q, D) f32 partials and an all_gather of the summed
+    columns in the compute dtype (``act_bytes`` an element); an
+    all_reduce of the embedding; the (B/data, V) f32 logits gathered; and
+    with data > 1 each leaf cut over ``data`` gathered whole, a layer's
+    leaves once a layer, the tied embedding for the lookup and again for
+    the logits."""
+    from repro_torch.core.flat import tree_items
+    from repro_torch.distributed import sharding
+
+    data, model = mesh_shape
+    mesh = type("Sizes", (), {"shape": {"data": data, "model": model}})()
+    layers = cfg.num_layers
+    act = b_loc * t_q * cfg.d_model
+    gathers = [(1, b_loc * cfg.vocab_size * 4), (2 * layers, act * act_bytes)]
+    for path, lay in tree_items(sharding.param_layout(cfg, mesh)):
+        if data == 1 or "data" not in sharding.spec_axes(lay.spec):
+            continue
+        item = 4 if cfg.param_dtype == "float32" else 2
+        if path[0] == "groups":
+            gathers.append((layers, math.prod(lay.local[1:]) * data * item))
+        else:
+            uses = 2 if path == ("embed",) and cfg.tie_embeddings else 1
+            gathers.append((uses, math.prod(lay.local) * data * item))
+    return {"all_reduce": {"calls": 1, "bytes": act * act_bytes},
+            "all_gather": {"calls": sum(n for n, _ in gathers),
+                           "bytes": sum(n * b for n, b in gathers)},
+            "reduce_scatter": {"calls": 0, "bytes": 0},
+            "all_to_all": {"calls": 2 * layers,
+                           "bytes": 2 * layers * act * 4}}
+
+
+def tp_reference(tf, lm_steps) -> dict:
+    """Phase 3m's one-process reference on the card, the same weights: the
+    prefill's logits at bf16 and f32 compute and the bf16 teacher-forced
+    decode steps' logits."""
+    import dataclasses
+
+    cfg = tp_config()
+    n_new = max(TP_NEW.values())
+    tokens = torch.from_numpy(tp_tokens(cfg, n_new)).to(DEV)
+    params = tf.init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED),
+                            device=DEV)
+    ref = {}
+    for label in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=label)
+        logits, caches = lm_steps.make_prefill_step(c)(
+            params, {"tokens": tokens[:, :LM_PROMPT]})
+        ref[label] = logits.float().cpu()
+        if label == "bfloat16":
+            caches = tf.grow_decode_cache(c, caches, LM_PROMPT + n_new)
+            serve = lm_steps.make_serve_step(c)
+            steps_out = []
+            for i in range(n_new):
+                pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                                 device=DEV)
+                lg, caches = serve(params, caches, tokens[:, LM_PROMPT + i:
+                                                          LM_PROMPT + i + 1],
+                                   pos)
+                steps_out.append(lg.float().cpu())
+            ref["decode"] = torch.stack(steps_out)
+        del caches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_rank(rank, world, store_path, out_dir, job, device):
+    """One rank of phase 3m's gloo run (a spawned process): for each mesh,
+    the rank's blocks of ``init_params``' draws, its data shard of the
+    prompts; prefill (cold, warm), the teacher-forced decode steps, and at
+    (1, 4) the teacher-forced check (prefill T - 1 tokens, decode token
+    T - 1) and an f32-compute prefill (after a first prefill of 128 tokens
+    that warms the process); logits, times, the collectives'
+    calls and bytes (``tensor_parallel.COUNTS``), the flash calls' shapes
+    and launches, peak memory.  Writes ``rank<k>.npz``."""
+    import dataclasses
+    import datetime
+    import os
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps as lm_steps
+    from torch.utils._pytree import tree_leaves
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)   # CPU ranks share the cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.FileStore(store_path, world)
+    meshes = {m: make_compat_mesh(m, ("data", "model"), dev, backend="gloo",
+                                  store=store, rank=rank, world_size=world,
+                                  timeout=datetime.timedelta(
+                                      seconds=DIST_GROUP_TIMEOUT_S))
+              for m in job["new"]}
+    cfg, tokens = job["cfg"], torch.from_numpy(job["tokens"]).to(dev)
+    t = job["prompt"]
+    calls = []
+    real_flash = fa_ops.flash_attention
+
+    def recording_flash(q, k, v, causal=True):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return real_flash(q, k, v, causal=causal)
+    fa_ops.flash_attention = recording_flash
+    reset_counts(fa_ops.LAUNCHES)
+    out = {}
+
+    def timed(fn):
+        sync(dev)
+        s = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, time.perf_counter() - s
+
+    def counted(fn):
+        tp.reset_counts()
+        res, s = timed(fn)
+        return res, s, json.dumps(tp.counts())
+
+    for m, mesh in meshes.items():
+        tag, n_new = f"{m[0]}x{m[1]}", job["new"][m]
+        t_init = time.perf_counter()
+        params = lm_steps.init_params_sharded(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), mesh,
+            device=dev)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out[f"{tag}/init_s"] = time.perf_counter() - t_init
+        out[f"{tag}/param_bytes"] = sum(
+            a.numel() * a.element_size() for a in tree_leaves(params))
+        prefill = lm_steps.make_prefill_step(cfg)
+        serve = lm_steps.make_serve_step(cfg)
+        with sharding.use_mesh(mesh):
+            mine = lm_steps.local_batch({"tokens": tokens}, mesh)["tokens"]
+            b_loc = mine.shape[0]
+            batch = {"tokens": mine[:, :t]}
+            if m == (1, 4):   # the process's first prefill, on 128 tokens
+                _, out[f"{tag}/warmup_s"] = timed(
+                    lambda: prefill(params, {"tokens": mine[:, :128]}))
+            calls.clear()
+            before = dict(fa_ops.LAUNCHES)
+            (logits, caches), out[f"{tag}/prefill_s"], \
+                out[f"{tag}/prefill_collectives"] = counted(
+                    lambda: prefill(params, batch))
+            out[f"{tag}/prefill_flash_launches"] = (
+                fa_ops.LAUNCHES["bfloat16"] - before["bfloat16"])
+            out[f"{tag}/prefill_flash_shapes"] = json.dumps(
+                sorted(set(calls)))
+            out[f"{tag}/logits"] = logits.float().cpu().numpy()
+            caches = tf.grow_decode_cache(cfg, caches, t + n_new)
+            dec, dec_s = [], []
+            for i in range(n_new):
+                pos = torch.full((b_loc,), t + i, dtype=torch.int32,
+                                 device=dev)
+                (lg, caches), s, coll = counted(
+                    lambda: serve(params, caches, mine[:, t + i:t + i + 1],
+                                  pos))
+                dec.append(lg.float().cpu().numpy())
+                dec_s.append(s)
+                if i == 0:
+                    out[f"{tag}/decode_collectives"] = coll
+            del caches
+            out[f"{tag}/decode_logits"] = np.stack(dec)
+            out[f"{tag}/decode_step_s"] = np.asarray(dec_s)
+            if m == (1, 4):
+                # teacher-forced: prefill T - 1 tokens, decode token T - 1
+                _, c_short = prefill(params, {"tokens": mine[:, :t - 1]})
+                grown = tf.grow_decode_cache(cfg, c_short, t)
+                forced, _ = serve(params, grown, mine[:, t - 1:t],
+                                  torch.full((b_loc,), t - 1,
+                                             dtype=torch.int32, device=dev))
+                out[f"{tag}/forced_logits"] = forced.float().cpu().numpy()
+                del c_short, grown
+                c32 = dataclasses.replace(cfg, compute_dtype="float32")
+                (lg32, _), out[f"{tag}/prefill_f32_s"], \
+                    out[f"{tag}/prefill_f32_collectives"] = counted(
+                        lambda: lm_steps.make_prefill_step(c32)(params, batch))
+                out[f"{tag}/f32_logits"] = lg32.float().cpu().numpy()
+        out[f"{tag}/peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                 if cuda else 0.0)
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+    out["flash_bf16"] = fa_ops.LAUNCHES["bfloat16"]
+    out["flash_f32"] = fa_ops.LAUNCHES["float32"]
+    fa_ops.flash_attention = real_flash
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def tp_serving_path(fa_ops) -> dict:
+    """Phase 3m: ``llama3.2-1b`` at full width served tensor-parallel on 4
+    gloo ranks sharing the card (``tp_rank``), on the meshes (1, 4) and
+    (2, 2), against one process on the same card with the same weights."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps as lm_steps
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg = tp_config()
+    ref = tp_reference(tf, lm_steps)
+    job = {"cfg": cfg, "tokens": tp_tokens(cfg, max(TP_NEW.values())),
+           "prompt": LM_PROMPT, "new": TP_NEW}
+    t_ranks = time.perf_counter()
+    ranks = spawn_ranks(4, job, str(torch.device(DEV, 0)), target=tp_rank)
+    report = {"config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                         "batch": LM_BATCH, "prompt": LM_PROMPT,
+                         "new": {f"{d}x{m}": n
+                                 for (d, m), n in TP_NEW.items()}},
+              "ranks_wall_s": time.perf_counter() - t_ranks}
+    failed = []
+    lim = LOGIT_RTOL["bfloat16"]
+    for m, n_new in TP_NEW.items():
+        tag = f"{m[0]}x{m[1]}"
+        data, model = m
+        groups = [[ranks[d * model + i] for i in range(model)]
+                  for d in range(data)]
+        rep = {}
+        keys = [k for k in ranks[0] if k.startswith(tag)
+                and k.endswith("logits")]
+        rep["logits_bitwise_in_each_model_group"] = all(
+            np.array_equal(r[k], g[0][k]) for g in groups for r in g[1:]
+            for k in keys)
+
+        def whole(key, axis=0):
+            return torch.from_numpy(np.concatenate(
+                [g[0][f"{tag}/{key}"] for g in groups], axis=axis))
+        rep["prefill_vs_one_process"] = rel_rms(whole("logits"),
+                                                ref["bfloat16"])
+        dec = whole("decode_logits", axis=1)
+        rep["decode_vs_one_process"] = [
+            rel_rms(dec[i], ref["decode"][i]) for i in range(n_new)]
+        ok = (rep["logits_bitwise_in_each_model_group"]
+              and rep["prefill_vs_one_process"] <= lim
+              and max(rep["decode_vs_one_process"]) <= lim)
+        if m == (1, 4):
+            rep["f32_prefill_vs_one_process"] = rel_rms(
+                whole("f32_logits"), ref["float32"])
+            rep["teacher_forced_vs_prefill"] = rel_rms(
+                whole("forced_logits"), whole("logits"))
+            ok &= (rep["f32_prefill_vs_one_process"] <= TP_F32_RTOL
+                   and rep["teacher_forced_vs_prefill"] <= lim)
+        # flash on each rank's heads, one launch a layer a prefill
+        b_loc = LM_BATCH // data
+        h, hkv = cfg.num_heads // model, cfg.num_kv_heads // model
+        want_shapes = [[[b_loc, h, LM_PROMPT, 64],
+                        [b_loc, hkv, LM_PROMPT, 64]]]
+        rep["flash_launches_a_prefill"] = [
+            int(r[f"{tag}/prefill_flash_launches"]) for r in ranks]
+        shapes = [json.loads(str(r[f"{tag}/prefill_flash_shapes"]))
+                  for r in ranks]
+        rep["flash_shapes"] = shapes[0]
+        ok &= (rep["flash_launches_a_prefill"] == [cfg.num_layers] * 4
+               and all(sh == want_shapes for sh in shapes))
+        # the collectives' calls and bytes, to the byte
+        act = 2
+        for kind, t_q, key, ab in (
+                ("prefill", LM_PROMPT, "prefill_collectives", act),
+                ("decode", 1, "decode_collectives", act),
+                ("prefill_f32", LM_PROMPT, "prefill_f32_collectives", 4)):
+            if f"{tag}/{key}" not in ranks[0]:
+                continue
+            want = tp_expected_collectives(cfg, m, b_loc, t_q, ab)
+            got = [json.loads(str(r[f"{tag}/{key}"])) for r in ranks]
+            rep[f"{kind}_collectives"] = got[0]
+            same = all({k: g[k] for k in want} == want for g in got)
+            rep[f"{kind}_collectives_as_predicted"] = same
+            ok &= same
+        for k in ("init_s", "warmup_s", "prefill_s", "prefill_f32_s"):
+            if f"{tag}/{k}" in ranks[0]:
+                rep[k] = float(ranks[0][f"{tag}/{k}"])
+        steps_s = ranks[0][f"{tag}/decode_step_s"]
+        rep["decode_first_ms"] = 1e3 * float(steps_s[0])
+        rep["decode_step_ms_median"] = 1e3 * float(np.median(steps_s[1:]))
+        rep["param_gb_per_rank"] = [float(r[f"{tag}/param_bytes"]) / 1e9
+                                    for r in ranks]
+        rep["peak_gb_per_rank"] = [float(r[f"{tag}/peak_gb"]) for r in ranks]
+        report[tag] = rep
+        if not ok:
+            failed.append(f"{tag}: {json.dumps(rep)}")
+    launches = {"flash_attention_bf16": sum(int(r["flash_bf16"])
+                                            for r in ranks),
+                "flash_attention_f32": sum(int(r["flash_f32"])
+                                           for r in ranks)}
+    report["flash_launches_per_rank"] = [[int(r["flash_bf16"]),
+                                          int(r["flash_f32"])] for r in ranks]
+    total = time.perf_counter() - t0
+    report["phase_s"] = total
+    for key, val in report.items():
+        print(f"tensor-parallel llama (3m) {key} ({smi}): {json.dumps(val)}",
+              flush=True)
+    print(f"tensor-parallel llama (3m) card: {smi}; phase 3m took "
+          f"{total:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 3m: {failed}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5057,6 +5408,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ep_launches = ep_serving_path(fa_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = tp_serving_path(fa_ops)
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
@@ -5064,7 +5418,7 @@ def main() -> int:
                          *remainder_launches.items(),
                          *online_launches.items(), *ext_launches.items(),
                          *async_launches.items(), *arch_launches.items(),
-                         *ep_launches.items()):
+                         *ep_launches.items(), *tp_launches.items()):
         launches[kname] += count
 
     def entry(kname, source, replaces, res):

@@ -13,16 +13,19 @@ is the reference's ``PartitionSpec`` as a plain tuple: one entry a tensor
 dimension, ``None`` (replicated), an axis name, or a tuple of names (the
 first-named axis major), trailing ``None``s trimmed.
 
-``set_mesh`` / ``use_mesh`` set the module's mesh context, which
-``models.moe.moe_sharded`` reads for its ``model`` axis.  ``constrain`` is
+``set_mesh`` / ``use_mesh`` set the module's mesh context, which the
+model code reads: ``distributed.tensor_parallel``'s collectives over its
+axes, and each layer's split, taken from the resolved spec of its leaves
+(``param_layout``: every leaf's spec and local shape).  ``constrain`` is
 the identity: the reference's is a layout hint to XLA's SPMD partitioner
 (``with_sharding_constraint``) that changes no value, and the port has no
-partitioner.  Its call sites stay where the reference has them.
+partitioner: it partitions with explicit collectives.  Its call sites
+stay where the reference has them.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import torch
 
@@ -139,8 +142,8 @@ def axis_divides(logical: str, size: int) -> bool:
 def constrain(x, logical_axes: Sequence[str | None]):
     """The identity, with or without a mesh.  The reference pins ``x``'s
     layout for XLA's SPMD partitioner (``with_sharding_constraint``), which
-    changes no value; the port has no partitioner, and the layers that are
-    held whole on each rank have no layout to pin."""
+    changes no value; the port has no partitioner, and its layers split
+    with explicit collectives (``distributed.tensor_parallel``)."""
     del logical_axes
     return x
 
@@ -149,6 +152,48 @@ def _entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: tuple) -> set[str]:
+    """Every mesh axis a resolved spec names."""
+    return {ax for e in spec for ax in _entry_axes(e)}
+
+
+def local_shape(logical: Sequence[str | None], shape: Sequence[int],
+                mesh=None, rules: dict | None = None) -> tuple[int, ...]:
+    """The shape of one rank's block of a whole tensor of ``shape``."""
+    mesh = _CTX["mesh"] if mesh is None else mesh
+    if mesh is None:
+        return tuple(shape)
+    sizes = mesh_sizes(mesh)
+    spec = spec_for(logical, shape, mesh, rules)
+    out = []
+    for d, dim in enumerate(shape):
+        for ax in _entry_axes(spec[d]) if d < len(spec) else ():
+            dim //= sizes[ax]
+        out.append(dim)
+    return tuple(out)
+
+
+class LeafLayout(NamedTuple):
+    spec: tuple                 # the resolved PartitionSpec entries
+    shape: tuple[int, ...]      # the whole leaf
+    local: tuple[int, ...]      # one rank's block
+
+
+def param_layout(cfg, mesh=None, rules: dict | None = None) -> dict:
+    """``cfg``'s parameter tree on ``mesh`` (the context mesh if None),
+    each leaf its :class:`LeafLayout`."""
+    from ..models.common import tree_map
+    from ..models.transformer import param_spec
+
+    mesh = _CTX["mesh"] if mesh is None else mesh
+
+    def one(leaf):
+        return LeafLayout(spec_for(leaf.logical, leaf.shape, mesh, rules),
+                          leaf.shape,
+                          local_shape(leaf.logical, leaf.shape, mesh, rules))
+    return tree_map(one, param_spec(cfg))
 
 
 def shard_slices(logical: Sequence[str | None], shape: Sequence[int], mesh,

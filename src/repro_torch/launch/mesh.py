@@ -6,12 +6,13 @@ a rank, joined in a ``torch.distributed`` process group.  The distributed
 GP engine (``core.distributed.DistributedGP``) takes the flat group of data
 shards (``make_data_group``).  The LM substrate takes a named
 ``DeviceMesh`` over the same world (``make_compat_mesh``), whose ``model``
-axis carries the expert-parallel MoE (``models.moe.moe_sharded``) and whose
+axis carries the tensor-parallel layers and the expert-parallel MoE
+(``distributed.tensor_parallel``, ``models.moe.moe_sharded``) and whose
 axes the logical-axis rules read (``distributed.sharding``).
 ``make_production_mesh`` / ``make_gp_mesh`` / ``gp_data_axes`` mirror the
-reference's 256- and 512-chip layouts; they are built only under a
-launcher with that world.  The HLO tools and the roofline over their
-artifacts are queued in ROADMAP Queue 1 item 13.
+reference's 256- and 512-chip layouts; they are built under a launcher
+with that world, or in one process on a fake world (``make_fake_mesh``),
+where the dry run (``launch.dryrun``) acts as rank 0 of 256 or 512.
 """
 from __future__ import annotations
 
@@ -101,11 +102,34 @@ def make_compat_mesh(shape: Sequence[int], axis_names: Sequence[str],
     return init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
 
 
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None,
                          **group_kw):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION[multi_pod]
     return make_compat_mesh(shape, axes, device, **group_kw)
+
+
+def make_fake_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                   device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over a fake world of prod(shape)
+    ranks in which this process is rank 0: ``torch.distributed``'s
+    ``"fake"`` backend, whose collectives return at once and move nothing
+    (with fake tensors they give the right shapes).  A process group
+    already joined is left first (``dist.destroy_process_group``), so one
+    process can build the meshes one after another.  For shapes, FLOPs,
+    bytes and collectives, never for values."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axis_names))
 
 
 def make_gp_mesh(*, multi_pod: bool = False, device=None, **group_kw):

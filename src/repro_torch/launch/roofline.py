@@ -1,12 +1,16 @@
-"""Analytic model FLOPs of the LM configs (port of the analytic half of
-``repro.launch.roofline``), and the H100's peaks they are held against.
+"""Roofline of the LM configs (port of ``repro.launch.roofline``): the
+analytic model FLOPs, and the roofline over the dry run's records.
 
 ``model_flops`` counts the useful work of a step, 6 * N_active * tokens
 (train) or 2 * N_active * tokens (forward only), plus attention;
 ``chip_smoke.py`` divides it by a train step's time and the bf16 peak for
-the MFU.  The roofline over the TPU dry-run's HLO artifacts
-(``load_cells``, ``roofline_row``, ``render_md``) waits for the HLO tools
-(ROADMAP Queue 1 item 13).
+the MFU.  ``load_cells``, ``roofline_row`` and ``render_md`` read the
+records of ``launch.dryrun`` (per rank: FLOPs, bytes, collective bytes)
+and turn each into its three lower bounds on the step's time at the
+peaks below: compute, memory and collective; the largest is the cell's
+bound.  Every such time is analytic, not measured.
+
+  PYTHONPATH=src python -m repro_torch.launch.roofline --mesh single --md
 
 Hardware: one NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense, without
 sparsity): 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3, 900
@@ -14,9 +18,17 @@ GB/s of NVLink 4 per card -- the SXM row of ``chip_smoke.py``'s ``PEAKS``.
 """
 from __future__ import annotations
 
+import argparse
+import json
+import pathlib
+
 PEAK_FLOPS = 989e12       # bf16 FLOP/s / card
 HBM_BW = 3.35e12          # B/s / card
 LINK_BW = 900e9           # B/s / card, NVLink 4, all links
+PEAKS_NOTE = ("analytic: NVIDIA H100 SXM data-sheet peaks, 989 TFLOP/s "
+              "bf16, 3.35 TB/s HBM3, 900 GB/s NVLink 4")
+ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
+    "dryrun_torch"
 
 
 def _active_params(cfg) -> tuple[int, int]:
@@ -118,3 +130,85 @@ def _attn_flops(cfg, b, t_q, t_kv, train: bool) -> float:
             f += g.count * 2.0 * b * cfg.num_heads * t_q * eff \
                 * (dh_qk + dh_v) * mult
     return f
+
+
+def load_cells(mesh: str, variant: str | None = None,
+               root: pathlib.Path | str = ART) -> list[dict]:
+    """The dry run's records under ``root``/``mesh`` (of one variant, or
+    all)."""
+    out = []
+    for fp in sorted((pathlib.Path(root) / mesh).glob("*.json")):
+        cell = json.loads(fp.read_text())
+        if variant is None or cell.get("variant") in (variant, None):
+            out.append(cell)
+    return out
+
+
+def roofline_row(cell: dict) -> dict:
+    """A record's three bounds (seconds a step at the peaks), the dominant
+    one, the model FLOPs against the counted ones, and the useful FLOPs at
+    peak as a share of the bound."""
+    fl = cell["flops"]
+    by = cell["bytes"]["total"]
+    co = cell["collectives"]["total"]
+    t_c, t_m, t_l = fl / PEAK_FLOPS, by / HBM_BW, co / LINK_BW
+    dom = max(("compute", t_c), ("memory", t_m), ("collective", t_l),
+              key=lambda kv: kv[1])
+    mf = cell["model_flops"]
+    return {
+        "arch": cell["arch"], "shape": cell["shape"],
+        "variant": cell.get("variant", "baseline"),
+        "compute_s": t_c, "memory_s": t_m, "collective_s": t_l,
+        "dominant": dom[0], "bound_s": dom[1],
+        "flops_dev": fl, "bytes_dev": by, "coll_dev": co,
+        "mem_args_GB": cell["memory"]["argument_bytes"] / 1e9,
+        "mem_temp_GB": cell["memory"]["temp_bytes"] / 1e9,
+        "n_devices": cell["n_devices"],
+        "model_flops_dev": mf,
+        "model_over_counted": mf / fl if fl else 0.0,
+        "roofline_frac": (mf / PEAK_FLOPS) / dom[1] if dom[1] else 0.0,
+    }
+
+
+def render_md(rows: list[dict]) -> str:
+    hdr = ("| arch | shape | variant | compute s | memory s | coll s | "
+           "dominant | model/counted | roofline frac | args GB | temp GB |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|")
+    lines = [hdr]
+    for r in rows:
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['variant']} "
+            f"| {r['compute_s']:.3e} | {r['memory_s']:.3e} "
+            f"| {r['collective_s']:.3e} | **{r['dominant']}** "
+            f"| {r['model_over_counted']:.2f} "
+            f"| {r['roofline_frac']:.3f} | {r['mem_args_GB']:.2f} "
+            f"| {r['mem_temp_GB']:.2f} |")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--variant", default=None)
+    ap.add_argument("--dir", default=str(ART),
+                    help="the dry run's --out")
+    ap.add_argument("--md", action="store_true")
+    ap.add_argument("--json-out", default="")
+    args = ap.parse_args(argv)
+    rows = [roofline_row(c) for c in load_cells(args.mesh, args.variant,
+                                                args.dir)]
+    if args.json_out:
+        pathlib.Path(args.json_out).write_text(json.dumps(rows, indent=1))
+    print(f"({PEAKS_NOTE})")
+    if args.md:
+        print(render_md(rows))
+    else:
+        for r in rows:
+            print(f"{r['arch']:>22} {r['shape']:>12} {r['variant']:>9} "
+                  f"C {r['compute_s']:.2e}  M {r['memory_s']:.2e}  "
+                  f"L {r['collective_s']:.2e}  -> {r['dominant']:<10} "
+                  f"frac {r['roofline_frac']:.3f}")
+
+
+if __name__ == "__main__":
+    main()

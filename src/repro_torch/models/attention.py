@@ -22,13 +22,36 @@ kernel: a local-window layer keeps a rolling cache of ``window`` slots
 (position p at slot p % window), and MLA decodes in the absorbed form
 against its compressed ``c_kv`` cache.  The JAX package's sharding
 constraints stay at their sites through ``distributed.sharding.constrain``,
-the identity in the port (the layers are held whole on each rank).
+the identity in the port.
+
+Tensor parallelism of GQA (``head_layout``): under a mesh whose ``model``
+axis splits ``heads`` (H divisible by it), each rank computes its H /
+model query heads, column-parallel ``wq`` (and ``bq``) on the replicated
+input (``copy_to_model``), and its share of the output through a
+row-parallel ``wo`` whose partial sums are added over ``model``
+(``row_parallel``); the flash route launches the kernel on the
+rank's (B, H / model, T, Dh) heads.  Where ``kv_heads`` divides too, the
+rank holds its Hkv / model kv heads; where it does not, ``wk`` / ``wv``
+are whole on every rank and the rank uses only the kv heads its query
+heads read (their gradient summed over ``model``), expanded to one a
+query head where the rank's heads do not fall into whole groups.  Where
+``heads`` does not divide, every rank computes the whole attention (the
+rules' fallback; no collective).  The decode cache holds the rank's kv
+heads over the whole sequence: the reference's cache rule,
+``("batch", "seq_shard", "kv_heads", None)``, lets XLA put the sequence
+over ``model`` instead, a layout choice that changes no value.  Weights
+cut over ``data`` (``embed``, FSDP) are gathered just before use.  MLA and
+cross-attention are not split (``transformer`` refuses them under a
+``model`` axis, ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..distributed.sharding import axis_divides, constrain
+from ..distributed import tensor_parallel as tp
+from ..distributed.sharding import axis_divides, constrain, spec_for
 from ..kernels.flash_attention import ops as fa
 from .common import Leaf, apply_rope, rmsnorm
 
@@ -83,21 +106,87 @@ def init_cross(cfg) -> dict:
     return _projections(cfg)
 
 
-def _heads(cfg, p, x, positions, name: str):
-    """x (B,T,D) projected by ``w{name}`` (+ ``b{name}``) into heads
-    (B,T,heads,Dh), RoPE'd unless it is ``v``; in x's dtype."""
-    b, t, _ = x.shape
-    y = x @ p[f"w{name}"].to(x.dtype)
-    if cfg.qkv_bias:
-        y = y + p[f"b{name}"].to(x.dtype)
+class HeadLayout(NamedTuple):
+    """One rank's share of a GQA layer: h query heads, kv heads
+    [kv_lo, kv_lo + kv) (the ones those query heads read), whether the
+    layer is split over ``model`` (``split``) and ``wk`` / ``wv`` with it
+    (``kv_split``; else whole, and the rank slices its kv heads), and
+    ``expand``: each local query head's local kv head, where they are not
+    whole groups (None: query head j reads kv head j // (h / kv))."""
+    split: bool
+    h: int
+    kv_split: bool
+    kv_lo: int
+    kv: int
+    expand: tuple[int, ...] | None
+
+
+def head_layout(cfg) -> HeadLayout:
+    """This rank's heads under the context mesh, from the resolved specs
+    of ``wq`` and ``wk`` (the rules' divisibility fallback decides)."""
+    dh, h, hkv = head_dim(cfg), cfg.num_heads, cfg.num_kv_heads
+    m = tp.model_size()
+    split = m > 1 and "model" in spec_for((f"heads:{dh}",), (h * dh,))
+    if not split:
+        return HeadLayout(False, h, False, 0, hkv, None)
+    hl = h // m
+    lo = tp.model_index() * hl
+    kv_split = "model" in spec_for((f"kv_heads:{dh}",), (hkv * dh,))
+    group = h // hkv
+    reads = [(lo + j) // group for j in range(hl)]
+    kv_lo, kv = reads[0], reads[-1] - reads[0] + 1
+    local = [r - kv_lo for r in reads]
+    uniform = hl % kv == 0 and local == [j // (hl // kv) for j in range(hl)]
+    return HeadLayout(True, hl, kv_split, kv_lo, kv,
+                      None if uniform else tuple(local))
+
+
+def _proj(cfg, p, name: str, d: int, hl: HeadLayout):
+    """This rank's ``w{name}`` (D, heads * Dh) and ``b{name}`` (or None):
+    its block as held, or, for whole kv weights of a split layer, its kv
+    heads' columns (the gradient of the whole summed over ``model``)."""
+    w = tp.gather_over_data(p[f"w{name}"], 0, d)
+    b = p[f"b{name}"] if cfg.qkv_bias else None
+    if hl.split and name != "q" and not hl.kv_split:
+        dh = head_dim(cfg)
+        cols = slice(hl.kv_lo * dh, (hl.kv_lo + hl.kv) * dh)
+        w = tp.copy_to_model(w)[:, cols]
+        b = None if b is None else tp.copy_to_model(b)[cols]
+    return w, b
+
+
+def _heads(cfg, p, x, positions, name: str, hl: HeadLayout | None = None):
+    """x (B,T,D) projected by this rank's ``w{name}`` (+ ``b{name}``) into
+    its heads (B,T,heads,Dh), RoPE'd unless it is ``v``; in x's dtype."""
+    b, t, d = x.shape
+    w, bias = _proj(cfg, p, name, d, head_layout(cfg) if hl is None else hl)
+    y = x @ w.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     y = y.reshape(b, t, -1, head_dim(cfg))
     if cfg.rope_theta and name != "v":
         y = apply_rope(y, positions, cfg.rope_theta)
     return y
 
 
-def _qkv(cfg, p, x, positions):
-    return tuple(_heads(cfg, p, x, positions, n) for n in "qkv")
+def _qkv(cfg, p, x, positions, hl: HeadLayout):
+    return tuple(_heads(cfg, p, x, positions, n, hl) for n in "qkv")
+
+
+def _expand(kv, hl: HeadLayout, axis: int):
+    """kv heads (along ``axis``) repeated to one a local query head where
+    the rank's query heads are not whole groups."""
+    if hl.expand is None:
+        return kv
+    idx = torch.tensor(hl.expand, device=kv.device)
+    return kv.index_select(axis, idx)
+
+
+def _out(cfg, p, o, hl: HeadLayout):
+    """o (B,T,h*Dh) through this rank's rows of ``wo``, summed over
+    ``model`` where the layer is split."""
+    wo = tp.gather_over_data(p["wo"], 1, cfg.d_model).to(o.dtype)
+    return tp.row_parallel(o, wo) if hl.split else o @ wo
 
 
 def _attend_chunked(q, k, v, *, causal: bool, window: int | None,
@@ -144,10 +233,16 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int | None,
     return torch.cat(outs, dim=1)[:, :t]
 
 
-def gqa_forward(cfg, p, x, positions, *, causal=True, window=None):
-    """Train/prefill GQA: x (B,T,D), positions (B,T) -> (B,T,D)."""
+def gqa_forward(cfg, p, x, positions, *, causal=True, window=None,
+                return_kv=False):
+    """Train/prefill GQA: x (B,T,D), positions (B,T) -> (B,T,D); with
+    ``return_kv``, also this rank's (K, V) (B,T,kv,Dh), for a cache."""
     b, t, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions)
+    hl = head_layout(cfg)
+    if hl.split:
+        x = tp.copy_to_model(x)
+    q, k_held, v_held = _qkv(cfg, p, x, positions, hl)
+    k, v = _expand(k_held, hl, 2), _expand(v_held, hl, 2)
     q = constrain(q, ("batch", None, "heads", None))
     if cfg.use_flash:
         if window is not None:
@@ -161,8 +256,8 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, window=None):
         out = out.transpose(1, 2)
     else:
         out = _attend_chunked(q, k, v, causal=causal, window=window)
-    out = out.reshape(b, t, cfg.num_heads * head_dim(cfg))
-    return out @ p["wo"].to(x.dtype)
+    y = _out(cfg, p, out.reshape(b, t, hl.h * head_dim(cfg)), hl)
+    return (y, (k_held, v_held)) if return_kv else y
 
 
 def cross_forward(cfg, p, x, enc_kv):
@@ -189,16 +284,16 @@ def encode_kv(cfg, p, enc_out):
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
-    """Empty K/V (pos -1) with room for ``max_len`` positions, or for
-    min(window, max_len) with a local window (a rolling cache)."""
+    """Empty K/V (pos -1) of this rank's kv heads with room for
+    ``max_len`` positions, or for min(window, max_len) with a local window
+    (a rolling cache)."""
     dh = head_dim(cfg)
     w = cfg.local_window
     s_len = min(w, max_len) if w else max_len
+    kv = head_layout(cfg).kv
     return {
-        "k": torch.zeros((batch, s_len, cfg.num_kv_heads, dh), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, s_len, cfg.num_kv_heads, dh), dtype=dtype,
-                         device=device),
+        "k": torch.zeros((batch, s_len, kv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, s_len, kv, dh), dtype=dtype, device=device),
         "pos": torch.full((batch, s_len), -1, dtype=torch.int32,
                           device=device),
     }
@@ -212,7 +307,10 @@ def gqa_decode(cfg, p, x_t, cache: dict, pos):
     left as it was)."""
     b = x_t.shape[0]
     dh = head_dim(cfg)
-    q, k, v = _qkv(cfg, p, x_t, pos[:, None])
+    hl = head_layout(cfg)
+    if hl.split:
+        x_t = tp.copy_to_model(x_t)
+    q, k, v = _qkv(cfg, p, x_t, pos[:, None], hl)
 
     s_len = cache["k"].shape[1]
     slot = ((pos % s_len) if cfg.local_window
@@ -222,19 +320,20 @@ def gqa_decode(cfg, p, x_t, cache: dict, pos):
     cv = cache["v"].index_put((bidx, slot), v[:, 0])
     cpos = cache["pos"].index_put((bidx, slot), pos.to(torch.int32))
 
-    group = cfg.num_heads // cfg.num_kv_heads
-    qb = q.reshape(b, cfg.num_kv_heads, group, dh)
-    sc = torch.einsum("bhgd,bshd->bhgs", qb.float(), ck.float()) * dh ** -0.5
+    ek, ev = _expand(ck, hl, 2), _expand(cv, hl, 2)
+    kv = ek.shape[2]
+    qb = q.reshape(b, kv, hl.h // kv, dh)
+    sc = torch.einsum("bhgd,bshd->bhgs", qb.float(), ek.float()) * dh ** -0.5
     sc = constrain(sc, ("batch", "kv_heads", "heads_group", None))
     valid = (cpos >= 0) & (cpos <= pos[:, None])
     if cfg.local_window:
         valid &= cpos > (pos[:, None] - cfg.local_window)
     sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
     pr = torch.softmax(sc, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, cv.float())
+    o = torch.einsum("bhgs,bshd->bhgd", pr, ev.float())
     o = constrain(o, ("batch", "kv_heads", "heads_group", None))
-    o = o.reshape(b, 1, cfg.num_heads * dh).to(x_t.dtype)
-    return o @ p["wo"].to(x_t.dtype), {"k": ck, "v": cv, "pos": cpos}
+    o = o.reshape(b, 1, hl.h * dh).to(x_t.dtype)
+    return _out(cfg, p, o, hl), {"k": ck, "v": cv, "pos": cpos}
 
 
 # ---------------------------------------------------------------------------

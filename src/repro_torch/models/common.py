@@ -12,7 +12,8 @@ over (``convert.lm_params_from_numpy``) instead.  Each leaf also carries
 the reference's logical axes (``Leaf.logical``), so the spec tree of the
 JAX package's ``init_params`` comes from the same description
 (``transformer.param_logical_axes``) and ``distributed.sharding``
-resolves it on a mesh.
+resolves it on a mesh.  Norms are held whole on every rank; the
+cross-entropy also takes a vocab-parallel unembedding.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..distributed import tensor_parallel as tp
 
 
 @dataclass(frozen=True)
@@ -148,21 +151,48 @@ def _ce_chunk(hc, lc, w_unembed):
     return torch.stack([torch.sum((lse - gold) * valid), torch.sum(valid)])
 
 
+def _ce_chunk_split(hc, lc, w_unembed):
+    """``_ce_chunk`` with this rank's (D, V / model) block of the
+    unembedding: the max and the sum of exponentials over the vocabulary
+    by all_reduces over ``model``, the label's logit from the rank that
+    holds it (the others add 0)."""
+    logits = hc.float() @ w_unembed.float()                  # (B, c, V/m)
+    v_loc = logits.shape[-1]
+    m = tp.max_over_model(logits.detach().amax(-1))
+    lse = m + torch.log(tp.reduce_from_model(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    local = lc.long() - tp.model_index() * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    gold = tp.reduce_from_model(torch.where(mine, gold[..., 0], 0.0))
+    valid = (lc >= 0).float()
+    return torch.stack([torch.sum((lse - gold) * valid), torch.sum(valid)])
+
+
 def cross_entropy_chunked(h: torch.Tensor, w_unembed: torch.Tensor,
-                          labels: torch.Tensor, chunk: int = 512):
+                          labels: torch.Tensor, chunk: int = 512,
+                          vocab_size: int | None = None):
     """Mean CE over tokens with labels >= 0, computed in sequence chunks so
     the (B, T, V) logits tensor is never made whole: each chunk's f32
     logits are recomputed in the backward (``torch.utils.checkpoint``).  A
-    ragged T is padded with label -1.  Divides by max(count, 1)."""
+    ragged T is padded with label -1.  Divides by max(count, 1).
+
+    Under a mesh: ``w_unembed`` may be this rank's block of ``vocab_size``
+    columns (the vocab over ``model``; ``h`` then replicated over the
+    ``model`` group), and the sum and count are added over the batch axes,
+    so every rank returns the mean over the global batch."""
     b, t, _ = h.shape
     c = min(chunk, t)
     pad = (-t) % c
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    split = vocab_size is not None and w_unembed.shape[1] != vocab_size
+    fn = _ce_chunk_split if split else _ce_chunk
     tot = torch.zeros(2, device=h.device)
     for start in range(0, t + pad, c):
-        tot = tot + checkpoint(_ce_chunk, h[:, start:start + c],
+        tot = tot + checkpoint(fn, h[:, start:start + c],
                                labels[:, start:start + c], w_unembed,
                                use_reentrant=False, preserve_rng_state=False)
+    tot = tp.reduce_over_batch(tot)
     return tot[0] / torch.clamp(tot[1], min=1.0)

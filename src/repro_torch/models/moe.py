@@ -28,24 +28,28 @@ Gradients match the dense path's for one replicated loss a ``model``
 group: the all_gather's backward keeps the rank's own slice (no sum), the
 token slice's backward all_gathers the slices' cotangents into the full
 cotangent of x, the router's gradient is summed over ``model``, and each
-rank's expert gradients are complete.  Over gloo with CUDA tensors every
-collective goes through host copies (``launch.mesh.via_host``).
+rank's expert gradients are complete.  The collectives are
+``distributed.tensor_parallel``'s (over gloo with CUDA tensors each goes
+through host copies).  Under a mesh whose ``model`` axis splits the
+experts, ``moe_dense`` runs the rank's experts on every token and sums
+their outputs over ``model``; either path gathers leaves cut over
+``data`` (FSDP, ``moe_mlp`` and the router's ``embed``) just before use.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..distributed import sharding as shlib
-from ..launch.mesh import via_host
+from ..distributed import tensor_parallel as tp
 from .common import Leaf
 
-# The placement the expert-parallel schedule takes its expert leaves in:
-# the expert axis over ``model``, every other axis whole (the reference's
-# shard_map in_specs, P("model")).
+# The reference's shard_map in_specs, P("model"): the expert axis over
+# ``model``, every other axis whole.  The schedule also takes the leaves
+# under ``DEFAULT_RULES`` (``moe_mlp`` over ``data`` as well: gathered
+# per layer, ``tensor_parallel.gather_over_data``).
 EXPERT_RULES = {"experts": ("model",)}
 
 
@@ -57,11 +61,14 @@ def init_moe(cfg) -> dict:
             "w_down": Leaf((e, dff, d), logical=("experts", None, "moe_mlp"))}
 
 
-def _route(cfg, router_w, x_flat):
+def _route(cfg, router_w, x_flat, over_batch: bool = False):
     """x_flat (n, D) -> (gates (n,k) in x's dtype, eids (n,k), aux losses:
     the load-balance loss E * sum_e f_e P_e and the router z-loss, f32).
     Equal probabilities go to the lower expert id first, as ``lax.top_k``
-    orders them (a stable sort; ``torch.topk`` leaves ties unordered)."""
+    orders them (a stable sort; ``torch.topk`` leaves ties unordered).
+    ``over_batch``: x_flat is this rank's data shard, and the losses' means
+    are over the global batch (sums added over the batch axes), as the
+    reference's are under ``jit``."""
     logits = (x_flat @ router_w.to(x_flat.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
@@ -69,26 +76,54 @@ def _route(cfg, router_w, x_flat):
     gates, eids = ranked[:, :k], order[:, :k]
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
     e = cfg.num_experts
-    f = torch.mean(F.one_hot(eids, e).float(), dim=(0, 1))
-    pmean = torch.mean(probs, dim=0)
+    if over_batch and any(tp.axis(a) for a in tp.BATCH_AXES):
+        sums = tp.reduce_over_batch(torch.cat([
+            torch.sum(F.one_hot(eids, e).float(), dim=(0, 1)),
+            torch.sum(probs, dim=0),
+            torch.sum(torch.logsumexp(logits, dim=-1) ** 2)[None],
+            logits.new_full((1,), x_flat.shape[0])]))
+        n = sums[-1]
+        f, pmean, zloss = sums[:e] / (n * k), sums[e:2 * e] / n, sums[-2] / n
+    else:
+        f = torch.mean(F.one_hot(eids, e).float(), dim=(0, 1))
+        pmean = torch.mean(probs, dim=0)
+        zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux = e * torch.sum(f * pmean)
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return gates.to(x_flat.dtype), eids, {"load_balance": aux,
                                           "router_z": zloss}
 
 
+def _whole_d(p, d):
+    """The router and expert leaves with their ``data`` shards gathered:
+    (router (D, E), w_gate, w_up (E', D, F), w_down (E', F, D))."""
+    return (tp.gather_over_data(p["router"], 0, d),
+            tp.gather_over_data(p["w_gate"], 1, d),
+            tp.gather_over_data(p["w_up"], 1, d),
+            tp.gather_over_data(p["w_down"], 2, d))
+
+
 def moe_dense(cfg, p, x):
-    """(B,T,D) exact all-experts path -> (y (B,T,D), aux)."""
+    """(B,T,D) exact all-experts path -> (y (B,T,D), aux).  With the
+    expert leaves cut over ``model`` (E' = E / model of them), each rank
+    runs its E' experts on every token and the f32 partial sums are added
+    over ``model``."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
-    gates, eids, aux = _route(cfg, p["router"], xf)
+    router, w_gate, w_up, w_down = _whole_d(p, d)
+    gates, eids, aux = _route(cfg, router, xf, over_batch=True)
+    el = w_gate.shape[0]
+    split = el != cfg.num_experts
+    lo = tp.model_index() * el if split else 0
+    if split:
+        xf, gates = tp.copy_to_model(xf), tp.copy_to_model(gates)
     y = torch.zeros((b * t, d), dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
-        h = (F.silu(xf @ p["w_gate"][e].to(x.dtype))
-             * (xf @ p["w_up"][e].to(x.dtype)))
-        y_e = h @ p["w_down"][e].to(x.dtype)
-        comb = torch.sum(gates * (eids == e), dim=-1)        # (n,), 0 if not routed
+    for j in range(el):
+        h = F.silu(xf @ w_gate[j].to(x.dtype)) * (xf @ w_up[j].to(x.dtype))
+        y_e = h @ w_down[j].to(x.dtype)
+        comb = torch.sum(gates * (eids == lo + j), dim=-1)   # 0 if not routed
         y = y + comb[:, None].float() * y_e.float()
+    if split:
+        y = tp.reduce_from_model(y)
     return y.to(x.dtype).reshape(b, t, d), aux
 
 
@@ -115,7 +150,9 @@ def _pack_local(cfg, xs, gates, eids, cap):
     flat_gate = gates.reshape(n * k)
     order = torch.sort(flat_e, stable=True).indices
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    # bincount's shape depends on the values: a scatter keeps it static
+    counts = torch.zeros(e, dtype=flat_e.dtype, device=xs.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n * k, device=xs.device) - starts[e_sorted]
     keep = rank < cap
@@ -163,37 +200,6 @@ def _expert_ffn(w_gate, w_up, w_down, xb, dtype):
     return out
 
 
-# -- collectives over the ``model`` group (module functions, so a caller can
-# -- wrap them to count and time them) ---------------------------------------
-
-def _all_to_all(t, group):
-    """``all_to_all_single`` of ``t`` (em, ...): chunk j goes to rank j;
-    chunk j of the result came from rank j."""
-    host = via_host(group, t.device)
-    src = t.cpu() if host else t.contiguous()
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
-    return out.to(t.device) if host else out
-
-
-def _all_gather(t, group):
-    """The group's ``t`` (n, ...) concatenated on axis 0, in rank order."""
-    host = via_host(group, t.device)
-    src = t.cpu() if host else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, 0)
-    return out.to(t.device) if host else out
-
-
-def _all_reduce(t, group):
-    """The group's sum of ``t`` (a new tensor)."""
-    host = via_host(group, t.device)
-    buf = t.cpu() if host else t.clone()
-    dist.all_reduce(buf, group=group)
-    return buf.to(t.device) if host else buf
-
-
 def _exchange(v, split: int, concat: int, group, em: int):
     """``lax.all_to_all(v, "model", split, concat, tiled=True)`` of a
     (E or E_loc, C or em*C, ...) buffer: (0, 1) sends expert block j to
@@ -202,11 +208,11 @@ def _exchange(v, split: int, concat: int, group, em: int):
     axis."""
     if (split, concat) == (0, 1):
         e, c, *rest = v.shape
-        out = _all_to_all(v.reshape(em, e // em, c, *rest), group)
+        out = tp.all_to_all(v.reshape(em, e // em, c, *rest), group)
         return out.transpose(0, 1).reshape(e // em, em * c, *rest)
     el, mc, *rest = v.shape
     src = v.reshape(el, em, mc // em, *rest).transpose(0, 1)
-    return _all_to_all(src.contiguous(), group).reshape(el * em, mc // em,
+    return tp.all_to_all(src.contiguous(), group).reshape(el * em, mc // em,
                                                         *rest)
 
 
@@ -266,7 +272,7 @@ class _TokenSlice(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group), None, None, None
+        return tp.all_gather(g, ctx.group), None, None, None
 
 
 class _GatherTokens(torch.autograd.Function):
@@ -277,25 +283,11 @@ class _GatherTokens(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y_s, i, group):
         ctx.i, ctx.per = i, y_s.shape[0]
-        return _all_gather(y_s, group)
+        return tp.all_gather(y_s, group)
 
     @staticmethod
     def backward(ctx, g):
         return g[ctx.i * ctx.per:(ctx.i + 1) * ctx.per], None, None
-
-
-class _SumGrad(torch.autograd.Function):
-    """The identity, whose backward sums the gradient over the group (a
-    replicated weight that each rank applied to its own token slice)."""
-
-    @staticmethod
-    def forward(ctx, w, group):
-        ctx.group = group
-        return w.view_as(w)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
 
 
 class _PMean(torch.autograd.Function):
@@ -305,7 +297,7 @@ class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, group, em):
         ctx.em = em
-        return _all_reduce(a, group) / em
+        return tp.all_reduce(a, group) / em
 
     @staticmethod
     def backward(ctx, g):
@@ -329,8 +321,9 @@ def moe_sharded(cfg, p, x):
     """Expert-parallel MoE over the context mesh's ``model`` axis (module
     doc); ``moe_dense`` with no mesh, no ``model`` axis, or E not divisible
     by its size.  ``x`` (B/data, T, D) is this rank's data shard, the same
-    on every rank of its ``model`` group; the router is whole, the expert
-    leaves whole or this rank's ``local_shard`` (``EXPERT_RULES``).
+    on every rank of its ``model`` group; the router is whole or cut over
+    ``data``, the expert leaves whole or this rank's ``local_shard``
+    (``EXPERT_RULES`` or ``DEFAULT_RULES``).
     Returns (y (B/data, T, D), aux): y the same on every rank of the group,
     aux the mean over ``model`` of each token slice's router losses.  With
     whole expert leaves, their gradient holds this rank's experts' rows
@@ -352,7 +345,8 @@ def moe_sharded(cfg, p, x):
     per = xf.shape[0] // em
     xs = _TokenSlice.apply(xf, i, per, group)                  # (per, D)
 
-    gates, eids, aux = _route(cfg, _SumGrad.apply(p["router"], group), xs)
+    router, *w = _whole_d(p, d)
+    gates, eids, aux = _route(cfg, tp.copy_to_model(router), xs)
     if pad:  # zero the gates of padded tokens
         tok_id = i * per + torch.arange(per, device=x.device)
         gates = torch.where((tok_id < n)[:, None], gates,
@@ -363,7 +357,7 @@ def moe_sharded(cfg, p, x):
     a2a = (_QuantAllToAll if cfg.moe_dispatch_dtype == "int8"
            else _AllToAll).apply
     recv = a2a(buf, 0, 1, group, em)                           # (E_loc, em*C, D)
-    w = [_local_experts(p[k], e, em, i) for k in ("w_gate", "w_up", "w_down")]
+    w = [_local_experts(leaf, e, em, i) for leaf in w]
     y_loc = _expert_ffn(*w, recv, x.dtype)
     back = a2a(y_loc, 1, 0, group, em)                          # (E, C, D)
     y_s = _unpack_local(cfg, back.reshape(e * cap, d), meta, per, d)

@@ -29,6 +29,18 @@ p % window, the slot decode writes it to, so decoding straight after a
 prefill of any length matches a longer prefill; the JAX package keeps the
 last ``window`` positions at slots 0..window-1 instead, which agrees only
 when the window divides the prompt length (ROADMAP Queue 3 item 19).
+
+Under a mesh (``distributed.sharding.use_mesh``) each rank takes its data
+shard of the batch and its block of every leaf (``train.steps.
+init_params_sharded``): the attention and MLP split over ``model`` as
+``attention`` and ``mlp`` say, the vocabulary too (``_embed``: a masked
+lookup of the rank's rows, summed over ``model``, exact since one term is
+non-zero; ``_logits``: the rank's (B, V / model) block in f32, gathered;
+``forward_train``: the cross-entropy over vocab shards).  Norms stay
+whole.  The other mixers (MLA, SSD, RG-LRU, local windows) and enc-dec
+are not split yet: under a ``model`` axis of more than one rank they
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 13) rather than run
+replicated.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import resolve_device
 from ..configs.base import BlockGroup
+from ..distributed import tensor_parallel as tp
 from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
@@ -169,7 +182,9 @@ def _ffn(cfg, ffn, p, x):
         h2 = apply_norm(cfg, x, p["norm2"])
         y_moe, aux = moe_mod.moe_forward(cfg, p["moe"], h2)
         if cfg.num_shared_experts:
-            y_moe = y_moe + mlp_forward(cfg, p["shared_mlp"], h2)
+            y_moe = y_moe + mlp_forward(
+                cfg, p["shared_mlp"], h2,
+                d_ff=cfg.num_shared_experts * cfg.moe_d_ff)
         x = x + y_moe
     return x, aux
 
@@ -179,16 +194,13 @@ def _layer_fwd(cfg, mixer, ffn, cross, p, x, positions, enc_out,
     """One layer: (x, its decode cache or None, its aux losses)."""
     h = apply_norm(cfg, x, p["norm1"])
     cache = None
-    if mixer == "attn":
-        y = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True)
-        if collect_cache:
-            cache = _gqa_cache_from_seq(cfg, p["attn"], h, positions)
-    elif mixer == "lattn":
-        y = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True,
-                             window=cfg.local_window)
+    if mixer in ("attn", "lattn"):
+        window = cfg.local_window if mixer == "lattn" else None
+        y, kv = attn.gqa_forward(cfg, p["attn"], h, positions, causal=True,
+                                 window=window, return_kv=True)
         if collect_cache:
             cache = _gqa_cache_from_seq(cfg, p["attn"], h, positions,
-                                        window=cfg.local_window)
+                                        window=window, kv=kv)
     elif mixer == "mla":
         y = attn.mla_forward(cfg, p["attn"], h, positions)
         if collect_cache:
@@ -212,13 +224,15 @@ def _layer_fwd(cfg, mixer, ffn, cross, p, x, positions, enc_out,
     return x, cache, aux
 
 
-def _gqa_cache_from_seq(cfg, p, h, positions, window=None):
-    """A decode cache from a prefilled sequence (train-path K/V).  With a
+def _gqa_cache_from_seq(cfg, p, h, positions, window=None, kv=None):
+    """A decode cache from a prefilled sequence: its K/V (``kv``, as the
+    forward computed them, or projected from ``h`` again).  With a
     window, the last min(window, T) positions, position p at slot
     p % min(window, T): the JAX package's slots rolled by T % window
     (ROADMAP Queue 3 item 19)."""
-    k = attn._heads(cfg, p, h, positions, "k")
-    v = attn._heads(cfg, p, h, positions, "v")
+    k, v = kv if kv is not None else (
+        attn._heads(cfg, p, h, positions, "k"),
+        attn._heads(cfg, p, h, positions, "v"))
     pos = positions.to(torch.int32)
     if window:
         t = h.shape[1]
@@ -292,20 +306,53 @@ def _run_groups(cfg, params, x, positions, enc_out, collect_cache=False):
     return x, caches, aux_tot
 
 
+def _refuse_unsplit_mixers(cfg):
+    """Raise where a ``model`` axis of more than one rank would have to
+    split a mixer that has no tensor-parallel form yet."""
+    if tp.model_size() == 1:
+        return
+    unsplit = sorted({g.mixer for g in cfg.blocks} - {"attn"})
+    if cfg.family == "encdec":
+        unsplit.append("enc-dec cross-attention")
+    if unsplit:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unsplit)} under a mesh whose model axis "
+            f"has {tp.model_size()} ranks: tensor parallelism of these "
+            "mixers is not ported yet (ROADMAP Queue 1 item 13)")
+
+
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    """Token embeddings (B, T, D) in the compute dtype.  With the vocab
+    over ``model``, a rank looks up only its rows (zeros for the other
+    tokens) and the ranks' rows are summed."""
+    w = tp.gather_over_data(params["embed"], 1, cfg.d_model)
+    cd = _dtype(cfg.compute_dtype)
+    v_loc = w.shape[0]
+    if v_loc == cfg.vocab_size:
+        return w[tokens].to(cd)
+    local = tokens - tp.model_index() * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    x = w[torch.where(mine, local, 0)].to(cd)
+    return tp.reduce_from_model(torch.where(mine[..., None], x, 0))
 
 
 def _unembed_weight(cfg, params):
+    """This rank's (D, V or V / model) unembedding, gathered over
+    ``data``."""
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return tp.gather_over_data(params["embed"], 1, cfg.d_model).T
+    return tp.gather_over_data(params["lm_head"], 0, cfg.d_model)
 
 
 def _logits(cfg, params, x_last):
-    """f32 logits (B, V) of the last position's hidden state (B, 1, D)."""
+    """f32 logits (B, V) of the last position's hidden state (B, 1, D);
+    with the vocab over ``model``, the ranks' blocks gathered."""
     x = apply_norm(cfg, x_last, params["final_norm"])
-    return x[:, 0].float() @ _unembed_weight(cfg, params).float()
+    w = _unembed_weight(cfg, params)
+    if w.shape[1] == cfg.vocab_size:
+        return x[:, 0].float() @ w.float()
+    local = tp.copy_to_model(x[:, 0].float()) @ w.float()
+    return tp.gather_from_model(local, -1)
 
 
 def _encoder_layer(cfg, p, x, pos):
@@ -352,14 +399,18 @@ def forward_train(cfg, params, batch):
             "forward_train with use_flash=True: the flash kernel has no "
             "backward (nor has the JAX package's); train with "
             "use_flash=False, the query-chunked attention")
+    _refuse_unsplit_mixers(cfg)
     tokens = batch["tokens"]
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.family == "encdec" else None)
     x = _embed(cfg, params, tokens)
     x, _, aux = _run_groups(cfg, params, x, _positions(tokens), enc_out)
     x = apply_norm(cfg, x, params["final_norm"])
-    loss = cross_entropy_chunked(x, _unembed_weight(cfg, params),
-                                 batch["labels"])
+    w = _unembed_weight(cfg, params)
+    if w.shape[1] != cfg.vocab_size:
+        x = tp.copy_to_model(x)
+    loss = cross_entropy_chunked(x, w, batch["labels"],
+                                 vocab_size=cfg.vocab_size)
     total = loss
     if cfg.num_experts:
         total = total + 0.01 * aux["load_balance"] + 1e-4 * aux["router_z"]
@@ -368,6 +419,7 @@ def forward_train(cfg, params, batch):
 
 def forward_prefill(cfg, params, batch):
     """Prefill: full-sequence pass that returns (last-token logits, caches)."""
+    _refuse_unsplit_mixers(cfg)
     tokens = batch["tokens"]
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.family == "encdec" else None)
@@ -402,7 +454,10 @@ def _layer_cache(cfg, mixer, batch, max_len, dtype, device) -> dict:
 def init_decode_cache(cfg, batch: int, max_len: int, device=None):
     """Empty decode caches (pos -1, zero states) with room for ``max_len``
     positions (a window layer: min(window, max_len)), in the layout
-    ``forward_prefill`` returns, on ``device`` (None: the card)."""
+    ``forward_prefill`` returns (under a mesh: ``batch`` this rank's data
+    shard, the attention leaves its kv heads), on ``device`` (None: the
+    card)."""
+    _refuse_unsplit_mixers(cfg)
     dev = resolve_device(device)
     cd = _dtype(cfg.compute_dtype)
     caches = {}
@@ -481,6 +536,7 @@ def _layer_decode(cfg, mixer, ffn, cross, p, x_t, cache, pos):
 def decode_step(cfg, params, caches, tokens_t, pos):
     """One decode step: tokens_t (B,1), pos (B,) -> (logits (B,V), caches).
     The caches passed in are left as they were."""
+    _refuse_unsplit_mixers(cfg)
     x = _embed(cfg, params, tokens_t)
     cross = cfg.family == "encdec"
     new_caches = {}

@@ -54,12 +54,15 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adam_update(cfg: AdamConfig, params: dict, grads: dict, state: dict):
+def adam_update(cfg: AdamConfig, params: dict, grads: dict, state: dict,
+                grad_norm: torch.Tensor | None = None):
     """Returns (params, state, metrics): ``params`` and the moments updated
     in place, a new ``step``, metrics ``grad_norm`` and ``lr`` (0-d f32
-    tensors on the params' device)."""
+    tensors on the params' device).  ``grad_norm``: the norm to clip by
+    (None: ``global_norm(grads)``; a rank holding blocks of the leaves
+    passes the norm of the whole gradient)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = _schedule(cfg, state["step"])
     b1c = 1.0 - torch.pow(cfg.b1, step.float())

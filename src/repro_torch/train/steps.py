@@ -8,14 +8,22 @@ caller's tensors.  The train state is the JAX package's tree,
 ``{"params", "opt": {"m", "v", "step"}}``, so ``checkpoint`` reads and
 writes either package's files; the train step updates it in place
 (``optim.adam``).  Prefill and serve run under ``torch.no_grad()``:
-serving takes no gradient, and the flash kernel has no backward.  Run
-under ``distributed.sharding.use_mesh(mesh)``, the steps take the MoE
-layers through the expert-parallel schedule over the mesh's ``model``
-axis (``models.moe.moe_sharded``); the mean of the gradients over the
-``data`` axis stays the caller's, as with ``launch.make_data_group``.
+serving takes no gradient, and the flash kernel has no backward.
+
+Under ``distributed.sharding.use_mesh(mesh)`` each rank passes its data
+shard of the batch (``local_batch``) and its block of every leaf
+(``init_params_sharded``): the attention, MLP and vocab split over the
+mesh's ``model`` axis, weights cut over ``data`` (FSDP) gathered a layer
+at a time, the MoE layers through the expert-parallel schedule
+(``models.moe.moe_sharded``).  The loss is the mean over the global
+batch on every rank, and ``loss_and_grads`` sums each leaf's gradient
+over the batch axes the leaf is replicated on, so every rank holds the
+whole gradient of its blocks; the train step clips by the norm of the
+whole gradient.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -24,7 +32,7 @@ from .._device import resolve_device
 from ..configs.base import ModelConfig, ShapeSpec
 from ..core.flat import tree_items, tree_unflatten
 from ..distributed import sharding as shlib
-from ..models import moe as moe_mod
+from ..distributed import tensor_parallel as tp
 from ..models import transformer as tf
 from ..models.common import materialize, tree_map
 from ..optim import adam as adam_mod
@@ -41,14 +49,12 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 def init_params_sharded(cfg: ModelConfig, generator: torch.Generator, mesh,
                         device=None) -> dict:
-    """``tf.init_params``'s params (the same draws), each expert leaf cut
-    to this rank's block over ``mesh``'s ``model`` axis
-    (``moe.EXPERT_RULES``) as soon as it is drawn, so no rank holds every
-    expert at once; every other leaf whole."""
+    """``tf.init_params``'s params (the same draws), each leaf cut to this
+    rank's block on ``mesh`` under ``sharding.DEFAULT_RULES`` as soon as it
+    is drawn, so no rank holds a whole stacked leaf longer than its draw
+    (``sharding.param_layout`` gives the blocks' shapes)."""
     def keep(leaf, t):
-        if "experts" not in leaf.logical:
-            return t
-        return shlib.local_shard(t, leaf.logical, mesh, moe_mod.EXPERT_RULES)
+        return shlib.local_shard(t, leaf.logical, mesh, shlib.DEFAULT_RULES)
     return materialize(tf.param_spec(cfg), generator,
                        tf._dtype(cfg.param_dtype), resolve_device(device),
                        keep=keep)
@@ -58,26 +64,90 @@ def make_train_step(cfg: ModelConfig,
                     adam_cfg: adam_mod.AdamConfig | None = None,
                     compression=None):
     """``train_step(state, batch) -> (state, metrics)``: the loss's
-    gradient in every param (autograd through ``forward_train``), passed
-    through ``compression`` (grads -> grads) when given, then one AdamW
-    update, in place.  Metrics: ``loss``, ``load_balance``, ``router_z``,
-    ``grad_norm``, ``lr``, as 0-d tensors on the params' device."""
+    gradient in every param (``loss_and_grads``), passed through
+    ``compression`` (grads -> grads) when given, then one AdamW update, in
+    place (under a mesh, clipped by the whole gradient's norm).  Metrics:
+    ``loss``, ``load_balance``, ``router_z``, ``grad_norm``, ``lr``, as 0-d
+    tensors on the params' device."""
     adam_cfg = adam_cfg or adam_mod.AdamConfig()
 
     def train_step(state, batch):
-        paths, leaves = zip(*tree_items(state["params"]))
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, metrics = tf.forward_train(cfg, state["params"], batch)
-        grads = tree_unflatten(paths, torch.autograd.grad(loss, leaves))
+        metrics, grads = loss_and_grads(cfg, state["params"], batch)
         if compression is not None:
             grads = compression(grads)
+        norm = (None if shlib._CTX["mesh"] is None
+                else grad_norm(cfg, grads))
         params, opt, opt_metrics = adam_mod.adam_update(
-            adam_cfg, state["params"], grads, state["opt"])
+            adam_cfg, state["params"], grads, state["opt"], grad_norm=norm)
         metrics = {k: v.detach() for k, v in {**metrics, **opt_metrics}.items()}
         return {"params": params, "opt": opt}, metrics
 
     return train_step
+
+
+def _leaf_axes(cfg) -> dict:
+    """Path -> the mesh axes that the context mesh shards the leaf over."""
+    mesh = shlib._CTX["mesh"]
+    layout = tf.param_spec(cfg)
+    return {path: shlib.spec_axes(shlib.spec_for(leaf.logical, leaf.shape,
+                                                 mesh))
+            for path, leaf in tree_items(layout)}
+
+
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict):
+    """(metrics, grads): ``forward_train``'s metrics (``loss`` the total)
+    and its gradient in every leaf (autograd).  Under a mesh each leaf's
+    gradient is then summed over the batch axes it is not sharded over
+    (its blocks on the other data ranks hold the other shards' part)."""
+    paths, leaves = zip(*tree_items(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = tf.forward_train(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    if shlib._CTX["mesh"] is not None:
+        axes = _leaf_axes(cfg)
+        grads = [_sum_over_batch(g, axes[path])
+                 for path, g in zip(paths, grads)]
+    return metrics, tree_unflatten(paths, grads)
+
+
+def _sum_over_batch(g, sharded: set):
+    for name in tp.BATCH_AXES:
+        ax = tp.axis(name)
+        if ax is not None and name not in sharded:
+            g = tp.all_reduce(g, ax.group)
+    return g
+
+
+def grad_norm(cfg: ModelConfig, grads: dict) -> torch.Tensor:
+    """The norm of the whole gradient from each rank's blocks (after
+    ``loss_and_grads``): the squares of the leaves cut over the same axes
+    summed, then over those axes, in f32."""
+    axes = _leaf_axes(cfg)
+    sums: dict = {}
+    for path, g in tree_items(grads):
+        key = tuple(sorted(axes[path]))
+        sq = torch.sum(torch.square(g.float()))
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = 0.0
+    for key, sq in sorted(sums.items()):
+        for name in key:
+            ax = tp.axis(name)
+            if ax is not None:
+                sq = tp.all_reduce(sq, ax.group)
+        total = total + sq
+    return torch.sqrt(total)
+
+
+def local_batch(batch: dict, mesh=None) -> dict:
+    """This rank's data shard of a global batch (tokens, labels, frames:
+    the leading axis over the batch axes), on ``mesh`` (the context mesh
+    if None)."""
+    mesh = shlib._CTX["mesh"] if mesh is None else mesh
+    coord = shlib.mesh_coordinate(mesh)
+    return {k: v[shlib.shard_slices(("batch",) + (None,) * (v.ndim - 1),
+                                    v.shape, mesh, coord)]
+            for k, v in batch.items()}
 
 
 def make_gp_train_step(group, d: int, *, latent: bool = False,
@@ -185,11 +255,22 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, Any]:
+def _on(mesh):
+    """``use_mesh(mesh)`` keeping the context's rules, or nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return shlib.use_mesh(mesh, shlib._CTX["rules"])
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                mesh=None) -> dict[str, Any]:
     """Abstract batch for (cfg, shape), as ``meta`` tensors (the
     reference's ``ShapeDtypeStruct``s).  Training/prefill: full sequences;
-    decode: one new token + the KV/state cache at shape.seq_len."""
+    decode: one new token + the KV/state cache at shape.seq_len.  With a
+    ``mesh``: one rank's local shapes (its data shard, its kv heads)."""
     b, t = shape.global_batch, shape.seq_len
+    if mesh is not None:
+        b = shlib.local_shape(("batch",), (b,), mesh)[0]
     if shape.kind in ("train", "prefill"):
         batch = {"tokens": _meta((b, t), torch.int32),
                  "labels": _meta((b, t), torch.int32)}
@@ -199,9 +280,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, Any]:
         if shape.kind == "prefill":
             del batch["labels"]
         return batch
+    with _on(mesh):
+        caches = tf.init_decode_cache(cfg, b, t, device="meta")
     return {"tokens_t": _meta((b, 1), torch.int32),
-            "pos": _meta((b,), torch.int32),
-            "caches": tf.init_decode_cache(cfg, b, t, device="meta")}
+            "pos": _meta((b,), torch.int32), "caches": caches}
 
 
 _CACHE_LOGICAL = {
@@ -253,12 +335,15 @@ def batch_specs(cfg: ModelConfig, batch) -> Any:
     return out
 
 
-def abstract_state(cfg: ModelConfig) -> tuple[dict, dict]:
+def abstract_state(cfg: ModelConfig, mesh=None) -> tuple[dict, dict]:
     """(the train state as ``meta`` tensors, its logical spec tree): the
-    reference's ``ShapeDtypeStruct`` state and spec tree."""
-    params = tree_map(lambda leaf: _meta(leaf.shape,
-                                         tf._dtype(cfg.param_dtype)),
-                      tf.param_spec(cfg))
+    reference's ``ShapeDtypeStruct`` state and spec tree; with a ``mesh``,
+    one rank's blocks."""
+    def meta(leaf):
+        shape = (leaf.shape if mesh is None else
+                 shlib.local_shape(leaf.logical, leaf.shape, mesh))
+        return _meta(shape, tf._dtype(cfg.param_dtype))
+    params = tree_map(meta, tf.param_spec(cfg))
     pspecs = tf.param_logical_axes(cfg)
     state = {"params": params, "opt": adam_mod.init_opt_state(params)}
     specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "step": ()}}

@@ -584,6 +584,134 @@ def test_flash_attention_refuses_what_it_cannot_run(cuda):
         fa_ops.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_operator_at_the_tensor_parallel_shape(cuda, dtype):
+    """``torch.ops.repro_torch.flash_attention`` (what the wrapper calls
+    on the card) at a rank's heads of llama3.2-1b on a (1, 4) mesh: B 4,
+    H 8, Hkv 2, T 2,048, Dh 64, against the plain version in f64, one
+    launch of the hand-written kernel."""
+    q, k, v = _fa_inputs(3, 4, 8, 2, 2048, 2048, 64, cuda, dtype)
+    before = fa_ops.LAUNCHES[str(dtype).removeprefix("torch.")]
+    with torch.no_grad():
+        got = torch.ops.repro_torch.flash_attention(q, k, v, True)
+    assert fa_ops.LAUNCHES[str(dtype).removeprefix("torch.")] == before + 1
+    plain = fa_ref.attention_ref(q.double(), k.double(), v.double(),
+                                 causal=True, chunk=256)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert bool(((got.double() - plain).abs()
+                 <= FA_TOL[dtype] * (1 + plain.abs())).all())
+
+
+def test_flash_operator_fake_and_flop_formula(cuda):
+    """Under ``FakeTensorMode`` the operator gives the kernel's output
+    shape and dtype without launching it, and ``FlopCounterMode`` counts
+    4 Dh FLOPs a visible pair, ``chip_smoke.py::visible_pairs``'s count."""
+    import pathlib
+    import sys
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    before = dict(fa_ops.LAUNCHES)
+    for (b, h, hkv, t, s_len, causal) in ((4, 8, 2, 2048, 2048, True),
+                                          (2, 4, 1, 100, 300, True),
+                                          (1, 2, 2, 96, 48, False)):
+        with FakeTensorMode(), torch.no_grad():
+            q = torch.empty((b, h, t, 64), dtype=torch.bfloat16,
+                            device=cuda)
+            k = torch.empty((b, hkv, s_len, 64), dtype=torch.bfloat16,
+                            device=cuda)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                out = fa_ops.flash_attention(q, k, k, causal=causal)
+            assert tuple(out.shape) == (b, h, t, 64)
+            assert out.dtype == torch.bfloat16
+        assert counter.get_total_flops() == 4 * 64 * \
+            chip_smoke.visible_pairs(b, h, t, s_len, causal)
+    assert fa_ops.LAUNCHES == before
+
+
+def _tp_rank_on_card(rank, world, store_path, out_dir):
+    import dataclasses
+    import datetime
+    import pathlib
+
+    import torch.distributed as dist
+
+    from repro_torch.core.flat import tree_items
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_compat_mesh((1, world), ("data", "model"), "cuda:0",
+                            backend="gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              num_heads=4, num_kv_heads=2, head_dim=64,
+                              use_flash=True)
+    whole = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    logical = tf.param_logical_axes(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, (2, 24), dtype=np.int32))
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        p = _local(whole, logical, mesh, dev)
+        toks = tokens.to(dev)
+        with sharding.use_mesh(mesh):
+            logits, caches = steps.make_prefill_step(cfg)(
+                p, {"tokens": toks[:, :20]})
+            caches = tf.grow_decode_cache(cfg, caches, 24)
+            lg, _ = steps.make_serve_step(cfg)(
+                p, caches, toks[:, 20:21],
+                torch.full((2,), 20, dtype=torch.int32, device=dev))
+            _, grads = steps.loss_and_grads(
+                dataclasses.replace(cfg, use_flash=False), p,
+                {"tokens": toks[:, :20], "labels": toks[:, 1:21]})
+        tag = dev[:3]
+        out[tag + "/logits"] = logits.cpu().numpy()
+        out[tag + "/decode"] = lg.cpu().numpy()
+        for path, g in tree_items(grads):
+            out[f"{tag}/grad/{'/'.join(map(str, path))}"] = g.cpu().numpy()
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def _local(whole, logical, mesh, dev):
+    from repro_torch.distributed import sharding
+
+    if isinstance(whole, dict):
+        return {k: _local(v, logical[k], mesh, dev) for k, v in whole.items()}
+    return sharding.local_shard(whole, logical, mesh).to(dev)
+
+
+def test_tensor_parallel_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """llama3.2-1b reduced (4 heads, kv 2, head dim 64) split over a
+    (1, 2) mesh of 2 gloo ranks on the card (the flash kernel on each
+    rank's 2 heads, collectives through host copies) against the same
+    mesh on the CPU: prefill and decode logits and every gradient leaf
+    within 1e-5 of the largest entry (f32, TF32 off), the ranks' logits
+    bitwise."""
+    codes, _ = spawn_ranks(_tp_rank_on_card, 2, tmp_path)
+    assert codes == [0, 0], codes
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for k in ("cud/logits", "cud/decode"):
+        np.testing.assert_array_equal(got[0][k], got[1][k])
+    for r in got:
+        for k in r:
+            if k.startswith("cud/"):
+                want = r[k.replace("cud/", "cpu/", 1)]
+                assert np.abs(r[k] - want).max() <= \
+                    1e-5 * np.abs(want).max(), k
+
+
 def test_lm_prefill_and_decode_on_cuda_match_cpu(cuda):
     """llama3.2-1b reduced, with head dim 64 (a kernel instantiation), in
     f32: prefill logits and caches, then one decode step into a grown

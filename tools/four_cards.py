@@ -9,6 +9,8 @@ and 3l cannot run on one card: NCCL refuses two ranks on one GPU):
     torchrun --standalone --nproc-per-node=4 tools/four_cards.py --cpu
     # the expert-parallel prefill alone (either device):
     torchrun --standalone --nproc-per-node=4 tools/four_cards.py --ep-only
+    # the tensor-parallel chameleon-34b alone (either device):
+    torchrun --standalone --nproc-per-node=4 tools/four_cards.py --tp-only
 
 Each rank holds n / 4 rows of ``sgpr-synth-1m`` (3a's data and init,
 ``chunk_size`` 65,536: 4 blocks a rank) and takes the distributed step in
@@ -31,8 +33,15 @@ config's capacity factor) through the expert-parallel MoE on a (1, 4)
 mesh over the default group (NCCL) and on a (1, 4) mesh of gloo groups
 over the same ranks (``DeviceMesh.from_group``, host copies): every rank's
 logits bitwise the same on each, the two within 2e-2 relative RMS
-(``--cpu``: the reduced config, B 2 x 16).  Rank 0 prints a JSON line for
-each part and the cards' name and power limit; any failed check raises.
+(``--cpu``: the reduced config, B 2 x 16).  ``--tp-only``: chameleon-34b
+at full depth (48 layers, bf16 params, 64 / 8 heads, d_ff 22,016, 34.3 B
+params, 8.6 B a rank) tensor-parallel on a (1, 4) mesh, prefill B 4 x
+2,048 and 16 teacher-forced decode steps, over NCCL and over gloo groups
+of the same ranks: every rank's logits bitwise the same on each, and the
+two meshes' logits bitwise the same (``--cpu``: the reduced config with
+8 heads, B 2 x 16).
+Rank 0 prints a JSON line for each part and the cards' name and power
+limit; any failed check raises.
 """
 import asyncio
 import json
@@ -180,6 +189,91 @@ def ep_prefill(group, cpu, dev, report):
         raise AssertionError(f"expert-parallel prefill over the ranks: {res}")
 
 
+def tp_serving(group, cpu, dev, report):
+    """chameleon-34b tensor-parallel over the ranks (module doc)."""
+    import dataclasses
+    import os
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps as lm_steps
+
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    cfg = dataclasses.replace(cs.get_lm_config("chameleon-34b"),
+                              use_flash=True)
+    b, t, n_new = cs.LM_BATCH, cs.LM_PROMPT, cs.LM_NEW
+    if cpu:
+        cfg = dataclasses.replace(cfg.reduced(), num_heads=8, num_kv_heads=4,
+                                  compute_dtype="bfloat16")
+        b, t, n_new = 2, 16, 3
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    singles = [dist.new_group([r], backend="gloo") for r in range(world)]
+    meshes = {
+        dist.get_backend(group): make_compat_mesh((1, world),
+                                                  ("data", "model"), dev),
+        "gloo groups": DeviceMesh.from_group(
+            [singles[rank], dist.new_group(list(range(world)),
+                                           backend="gloo")],
+            dev.type, mesh=torch.arange(world).reshape(1, world),
+            mesh_dim_names=("data", "model"))}
+    t0 = time.perf_counter()
+    params = lm_steps.init_params_sharded(
+        cfg, torch.Generator(device=dev).manual_seed(cs.SEED),
+        meshes["gloo groups"], device=dev)
+    res = {"init_s": time.perf_counter() - t0}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tokens = torch.from_numpy(np.random.default_rng(cs.SEED).integers(
+        0, cfg.vocab_size, (b, t + n_new), dtype=np.int32)).to(dev)
+    prefill = lm_steps.make_prefill_step(cfg)
+    serve = lm_steps.make_serve_step(cfg)
+    logits = {}
+    for name, mesh in meshes.items():
+        with sharding.use_mesh(mesh):
+            prefill(params, {"tokens": tokens[:, :t]})          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = prefill(params, {"tokens": tokens[:, :t]})
+            torch.cuda.synchronize()
+            res[f"{name}_prefill_s"] = time.perf_counter() - t0
+            caches = tf.grow_decode_cache(cfg, caches, t + n_new)
+            out, steps_s = [lg], []
+            for i in range(n_new):
+                t0 = time.perf_counter()
+                lg, caches = serve(params, caches, tokens[:, t + i:t + i + 1],
+                                   torch.full((b,), t + i, dtype=torch.int32,
+                                              device=dev))
+                torch.cuda.synchronize()
+                steps_s.append(time.perf_counter() - t0)
+                out.append(lg)
+            del caches
+        res[f"{name}_decode_step_ms_median"] = 1e3 * float(
+            np.median(steps_s[1:]))
+        logits[name] = torch.stack(out).float().cpu()
+        res[f"{name}_same_on_every_rank"] = same_on_every_rank(
+            group, [logits[name].numpy()])
+    a, g = logits.values()
+    res["bitwise_between_meshes"] = bool(torch.equal(a, g))
+    res["rel_rms_between_meshes"] = cs.rel_rms(a, g)
+    res["param_gb_per_rank"] = sum(
+        x.numel() * x.element_size()
+        for x in torch.utils._pytree.tree_leaves(params)) / 1e9
+    res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev.type == "cuda" else 0.0)
+    res["config"] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                     "d_ff": cfg.d_ff, "batch": b, "prompt": t, "new": n_new}
+    report["tp_serving"] = res
+    if not (all(v for k, v in res.items() if k.endswith("every_rank"))
+            and res["bitwise_between_meshes"]):
+        raise AssertionError(f"tensor-parallel serving over the ranks: {res}")
+
+
 def main():
     cpu = "--cpu" in sys.argv
     device = "cpu" if cpu else None
@@ -194,9 +288,12 @@ def main():
     rank, world = dist.get_rank(group), dist.get_world_size(group)
     dev = torch.device("cpu") if cpu else torch.device(
         "cuda", torch.cuda.current_device())
-    if "--ep-only" in sys.argv:
+    only = {"--ep-only": ep_prefill, "--tp-only": tp_serving}
+    for flag, part in only.items():
+        if flag not in sys.argv:
+            continue
         report = {}
-        ep_prefill(group, cpu, dev, report)
+        part(group, cpu, dev, report)
         if rank == 0:
             print(json.dumps(report), flush=True)
             if not cpu:
