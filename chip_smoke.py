@@ -225,31 +225,52 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    rules).  It prints prefill s and decode-step ms (native, int8), each
    MoE collective's bytes and ms a layer, peak memory and flash launches
    per rank, beside the card's name and power limit;
-3m. serves ``llama3.2-1b`` at full width tensor-parallel (after 3l; f32
-   params, bf16 compute, the flash kernel, B 4 x 2,048) on 4 ranks
-   spawned on the card over gloo: on a (1, 4) ("data", "model") mesh a
-   warm-up prefill of 128 tokens, the prefill, 16 teacher-forced decode
-   steps, the teacher-forced check and an f32-compute prefill; on (2, 2)
-   (FSDP over ``data``) the prefill and 4 decode steps.  Against one
-   process on the card with the same weights: logits and each decode step
-   within relative RMS 2e-2 at bf16, 1e-5 at f32; every rank of a ``model``
-   group bitwise the same; 16 flash launches a prefill on each rank's
-   heads; the collectives' calls and bytes a prefill and a decode step
-   equal to ``tp_expected_collectives``' to the byte.  It prints times,
-   per-rank params and peak memory beside the card's name and power
-   limit.
+3m, 3n. serve ``TP_SERVE``'s configs tensor-parallel (after 3l; 3k's
+   weights and prompts, full width, bf16, B 4) on 4 ranks spawned once on
+   the card over gloo (``tp_rank``): 3m ``llama3.2-1b`` (8 of 16 layers,
+   f32 params, the flash kernel, 2,048 tokens) at (1, 4) ("data",
+   "model"), with a warm-up prefill of 128 tokens, 16 decode steps and the
+   teacher-forced check, and at (2, 2) (FSDP over ``data``) with 4 decode
+   steps; 3n ``mamba2-370m`` (24 of 48 SSD layers) at (1, 4) and (2, 2),
+   ``whisper-medium`` (12 + 12 of its 24 + 24 layers, the flash kernel on
+   a rank's 4 heads), ``recurrentgemma-9b`` (R, R, A, 3,072 tokens) and
+   ``deepseek-v2-236b`` (its dense and 2 MoE layers, the MoE
+   expert-parallel, top-k pinned to the one-process run of the same
+   schedule, ``plain_ep_moe``) at (1, 4), 4 decode steps each; at (1, 4)
+   also an f32-compute prefill.  Against one process on the card with the
+   same weights (``tp_check``): the f32 logits within 1e-5; the bf16
+   logits and decode steps within 2e-2 (every config but mamba2) and, for
+   all, their error from the one-process f32 run within 1.5x the
+   one-process bf16 run's; every rank of a ``model`` group bitwise; each
+   flash config's launches a prefill on each rank's heads (llama 8,
+   whisper 24); the collectives' calls and bytes a prefill and a decode
+   step equal to ``tp_expected_collectives``' to the byte (from
+   ``tp_layout``, which 3o's formula shares).  It prints times, per-rank
+   params and peak memory beside the card's name and power limit;
+3o. trains ``llama3.2-1b`` tensor-parallel (after 3n; 3j's step at 8 of
+   16 layers: f32 params, remat, AdamW clipped by the whole gradient's
+   norm, B 4 x 2,048) on 4 ranks spawned on the card over gloo at (1, 4)
+   and (2, 2), a bf16- and an f32-compute step each, against 3j's
+   one-process step on the same card, weights, depth and batch: the loss
+   within 2e-2 (bf16) and 1e-5 (f32); at f32 each rank's gradient blocks within 1e-4, its params after
+   the step within 1e-4 of the reference's (a leaf drawn nonzero) and
+   within 1e-2 of the reference's update; every rank of a ``model`` group
+   bitwise (loss, the leaves not cut over ``model``, their params after);
+   the collectives' calls and bytes a step equal to
+   ``train_tp_expected_collectives``' to the byte.  It prints step
+   seconds, tokens/s, MFU and peak memory a rank.
 
 Every launch counter is set to 0 just before each of 3a, 3d, 3e, 3b, 3f,
-3g, 3h, 3i, 3c, 3j, 3k, 3l and 3m and read just after; each kernel of a
-path must have launched in it (3d's, 3e's, 3f's, 3i's, 3l's and 3m's
-ranks count
+3g, 3h, 3i, 3c, 3j, 3k, 3l, 3m with 3n (one spawn), and 3o and read just
+after; each kernel of a path must have launched in it (3d's, 3e's, 3f's,
+3i's, 3l's, 3m's, 3n's and 3o's ranks count
 their own launches and report them; 3d, 3e, 3f, 3g and 3h count only the port's own calls, not
 the references run beside them, and 3e, 3f, 3g and 3h assert the counts
 their calls imply: one reg_stats launch a block a pass, one predict launch
 or more a served batch, one on each rank of a sharded batch, one in
 ``reconstruct``, none on the zoo's route or in sampling, one a model a
 fleet batch and a front-end flush; 3j, which trains through the
-query-chunked attention, must launch no kernel).
+query-chunked attention, must launch no kernel, nor may 3o).
 
 It prints one JSON line describing the kernels of the main path, then
 ``{"ok": true, "device": {...}}`` as its last line.  Any failed check
@@ -268,6 +289,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -696,6 +718,59 @@ def check_psi2_midway(ps_ops, ps_ref, n, m, q):
     print("psi2 midway ", dict(shape=dict(n=n, m=m, q=q), dtype=str(f64),
                                max_abs_err=err, max_err_over_bound=worst,
                                min_plain=float(plain.min())), flush=True)
+
+
+def time_operator_routes(rs_ops, ps_ops, sgpr, usps) -> dict:
+    """Each GP kernel at its main path's shape (f64) through the wrapper
+    (checks, the autograd Function, the operator ``torch.ops.repro_torch.*``)
+    beside the same wrapper without the operator (the Function's forward
+    calling the bare launch, the route before the operator existed),
+    CUDA-event medians of TIMED_REPS in one call, in turns; printed on one
+    line each."""
+    from unittest import mock
+
+    def launching(bare):
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return bare(*args)
+        return staticmethod(forward)
+    rng = np.random.default_rng(SEED + 11)
+    f64 = torch.float64
+
+    def t(*shape, lo=None):
+        a = rng.standard_normal(shape) if lo is None else rng.uniform(
+            lo, 1.0, shape)
+        return torch.from_numpy(a).to(DEV, f64)
+    hyp = {"log_sf2": torch.zeros((), dtype=f64, device=DEV)}
+    out = {}
+    for name, c in (("reg_stats", sgpr), ("psi2", usps), ("psi1", usps)):
+        hyp["log_ell"] = torch.zeros((c.q,), dtype=f64, device=DEV)
+        z, x = t(c.m, c.q), t(c.n, c.q)
+        if name == "reg_stats":
+            y, w = t(c.n, c.d), t(c.n, lo=0.0)
+            wrapper = lambda: rs_ops.reg_stats(hyp, z, x, y, w)  # noqa: E731
+            fn_cls, bare = rs_ops._RegStats, rs_ops._launch
+        else:
+            s = t(c.n, c.q, lo=0.05)
+            w = t(c.n, lo=0.0)
+            if name == "psi2":
+                wrapper = lambda: ps_ops.psi2(hyp, z, x, s, w)  # noqa: E731
+                fn_cls, bare = ps_ops._Psi2, ps_ops._launch_psi2
+            else:
+                wrapper = lambda: ps_ops.psi1(hyp, z, x, s)  # noqa: E731
+                fn_cls, bare = ps_ops._Psi1, ps_ops._launch_psi1
+        times = {"wrapper": [], "pre_operator": []}
+        for key in ("wrapper", "pre_operator", "pre_operator", "wrapper"):
+            if key == "wrapper":
+                times[key].append(time_ms(wrapper))
+                continue
+            with mock.patch.object(fn_cls, "forward", launching(bare)):
+                times[key].append(time_ms(wrapper))
+        out[name] = {k: statistics.median(v) for k, v in times.items()}
+        print(f"operator route {name} f64 ({c.name}): wrapper through the "
+              f"operator {out[name]['wrapper']:.4f} ms, before the operator "
+              f"{out[name]['pre_operator']:.4f} ms", flush=True)
+    return out
 
 
 def time_backward(label, vjp, primals, cotangents, needs, reps=5) -> float:
@@ -4939,109 +5014,293 @@ def ep_serving_path(fa_ops) -> dict:
     return launches
 
 
-# -- phase 3m: llama3.2-1b tensor-parallel on 4 ranks -------------------------
-
-TP_NAME = "llama3.2-1b"
-TP_NEW = {(1, 4): LM_NEW, (2, 2): 4}   # teacher-forced decode steps a mesh
-TP_F32_RTOL = 1e-5                     # f32 compute against one process
+# -- phases 3m and 3n: tensor-parallel serving on 4 ranks --------------------
 
 
-def tp_config(compute="bfloat16"):
-    """llama3.2-1b at full width, f32 params, the flash kernel."""
-    import dataclasses
-    return dataclasses.replace(get_lm_config(TP_NAME), use_flash=True,
-                               compute_dtype=compute)
+class TPServe(NamedTuple):
+    """One config of phases 3m and 3n: its phase, the teacher-forced
+    decode steps a mesh, the layers kept (decoder, and encoder; None: 3k's
+    depth), the flash kernel asked for, a first prefill of ``warmup``
+    tokens (the process's first, so that the timed prefill is warm), the
+    teacher-forced check (prefill T - 1 tokens, decode token T - 1), and
+    whether its bf16 split logits are held to 2e-2 of the one-process bf16
+    run.  Every config's bf16 split is also held no less accurate than the
+    one-process bf16 run against the one-process f32-compute run
+    (ARCH_DECODE_ERR_RATIO)."""
+    name: str
+    phase: str
+    new: dict
+    layers: int | None = None
+    flash: bool = False
+    warmup: int = 0
+    forced: bool = False
+    end_to_end: bool = True
 
 
-def tp_tokens(cfg, n_new) -> np.ndarray:
-    """The prompts and the tokens the decode steps are fed (B, T + n)."""
-    return np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + n_new), dtype=np.int32)
+# Depth is cut so that the whole script stays well inside its limit: llama
+# 8 of 16 layers; mamba2 24 of 48 (its bf16 split left the one-process bf16
+# run by ~4e-2 at 48 layers while its f32-compute split held 1e-5: the two
+# bf16 paths round at other points, the row-parallel sums and the column
+# blocks' GEMMs, and random layers amplify it, as ROADMAP Queue 3 item 21
+# records for 3k; PERF.md); recurrentgemma R, R, A (each of its layers
+# moves ~0.6 GB over gloo a prefill at d 4,096); whisper 12 + 12 of 24 + 24.
+TP_SERVE = (
+    TPServe("llama3.2-1b", "3m", {(1, 4): LM_NEW, (2, 2): 4}, layers=8,
+            flash=True, warmup=128, forced=True),
+    TPServe("mamba2-370m", "3n", {(1, 4): 4, (2, 2): 4}, layers=24,
+            end_to_end=False),
+    TPServe("whisper-medium", "3n", {(1, 4): 4}, layers=12),
+    TPServe("recurrentgemma-9b", "3n", {(1, 4): 4}, layers=3),
+    TPServe("deepseek-v2-236b", "3n", {(1, 4): 4}),
+)
+TP_F32_RTOL = 1e-5          # f32 compute against one process
+TP_EP = 4                   # deepseek's MoE: expert-parallel over 4 ranks
 
 
-def tp_expected_collectives(cfg, mesh_shape, b_loc, t_q, act_bytes) -> dict:
-    """Calls and bytes of each collective kind in one prefill (t_q = T)
-    or decode step (t_q = 1) on a rank of ``mesh_shape``, from the
-    layout: after each row-parallel product (2 a layer) an all_to_all of
-    the (B/data, t_q, D) f32 partials and an all_gather of the summed
-    columns in the compute dtype (``act_bytes`` an element); an
-    all_reduce of the embedding; the (B/data, V) f32 logits gathered; and
-    with data > 1 each leaf cut over ``data`` gathered whole, a layer's
-    leaves once a layer, the tied embedding for the lookup and again for
-    the logits."""
-    from repro_torch.core.flat import tree_items
-    from repro_torch.distributed import sharding
-
-    data, model = mesh_shape
-    mesh = type("Sizes", (), {"shape": {"data": data, "model": model}})()
-    layers = cfg.num_layers
-    act = b_loc * t_q * cfg.d_model
-    gathers = [(1, b_loc * cfg.vocab_size * 4), (2 * layers, act * act_bytes)]
-    for path, lay in tree_items(sharding.param_layout(cfg, mesh)):
-        if data == 1 or "data" not in sharding.spec_axes(lay.spec):
-            continue
-        item = 4 if cfg.param_dtype == "float32" else 2
-        if path[0] == "groups":
-            gathers.append((layers, math.prod(lay.local[1:]) * data * item))
-        else:
-            uses = 2 if path == ("embed",) and cfg.tie_embeddings else 1
-            gathers.append((uses, math.prod(lay.local) * data * item))
-    return {"all_reduce": {"calls": 1, "bytes": act * act_bytes},
-            "all_gather": {"calls": sum(n for n, _ in gathers),
-                           "bytes": sum(n * b for n, b in gathers)},
-            "reduce_scatter": {"calls": 0, "bytes": 0},
-            "all_to_all": {"calls": 2 * layers,
-                           "bytes": 2 * layers * act * 4}}
-
-
-def tp_reference(tf, lm_steps) -> dict:
-    """Phase 3m's one-process reference on the card, the same weights: the
-    prefill's logits at bf16 and f32 compute and the bf16 teacher-forced
-    decode steps' logits."""
+def cut_depth(cfg, layers):
+    """``cfg`` with its first ``layers`` decoder layers (and at most as
+    many encoder layers)."""
     import dataclasses
 
-    cfg = tp_config()
-    n_new = max(TP_NEW.values())
-    tokens = torch.from_numpy(tp_tokens(cfg, n_new)).to(DEV)
+    from repro_torch.configs import BlockGroup
+
+    left, blocks = layers, []
+    for g in cfg.blocks:
+        if left > 0:
+            blocks.append(BlockGroup(g.mixer, g.ffn, min(g.count, left),
+                                     g.scan))
+            left -= g.count
+    return dataclasses.replace(
+        cfg, blocks=tuple(blocks), num_layers=sum(g.count for g in blocks),
+        encoder_layers=min(cfg.encoder_layers, layers))
+
+
+def tp_config(entry: TPServe, compute="bfloat16"):
+    """3k's config (``arch_config``: full width, deepseek its dense and 2
+    MoE layers, whisper's flash kernel), cut to ``entry.layers``, the
+    flash kernel where the entry asks for it, an MoE expert-parallel as in
+    3l."""
+    import dataclasses
+
+    cfg = arch_config(entry.name)
+    if entry.layers is not None:
+        cfg = cut_depth(cfg, entry.layers)
+    if entry.flash:
+        cfg = dataclasses.replace(cfg, use_flash=True)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, moe_impl="sharded")
+    return dataclasses.replace(cfg, compute_dtype=compute)
+
+
+def tp_inputs(cfg, n_new) -> dict:
+    """3k's prompts (``arch_batch``: tokens, and frames for enc-dec) and
+    the ``n_new`` tokens the decode steps are fed, as numpy."""
+    t = ARCH_PROMPT.get(cfg.name, LM_PROMPT)
+    batch = {k: v.cpu().numpy()
+             for k, v in arch_batch(cfg, LM_BATCH, t, "cpu").items()}
+    batch["new"] = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (LM_BATCH, n_new), dtype=np.int32)
+    return batch
+
+
+def tp_prefill_batch(inputs, device, rows=slice(None), t=None):
+    """The prompts' rows ``rows`` (their first ``t`` tokens) on
+    ``device``."""
+    out = {"tokens": torch.from_numpy(inputs["tokens"][rows, :t]).to(device)}
+    if "frames" in inputs:
+        out["frames"] = torch.from_numpy(inputs["frames"][rows]).to(device)
+    return out
+
+
+def ep_plain_forward(moe_mod, em):
+    """``moe.moe_forward`` as the expert-parallel schedule over ``em``
+    slices in one process (``plain_ep_moe``): the same drops as the ranks'
+    schedule."""
+    def forward(cfg, p, x):
+        return plain_ep_moe(moe_mod, cfg, p, x, em)[0], {}
+    return forward
+
+
+def tp_reference(tf, lm_steps, moe_mod, cfg, inputs, n_new) -> dict:
+    """One process on the card, 3k's weights: the prefill's logits and
+    ``n_new`` teacher-forced decode steps' at bf16 and f32 compute, and
+    (MoE) every ``_route`` call's top-k choices, in call order, with the
+    MoE as the expert-parallel schedule's plain one-process run."""
+    import dataclasses
+    from unittest import mock
+
+    t = inputs["tokens"].shape[1]
     params = tf.init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED),
                             device=DEV)
+    routes: list = []
     ref = {}
-    for label in ("bfloat16", "float32"):
-        c = dataclasses.replace(cfg, compute_dtype=label)
-        logits, caches = lm_steps.make_prefill_step(c)(
-            params, {"tokens": tokens[:, :LM_PROMPT]})
-        ref[label] = logits.float().cpu()
-        if label == "bfloat16":
-            caches = tf.grow_decode_cache(c, caches, LM_PROMPT + n_new)
+    with mock.patch.object(moe_mod, "_route",
+                           recording_route(moe_mod, routes)), \
+            mock.patch.object(moe_mod, "moe_forward",
+                              ep_plain_forward(moe_mod, TP_EP)):
+        for label in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=label)
+            logits, caches = lm_steps.make_prefill_step(c)(
+                params, tp_prefill_batch(inputs, DEV))
+            ref[label] = logits.float().cpu()
+            caches = tf.grow_decode_cache(c, caches, t + n_new)
             serve = lm_steps.make_serve_step(c)
-            steps_out = []
+            new = torch.from_numpy(inputs["new"]).to(DEV)
+            dec = []
             for i in range(n_new):
-                pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                pos = torch.full((LM_BATCH,), t + i, dtype=torch.int32,
                                  device=DEV)
-                lg, caches = serve(params, caches, tokens[:, LM_PROMPT + i:
-                                                          LM_PROMPT + i + 1],
-                                   pos)
-                steps_out.append(lg.float().cpu())
-            ref["decode"] = torch.stack(steps_out)
-        del caches
+                lg, caches = serve(params, caches, new[:, i:i + 1], pos)
+                dec.append(lg.float().cpu())
+            ref[f"decode_{label}"] = torch.stack(dec)
+            del caches
+    ref["choices"] = [e.cpu() for e in routes]
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return ref
 
 
+def tp_layout(cfg, mesh_shape) -> dict:
+    """The layout terms the collective formulas of 3m, 3n and 3o share:
+    ``leaves`` (path -> ``param_layout``'s leaf), ``vocab`` (the
+    vocabulary split over ``model``), ``layers`` / ``encoder`` (each
+    decoder / encoder layer's mixer and its sublayers that take
+    collectives, in order: "mixer" a mixer split over ``model``, "xattn"
+    enc-dec's cross-attention, "mlp" a split MLP, "moe" an
+    expert-parallel MoE, "shared" its split shared MLP) and ``fsdp`` (each
+    leaf cut over ``data`` of more than one rank: its path, its layers,
+    and the elements of one layer's whole block)."""
+    from repro_torch.core.flat import tree_items
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tf_mod
+
+    data, model = mesh_shape
+    mesh = type("Sizes", (), {"shape": {"data": data, "model": model}})()
+    leaves = dict(tree_items(sharding.param_layout(cfg, mesh)))
+    with sharding.use_mesh(mesh):
+        heads_split = attn_mod.head_layout(cfg).split
+
+    def cut(parent, leaf):
+        return any("model" in lay.axes for path, lay in leaves.items()
+                   if path[-2:] == (parent, leaf))
+    split_mixer = {"attn": heads_split, "lattn": heads_split,
+                   "mla": cut("attn", "wq_b"), "ssd": cut("ssd", "w_in"),
+                   "rglru": cut("rglru", "w_x")}
+    mlp = ("mlp",) if cut("mlp", "w_down") else ()
+    layers = []
+    for g in cfg.blocks:
+        subs = (("mixer",) if split_mixer[g.mixer] else ()) + (
+            ("xattn",) if cfg.family == "encdec" and heads_split else ())
+        if g.ffn == "mlp":
+            subs += mlp
+        elif g.ffn == "moe":
+            subs += ("moe",) + (
+                ("shared",) if cfg.num_shared_experts
+                and cut("shared_mlp", "w_down") else ())
+        layers += [(g.mixer, subs)] * g.count
+    encoder = ([("attn", (("mixer",) if heads_split else ()) + mlp)]
+               * cfg.encoder_layers if cfg.family == "encdec" else [])
+    fsdp = []
+    for path, lay in leaves.items():
+        if data == 1 or "data" not in lay.axes:
+            continue
+        group = None
+        if path[0] == "groups":
+            group = cfg.blocks[int(path[1][1:])]
+        elif path[0] == "encoder":
+            group = tf_mod._encoder_group(cfg)
+        n, block = 1, lay.local
+        if group is not None and tf_mod._stacked(group):
+            n, block = group.count, lay.local[1:]
+        fsdp.append((path, n, math.prod(block) * data))
+    return {"leaves": leaves, "vocab": "model" in leaves[("embed",)].axes,
+            "layers": layers, "encoder": encoder, "fsdp": fsdp}
+
+
+def collective_counts():
+    return {k: {"calls": 0, "bytes": 0}
+            for k in ("all_reduce", "all_gather", "reduce_scatter",
+                      "all_to_all")}
+
+
+def tp_expected_collectives(cfg, mesh_shape, b_loc, t_q, act_bytes,
+                            prefill: bool) -> dict:
+    """Calls and bytes of each collective kind in one prefill (t_q the
+    prompt) or decode step (t_q = 1) on a rank of ``mesh_shape``, from
+    ``tp_layout``: a row-parallel product (an all_to_all of the (B/data,
+    t_q, D) f32 partials, an all_gather of the summed columns in the
+    compute dtype, ``act_bytes`` an element) for each split mixer,
+    cross-attention, MLP and shared MLP (the encoder's at its frames, in a
+    prefill); the SSD's ordered sum of squares (an all_gather of (model,
+    B/data, t_q, 1) f32), RG-LRU's gathered conv output (B/data, t_q,
+    lru); an expert-parallel MoE layer's two all_to_alls of (E, C, D), its
+    tokens' all_gather and its two f32 aux means; the split vocabulary's
+    embedding all_reduce and (B/data, V) f32 logits gather; and with data
+    > 1 each leaf cut over ``data`` gathered whole at each use."""
+    from repro_torch.models import moe as moe_mod
+
+    model = mesh_shape[1]
+    d = cfg.d_model
+    out = collective_counts()
+
+    def add(kind, calls, nbytes):
+        out[kind]["calls"] += calls
+        out[kind]["bytes"] += calls * nbytes
+
+    lay = tp_layout(cfg, mesh_shape)
+    if lay["vocab"]:
+        add("all_reduce", 1, b_loc * t_q * d * act_bytes)
+        add("all_gather", 1, b_loc * cfg.vocab_size * 4)
+    stacks = [(lay["layers"], t_q)] + (
+        [(lay["encoder"], cfg.num_frames)] if prefill else [])
+    for layers, t in stacks:
+        for mixer, subs in layers:
+            for sub in subs:
+                if sub == "moe":
+                    per = -(-b_loc * t // model)
+                    cap = moe_mod._capacity(cfg, per)
+                    add("all_to_all", 2,
+                        cfg.num_experts * cap * d * act_bytes)
+                    add("all_gather", 1, model * per * d * act_bytes)
+                    add("all_reduce", 2, 4)
+                    continue
+                # a row-parallel product
+                add("all_to_all", 1, b_loc * t * d * 4)
+                add("all_gather", 1, b_loc * t * d * act_bytes)
+                if sub == "mixer" and mixer == "ssd":
+                    add("all_gather", 1, model * b_loc * t * 4)
+                elif sub == "mixer" and mixer == "rglru":
+                    add("all_gather", 1,
+                        b_loc * t * cfg.lru_width * act_bytes)
+    item = 4 if cfg.param_dtype == "float32" else 2
+    for path, n, numel in lay["fsdp"]:
+        if not prefill and (path[0] == "encoder" or path[-2:] in (
+                ("xattn", "wk"), ("xattn", "wv"))):
+            continue
+        uses = 2 if path == ("embed",) and cfg.tie_embeddings else 1
+        if path[-1] == "wkv_a" and prefill:   # the cache's latent too
+            uses = 2
+        add("all_gather", uses * n, numel * item)
+    return out
+
+
 def tp_rank(rank, world, store_path, out_dir, job, device):
-    """One rank of phase 3m's gloo run (a spawned process): for each mesh,
-    the rank's blocks of ``init_params``' draws, its data shard of the
-    prompts; prefill (cold, warm), the teacher-forced decode steps, and at
-    (1, 4) the teacher-forced check (prefill T - 1 tokens, decode token
-    T - 1) and an f32-compute prefill (after a first prefill of 128 tokens
-    that warms the process); logits, times, the collectives'
-    calls and bytes (``tensor_parallel.COUNTS``), the flash calls' shapes
-    and launches, peak memory.  Writes ``rank<k>.npz``."""
+    """One rank of phases 3m and 3n's gloo run (a spawned process): for
+    each config and mesh, the rank's blocks of ``init_params``' draws (the
+    port's layout, drawn one rank at a time), its data shard of the
+    prompts; the config's warm-up prefill (its first mesh), the bf16
+    prefill, its teacher-forced decode steps, the teacher-forced check
+    where asked, and at (1, 4) an f32-compute prefill (MoE top-k pinned to
+    the one-process run's choices); logits, times, the collectives' calls
+    and bytes (``tensor_parallel.COUNTS``), the flash calls' shapes and
+    launches, params and peak memory.  Writes ``rank<k>.npz``."""
+    import contextlib
     import dataclasses
     import datetime
     import os
+    from unittest import mock
 
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     sys.path.insert(0, str(ROOT / "src"))
@@ -5051,6 +5310,7 @@ def tp_rank(rank, world, store_path, out_dir, job, device):
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
     from repro_torch.train import steps as lm_steps
     from torch.utils._pytree import tree_leaves
@@ -5061,18 +5321,17 @@ def tp_rank(rank, world, store_path, out_dir, job, device):
         torch.set_num_threads(1)   # CPU ranks share the cores
     torch.backends.cuda.matmul.allow_tf32 = False
     store = dist.FileStore(store_path, world)
+    shapes = sorted({m for c in job["configs"] for m in c["entry"]["new"]})
     meshes = {m: make_compat_mesh(m, ("data", "model"), dev, backend="gloo",
                                   store=store, rank=rank, world_size=world,
                                   timeout=datetime.timedelta(
                                       seconds=DIST_GROUP_TIMEOUT_S))
-              for m in job["new"]}
-    cfg, tokens = job["cfg"], torch.from_numpy(job["tokens"]).to(dev)
-    t = job["prompt"]
+              for m in shapes}
     calls = []
     real_flash = fa_ops.flash_attention
 
     def recording_flash(q, k, v, causal=True):
-        calls.append((tuple(q.shape), tuple(k.shape)))
+        calls.append((tuple(q.shape), tuple(k.shape), bool(causal)))
         return real_flash(q, k, v, causal=causal)
     fa_ops.flash_attention = recording_flash
     reset_counts(fa_ops.LAUNCHES)
@@ -5090,71 +5349,94 @@ def tp_rank(rank, world, store_path, out_dir, job, device):
         res, s = timed(fn)
         return res, s, json.dumps(tp.counts())
 
-    for m, mesh in meshes.items():
-        tag, n_new = f"{m[0]}x{m[1]}", job["new"][m]
-        t_init = time.perf_counter()
-        params = lm_steps.init_params_sharded(
-            cfg, torch.Generator(device=dev).manual_seed(SEED), mesh,
-            device=dev)
-        if cuda:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        out[f"{tag}/init_s"] = time.perf_counter() - t_init
-        out[f"{tag}/param_bytes"] = sum(
-            a.numel() * a.element_size() for a in tree_leaves(params))
-        prefill = lm_steps.make_prefill_step(cfg)
-        serve = lm_steps.make_serve_step(cfg)
-        with sharding.use_mesh(mesh):
-            mine = lm_steps.local_batch({"tokens": tokens}, mesh)["tokens"]
-            b_loc = mine.shape[0]
-            batch = {"tokens": mine[:, :t]}
-            if m == (1, 4):   # the process's first prefill, on 128 tokens
-                _, out[f"{tag}/warmup_s"] = timed(
-                    lambda: prefill(params, {"tokens": mine[:, :128]}))
-            calls.clear()
-            before = dict(fa_ops.LAUNCHES)
-            (logits, caches), out[f"{tag}/prefill_s"], \
-                out[f"{tag}/prefill_collectives"] = counted(
-                    lambda: prefill(params, batch))
-            out[f"{tag}/prefill_flash_launches"] = (
-                fa_ops.LAUNCHES["bfloat16"] - before["bfloat16"])
-            out[f"{tag}/prefill_flash_shapes"] = json.dumps(
-                sorted(set(calls)))
-            out[f"{tag}/logits"] = logits.float().cpu().numpy()
-            caches = tf.grow_decode_cache(cfg, caches, t + n_new)
-            dec, dec_s = [], []
-            for i in range(n_new):
-                pos = torch.full((b_loc,), t + i, dtype=torch.int32,
-                                 device=dev)
-                (lg, caches), s, coll = counted(
-                    lambda: serve(params, caches, mine[:, t + i:t + i + 1],
-                                  pos))
-                dec.append(lg.float().cpu().numpy())
-                dec_s.append(s)
-                if i == 0:
-                    out[f"{tag}/decode_collectives"] = coll
-            del caches
-            out[f"{tag}/decode_logits"] = np.stack(dec)
-            out[f"{tag}/decode_step_s"] = np.asarray(dec_s)
-            if m == (1, 4):
-                # teacher-forced: prefill T - 1 tokens, decode token T - 1
-                _, c_short = prefill(params, {"tokens": mine[:, :t - 1]})
-                grown = tf.grow_decode_cache(cfg, c_short, t)
-                forced, _ = serve(params, grown, mine[:, t - 1:t],
-                                  torch.full((b_loc,), t - 1,
-                                             dtype=torch.int32, device=dev))
-                out[f"{tag}/forced_logits"] = forced.float().cpu().numpy()
-                del c_short, grown
-                c32 = dataclasses.replace(cfg, compute_dtype="float32")
-                (lg32, _), out[f"{tag}/prefill_f32_s"], \
-                    out[f"{tag}/prefill_f32_collectives"] = counted(
-                        lambda: lm_steps.make_prefill_step(c32)(params, batch))
-                out[f"{tag}/f32_logits"] = lg32.float().cpu().numpy()
-        out[f"{tag}/peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
-                                 if cuda else 0.0)
-        del params
-        if cuda:
-            torch.cuda.empty_cache()
+    for c in job["configs"]:
+        cfg, inputs, entry = c["cfg"], c["inputs"], c["entry"]
+        t = inputs["tokens"].shape[1]
+        for m, n_new in entry["new"].items():
+            mesh = meshes[m]
+            tag = f"{cfg.name}/{m[0]}x{m[1]}"
+            data, model = m
+            rows = slice(mesh.get_local_rank("data") * LM_BATCH // data,
+                         (mesh.get_local_rank("data") + 1) * LM_BATCH // data)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            # one rank at a time: each draws a whole leaf before it keeps
+            # its block (deepseek's two MoE layers: 15 GB for a moment)
+            for turn in range(world):
+                if turn == rank:
+                    params, out[f"{tag}/init_s"] = timed(
+                        lambda: lm_steps.init_params_sharded(
+                            cfg, torch.Generator(device=dev).manual_seed(SEED),
+                            mesh, device=dev))
+                    if cuda:
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            out[f"{tag}/param_bytes"] = sum(
+                a.numel() * a.element_size() for a in tree_leaves(params))
+            batch = tp_prefill_batch(inputs, dev, rows)
+            new = torch.from_numpy(inputs["new"][rows]).to(dev)
+            b_loc = new.shape[0]
+            prefill = lm_steps.make_prefill_step(cfg)
+            serve = lm_steps.make_serve_step(cfg)
+            # this rank's MoE calls of the one-process run, in order
+            mine = c["choices"][mesh.get_local_rank("model")::model] \
+                if c["choices"] and m == (1, 4) else None
+            pin = (mock.patch.object(moe_mod, "_route", pinned_route(
+                moe_mod, [e.to(dev) for e in mine]))
+                if mine else contextlib.nullcontext())
+            with sharding.use_mesh(mesh), pin:
+                if entry["warmup"] and m == next(iter(entry["new"])):
+                    _, out[f"{tag}/warmup_s"] = timed(lambda: prefill(
+                        params, tp_prefill_batch(inputs, dev, rows,
+                                                 entry["warmup"])))
+                calls.clear()
+                before = dict(fa_ops.LAUNCHES)
+                (logits, caches), out[f"{tag}/prefill_s"], \
+                    out[f"{tag}/prefill_collectives"] = counted(
+                        lambda: prefill(params, batch))
+                out[f"{tag}/prefill_flash_launches"] = (
+                    fa_ops.LAUNCHES["bfloat16"] - before["bfloat16"])
+                out[f"{tag}/prefill_flash_shapes"] = json.dumps(
+                    sorted(set(calls)))
+                out[f"{tag}/logits"] = logits.float().cpu().numpy()
+                caches = tf.grow_decode_cache(cfg, caches, t + n_new)
+                dec, dec_s = [], []
+                for i in range(n_new):
+                    pos = torch.full((b_loc,), t + i, dtype=torch.int32,
+                                     device=dev)
+                    (lg, caches), s, coll = counted(
+                        lambda: serve(params, caches, new[:, i:i + 1], pos))
+                    dec.append(lg.float().cpu().numpy())
+                    dec_s.append(s)
+                    if i == 0:
+                        out[f"{tag}/decode_collectives"] = coll
+                del caches
+                out[f"{tag}/decode_logits"] = np.stack(dec)
+                out[f"{tag}/decode_step_s"] = np.asarray(dec_s)
+                if entry["forced"] and m == (1, 4):
+                    # prefill T - 1 tokens, decode token T - 1
+                    _, c_short = prefill(params, tp_prefill_batch(
+                        inputs, dev, rows, t - 1))
+                    grown = tf.grow_decode_cache(cfg, c_short, t)
+                    forced, _ = serve(params, grown, batch["tokens"][:, t - 1:],
+                                      torch.full((b_loc,), t - 1,
+                                                 dtype=torch.int32, device=dev))
+                    out[f"{tag}/forced_logits"] = forced.float().cpu().numpy()
+                    del c_short, grown
+                if m == (1, 4):
+                    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+                    (lg32, _), out[f"{tag}/prefill_f32_s"], \
+                        out[f"{tag}/prefill_f32_collectives"] = counted(
+                            lambda: lm_steps.make_prefill_step(c32)(params,
+                                                                    batch))
+                    out[f"{tag}/f32_logits"] = lg32.float().cpu().numpy()
+            out[f"{tag}/peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                     if cuda else 0.0)
+            del params
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
     out["flash_bf16"] = fa_ops.LAUNCHES["bfloat16"]
     out["flash_f32"] = fa_ops.LAUNCHES["float32"]
     fa_ops.flash_attention = real_flash
@@ -5162,97 +5444,136 @@ def tp_rank(rank, world, store_path, out_dir, job, device):
     dist.destroy_process_group()
 
 
+def tp_check(cfg, entry, m, ranks, ref) -> tuple[dict, bool]:
+    """One config and mesh of phases 3m and 3n against the one-process
+    run: the report and whether every check held."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention as attn_mod
+
+    lim = LOGIT_RTOL["bfloat16"]
+    n_new = entry.new[m]
+    tag = f"{cfg.name}/{m[0]}x{m[1]}"
+    data, model = m
+    groups = [[ranks[d * model + i] for i in range(model)]
+              for d in range(data)]
+    t = ARCH_PROMPT.get(cfg.name, LM_PROMPT)
+    rep = {"layers": cfg.num_layers, "prompt": t, "new": n_new}
+    keys = [k for k in ranks[0] if k.startswith(tag + "/")
+            and k.endswith("logits")]
+    rep["logits_bitwise_in_each_model_group"] = all(
+        np.array_equal(r[k], g[0][k]) for g in groups for r in g[1:]
+        for k in keys)
+
+    def whole(key, axis=0):
+        return torch.from_numpy(np.concatenate(
+            [g[0][f"{tag}/{key}"] for g in groups], axis=axis))
+    logits, dec = whole("logits"), whole("decode_logits", axis=1)
+    rep["prefill_vs_one_process"] = rel_rms(logits, ref["bfloat16"])
+    rep["decode_vs_one_process"] = [
+        rel_rms(dec[i], ref["decode_bfloat16"][i]) for i in range(n_new)]
+    # each bf16 output's error from the one-process f32-compute run, over
+    # one process's
+    pairs = [(logits, ref["bfloat16"], ref["float32"])] + [
+        (dec[i], ref["decode_bfloat16"][i], ref["decode_float32"][i])
+        for i in range(n_new)]
+    rep["bf16_error_vs_one_process_error"] = [
+        rel_rms(got, f32) / rel_rms(one, f32) for got, one, f32 in pairs]
+    ok = (rep["logits_bitwise_in_each_model_group"]
+          and max(rep["bf16_error_vs_one_process_error"])
+          <= ARCH_DECODE_ERR_RATIO)
+    if entry.end_to_end:
+        ok &= (rep["prefill_vs_one_process"] <= lim
+               and max(rep["decode_vs_one_process"]) <= lim)
+    if m == (1, 4):
+        rep["f32_prefill_vs_one_process"] = rel_rms(whole("f32_logits"),
+                                                    ref["float32"])
+        ok &= rep["f32_prefill_vs_one_process"] <= TP_F32_RTOL
+    if entry.forced and m == (1, 4):
+        rep["teacher_forced_vs_prefill"] = rel_rms(whole("forced_logits"),
+                                                   logits)
+        ok &= rep["teacher_forced_vs_prefill"] <= lim
+    b_loc = LM_BATCH // data
+    # flash on each rank's heads (whisper: its encoder and decoder)
+    rep["flash_launches_a_prefill"] = [
+        int(r[f"{tag}/prefill_flash_launches"]) for r in ranks]
+    shapes = [json.loads(str(r[f"{tag}/prefill_flash_shapes"]))
+              for r in ranks]
+    rep["flash_shapes"] = shapes[0]
+    if cfg.use_flash:
+        with sharding.use_mesh(type("Sizes", (), {"shape": {
+                "data": data, "model": model}})()):
+            hl = attn_mod.head_layout(cfg)
+        dh = attn_mod.head_dim(cfg)
+        want_shapes = sorted(
+            [[[b_loc, hl.h, t, dh], [b_loc, hl.kv, t, dh], True]]
+            + ([[[b_loc, hl.h, cfg.num_frames, dh],
+                 [b_loc, hl.kv, cfg.num_frames, dh], False]]
+               if cfg.family == "encdec" else []))
+        ok &= all(sh == want_shapes for sh in shapes)
+    ok &= rep["flash_launches_a_prefill"] == [flash_layers(cfg)] * 4
+    # the collectives' calls and bytes, to the byte
+    for kind, t_q, key, ab in (
+            ("prefill", t, "prefill_collectives", 2),
+            ("decode", 1, "decode_collectives", 2),
+            ("prefill_f32", t, "prefill_f32_collectives", 4)):
+        if f"{tag}/{key}" not in ranks[0]:
+            continue
+        want = tp_expected_collectives(cfg, m, b_loc, t_q, ab,
+                                       kind != "decode")
+        got = [json.loads(str(r[f"{tag}/{key}"])) for r in ranks]
+        rep[f"{kind}_collectives"] = got[0]
+        same = all({k: g[k] for k in want} == want for g in got)
+        rep[f"{kind}_collectives_as_predicted"] = same
+        if not same:
+            rep[f"{kind}_collectives_predicted"] = want
+        ok &= same
+    for k in ("init_s", "warmup_s", "prefill_s", "prefill_f32_s"):
+        if f"{tag}/{k}" in ranks[0]:
+            rep[k] = float(ranks[0][f"{tag}/{k}"])
+    steps_s = ranks[0][f"{tag}/decode_step_s"]
+    rep["decode_step_ms"] = [1e3 * float(s) for s in steps_s]
+    rep["decode_step_ms_median"] = 1e3 * float(np.median(steps_s))
+    rep["prefill_tokens_per_s"] = LM_BATCH * t / rep["prefill_s"]
+    rep["param_gb_per_rank"] = [float(r[f"{tag}/param_bytes"]) / 1e9
+                                for r in ranks]
+    rep["peak_gb_per_rank"] = [float(r[f"{tag}/peak_gb"]) for r in ranks]
+    return rep, ok
+
+
 def tp_serving_path(fa_ops) -> dict:
-    """Phase 3m: ``llama3.2-1b`` at full width served tensor-parallel on 4
-    gloo ranks sharing the card (``tp_rank``), on the meshes (1, 4) and
-    (2, 2), against one process on the same card with the same weights."""
+    """Phases 3m and 3n: ``TP_SERVE``'s configs at full width (3k's
+    weights and prompts, depth cut as each entry says), served
+    tensor-parallel on 4 gloo ranks sharing the card (``tp_rank``, one
+    spawn) on each entry's meshes, against one process on the same card
+    with the same weights (``tp_check``)."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
     from repro_torch.train import steps as lm_steps
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    cfg = tp_config()
-    ref = tp_reference(tf, lm_steps)
-    job = {"cfg": cfg, "tokens": tp_tokens(cfg, max(TP_NEW.values())),
-           "prompt": LM_PROMPT, "new": TP_NEW}
+    refs, configs = [], []
+    for entry in TP_SERVE:
+        cfg = tp_config(entry)
+        n_new = max(entry.new.values())
+        inputs = tp_inputs(cfg, n_new)
+        ref = tp_reference(tf, lm_steps, moe_mod, cfg, inputs, n_new)
+        refs.append(ref)
+        configs.append({"cfg": cfg, "inputs": inputs,
+                        "entry": entry._asdict(),
+                        "choices": ref.pop("choices")})
+    report = {"reference_s": time.perf_counter() - t0}
     t_ranks = time.perf_counter()
-    ranks = spawn_ranks(4, job, str(torch.device(DEV, 0)), target=tp_rank)
-    report = {"config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
-                         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-                         "batch": LM_BATCH, "prompt": LM_PROMPT,
-                         "new": {f"{d}x{m}": n
-                                 for (d, m), n in TP_NEW.items()}},
-              "ranks_wall_s": time.perf_counter() - t_ranks}
+    ranks = spawn_ranks(4, {"configs": configs}, str(torch.device(DEV, 0)),
+                        target=tp_rank)
+    report["ranks_wall_s"] = time.perf_counter() - t_ranks
     failed = []
-    lim = LOGIT_RTOL["bfloat16"]
-    for m, n_new in TP_NEW.items():
-        tag = f"{m[0]}x{m[1]}"
-        data, model = m
-        groups = [[ranks[d * model + i] for i in range(model)]
-                  for d in range(data)]
-        rep = {}
-        keys = [k for k in ranks[0] if k.startswith(tag)
-                and k.endswith("logits")]
-        rep["logits_bitwise_in_each_model_group"] = all(
-            np.array_equal(r[k], g[0][k]) for g in groups for r in g[1:]
-            for k in keys)
-
-        def whole(key, axis=0):
-            return torch.from_numpy(np.concatenate(
-                [g[0][f"{tag}/{key}"] for g in groups], axis=axis))
-        rep["prefill_vs_one_process"] = rel_rms(whole("logits"),
-                                                ref["bfloat16"])
-        dec = whole("decode_logits", axis=1)
-        rep["decode_vs_one_process"] = [
-            rel_rms(dec[i], ref["decode"][i]) for i in range(n_new)]
-        ok = (rep["logits_bitwise_in_each_model_group"]
-              and rep["prefill_vs_one_process"] <= lim
-              and max(rep["decode_vs_one_process"]) <= lim)
-        if m == (1, 4):
-            rep["f32_prefill_vs_one_process"] = rel_rms(
-                whole("f32_logits"), ref["float32"])
-            rep["teacher_forced_vs_prefill"] = rel_rms(
-                whole("forced_logits"), whole("logits"))
-            ok &= (rep["f32_prefill_vs_one_process"] <= TP_F32_RTOL
-                   and rep["teacher_forced_vs_prefill"] <= lim)
-        # flash on each rank's heads, one launch a layer a prefill
-        b_loc = LM_BATCH // data
-        h, hkv = cfg.num_heads // model, cfg.num_kv_heads // model
-        want_shapes = [[[b_loc, h, LM_PROMPT, 64],
-                        [b_loc, hkv, LM_PROMPT, 64]]]
-        rep["flash_launches_a_prefill"] = [
-            int(r[f"{tag}/prefill_flash_launches"]) for r in ranks]
-        shapes = [json.loads(str(r[f"{tag}/prefill_flash_shapes"]))
-                  for r in ranks]
-        rep["flash_shapes"] = shapes[0]
-        ok &= (rep["flash_launches_a_prefill"] == [cfg.num_layers] * 4
-               and all(sh == want_shapes for sh in shapes))
-        # the collectives' calls and bytes, to the byte
-        act = 2
-        for kind, t_q, key, ab in (
-                ("prefill", LM_PROMPT, "prefill_collectives", act),
-                ("decode", 1, "decode_collectives", act),
-                ("prefill_f32", LM_PROMPT, "prefill_f32_collectives", 4)):
-            if f"{tag}/{key}" not in ranks[0]:
-                continue
-            want = tp_expected_collectives(cfg, m, b_loc, t_q, ab)
-            got = [json.loads(str(r[f"{tag}/{key}"])) for r in ranks]
-            rep[f"{kind}_collectives"] = got[0]
-            same = all({k: g[k] for k in want} == want for g in got)
-            rep[f"{kind}_collectives_as_predicted"] = same
-            ok &= same
-        for k in ("init_s", "warmup_s", "prefill_s", "prefill_f32_s"):
-            if f"{tag}/{k}" in ranks[0]:
-                rep[k] = float(ranks[0][f"{tag}/{k}"])
-        steps_s = ranks[0][f"{tag}/decode_step_s"]
-        rep["decode_first_ms"] = 1e3 * float(steps_s[0])
-        rep["decode_step_ms_median"] = 1e3 * float(np.median(steps_s[1:]))
-        rep["param_gb_per_rank"] = [float(r[f"{tag}/param_bytes"]) / 1e9
-                                    for r in ranks]
-        rep["peak_gb_per_rank"] = [float(r[f"{tag}/peak_gb"]) for r in ranks]
-        report[tag] = rep
-        if not ok:
-            failed.append(f"{tag}: {json.dumps(rep)}")
+    for entry, c, ref in zip(TP_SERVE, configs, refs):
+        for m in entry.new:
+            rep, ok = tp_check(c["cfg"], entry, m, ranks, ref)
+            report[f"({entry.phase}) {c['cfg'].name}/{m[0]}x{m[1]}"] = rep
+            if not ok:
+                failed.append(f"{entry.name} {m}: {json.dumps(rep)}")
     launches = {"flash_attention_bf16": sum(int(r["flash_bf16"])
                                             for r in ranks),
                 "flash_attention_f32": sum(int(r["flash_f32"])
@@ -5262,13 +5583,356 @@ def tp_serving_path(fa_ops) -> dict:
     total = time.perf_counter() - t0
     report["phase_s"] = total
     for key, val in report.items():
-        print(f"tensor-parallel llama (3m) {key} ({smi}): {json.dumps(val)}",
+        print(f"tensor-parallel serving {key} ({smi}): {json.dumps(val)}",
               flush=True)
-    print(f"tensor-parallel llama (3m) card: {smi}; phase 3m took "
+    print(f"tensor-parallel serving (3m, 3n) card: {smi}; phases 3m and 3n "
+          f"took {total:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phases 3m and 3n: {failed}")
+    return launches
+
+
+# -- phase 3o: llama3.2-1b trained tensor-parallel on 4 ranks -----------------
+
+TRAIN_TP_MESHES = ((1, 4), (2, 2))
+TRAIN_TP_LAYERS = 8           # of 16: the script's time limit
+TRAIN_TP_GRAD_RTOL = 1e-4     # the training-gradient tier (PERF.md 2)
+TRAIN_TP_F32_RTOL = 1e-5      # the f32-compute loss against one process
+# The step's update against the reference's, over its norm: Adam's first
+# step divides each gradient element by its own magnitude (plus eps), so
+# elements near eps turn the gradients' 1e-5 differences into ~1e-3 of a
+# zero-drawn leaf's update (8.4e-4 at a norm scale, PERF.md); a misapplied
+# update (a block, the clip, the decay) would be O(1).
+TRAIN_TP_UPDATE_RTOL = 1e-2
+
+
+def train_tp_configs():
+    """3j's llama3.2-1b (f32 params, remat, bf16 compute) at full width,
+    cut to TRAIN_TP_LAYERS, and its f32-compute twin."""
+    import dataclasses
+    cfg = cut_depth(get_lm_config("llama3.2-1b"), TRAIN_TP_LAYERS)
+    return cfg, dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def capture_grads(box):
+    """A ``compression`` hook of ``make_train_step`` that keeps the
+    gradients it is handed (after the sums over ``data``) and passes them
+    on."""
+    def hook(grads):
+        box["grads"] = grads
+        return grads
+    return hook
+
+
+def digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_tp_reference(tf, lm_steps, adam, path) -> dict:
+    """Phase 3o's one-process reference on the card (3j's step at
+    TRAIN_TP_LAYERS, the same weights and batch): a bf16-compute train step's loss and time, then,
+    from the same initial params, an f32-compute step's loss, its
+    gradients and the params after it, saved to ``path`` (by leaf path)
+    for the ranks.  Returns the losses and times."""
+    from repro_torch.core.flat import tree_items
+
+    cfg, cfg32 = train_tp_configs()
+    batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, DEV)
+    out = {}
+    for label, c in (("bfloat16", cfg), ("float32", cfg32)):
+        params = tf.init_params(c, torch.Generator(device=DEV).manual_seed(
+            SEED), device=DEV)
+        state = {"params": params, "opt": adam.init_opt_state(params)}
+        box = {}
+        step = lm_steps.make_train_step(c, compression=capture_grads(box))
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out[f"{label}_step_s"] = time.perf_counter() - s
+        out[f"{label}_loss"] = float(metrics["loss"])
+        out[f"{label}_grad_norm"] = float(metrics["grad_norm"])
+        if label == "float32":
+            torch.save({"grads": {"/".join(map(str, k)): v.detach().cpu()
+                                  for k, v in tree_items(box["grads"])},
+                        "after": {"/".join(map(str, k)): v.detach().cpu()
+                                  for k, v in tree_items(state["params"])}},
+                       path)
+        del state, params, box
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_expected_collectives(cfg, mesh_shape, b_loc, t, act_bytes) -> dict:
+    """Calls and bytes of each collective kind in one train step of a
+    dense attention / MLP layout (``llama3.2-1b``'s: GQA and SwiGLU split,
+    tied vocabulary split, remat of every layer) on a rank of
+    ``mesh_shape``, from ``tp_layout``: each layer's row-parallel products
+    (an all_to_all of the (B/data, T, D) f32 partials, an all_gather in
+    the compute dtype) in the forward, and all but its last again in the
+    remat's recompute (which stops once the tensors the backward needs are
+    back: no op of the layer saves the MLP's row-parallel sum); the
+    backward of each ``copy_to_model`` (one a product, and the
+    cross-entropy's input) an all_reduce of its (B/data, T, D) gradient;
+    the embedding's all_reduce; the vocab-split cross-entropy's three
+    (B/data, 512) f32 all_reduces a chunk, forward and recompute; the
+    gradient norm's scalar sums, one a group of leaves cut alike and axis;
+    and with data > 1 each leaf cut over ``data`` gathered at each use (a
+    layer's again in its recompute) and its gradient reduce-scattered
+    once, the loss's (2,) sum over ``data`` and each whole leaf's gradient
+    summed over ``data``."""
+    data, model = mesh_shape
+    d = cfg.d_model
+    act = b_loc * t * d
+    chunk = min(512, t)
+    chunks = -(-t // chunk)
+    out = collective_counts()
+
+    def add(kind, calls, nbytes):
+        out[kind]["calls"] += calls
+        out[kind]["bytes"] += calls * nbytes
+    lay = tp_layout(cfg, mesh_shape)
+    assert lay["vocab"] and all(mixer == "attn" and set(subs) <= {
+        "mixer", "mlp"} for mixer, subs in lay["layers"]), lay["layers"]
+    for _, subs in lay["layers"]:
+        rows = 2 * len(subs) - 1 if subs else 0
+        add("all_to_all", rows, act * 4)
+        add("all_gather", rows, act * act_bytes)
+        add("all_reduce", len(subs), act * act_bytes)
+    add("all_reduce", 2, act * act_bytes)
+    add("all_reduce", 6 * chunks, b_loc * chunk * 4)
+    keys = {tuple(sorted(leaf.axes)) for leaf in lay["leaves"].values()}
+    sizes = {"data": data, "model": model}
+    add("all_reduce", sum(sizes[a] > 1 for k in keys for a in k), 4)
+    if data > 1:
+        add("all_reduce", 1, 8)
+        item = 4 if cfg.param_dtype == "float32" else 2
+        for leaf in lay["leaves"].values():
+            if "data" not in leaf.axes:
+                add("all_reduce", 1, math.prod(leaf.local) * 4)
+        for path, n, numel in lay["fsdp"]:
+            uses = (2 * n if path[0] == "groups" else
+                    2 if path == ("embed",) and cfg.tie_embeddings else 1)
+            add("all_gather", uses, numel * item)
+            add("reduce_scatter", uses // 2 if path[0] == "groups" else uses,
+                numel // data * 4)
+    return out
+
+
+def train_tp_rank(rank, world, store_path, out_dir, job, device):
+    """One rank of phase 3o's gloo run (a spawned process): for each mesh,
+    the rank's blocks of ``init_params``' draws and its data shard of the
+    batch; a bf16-compute train step (timed, its collectives counted),
+    then from fresh params an f32-compute step whose gradients (handed to
+    the step's ``compression`` hook) and params after are held leaf by
+    leaf against the reference's blocks (``local_shard`` of its file,
+    memory-mapped); the losses, digests of the loss and of every leaf the
+    layout does not cut over ``model``, times and peak memory.  Writes
+    ``rank<k>.npz``."""
+    import datetime
+    import os
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core.flat import tree_items
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import make_compat_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as lm_steps
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(fa_ops.LAUNCHES)
+    store = dist.FileStore(store_path, world)
+    meshes = {m: make_compat_mesh(m, ("data", "model"), dev, backend="gloo",
+                                  store=store, rank=rank, world_size=world,
+                                  timeout=datetime.timedelta(
+                                      seconds=DIST_GROUP_TIMEOUT_S))
+              for m in job["meshes"]}
+    ref = torch.load(job["reference"], mmap=True, weights_only=True)
+    cfg, cfg32 = job["cfg"], job["cfg32"]
+    logical = dict(tree_items(tf.param_logical_axes(cfg)))
+    whole = {"tokens": torch.from_numpy(job["tokens"]),
+             "labels": torch.from_numpy(job["labels"])}
+    out = {}
+    for m, mesh in meshes.items():
+        tag = f"{m[0]}x{m[1]}"
+        axes = {p: lay.axes for p, lay in tree_items(
+            sharding.param_layout(cfg, mesh))}
+        with sharding.use_mesh(mesh):
+            batch = {k: v.to(dev) for k, v in
+                     lm_steps.local_batch(whole, mesh).items()}
+            for label, c in (("bfloat16", cfg), ("float32", cfg32)):
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                params = lm_steps.init_params_sharded(
+                    c, torch.Generator(device=dev).manual_seed(SEED), mesh,
+                    device=dev)
+                before = ({p: t.clone() for p, t in tree_items(params)}
+                          if label == "float32" else None)
+                state = {"params": params, "opt": adam.init_opt_state(params)}
+                box = {}
+                step = lm_steps.make_train_step(
+                    c, compression=capture_grads(box))
+                tp.reset_counts()
+                sync(dev)
+                s = time.perf_counter()
+                state, metrics = step(state, batch)
+                sync(dev)
+                out[f"{tag}/{label}_step_s"] = time.perf_counter() - s
+                out[f"{tag}/{label}_collectives"] = json.dumps(tp.counts())
+                out[f"{tag}/{label}_loss"] = metrics["loss"].cpu().numpy()
+                out[f"{tag}/{label}_peak_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0)
+                grads = dict(tree_items(box["grads"]))
+                after = dict(tree_items(state["params"]))
+                whole_leaves = sorted(p for p in grads
+                                      if "model" not in axes[p])
+                out[f"{tag}/{label}_digest"] = digest(
+                    [metrics["loss"]] + [grads[p] for p in whole_leaves]
+                    + [after[p] for p in whole_leaves])
+                if label == "float32":
+                    g_rel, p_rel, u_rel = {}, {}, {}
+                    for p in grads:
+                        key = "/".join(map(str, p))
+                        g_ref, p_ref = (sharding.local_shard(
+                            ref[name][key], logical[p], mesh).to(dev).float()
+                            for name in ("grads", "after"))
+                        g_rel[key] = rel_rms(grads[p].float(), g_ref)
+                        # params after the step, against the reference's:
+                        # over the leaf (a leaf drawn nonzero), and over
+                        # the reference's update (every leaf)
+                        diff = torch.linalg.vector_norm(after[p].float()
+                                                        - p_ref)
+                        if torch.any(before[p] != 0):
+                            p_rel[key] = float(
+                                diff / torch.linalg.vector_norm(p_ref))
+                        u_rel[key] = float(diff / torch.linalg.vector_norm(
+                            p_ref - before[p].float()))
+                    out[f"{tag}/grad_rel"] = json.dumps(g_rel)
+                    out[f"{tag}/after_rel"] = json.dumps(p_rel)
+                    out[f"{tag}/update_rel"] = json.dumps(u_rel)
+                    out[f"{tag}/param_bytes"] = sum(
+                        a.numel() * a.element_size() for a in after.values())
+                del state, params, box, grads, after, before
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+    out["flash_launches"] = sum(fa_ops.LAUNCHES.values())
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def train_tp_path() -> dict:
+    """Phase 3o: ``llama3.2-1b``'s train step at full width, cut to
+    TRAIN_TP_LAYERS (3j's shape: B 4 x 2,048, f32 params, remat, AdamW
+    clipped by the whole gradient's norm), on 4 gloo ranks sharing the
+    card at (1, 4) and (2, 2) (``train_tp_rank``), against the same
+    step in one process on the same card with the same weights and
+    batch."""
+    from repro_torch.launch import roofline
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as lm_steps
+    from repro_torch.configs import ShapeSpec
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg, cfg32 = train_tp_configs()
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/reference.pt"
+        ref = train_tp_reference(tf, lm_steps, adam, path)
+        report = {"reference": ref, "reference_s": time.perf_counter() - t0}
+        batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, "cpu")
+        job = {"cfg": cfg, "cfg32": cfg32, "meshes": TRAIN_TP_MESHES,
+               "reference": path,
+               "tokens": batch["tokens"].numpy(),
+               "labels": batch["labels"].numpy()}
+        t_ranks = time.perf_counter()
+        ranks = spawn_ranks(4, job, str(torch.device(DEV, 0)),
+                            target=train_tp_rank)
+        report["ranks_wall_s"] = time.perf_counter() - t_ranks
+    flops = roofline.model_flops(
+        cfg, ShapeSpec("train_cut", LM_PROMPT, LM_BATCH, "train"), 1)
+    for m in TRAIN_TP_MESHES:
+        tag = f"{m[0]}x{m[1]}"
+        data, model = m
+        b_loc = LM_BATCH // data
+        rep = {}
+        for label in ("bfloat16", "float32"):
+            lim = (LOGIT_RTOL["bfloat16"] if label == "bfloat16"
+                   else TRAIN_TP_F32_RTOL)
+            losses = [float(r[f"{tag}/{label}_loss"]) for r in ranks]
+            rel = abs(losses[0] - ref[f"{label}_loss"]) / abs(
+                ref[f"{label}_loss"])
+            digests = [str(r[f"{tag}/{label}_digest"]) for r in ranks]
+            bitwise = all(digests[d * model + i] == digests[d * model]
+                          for d in range(data) for i in range(model))
+            want = train_tp_expected_collectives(
+                cfg, m, b_loc, LM_PROMPT, 2 if label == "bfloat16" else 4)
+            got = [json.loads(str(r[f"{tag}/{label}_collectives"]))
+                   for r in ranks]
+            same = all({k: g[k] for k in want} == want for g in got)
+            step_s = max(float(r[f"{tag}/{label}_step_s"]) for r in ranks)
+            rep[label] = {
+                "loss": losses[0], "loss_vs_one_process": rel,
+                "bitwise_in_each_model_group": bitwise,
+                "collectives": got[0], "collectives_as_predicted": same,
+                "step_s": step_s, "tokens_per_s": LM_BATCH * LM_PROMPT / step_s,
+                "one_process_step_s": ref[f"{label}_step_s"],
+                "mfu": flops / step_s / card_peaks(
+                    torch.cuda.get_device_name(0))[3],
+                "peak_gb_per_rank": [float(r[f"{tag}/{label}_peak_gb"])
+                                     for r in ranks]}
+            if not same:
+                rep[label]["collectives_predicted"] = want
+            ok = rel <= lim and bitwise and same
+            if label == "float32":
+                g_rel = [json.loads(str(r[f"{tag}/grad_rel"])) for r in ranks]
+                worst = {}
+                for key in ("grad_rel", "after_rel", "update_rel"):
+                    per = [json.loads(str(r[f"{tag}/{key}"])) for r in ranks]
+                    worst[key] = max((v, k) for g in per for k, v in g.items())
+                    rep[label][f"{key}_max"] = worst[key]
+                rep[label]["param_gb_per_rank"] = [
+                    float(r[f"{tag}/param_bytes"]) / 1e9 for r in ranks]
+                ok &= (worst["grad_rel"][0] <= TRAIN_TP_GRAD_RTOL
+                       and worst["after_rel"][0] <= TRAIN_TP_GRAD_RTOL
+                       and worst["update_rel"][0] <= TRAIN_TP_UPDATE_RTOL)
+            if not ok:
+                failed.append(f"{tag} {label}: {json.dumps(rep[label])}")
+        report[tag] = rep
+    report["flash_launches_per_rank"] = [int(r["flash_launches"])
+                                         for r in ranks]
+    if any(report["flash_launches_per_rank"]):
+        failed.append("the training path launched the flash kernel "
+                      f"{report['flash_launches_per_rank']}")
+    total = time.perf_counter() - t0
+    report["phase_s"] = total
+    for key, val in report.items():
+        print(f"tensor-parallel training (3o) {key} ({smi}): "
+              f"{json.dumps(val)}", flush=True)
+    print(f"tensor-parallel training (3o) card: {smi}; phase 3o took "
           f"{total:.1f} s", flush=True)
     if failed:
-        raise AssertionError(f"phase 3m: {failed}")
-    return launches
+        raise AssertionError(f"phase 3o: {failed}")
+    return {}
 
 
 def main() -> int:
@@ -5370,6 +6034,7 @@ def main() -> int:
                   masked=True, timed=False)
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10)
     time_backwards(rs_ops, ps_ops, cfg, usps)
+    time_operator_routes(rs_ops, ps_ops, cfg, usps)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
         fa_full[dtype] = check_flash(fa_ops, fa_ref, peaks, LM_BATCH, 32, 8,
@@ -5411,6 +6076,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches = tp_serving_path(fa_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_tp_path()
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}

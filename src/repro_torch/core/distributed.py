@@ -327,12 +327,16 @@ class DistributedGP:
         """Start the sum over ranks of ``buf`` (``async_op``); returns a
         callable that waits for it and returns the sum on ``buf``'s device.
         Over gloo the host copy is made before the call and the copy back
-        after the wait."""
+        after the wait.  Counted in ``tensor_parallel.COUNTS``."""
+        # here, not at import: the distributed package imports this module
+        from ..distributed.tensor_parallel import record
+
         if self.group is None:
             return lambda: buf
         host = buf.cpu() if self._via_host else buf
         work = dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group,
                                async_op=True)
+        record("all_reduce", host)
 
         def wait():
             work.wait()

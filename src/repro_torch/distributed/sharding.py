@@ -13,6 +13,17 @@ is the reference's ``PartitionSpec`` as a plain tuple: one entry a tensor
 dimension, ``None`` (replicated), an axis name, or a tuple of names (the
 first-named axis major), trailing ``None``s trimmed.
 
+Where the port cuts a leaf otherwise than the reference's spec (the
+reference leaves the reshuffle to XLA's partitioner; the port says each
+collective itself), the leaf's logical axes are a :class:`PortAxes`: its
+``port`` axes, an entry of which may be a :class:`Packed` dimension (the
+SSD's ``z | x | B | C | dt`` columns, cut head by head), are the only
+layout any function here resolves (``spec_for``, ``local_shape``,
+``local_shard``, ``shard_ranges``, ``shard_slices``, ``block_axes``,
+``param_layout``, ``tree_shardings``).  Its value as a tuple is the
+reference's logical axes, so that the spec tree compares equal to the JAX
+package's; nothing resolves that tuple into a block.
+
 ``set_mesh`` / ``use_mesh`` set the module's mesh context, which the
 model code reads: ``distributed.tensor_parallel``'s collectives over its
 axes, and each layer's split, taken from the resolved spec of its leaves
@@ -104,22 +115,15 @@ def _axes_for(logical: str | None, dim_size: int, sizes: dict[str, int],
 
 def spec_for(logical_axes: Sequence[str | None], shape: Sequence[int],
              mesh=None, rules: dict | None = None) -> tuple:
-    """Resolve a logical-axis tuple into the entries of a PartitionSpec for
-    ``mesh`` (the context mesh if None; ``()`` with no mesh)."""
+    """Resolve a logical-axis tuple (a :class:`PortAxes`: its port axes)
+    into the entries of a PartitionSpec for ``mesh`` (the context mesh if
+    None; ``()`` with no mesh).  A :class:`Packed` dimension's entry names
+    the axes its segments are cut over."""
     mesh = _CTX["mesh"] if mesh is None else mesh
-    rules = _CTX["rules"] if rules is None else rules
     if mesh is None:
         return ()
-    sizes = mesh_sizes(mesh)
-    used: set[str] = set()
-    entries = []
-    for name, dim in zip(logical_axes, shape):
-        axes = _axes_for(name, dim, sizes, rules, used)
-        if axes:
-            used.update(axes)
-            entries.append(axes if len(axes) > 1 else axes[0])
-        else:
-            entries.append(None)
+    entries = [None if not axes else axes if len(axes) > 1 else axes[0]
+               for axes in _dim_axes(logical_axes, shape, mesh, rules)]
     while entries and entries[-1] is None:
         entries.pop()
     return tuple(entries)
@@ -159,26 +163,118 @@ def spec_axes(spec: tuple) -> set[str]:
     return {ax for e in spec for ax in _entry_axes(e)}
 
 
+class Packed(NamedTuple):
+    """A dimension of segments side by side, each ``(size, units)``: cut
+    over the axes of rule ``name`` into equal parts of every segment with
+    ``units`` > 0 (whole heads: ``units`` its heads), a segment of 0 units
+    whole on every rank.  Cut only where the axes divide every such
+    segment's units; else whole on every rank (the rules' fallback)."""
+    name: str
+    segments: tuple
+
+
+class PortAxes(tuple):
+    """A leaf's axes where the port cuts it otherwise than the reference:
+    ``port``, one entry a dimension (a logical name, None or a
+    :class:`Packed`), is what every function here resolves; the tuple's
+    value is the reference's logical axes, for comparison with the JAX
+    package's spec tree only."""
+
+    def __new__(cls, logical, port):
+        self = super().__new__(cls, logical)
+        self.port = tuple(port)
+        return self
+
+    def __reduce__(self):
+        return PortAxes, (tuple(self), self.port)
+
+    def stacked(self) -> "PortAxes":
+        """The same axes behind a leading ``layers`` axis."""
+        return PortAxes(("layers", *self), ("layers", *self.port))
+
+
+def _dim_axes(logical, shape, mesh, rules) -> list[tuple[str, ...]]:
+    """The mesh axes that cut each dimension of the port's block."""
+    sizes = mesh_sizes(mesh)
+    rules = _CTX["rules"] if rules is None else rules
+    used: set[str] = set()
+    out = []
+    for entry, dim in zip(getattr(logical, "port", logical), shape):
+        if isinstance(entry, Packed):
+            units = [u for _, u in entry.segments if u]
+            picked, size = [], 1
+            for ax in rules.get(entry.name, ()):
+                if ax in used or ax not in sizes:
+                    continue
+                if all(u % (size * sizes[ax]) == 0 for u in units):
+                    picked.append(ax)
+                    size *= sizes[ax]
+            axes = tuple(picked)
+        else:
+            axes = _axes_for(entry, dim, sizes, rules, used) or ()
+        used.update(axes)
+        out.append(axes)
+    out += [()] * (len(shape) - len(out))
+    return out
+
+
+def shard_ranges(logical, shape: Sequence[int], mesh, coord: dict[str, int],
+                 rules: dict | None = None) -> list[list[tuple[int, int]]]:
+    """The ``[start, stop)`` ranges of each dimension of a whole tensor of
+    ``shape`` that mesh position ``coord`` holds: one range a dimension,
+    or one a segment of a :class:`Packed` one."""
+    sizes = mesh_sizes(mesh)
+    port = getattr(logical, "port", ())
+    out = []
+    for d, (axes, dim) in enumerate(zip(_dim_axes(logical, shape, mesh,
+                                                  rules), shape)):
+        parts, idx = 1, 0
+        for ax in axes:
+            idx = idx * sizes[ax] + coord[ax]
+            parts *= sizes[ax]
+        entry = port[d] if d < len(port) else None
+        if not isinstance(entry, Packed):
+            step = dim // parts
+            out.append([(idx * step, (idx + 1) * step)])
+            continue
+        ranges, off = [], 0
+        for size, units in entry.segments:
+            if units and parts > 1:
+                step = size // parts
+                ranges.append((off + idx * step, off + (idx + 1) * step))
+            else:
+                ranges.append((off, off + size))
+            off += size
+        out.append(ranges)
+    return out
+
+
+def block_axes(logical, shape: Sequence[int], mesh=None,
+               rules: dict | None = None) -> set[str]:
+    """The mesh axes that cut a leaf's block."""
+    mesh = _CTX["mesh"] if mesh is None else mesh
+    if mesh is None:
+        return set()
+    return {ax for axes in _dim_axes(logical, shape, mesh, rules)
+            for ax in axes}
+
+
 def local_shape(logical: Sequence[str | None], shape: Sequence[int],
                 mesh=None, rules: dict | None = None) -> tuple[int, ...]:
     """The shape of one rank's block of a whole tensor of ``shape``."""
     mesh = _CTX["mesh"] if mesh is None else mesh
     if mesh is None:
         return tuple(shape)
-    sizes = mesh_sizes(mesh)
-    spec = spec_for(logical, shape, mesh, rules)
-    out = []
-    for d, dim in enumerate(shape):
-        for ax in _entry_axes(spec[d]) if d < len(spec) else ():
-            dim //= sizes[ax]
-        out.append(dim)
-    return tuple(out)
+    coord = {ax: 0 for ax in mesh_sizes(mesh)}
+    return tuple(sum(b - a for a, b in rs)
+                 for rs in shard_ranges(logical, shape, mesh, coord, rules))
 
 
 class LeafLayout(NamedTuple):
-    spec: tuple                 # the resolved PartitionSpec entries
+    spec: tuple                 # the resolved spec of the rank's block
     shape: tuple[int, ...]      # the whole leaf
     local: tuple[int, ...]      # one rank's block
+    axes: frozenset             # the mesh axes the block is cut over
 
 
 def param_layout(cfg, mesh=None, rules: dict | None = None) -> dict:
@@ -190,9 +286,10 @@ def param_layout(cfg, mesh=None, rules: dict | None = None) -> dict:
     mesh = _CTX["mesh"] if mesh is None else mesh
 
     def one(leaf):
-        return LeafLayout(spec_for(leaf.logical, leaf.shape, mesh, rules),
-                          leaf.shape,
-                          local_shape(leaf.logical, leaf.shape, mesh, rules))
+        spec = spec_for(leaf.logical, leaf.shape, mesh, rules)
+        return LeafLayout(spec, leaf.shape,
+                          local_shape(leaf.logical, leaf.shape, mesh, rules),
+                          frozenset(spec_axes(spec)))
     return tree_map(one, param_spec(cfg))
 
 
@@ -201,18 +298,14 @@ def shard_slices(logical: Sequence[str | None], shape: Sequence[int], mesh,
     """The slice of each dimension of a whole tensor of ``shape`` that the
     mesh position ``coord`` (axis name -> index) holds under ``logical``:
     the blocks of ``NamedSharding(mesh, spec).devices_indices_map``, the
-    first-named axis of a dimension major."""
-    sizes = mesh_sizes(mesh)
-    spec = spec_for(logical, shape, mesh, rules)
+    first-named axis of a dimension major.  A cut :class:`Packed`
+    dimension is no slice (``shard_ranges`` gives its ranges)."""
     out = []
-    for d, dim in enumerate(shape):
-        axes = _entry_axes(spec[d]) if d < len(spec) else ()
-        parts, idx = 1, 0
-        for ax in axes:
-            idx = idx * sizes[ax] + coord[ax]
-            parts *= sizes[ax]
-        step = dim // parts
-        out.append(slice(idx * step, (idx + 1) * step))
+    for d, rs in enumerate(shard_ranges(logical, shape, mesh, coord, rules)):
+        if len(rs) > 1:
+            raise ValueError(f"dimension {d} of {logical!r} is packed: its "
+                             "block is one range a segment (shard_ranges)")
+        out.append(slice(*rs[0]))
     return tuple(out)
 
 
@@ -226,11 +319,16 @@ def local_shard(t: torch.Tensor, logical: Sequence[str | None], mesh,
                 rules: dict | None = None) -> torch.Tensor:
     """This rank's block of the whole tensor ``t`` under ``logical`` (a
     contiguous copy; ``t`` itself where nothing is sharded): the port's
-    ``jax.device_put(t, NamedSharding(mesh, spec))``."""
-    sl = shard_slices(logical, t.shape, mesh, mesh_coordinate(mesh), rules)
-    if all(s.start == 0 and s.stop == n for s, n in zip(sl, t.shape)):
+    ``jax.device_put(t, NamedSharding(mesh, spec))``, a :class:`Packed`
+    dimension's segments each cut alike."""
+    ranges = shard_ranges(logical, t.shape, mesh, mesh_coordinate(mesh),
+                          rules)
+    if all(rs == [(0, n)] for rs, n in zip(ranges, t.shape)):
         return t
-    return t[sl].contiguous()
+    for d, rs in enumerate(ranges):
+        pieces = [t.narrow(d, a, b - a) for a, b in rs]
+        t = pieces[0] if len(pieces) == 1 else torch.cat(pieces, d)
+    return t.contiguous()
 
 
 def _is_spec(x) -> bool:
@@ -256,7 +354,8 @@ def tree_shardings(spec_tree, shape_tree, mesh, rules: dict | None = None):
     dimension takes two mesh axes, DTensor lays the shards out in the
     mesh's dimension order, JAX in the spec's (first-named major); the
     two agree when the spec names them in mesh order.  ``local_shard``
-    follows JAX's."""
+    follows JAX's.  A cut :class:`Packed` dimension of more than one
+    segment has no placement."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh_sizes(mesh))
@@ -264,6 +363,11 @@ def tree_shardings(spec_tree, shape_tree, mesh, rules: dict | None = None):
     def one(logical, leaf):
         shape = leaf.shape if hasattr(leaf, "shape") else tuple(leaf)
         spec = spec_for(logical, shape, mesh, rules)
+        port = getattr(logical, "port", logical)
+        if any(e is not None and isinstance(port[d], Packed)
+               and len(port[d].segments) > 1 for d, e in enumerate(spec)):
+            raise ValueError(f"{logical!r} has a packed dimension: no "
+                             "DTensor placement holds its block")
         dim_of = {ax: d for d, e in enumerate(spec) for ax in _entry_axes(e)}
         return [Shard(dim_of[n]) if n in dim_of else Replicate()
                 for n in names]

@@ -30,6 +30,15 @@ replicated across the group):
   and gloo meshes routed its MoE differently (``PERF.md``);
 * ``gather_from_model``: the ranks' blocks concatenated along a dimension;
   its backward keeps the rank's block (vocab-parallel logits);
+* ``gather_over_model``: the ranks' blocks concatenated where each rank
+  then uses the whole otherwise (RG-LRU's gates, column-parallel on the
+  gathered conv output); its backward is a reduce_scatter, which sums the
+  ranks' partial gradients of the rank's block;
+* ``sum_over_model``: a small f32 tensor summed over ``model`` in rank
+  order (an all_gather, then the sum), the same bits on every rank and
+  every backend (the SSD's gated RMSNorm over the split channels); each
+  rank uses the sum for its own channels only, so its backward is the
+  same ordered sum of the ranks' gradients;
 * ``gather_over_data``: FSDP.  A weight's ``data`` shards all-gathered
   along their dimension just before its layer runs (and dropped with the
   layer's other temporaries); its backward is a reduce_scatter, which
@@ -80,7 +89,9 @@ def counts() -> dict:
     return out
 
 
-def _record(kind: str, result: torch.Tensor) -> None:
+def record(kind: str, result: torch.Tensor) -> None:
+    """Count one collective of ``kind`` whose result is ``result`` (also
+    called by ``core.distributed.DistributedGP``'s own all_reduce)."""
     COUNTS[kind]["calls"] += 1
     COUNTS[kind]["bytes"] += result.numel() * result.element_size()
 
@@ -94,7 +105,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     host = via_host(group, t.device)
     buf = t.cpu() if host else t.clone()
     dist.all_reduce(buf, op=op, group=group)
-    _record("all_reduce", buf)
+    record("all_reduce", buf)
     return buf.to(t.device) if host else buf
 
 
@@ -105,7 +116,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim)
-    _record("all_gather", out)
+    record("all_gather", out)
     return out.to(t.device) if host else out
 
 
@@ -117,7 +128,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     src = src.cpu() if host else src
     out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=group)
-    _record("reduce_scatter", out)
+    record("reduce_scatter", out)
     out = out.movedim(0, dim)
     return out.to(t.device) if host else out
 
@@ -129,7 +140,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     src = t.cpu() if host else t.contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
-    _record("all_to_all", out)
+    record("all_to_all", out)
     return out.to(t.device) if host else out
 
 
@@ -292,6 +303,37 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     if ax is None:
         return x
     return _Gather.apply(x, ax.group, ax.index, dim % x.ndim)
+
+
+def _ordered_sum(x: torch.Tensor, group) -> torch.Tensor:
+    parts = all_gather(x[None], group, 0)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+class _OrderedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _ordered_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ordered_sum(g, ctx.group), None
+
+
+def gather_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    ax = axis("model")
+    if ax is None:
+        return x
+    return _GatherScatter.apply(x, ax.group, dim % x.ndim)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    ax = axis("model")
+    return x if ax is None else _OrderedSum.apply(x, ax.group)
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

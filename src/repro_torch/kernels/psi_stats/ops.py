@@ -19,10 +19,21 @@ backward recomputes the plain version in row chunks (``kernels._vjp``):
 O(chunk·m²·q) memory for psi2 and O(chunk·m·q) for psi1, whatever n is.
 ``log_sf2`` and ``log_ell`` are separate inputs, so the hyper-parameters get
 their gradients.
+
+For every tensor but a real CPU one (a CUDA tensor, or a fake tensor of
+the dry run) each Function's forward calls its operator,
+``torch.ops.repro_torch.psi2`` / ``psi1`` (``torch.library``: each CUDA
+implementation is the device check and the launch); the fake
+implementations give the outputs' shapes and dtypes and the FLOP formulas
+(``psi2_flop_count``, ``psi1_flop_count``) the kernels' work, so the dry
+run (``launch.dryrun``) counts the kernels; the backward runs as it
+stands.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .. import _vjp
@@ -41,13 +52,16 @@ def _tile_dtype(dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _check(name, hyp, z, mu, s, *more):
-    """Device and shape checks of the CUDA path."""
-    operands = (z, mu, s, *more, hyp["log_sf2"], hyp["log_ell"])
-    if mu.device.type != "cuda" or any(t.device != mu.device
-                                       for t in operands):
+def _on_one_card(name, *operands):
+    """The operators' device check."""
+    dev = operands[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in operands):
         raise ValueError(f"{name}: every operand must be on one CUDA device, "
                          f"got {[str(t.device) for t in operands]}")
+
+
+def _check(name, hyp, z, mu, s, *more):
+    """Shape checks of the operator path."""
     n, q = mu.shape
     m = z.shape[0]
     if z.shape != (m, q) or s.shape != (n, q) \
@@ -67,12 +81,47 @@ def psi2(hyp: dict, z, mu, s, w):
     (n, q), w (n,), z (m, q), in mu's dtype.  On CUDA, D is exactly
     symmetric and the (n, m, m) per-point tensor is never stored."""
     log_sf2, log_ell = hyp["log_sf2"], hyp["log_ell"]
-    if mu.device.type == "cpu":
+    if mu.device.type == "cpu" and not is_fake(mu):
         dt = _tile_dtype(mu.dtype)
         return _ref.psi2_ref(*(t.to(dt) for t in (log_sf2, log_ell, z, mu, s,
                                                   w))).to(mu.dtype)
     _check("psi2", hyp, z, mu, s, w)
     return _Psi2.apply(log_sf2, log_ell, z, mu, s, w)
+
+
+# The operators: schemas and CUDA registrations (no custom_op wrapper,
+# whose per-call checks cost more than the launch's own host work).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("psi2(Tensor log_sf2, Tensor log_ell, Tensor z, Tensor mu, "
+            "Tensor s, Tensor w) -> Tensor")
+_LIB.define("psi1(Tensor log_sf2, Tensor log_ell, Tensor z, Tensor mu, "
+            "Tensor s) -> Tensor")
+
+
+def _psi2_op(log_sf2, log_ell, z, mu, s, w):
+    _on_one_card("psi2", mu, s, w, z, log_sf2, log_ell)
+    return _launch_psi2(log_sf2, log_ell, z, mu, s, w)
+
+
+_LIB.impl("psi2", _psi2_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::psi2", lib=_LIB)
+def _(log_sf2, log_ell, z, mu, s, w):
+    return mu.new_empty((z.shape[0], z.shape[0]))
+
+
+def psi2_flops(n: int, m: int, q: int) -> int:
+    """psi2's FLOPs: each row (its weight not known here, so every row)
+    against the upper half of the pairs, 2q + 5 a pair (the centred
+    exponent and the weighted exp's FMA)."""
+    return n * (m * (m + 1) // 2) * (2 * q + 5)
+
+
+@register_flop_formula(torch.ops.repro_torch.psi2)
+def psi2_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
+                    *args, **kwargs) -> int:
+    return psi2_flops(mu_shape[0], z_shape[0], z_shape[1])
 
 
 def _launch_psi2(log_sf2, log_ell, z, mu, s, w):
@@ -101,12 +150,13 @@ def psi2_vjp(log_sf2, log_ell, z, mu, s, w, g, needs):
 
 
 class _Psi2(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: :func:`psi2_vjp`."""
+    """Forward: the operator (the CUDA kernel).  Backward:
+    :func:`psi2_vjp`."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, mu, s, w):
         ctx.save_for_backward(log_sf2, log_ell, z, mu, s, w)
-        return _launch_psi2(log_sf2, log_ell, z, mu, s, w)
+        return torch.ops.repro_torch.psi2(log_sf2, log_ell, z, mu, s, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -119,12 +169,36 @@ def psi1(hyp: dict, z, mu, s):
     """``Ψ1 = ⟨k(xᵢ, z_m)⟩`` (n, m) for mu, s (n, q), z (m, q), in mu's
     dtype."""
     log_sf2, log_ell = hyp["log_sf2"], hyp["log_ell"]
-    if mu.device.type == "cpu":
+    if mu.device.type == "cpu" and not is_fake(mu):
         dt = _tile_dtype(mu.dtype)
         return _ref.psi1_ref(*(t.to(dt) for t in (log_sf2, log_ell, z, mu,
                                                   s))).to(mu.dtype)
     _check("psi1", hyp, z, mu, s)
     return _Psi1.apply(log_sf2, log_ell, z, mu, s)
+
+
+def _psi1_op(log_sf2, log_ell, z, mu, s):
+    _on_one_card("psi1", mu, s, z, log_sf2, log_ell)
+    return _launch_psi1(log_sf2, log_ell, z, mu, s)
+
+
+_LIB.impl("psi1", _psi1_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::psi1", lib=_LIB)
+def _(log_sf2, log_ell, z, mu, s):
+    return mu.new_empty((mu.shape[0], z.shape[0]))
+
+
+def psi1_flops(n: int, m: int, q: int) -> int:
+    """psi1's FLOPs: 4q + 3 a (row, inducing point) entry."""
+    return n * m * (4 * q + 3)
+
+
+@register_flop_formula(torch.ops.repro_torch.psi1)
+def psi1_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
+                    *args, **kwargs) -> int:
+    return psi1_flops(mu_shape[0], z_shape[0], z_shape[1])
 
 
 def _launch_psi1(log_sf2, log_ell, z, mu, s):
@@ -153,12 +227,13 @@ def psi1_vjp(log_sf2, log_ell, z, mu, s, g, needs):
 
 
 class _Psi1(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: :func:`psi1_vjp`."""
+    """Forward: the operator (the CUDA kernel).  Backward:
+    :func:`psi1_vjp`."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, mu, s):
         ctx.save_for_backward(log_sf2, log_ell, z, mu, s)
-        return _launch_psi1(log_sf2, log_ell, z, mu, s)
+        return torch.ops.repro_torch.psi1(log_sf2, log_ell, z, mu, s)
 
     @staticmethod
     def backward(ctx, g):

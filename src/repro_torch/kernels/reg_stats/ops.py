@@ -19,10 +19,20 @@ Differentiation: the CUDA path is a ``torch.autograd.Function`` whose
 forward is the kernel and whose backward recomputes the dense formulation
 (``core.stats.reg_stats_dense``) in row chunks (``kernels._vjp``), as the
 JAX package's ``custom_vjp`` recomputes through XLA.
+
+For every tensor but a real CPU one (a CUDA tensor, or a fake tensor of
+the dry run) the Function's forward calls the operator
+``torch.ops.repro_torch.reg_stats`` (``torch.library``: its CUDA
+implementation is the device check and the launch).  Its fake
+implementation gives the outputs' shapes and dtypes, and its FLOP formula
+(``flop_count``) the kernel's work, so the dry run (``launch.dryrun``)
+counts the kernel, not the plain version; the backward runs as it stands.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .. import _vjp
@@ -38,13 +48,9 @@ def reg_stats(hyp: dict, z, x, y, w):
     ``(knm⊙w)ᵀknm`` (m, m) for x (n, q), y (n, d), w (n,), z (m, q), in
     x's dtype.  On CUDA the (n, m) slab is never stored."""
     log_sf2, log_ell = hyp["log_sf2"], hyp["log_ell"]
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         return _ref.reg_stats_ref(log_sf2.to(x.dtype), log_ell.to(x.dtype),
                                   z, x, y, w)
-    operands = (z, x, y, w, log_sf2, log_ell)
-    if x.device.type != "cuda" or any(t.device != x.device for t in operands):
-        raise ValueError("reg_stats: every operand must be on one CUDA "
-                         f"device, got {[str(t.device) for t in operands]}")
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
     if z.shape != (m, q) or y.shape != (n, d) or w.shape != (n,) \
@@ -56,7 +62,47 @@ def reg_stats(hyp: dict, z, x, y, w):
     return _RegStats.apply(log_sf2, log_ell, z, x, y, w)
 
 
+# The operator: a schema and a CUDA registration (no custom_op wrapper,
+# whose per-call checks cost more than the launch's own host work).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("reg_stats(Tensor log_sf2, Tensor log_ell, Tensor z, Tensor x, "
+            "Tensor y, Tensor w) -> (Tensor, Tensor, Tensor)")
+
+
+def _reg_stats_op(log_sf2, log_ell, z, x, y, w):
+    operands = (z, x, y, w, log_sf2, log_ell)
+    if any(t.device != x.device for t in operands):
+        raise ValueError("reg_stats: every operand must be on one CUDA "
+                         f"device, got {[str(t.device) for t in operands]}")
+    return _launch(log_sf2, log_ell, z, x, y, w)
+
+
+_LIB.impl("reg_stats", _reg_stats_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::reg_stats", lib=_LIB)
+def _(log_sf2, log_ell, z, x, y, w):
+    m, d = z.shape[0], y.shape[1]
+    return x.new_empty(()), x.new_empty((m, d)), x.new_empty((m, m))
+
+
+def flops(n: int, m: int, q: int, d: int) -> int:
+    """The kernel's FLOPs: the (n, m) slab's distances and scaling
+    (3q + 2 a pair), D's upper half (n m (m + 1) / 2 FMAs), C (n m d
+    FMAs), b (n adds)."""
+    return n * m * (3 * q + 2) + n * m * (m + 1) + 2 * n * m * d + n
+
+
+@register_flop_formula(torch.ops.repro_torch.reg_stats)
+def flop_count(log_sf2_shape, log_ell_shape, z_shape, x_shape, y_shape,
+               w_shape, *args, **kwargs) -> int:
+    (n, q), m, d = x_shape, z_shape[0], y_shape[1]
+    return flops(n, m, q, d)
+
+
 def _launch(log_sf2, log_ell, z, x, y, w):
+    """The bare launch (the operator's implementation): device checks are
+    the caller's."""
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
     f64 = torch.float64
@@ -125,12 +171,13 @@ def reg_stats_vjp(log_sf2, log_ell, z, x, y, w, gb, gc, gd, needs):
 
 
 class _RegStats(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Backward: :func:`reg_stats_vjp`."""
+    """Forward: the operator (the CUDA kernel).  Backward:
+    :func:`reg_stats_vjp`."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, x, y, w):
         ctx.save_for_backward(log_sf2, log_ell, z, x, y, w)
-        return _launch(log_sf2, log_ell, z, x, y, w)
+        return torch.ops.repro_torch.reg_stats(log_sf2, log_ell, z, x, y, w)
 
     @staticmethod
     def backward(ctx, gb, gc, gd):

@@ -22,12 +22,26 @@ goes to ``artifacts/dryrun_torch/<mesh>/<arch>__<shape>[__<variant>].json``
 time here is measured).  A failure is a bug of the port: the run lists
 them and exits 1.
 
-The default architectures are the six that tensor parallelism covers (the
-five dense configs and qwen3-moe); the other four raise under a
-``model`` axis (ROADMAP Queue 1 item 13) and fail if named.  Not ported:
-the GP cells (``--gp``, ``lower_gp_cell``; ROADMAP Queue 1 item 13), and
-``repro.launch.reanalyze``, which re-reads saved HLO: no HLO is saved
-here, and a cell is re-counted by running it again.
+The default architectures are all ten, ``long_500k`` included for
+mamba2-370m and recurrentgemma-9b.
+
+``--gp`` (``lower_gp_cell``) runs the GP cells instead: one value and
+gradient of ``DistributedGP``'s bound at each GP config (``--gp-names``,
+default all five), in f32 as the reference lowers it, with every rank of
+the fake world a data shard (``launch.mesh.gp_data_axes``): 256 ranks
+(``single``) or 512 (``multi``), each its n / ranks rows.  Variants (the
+reference's): ``naive`` the port's kernels (``reg_stats``, psi1, psi2),
+``mxu`` psi2 by ``core.gp_kernels.psi2_mxu`` (chunk 512), ``sym`` by
+``psi2_mxu_sym`` (chunk 512, tile 64); ``--variant`` picks one, by default
+all three.  On fake tensors the kernels' wrappers call their operators,
+whose FLOP formulas count the kernels' work; their backward is the plain
+chunked recompute, counted as it runs.  The engine's own all_reduces
+record in ``tensor_parallel.COUNTS``, as the model's collectives do.  One
+JSON per cell,
+``gp_<name>__<variant>.json``.
+
+Not ported: ``repro.launch.reanalyze``, which re-reads saved HLO: no HLO
+is saved here, and a cell is re-counted by running it again.
 """
 from __future__ import annotations
 
@@ -38,21 +52,23 @@ import math
 import pathlib
 import traceback
 
+import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from ..configs import SHAPES, all_configs, cells
+from ..configs import GP_CONFIGS, SHAPES, all_configs, cells
+from ..core.distributed import DistributedGP
 from ..distributed import sharding as shlib
 from ..models.common import tree_map
 from ..train import steps
 from . import roofline
-from .mesh import PRODUCTION, make_fake_mesh
+from .mesh import PRODUCTION, gp_data_axes, make_fake_mesh
 from .step_stats import step_stats
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
     "dryrun_torch"
-TP_ARCHS = ("qwen2-1.5b", "llama3.2-1b", "starcoder2-3b", "codeqwen1.5-7b",
-            "chameleon-34b", "qwen3-moe-235b-a22b")
+TP_ARCHS = tuple(sorted(all_configs()))   # every config splits its layers
+GP_VARIANTS = ("naive", "mxu", "sym")
 # The fake tensors live on the CPU device: a CPU build of torch cannot
 # dispatch indexing ops on fake CUDA tensors, and no count here depends on
 # the device.
@@ -119,13 +135,92 @@ def lower_cell(arch: str, shape_name: str, mesh,
     """The reference's ``lower_cell``: one cell's record."""
     cfg = variant_config(all_configs()[arch], variant)
     stats = run_cell(cfg, SHAPES[shape_name], mesh)
+    _print(stats)
+    return {"arch": arch, "shape": shape_name, "variant": variant, **stats}
+
+
+def gp_psi2_fn(variant: str):
+    """The reference's psi2 of each GP variant (None: the engine's kernel
+    route)."""
+    from ..core import gp_kernels as gpk
+
+    if variant == "naive":
+        return None
+    if variant == "mxu":
+        return lambda hyp, z, mu, s, w: gpk.psi2_mxu(hyp, z, mu, s, w,
+                                                     chunk=512)
+    if variant == "sym":
+        return lambda hyp, z, mu, s, w: gpk.psi2_mxu_sym(hyp, z, mu, s, w,
+                                                         chunk=512, tile=64)
+    raise ValueError(f"unknown GP variant {variant!r}")
+
+
+def gp_cell(gp, mesh, variant: str = "naive") -> dict:
+    """One value and gradient of the negative bound of ``gp`` (a
+    ``GPConfig``) as rank 0 of ``mesh`` (every axis a data shard),
+    counted (``step_stats``)."""
+    sizes = shlib.mesh_sizes(mesh)
+    ranks = math.prod(sizes[a] for a in gp_data_axes(mesh))
+    n_loc = -(-gp.n // ranks)
+    f32 = torch.float32
+    with FakeTensorMode():
+        eng = DistributedGP(group=torch.distributed.group.WORLD,
+                            latent=gp.latent, device=DEVICE,
+                            psi2_fn=gp_psi2_fn(variant))
+        hyp = {"log_sf2": torch.zeros((), dtype=f32, device=DEVICE),
+               "log_ell": torch.zeros((gp.q,), dtype=f32, device=DEVICE),
+               "log_beta": torch.zeros((), dtype=f32, device=DEVICE)}
+        z = torch.zeros((gp.m, gp.q), dtype=f32, device=DEVICE)
+        mu = torch.zeros((n_loc, gp.q), dtype=f32, device=DEVICE)
+        s = (torch.zeros((n_loc, gp.q), dtype=f32, device=DEVICE)
+             if gp.latent else None)
+        y = torch.zeros((n_loc, gp.d), dtype=f32, device=DEVICE)
+        w = torch.zeros((n_loc,), dtype=f32, device=DEVICE)
+        # the failure mask on the host, as a streamed step takes it: the
+        # engine reads this rank's entry as a number
+        mask = np.ones((ranks,), dtype=np.float32)
+        fmask = torch.zeros((ranks,), dtype=f32, device=DEVICE)
+        argnums = (0, 1, 2, 3) if gp.latent else (0, 1)
+        step = eng.make_value_and_grad(gp.d, argnums=argnums)
+        stats = step_stats(
+            lambda: step(hyp, z, mu, s, y, w, mask, float(gp.n)),
+            {"state": {"hyp": hyp, "z": z},
+             "batch": {"mu": mu, "s": s, "y": y, "w": w, "fmask": fmask}})
+    return {"kind": "gp_step", "mesh": sizes, "n_devices": ranks,
+            "model_flops": roofline.gp_model_flops(gp, ranks),
+            "peaks": roofline.PEAKS_NOTE, **stats}
+
+
+def lower_gp_cell(name: str, mesh, variant: str = "naive") -> dict:
+    """The reference's ``lower_gp_cell``: one GP cell's record."""
+    gp = GP_CONFIGS[name]
+    stats = gp_cell(gp, mesh, variant)
+    _print(stats)
+    return {"arch": f"gp:{name}", "shape": f"n{gp.n}_m{gp.m}",
+            "variant": variant, **stats}
+
+
+def _print(stats):
     print(f"  flops {stats['flops']:.3e}  bytes "
           f"{stats['bytes']['total']:.3e}  collectives "
           f"{stats['collectives']['total']:.3e}  args "
           f"{stats['memory']['argument_bytes'] / 1e9:.2f} GB  peak "
           f"{stats['memory']['peak_bytes'] / 1e9:.2f} GB  "
           f"({stats['trace_s']:.1f} s)", flush=True)
-    return {"arch": arch, "shape": shape_name, "variant": variant, **stats}
+
+
+def _run_one(fp, label, fn, failures):
+    """Write ``fn()``'s record to ``fp`` unless it is there; a failure is
+    listed, not raised."""
+    if fp.exists():
+        print(f"{label} (cached)")
+        return
+    print(label, flush=True)
+    try:
+        fp.write_text(json.dumps(fn()))
+    except Exception as e:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append((label, repr(e)))
 
 
 def main(argv=None) -> int:
@@ -134,6 +229,8 @@ def main(argv=None) -> int:
                     default="both")
     ap.add_argument("--archs", nargs="*", default=None)
     ap.add_argument("--shapes", nargs="*", default=None)
+    ap.add_argument("--gp", action="store_true", help="GP cells only")
+    ap.add_argument("--gp-names", nargs="*", default=None)
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default=str(ART))
     args = ap.parse_args(argv)
@@ -147,24 +244,26 @@ def main(argv=None) -> int:
         out_dir = out_root / mesh_name
         out_dir.mkdir(parents=True, exist_ok=True)
         mesh = make_fake_mesh(*PRODUCTION[multi])
-        for arch in args.archs or TP_ARCHS:
-            for shape_name in cells(cfgs[arch]):
-                if args.shapes and shape_name not in args.shapes:
-                    continue
-                tag = f"{arch}__{shape_name}"
-                if args.variant != "baseline":
-                    tag += f"__{args.variant}"
-                fp = out_dir / f"{tag}.json"
-                if fp.exists():
-                    print(f"[{mesh_name}] {tag} (cached)")
-                    continue
-                print(f"[{mesh_name}] {tag}", flush=True)
-                try:
-                    st = lower_cell(arch, shape_name, mesh, args.variant)
-                    fp.write_text(json.dumps(st))
-                except Exception as e:  # noqa: BLE001
-                    traceback.print_exc()
-                    failures.append((mesh_name, tag, repr(e)))
+        if args.gp:
+            variants = (GP_VARIANTS if args.variant == "baseline"
+                        else (args.variant,))
+            for name in args.gp_names or GP_CONFIGS:
+                for variant in variants:
+                    tag = f"gp_{name}__{variant}"
+                    _run_one(out_dir / f"{tag}.json", f"[{mesh_name}] {tag}",
+                             lambda: lower_gp_cell(name, mesh, variant),
+                             failures)
+        else:
+            for arch in args.archs or TP_ARCHS:
+                for shape_name in cells(cfgs[arch]):
+                    if args.shapes and shape_name not in args.shapes:
+                        continue
+                    tag = f"{arch}__{shape_name}"
+                    if args.variant != "baseline":
+                        tag += f"__{args.variant}"
+                    _run_one(out_dir / f"{tag}.json", f"[{mesh_name}] {tag}",
+                             lambda: lower_cell(arch, shape_name, mesh,
+                                                args.variant), failures)
         torch.distributed.destroy_process_group()
     if failures:
         print("\nFAILURES:")

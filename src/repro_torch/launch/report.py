@@ -30,6 +30,9 @@ def fmt_s(x: float) -> str:
 
 
 def _hint(r) -> str:
+    if r["arch"].startswith("gp:"):
+        return ("map-bound: the psi/reg_stats kernels" if
+                r["dominant"] != "collective" else "one all_reduce a step")
     if r["shape"].startswith("decode") or r["shape"].startswith("long"):
         return "bandwidth-bound by nature; int8 KV next"
     if r["dominant"] == "collective":
@@ -41,7 +44,8 @@ def _hint(r) -> str:
 
 def roofline_table(mesh: str, root=ART) -> str:
     rows = [roofline_row(c) for c in load_cells(mesh, root=root)]
-    rows.sort(key=lambda r: (r["arch"], r["shape"], r["variant"]))
+    rows.sort(key=lambda r: (r["arch"].startswith("gp:"), r["arch"],
+                             r["shape"], r["variant"]))
     out = ["| arch | shape | variant | compute [s] | memory [s] | "
            "collective [s] | dominant | MODEL/counted flops | roofline frac "
            "| one-line next step |",
@@ -58,7 +62,8 @@ def roofline_table(mesh: str, root=ART) -> str:
 
 def multi_pod_summary(root=ART) -> str:
     rows = [roofline_row(c) for c in load_cells("multi", root=root)]
-    rows.sort(key=lambda r: (r["arch"], r["shape"]))
+    rows.sort(key=lambda r: (r["arch"].startswith("gp:"), r["arch"],
+                             r["shape"]))
     out = ["| arch | shape | collective [s] (512 ranks) | dominant | "
            "mem args [GB/rank] |",
            "|---|---|---|---|---|"]

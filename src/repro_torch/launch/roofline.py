@@ -112,6 +112,14 @@ def model_flops(cfg, shape, n_dev: int) -> float:
     return f / n_dev
 
 
+def gp_model_flops(gp, n_dev: int) -> float:
+    """The paper's map-step cost of one value and gradient of a GP config
+    per device, O(n m^2 q) with the psi1 and gradient terms:
+    3 n m^2 (2q + 4) / devices (the reference's, value and gradient ~3x
+    the forward)."""
+    return 3.0 * gp.n * gp.m * gp.m * (2.0 * gp.q + 4.0) / n_dev
+
+
 def _attn_flops(cfg, b, t_q, t_kv, train: bool) -> float:
     mult = 3.0 if train else 1.0       # fwd + ~2x bwd
     f = 0.0

@@ -40,9 +40,24 @@ rules' fallback; no collective).  The decode cache holds the rank's kv
 heads over the whole sequence: the reference's cache rule,
 ``("batch", "seq_shard", "kv_heads", None)``, lets XLA put the sequence
 over ``model`` instead, a layout choice that changes no value.  Weights
-cut over ``data`` (``embed``, FSDP) are gathered just before use.  MLA and
-cross-attention are not split (``transformer`` refuses them under a
-``model`` axis, ROADMAP Queue 1 item 13).
+cut over ``data`` (``embed``, FSDP) are gathered just before use.
+
+A local-window layer is GQA with a window: the same split (recurrentgemma's
+MQA keeps its one kv head whole on every rank), its rolling cache the
+rank's kv heads.  Cross-attention splits as GQA does: ``wq`` by heads on
+the replicated decoder input, ``wk`` / ``wv`` by kv heads on the
+replicated encoder output (or whole, the rank slicing its kv heads), its
+``xk`` / ``xv`` cache the rank's kv heads, ``wo`` row-parallel.  MLA
+(``mla_forward``, ``mla_decode``) keeps ``wq_a`` / ``wkv_a`` and the norms
+whole over ``model`` (the rules' ``rank``: cut only over ``data``) and
+splits ``wq_b``, ``wk_b`` and ``wv_b`` column-parallel in whole heads and
+``wo`` row-parallel; the compressed ``cq``, ``c_kv`` and ``k_rope``, the
+same on every rank, go through ``copy_to_model`` before the rank's heads
+read them, so their gradient is the sum over ``model``.  The absorbed
+decode is per head, so it is local.  The latent cache (``c_kv``,
+``k_rope``) stays whole on every rank: the reference's cache rule puts its
+sequence on ``seq_shard`` over ``model``, a layout choice that changes no
+value (as for GQA's cache above).
 """
 from __future__ import annotations
 
@@ -146,7 +161,7 @@ def _proj(cfg, p, name: str, d: int, hl: HeadLayout):
     its block as held, or, for whole kv weights of a split layer, its kv
     heads' columns (the gradient of the whole summed over ``model``)."""
     w = tp.gather_over_data(p[f"w{name}"], 0, d)
-    b = p[f"b{name}"] if cfg.qkv_bias else None
+    b = p.get(f"b{name}") if cfg.qkv_bias else None   # cross-attn: none
     if hl.split and name != "q" and not hl.kv_split:
         dh = head_dim(cfg)
         cols = slice(hl.kv_lo * dh, (hl.kv_lo + hl.kv) * dh)
@@ -157,14 +172,15 @@ def _proj(cfg, p, name: str, d: int, hl: HeadLayout):
 
 def _heads(cfg, p, x, positions, name: str, hl: HeadLayout | None = None):
     """x (B,T,D) projected by this rank's ``w{name}`` (+ ``b{name}``) into
-    its heads (B,T,heads,Dh), RoPE'd unless it is ``v``; in x's dtype."""
+    its heads (B,T,heads,Dh), RoPE'd unless it is ``v`` or ``positions``
+    is None (cross-attention); in x's dtype."""
     b, t, d = x.shape
     w, bias = _proj(cfg, p, name, d, head_layout(cfg) if hl is None else hl)
     y = x @ w.to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)
     y = y.reshape(b, t, -1, head_dim(cfg))
-    if cfg.rope_theta and name != "v":
+    if cfg.rope_theta and name != "v" and positions is not None:
         y = apply_rope(y, positions, cfg.rope_theta)
     return y
 
@@ -262,25 +278,25 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, window=None,
 
 def cross_forward(cfg, p, x, enc_kv):
     """Cross-attention of x (B,T,D) against precomputed encoder K/V
-    (B,S,Hkv,Dh): no RoPE, not causal, always query-chunked."""
+    (B,S,kv,Dh) of this rank's kv heads: no RoPE, not causal, always
+    query-chunked."""
     b, t, _ = x.shape
-    dh = head_dim(cfg)
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, cfg.num_heads, dh)
-    k, v = enc_kv
+    hl = head_layout(cfg)
+    if hl.split:
+        x = tp.copy_to_model(x)
+    q = _heads(cfg, p, x, None, "q", hl)
+    k, v = (_expand(a, hl, 2) for a in enc_kv)
     out = _attend_chunked(q, k, v, causal=False, window=None)
-    return out.reshape(b, t, cfg.num_heads * dh) @ p["wo"].to(x.dtype)
+    return _out(cfg, p, out.reshape(b, t, hl.h * head_dim(cfg)), hl)
 
 
 def encode_kv(cfg, p, enc_out):
     """The encoder output (B,S,D) projected into cross-attention K and V
-    (B,S,Hkv,Dh)."""
-    b, s_len, _ = enc_out.shape
-    dh = head_dim(cfg)
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(
-        b, s_len, cfg.num_kv_heads, dh)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(
-        b, s_len, cfg.num_kv_heads, dh)
-    return k, v
+    (B,S,kv,Dh) of this rank's kv heads."""
+    hl = head_layout(cfg)
+    if hl.split:
+        enc_out = tp.copy_to_model(enc_out)
+    return tuple(_heads(cfg, p, enc_out, None, n, hl) for n in "kv")
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
@@ -340,29 +356,57 @@ def gqa_decode(cfg, p, x_t, cache: dict, pos):
 # MLA (DeepSeek-V2): train + absorbed decode over the compressed cache
 # ---------------------------------------------------------------------------
 
-def _mla_qkv(cfg, p, x, positions):
-    """(q_nope (B,T,H,nope), q_rope (B,T,H,rope), c_kv (B,T,lora), k_rope
-    (B,T,rope), the one RoPE'd key shared by every head)."""
-    b, t, _ = x.shape
-    h = cfg.num_heads
-    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
-    q = (cq @ p["wq_b"].to(x.dtype)).reshape(b, t, h, nope + rope)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv_a = x @ p["wkv_a"].to(x.dtype)                        # (B,T,lora+rope)
+def mla_heads(cfg, p) -> int:
+    """This rank's MLA heads: all of them, or H / model where ``wq_b`` is
+    cut over ``model``."""
+    return p["wq_b"].shape[-1] // (cfg.qk_nope_head_dim
+                                   + cfg.qk_rope_head_dim)
+
+
+def mla_latent(cfg, p, x, positions):
+    """(c_kv (B,T,lora), k_rope (B,T,rope)): the compressed keys and values
+    and the one RoPE'd key shared by every head, the same on every rank."""
+    wkv_a = tp.gather_over_data(p["wkv_a"], 0, x.shape[-1])
+    kv_a = x @ wkv_a.to(x.dtype)                             # (B,T,lora+rope)
     c_kv = rmsnorm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"])
     k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:], positions,
                         cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """(q_nope (B,T,h,nope), q_rope (B,T,h,rope) of this rank's h heads,
+    c_kv, k_rope); with the heads split, the shared tensors go through
+    ``copy_to_model`` (module doc)."""
+    b, t, _ = x.shape
+    h = mla_heads(cfg, p)
+    split = h != cfg.num_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    wq_a = tp.gather_over_data(p["wq_a"], 0, x.shape[-1])
+    cq = rmsnorm(x @ wq_a.to(x.dtype), p["q_norm"])
+    c_kv, k_rope = mla_latent(cfg, p, x, positions)
+    if split:
+        cq, c_kv, k_rope = (tp.copy_to_model(a) for a in (cq, c_kv, k_rope))
+    q = (cq @ p["wq_b"].to(x.dtype)).reshape(b, t, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_out(cfg, p, o):
+    """o (B,T,h*v) through this rank's rows of ``wo``, summed over
+    ``model`` where the heads are split."""
+    wo = tp.gather_over_data(p["wo"], 1, cfg.d_model).to(o.dtype)
+    return tp.row_parallel(o, wo) if wo.shape[0] != cfg.num_heads * \
+        cfg.v_head_dim else o @ wo
 
 
 def mla_forward(cfg, p, x, positions):
     """Train/prefill MLA: keys and values decompressed from c_kv, the
     query-chunked causal attention over qk head dim nope + rope and value
-    head dim v_head_dim."""
+    head dim v_head_dim, on this rank's heads."""
     b, t, _ = x.shape
-    h = cfg.num_heads
+    h = mla_heads(cfg, p)
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
     k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(b, t, h, nope)
@@ -371,8 +415,7 @@ def mla_forward(cfg, p, x, positions):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rope)],
                   dim=-1)
     out = _attend_chunked(q, k, v, causal=True, window=None)
-    out = out.reshape(b, t, h * cfg.v_head_dim)
-    return out @ p["wo"].to(x.dtype)
+    return _mla_out(cfg, p, out.reshape(b, t, h * cfg.v_head_dim))
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
@@ -391,7 +434,7 @@ def mla_decode(cfg, p, x_t, cache: dict, pos):
     cache, W_kb folded into the query and W_vb into the output (f32).
     Writes at slot min(pos, S - 1) into new cache tensors."""
     b = x_t.shape[0]
-    h = cfg.num_heads
+    h = mla_heads(cfg, p)
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope, c_kv_t, k_rope_t = _mla_qkv(cfg, p, x_t, pos[:, None])
 
@@ -413,5 +456,4 @@ def mla_decode(cfg, p, x_t, cache: dict, pos):
     wv_b = p["wv_b"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
     o = torch.einsum("bhl,lhv->bhv", ctx, wv_b.float())
     o = o.reshape(b, 1, h * cfg.v_head_dim).to(x_t.dtype)
-    return o @ p["wo"].to(x_t.dtype), {"c_kv": ck, "k_rope": kr,
-                                       "pos": cpos}
+    return _mla_out(cfg, p, o), {"c_kv": ck, "k_rope": kr, "pos": cpos}

@@ -32,7 +32,9 @@ class Leaf:
     N(0, std²) with std = 1/sqrt(fan_in) (the first axis of a matrix, the
     only axis of a vector) unless ``std`` is given; ``zeros`` and ``ones``
     are constant.  ``logical``: one logical axis name (or None) a dimension,
-    the reference's ``ParamBuilder.make`` argument."""
+    the reference's ``ParamBuilder.make`` argument (a
+    ``distributed.sharding.PortAxes`` where the port cuts the leaf
+    otherwise)."""
     shape: tuple[int, ...]
     init: str = "normal"
     std: float | None = None
@@ -45,8 +47,10 @@ class Leaf:
     def stacked(self, count: int) -> "Leaf":
         """The same leaf for ``count`` layers (a leading ``layers`` axis);
         the std stays that of one layer's fan-in."""
+        logical = (self.logical.stacked() if hasattr(self.logical, "port")
+                   else ("layers", *self.logical))
         return Leaf((count, *self.shape), self.init, self.normal_std,
-                    logical=("layers", *self.logical))
+                    logical=logical)
 
 
 def tree_map(fn, tree):

@@ -11,12 +11,35 @@ chunks (the JAX package's x64 branch unrolls it the same way).
 Block layout (mamba2): in_proj -> [z | x | B | C | dt]; depthwise causal
 conv over [x|B|C]; silu; SSD; gated RMSNorm(y * silu(z)); out_proj.
 Single B/C group (n_groups=1), scalar A per head (log-parametrised).
+
+Tensor parallelism: under a mesh whose ``model`` axis divides the heads,
+each rank holds a per-head block of the packed leaves
+(``distributed.sharding.Packed``): of ``w_in`` the columns of its H /
+model heads' ``z``, ``x`` and ``dt`` with ``B`` and ``C`` whole, of
+``conv_w`` / ``conv_b`` its ``x`` channels with ``B`` and ``C`` whole, of
+``w_out`` its heads' rows.  The reference's spec cuts the packed columns
+in one contiguous block (``"inner"``), which straddles ``z`` and ``x``;
+its partitioner reshuffles, the port says each collective itself, so it
+cuts head by head instead.  The input goes through ``copy_to_model``;
+``B`` and ``C`` (and their weights' columns, which every rank reads
+alike) through ``copy_to_model`` too, so their gradient is summed over
+``model``, as the whole ``wk`` / ``wv`` of attention; the rank's
+channels of the whole vectors (``a_log``, ``dt_bias``, ``d_skip``,
+``norm``) likewise.  The scan is per head, so local.  The gated RMSNorm
+normalises over all of d_inner: each row's sum of squares is summed over
+``model`` in f32, in rank order (``tensor_parallel.sum_over_model``), the
+same bits on every rank.  ``w_out`` is row-parallel.  The state cache
+holds the rank's heads, the conv cache its channels ``x | B | C``.
+Where ``model`` does not divide the heads, the block runs whole on every
+rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
+from ..distributed.sharding import Packed, PortAxes, local_shape
 from .common import Leaf, rmsnorm
 
 
@@ -26,19 +49,85 @@ def dims(cfg):
     return d_inner, n_heads, cfg.ssm_head_dim, cfg.ssm_state_dim
 
 
+def _packed(cfg, *names):
+    """The packed dimension of segments ``names`` (of z, x, B, C, dt)."""
+    d_inner, h, _, n = dims(cfg)
+    seg = {"z": (d_inner, h), "x": (d_inner, h), "B": (n, 0), "C": (n, 0),
+           "dt": (h, h)}
+    return Packed("inner", tuple(seg[k] for k in names))
+
+
 def init_ssd(cfg) -> dict:
     d_inner, h, _, n = dims(cfg)
     conv_dim = d_inner + 2 * n
+    proj = _packed(cfg, "z", "x", "B", "C", "dt")
+    conv = _packed(cfg, "x", "B", "C")
     return {"w_in": Leaf((cfg.d_model, 2 * d_inner + 2 * n + h),
-                         logical=("embed", "inner")),
+                         logical=PortAxes(("embed", "inner"),
+                                          ("embed", proj))),
             "conv_w": Leaf((conv_dim, cfg.conv_kernel),
-                           logical=("inner", "conv")),
-            "conv_b": Leaf((conv_dim,), "zeros", logical=("inner",)),
+                           logical=PortAxes(("inner", "conv"),
+                                            (conv, "conv"))),
+            "conv_b": Leaf((conv_dim,), "zeros",
+                           logical=PortAxes(("inner",), (conv,))),
             "a_log": Leaf((h,), "zeros", logical=(None,)),
             "dt_bias": Leaf((h,), "zeros", logical=(None,)),
             "d_skip": Leaf((h,), "ones", logical=(None,)),
             "norm": Leaf((d_inner,), "zeros", logical=(None,)),
-            "w_out": Leaf((d_inner, cfg.d_model), logical=("inner", "embed"))}
+            "w_out": Leaf((d_inner, cfg.d_model),
+                          logical=PortAxes(("inner", "embed"),
+                                           (_packed(cfg, "x"), "embed")))}
+
+
+def local_heads(cfg) -> int:
+    """This rank's SSD heads under the context mesh."""
+    h = dims(cfg)[1]
+    return local_shape(PortAxes((None,), (_packed(cfg, "dt"),)), (h,))[0]
+
+
+def _weights(cfg, p, x):
+    """(x, this rank's weights by name, its heads): the leaves gathered
+    over ``data``; with the heads split, x and the pieces every rank reads
+    alike through ``copy_to_model``, the whole vectors cut to the rank's
+    heads and channels (module doc)."""
+    d_inner, h, p_dim, n = dims(cfg)
+    d = x.shape[-1]
+    w = {"w_in": tp.gather_over_data(p["w_in"], 0, d),
+         "w_out": tp.gather_over_data(p["w_out"], 1, d)}
+    hl = (w["w_in"].shape[1] - 2 * n) // (2 * p_dim + 1)
+    names = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip", "norm")
+    if hl == h:
+        return x, {**w, **{k: p[k] for k in names}}, h
+    di = hl * p_dim
+    r = tp.model_index()
+    w_in = w["w_in"]
+    w["w_in"] = torch.cat([w_in[:, :2 * di],
+                           tp.copy_to_model(w_in[:, 2 * di:2 * di + 2 * n]),
+                           w_in[:, 2 * di + 2 * n:]], dim=1)
+    for k in ("conv_w", "conv_b"):
+        w[k] = torch.cat([p[k][:di], tp.copy_to_model(p[k][di:])], dim=0)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        w[k] = tp.copy_to_model(p[k])[r * hl:(r + 1) * hl]
+    w["norm"] = tp.copy_to_model(p["norm"])[r * di:(r + 1) * di]
+    return tp.copy_to_model(x), w, hl
+
+
+def _gated_norm(y, z, scale, d_inner: int):
+    """RMSNorm(y * silu(z)) over all d_inner channels; y, z this rank's
+    channels (the sum of squares summed over ``model`` where they are
+    fewer)."""
+    v = y * F.silu(z)
+    if v.shape[-1] == d_inner:
+        return rmsnorm(v, scale)
+    v32 = v.float()
+    ss = tp.sum_over_model(torch.sum(v32 * v32, dim=-1, keepdim=True))
+    out = v32 * torch.rsqrt(ss / d_inner + 1e-6)
+    return (out * (1.0 + scale.float())).to(v.dtype)
+
+
+def _project_out(y, w_out, split: bool):
+    w_out = w_out.to(y.dtype)
+    return tp.row_parallel(y, w_out) if split else y @ w_out
 
 
 def _causal_conv(x, w, b):
@@ -117,38 +206,43 @@ def ssd_scan(x, a, b_in, c_in, chunk: int, init_state=None):
     return y.to(x.dtype), carry
 
 
-def _split_proj(cfg, proj):
-    d_inner, h, _, n = dims(cfg)
-    return torch.split(proj, [d_inner, d_inner, n, n, h], dim=-1)
+def _split_proj(cfg, proj, h: int):
+    """z, x, B, C, dt of ``h`` heads' projection."""
+    _, _, p_dim, n = dims(cfg)
+    return torch.split(proj, [h * p_dim, h * p_dim, n, n, h], dim=-1)
 
 
 def ssd_forward(cfg, p, x, *, init=None):
     """Full block.  x (B,T,D) -> (y (B,T,D), state dict ``{"ssd", "conv"}``:
-    the final SSD state and the last K-1 conv inputs)."""
-    d_inner, h, p_dim, n = dims(cfg)
-    proj = x @ p["w_in"].to(x.dtype)
-    z, xs, b_in, c_in, dt = _split_proj(cfg, proj)
+    the final SSD state and the last K-1 conv inputs, of this rank's heads
+    and channels)."""
+    d_inner, h_all, p_dim, n = dims(cfg)
+    x, w, h = _weights(cfg, p, x)
+    di = h * p_dim
+    proj = x @ w["w_in"].to(x.dtype)
+    z, xs, b_in, c_in, dt = _split_proj(cfg, proj, h)
     conv_in = torch.cat([xs, b_in, c_in], dim=-1)
-    conv = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
-    xs, b_in, c_in = torch.split(conv, [d_inner, n, n], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())       # (B,T,H)
-    a = -torch.exp(p["a_log"].float())[None, None, :] * dt
+    conv = F.silu(_causal_conv(conv_in, w["conv_w"], w["conv_b"]))
+    xs, b_in, c_in = torch.split(conv, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + w["dt_bias"].float())       # (B,T,H)
+    a = -torch.exp(w["a_log"].float())[None, None, :] * dt
     xh = xs.reshape(*xs.shape[:2], h, p_dim)
     xd = xh * dt[..., None].to(xs.dtype)
     y, state = ssd_scan(xd, a, b_in, c_in, cfg.ssm_chunk,
                         init_state=init["ssd"] if init else None)
-    skip = p["d_skip"].float()[None, None, :, None] * xh.float()
+    skip = w["d_skip"].float()[None, None, :, None] * xh.float()
     y = (y.float() + skip).to(x.dtype)
-    y = y.reshape(*x.shape[:2], d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"])
-    out = y @ p["w_out"].to(x.dtype)
+    y = y.reshape(*x.shape[:2], di)
+    y = _gated_norm(y, z, w["norm"], d_inner)
+    out = _project_out(y, w["w_out"], h != h_all)
     conv_tail = conv_in[:, -(cfg.conv_kernel - 1):, :]
     return out, {"ssd": state, "conv": conv_tail}
 
 
 def init_ssd_cache(cfg, batch: int, dtype, device) -> dict:
-    d_inner, h, p_dim, n = dims(cfg)
-    conv_dim = d_inner + 2 * n
+    _, _, p_dim, n = dims(cfg)
+    h = local_heads(cfg)
+    conv_dim = h * p_dim + 2 * n
     return {
         "ssd": torch.zeros((batch, h, p_dim, n), dtype=torch.float32,
                            device=device),
@@ -168,23 +262,25 @@ def ssd_decode(cfg, p, x_t, cache: dict):
     f32, and its bf16 decode leaves its own prefill by more than the 2e-2
     tier at full width (ROADMAP Queue 3 item 20); in f32 the two are the
     same function."""
-    d_inner, h, p_dim, n = dims(cfg)
+    d_inner, h_all, p_dim, n = dims(cfg)
     dtype = x_t.dtype
-    proj = x_t @ p["w_in"].to(dtype)
-    z, xs, b_in, c_in, dt = _split_proj(cfg, proj)
+    x_t, w, h = _weights(cfg, p, x_t)
+    di = h * p_dim
+    proj = x_t @ w["w_in"].to(dtype)
+    z, xs, b_in, c_in, dt = _split_proj(cfg, proj, h)
     conv_in = torch.cat([xs, b_in, c_in], dim=-1)            # (B,1,C)
     win = torch.cat([cache["conv"], conv_in], dim=1)         # (B,K,C)
-    conv = torch.einsum("bkc,ck->bc", win.float(), p["conv_w"].float())
-    conv = F.silu((conv + p["conv_b"].float()).to(dtype))
-    xs, b_in, c_in = torch.split(conv, [d_inner, n, n], dim=-1)
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"].float())  # (B,H)
-    a = torch.exp(-torch.exp(p["a_log"].float())[None] * dt)
+    conv = torch.einsum("bkc,ck->bc", win.float(), w["conv_w"].float())
+    conv = F.silu((conv + w["conv_b"].float()).to(dtype))
+    xs, b_in, c_in = torch.split(conv, [di, n, n], dim=-1)
+    dt = F.softplus(dt[:, 0].float() + w["dt_bias"].float())  # (B,H)
+    a = torch.exp(-torch.exp(w["a_log"].float())[None] * dt)
     xh = xs.reshape(-1, h, p_dim)
     xd = (xh * dt[..., None].to(dtype)).float()
     st = a[..., None, None] * cache["ssd"] + xd[..., None] * b_in.float()[
         :, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", st, c_in.float()).to(dtype)
-    y = (y.float() + p["d_skip"].float()[None, :, None] * xh.float()).to(dtype)
-    y = rmsnorm(y.reshape(-1, 1, d_inner) * F.silu(z), p["norm"])
-    out = y @ p["w_out"].to(dtype)
+    y = (y.float() + w["d_skip"].float()[None, :, None] * xh.float()).to(dtype)
+    y = _gated_norm(y.reshape(-1, 1, di), z, w["norm"], d_inner)
+    out = _project_out(y, w["w_out"], h != h_all)
     return out, {"ssd": st, "conv": win[:, 1:]}

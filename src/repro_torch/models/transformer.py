@@ -37,10 +37,10 @@ init_params_sharded``): the attention and MLP split over ``model`` as
 lookup of the rank's rows, summed over ``model``, exact since one term is
 non-zero; ``_logits``: the rank's (B, V / model) block in f32, gathered;
 ``forward_train``: the cross-entropy over vocab shards).  Norms stay
-whole.  The other mixers (MLA, SSD, RG-LRU, local windows) and enc-dec
-are not split yet: under a ``model`` axis of more than one rank they
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 13) rather than run
-replicated.
+whole.  Every mixer splits: GQA, local windows, MLA and the enc-dec
+cross-attention by heads (``attention``), SSD by heads (``ssm``), RG-LRU
+by channels (``rglru``); where ``model`` does not divide a mixer's heads
+or channels, that mixer runs whole on every rank (the rules' fallback).
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .common import (Leaf, apply_norm, cross_entropy_chunked, make_norm,
-                     materialize, rmsnorm, tree_map)
+                     materialize, tree_map)
 from .mlp import init_mlp, mlp_forward
 
 
@@ -243,10 +243,7 @@ def _gqa_cache_from_seq(cfg, p, h, positions, window=None, kv=None):
 
 
 def _mla_cache_from_seq(cfg, p, h, positions):
-    kv_a = h @ p["wkv_a"].to(h.dtype)
-    c_kv = rmsnorm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"])
-    k_rope = attn.apply_rope(kv_a[..., cfg.kv_lora_rank:], positions,
-                             cfg.rope_theta)
+    c_kv, k_rope = attn.mla_latent(cfg, p, h, positions)
     return {"c_kv": c_kv, "k_rope": k_rope, "pos": positions.to(torch.int32)}
 
 
@@ -304,21 +301,6 @@ def _run_groups(cfg, params, x, positions, enc_out, collect_cache=False):
             caches[f"g{gi}"] = (layer_caches if _unstacked(g)
                                 else layer_caches[0])
     return x, caches, aux_tot
-
-
-def _refuse_unsplit_mixers(cfg):
-    """Raise where a ``model`` axis of more than one rank would have to
-    split a mixer that has no tensor-parallel form yet."""
-    if tp.model_size() == 1:
-        return
-    unsplit = sorted({g.mixer for g in cfg.blocks} - {"attn"})
-    if cfg.family == "encdec":
-        unsplit.append("enc-dec cross-attention")
-    if unsplit:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsplit)} under a mesh whose model axis "
-            f"has {tp.model_size()} ranks: tensor parallelism of these "
-            "mixers is not ported yet (ROADMAP Queue 1 item 13)")
 
 
 def _embed(cfg, params, tokens):
@@ -399,7 +381,6 @@ def forward_train(cfg, params, batch):
             "forward_train with use_flash=True: the flash kernel has no "
             "backward (nor has the JAX package's); train with "
             "use_flash=False, the query-chunked attention")
-    _refuse_unsplit_mixers(cfg)
     tokens = batch["tokens"]
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.family == "encdec" else None)
@@ -419,7 +400,6 @@ def forward_train(cfg, params, batch):
 
 def forward_prefill(cfg, params, batch):
     """Prefill: full-sequence pass that returns (last-token logits, caches)."""
-    _refuse_unsplit_mixers(cfg)
     tokens = batch["tokens"]
     enc_out = (_encode(cfg, params, batch["frames"])
                if cfg.family == "encdec" else None)
@@ -445,7 +425,8 @@ def _layer_cache(cfg, mixer, batch, max_len, dtype, device) -> dict:
     else:
         raise ValueError(mixer)
     if cfg.family == "encdec":
-        shape = (batch, cfg.num_frames, cfg.num_kv_heads, attn.head_dim(cfg))
+        shape = (batch, cfg.num_frames, attn.head_layout(cfg).kv,
+                 attn.head_dim(cfg))
         c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
         c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
@@ -457,7 +438,6 @@ def init_decode_cache(cfg, batch: int, max_len: int, device=None):
     ``forward_prefill`` returns (under a mesh: ``batch`` this rank's data
     shard, the attention leaves its kv heads), on ``device`` (None: the
     card)."""
-    _refuse_unsplit_mixers(cfg)
     dev = resolve_device(device)
     cd = _dtype(cfg.compute_dtype)
     caches = {}
@@ -536,7 +516,6 @@ def _layer_decode(cfg, mixer, ffn, cross, p, x_t, cache, pos):
 def decode_step(cfg, params, caches, tokens_t, pos):
     """One decode step: tokens_t (B,1), pos (B,) -> (logits (B,V), caches).
     The caches passed in are left as they were."""
-    _refuse_unsplit_mixers(cfg)
     x = _embed(cfg, params, tokens_t)
     cross = cfg.family == "encdec"
     new_caches = {}

@@ -89,8 +89,7 @@ def _leaf_axes(cfg) -> dict:
     """Path -> the mesh axes that the context mesh shards the leaf over."""
     mesh = shlib._CTX["mesh"]
     layout = tf.param_spec(cfg)
-    return {path: shlib.spec_axes(shlib.spec_for(leaf.logical, leaf.shape,
-                                                 mesh))
+    return {path: shlib.block_axes(leaf.logical, leaf.shape, mesh)
             for path, leaf in tree_items(layout)}
 
 

@@ -1618,3 +1618,80 @@ def test_frontend_responses_bitwise_on_the_card(cuda):
             m_ref, v_ref = eng.predict(x, include_noise=(i % 2 == 0))
             np.testing.assert_array_equal(res.mean, m_ref.cpu().numpy())
             np.testing.assert_array_equal(res.var, v_ref.cpu().numpy())
+
+
+GP_OPS = ["reg_stats", "psi2", "psi1"]
+
+
+def _gp_operands(name, device, dtype):
+    """(operator inputs, bare launch) of a GP kernel at a ragged shape."""
+    rng = np.random.default_rng(17)
+    n, m, q, d = 1037, 130, 8, 4
+    log_sf2 = _t(rng.normal(0, 0.1), device, dtype).reshape(())
+    log_ell = _t(rng.normal(0, 0.2, q), device, dtype)
+    z = _t(rng.normal(size=(m, q)), device, dtype)
+    x = _t(rng.normal(size=(n, q)), device, dtype)
+    if name == "reg_stats":
+        y = _t(rng.normal(size=(n, d)), device, dtype)
+        w = _t(rng.uniform(0, 1, n), device, dtype)
+        return (log_sf2, log_ell, z, x, y, w), rs_ops._launch
+    s = _t(rng.uniform(0.05, 0.5, (n, q)), device, dtype)
+    if name == "psi2":
+        w = _t(rng.uniform(0, 1, n), device, dtype)
+        return (log_sf2, log_ell, z, x, s, w), ps_ops._launch_psi2
+    return (log_sf2, log_ell, z, x, s), ps_ops._launch_psi1
+
+
+def _launches(name, dtype):
+    key = str(dtype).removeprefix("torch.")
+    return (rs_ops.LAUNCHES[key] if name == "reg_stats"
+            else ps_ops.LAUNCHES[f"{name}_{key}"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", GP_OPS)
+def test_gp_operator_is_bitwise_the_bare_launch(cuda, name, dtype):
+    """``torch.ops.repro_torch.<name>`` (what the wrapper's Function calls
+    on the card since the dry run counts the kernels) against the bare
+    launch it wraps, the route before the operator: the same bits, one
+    launch each."""
+    args, bare = _gp_operands(name, cuda, dtype)
+    before = _launches(name, dtype)
+    got = getattr(torch.ops.repro_torch, name)(*args)
+    want = bare(*args)
+    assert _launches(name, dtype) == before + 2
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", GP_OPS)
+def test_gp_operator_fake_and_flop_formula(cuda, name):
+    """Under ``FakeTensorMode`` the wrapper's operator gives the kernel's
+    output shapes without launching it, and ``FlopCounterMode`` counts its
+    formula (``reg_stats.ops.flops``, ``psi_stats.ops.psi2_flops`` /
+    ``psi1_flops``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    n, m, q, d = 1037, 130, 8, 4
+    before = (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES))
+    with FakeTensorMode():
+        def e(*shape):
+            return torch.empty(shape, dtype=torch.float64, device=cuda)
+        args = {"reg_stats": (e(), e(q), e(m, q), e(n, q), e(n, d), e(n)),
+                "psi2": (e(), e(q), e(m, q), e(n, q), e(n, q), e(n)),
+                "psi1": (e(), e(q), e(m, q), e(n, q), e(n, q))}[name]
+        counter = FlopCounterMode(display=False)
+        with counter:
+            out = getattr(torch.ops.repro_torch, name)(*args)
+    shapes = {"reg_stats": [(), (m, d), (m, m)], "psi2": [(m, m)],
+              "psi1": [(n, m)]}[name]
+    out = out if isinstance(out, tuple) else (out,)
+    assert [tuple(o.shape) for o in out] == shapes
+    want = {"reg_stats": rs_ops.flops(n, m, q, d),
+            "psi2": ps_ops.psi2_flops(n, m, q),
+            "psi1": ps_ops.psi1_flops(n, m, q)}[name]
+    assert counter.get_total_flops() == want
+    assert (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES)) == before

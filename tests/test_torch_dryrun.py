@@ -14,6 +14,19 @@ positions before the last, which prefill does not compute and the model
 count includes).  In the same process the production cell llama3.2-1b
 ``decode_32k`` runs on the fake (16, 16) mesh through the command line,
 writes its JSON, and the roofline renders it.
+
+The GP cells (``dryrun.gp_cell``) likewise: an sgpr-synth-1m-shaped and
+a gplvm-usps-shaped config (their d and q, n and m cut so the real ranks
+run the plain versions in seconds), one value and gradient of the
+negative bound in f32 on the same 4 real ranks (``DistributedGP`` over
+the world, ``torch.distributed.all_reduce`` counted) and on the fake
+world of 4 (every axis a data shard; the engine's own all_reduce, which
+records in ``COUNTS``): the collectives equal to the byte,
+the argument bytes the ranks' shards, the FLOPs (the kernels' operators
+by their formulas, the backward's plain recompute as it runs) within
+``GP_FLOP_BAND`` of ``roofline.gp_model_flops``.  The production cell
+gplvm-oilflow ``naive`` runs on the fake (16, 16) mesh through ``--gp``,
+and ``report`` reads its record.
 """
 import dataclasses
 import datetime
@@ -35,11 +48,74 @@ SHAPES = {"train": ShapeSpec("tiny_train", 16, 4, "train"),
           "prefill": ShapeSpec("tiny_prefill", 16, 4, "prefill"),
           "decode": ShapeSpec("tiny_decode", 16, 4, "decode")}
 FLOP_RANGE = (0.9, 1.3)
+# GP cells: the counted FLOPs over the paper's 3 n m^2 (2q + 4) per rank,
+# within 30 % of each cell's ratio on the CPU's fake world of 4 (0.1518 and
+# 2.260).  The regression's K^T W K and its pull-back, 6 n m^2, are
+# 2 / (2q + 4) = 0.1 of the paper's count at q 8 (the kernel's exponent
+# and the bound's m^3 terms the rest at m 64); the GPLVM's ``mxu`` psi2
+# forms each row's (m, m, q) product in full, forward and backward.
+GP_FLOP_BAND = {"sgpr-synth-1m": (0.1063, 0.1974),
+                "gplvm-usps": (1.582, 2.938)}
+GP_CELLS = {"sgpr-synth-1m": dict(n=4096, m=64),
+            "gplvm-usps": dict(n=1000, m=32)}
+GP_VARIANT = {"sgpr-synth-1m": "naive", "gplvm-usps": "mxu"}
 
 
 def cfg():
     return dataclasses.replace(get_config("llama3.2-1b").reduced(),
                                num_heads=8, num_kv_heads=4)
+
+
+def gp_cfg(name):
+    from repro_torch.configs import GP_CONFIGS
+    return dataclasses.replace(GP_CONFIGS[name], **GP_CELLS[name])
+
+
+def _gp_real(rank, world, out):
+    """Each GP cell's value and gradient on this rank's rows (f32, the
+    plain versions), its all_reduces counted."""
+    from repro_torch.launch import dryrun
+
+    calls = []
+    real = dist.all_reduce
+
+    def counting(t, *a, **kw):
+        calls.append(t.numel() * t.element_size())
+        return real(t, *a, **kw)
+    dist.all_reduce = counting
+    try:
+        for name in GP_CELLS:
+            gp = gp_cfg(name)
+            n_loc = -(-gp.n // world)
+            rng = np.random.default_rng(rank)
+            f32 = torch.float32
+
+            def rows(*shape):
+                return torch.from_numpy(rng.standard_normal(shape)).to(f32)
+            hyp = {"log_sf2": torch.zeros((), dtype=f32),
+                   "log_ell": torch.zeros((gp.q,), dtype=f32),
+                   "log_beta": torch.zeros((), dtype=f32)}
+            z = torch.from_numpy(np.random.default_rng(9).standard_normal(
+                (gp.m, gp.q))).to(f32)
+            mu, y = rows(n_loc, gp.q), rows(n_loc, gp.d)
+            s = 0.1 + rows(n_loc, gp.q).abs() if gp.latent else None
+            w = torch.ones((n_loc,), dtype=f32)
+            eng = dryrun.DistributedGP(group=dist.group.WORLD,
+                                       latent=gp.latent, device="cpu",
+                                       psi2_fn=dryrun.gp_psi2_fn(
+                                           GP_VARIANT[name]))
+            step = eng.make_value_and_grad(
+                gp.d, argnums=(0, 1, 2, 3) if gp.latent else (0, 1))
+            calls.clear()
+            value, _ = step(hyp, z, mu, s, y, w,
+                            np.ones((world,), np.float32), float(gp.n))
+            out[f"gp/{name}/all_reduce"] = np.asarray(calls)
+            out[f"gp/{name}/finite"] = np.asarray(bool(torch.isfinite(value)))
+            out[f"gp/{name}/argument_bytes"] = _bytes(
+                [hyp, z, mu, y, w] + ([s] if gp.latent else [])) \
+                + 4 * world
+    finally:
+        dist.all_reduce = real
 
 
 def _bytes(tree) -> int:
@@ -100,6 +176,7 @@ def _real_rank(rank, world, store_path, out_dir):
             tp.reset_counts()
             fn()
             out[f"{kind}/collectives"] = json.dumps(tp.counts())
+    _gp_real(rank, world, out)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
@@ -114,11 +191,17 @@ def _fake_world(rank, world, store_path, out_dir):
     mesh = make_fake_mesh(MESH, ("data", "model"))
     res = {kind: dryrun.run_cell(cfg(), shape, mesh)
            for kind, shape in SHAPES.items()}
+    res.update({f"gp/{name}": dryrun.gp_cell(gp_cfg(name), mesh,
+                                             GP_VARIANT[name])
+                for name in GP_CELLS})
     (pathlib.Path(out_dir) / "cells.json").write_text(json.dumps(res))
     rc = dryrun.main(["--mesh", "single", "--archs", "llama3.2-1b",
                       "--shapes", "decode_32k", "--out",
                       str(pathlib.Path(out_dir) / "art")])
-    (pathlib.Path(out_dir) / "rc").write_text(str(rc))
+    rc_gp = dryrun.main(["--mesh", "single", "--gp", "--gp-names",
+                         "gplvm-oilflow", "--variant", "naive", "--out",
+                         str(pathlib.Path(out_dir) / "art")])
+    (pathlib.Path(out_dir) / "rc").write_text(f"{rc} {rc_gp}")
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +251,7 @@ def test_flops_are_the_model_flops(runs, kind):
 
 def test_the_production_cell_writes_its_record(runs):
     _, _, fake = runs
-    assert (fake / "rc").read_text() == "0"
+    assert (fake / "rc").read_text() == "0 0"
     fp = fake / "art" / "single" / "llama3.2-1b__decode_32k.json"
     cell = json.loads(fp.read_text())
     assert cell["mesh"] == {"data": 16, "model": 16}
@@ -184,10 +267,55 @@ def test_the_production_cell_writes_its_record(runs):
 
 
 def test_the_default_archs_are_the_ones_tensor_parallelism_covers():
+    """All ten configs: every mixer splits over ``model``."""
     from repro_torch.configs import all_configs
     from repro_torch.launch import dryrun
 
-    split = [a for a, c in all_configs().items()
-             if {g.mixer for g in c.blocks} == {"attn"}
-             and c.family != "encdec"]
-    assert sorted(dryrun.TP_ARCHS) == sorted(split)
+    assert sorted(dryrun.TP_ARCHS) == sorted(all_configs())
+    assert len(dryrun.TP_ARCHS) == 10
+
+
+@pytest.mark.parametrize("name", GP_CELLS)
+def test_gp_cell_collectives_equal_the_real_ranks(runs, name):
+    """The engine's two all_reduces a step (the packed Stats, the pulled
+    (hyp, z) gradient parts), calls and bytes, on every real rank."""
+    ranks, cells, _ = runs
+    got = cells[f"gp/{name}"]["collectives"]
+    for r in ranks:
+        sizes = r[f"gp/{name}/all_reduce"]
+        assert got["all_reduce"] == {"calls": len(sizes),
+                                     "bytes": int(sizes.sum())}
+        assert bool(r[f"gp/{name}/finite"])
+    assert got["all_reduce"]["calls"] == 2
+    assert got["total"] == got["all_reduce"]["bytes"]
+
+
+@pytest.mark.parametrize("name", GP_CELLS)
+def test_gp_cell_argument_bytes_are_the_shards(runs, name):
+    ranks, cells, _ = runs
+    mem = cells[f"gp/{name}"]["memory"]
+    for r in ranks:
+        assert int(r[f"gp/{name}/argument_bytes"]) == mem["argument_bytes"]
+
+
+@pytest.mark.parametrize("name", GP_CELLS)
+def test_gp_cell_flops_are_in_the_band_of_the_model_flops(runs, name):
+    _, cells, _ = runs
+    cell = cells[f"gp/{name}"]
+    want = roofline.gp_model_flops(gp_cfg(name), W)
+    assert cell["model_flops"] == want and cell["n_devices"] == W
+    lo, hi = GP_FLOP_BAND[name]
+    assert lo * want <= cell["flops"] <= hi * want, cell["flops"] / want
+
+
+def test_the_production_gp_cell_writes_its_record(runs):
+    _, _, fake = runs
+    fp = fake / "art" / "single" / "gp_gplvm-oilflow__naive.json"
+    cell = json.loads(fp.read_text())
+    assert cell["arch"] == "gp:gplvm-oilflow" and cell["kind"] == "gp_step"
+    assert cell["n_devices"] == 256 and cell["variant"] == "naive"
+    table = report.roofline_table("single", fake / "art")
+    lines = table.splitlines()
+    gp_line = next(i for i, ln in enumerate(lines) if "gp:gplvm-oilflow" in ln)
+    lm_line = next(i for i, ln in enumerate(lines) if "llama3.2-1b" in ln)
+    assert lm_line < gp_line   # the GP rows after the LM rows

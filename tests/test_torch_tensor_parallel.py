@@ -22,7 +22,7 @@ blocks after ``loss_and_grads``' sums over ``data``) within 1e-5, and
 every rank of a ``model`` group with the same bits.  In the same spawn,
 ``init_params_sharded`` holds only the rank's blocks, each the same draw
 as ``init_params``'.  A (1, 1) mesh is bitwise the unsharded path, and
-the other mixers raise under a ``model`` axis (ROADMAP Queue 1 item 13).
+the other mixers' tensor parallelism is ``test_torch_tensor_parallel_mixers.py``.
 """
 import dataclasses
 import datetime
@@ -360,31 +360,6 @@ def test_a_1x1_mesh_is_bitwise_the_unsharded_path(jax_ref):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mamba2-370m",
-                                  "recurrentgemma-9b", "whisper-medium"])
-def test_the_other_mixers_raise_under_a_model_axis(arch):
-    """MLA, SSD, RG-LRU with local windows, and enc-dec: refused under a
-    ``model`` axis of 4 ranks (no silent replication), run under one of
-    1 rank."""
-    cfg = get_config(arch).reduced()
-    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32),
-             "labels": torch.zeros((2, 4), dtype=torch.int32)}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.zeros((2, cfg.num_frames, cfg.d_model))
-    with sharding.use_mesh(SizesMesh(data=1, model=4)):
-        for call in (lambda: tf.forward_prefill(cfg, params, batch),
-                     lambda: tf.forward_train(cfg, params, batch),
-                     lambda: tf.init_decode_cache(cfg, 2, 8, device="cpu")):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 item 13"):
-                call()
-    with sharding.use_mesh(SizesMesh(data=4, model=1)), torch.no_grad():
-        logits, _ = tf.forward_prefill(cfg, params, batch)
-    assert logits.shape == (2, cfg.vocab_size)
 
 
 # name, model -> rank 1's (split, heads, kv held, first kv head, kv heads,
