@@ -11,19 +11,22 @@ Run from the root of a checkout on a machine with a CUDA card.  It
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' full-width shapes and at one ragged shape, in both dtypes,
    and times both with CUDA events (psi2 and psi1 at the ``gplvm-usps``
-   and ``gplvm-synth-100k`` shapes; f64 reg_stats at q = 40 and at d = 64,
-   predict at m = 2048 and f64 psi at q = 160, past one 16-feature chunk or
-   one block's slab, f32 reg_stats at m = 23,200 (past the old gridDim.y
-   limit) and f64 at m = 2,048 (more units than SMs), checked untimed;
-   f64 psi2 and psi1 at m = 63, 65 and 151 (psi2's patch and tile edges)
-   and psi2 where its centred exponent's terms are largest against their
-   sum, D exactly symmetric and bitwise the same on a second run; the
+   and ``gplvm-synth-100k`` shapes, psi2's per-launch split from
+   ``torch.profiler``; reg_stats' and the psi kernels' bare launch and
+   device time; reg_stats at q = 40 and at d = 64, predict at m = 2048 and
+   psi at q = 160, past one 16-feature chunk or one block's slab, and
+   reg_stats at m = 2,048 (more units than SMs), in both dtypes; f32
+   reg_stats at m = 127, 129 and 257 (the 128-tile edge) and at m = 46,400
+   (past the old gridDim.y limit, its D held 2,048 rows at a time), checked
+   untimed; psi2 and psi1 at m = 63, 65 and 151 (psi2's patch and tile
+   edges) and psi2 where its centred exponent's terms are largest against
+   their sum, D exactly symmetric and bitwise the same on a second run; the
    backward alone (reg_stats_vjp at sgpr-synth-1m, psi2_vjp and psi1_vjp
    at gplvm-usps), timed; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
-   as a yardstick; and cuBLAS's f64 ``K^T (w K)`` and f64 and f32 ``K g``
-   over a materialised K, printed as yardsticks of the reg_stats and
+   as a yardstick; and cuBLAS's f64 and f32 ``K^T (w K)`` and ``K g`` over
+   a materialised K (TF32 off), printed as yardsticks of the reg_stats and
    predict kernels' product loops);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
@@ -431,26 +434,36 @@ def reg_stats_flops(n, m, q, d) -> float:
     return n * m * (3 * q + 2) + n * m * (m + 1) + 2 * n * m * d + n
 
 
+def ops_seconds(flops, exps, dtype, peaks) -> float:
+    """Least time of ``flops`` at the type's peak (f32 on the CUDA cores, f64
+    on the FP64 tensor cores) and ``exps`` at their ``EXP_COST``.  In f32
+    the exps run on the SFU, which issues beside the FP32 pipe: the larger
+    of the two.  In f64 the sum, as the f64 rows have always been bounded
+    (whether the DFMAs of the exps overlap the DMMA product is unmeasured)."""
+    f32 = dtype == torch.float32
+    t_flops = flops / (peaks[0] if f32 else peaks[1])
+    t_exps = exps * EXP_COST[dtype] / peaks[0]
+    return max(t_flops, t_exps) if f32 else t_flops + t_exps
+
+
 def reg_stats_bound(n, m, q, d, dtype, peaks) -> tuple[float, str]:
-    """Least time: the flops at the type's peak (f32 on the CUDA cores, f64
-    on the FP64 tensor cores) plus the slab's n*m exps at their
-    ``EXP_COST`` on the CUDA cores, or the bytes read and written once."""
-    item, peak = (4, peaks[0]) if dtype == torch.float32 else (8, peaks[1])
+    """Least time: the flops and the slab's n*m exps (``ops_seconds``), or
+    the bytes read and written once."""
+    item = 4 if dtype == torch.float32 else 8
     nbytes = item * (n * (q + d + 1) + m * q + m * m + m * d + 1)
-    t_ops = (reg_stats_flops(n, m, q, d) / peak
-             + n * m * EXP_COST[dtype] / peaks[0])
+    t_ops = ops_seconds(reg_stats_flops(n, m, q, d), n * m, dtype, peaks)
     t_bytes = nbytes / peaks[2]
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def cublas_d_product_ms(n, m, rows=65_536) -> float:
-    """Yardstick for the f64 DMMA loop, never called by the port: the time
-    of ``torch.matmul`` for K^T (w K) over a materialised f64 K of
-    ``rows`` x m (cuBLAS on the FP64 tensor cores), scaled to n rows."""
+def cublas_d_product_ms(n, m, rows=65_536, dtype=torch.float64) -> float:
+    """Yardstick for the reg_stats kernels' product loops, never called by
+    the port: the time of ``torch.matmul`` for K^T (w K) over a materialised
+    K of ``rows`` x m (cuBLAS: f64 on the FP64 tensor cores, f32 in IEEE f32
+    on the CUDA cores with TF32 off), scaled to n rows."""
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    k = torch.rand((rows, m), dtype=torch.float64, device=DEV, generator=gen)
-    wk = torch.rand((rows, 1), dtype=torch.float64, device=DEV,
-                    generator=gen) * k
+    k = torch.rand((rows, m), dtype=dtype, device=DEV, generator=gen)
+    wk = torch.rand((rows, 1), dtype=dtype, device=DEV, generator=gen) * k
     kt = k.T
     return time_ms(lambda: torch.matmul(kt, wk)) * n / rows
 
@@ -462,13 +475,11 @@ def predict_flops(t, m, q, d) -> float:
 
 
 def predict_bound(t, m, q, d, dtype, peaks) -> tuple[float, str]:
-    """Least time: the flops at the type's peak (f32 on the CUDA cores, f64
-    on the FP64 tensor cores) plus the slab's t*m exps at their
-    ``EXP_COST`` on the CUDA cores, or the bytes read and written once."""
-    item, peak = (4, peaks[0]) if dtype == torch.float32 else (8, peaks[1])
+    """Least time: the flops and the slab's t*m exps (``ops_seconds``), or
+    the bytes read and written once."""
+    item = 4 if dtype == torch.float32 else 8
     nbytes = item * (t * q + m * q + m * d + m * m + q + 1 + t * d + t)
-    t_ops = (predict_flops(t, m, q, d) / peak
-             + t * m * EXP_COST[dtype] / peaks[0])
+    t_ops = ops_seconds(predict_flops(t, m, q, d), t * m, dtype, peaks)
     t_bytes = nbytes / peaks[2]
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -503,6 +514,7 @@ def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
     # The plain version runs in f64 on exactly the values the kernel sees.
     xs, ys, ws, zs = (v.to(f64) for v in (xk, yk, wk, zk))
     b, c, dd = rs_ops.reg_stats(hyp, zk, xk, yk, wk)
+    again = rs_ops.reg_stats(hyp, zk, xk, yk, wk)
     pb, pc, pd = plain_reg_stats(rs_ref, hyp, zs, xs, ys, ws)
     _, pc_abs, _ = plain_reg_stats(rs_ref, hyp, zs, xs, ys.abs(), ws)
     torch.cuda.synchronize()
@@ -513,16 +525,76 @@ def check_reg_stats(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked, timed):
     err_d, worst_d = check_close("reg_stats D", dd, pd, pd)
     if not torch.equal(dd, dd.T):
         raise AssertionError("reg_stats D is not exactly symmetric")
+    if not all(torch.equal(u, v) for u, v in zip((b, c, dd), again)):
+        raise AssertionError("reg_stats: two runs on the same inputs differ")
     out = {"shape": dict(n=n, m=m, q=q, d=d), "dtype": str(dtype),
            "max_abs_err": max(err_b, err_c, err_d),
            "max_err_over_bound": max(worst_c, worst_d)}
     if timed:
         out["ms"] = time_ms(lambda: rs_ops.reg_stats(hyp, zk, xk, yk, wk))
+        bare = reg_stats_launch_only(hyp, zk, xk, yk, wk)
+        out["launch_only_ms"] = time_ms(bare)
+        out["device_ms"] = graph_ms(bare, launches=2)
         out["plain_ms"] = time_ms(
             lambda: plain_reg_stats(rs_ref, hyp, zs, xs, ys, ws), reps=3)
         out["bound_ms"], out["bound_by"] = reg_stats_bound(n, m, q, d, dtype,
                                                            peaks)
     print(f"reg_stats {out}", flush=True)
+    return out
+
+
+def reg_stats_launch_only(hyp, z, x, y, w):
+    """The bare ctypes launch of a reg_stats kernel (tile pass and reduce)
+    on operands, scratch and outputs prepared once (``ops.launch_args``):
+    its device time without the wrapper's casts, allocations and autograd
+    Function (the wrapper's time is ``ms``)."""
+    from repro_torch.kernels.reg_stats import kernel as rs_k
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+
+    args = rs_ops.launch_args(hyp["log_sf2"], hyp["log_ell"], z, x, y, w)
+    return lambda: rs_k.reg_stats(*args)
+
+
+def check_reg_stats_rows(rs_ops, n, m, q, d, dtype, block=2048):
+    """reg_stats at an m whose whole (m, m) plain version and error tensors
+    do not fit the card beside the kernel's D: every row of D held against
+    the plain version ``block`` rows at a time, C and b whole, at the
+    dtype's tier, each block of rows exactly equal to the matching block of
+    columns.  The plain version is ``ref.reg_stats_ref``'s SE-ARD slab K
+    (n small, so K whole), D's block ``(K[:, blk] w)^T K``."""
+    rng = np.random.default_rng(SEED + n + m)
+    x, y = make_regression(rng, n, q, d)
+    x, y = t64(x), t64(y)
+    z = t64(rng.uniform(-2.0, 2.0, (m, q)))
+    w = t64(rng.uniform(size=n) > 0.15)
+    hyp = {"log_sf2": t64(float(np.log(float(y.var())))),
+           "log_ell": t64(np.full(q, 0.5 * np.log(q)))}
+    xk, yk, wk, zk = (v.to(dtype) for v in (x, y, w, z))
+    xs, ys, ws, zs = (v.to(torch.float64) for v in (xk, yk, wk, zk))
+    b, c, dd = rs_ops.reg_stats(hyp, zk, xk, yk, wk)
+    torch.cuda.synchronize()
+    ell, sf2 = torch.exp(hyp["log_ell"]), torch.exp(hyp["log_sf2"])
+    diff = xs[:, None, :] / ell - zs[None, :, :] / ell
+    knm = sf2 * torch.exp(-0.5 * (diff * diff).sum(-1))
+    del diff
+    wknm = knm * ws[:, None]
+    pb = sf2 * ws.sum()
+    err_b, _ = check_close("reg_stats b", b, pb, pb)
+    err_c, worst_c = check_close("reg_stats C", c, wknm.T @ ys,
+                                 wknm.T @ ys.abs())
+    err_d = worst_d = 0.0
+    for lo in range(0, m, block):
+        blk = slice(lo, min(m, lo + block))
+        pd = wknm[:, blk].T @ knm
+        e, wst = check_close("reg_stats D rows", dd[blk], pd, pd)
+        err_d, worst_d = max(err_d, e), max(worst_d, wst)
+        if not torch.equal(dd[blk], dd[:, blk].T):
+            raise AssertionError("reg_stats D is not exactly symmetric")
+        del pd
+    out = {"shape": dict(n=n, m=m, q=q, d=d), "dtype": str(dtype),
+           "rows_checked": m, "max_abs_err": max(err_b, err_c, err_d),
+           "max_err_over_bound": max(worst_c, worst_d)}
+    print(f"reg_stats rows {out}", flush=True)
     return out
 
 
@@ -594,13 +666,12 @@ def psi_rows(m, q) -> int:
 def psi_bound(kind, n_eff, n, m, q, dtype, peaks) -> tuple[float, str]:
     """Least time for psi2 (the upper half of D's pairs, over the rows with
     nonzero weight: zero-weight rows are skipped) or psi1, each (row, pair
-    or point) at the least work its kernel's form needs, plus one exp at
-    its ``EXP_COST``; or the bytes read once, written once.  psi2's
+    or point) at the least work its kernel's form needs and one exp
+    (``ops_seconds``); or the bytes read once, written once.  psi2's
     centred exponent costs 2q + 5 flops a pair (per q one FMA of
     u_a (z_b - mu)/(2c); the two alphas, the weighted exp's FMA), psi1's
     direct one 4q + 3 (per q a subtraction, a product and an FMA)."""
     item = 4 if dtype == torch.float32 else 8
-    peak = peaks[0] if dtype == torch.float32 else peaks[1]
     if kind == "psi2":
         entries = n_eff * m * (m + 1) / 2
         flops = 2 * q + 5
@@ -609,7 +680,7 @@ def psi_bound(kind, n_eff, n, m, q, dtype, peaks) -> tuple[float, str]:
         entries = n * m
         flops = 4 * q + 3
         nbytes = item * (2 * n * q + m * q + 2 * q + 1 + n * m)
-    t_ops = entries * flops / peak + entries * EXP_COST[dtype] / peaks[0]
+    t_ops = ops_seconds(entries * flops, entries, dtype, peaks)
     t_bytes = nbytes / peaks[2]
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -630,6 +701,29 @@ def psi_launch_only(kind, hyp, z, mu, s, w):
     d_out = torch.empty((m, m), dtype=torch.float64, device=DEV)
     return lambda: ps_k.psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows,
                              scratch, d_out)
+
+
+def kernel_split(fn, reps: int = 20) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel it
+    launches, by kernel name (``torch.profiler``, CUDA activity, over
+    ``reps`` calls after a warm-up): the split of a multi-launch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            out[name.split("(")[0]] = us / reps
+    return out
 
 
 def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
@@ -684,6 +778,8 @@ def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
             bare = psi_launch_only(kind, hyp, z, mu, s, w)
             out[kind]["launch_only_ms"] = time_ms(bare)
             out[kind]["device_ms"] = graph_ms(bare)
+            if kind == "psi2":
+                out[kind]["kernels_us"] = kernel_split(bare)
             out[kind]["bound_ms"], out[kind]["bound_by"] = psi_bound(
                 kind, n_eff, n, m, q, dtype, peaks)
     for kind in ("psi2", "psi1"):
@@ -692,30 +788,38 @@ def check_psi(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed):
     return out
 
 
-def check_psi2_midway(ps_ops, ps_ref, n, m, q):
-    """f64 psi2 where the centred exponent's terms are largest against their
-    sum: pairs of inducing points at +-70 d_j (d_j unit vectors, l^2 = q),
-    the rows' means near 0, midway between them.  Each term alpha ~ 120
-    while mu - zbar ~ 0; D holds exp(static) ~ exp(-490) there."""
+def check_psi2_midway(ps_ops, ps_ref, n, m, q, dtype=torch.float64,
+                      scale=70.0):
+    """psi2 where the centred exponent's terms are largest against their
+    sum: pairs of inducing points at +-scale d_j (d_j unit vectors, l^2 =
+    q), the rows' means near 0, midway between them.  At scale 70 (f64)
+    each term alpha ~ 120 while mu - zbar ~ 0, and D holds exp(static) ~
+    exp(-490); f32 takes scale 20 (alpha ~ 10, D ~ exp(-40)), so that D
+    stays inside f32's range.  The plain version runs in f64 on the
+    kernel's values."""
     rng = np.random.default_rng(SEED + 7)
     f64 = torch.float64
     d = rng.standard_normal((m // 2, q))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    z = np.concatenate([70.0 * d, -70.0 * d])
+    z = np.concatenate([scale * d, -scale * d])
     mu = 1e-3 * rng.standard_normal((n, q))
     s = rng.uniform(0.05, 1.0, (n, q))
     w = (rng.uniform(size=n) > 0.15).astype(np.float64)
     hyp = {"log_sf2": torch.tensor(0.3, dtype=f64, device=DEV),
            "log_ell": torch.full((q,), 0.5 * math.log(q), dtype=f64,
                                  device=DEV)}
-    z, mu, s, w = (torch.from_numpy(a).to(DEV) for a in (z, mu, s, w))
+    z, mu, s, w = (torch.from_numpy(a).to(DEV, dtype) for a in (z, mu, s, w))
     got = ps_ops.psi2(hyp, z, mu, s, w)
-    plain = ps_ref.psi2_ref(hyp["log_sf2"], hyp["log_ell"], z, mu, s, w)
+    again = ps_ops.psi2(hyp, z, mu, s, w)
+    plain = ps_ref.psi2_ref(hyp["log_sf2"], hyp["log_ell"],
+                            *(v.to(f64) for v in (z, mu, s, w)))
     torch.cuda.synchronize()
     if not torch.equal(got, got.T):
         raise AssertionError("psi2 midway: D is not exactly symmetric")
+    if not torch.equal(got, again):
+        raise AssertionError("psi2 midway: two runs on the same inputs differ")
     err, worst = check_close("psi2 midway", got, plain, plain)
-    print("psi2 midway ", dict(shape=dict(n=n, m=m, q=q), dtype=str(f64),
+    print("psi2 midway ", dict(shape=dict(n=n, m=m, q=q), dtype=str(dtype),
                                max_abs_err=err, max_err_over_bound=worst,
                                min_plain=float(plain.min())), flush=True)
 
@@ -809,10 +913,25 @@ def time_backwards(rs_ops, ps_ops, sgpr, usps) -> None:
                   [t64(rng.standard_normal((n, m)))], [True] * 5)
 
 
+def f32_gp_counters() -> tuple:
+    """(name, counter, key) of the f32 GP instantiations.  No main path
+    takes them: phase 3 zeroes their keys once before its first path and
+    reads them once after its last, and ``reset_counts`` leaves them be."""
+    from repro_torch.kernels.psi_stats import ops as ps_ops
+    from repro_torch.kernels.reg_stats import ops as rs_ops
+
+    return (("reg_stats_f32", rs_ops.LAUNCHES, "float32"),
+            ("psi2_f32", ps_ops.LAUNCHES, "psi2_float32"),
+            ("psi1_f32", ps_ops.LAUNCHES, "psi1_float32"))
+
+
 def reset_counts(*counts):
+    """Zero every key of ``counts`` but the f32 GP instantiations'."""
+    keep = {(id(c), k) for _, c, k in f32_gp_counters()}
     for c in counts:
         for k in c:
-            c[k] = 0
+            if (id(c), k) not in keep:
+                c[k] = 0
 
 
 def timed_step(steps):
@@ -5986,20 +6105,31 @@ def main() -> int:
                                          timed=True)
         check_reg_stats(rs_ops, rs_ref, peaks, 1_000_003, 130, 3, 5, dtype,
                         masked=True, timed=False)
-    # Past one 16-feature chunk, and a wide y: shared memory is fixed.
-    for q, d in ((40, 1), (8, 64)):
-        check_reg_stats(rs_ops, rs_ref, peaks, 100_003, 130, q, d,
-                        torch.float64, masked=True, timed=False)
-    # Past the old gridDim.y limit (66,066 upper 64-tiles), and more
-    # (slice, tile) units than SMs in f64 (136, one block each).
-    check_reg_stats(rs_ops, rs_ref, peaks, 1_003, 23_200, 3, 2,
-                    torch.float32, masked=True, timed=False)
-    check_reg_stats(rs_ops, rs_ref, peaks, 20_011, 2_048, 8, 4,
-                    torch.float64, masked=True, timed=False)
+    # Past one 16-feature chunk, and a wide y: shared memory is fixed; more
+    # (slice, tile) units than SMs (136, one block each).
+    for dtype in (torch.float32, torch.float64):
+        for q, d in ((40, 1), (8, 64)):
+            check_reg_stats(rs_ops, rs_ref, peaks, 100_003, 130, q, d, dtype,
+                            masked=True, timed=False)
+        check_reg_stats(rs_ops, rs_ref, peaks, 20_011, 2_048, 8, 4, dtype,
+                        masked=True, timed=False)
+    # f32's ragged m across the 128-tile edge, and past 65,535 upper
+    # 128-tiles (66,066 at m 46,400: the old gridDim.y limit), its D held
+    # 2,048 rows at a time (the whole plain D and its error tensors would
+    # not fit beside the kernel's).
+    for m in (127, 129, 257):
+        check_reg_stats(rs_ops, rs_ref, peaks, 20_011, m, 8, 4,
+                        torch.float32, masked=True, timed=False)
+    check_reg_stats_rows(rs_ops, 1_003, 46_400, 3, 2, torch.float32)
     torch.cuda.empty_cache()
     print("cublas f64 K^T (w K), 65,536 x 512 scaled to n = 1e6 (yardstick "
           f"of the DMMA loop, not called by the port): "
           f"{cublas_d_product_ms(cfg.n, cfg.m):.4f} ms", flush=True)
+    print("cublas f32 K^T (w K), 65,536 x 512 scaled to n = 1e6, TF32 off "
+          "(yardstick of the f32 reg_stats kernel's FMA loop, not called by "
+          "the port): "
+          f"{cublas_d_product_ms(cfg.n, cfg.m, dtype=torch.float32):.4f} ms",
+          flush=True)
     for dtype in (torch.float32, torch.float64):
         pr_full[dtype] = check_predict(p_ops, p_ref, peaks, 65_536,
                                        cfg.m, cfg.q, cfg.d, dtype, timed=True)
@@ -6024,15 +6154,17 @@ def main() -> int:
                   masked=False, timed=True)
         check_psi(ps_ops, ps_ref, peaks, 1003, 37, 3, dtype, masked=True,
                   timed=False)
-    # Ten 16-feature chunks: shared memory is fixed.
-    check_psi(ps_ops, ps_ref, peaks, 1003, 37, 160, torch.float64,
-              masked=True, timed=False)
-    # psi2's packed patches at the tile edges, and its centred exponent
-    # where its terms are largest against their sum.
-    for m in (63, 65, 151):
-        check_psi(ps_ops, ps_ref, peaks, 1003, m, 10, torch.float64,
-                  masked=True, timed=False)
+    # Ten 16-feature chunks: shared memory is fixed; psi2's packed patches
+    # at the tile edges, and its centred exponent where its terms are
+    # largest against their sum.
+    for dtype in (torch.float32, torch.float64):
+        check_psi(ps_ops, ps_ref, peaks, 1003, 37, 160, dtype, masked=True,
+                  timed=False)
+        for m in (63, 65, 151):
+            check_psi(ps_ops, ps_ref, peaks, 1003, m, 10, dtype, masked=True,
+                      timed=False)
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10)
+    check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10, torch.float32, 20.0)
     time_backwards(rs_ops, ps_ops, cfg, usps)
     time_operator_routes(rs_ops, ps_ops, cfg, usps)
     fa_full = {}
@@ -6051,6 +6183,9 @@ def main() -> int:
             check_flash(fa_ops, fa_ref, peaks, *shape, dtype, timed=False)
 
     # -- phase 3: the main paths ------------------------------------------------
+    # Phase 2's launches are not the paths'.
+    for _, c, k in f32_gp_counters():
+        c[k] = 0
     sgpr_launches, sgpr = serving_path(rt, cfg)
     dist_launches = distributed_path(rt, cfg, usps)
     stream_launches = streaming_path(rt, cfg, usps)
@@ -6080,6 +6215,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_tp_path()
     launches = {**sgpr_launches, **gplvm_launches, **lm_launches,
+                **{name: c[k] for name, c, k in f32_gp_counters()},
                 "predict_f64": sgpr_launches["predict_f64"]
                 + gplvm_launches["predict_f64"]}
     for kname, count in (*dist_launches.items(), *stream_launches.items(),
@@ -6097,10 +6233,13 @@ def main() -> int:
                 "bound_by": res["bound_by"],
                 "library_ms": res.get("library_ms")}
 
-    # The kernels the main paths run (reg_stats_f32 and the psi kernels' f32
-    # instantiations are checked above but serve only f32 callers; the f64
-    # models never reach them).  Times at the main paths' shapes.
+    # Every instantiation, times at the main paths' shapes.  The f32 GP ones
+    # serve only f32 callers (the f64 models never reach them): their
+    # launches on the paths are counted all the same.
     kernels = [
+        entry("reg_stats_f32", "src/repro_torch/csrc/reg_stats.cu",
+              "src/repro/kernels/reg_stats/kernel.py:99",
+              rs_full[torch.float32]),
         entry("reg_stats_f64", "src/repro_torch/csrc/reg_stats.cu",
               "src/repro/kernels/reg_stats/kernel.py:99",
               rs_full[torch.float64]),
@@ -6108,9 +6247,15 @@ def main() -> int:
               "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float32]),
         entry("predict_f64", "src/repro_torch/csrc/predict.cu",
               "src/repro/kernels/predict/kernel.py:75", pr_full[torch.float64]),
+        entry("psi2_f32", "src/repro_torch/csrc/psi_stats.cu",
+              "src/repro/kernels/psi_stats/kernel.py:76",
+              psi_full[torch.float32]["psi2"]),
         entry("psi2_f64", "src/repro_torch/csrc/psi_stats.cu",
               "src/repro/kernels/psi_stats/kernel.py:76",
               psi_full[torch.float64]["psi2"]),
+        entry("psi1_f32", "src/repro_torch/csrc/psi_stats.cu",
+              "src/repro/kernels/psi_stats/kernel.py:125",
+              psi_full[torch.float32]["psi1"]),
         entry("psi1_f64", "src/repro_torch/csrc/psi_stats.cu",
               "src/repro/kernels/psi_stats/kernel.py:125",
               psi_full[torch.float64]["psi1"]),

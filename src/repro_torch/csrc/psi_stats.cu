@@ -24,7 +24,7 @@
 //     per entry), and at gplvm-usps the launch itself: the work is a few
 //     microseconds.
 //
-// The psi2 design:
+// The psi2 design (both dtypes; the f32 kernel's differences below):
 //   * Only the pairs D needs.  The TPU accumulates D over a sequential
 //     n-grid; blocks on Hopper run in parallel in no order, and gplvm-usps
 //     has only 6 upper 64x64 tiles of D for 132 SMs.  So the work is units
@@ -98,12 +98,34 @@
 //     a time, the exponents carried in registers.
 //     Rows past n and columns past m are never written.
 //
-// One template, instantiated for float (the TPU kernels' f32 contract) and
-// double: f32 map statistics break the q(u) factorisation at full width
-// (ROADMAP Queue 3), so f64 callers get the double instantiation.
+// psi1 is one template, instantiated for float (the TPU kernels' f32
+// contract) and double; so is psi2's f64 path.  f32 map statistics break the
+// q(u) factorisation at full width (ROADMAP Queue 3), so f64 callers get the
+// double instantiations, and no main path launches the f32 ones.
 //
-// wgmma, TMA and pipelining are for later work.  C interface, bound with
-// ctypes from src/repro_torch/kernels/psi_stats/kernel.py.
+// psi2 f32 is a kernel of its own (psi2_f32_tiles, psi2_f32_reduce): the
+// f64 design's reasons for four launches, the branch-free exp and per-pair
+// u and v do not hold in f32, where the exp is one SFU instruction.
+//   * Two launches: each unit stages its rows' 1/(2c) and log-normaliser
+//     (rounded as the plain version rounds them) itself; psi2_hyper and
+//     psi2_rows ran before the tile pass.
+//   * The exponent in log2 units (log2(e) folded into 1/(2c) and the
+//     log-normaliser) and one ex2.approx a pair, not libdevice's expf.
+//   * u_a = mu - z_a and v_b = (z_b - mu) log2(e) / (2c) staged once per
+//     row and tile point, so a pair row costs per feature two float4 loads
+//     and 16 FMAs.
+//   * The f64 plan (about 8 units an SM): units of 2 or 4 an SM measured
+//     slower, the small tiles' units finishing early.  The sums stay in
+//     registers across a unit's rows; the partials are laid out
+//     entry-major, so the reduce's loads coalesce.
+// What bounds it on the H100 (ablations at gplvm-usps, PERF.md section 6):
+// not the SFU (the exps cost 3%), but the pair loop's shared-memory loads
+// (two float4 a feature for 16 FMAs) and, as much again, each unit's
+// staging and barriers; z held in registers instead cost occupancy and
+// measured no faster.
+//
+// C interface, bound with ctypes from
+// src/repro_torch/kernels/psi_stats/kernel.py.
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -493,6 +515,341 @@ __global__ void psi2_reduce(const T* __restrict__ part,
   }
 }
 
+// ---------------------------------------------------------------------------
+// psi2, f32
+// ---------------------------------------------------------------------------
+
+constexpr int UVE = 16384;  // psi2 f32: floats of the staged rows' u and v
+
+// 2^v on the SFU, one instruction (relative error ~2^-22; results below
+// 2^-126 flush to 0).
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+constexpr float kLog2e = 1.44269504088896340736f;
+
+// Shared memory of one psi2 f32 block (floats), whatever q: z of both tiles
+// (one q-chunk), the staged rows' u and v (UVE; the threads' sums reuse it
+// at the end of a unit), the alphas of the tiles' points, the rows' (mu,
+// log2(e)/(2c)) pairs and log1p(2 s / l^2) terms of one q-chunk, their
+// log-normalisers and weights.  Two blocks fit an SM.
+constexpr int P2F_SMEM_ELEMS = 2 * QC * TM + UVE + 2 * RC * TM + 3 * RC * QC
+                               + 2 * RC;
+static_assert(PP * PP * NT <= UVE, "the threads' sums reuse the u/v buffer");
+static_assert(2 * (P2F_SMEM_ELEMS * sizeof(float) + 1024) <= 233472,
+              "two psi2 f32 blocks over an SM's 228 KB");
+
+// The f64 kernel's units, tiles and patches, and its centred exponent,
+// with the per-pair work cut to the cross term's FMAs:
+//   * each unit stages its rows' log-normaliser and 1/(2c) itself, l^2 =
+//     exp(2 log_ell) from the log values (no launch before it);
+//   * per staged row, u_a = mu - z_a for the a tile's points and v_b =
+//     (z_b - mu) log2(e) / (2c) for the b tile's are staged once, with the
+//     alphas, so a thread's pair row costs per feature two float4 loads and
+//     16 FMAs (the f64 kernel makes u and v per pair row: 1.75 ops a pair
+//     and feature);
+//   * the exponent in log2 units (log2(e) folded into 1/(2c) and the
+//     log-normaliser) and one ex2.approx a pair;
+//   * as many rows staged at a time as UVE holds (12 at q = 10, 32 at q <= 4);
+//   * the sums in registers across the unit's rows, written once;
+//   * the partials laid out [slice][entry][patch], so the reduce's loads
+//     coalesce.
+// Points past m are not staged: only their own pairs, which the reduce
+// never reads, see the stale values.
+__global__ void __launch_bounds__(NT, 2)
+psi2_f32_tiles(const float* __restrict__ mu, const float* __restrict__ s,
+               const float* __restrict__ w, const float* __restrict__ z,
+               const float* __restrict__ log_ell, int n, int m, int q,
+               int nts, int n_slices, int rows_per_slice,
+               float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* za = reinterpret_cast<float*>(smem_raw);  // [QC][TM]  z of the a tile's points
+  float* zb = za + QC * TM;                        // [QC][TM]  z of the b tile's points
+  float* uv = zb + QC * TM;                        // u [rows][kw][TM], then v; tot at the end
+  float* aa = uv + UVE;                            // [RC][TM]  alpha of a points
+  float* ab = aa + RC * TM;                        // [RC][TM]  alpha of b points
+  float2* mi = reinterpret_cast<float2*>(ab + RC * TM);  // [RC][QC] (mu, log2(e)/(2c))
+  float* lnk = reinterpret_cast<float*>(mi + RC * QC);   // [RC][QC] log1p(2 s / l^2)
+  float* lns = lnk + RC * QC;                      // [RC]  log-normaliser, log2 units
+  float* ws = lns + RC;                            // [RC]
+  float* tot = uv;                                 // [PP*PP][NT]  each thread's sums
+
+  const int tid = threadIdx.x;
+  const int np = (m + PP - 1) / PP;
+  const long n_patches = (long)np * (np + 1) / 2;
+  const long n_tiles = (long)nts * (nts + 1) / 2;
+  const bool chunked = q > QC;
+
+  for (long unit = blockIdx.x; unit < n_tiles * n_slices; unit += gridDim.x) {
+    const long tile = unit % n_tiles;
+    const int slice = (int)(unit / n_tiles);
+    int ta = 0;
+    long rem = tile;
+    while (rem >= nts - ta) {
+      rem -= nts - ta;
+      ++ta;
+    }
+    const int tb = ta + (int)rem;
+    const int a0 = ta * TM, b0 = tb * TM;
+    // The tile's patches that hold a pair a <= b < m, packed onto threads
+    // and split into row groups, as in f64.
+    const int na = min(TM / PP, (m - a0 + PP - 1) / PP);
+    const int nb = min(TM / PP, (m - b0 + PP - 1) / PP);
+    const int count = ta == tb ? na * (na + 1) / 2 : na * nb;
+    const int groups = chunked ? 1 : max(1, NT / count);
+    const int grp = tid / count, lt = tid % count;
+    const bool active = grp < groups;
+    int pa = 0, pb;
+    if (ta == tb) {
+      int r = lt;
+      while (r >= na - pa) {
+        r -= na - pa;
+        ++pa;
+      }
+      pb = pa + r;
+    } else {
+      pa = lt / nb;
+      pb = lt % nb;
+    }
+    const int pts_a = min(TM, m - a0), pts_b = min(TM, m - b0);
+
+    // z of both tiles, features [k0, k0 + kw)
+    auto stage_z = [&](int k0, int kw) {
+      for (int e = tid; e < kw * TM; e += NT) {
+        const int k = e / TM, i = e % TM;
+        if (i < pts_a) za[e] = z[(size_t)(a0 + i) * q + k0 + k];
+        if (i < pts_b) zb[e] = z[(size_t)(b0 + i) * q + k0 + k];
+      }
+    };
+    // Rows [r0, r0 + nr), features [k0, k0 + kw): (mu, log2(e)/(2c)) and
+    // log1p(2 s / l^2), rounded as the plain version rounds them.
+    auto stage_rows = [&](long r0, int nr, int k0, int kw) {
+      for (int e = tid; e < nr * kw; e += NT) {
+        const int r = e / kw, k = e % kw;
+        const size_t g = (size_t)(r0 + r) * q + k0 + k;
+        const float sv = s[g], l2 = expf(2.f * log_ell[k0 + k]);
+        mi[r * QC + k] = make_float2(mu[g], kLog2e / fmaf(4.f, sv, 2.f * l2));
+        lnk[r * QC + k] = log1pf(2.f * sv / l2);
+      }
+    };
+    // For the staged rows: their log-normalisers over the staged features
+    // (summed in feature order), u and the a alphas of the a tile's
+    // points, v and the b alphas of the b tile's.
+    float* const u_st = uv;
+    auto stage_uv = [&](int nr, int kw) {
+      float* v_st = uv + nr * kw * TM;
+      for (int r = tid; r < nr; r += NT) {
+        float acc = 0.f;
+        for (int k = 0; k < kw; ++k) acc += lnk[r * QC + k];
+        lns[r] = kLog2e * (-0.5f * acc);
+      }
+      for (int e = tid; e < nr * 2 * TM; e += NT) {
+        const int r = e / (2 * TM), p = e % (2 * TM);
+        float acc = 0.f;
+        if (p < TM) {
+          if (p >= pts_a) continue;
+          for (int k = 0; k < kw; ++k) {
+            const float2 v = mi[r * QC + k];
+            const float u = v.x - za[k * TM + p];               // mu - z_a
+            u_st[(r * kw + k) * TM + p] = u;
+            acc = fmaf(u * v.y, u, acc);
+          }
+          aa[r * TM + p] = -0.5f * acc;
+        } else {
+          const int i = p - TM;
+          if (i >= pts_b) continue;
+          for (int k = 0; k < kw; ++k) {
+            const float2 v = mi[r * QC + k];
+            const float d = zb[k * TM + i] - v.x;               // z_b - mu
+            const float vv = d * v.y;
+            v_st[(r * kw + k) * TM + i] = vv;
+            acc = fmaf(d, vv, acc);
+          }
+          ab[r * TM + i] = -0.5f * acc;
+        }
+      }
+    };
+
+    // rows staged at a time: all of u and v in UVE (one when chunked)
+    const int rows = chunked ? 1 : min(RC, UVE / (2 * TM * max(q, 1)));
+    if (!chunked) stage_z(0, q);
+    float acc[PP][PP];
+#pragma unroll
+    for (int i = 0; i < PP; ++i)
+#pragma unroll
+      for (int j = 0; j < PP; ++j) acc[i][j] = 0.f;
+    const long lo = (long)slice * rows_per_slice;
+    const long hi = min((long)n, lo + rows_per_slice);
+    for (long r0 = lo; r0 < hi; r0 += chunked ? RC : rows) {
+      const int nr = (int)min((long)(chunked ? RC : rows), hi - r0);
+      __syncthreads();  // the previous rows are consumed
+      for (int r = tid; r < nr; r += NT) ws[r] = w[r0 + r];
+      if (!chunked) {
+        stage_rows(r0, nr, 0, q);
+        __syncthreads();
+        stage_uv(nr, q);
+      }
+      __syncthreads();
+
+      const int r_first = chunked ? 0 : (active ? grp : nr);
+      const int r_step = chunked ? 1 : groups;
+      for (int r = r_first; r < nr; r += r_step) {
+        const float wr = ws[r];
+        // masked rows cost nothing (block-uniform when chunked)
+        if (wr == 0.f) continue;
+        const int rs = chunked ? 0 : r;  // the row's staged slot
+        float e[PP][PP];
+        for (int k0 = 0; k0 < q; k0 += QC) {
+          const int kw = min(QC, q - k0);
+          if (chunked) {
+            __syncthreads();  // the staged chunk is consumed
+            stage_z(k0, kw);
+            stage_rows(r0 + r, 1, k0, kw);
+            __syncthreads();
+            stage_uv(1, kw);
+            __syncthreads();
+          }
+          if (!active) continue;
+          float av[PP], bv[PP];
+          load4(aa + rs * TM + pa * PP, av);
+          load4(ab + rs * TM + pb * PP, bv);
+          const float ln = lns[rs];
+#pragma unroll
+          for (int i = 0; i < PP; ++i) {
+            const float ai = av[i] + ln;
+#pragma unroll
+            for (int j = 0; j < PP; ++j)
+              e[i][j] = k0 == 0 ? ai + bv[j] : e[i][j] + (ai + bv[j]);
+          }
+          const int nrs = chunked ? 1 : nr;
+          const float* ur = u_st + rs * kw * TM + pa * PP;
+          const float* vr = uv + (nrs + rs) * kw * TM + pb * PP;
+          for (int k = 0; k < kw; ++k) {
+            float uk[PP], vk[PP];
+            load4(ur + k * TM, uk);
+            load4(vr + k * TM, vk);
+#pragma unroll
+            for (int i = 0; i < PP; ++i)
+#pragma unroll
+              for (int j = 0; j < PP; ++j) e[i][j] = fmaf(uk[i], vk[j], e[i][j]);
+          }
+        }
+        if (active) {
+#pragma unroll
+          for (int i = 0; i < PP; ++i)
+#pragma unroll
+            for (int j = 0; j < PP; ++j)
+              acc[i][j] = fmaf(wr, ex2_approx(e[i][j]), acc[i][j]);
+        }
+      }
+    }
+
+    // The groups' sums, added in group order, are this slice's partial.
+    __syncthreads();  // u and v are consumed: tot takes their place
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < PP * PP; ++e) tot[e * NT + tid] = acc[e / PP][e % PP];
+    }
+    __syncthreads();
+    if (active && grp == 0) {
+      const long ga = a0 / PP + pa, gb = b0 / PP + pb;
+      float* pd = part + (size_t)slice * n_patches * (PP * PP)
+                  + patch_index(ga, gb, np);
+#pragma unroll
+      for (int e = 0; e < PP * PP; ++e) {
+        float sum = tot[e * NT + lt];
+        for (int g = 1; g < groups; ++g) sum += tot[e * NT + g * count + lt];
+        pd[(size_t)e * n_patches] = sum;
+      }
+    }
+  }
+}
+
+// Fixed-order f64 sum of the slice partials, times sf2^2 exp(static_ab)
+// with static_ab = -sum_q (z_a - z_b)^2 / (4 l^2), sf2 and l^2 from the log
+// values in f64.  Thread t takes entry t / np^2 of patch (pa, pb) =
+// divmod(t % np^2, np), so consecutive threads read consecutive patches of
+// one entry; one thread per pair a <= b writes D[a, b] and D[b, a], so D is
+// exactly symmetric.
+__global__ void psi2_f32_reduce(const float* __restrict__ part,
+                                const float* __restrict__ z,
+                                const float* __restrict__ log_sf2,
+                                const float* __restrict__ log_ell,
+                                int n_slices, int m, int q,
+                                double* __restrict__ D) {
+  const int np = (m + PP - 1) / PP;
+  const long n_patches = (long)np * (np + 1) / 2;
+  const size_t slice_len = (size_t)n_patches * (PP * PP);
+  const long grid = (long)np * np;
+  for (long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < PP * PP * grid; t += (long)gridDim.x * blockDim.x) {
+    const int e = (int)(t / grid);
+    const long rem = t % grid;
+    const int pa = (int)(rem / np), pb = (int)(rem % np);
+    const int a = pa * PP + e / PP, b = pb * PP + e % PP;
+    if (pa > pb || a > b || b >= m) continue;
+    const size_t off = (size_t)e * n_patches + patch_index(pa, pb, np);
+    // four running sums (slice sl into sum sl % 4), so four loads are in
+    // flight; still one fixed order
+    double s4[4] = {0.0, 0.0, 0.0, 0.0};
+    int sl = 0;
+    for (; sl + 4 <= n_slices; sl += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s4[u] += (double)part[(sl + u) * slice_len + off];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (sl + u < n_slices) s4[u] += (double)part[(sl + u) * slice_len + off];
+    const double sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    double st = 0.0;
+    for (int k = 0; k < q; ++k) {
+      const double d = (double)z[(size_t)a * q + k] - (double)z[(size_t)b * q + k];
+      st += d * d / exp(2.0 * (double)log_ell[k]);
+    }
+    const double sf2 = exp((double)log_sf2[0]);
+    const double v = (sf2 * sf2) * exp(-0.25 * st) * sum;
+    D[(size_t)a * m + b] = v;
+    D[(size_t)b * m + a] = v;
+  }
+}
+
+int launch_psi2_f32(const float* mu, const float* s, const float* w,
+                    const float* z, const float* log_sf2,
+                    const float* log_ell, int n, int m, int q, int n_slices,
+                    int rows_per_slice, float* part, double* D,
+                    void* stream) {
+  const int nts = (m + TM - 1) / TM;
+  const long n_units = (long)nts * (nts + 1) / 2 * n_slices;
+  const size_t smem = P2F_SMEM_ELEMS * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The shared-memory attribute once per device: a runtime call per launch
+  // costs host time the card waits for.
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(psi2_f32_tiles,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev] = true;
+  }
+  // Units (tile, slice) on gridDim.x, walked grid-stride past its limit.
+  const unsigned grid = (unsigned)(n_units < INT_MAX ? n_units : INT_MAX);
+  psi2_f32_tiles<<<grid, NT, smem, st>>>(mu, s, w, z, log_ell, n, m, q, nts,
+                                         n_slices, rows_per_slice, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long np = (m + PP - 1) / PP;
+  const long blocks = (PP * PP * np * np + 255) / 256;
+  psi2_f32_reduce<<<(unsigned)(blocks < (1L << 20) ? blocks : 1L << 20), 256,
+                    0, st>>>(part, z, log_sf2, log_ell, n_slices, m, q, D);
+  return cudaGetLastError();
+}
+
 // psi1 over units of (rows [r0, r0 + rows), runs [j0, j0 + rpt)) of the
 // output, a run being V = 16 / sizeof(T) consecutive columns of one row.
 // Per feature chunk the block stages z of its columns (transposed), its
@@ -688,8 +1045,9 @@ int launch_psi1(const T* mu, const T* s, const T* z, const T* log_sf2,
 
 // psi2: mu, s (n,q), w (n,), z (m,q), log_sf2 (), log_ell (q,):
 // contiguous, one dtype.  Scratch in that dtype: n_slices rows of
-// ceil(m/4)(ceil(m/4)+1)/2 patches of 16 partial sums, then (q + 1)(n + 1)
-// for hp and the rows' terms.  Output D (m,m) f64.
+// ceil(m/4)(ceil(m/4)+1)/2 patches of 16 partial sums (f64: patch-major,
+// then (q + 1)(n + 1) for hp and the rows' terms; f32: entry-major, nothing
+// more).  Output D (m,m) f64.
 // psi1: mu, s (n,q), z (m,q), log_sf2 (), log_ell (q,): contiguous, one
 // dtype; units of `rows` rows by `rpt` runs of 16 / sizeof(T) columns,
 // `col_tiles` of them across m (psi1_plan in kernel.py); output (n,m) in
@@ -699,8 +1057,8 @@ extern "C" int psi2_f32(const float* mu, const float* s, const float* w,
                         const float* log_ell, int n, int m, int q,
                         int n_slices, int rows_per_slice, float* scratch,
                         double* D, void* stream) {
-  return launch_psi2<float>(mu, s, w, z, log_sf2, log_ell, n, m, q, n_slices,
-                            rows_per_slice, scratch, D, stream);
+  return launch_psi2_f32(mu, s, w, z, log_sf2, log_ell, n, m, q, n_slices,
+                         rows_per_slice, scratch, D, stream);
 }
 
 extern "C" int psi2_f64(const double* mu, const double* s, const double* w,

@@ -65,12 +65,32 @@
 //     the diagonal block's own rows of part_c, with y read from device
 //     memory.
 //
-// f32 (the TPU kernel's f32 contract): 64 x 64 upper tiles, an RC-row chunk
-// at a time, a 4x4 micro-tile of f32 FMAs per thread on the CUDA cores,
-// Kahan fold per chunk.  At sgpr-synth-1m, f32 tiles move the served mean
-// far outside its budget, and f32 outputs make I + beta L^-1 D L^-T
-// indefinite, because Sigma = Kmm + beta*D is ill-conditioned (ROADMAP
-// Queue 3), so f64 callers get the double instantiation.
+// f32 (the TPU kernel's f32 contract): the same structure with the product
+// in IEEE f32 on the CUDA cores (TF32 misses the f32 tier), so the product
+// (n*m*(m+1)/2 FMAs, 1.3e11 at sgpr-synth-1m) and the slab build share the
+// FP32 pipe, and that pipe is the bound, with shared memory's delivery
+// beside it (an 8 x 8 tile reads a byte per FMA).  On the H100 the two
+// barely overlap: without the build 8.8 ms of 13.6, without the product
+// 5.4; the product runs at 18.6 TFMA/s, cuBLAS's f32 at 24.3 (PERF.md).
+//   * 128 x 128 upper tiles under fill_plan, two blocks per SM (at most 128
+//     registers a thread, 16 warps an SM: 8% faster than one block of 167
+//     registers), so each slab entry is built m/128 times; a diagonal
+//     tile's slab once.
+//   * An 8 x 8 micro-tile per thread: per slab row two float4 reads of each
+//     slab (conflict-free) for 64 FMAs, where 4 x 4 micro-tiles read twice
+//     the bytes per FMA and kept the loop at shared memory's rate.
+//   * The exponent in the direct form, -1/2 log2(e) folded into the staged
+//     1/ell^2 by the wrapper, and one ex2.approx per entry on the SFU (about
+//     2^-22 relative, far inside the tier; libdevice's expf is ~8 FP32 ops).
+//   * The f64 kernel's overlap (double-buffered slabs, cp.async rows in
+//     three buffers, one barrier a chunk) and its Kahan fold every 4,096
+//     rows into the block's scratch in L2 (a fold per chunk in registers
+//     cost 4 ops per accumulator a chunk and 32 registers a thread).
+//   * Fixed shared memory (FMA_SMEM_BYTES), whatever q and d, as in f64.
+// At sgpr-synth-1m, f32 tiles move the served mean far outside its budget,
+// and f32 outputs make I + beta L^-1 D L^-T indefinite, because Sigma = Kmm +
+// beta*D is ill-conditioned (ROADMAP Queue 3), so f64 callers get the
+// double instantiation; no main path launches this one.
 //
 // C interface, bound with ctypes from
 // src/repro_torch/kernels/reg_stats/kernel.py.
@@ -78,150 +98,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int TM = 64;   // D tile edge
-constexpr int RC = 32;   // rows staged per chunk
-constexpr int NT = 256;  // threads per block: 16 x 16, a 4x4 micro-tile each
-
-__device__ __forceinline__ float exp_t(float v) { return expf(v); }
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-
-// Four consecutive shared-memory values (16-byte aligned) into registers.
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-reg_stats_tiles(const T* __restrict__ x, const T* __restrict__ y,
-                const T* __restrict__ w, const T* __restrict__ z,
-                const T* __restrict__ hp, int n, int m, int q, int d,
-                int rows_per_slice, int nts, T* __restrict__ part_d,
-                T* __restrict__ part_c, T* __restrict__ part_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kaw = reinterpret_cast<T*>(smem_raw);  // [RC][TM]  ka * w
-  T* kb = kaw + RC * TM;                    // [RC][TM]
-  T* zaT = kb + RC * TM;                    // [q][TM]
-  T* zbT = zaT + q * TM;                    // [q][TM]
-  T* xs = zbT + q * TM;                     // [RC][q]
-  T* ys = xs + RC * q;                      // [RC][d]
-  T* ws = ys + RC * d;                      // [RC]
-  T* inv = ws + RC;                         // [q]
-  T* cacc = inv + q;                        // [TM][d]
-
-  const int n_tiles = nts * (nts + 1) / 2;
-  const int slice = (int)blockIdx.x / n_tiles;
-  const int tile = (int)blockIdx.x % n_tiles;
-  int a = 0, rem = tile;
-  while (rem >= nts - a) {
-    rem -= nts - a;
-    ++a;
-  }
-  const int b = a + rem;
-  const bool diag = a == b;
-  const int a0 = a * TM, b0 = b * TM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const T sf2 = hp[0];
-
-  for (int e = tid; e < q; e += NT) inv[e] = hp[1 + e];
-  for (int e = tid; e < q * TM; e += NT) {
-    const int k = e / TM, i = e % TM;
-    zaT[e] = a0 + i < m ? z[(size_t)(a0 + i) * q + k] : T(0);
-    zbT[e] = b0 + i < m ? z[(size_t)(b0 + i) * q + k] : T(0);
-  }
-  if (diag)
-    for (int e = tid; e < TM * d; e += NT) cacc[e] = T(0);
-
-  T tot[4][4], comp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) tot[i][j] = comp[i][j] = T(0);
-  T wsum = 0;
-
-  const long lo = (long)slice * rows_per_slice;
-  const long hi = min((long)n, lo + rows_per_slice);
-  __syncthreads();
-
-  for (long r0 = lo; r0 < hi; r0 += RC) {
-    const long xlim = (hi - r0) * q, ylim = (hi - r0) * d;
-    for (int e = tid; e < RC * q; e += NT) xs[e] = e < xlim ? x[r0 * q + e] : T(0);
-    for (int e = tid; e < RC * d; e += NT) ys[e] = e < ylim ? y[r0 * d + e] : T(0);
-    for (int e = tid; e < RC; e += NT) ws[e] = r0 + e < hi ? w[r0 + e] : T(0);
-    __syncthreads();
-
-    for (int e = tid; e < RC * TM; e += NT) {
-      const int r = e / TM, i = e % TM;
-      const T* xr = xs + r * q;
-      T sa = 0, sb = 0;
-      for (int k = 0; k < q; ++k) {
-        const T da = xr[k] - zaT[k * TM + i];
-        sa = fma_t(da * da, inv[k], sa);
-        if (!diag) {
-          const T db = xr[k] - zbT[k * TM + i];
-          sb = fma_t(db * db, inv[k], sb);
-        }
-      }
-      const T ka = sf2 * exp_t(T(-0.5) * sa);
-      kaw[e] = ws[r] * ka;
-      kb[e] = diag ? ka : sf2 * exp_t(T(-0.5) * sb);
-    }
-    __syncthreads();
-
-    T acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-#pragma unroll 4
-    for (int r = 0; r < RC; ++r) {
-      T ar[4], br[4];
-      load4(kaw + r * TM + ty * 4, ar);
-      load4(kb + r * TM + tx * 4, br);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma_t(ar[i], br[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // Kahan: tot += acc
-        const T yv = acc[i][j] - comp[i][j];
-        const T tv = tot[i][j] + yv;
-        comp[i][j] = (tv - tot[i][j]) - yv;
-        tot[i][j] = tv;
-      }
-
-    if (diag) {  // C rows of this tile; each entry owned by one thread
-      for (int e = tid; e < TM * d; e += NT) {
-        const int i = e / d, c = e % d;
-        T s = 0;
-        for (int r = 0; r < RC; ++r) s = fma_t(kaw[r * TM + i], ys[r * d + c], s);
-        cacc[e] += s;
-      }
-    }
-    if (tile == 0 && tid == 0) {
-      T s = 0;
-      for (int r = 0; r < RC; ++r) s += ws[r];
-      wsum += s;
-    }
-    __syncthreads();
-  }
-
-  T* pd = part_d + (size_t)blockIdx.x * TM * TM;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pd[(ty * 4 + i) * TM + tx * 4 + j] = tot[i][j];
-  if (diag) {
-    T* pc = part_c + ((size_t)slice * nts * TM + a0) * d;
-    for (int e = tid; e < TM * d; e += NT) pc[e] = cacc[e];
-  }
-  if (tile == 0 && tid == 0) part_b[slice] = sf2 * wsum;
-}
 
 // Fixed-order f64 sum of the per-slice partials; D's lower half mirrors
 // the upper tiles, so D is exactly symmetric.
@@ -594,48 +470,361 @@ int launch_f64(const double* x, const double* y, const double* w,
       part_d, part_c, part_b, n_slices, nts, m, d, D, C, b);
   return cudaGetLastError();
 }
-template <typename T>
-int launch(const T* x, const T* y, const T* w, const T* z, const T* hp, int n,
-           int m, int q, int d, int n_slices, int rows_per_slice, T* part_d,
-           T* part_c, T* part_b, double* D, double* C, double* b, void* stream) {
-  const int nts = (m + TM - 1) / TM;
+// ---------------------------------------------------------------------------
+// f32: FMA micro-tiles on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 128;          // D tile edge
+constexpr int FRC = 32;          // rows per chunk
+constexpr int FNT = 256;         // 8 warps; an 8 x 8 micro-tile per thread
+constexpr int FBG = 8;           // slab rows per build group
+
+// 4 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 2^v on the SFU, one instruction (relative error ~2^-22; results below
+// 2^-126 flush to 0).
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// Four consecutive floats of shared or device memory (16-byte aligned).
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Shared memory of one f32 block, whatever q and d: the f64 layout in
+// floats, without the slab padding (a warp reads one slab row).
+constexpr size_t FMA_SMEM_BYTES =
+    sizeof(float) * (2 * 2 * FRC * FT + 2 * QC * FT + 3 * FRC * QC
+                     + 3 * FRC * DC + 3 * FRC + QC + FT * DC);
+static_assert(FMA_SMEM_BYTES <= 232448, "f32 block over sm_90's 227 KB");
+
+// The f64 kernel's structure with the product on the CUDA cores.  Each
+// thread owns an 8 x 8 patch of the 128 x 128 tile: rows rg*4 + {0..3} and
+// 64 + rg*4 + {0..3}, columns cg*4 + {0..3} and 64 + cg*4 + {0..3} (a warp:
+// 4 row groups by 8 column groups), so per slab row it loads its 8 entries
+// of each slab as two float4 (a warp's reads are 64 and 128 contiguous
+// bytes, conflict-free) for 64 FMAs.  hp carries -log2(e) / (2 ell^2) in
+// place of 1/ell^2, so an entry is sf2 2^(sum_q (x_q - z_q)^2 s_q): q
+// FMAs on the direct differences and one ex2.approx.  CHUNKED as in the
+// f64 kernel.
+template <bool CHUNKED>
+__global__ void __launch_bounds__(FNT, 2)
+reg_stats_fma(const float* __restrict__ x, const float* __restrict__ y,
+              const float* __restrict__ w, const float* __restrict__ z,
+              const float* __restrict__ hp, int n, int m, int q, int d,
+              int rows_per_slice, int nts, float* __restrict__ part_d,
+              float* __restrict__ part_comp, float* __restrict__ part_c,
+              float* __restrict__ part_b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* slabs = reinterpret_cast<float*>(smem_raw);  // [2][2][FRC][FT]
+  float* zaT = slabs + 4 * FRC * FT;                  // [QC][FT]
+  float* zbT = zaT + QC * FT;                         // [QC][FT]
+  float* xs = zbT + QC * FT;                          // [3][FRC * QC]
+  float* ys = xs + 3 * FRC * QC;                      // [3][FRC * DC]
+  float* ws = ys + 3 * FRC * DC;                      // [3][FRC]
+  float* sc = ws + 3 * FRC;                           // [QC]  -log2(e)/(2 ell^2)
+  float* cacc = sc + QC;                              // [FT][DC]
+
+  const int n_tiles = nts * (nts + 1) / 2;
+  const int slice = (int)blockIdx.x / n_tiles, tile = (int)blockIdx.x % n_tiles;
+  int a = 0, rem = tile;
+  while (rem >= nts - a) {
+    rem -= nts - a;
+    ++a;
+  }
+  const int b = a + rem;
+  const bool diag = a == b;
+  const int a0 = a * FT, b0 = b * FT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = (warp >> 1) * 4 + (lane >> 3);   // row group, 0..15
+  const int cg = (warp & 1) * 8 + (lane & 7);     // column group, 0..15
+  const float sf2 = hp[0];
+
+  const long lo = (long)slice * rows_per_slice;
+  const long hi = min((long)n, lo + rows_per_slice);
+  const int n_chunks = hi > lo ? (int)((hi - lo + FRC - 1) / FRC) : 0;
+  const bool staged_y = !CHUNKED && d <= DC;
+  float* pc = part_c + ((size_t)slice * nts * FT + a0) * d;
+  if (diag)
+    for (int e = tid; e < FT * d; e += FNT) (staged_y ? cacc : pc)[e] = 0.f;
+
+  auto stage_z = [&](int k0, int kw) {
+    for (int e = tid; e < kw; e += FNT) sc[e] = hp[1 + k0 + e];
+    for (int e = tid; e < kw * FT; e += FNT) {
+      const int k = e / FT, i = e % FT;
+      zaT[e] = a0 + i < m ? z[(size_t)(a0 + i) * q + k0 + k] : 0.f;
+      zbT[e] = b0 + i < m ? z[(size_t)(b0 + i) * q + k0 + k] : 0.f;
+    }
+  };
+  auto issue = [&](int c) {
+    if (c >= n_chunks) return;
+    const long r0 = lo + (long)c * FRC;
+    const int bf = c % 3;
+    const long xlim = (hi - r0) * q, ylim = (hi - r0) * d;
+    for (int e = tid; e < FRC * q; e += FNT)
+      cp_async4(xs + bf * FRC * QC + e, e < xlim ? x + r0 * q + e : x,
+                e < xlim);
+    if (staged_y)
+      for (int e = tid; e < FRC * d; e += FNT)
+        cp_async4(ys + bf * FRC * DC + e, e < ylim ? y + r0 * d + e : y,
+                  e < ylim);
+    for (int e = tid; e < FRC; e += FNT)
+      cp_async4(ws + bf * FRC + e, r0 + e < hi ? w + r0 + e : w, r0 + e < hi);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // Rows [g*FBG, g*FBG + FBG) of the slabs, as the f64 kernel's build.
+  auto build = [&](float* aw, float* bs, const float* xb, int xld,
+                   const float* wb, int g, int kw, bool first, bool last) {
+    const int i = tid % FT, r0 = g * FBG + (tid / FT) * (FBG / 2);
+    float sa[FBG / 2], sb[FBG / 2];
+#pragma unroll
+    for (int u = 0; u < FBG / 2; ++u) {
+      sa[u] = first ? 0.f : aw[(r0 + u) * FT + i];
+      sb[u] = first || diag ? 0.f : bs[(r0 + u) * FT + i];
+    }
+    for (int k = 0; k < kw; ++k) {
+      const float za = zaT[k * FT + i], zb = zbT[k * FT + i], s = sc[k];
+#pragma unroll
+      for (int u = 0; u < FBG / 2; ++u) {
+        const float xv = xb[(r0 + u) * xld + k];
+        const float da = xv - za;
+        sa[u] = fmaf(da * da, s, sa[u]);
+        if (!diag) {
+          const float db = xv - zb;
+          sb[u] = fmaf(db * db, s, sb[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < FBG / 2; ++u) {
+      const int r = r0 + u;
+      if (last) {
+        const float ka = sf2 * ex2_approx(sa[u]);
+        aw[r * FT + i] = wb[r] * ka;
+        bs[r * FT + i] = diag ? ka : sf2 * ex2_approx(sb[u]);
+      } else {
+        aw[r * FT + i] = sa[u];
+        if (!diag) bs[r * FT + i] = sb[u];
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // Rows [g*FBG, g*FBG + FBG) of a chunk's product acc += aw^T bs.
+  auto product = [&](const float* aw, const float* bs, int g) {
+#pragma unroll
+    for (int r = g * FBG; r < (g + 1) * FBG; ++r) {
+      float av[8], bv[8];
+      load4(aw + r * FT + rg * 4, av);
+      load4(aw + r * FT + 64 + rg * 4, av + 4);
+      load4(bs + r * FT + cg * 4, bv);
+      load4(bs + r * FT + 64 + cg * 4, bv + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  };
+
+  bool first_fold = true;
+  float* pd = part_d + (size_t)blockIdx.x * FT * FT;
+  float* pk = part_comp + (size_t)blockIdx.x * FT * FT;
+  // Kahan: running tile += acc; acc = 0.  Each entry has one owner thread.
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t o = (size_t)((i >> 2) * 64 + rg * 4 + (i & 3)) * FT
+                         + h * 64 + cg * 4;
+        float tv[4], comp[4] = {0.f, 0.f, 0.f, 0.f};
+        if (first_fold) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tv[j] = acc[i][h * 4 + j];
+        } else {
+          float tot[4], ck[4];
+          load4(pd + o, tot);
+          load4(pk + o, ck);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float yv = acc[i][h * 4 + j] - ck[j];
+            tv[j] = tot[j] + yv;
+            comp[j] = (tv[j] - tot[j]) - yv;
+          }
+        }
+        store4(pd + o, tv);
+        store4(pk + o, comp);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][h * 4 + j] = 0.f;
+      }
+    first_fold = false;
+  };
+
+  float wsum = 0.f;
+  // After chunk c's product: its C rows (diagonal tile) and its sum of w,
+  // then the Kahan fold every FOLD_CHUNKS chunks.
+  auto finish = [&](int c, const float* aw, const float* wb) {
+    if (diag && staged_y) {
+      const float* yb = ys + (c % 3) * FRC * DC;
+      for (int e = tid; e < FT * d; e += FNT) {
+        const int i = e / d, cc = e % d;
+        float s = 0.f;
+        for (int r = 0; r < FRC; ++r) s = fmaf(aw[r * FT + i], yb[r * d + cc], s);
+        cacc[e] += s;
+      }
+    } else if (diag) {
+      const long r0 = lo + (long)c * FRC;
+      const int nr = (int)min((long)FRC, hi - r0);
+      for (int e = tid; e < FT * d; e += FNT) {
+        const int i = e / d, cc = e % d;
+        float s = 0.f;
+        for (int r = 0; r < nr; ++r) s = fmaf(aw[r * FT + i], y[(r0 + r) * d + cc], s);
+        pc[e] += s;
+      }
+    }
+    if (tile == 0 && tid == 0) {
+      float s = 0.f;
+      for (int r = 0; r < FRC; ++r) s += wb[r];
+      wsum += s;
+    }
+    if ((c + 1) % FOLD_CHUNKS == 0 || c + 1 == n_chunks) fold();
+  };
+
+  if constexpr (!CHUNKED) {
+    stage_z(0, q);
+    issue(0);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // z, the scales, chunk 0's rows
+    issue(1);
+    if (n_chunks > 0)
+      for (int g = 0; g < FRC / FBG; ++g)
+        build(slabs, slabs + FRC * FT, xs, q, ws, g, q, true, true);
+
+    for (int c = 0; c < n_chunks; ++c) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // chunk c's slabs and chunk c+1's rows are in; c-1 is done
+      issue(c + 2);
+
+      // This chunk's product interleaved with the next chunk's slab build
+      // (the other slab buffer).
+      const float* aw = slabs + (c & 1) * 2 * FRC * FT;
+      float* nxt = slabs + ((c + 1) & 1) * 2 * FRC * FT;
+      const int nb = (c + 1) % 3;
+#pragma unroll
+      for (int g = 0; g < FRC / FBG; ++g) {
+        product(aw, aw + FRC * FT, g);
+        if (c + 1 < n_chunks)
+          build(nxt, nxt + FRC * FT, xs + nb * FRC * QC, q, ws + nb * FRC,
+                g, q, true, true);
+      }
+      finish(c, aw, ws + (c % 3) * FRC);
+    }
+  } else {
+    float* aw = slabs;
+    float* bs = slabs + FRC * FT;
+    for (int c = 0; c < n_chunks; ++c) {
+      const long r0 = lo + (long)c * FRC;
+      for (int k0 = 0; k0 < q; k0 += QC) {
+        const int kw = min(QC, q - k0);
+        __syncthreads();  // the staged features and the slabs are free
+        stage_z(k0, kw);
+        for (int e = tid; e < FRC * kw; e += FNT) {
+          const int r = e / kw, k = e % kw;
+          xs[r * QC + k] = r0 + r < hi ? x[(r0 + r) * q + k0 + k] : 0.f;
+        }
+        if (k0 == 0)
+          for (int e = tid; e < FRC; e += FNT)
+            ws[e] = r0 + e < hi ? w[r0 + e] : 0.f;
+        __syncthreads();
+        for (int g = 0; g < FRC / FBG; ++g)
+          build(aw, bs, xs, QC, ws, g, kw, k0 == 0, k0 + QC >= q);
+      }
+      __syncthreads();  // the chunk's slabs are complete
+#pragma unroll
+      for (int g = 0; g < FRC / FBG; ++g) product(aw, bs, g);
+      finish(c, aw, ws);
+    }
+  }
+  if (n_chunks == 0) fold();  // an empty slice writes zeros
+
+  if (diag && staged_y)
+    for (int e = tid; e < FT * d; e += FNT) pc[e] = cacc[e];
+  if (tile == 0 && tid == 0) part_b[slice] = sf2 * wsum;
+}
+
+int launch_f32(const float* x, const float* y, const float* w,
+               const float* z, const float* hp, int n, int m, int q, int d,
+               int n_slices, int rows_per_slice, float* part_d,
+               float* part_comp, float* part_c, float* part_b, double* D,
+               double* C, double* b, void* stream) {
+  const int nts = (m + FT - 1) / FT;
   const long n_tiles = (long)nts * (nts + 1) / 2;
-  const size_t smem = sizeof(T) * (2 * RC * TM + 2 * q * TM + RC * q +
-                                   RC * d + RC + q + TM * d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      reg_stats_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool chunked = q > QC;
+  auto kernel = chunked ? reg_stats_fma<true> : reg_stats_fma<false>;
+  // The shared-memory attribute once per device and variant: a runtime
+  // call per launch costs host time the card waits for.
+  static bool ready[64][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  reg_stats_tiles<T><<<(unsigned)(n_tiles * n_slices), NT, smem, s>>>(
-      x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_c, part_b);
+  if (dev >= 64 || !ready[dev][chunked]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)FMA_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev][chunked] = true;
+  }
+  kernel<<<(unsigned)(n_tiles * n_slices), FNT, FMA_SMEM_BYTES, s>>>(
+      x, y, w, z, hp, n, m, q, d, rows_per_slice, nts, part_d, part_comp,
+      part_c, part_b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   long total = (long)m * m > (long)m * d ? (long)m * m : (long)m * d;
   if (total < 1) total = 1;
-  reg_stats_reduce<T, TM><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  reg_stats_reduce<float, FT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       part_d, part_c, part_b, n_slices, nts, m, d, D, C, b);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (n,q), y (n,d), w (n,), z (m,q), hp = [sf2, 1/ell^2 (q)]: contiguous, one
-// dtype.  Scratch in that dtype: part_d (n_slices, T, 64, 64), part_c
-// (n_slices, nts*64, d), part_b (n_slices,) with nts = ceil(m/64) and
-// T = nts(nts+1)/2, one block per (slice, tile).  Outputs D (m,m), C (m,d),
-// b (): f64.  Any m.  Returns cudaGetLastError().
+// x (n,q), y (n,d), w (n,), z (m,q), hp = [sf2, -log2(e) / (2 ell^2) (q)]:
+// contiguous, f32.  Scratch in f32: part_d and part_comp (n_slices, T, 128,
+// 128), part_c (n_slices, nts*128, d), part_b (n_slices,) with nts =
+// ceil(m/128) and T = nts(nts+1)/2, one block per (slice, tile).  Outputs
+// D (m,m), C (m,d), b (): f64.  Any m, q and d: shared memory is
+// FMA_SMEM_BYTES.  Returns cudaGetLastError().
 extern "C" int reg_stats_f32(const float* x, const float* y, const float* w,
                              const float* z, const float* hp, int n, int m,
                              int q, int d, int n_slices, int rows_per_slice,
-                             float* part_d, float* part_c, float* part_b,
-                             double* D, double* C, double* b, void* stream) {
-  return launch<float>(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
-                       part_d, part_c, part_b, D, C, b, stream);
+                             float* part_d, float* part_comp, float* part_c,
+                             float* part_b, double* D, double* C, double* b,
+                             void* stream) {
+  return launch_f32(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
+                    part_d, part_comp, part_c, part_b, D, C, b, stream);
 }
 
-// f64: as above, plus part_comp (n_slices, T, 128, 128) and 128-row tiles:
-// part_d (n_slices, T, 128, 128), part_c (n_slices, nts*128, d) with
-// nts = ceil(m/128).  Any q and d: shared memory is DMMA_SMEM_BYTES.
+// f64: hp = [sf2, 1/ell^2 (q)] and the same scratch, in f64.  Any q and
+// d: shared memory is DMMA_SMEM_BYTES.
 extern "C" int reg_stats_f64(const double* x, const double* y, const double* w,
                              const double* z, const double* hp, int n, int m,
                              int q, int d, int n_slices, int rows_per_slice,

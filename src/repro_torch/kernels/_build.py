@@ -16,7 +16,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import math
 import os
 import pathlib
 import shutil
@@ -124,32 +123,16 @@ def sm_count(device) -> int:
     return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
-def slice_plan(n: int, m: int, sms: int, tile: int, rows: int
-               ) -> tuple[int, int, int]:
-    """Work split of a map kernel whose units each own one upper
-    ``tile``×``tile`` block of an (m, m) statistic and one slice of the n
-    rows, the slices summed afterwards in a fixed order: (upper tiles,
-    n-slices, rows per slice, a multiple of ``rows``), enough units for ~4
-    per SM.  The units go on gridDim.x, one block each, so no m is
-    refused."""
-    nts = -(-m // tile)
-    n_tiles = nts * (nts + 1) // 2
-    chunks = max(1, -(-n // rows))
-    n_slices = max(1, min(chunks, math.ceil(4 * sms / n_tiles)))
-    per_slice = -(-chunks // n_slices) * rows
-    return n_tiles, max(1, -(-n // per_slice)), per_slice
-
-
 def fill_plan(n: int, m: int, sms: int, tile: int, rows: int
               ) -> tuple[int, int, int]:
-    """Work split of a map kernel that runs one block per SM, its units
+    """Work split of a map kernel whose blocks fill the card once, its units
     each owning one upper ``tile``×``tile`` block of an (m, m) statistic
-    and one slice of the n rows: as many n-slices as fill the ``sms`` SMs
-    once (at least one), the slices summed afterwards in a fixed order.
-    Returns (upper tiles, n-slices, rows per slice, a multiple of
-    ``rows``).  The units go on gridDim.x, one block each (past ``sms``
-    upper tiles the card runs them in several waves), so no m is
-    refused."""
+    and one slice of the n rows: as many n-slices as fill the ``sms`` block
+    slots once (the SM count times the blocks an SM holds; at least one
+    slice), the slices summed afterwards in a fixed order.  Returns (upper
+    tiles, n-slices, rows per slice, a multiple of ``rows``).  The units go
+    on gridDim.x, one block each (past ``sms`` upper tiles the card runs
+    them in several waves), so no m is refused."""
     nts = -(-m // tile)
     n_tiles = nts * (nts + 1) // 2
     chunks = max(1, -(-n // rows))

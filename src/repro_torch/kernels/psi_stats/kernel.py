@@ -23,6 +23,7 @@ P1_COLS = 256    # psi1 columns per unit, at most (P1C)
 P1_ITEMS = 4     # psi1 (row, run) items per thread, at most (P1I)
 SMEM_MAX = 232_448   # dynamic shared memory a block may use on sm_90
 UNITS_PER_SM = 8     # psi2 (tile, row slice) units per SM the plan aims at
+UV_ELEMS = 16_384    # psi2 f32: floats of the staged rows' u and v (UVE)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,11 @@ def smem_bytes(kind: str, q: int, dtype) -> int:
     of ``FEATURES``, so past that ``q`` does not change it; psi1 stages
     z for min(q, ``FEATURES``) features."""
     item = torch.empty((), dtype=dtype).element_size()
+    if kind == "psi2" and dtype == torch.float32:
+        # the staged rows' u and v (the threads' sums reuse them), and the
+        # log1p terms beside (mu, 1/(2c))
+        return item * (2 * FEATURES * TILE + UV_ELEMS + 2 * ROWS * TILE
+                       + 3 * ROWS * FEATURES + 2 * ROWS)
     if kind == "psi2":
         return item * (2 * FEATURES * TILE + 2 * ROWS * TILE
                        + PATCH * PATCH * THREADS + 2 * ROWS * FEATURES
@@ -61,11 +67,12 @@ def psi1_plan(n: int, m: int, dtype) -> tuple[int, int, int]:
 
 
 def psi2_plan(n: int, m: int, sms: int) -> tuple[int, int, int]:
-    """psi2's work split: (upper TILE x TILE tiles of D, n-slices, rows per
-    slice, a multiple of ``ROWS``).  Units (tile, slice) go on gridDim.x
-    and are walked grid-stride past its limit, so no m is refused; there
-    are about ``UNITS_PER_SM`` per SM where n allows, so the tiles' unequal
-    work evens out across the SMs."""
+    """psi2's work split, both dtypes: (upper TILE x TILE tiles of D,
+    n-slices, rows per slice, a multiple of ``ROWS``).  Units (tile, slice)
+    go on gridDim.x and are walked grid-stride past its limit, so no m is
+    refused; there are about ``UNITS_PER_SM`` per SM where n allows, so the
+    tiles' unequal work evens out across the SMs (f32 measured slower with
+    2 or 4: the units of small tiles finish early)."""
     nts = -(-m // TILE)
     n_tiles = nts * (nts + 1) // 2
     chunks = max(1, -(-n // ROWS))
@@ -74,20 +81,22 @@ def psi2_plan(n: int, m: int, sms: int) -> tuple[int, int, int]:
     return n_tiles, max(1, -(-n // per_slice)), per_slice
 
 
-def psi2_scratch_len(n: int, m: int, q: int, n_slices: int) -> int:
+def psi2_scratch_len(n: int, m: int, q: int, n_slices: int,
+                     dtype=torch.float64) -> int:
     """Elements of psi2's scratch (the launcher's layout): the slice
-    partials of D's upper PATCH x PATCH patches, then hp = [sf2^2, l^2]
-    (q + 1), the rows' log-normalisers (n) and 1/(2 (l^2 + 2s)) (n, q)."""
+    partials of D's upper PATCH x PATCH patches; f64 then hp = [sf2^2,
+    l^2] (q + 1), the rows' log-normalisers (n) and 1/(2 (l^2 + 2s)) (n,
+    q), which the f32 kernel's units compute themselves."""
     np_ = -(-m // PATCH)
-    return (n_slices * (np_ * (np_ + 1) // 2) * PATCH * PATCH
-            + (q + 1) * (n + 1))
+    partials = n_slices * (np_ * (np_ + 1) // 2) * PATCH * PATCH
+    return partials if dtype == torch.float32 else partials + (q + 1) * (n + 1)
 
 
 def psi2_scratch(n: int, m: int, q: int, dtype, device):
     """(n-slices, rows per slice, scratch) of one psi2 launch."""
     _, n_slices, rows = psi2_plan(n, m, _build.sm_count(device))
-    scratch = torch.empty((psi2_scratch_len(n, m, q, n_slices),), dtype=dtype,
-                          device=device)
+    scratch = torch.empty((psi2_scratch_len(n, m, q, n_slices, dtype),),
+                          dtype=dtype, device=device)
     return n_slices, rows, scratch
 
 
@@ -102,8 +111,9 @@ def _fn(kind: str, dtype, argtypes):
 
 def psi2(mu, s, w, z, log_sf2, log_ell, n_slices, rows_per_slice, scratch,
          d_out) -> None:
-    """Launch psi2's instantiation for mu's dtype (hyper-parameters, tile
-    pass, fixed-order reduce) on the current stream, with the scratch of
+    """Launch psi2 for mu's dtype on the current stream (f64: the
+    hyper-parameters, the rows' terms, the tile pass and the fixed-order
+    reduce; f32: the tile pass and the reduce), with the scratch of
     :func:`psi2_scratch`."""
     name, fn = _fn("psi2", mu.dtype, [_P] * 6 + [_I] * 5 + [_P, _P, _P])
     n, q = mu.shape

@@ -30,6 +30,8 @@ counts the kernel, not the plain version; the backward runs as it stands.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
@@ -100,37 +102,49 @@ def flop_count(log_sf2_shape, log_ell_shape, z_shape, x_shape, y_shape,
     return flops(n, m, q, d)
 
 
-def _launch(log_sf2, log_ell, z, x, y, w):
-    """The bare launch (the operator's implementation): device checks are
-    the caller's."""
+#: -log2(e) / 2: the f32 kernel's exponent is sum_q (x_q - z_q)^2 s_q with
+#: s = this / ell^2, exponentiated by one ex2.approx
+_NEG_HALF_LOG2E = -0.5 / math.log(2.0)
+
+
+def launch_args(log_sf2, log_ell, z, x, y, w):
+    """The kernel's operands, scratch and outputs for one launch (the tile
+    dtype's inputs, hp, the plan and its scratch): ``kernel.reg_stats``'s
+    arguments.  The f32 kernel takes -log2(e) / (2 ell^2), folded here in
+    the hyper-parameters' own dtype and rounded once."""
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
     f64 = torch.float64
     dt = f64 if x.dtype == f64 else torch.float32
     xs, ys, ws, zs = (t.to(dt).contiguous() for t in (x, y, w, z))
-    hp = torch.cat([torch.exp(log_sf2).reshape(1),
-                    torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
-    sms = _build.sm_count(x.device)
-    if dt == f64:
-        tile, rows = _k.TILE_F64, _k.ROWS_F64
-        n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
-    else:
-        tile, rows = _k.TILE, _k.ROWS
-        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, sms, tile,
-                                                         rows)
-    m_pad = -(-m // tile) * tile
+    inv = torch.exp(-2.0 * log_ell)
+    if dt != f64:
+        inv = inv * _NEG_HALF_LOG2E
+    hp = torch.cat([torch.exp(log_sf2).reshape(1), inv]).to(dt).contiguous()
+    tile, rows = _k.TILE, _k.ROWS
+    slots = _build.sm_count(x.device) * (1 if dt == f64 else _k.F32_BLOCKS_PER_SM)
+    n_tiles, n_slices, per_slice = _build.fill_plan(n, m, slots, tile, rows)
     dev = x.device
     part_d = torch.empty((n_slices, n_tiles, tile, tile), dtype=dt,
                          device=dev)
-    part_comp = torch.empty_like(part_d) if dt == f64 else None
-    part_c = torch.empty((n_slices, m_pad, d), dtype=dt, device=dev)
+    part_comp = torch.empty_like(part_d)
+    part_c = torch.empty((n_slices, -(-m // tile) * tile, d), dtype=dt,
+                         device=dev)
     part_b = torch.empty((n_slices,), dtype=dt, device=dev)
     d_out = torch.empty((m, m), dtype=f64, device=dev)
     c_out = torch.empty((m, d), dtype=f64, device=dev)
     b_out = torch.empty((), dtype=f64, device=dev)
-    _k.reg_stats(xs, ys, ws, zs, hp, n_slices, per_slice, part_d, part_c,
-                 part_b, d_out, c_out, b_out, part_comp)
-    LAUNCHES[str(dt).removeprefix("torch.")] += 1
+    return (xs, ys, ws, zs, hp, n_slices, per_slice, part_d, part_comp,
+            part_c, part_b, d_out, c_out, b_out)
+
+
+def _launch(log_sf2, log_ell, z, x, y, w):
+    """The bare launch (the operator's implementation): device checks are
+    the caller's."""
+    args = launch_args(log_sf2, log_ell, z, x, y, w)
+    _k.reg_stats(*args)
+    LAUNCHES[str(args[0].dtype).removeprefix("torch.")] += 1
+    b_out, c_out, d_out = args[-1], args[-2], args[-3]
     return b_out.to(x.dtype), c_out.to(x.dtype), d_out.to(x.dtype)
 
 

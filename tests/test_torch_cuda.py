@@ -19,12 +19,14 @@ import torch
 import repro_torch as rt
 from repro_torch.configs import get_config
 from repro_torch.data import sines_dataset
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.predict import ops as p_ops
 from repro_torch.kernels.predict import ref as p_ref
 from repro_torch.kernels.psi_stats import ops as ps_ops
 from repro_torch.kernels.psi_stats import ref as ps_ref
+from repro_torch.kernels.reg_stats import kernel as rs_k
 from repro_torch.kernels.reg_stats import ops as rs_ops
 from repro_torch.kernels.reg_stats import ref as rs_ref
 from test_torch_spawn import spawn_ranks
@@ -87,13 +89,16 @@ def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
 
 
 @pytest.mark.parametrize("n,m,q,d,dtype", [
-    (300, 23_200, 3, 2, torch.float32),   # 66,066 upper tiles: past gridDim.y
+    (300, 46_400, 3, 2, torch.float32),   # 66,066 upper 128-tiles: past gridDim.y
     (2053, 2048, 8, 4, F64)])             # 136 units on 132 SMs
 def test_reg_stats_takes_any_m(cuda, n, m, q, d, dtype):
     """The (slice, upper tile) units on gridDim.x, one block each: past
     the old 65,535-tile limit in f32, and more units than SMs in f64 (136
     blocks of one per SM run in two waves), against the plain version at
-    the dtype's tier."""
+    the dtype's tier.  Every row of D is held, 2,048 rows at a time (the
+    whole plain D and its error tensors would not fit the card beside the
+    kernel's at m 46,400), each block of rows equal to its block of
+    columns."""
     rng = np.random.default_rng(n + m)
     hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
            "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), cuda)}
@@ -102,12 +107,60 @@ def test_reg_stats_takes_any_m(cuda, n, m, q, d, dtype):
     w = _t(rng.uniform(size=n) > 0.15, cuda, dtype)
     got = rs_ops.reg_stats(hyp, z, x, y, w)
     z, x, y, w = (v.double() for v in (z, x, y, w))
+    ell, sf2 = torch.exp(hyp["log_ell"]), torch.exp(hyp["log_sf2"])
+    knm = sf2 * torch.exp(-0.5 * (((x[:, None, :] - z[None, :, :]) / ell) ** 2)
+                          .sum(-1))
+    wknm = w[:, None] * knm
+    plain_b = sf2 * w.sum()
+    assert _within(got[0], plain_b, plain_b)
+    assert _within(got[1], wknm.T @ y, wknm.T @ y.abs())
+    for lo in range(0, m, 2048):
+        blk = slice(lo, min(m, lo + 2048))
+        plain_d = wknm[:, blk].T @ knm
+        assert _within(got[2][blk], plain_d, plain_d)
+        assert torch.equal(got[2][blk], got[2][:, blk].T)
+
+
+FOLD_ROWS = 4096   # rows between the f32 kernel's Kahan folds (FOLD_CHUNKS)
+F32_RS_CASES = [   # n, m, q, d, whether a slice outlasts one fold
+    (20, 127, 3, 2, False),      # n below one 32-row chunk, m below one tile
+    (1037, 129, 20, 3, False),   # q past one 16-feature chunk, m past a tile
+    (1037, 257, 8, 12, False),   # d past the 8 staged y columns
+    (4099, 256, 8, 4, False),    # tiles exactly filled
+    (70_003, 300, 8, 4, False),  # 44 slices of 1,600 rows: one fold each
+    (20_011, 2_048, 8, 4, True)]  # a slice a tile: five folds, four compensated
+
+
+@pytest.mark.parametrize("n,m,q,d,long_slice", F32_RS_CASES)
+def test_reg_stats_f32_tiles_match_plain(cuda, n, m, q, d, long_slice):
+    """The f32 kernel (128-tiles, 8 x 8 FMA micro-tiles, the exponent in
+    log2 units, Kahan folds every 4,096 rows) against the plain version in
+    f64 on its own f32 values at the f32 tier, with 15% of the rows masked;
+    lengthscales grow as sqrt(q), so values stay far from f32's underflow
+    at any q.  D is exactly symmetric and every output bitwise the same on
+    a second run.  Where the plan gives a slice more rows than one fold,
+    the later folds add into the compensated sums in device memory."""
+    slots = _build.sm_count(cuda) * rs_k.F32_BLOCKS_PER_SM
+    per_slice = _build.fill_plan(n, m, slots, rs_k.TILE, rs_k.ROWS)[2]
+    assert (min(n, per_slice) > FOLD_ROWS) == long_slice
+    rng = np.random.default_rng(7 * n + m + q)
+    hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), cuda)}
+    z, x, y = (_t(rng.standard_normal(s), cuda, torch.float32)
+               for s in ((m, q), (n, q), (n, d)))
+    w = _t(rng.uniform(size=n) > 0.15, cuda, torch.float32)
+    before = rs_ops.LAUNCHES["float32"]
+    got = rs_ops.reg_stats(hyp, z, x, y, w)
+    again = rs_ops.reg_stats(hyp, z, x, y, w)
+    assert rs_ops.LAUNCHES["float32"] == before + 2
+    z, x, y, w = (v.double() for v in (z, x, y, w))
     plain = rs_ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z, x, y, w)
     plain_abs = rs_ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z, x,
                                      y.abs(), w)
     for g, p, pa in zip(got, plain, plain_abs):
-        assert _within(g, p, pa)
+        assert g.dtype == torch.float32 and _within(g, p, pa)
     assert torch.equal(got[2], got[2].T)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _grads(fn, inputs, cotangents):
@@ -247,6 +300,39 @@ def test_psi2_is_exactly_symmetric_and_repeatable(cuda, n, m, q):
     assert torch.equal(first, first.T)
     for _ in range(2):
         assert torch.equal(ps_ops.psi2(hyp, z, mu, s, w), first)
+
+
+F32_PSI2_CASES = [
+    (20, 65, 3),       # n below one 32-row chunk, across a tile edge
+    (300, 63, 10),     # inside one tile, a ragged patch
+    (1003, 151, 14),   # past the rows staged at a time for q <= 16
+    (1003, 65, 20),    # q past one 16-feature chunk
+    (1003, 37, 160)]   # ten 16-feature chunks
+
+
+@pytest.mark.parametrize("n,m,q", F32_PSI2_CASES)
+def test_psi2_f32_kernel_matches_plain(cuda, n, m, q):
+    """The f32 kernel (staged u and v, the exponent in log2 units, two
+    launches) against the plain version in f64 on its own f32 values at the
+    f32 tier, with 15% of the rows masked; lengthscales grow as sqrt(q), so
+    values stay far from f32's underflow.  D is exactly symmetric and
+    bitwise the same on a second run."""
+    rng = np.random.default_rng(5 * n + m + q)
+    hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
+           "log_ell": _t(rng.uniform(-0.4, 0.4, q) + 0.5 * np.log(q), cuda)}
+    z, mu = (_t(rng.standard_normal(sh), cuda, torch.float32)
+             for sh in ((m, q), (n, q)))
+    s = _t(rng.uniform(0.05, 0.8, (n, q)), cuda, torch.float32)
+    w = _t(rng.uniform(size=n) > 0.15, cuda, torch.float32)
+    before = ps_ops.LAUNCHES["psi2_float32"]
+    got = ps_ops.psi2(hyp, z, mu, s, w)
+    again = ps_ops.psi2(hyp, z, mu, s, w)
+    assert ps_ops.LAUNCHES["psi2_float32"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (m, m)
+    assert torch.equal(got, got.T) and torch.equal(got, again)
+    plain = ps_ref.psi2_ref(hyp["log_sf2"], hyp["log_ell"],
+                            *(v.double() for v in (z, mu, s, w)), chunk=64)
+    assert _within(got, plain, plain)
 
 
 def test_psi2_midway_meets_the_f64_tier(cuda):

@@ -202,22 +202,30 @@ def test_shared_memory_is_fixed_and_fits(kind, dtype):
     """The CUDA blocks' shared memory is one constant per kernel and dtype
     for q >= 16, and no more below: z, mu and 1/(l^2 + c s) are staged 16
     features at a time (psi2: z of both 64-point tiles, the alphas of their
-    points for 32 rows, each of the 256 threads' 16 running sums, 32 rows
-    of mu and 1/(2 (l^2 + 2s)), their log-normalisers and weights; psi1: z
-    of 256 columns transposed, row stride 256 + one 16-byte run, for
-    min(q, 16) features, and 32 rows of mu, 1/(l^2 + s) and log1p(s / l^2),
-    row stride 17, and the rows' log-normalisers).  It fits the card's
-    227 KB; psi1's, with its 512-byte exp table, fits the 48 KB a launch
-    gets without an attribute call."""
+    points for 32 rows, each of the 256 threads' 16 running sums (f32: the
+    staged rows' u and v, 16,384 floats, which the sums reuse), 32 rows of
+    mu and 1/(2 (l^2 + 2s)) (f32: also their log1p(2 s / l^2), which the
+    f32 kernel's units compute themselves), their log-normalisers and
+    weights; psi1: z of 256 columns transposed, row stride 256 + one
+    16-byte run, for min(q, 16) features, and 32 rows of mu, 1/(l^2 + s)
+    and log1p(s / l^2), row stride 17, and the rows' log-normalisers).  It
+    fits the card's 227 KB, psi2 f32's twice over an SM's 228 KB; psi1's,
+    with its 512-byte exp table, fits the 48 KB a launch gets without an
+    attribute call."""
     item = torch.empty((), dtype=dtype).element_size()
+    f32 = dtype == torch.float32
     for q in (1, 10, 150, 224, 300, 1000):
-        want = item * ((2 * 16 * 64 + 2 * 32 * 64 + 16 * 256 + 2 * 32 * 16
-                        + 2 * 32) if kind == "psi2"
+        want = item * ((2 * 16 * 64 + 2 * 32 * 64
+                        + (16_384 if f32 else 16 * 256)
+                        + (3 if f32 else 2) * 32 * 16 + 2 * 32)
+                       if kind == "psi2"
                        else (min(q, 16) * (256 + 16 // item) + 3 * 32 * 17
                              + 32))
         assert ps_k.smem_bytes(kind, q, dtype) == want <= ps_k.SMEM_MAX
         if kind == "psi1":
             assert want + 512 <= 48 * 1024
+        if (kind, dtype) == ("psi2", torch.float32):
+            assert 2 * (want + 1024) <= 233_472 and want == 96_512
     assert ps_k.smem_bytes(kind, 10 ** 6, dtype) == ps_k.smem_bytes(kind, 16,
                                                                     dtype)
 
@@ -237,6 +245,25 @@ def _psi2_centred(log_sf2, log_ell, z, mu, s, w):
     e = lognorm[:, None, None] + alpha[:, :, None] + alpha[:, None, :] + cross
     return (torch.exp(2.0 * log_sf2) * torch.exp(static)
             * torch.einsum("i,iab->ab", w, torch.exp(e)))
+
+
+def _psi2_log2_form(log_sf2, log_ell, z, mu, s, w):
+    """psi2 as the f32 CUDA kernel forms it, in f64 numpy: the exponent in
+    log2 units, log2(e) folded into 1/(2c) (so into the alphas and the
+    cross term) and into the log-normaliser, l^2 = exp(2 log_ell), one 2^x
+    a pair; exp(static) and sf2^2 applied after the sum, as its reduce
+    does."""
+    log2e = 1.0 / np.log(2.0)
+    l2 = np.exp(2.0 * log_ell)
+    iv = log2e / (4.0 * s + 2.0 * l2)                     # (n, q)
+    ln = log2e * (-0.5 * np.log1p(2.0 * s / l2).sum(-1))  # (n,)
+    u = mu[:, None, :] - z[None, :, :]                     # (n, m, q)
+    alpha = -0.5 * (u * (u * iv[:, None, :])).sum(-1)      # (n, m)
+    cross = np.einsum("iaq,ibq->iab", u, -u * iv[:, None, :])
+    e = ln[:, None, None] + alpha[:, :, None] + alpha[:, None, :] + cross
+    static = -0.25 * ((z[:, None, :] - z[None, :, :]) ** 2 / l2).sum(-1)
+    return np.exp(2.0 * log_sf2) * np.exp(static) * np.einsum(
+        "i,iab->ab", w, 2.0 ** e)
 
 
 def _midway(seed, n, m, q, scale):
@@ -272,6 +299,25 @@ def test_centred_exponent_matches_plain(case):
     want = ps_ref.psi2_ref(*args)
     assert float(want.min()) > 0.0
     _close(_psi2_centred(*args), want, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("case", [*SHAPES, (37, 151, 10), (20, 65, 20),
+                                  "midway"])
+def test_f32_exponent_in_log2_units_matches_plain(case):
+    """The f32 CUDA psi2's arithmetic (centred exponent in log2 units, one
+    2^x a pair) in f64 against ``psi2_ref``: rtol 1e-12, the fold of
+    log2(e) moves nothing but rounding.  ``midway`` at the f32 check's
+    scale (20: D down to exp(-40), inside f32's range)."""
+    if case == "midway":
+        hyp, z, mu, s, w = _midway(17, 40, 24, 10, 20.0)
+    else:
+        n, m, q = case
+        hyp, z, mu, s, w = _inputs(9 * n + m, n, m, q)
+    th, tz, tmu, ts, tw = _torch(hyp, z, mu, s, w)
+    want = ps_ref.psi2_ref(th["log_sf2"], th["log_ell"], tz, tmu, ts, tw)
+    got = _psi2_log2_form(hyp["log_sf2"], hyp["log_ell"], z, mu, s, w)
+    assert float(want.min()) > 0.0
+    _close(got, want, rtol=1e-12, atol=0.0)
 
 
 def _tile_patches(m):
@@ -337,6 +383,52 @@ def test_psi2_plan_covers_every_row_and_refuses_no_m(n, m):
         n_slices * np_ * (np_ + 1) // 2 * 16 + 11 * (n + 1))
     if m >= 23_105:
         assert n_tiles > 65_535
+
+
+@pytest.mark.parametrize("m", [1, 4, 63, 64, 65, 100, 150, 151, 300])
+def test_psi2_f32_partials_are_written_and_read_once(m):
+    """The f32 kernel's partials, laid out [slice][entry][patch]: the tiles'
+    threads (``_tile_patches``) write each (entry, patch) offset of a slice
+    exactly once, and the reduce's threads (a mirror of
+    ``psi2_f32_reduce``: thread t takes entry t // np^2 of patch
+    divmod(t % np^2, np)) read each pair a <= b < m exactly once, each at
+    the offset its patch's thread wrote, and consecutive threads of one
+    (entry, patch row) read consecutive offsets (the loads coalesce)."""
+    pp = ps_k.PATCH
+    seen, n_patches = _tile_patches(m)
+    written = {e * n_patches + p for p in seen for e in range(pp * pp)}
+    assert written == set(range(pp * pp * n_patches))
+    np_ = -(-m // pp)
+    t = np.arange(pp * pp * np_ * np_)
+    e, rem = t // (np_ * np_), t % (np_ * np_)
+    pa, pb = rem // np_, rem % np_
+    a, b = pa * pp + e // pp, pb * pp + e % pp
+    ok = (pa <= pb) & (a <= b) & (b < m)
+    off = e * n_patches + pa * np_ - pa * (pa - 1) // 2 + (pb - pa)
+    assert set(off[ok].tolist()) <= written
+    pairs = a[ok] * m + b[ok]
+    assert len(pairs) == len(set(pairs.tolist())) == m * (m + 1) // 2
+    row = (e * np_ + pa)[ok]
+    same_row = row[1:] == row[:-1]
+    assert np.all(np.diff(off[ok])[same_row] == 1)
+
+
+@pytest.mark.parametrize("n,m", [(0, 5), (1, 1), (4649, 150), (100_000, 100),
+                                 (1003, 37), (20, 65), (1000, 30_000),
+                                 (50, 100_000)])
+def test_psi2_f32_scratch_is_the_plans_partials(n, m):
+    """The f32 kernel takes the f64 plan (about 8 units an SM: at gplvm-usps
+    146 slices of one 32-row chunk) and a scratch of the slice partials
+    alone, one per upper patch entry: its units compute their rows' terms,
+    which the f64 launcher stages after the partials."""
+    n_tiles, n_slices, rows = ps_k.psi2_plan(n, m, 132)
+    if (n, m) == (4649, 150):
+        assert (n_tiles, n_slices, rows) == (6, 146, 32)
+    np_ = -(-m // 4)
+    partials = n_slices * np_ * (np_ + 1) // 2 * 16
+    assert ps_k.psi2_scratch_len(n, m, 10, n_slices, torch.float32) == partials
+    assert ps_k.psi2_scratch_len(n, m, 10, n_slices) == (partials
+                                                         + 11 * (n + 1))
 
 
 def _psi1_cover(n, m, dtype):

@@ -129,7 +129,7 @@ def test_latent_branch_is_queued():
         _close(g, e, atol=1e-12, name=name)
 
 
-# -- host-side helpers of the f64 (DMMA) kernel --------------------------------
+# -- host-side helpers of the CUDA kernels (f64 DMMA, f32 FMA tiles) ------------
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.reg_stats import kernel as rs_k  # noqa: E402
@@ -143,7 +143,7 @@ def test_fill_plan_fills_the_sms_once_and_covers_every_row(n, m, sms):
     """One block per SM: (upper tiles) x (n-slices) blocks, at most one per
     SM unless a single slice already needs more; the slices are whole
     chunks and together cover n exactly once."""
-    tile, rows = rs_k.TILE_F64, rs_k.ROWS_F64
+    tile, rows = rs_k.TILE, rs_k.ROWS
     n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile, rows)
     nts = -(-m // tile)
     assert n_tiles == nts * (nts + 1) // 2
@@ -156,6 +156,14 @@ def test_fill_plan_at_sgpr_synth_1m():
     """sgpr-synth-1m on an H100 (132 SMs): 10 upper 128-tiles x 13 slices,
     130 blocks."""
     assert _build.fill_plan(1_000_000, 512, 132, 128, 32) == (10, 13, 76_928)
+
+
+def test_f32_fill_plan_at_sgpr_synth_1m():
+    """sgpr-synth-1m's f32 plan on an H100: two blocks an SM (264 slots), 10
+    upper 128-tiles x 26 slices, 260 blocks in one wave."""
+    slots = 132 * rs_k.F32_BLOCKS_PER_SM
+    assert _build.fill_plan(1_000_000, 512, slots, rs_k.TILE, rs_k.ROWS) == (
+        10, 26, 38_464)
 
 
 @pytest.mark.parametrize("q,d", [(8, 4), (1, 1), (10, 5), (3, 5)])
@@ -173,6 +181,41 @@ def test_f64_shared_memory_fits_at_the_repos_shapes(q, d):
             assert rs_k.smem_bytes_f64(qq, dd) == want <= rs_k.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("q,d", [(8, 4), (1, 1), (10, 5), (3, 5), (40, 1),
+                                 (8, 64)])
+def test_f32_shared_memory_is_fixed_and_fits(q, d):
+    """The f32 block's shared memory (``FMA_SMEM_BYTES``: the f64 layout in
+    floats with unpadded 32 x 128 slab rows) is one constant, 95,680 bytes,
+    whatever q and d: q is staged 16 features at a time and, past d = 8,
+    C accumulates in device memory.  Two blocks fit an SM, as the plan
+    runs them (``F32_BLOCKS_PER_SM``)."""
+    want = 4 * (4 * 32 * 128 + 2 * 16 * 128 + 3 * 32 * 16 + 3 * 32 * 8
+                + 3 * 32 + 16 + 128 * 8)
+    assert rs_k.smem_bytes_f32(q, d) == want == 95_680
+    for qq in (1, 16, 17, 300, 1000):
+        for dd in (1, 8, 9, 300):
+            assert rs_k.smem_bytes_f32(qq, dd) == want <= rs_k.SMEM_LIMIT
+    assert 2 * want <= rs_k.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,m,q,d", [*SHAPES, (300, 129, 20, 3)])
+def test_f32_slab_exponent_in_log2_units_matches_plain(n, m, q, d):
+    """The f32 kernel's slab entry, sf2 2^(sum_q (x_q - z_q)^2 s_q) with
+    s = -log2(e) / (2 ell^2) as the wrapper folds it (``ops._NEG_HALF_LOG2E``),
+    evaluated in f64, against the plain version's knm: rtol 1e-12 (the
+    fold moves nothing but rounding), and so D, C and b."""
+    hyp, z, x, y, w = _inputs(3 * n + m, n, m, q, d)
+    s = rs_ops._NEG_HALF_LOG2E * np.exp(-2.0 * hyp["log_ell"])
+    knm = np.exp(hyp["log_sf2"]) * 2.0 ** (
+        ((x[:, None, :] - z[None, :, :]) ** 2 * s).sum(-1))
+    th, tz, tx, ty, tw = _torch(hyp, z, x, y, w)
+    b, c, dd = rs_ref.reg_stats_ref(th["log_sf2"], th["log_ell"], tz, tx, ty,
+                                    tw)
+    _close((knm * w[:, None]).T @ knm, dd, name="D")
+    _close(knm.T @ (w[:, None] * y), c, name="C")
+    _close(np.exp(hyp["log_sf2"]) * w.sum(), b, name="b")
+
+
 def _kernel_tile(tile, nts):
     """The upper tile (a, b) of unit index ``tile``: a mirror of the CUDA
     kernels' decode."""
@@ -183,24 +226,24 @@ def _kernel_tile(tile, nts):
 
 
 @pytest.mark.parametrize("dtype,n,m", [
-    (torch.float32, 1_000, 23_200),   # 66,066 upper 64-tiles: past gridDim.y
+    (torch.float32, 1_000, 46_400),   # 66,066 upper 128-tiles: past gridDim.y
     (torch.float64, 1_000, 46_400),   # 66,066 upper 128-tiles
     (torch.float64, 1_000_000, 2_048),   # 136 units on 132 SMs
-    (torch.float32, 1_000_000, 512), (torch.float64, 1_000_000, 512)])
+    (torch.float32, 1_000_000, 512), (torch.float64, 1_000_000, 512),
+    (torch.float32, 1_000_000, 2_048),   # 136 units on 132 SMs
+    (torch.float32, 20_011, 127), (torch.float32, 20_011, 129),
+    (torch.float32, 20_011, 257),        # ragged across the 128 edge
+    (torch.float32, 20, 130)])           # n below one 32-row chunk
 def test_plans_refuse_no_m_and_units_cover_every_tile_and_row(dtype, n, m):
-    """The plans take any m.  Units (slice, upper tile) go on gridDim.x,
+    """The plan takes any m.  Units (slice, upper tile) go on gridDim.x,
     one block each: unit = slice * tiles + tile, decoded as the kernels
     decode it, covers every upper tile once per slice, and the slices
-    cover the n rows once."""
-    sms = 132
-    if dtype == torch.float64:
-        tile_edge, rows = rs_k.TILE_F64, rs_k.ROWS_F64
-        n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile_edge,
-                                                        rows)
-    else:
-        tile_edge, rows = rs_k.TILE, rs_k.ROWS
-        n_tiles, n_slices, per_slice = _build.slice_plan(n, m, sms,
-                                                         tile_edge, rows)
+    cover the n rows once.  Both instantiations share the plan
+    (``fill_plan``, 128-tiles, 32-row chunks) over their block slots: 132
+    SMs of one f64 block, or of two f32 blocks."""
+    sms = 132 * (rs_k.F32_BLOCKS_PER_SM if dtype == torch.float32 else 1)
+    tile_edge, rows = rs_k.TILE, rs_k.ROWS
+    n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile_edge, rows)
     nts = -(-m // tile_edge)
     assert n_tiles == nts * (nts + 1) // 2
     # every upper tile once: the reduce's index of (a, b) is a bijection
@@ -209,7 +252,7 @@ def test_plans_refuse_no_m_and_units_cover_every_tile_and_row(dtype, n, m):
     index = a * nts - a * (a - 1) // 2 + (b - a)
     assert np.array_equal(np.sort(index), np.arange(n_tiles))
     for t in {0, 1, nts - 1, nts, n_tiles // 2, n_tiles - 2, n_tiles - 1,
-              *range(0, n_tiles, 997)}:
+              *range(0, n_tiles, 997)} & set(range(n_tiles)):
         ka, kb = _kernel_tile(t, nts)
         assert ka <= kb < nts
         assert index[np.flatnonzero((a == ka) & (b == kb))[0]] == t
@@ -218,7 +261,8 @@ def test_plans_refuse_no_m_and_units_cover_every_tile_and_row(dtype, n, m):
     assert (n_slices - 1) * per_slice < n <= n_slices * per_slice
     n_units = n_tiles * n_slices
     assert n_units < 2 ** 31          # gridDim.x
-    if m >= 23_200:
+    if m >= 46_400:
         assert n_tiles > 65_535       # past the old gridDim.y limit
-    if (dtype, m) == (torch.float64, 2_048):
-        assert n_units == 136 > sms   # the card runs the blocks in two waves
+    if m == 2_048:   # more units than SMs: f64 runs them in two waves
+        assert n_units == 136 > 132
+        assert n_slices == 1
