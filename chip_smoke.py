@@ -21,8 +21,12 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    untimed; psi2 and psi1 at m = 63, 65 and 151 (psi2's patch and tile
    edges) and psi2 where its centred exponent's terms are largest against
    their sum, D exactly symmetric and bitwise the same on a second run; the
-   backward alone (reg_stats_vjp at sgpr-synth-1m, psi2_vjp and psi1_vjp
-   at gplvm-usps), timed; flash attention, bf16 and f32, at the
+   backward kernels of reg_stats and psi2, both dtypes, against the
+   chunked recompute at sgpr-synth-1m, gplvm-usps and gplvm-synth-100k
+   (f64 normwise 1e-8 per input, f32 at its tier over the closed form on
+   absolute values; bitwise on a second call) and at ragged shapes with
+   every input's gradient, each timed beside the recompute, and psi1's
+   backward (still the recompute) timed; flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
    as a yardstick; and cuBLAS's f64 and f32 ``K^T (w K)`` and ``K g`` over
@@ -878,39 +882,233 @@ def time_operator_routes(rs_ops, ps_ops, sgpr, usps) -> dict:
 
 
 def time_backward(label, vjp, primals, cotangents, needs, reps=5) -> float:
-    """CUDA-event median of one call of a kernel's backward (the plain
-    version recomputed in row chunks, ``kernels._vjp``) on the card, with
-    the inputs the training path differentiates; printed on its own line."""
+    """CUDA-event median of one call of a backward's chunked recompute (the
+    plain version under autograd in row chunks, ``kernels._vjp``) on the
+    card, with the inputs the training path differentiates; printed on its
+    own line."""
     ms = time_ms(lambda: vjp(*primals, *cotangents, needs), reps=reps)
     print(f"backward {label}: {ms:.4f} ms (median of {reps})", flush=True)
     return ms
 
 
-def time_backwards(rs_ops, ps_ops, sgpr, usps) -> None:
-    """The backward alone, beside the forward timed above: ``reg_stats_vjp``
-    at sgpr-synth-1m (gradients of the hyper-parameters and z, as the
-    SGPR's bound takes them), ``psi2_vjp`` and ``psi1_vjp`` at gplvm-usps
-    (the hyper-parameters, z, mu and s, as the GPLVM's)."""
-    f64 = torch.float64
+def time_backwards(ps_ops, usps, bwd) -> None:
+    """Each backward beside its chunked recompute, from the full-width
+    checks (``bwd``: ``check_reg_stats_bwd`` at sgpr-synth-1m, hyper-
+    parameters and z as the SGPR takes them; ``check_psi2_bwd`` at
+    gplvm-usps, the hyper-parameters, z, mu and s as the GPLVM takes
+    them), one line each; psi1's backward, still the recompute, timed at
+    gplvm-usps."""
+    for key, res in bwd.items():
+        print(f"backward {key}: kernel {res['ms']:.4f} ms, chunked recompute "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms",
+              flush=True)
     rng = np.random.default_rng(SEED + 3)
-    n, m, q, d = sgpr.n, sgpr.m, sgpr.q, sgpr.d
-    x, y = make_regression(rng, n, q, d)
-    hyp = [t64(float(np.log(float(np.var(y))))), t64(np.full(q, 0.5 * np.log(q)))]
-    primals = [*hyp, t64(rng.uniform(-2.0, 2.0, (m, q))), t64(x), t64(y),
-               torch.ones(n, dtype=f64, device=DEV)]
-    cts = [t64(rng.standard_normal(sh)) for sh in ((), (m, d), (m, m))]
-    time_backward("reg_stats_vjp f64 sgpr-synth-1m", rs_ops.reg_stats_vjp,
-                  primals, cts, [True, True, True, False, False, False])
-    del primals, cts, x, y
     n, m, q = usps.n, usps.m, usps.q
     primals = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
                t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
-               t64(rng.uniform(0.05, 1.0, (n, q))),
-               torch.ones(n, dtype=f64, device=DEV)]
-    time_backward("psi2_vjp f64 gplvm-usps", ps_ops.psi2_vjp, primals,
-                  [t64(rng.standard_normal((m, m)))], [True] * 5 + [False])
-    time_backward("psi1_vjp f64 gplvm-usps", ps_ops.psi1_vjp, primals[:5],
+               t64(rng.uniform(0.05, 1.0, (n, q)))]
+    time_backward("psi1_vjp f64 gplvm-usps (the recompute, no kernel yet)",
+                  ps_ops.psi1_vjp, primals,
                   [t64(rng.standard_normal((n, m)))], [True] * 5)
+
+
+def hold_backward(label, got, again, plain, plain_abs, dtype) -> float:
+    """A backward kernel's gradients against the chunked recompute's:
+    f64 normwise relative <= GRAD_RTOL per input, f32 entrywise
+    |kernel - plain| <= 2e-4 |plain| + 1e-5 plain_abs (``TIERS``, with
+    plain_abs the closed form on absolute values), and a second call
+    bitwise equal.  The tier is the kernel's dtype, whatever the dtype
+    each gradient comes back in.  Returns the largest absolute error."""
+    rtol, atol_abs = TIERS[dtype]
+    worst = 0.0
+    for i, (g, a, p, pa) in enumerate(zip(got, again, plain, plain_abs)):
+        if p is None:
+            continue
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: input {i}'s gradient differs on "
+                                 "a second run")
+        g64 = g.double()
+        if not bool(torch.isfinite(g64).all()) or g.shape != p.shape:
+            raise AssertionError(f"{label}: input {i}: bad gradient")
+        worst = max(worst, float((g64 - p).abs().max()) if p.numel() else 0.0)
+        if dtype == torch.float64:
+            rel = float(torch.linalg.vector_norm(g64 - p)
+                        / torch.linalg.vector_norm(p).clamp_min(1e-300))
+            if rel > GRAD_RTOL:
+                raise AssertionError(f"{label}: input {i}: normwise relative "
+                                     f"difference {rel:.3e} > {GRAD_RTOL}")
+        else:
+            ratio = float(((g64 - p).abs() / (rtol * p.abs() + atol_abs * pa)
+                           .clamp_min(1e-300)).max()) if p.numel() else 0.0
+            if ratio > 1.0:
+                raise AssertionError(f"{label}: input {i}: max |err|/bound = "
+                                     f"{ratio:.3e}")
+    return worst
+
+
+def reg_stats_bwd_bound(n, m, q, d, dtype, peaks) -> tuple[float, str]:
+    """Least time of the backward's work: knm S (n m^2 FMAs), knm built
+    once (n m (3q + 2), n m exps), each entry's P, E and per-feature r, E r,
+    E r^2 (n m (2d + 4 + 4q)) at ``ops_seconds``; or the bytes read and
+    written once (x, y, w, z, gC, gD, 1/ell^2; d z, d log_ell, d log_sf2)."""
+    item = 4 if dtype == torch.float32 else 8
+    flops = 2 * n * m * m + n * m * (3 * q + 2) + n * m * (2 * d + 4 + 4 * q)
+    nbytes = item * (n * (q + d + 1) + 2 * m * q + m * m + m * d + 2 * q + 3)
+    t_ops = ops_seconds(flops, n * m, dtype, peaks)
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def psi2_bwd_bound(n, m, q, dtype, peaks) -> tuple[float, str]:
+    """Least time of psi2's backward work over the upper pairs P = m (m +
+    1) / 2: per (row, pair) the exponent (3q + 2), one exp and per feature
+    r, F r, F r^2 and the point sums (6q), at ``ops_seconds``; or the bytes
+    read and written once (mu, s, w, z, g, l^2; their gradients)."""
+    item = 4 if dtype == torch.float32 else 8
+    pairs = m * (m + 1) // 2
+    flops = n * pairs * (9 * q + 2)
+    nbytes = item * (2 * (2 * n * q + n + m * q + q + 1) + m * m)
+    t_ops = ops_seconds(flops, n * pairs, dtype, peaks)
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked,
+                        timed, needs=(True, True, True, False, False, False)):
+    """The backward kernel (``torch.ops.repro_torch.reg_stats_bwd``, the
+    Function's route) against the chunked recompute (``reg_stats_vjp``)
+    on the same values in f64, for a non-symmetric gD; bitwise on a second
+    call.  Timed: the kernel and the recompute with ``needs`` (default:
+    the SGPR's, hyper-parameters and z)."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(SEED + 5 + n + m)
+    f64 = torch.float64
+    x, y = make_regression(rng, n, q, d)
+    ins = [t64(float(np.log(float(np.var(y))))),
+           t64(np.full(q, 0.5 * np.log(q))), t64(rng.uniform(-2.0, 2.0, (m, q))),
+           t64(x), t64(y),
+           t64(rng.uniform(size=n) > 0.15) if masked
+           else torch.ones(n, dtype=f64, device=DEV)]
+    cts = [t64(rng.standard_normal(sh)) for sh in ((), (m, d), (m, m))]
+    kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
+    kct = [t.to(dtype) for t in cts]
+    # the plain versions on exactly the values the kernel sees
+    pin = [t.to(f64) for t in kin]
+    pct = [t.to(f64) for t in kct]
+    flags = _build.row_flags(needs)
+    name = "bwd_" + ("float64" if dtype == f64 else "float32")
+    before = rs_ops.LAUNCHES[name]
+
+    def kernel():
+        return torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, flags)
+    got, again = kernel(), kernel()
+    if rs_ops.LAUNCHES[name] != before + 2:
+        raise AssertionError("reg_stats_bwd: the operator did not launch "
+                             "the kernel once a call")
+    got = [g if need else None for g, need in zip(got, needs)]
+    again = [g if need else None for g, need in zip(again, needs)]
+    plain = rs_ops.reg_stats_vjp(*pin, *pct, list(needs))
+    plain_abs = rs_ref.reg_stats_vjp_ref(*pin, *pct, list(needs),
+                                         absolute=True)
+    label = f"reg_stats_bwd {dtype} n={n} m={m} q={q} d={d}"
+    out = {"shape": dict(n=n, m=m, q=q, d=d), "dtype": str(dtype),
+           "needs": list(needs),
+           "max_abs_err": hold_backward(label, got, again, plain, plain_abs,
+                                        dtype)}
+    del plain, plain_abs
+    if timed:
+        out["ms"] = time_ms(kernel)
+        out["plain_ms"] = time_ms(
+            lambda: rs_ops.reg_stats_vjp(*pin, *pct, list(needs)), reps=3)
+        out["bound_ms"], out["bound_by"] = reg_stats_bwd_bound(n, m, q, d,
+                                                               dtype, peaks)
+    print(f"reg_stats_bwd {out}", flush=True)
+    return out
+
+
+def check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed,
+                   needs=(True, True, True, True, True, False)):
+    """psi2's backward kernel (``torch.ops.repro_torch.psi2_bwd``) against
+    the chunked recompute (``psi2_vjp``) on the same values in f64, for a
+    non-symmetric cotangent; bitwise on a second call.  Timed: the kernel
+    and the recompute with ``needs`` (default: the GPLVM's,
+    hyper-parameters, z, mu and s)."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(SEED + 7 + n + m)
+    f64 = torch.float64
+    ins = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
+           t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
+           t64(rng.uniform(0.05, 1.0, (n, q))),
+           t64(rng.uniform(size=n) > 0.15) if masked
+           else torch.ones(n, dtype=f64, device=DEV)]
+    g = t64(rng.standard_normal((m, m)))
+    kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
+    kg = g.to(dtype)
+    pin, pg = [t.to(f64) for t in kin], kg.to(f64)
+    flags = _build.row_flags(needs)
+    name = "psi2_bwd_" + ("float64" if dtype == f64 else "float32")
+    before = ps_ops.LAUNCHES[name]
+
+    def kernel():
+        return torch.ops.repro_torch.psi2_bwd(*kin, kg, flags)
+    got, again = kernel(), kernel()
+    if ps_ops.LAUNCHES[name] != before + 2:
+        raise AssertionError("psi2_bwd: the operator did not launch the "
+                             "kernel once a call")
+    got = [t if need else None for t, need in zip(got, needs)]
+    again = [t if need else None for t, need in zip(again, needs)]
+    plain = ps_ops.psi2_vjp(*pin, pg, list(needs))
+    plain_abs = ps_ref.psi2_vjp_ref(*pin, pg, list(needs), absolute=True)
+    label = f"psi2_bwd {dtype} n={n} m={m} q={q}"
+    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype),
+           "needs": list(needs),
+           "max_abs_err": hold_backward(label, got, again, plain, plain_abs,
+                                        dtype)}
+    del plain, plain_abs
+    if timed:
+        out["ms"] = time_ms(kernel)
+        out["plain_ms"] = time_ms(
+            lambda: ps_ops.psi2_vjp(*pin, pg, list(needs)), reps=3)
+        out["bound_ms"], out["bound_by"] = psi2_bwd_bound(n, m, q, dtype,
+                                                          peaks)
+        out["kernels_us"] = kernel_split(kernel)
+    print(f"psi2_bwd {out}", flush=True)
+    return out
+
+
+def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
+                    synth) -> dict:
+    """Phase 2's backward kernels: each instantiation at full width
+    against the chunked recompute (timed at sgpr-synth-1m and gplvm-usps,
+    held at gplvm-synth-100k), then untimed with every input's gradient
+    asked for at ragged shapes (m off the 128- and 64-point tiles, q past
+    one 16-feature chunk, d past 8, n below one row tile, masked rows).
+    Returns the timed results by label."""
+    out = {}
+    every = (True,) * 6
+    for dtype in (torch.float32, torch.float64):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        out[f"reg_stats {tag} {sgpr.name}"] = check_reg_stats_bwd(
+            rs_ops, rs_ref, peaks, sgpr.n, sgpr.m, sgpr.q, sgpr.d, dtype,
+            masked=False, timed=True)
+        torch.cuda.empty_cache()
+        out[f"psi2 {tag} {usps.name}"] = check_psi2_bwd(
+            ps_ops, ps_ref, peaks, usps.n, usps.m, usps.q, dtype,
+            masked=False, timed=True)
+        check_psi2_bwd(ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q,
+                       dtype, masked=False, timed=False)
+        for n, m, q, d in ((100_003, 130, 3, 5), (20_011, 257, 20, 9),
+                           (77, 64, 8, 1), (5_003, 2_048, 8, 4)):
+            check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype,
+                                masked=True, timed=False, needs=every)
+        for n, m, q in ((1_003, 151, 10), (1_003, 65, 18), (33, 1, 1),
+                        (2_001, 63, 2)):
+            check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype,
+                           masked=True, timed=False, needs=every)
+        torch.cuda.empty_cache()
+    return out
 
 
 def f32_gp_counters() -> tuple:
@@ -921,7 +1119,9 @@ def f32_gp_counters() -> tuple:
     from repro_torch.kernels.reg_stats import ops as rs_ops
 
     return (("reg_stats_f32", rs_ops.LAUNCHES, "float32"),
+            ("reg_stats_bwd_f32", rs_ops.LAUNCHES, "bwd_float32"),
             ("psi2_f32", ps_ops.LAUNCHES, "psi2_float32"),
+            ("psi2_bwd_f32", ps_ops.LAUNCHES, "psi2_bwd_float32"),
             ("psi1_f32", ps_ops.LAUNCHES, "psi1_float32"))
 
 
@@ -954,10 +1154,10 @@ def rel_diff(got, want) -> float:
 
 def check_value_and_grad(label, model, plain_neg, step, report,
                          reordered=()):
-    """The model's ``_neg_vg`` (kernels forward, chunked plain recompute
-    backward) against the value and gradient of ``plain_neg`` by plain
-    autograd, at the model's params: relative difference (normwise for the
-    gradient) <= GRAD_RTOL.
+    """The model's ``_neg_vg`` (the kernels forward and backward; psi1's
+    backward the chunked plain recompute) against the value and gradient
+    of ``plain_neg`` by plain autograd, at the model's params: relative
+    difference (normwise for the gradient) <= GRAD_RTOL.
 
     ``reordered``: the same plain path with its row sums taken in other
     orders.  Where the bound's cancellation amplifies last-digit
@@ -1086,6 +1286,9 @@ def serving_path(rt, cfg) -> dict:
     model = step("sgpr_init_s", lambda: rt.SGPR(x, y, hyp=hyp, z=z,
                                                 device=DEV))
     check_value_and_grad("sgpr", model, plain_sgpr_neg(model), step, report)
+    # one evaluation's card time (CUDA events, median of 5), beside phase
+    # 2's forward and backward kernels at this shape
+    report["sgpr_neg_vg_ms"] = time_ms(model._neg_vg, reps=5)
     check_fit("sgpr", model, SGPR_FIT_ITERS, step, report)
     lb = step("log_bound_s", model.log_bound)
     state = step("predictive_state_s", model.predictive_state)
@@ -1108,6 +1311,7 @@ def serving_path(rt, cfg) -> dict:
     ans32 = step("predict_f32_t65536_s",
                  lambda: eng32.predict(queries[-1], include_noise=True))
     launches = {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"],
                 "predict_f32": p_ops.LAUNCHES["float32"]}
     print(f"sgpr path steps (s): {json.dumps(steps)}", flush=True)
@@ -1213,12 +1417,14 @@ def gplvm_path(rt, cfg) -> dict:
                          reordered=[plain_gplvm_neg(model, r) for r in
                                     (rows // 3 + 1, rows // 2 + 1,
                                      2 * rows + 1)])
+    report["gplvm_neg_vg_ms"] = time_ms(model._neg_vg, reps=5)
     check_fit("gplvm", model, GPLVM_FIT_ITERS, step, report)
     state = step("gplvm_predictive_state_s", model.predictive_state)
     eng = rt.PredictEngine(state, block_size=256, device=DEV)
     mean, var = step(f"gplvm_predict_t{cfg.n}_s", lambda: eng.predict(
         model.params["mu"], include_noise=True))
     launches = {"psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"]}
     print(f"gplvm path steps (s): {json.dumps(steps)}", flush=True)
@@ -1472,7 +1678,9 @@ def distributed_path(rt, cfg, usps) -> dict:
 
     def counts():
         return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
 
     # Only the engine's calls count: the references (SGPR, BayesianGPLVM)
@@ -1850,8 +2058,10 @@ def streaming_path(rt, cfg, usps) -> dict:
 
     def counts():
         return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
 
     # Only the port's own calls count, not the in-memory and plain
@@ -3743,7 +3953,9 @@ def async_path(rt, cfg, usps, sgpr) -> dict:
 
     def counts():
         return {"reg_stats_f64": rs_ops.LAUNCHES["float64"],
+                "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
+                "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"]}
 
@@ -6165,7 +6377,9 @@ def main() -> int:
                       timed=False)
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10)
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10, torch.float32, 20.0)
-    time_backwards(rs_ops, ps_ops, cfg, usps)
+    bwd = check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, cfg, usps,
+                          synth)
+    time_backwards(ps_ops, usps, bwd)
     time_operator_routes(rs_ops, ps_ops, cfg, usps)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -6259,6 +6473,18 @@ def main() -> int:
         entry("psi1_f64", "src/repro_torch/csrc/psi_stats.cu",
               "src/repro/kernels/psi_stats/kernel.py:125",
               psi_full[torch.float64]["psi1"]),
+        entry("reg_stats_bwd_f32", "src/repro_torch/csrc/reg_stats_bwd.cu",
+              "src/repro/kernels/reg_stats/ops.py:62",
+              bwd[f"reg_stats f32 {cfg.name}"]),
+        entry("reg_stats_bwd_f64", "src/repro_torch/csrc/reg_stats_bwd.cu",
+              "src/repro/kernels/reg_stats/ops.py:62",
+              bwd[f"reg_stats f64 {cfg.name}"]),
+        entry("psi2_bwd_f32", "src/repro_torch/csrc/psi2_bwd.cu",
+              "src/repro/kernels/psi_stats/ops.py:56",
+              bwd[f"psi2 f32 {usps.name}"]),
+        entry("psi2_bwd_f64", "src/repro_torch/csrc/psi2_bwd.cu",
+              "src/repro/kernels/psi_stats/ops.py:56",
+              bwd[f"psi2 f64 {usps.name}"]),
         entry("flash_attention_bf16", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
               fa_full[torch.bfloat16]),

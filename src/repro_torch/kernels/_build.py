@@ -141,6 +141,13 @@ def fill_plan(n: int, m: int, sms: int, tile: int, rows: int
     return n_tiles, max(1, -(-n // per_slice)), per_slice
 
 
+def row_flags(needs) -> int:
+    """The map backward kernels' row outputs wanted, from a Function's
+    ``needs_input_grad`` (inputs 3, 4, 5: x / mu, y / s, w): bits 1, 2, 4."""
+    return (1 if needs[3] else 0) | (2 if needs[4] else 0) \
+        | (4 if needs[5] else 0)
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launcher returned a non-zero ``cudaError_t``."""
     if err != 0:

@@ -1,11 +1,14 @@
-"""Backward of the fused kernels: the plain version recomputed in row chunks.
+"""A fused kernel's backward by its plain version, recomputed in row chunks.
 
-The kernels are forward only, as the Pallas kernels are; each wrapper's
-``torch.autograd.Function`` gets its gradient from :func:`chunked_vjp`, the
-counterpart of the JAX package's ``custom_vjp`` backward, which recomputes
-through the XLA formulation.  Rows are taken a chunk at a time, so the
-autograd graph of one chunk is alive at a time: O(chunk·m) for ``reg_stats``
-and ``psi1``, O(chunk·m²·q) for ``psi2``, whatever n is.
+The JAX package's ``custom_vjp`` backward recomputes through the XLA
+formulation.  Here ``reg_stats`` and ``psi2`` have hand-written backward
+kernels (``csrc/reg_stats_bwd.cu``, ``csrc/psi2_bwd.cu``); ``psi1``'s
+``torch.autograd.Function`` still takes its gradient from
+:func:`chunked_vjp` (its kernel is queued, ROADMAP Queue 2 item 1), and
+``reg_stats_vjp`` / ``psi2_vjp``, built on it, stay as the backward
+kernels' oracles.  Rows are taken a chunk at a time, so the autograd graph
+of one chunk is alive at a time: O(chunk·m) for ``reg_stats`` and
+``psi1``, O(chunk·m²·q) for ``psi2``, whatever n is.
 """
 from __future__ import annotations
 

@@ -100,9 +100,9 @@ def psi2_scratch(n: int, m: int, q: int, dtype, device):
     return n_slices, rows, scratch
 
 
-def _fn(kind: str, dtype, argtypes):
+def _fn(kind: str, dtype, argtypes, lib: str = "psi_stats"):
     name = f"{kind}_{_NAMES[dtype]}"
-    fn = getattr(_build.load("psi_stats"), name)
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = _I
@@ -137,3 +137,45 @@ def psi1(mu, s, z, log_sf2, log_ell, out) -> None:
 
 
 _psi1_plan = functools.lru_cache(maxsize=64)(psi1_plan)
+
+
+# -- psi2's backward: csrc/psi2_bwd.cu ---------------------------------------
+
+BWD_FEATURES = 4     # features a pass over the rows (QB)
+BWD_VALUES = 2 * BWD_FEATURES + 2   # a row's sums a pass (NV)
+
+
+def psi2_bwd_smem_bytes(dtype) -> int:
+    """Shared memory of one psi2 backward block (``smem_elems`` in the
+    source): z of both tiles, mu, 1/D, log-normaliser and w of RC rows,
+    the warps' row sums, the threads' point sums and the warps' sums of
+    d log_ell.  q does not change it."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return item * (2 * FEATURES * TILE + 2 * ROWS * FEATURES + 2 * ROWS
+                   + ROWS * BWD_VALUES * 8 + 2 * PATCH * BWD_FEATURES * THREADS
+                   + BWD_FEATURES * 8)
+
+
+def psi2_bwd_plan(n: int, slots: int) -> tuple[int, int]:
+    """(n-slices, rows per slice) of psi2's backward: one block a slice of
+    rows against every upper tile, as many slices as ``slots`` (at least
+    one, so an empty n still zeroes its partials)."""
+    per = max(1, -(-n // max(1, slots)))
+    return max(1, -(-n // per)), per
+
+
+def psi2_bwd(mu, s, w, zp, g, hp, n_slices, rows_per_slice, flags, lns, ivs,
+             racc, part_z, part_ell, dz, dell, dsf2, dmu, ds, dw) -> None:
+    """Launch psi2's backward for mu's dtype on the current stream (the
+    rows' terms, the tile pass, the row outputs where ``flags`` (1 mu, 2 s,
+    4 w) asks, and the fixed-order reduce)."""
+    name, fn = _fn("psi2_bwd", mu.dtype, [_P] * 6 + [_I] * 6 + [_P] * 12,
+                   lib="psi2_bwd")
+    n, q = mu.shape
+    err = fn(mu.data_ptr(), s.data_ptr(), w.data_ptr(), zp.data_ptr(),
+             g.data_ptr(), hp.data_ptr(), n, g.shape[0], q, n_slices,
+             rows_per_slice, flags, lns.data_ptr(), ivs.data_ptr(),
+             racc.data_ptr(), part_z.data_ptr(), part_ell.data_ptr(),
+             dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), dmu.data_ptr(),
+             ds.data_ptr(), dw.data_ptr(), _build.stream_handle(mu.device))
+    _build.check(name, err)

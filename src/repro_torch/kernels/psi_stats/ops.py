@@ -14,20 +14,24 @@ f32 map statistics break the q(u) factorisation at full width (ROADMAP,
 Queue 3).
 
 Differentiation: ``pallas_call`` has no VJP, so the JAX package wraps psi2
-in a ``custom_vjp`` that recomputes through XLA.  Here each Function's
-backward recomputes the plain version in row chunks (``kernels._vjp``):
-O(chunk·m²·q) memory for psi2 and O(chunk·m·q) for psi1, whatever n is.
-``log_sf2`` and ``log_ell`` are separate inputs, so the hyper-parameters get
-their gradients.
+in a ``custom_vjp`` that recomputes through XLA.  Here psi2's Function
+takes the hand-written backward kernel (``csrc/psi2_bwd.cu``, the closed
+form of ``ref.psi2_vjp_ref``) and raises where it cannot run; there is no
+fallback.  psi1's backward still recomputes the plain version in row
+chunks (``kernels._vjp``), O(chunk·m·q) memory whatever n is; its kernel
+is queued (ROADMAP Queue 2 item 1).  :func:`psi2_vjp`, the chunked
+recompute of psi2, is kept as the backward kernel's oracle; no path calls
+it.  ``log_sf2`` and ``log_ell`` are separate inputs, so the
+hyper-parameters get their gradients.
 
 For every tensor but a real CPU one (a CUDA tensor, or a fake tensor of
-the dry run) each Function's forward calls its operator,
-``torch.ops.repro_torch.psi2`` / ``psi1`` (``torch.library``: each CUDA
-implementation is the device check and the launch); the fake
+the dry run) each Function calls its operators,
+``torch.ops.repro_torch.psi2`` / ``psi2_bwd`` / ``psi1`` (``torch.library``:
+each CUDA implementation is the device check and the launch); the fake
 implementations give the outputs' shapes and dtypes and the FLOP formulas
-(``psi2_flop_count``, ``psi1_flop_count``) the kernels' work, so the dry
-run (``launch.dryrun``) counts the kernels; the backward runs as it
-stands.
+(``psi2_flop_count``, ``psi2_bwd_flop_count``, ``psi1_flop_count``) the
+kernels' work, so the dry run (``launch.dryrun``) counts the kernels;
+psi1's backward runs as it stands.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from . import ref as _ref
 #: launches of each CUDA kernel since the counts were last reset, by kernel
 #: and tile dtype
 LAUNCHES = {"psi2_float32": 0, "psi2_float64": 0,
+            "psi2_bwd_float32": 0, "psi2_bwd_float64": 0,
             "psi1_float32": 0, "psi1_float64": 0}
 _PSI2_KEY = {torch.float32: "psi2_float32", torch.float64: "psi2_float64"}
 _PSI1_KEY = {torch.float32: "psi1_float32", torch.float64: "psi1_float64"}
@@ -138,7 +143,8 @@ def _launch_psi2(log_sf2, log_ell, z, mu, s, w):
 
 def psi2_vjp(log_sf2, log_ell, z, mu, s, w, g, needs):
     """Gradients of ``<g, psi2(...)>`` by the plain version, recomputed in
-    row chunks: the backward of the CUDA path, callable on any device."""
+    row chunks under autograd: the oracle of the backward kernel, callable
+    on any device."""
     m, q = z.shape
     chunk = _vjp.rows_per_chunk(m * m * q)
 
@@ -149,9 +155,92 @@ def psi2_vjp(log_sf2, log_ell, z, mu, s, w, g, needs):
                             needs, chunk)
 
 
+_LIB.define("psi2_bwd(Tensor log_sf2, Tensor log_ell, Tensor z, Tensor mu, "
+            "Tensor s, Tensor w, Tensor g, int flags) -> (Tensor, Tensor, "
+            "Tensor, Tensor, Tensor, Tensor)")
+
+
+def _psi2_bwd_op(log_sf2, log_ell, z, mu, s, w, g, flags):
+    _on_one_card("psi2_bwd", mu, s, w, z, log_sf2, log_ell, g)
+    return _launch_psi2_bwd(log_sf2, log_ell, z, mu, s, w, g, flags,
+                            _build.sm_count(mu.device))
+
+
+_LIB.impl("psi2_bwd", _psi2_bwd_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::psi2_bwd", lib=_LIB)
+def _(log_sf2, log_ell, z, mu, s, w, g, flags):
+    shapes = ((), log_ell.shape, z.shape, mu.shape if flags & 1 else (0,),
+              s.shape if flags & 2 else (0,), w.shape if flags & 4 else (0,))
+    return tuple(t.new_empty(sh) for t, sh in
+                 zip((log_sf2, log_ell, z, mu, s, w), shapes))
+
+
+def psi2_bwd_flops(n: int, m: int, q: int) -> int:
+    """psi2's backward kernel's FLOPs: each row (every row, as the
+    forward's formula) against the upper half of the pairs, the exponent
+    and the exp's FMA (3q + 2) recomputed in each pass of 4 features, and
+    per feature r, F r, F r^2 and the point sums (6q), and F (3)."""
+    passes = -(-q // _k.BWD_FEATURES)
+    return n * (m * (m + 1) // 2) * ((3 * q + 2) * passes + 6 * q + 3)
+
+
+@register_flop_formula(torch.ops.repro_torch.psi2_bwd)
+def psi2_bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
+                        *args, **kwargs) -> int:
+    return psi2_bwd_flops(mu_shape[0], z_shape[0], z_shape[1])
+
+
+def psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags, slots):
+    """psi2's backward operands, scratch and outputs for one launch
+    (``kernel.psi2_bwd``'s arguments) over ``slots`` block slots: z
+    zero-padded to 64-row multiples, hp = [sf2^2, l^2] in the tile
+    dtype."""
+    n, q = mu.shape
+    m = z.shape[0]
+    f64 = torch.float64
+    dt = _tile_dtype(mu.dtype)
+    dev = mu.device
+    mp = -(-m // _k.TILE) * _k.TILE
+    zp = torch.zeros((mp, q), dtype=dt, device=dev)
+    zp[:m] = z
+    sf2 = torch.exp(log_sf2)
+    hp = torch.cat([(sf2 * sf2).reshape(1),
+                    torch.exp(2.0 * log_ell)]).to(dt).contiguous()
+    n_slices, per = _k.psi2_bwd_plan(n, slots)
+
+    def rows(shape, flag):
+        return torch.empty(shape if flags & flag else (0,), dtype=dt,
+                           device=dev)
+    return (*(_build.operand(t, dt) for t in (mu, s, w)), zp,
+            _build.operand(g, dt), hp, n_slices, per, flags,
+            torch.empty((n,), dtype=dt, device=dev),
+            torch.empty((n, q), dtype=dt, device=dev),
+            torch.empty((n, 2 + 2 * q), dtype=f64, device=dev),
+            torch.empty((n_slices, mp, q), dtype=f64, device=dev),
+            torch.empty((n_slices, q), dtype=f64, device=dev),
+            torch.empty((m, q), dtype=f64, device=dev),
+            torch.empty((q,), dtype=f64, device=dev),
+            torch.empty((), dtype=f64, device=dev),
+            rows((n, q), 1), rows((n, q), 2), rows((n,), 4))
+
+
+def _launch_psi2_bwd(log_sf2, log_ell, z, mu, s, w, g, flags, slots):
+    """The bare backward launch (the operator's implementation): device
+    checks are the caller's."""
+    args = psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags,
+                                slots)
+    _k.psi2_bwd(*args)
+    LAUNCHES["psi2_bwd_" + str(args[0].dtype).removeprefix("torch.")] += 1
+    dz, dell, dsf2, dmu, ds, dw = args[-6:]
+    return (dsf2.to(log_sf2.dtype), dell.to(log_ell.dtype), dz.to(z.dtype),
+            dmu.to(mu.dtype), ds.to(s.dtype), dw.to(w.dtype))
+
+
 class _Psi2(torch.autograd.Function):
-    """Forward: the operator (the CUDA kernel).  Backward:
-    :func:`psi2_vjp`."""
+    """Forward: the operator (the CUDA kernel).  Backward: the backward
+    operator (the CUDA backward kernel)."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, mu, s, w):
@@ -160,7 +249,10 @@ class _Psi2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return tuple(psi2_vjp(*ctx.saved_tensors, g, ctx.needs_input_grad))
+        needs = ctx.needs_input_grad
+        grads = torch.ops.repro_torch.psi2_bwd(*ctx.saved_tensors, g,
+                                               _build.row_flags(needs))
+        return tuple(t if need else None for t, need in zip(grads, needs))
 
 
 # -- psi1 --------------------------------------------------------------------
@@ -228,7 +320,8 @@ def psi1_vjp(log_sf2, log_ell, z, mu, s, g, needs):
 
 class _Psi1(torch.autograd.Function):
     """Forward: the operator (the CUDA kernel).  Backward:
-    :func:`psi1_vjp`."""
+    :func:`psi1_vjp`, the plain version recomputed in row chunks (its
+    backward kernel is queued, ROADMAP Queue 2 item 1)."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, mu, s):

@@ -33,3 +33,83 @@ def psi2_ref(log_sf2, log_ell, z, mu, s, w, chunk: int | None = None):
         out = out + torch.einsum("i,iab->ab", w[sl], gpk.psi2_per_point(
             hyp, z, mu[sl], s[sl]))
     return out
+
+
+def psi2_vjp_ref(log_sf2, log_ell, z, mu, s, w, g, needs,
+                 chunk: int | None = None, absolute: bool = False):
+    """Gradients of ``<g, psi2_ref(...)>`` in closed form, without
+    autograd: the function ``csrc/psi2_bwd.cu`` computes.
+
+    With ψₙ[j,k] the per-point psi2, F_njk = wₙ g_jk ψₙ[j,k],
+    D_nq = ℓ_q² + 2S_nq and r = μ_nq - z̄_jkq (z̄ the pair's midpoint)::
+
+        d μ_nq      = -2 Σ_jk F r / D
+        d S_nq      = Σ_jk F (2r²/D² - 1/D)
+        d z_jq      = Σ_{n,k} (F_njk + F_nkj) (r/D - (z_jq - z_kq)/(2ℓ_q²))
+        d log_ell_q = 2ℓ_q² Σ F (S/(ℓ_q² D) + (z_jq - z_kq)²/(4ℓ_q⁴) + r²/D²)
+        d log_sf2   = 2ΣF
+        d w_n       = Σ_jk g_jk ψₙ[j,k]
+
+    in the direct form (r itself, never expanded in μ², z̄²).  Rows are
+    taken ``chunk`` at a time (default: about 2^25 elements of the (rows,
+    m, m, q) difference).  ``needs``: input by input, whether a gradient is
+    wanted; None where not.  ``absolute``: every term of every sum by its
+    absolute value (g, w, r and z_j - z_k by theirs, the -1/D term of
+    d S positive), the scale of the rounding error of a kernel that forms
+    the same sums.
+    """
+    ab = torch.abs if absolute else (lambda t: t)
+    n, q = mu.shape
+    m = z.shape[0]
+    ell2 = torch.exp(2.0 * log_ell)
+    sf4 = torch.exp(log_sf2) * torch.exp(log_sf2)
+    g_ = ab(g)
+    dz_pair = z[:, None, :] - z[None, :, :]                       # (m, m, q)
+    static = -0.25 * (dz_pair * dz_pair / ell2).sum(-1)           # (m, m)
+    zbar = 0.5 * (z[:, None, :] + z[None, :, :])
+    step = max(1, chunk or (1 << 25) // max(1, m * m * q))
+    d_sf2 = sf4.new_zeros(())
+    d_ell = ell2.new_zeros((q,))
+    d_z = z.new_zeros((m, q))
+    f_sum = z.new_zeros((m, m))
+    rows = {3: [], 4: [], 5: []}
+    for lo in range(0, n, step):
+        mus, ss, ws = mu[lo:lo + step], s[lo:lo + step], ab(w[lo:lo + step])
+        den = ell2 + 2.0 * ss                                     # (r, q)
+        lognorm = -0.5 * torch.log1p(2.0 * ss / ell2).sum(-1)
+        r = mus[:, None, None, :] - zbar[None]                    # (r, m, m, q)
+        expo = -(r * r / den[:, None, None, :]).sum(-1)
+        psi = sf4 * torch.exp(lognorm[:, None, None] + static[None] + expo)
+        f = ws[:, None, None] * g_[None] * psi                   # (r, m, m)
+        f_all = f.sum((1, 2))                                     # (r,)
+        fr = torch.einsum("njk,njkq->nq", f, ab(r))
+        fr2 = torch.einsum("njk,njkq->nq", f, r * r)
+        d_sf2 = d_sf2 + 2.0 * f_all.sum()
+        f_sum = f_sum + f.sum(0)
+        if needs[1]:
+            d_ell = d_ell + 2.0 * (f_all[:, None] * ss / den).sum(0) \
+                + 2.0 * ell2 * (fr2 / (den * den)).sum(0)
+        if needs[2]:
+            fs = f + f.transpose(1, 2)
+            d_z = d_z + torch.einsum("njk,njkq->jq", fs,
+                                     ab(r) / den[:, None, None, :])
+        if needs[3]:
+            rows[3].append((2.0 if absolute else -2.0) * fr / den)
+        if needs[4]:
+            rows[4].append(2.0 * fr2 / (den * den)
+                           + (1.0 if absolute else -1.0) * f_all[:, None] / den)
+        if needs[5]:
+            rows[5].append((g_[None] * psi).sum((1, 2)))
+    if needs[1]:
+        d_ell = d_ell + 0.5 * torch.einsum("jk,jkq->q", f_sum,
+                                           dz_pair * dz_pair) / ell2
+    if needs[2]:
+        fs = f_sum + f_sum.T
+        d_z = d_z + (1.0 if absolute else -1.0) * torch.einsum(
+            "jk,jkq->jq", fs, ab(dz_pair)) / (2.0 * ell2)
+    out = [d_sf2, d_ell, d_z]
+    for i, t in ((3, mu), (4, s), (5, w)):
+        out.append((torch.cat(rows[i]) if rows[i] else torch.zeros_like(t))
+                   if needs[i] else None)
+    return [g if need else None for g, need in zip(out[:3], needs[:3])] \
+        + out[3:]

@@ -71,3 +71,56 @@ def reg_stats(x, y, w, z, hp, n_slices, rows_per_slice,
         d_out.data_ptr(), c_out.data_ptr(), b_out.data_ptr(),
         _build.stream_handle(x.device))
     _build.check(_FN[x.dtype], err)
+
+
+# -- the backward: csrc/reg_stats_bwd.cu -------------------------------------
+
+BWD_ROWS = 128       # rows per row tile of the backward (BR)
+BWD_COLUMNS = 128    # columns per column tile; z, S and gC padded to it (BC)
+BWD_STEP = 32        # inducing points per k-step (KS)
+BWD_BLOCKS_PER_SM = {torch.float32: 2, torch.float64: 1}
+_BWD_FN = {torch.float32: "reg_stats_bwd_f32", torch.float64: "reg_stats_bwd_f64"}
+
+
+def bwd_smem_bytes(dtype) -> int:
+    """Dynamic shared memory of one backward block (``smem_elems`` in the
+    source): the larger of the double-buffered slab and S rows (row stride
+    132 f64, 128 f32) and the E tile (128 x 129), the x and z tiles (128 x
+    17 each), z of three k-steps, w, 1/ell^2, 8 columns of gC, the
+    reduction scratch (128 x 17, 17 x 8).  Neither q nor d changes it; the
+    f64 exp's table adds 512 static bytes."""
+    item = torch.empty((), dtype=dtype).element_size()
+    ld = BWD_ROWS + (4 if dtype == torch.float64 else 0)
+    tiles = max(4 * BWD_STEP * ld, BWD_ROWS * (BWD_COLUMNS + 1))
+    return item * (tiles + 2 * BWD_ROWS * (FEATURES + 1) + 3 * BWD_STEP * FEATURES
+                   + BWD_ROWS + FEATURES + BWD_COLUMNS * COLUMNS
+                   + BWD_COLUMNS * (FEATURES + 1) + 8 * (FEATURES + 1))
+
+
+def bwd_plan(n: int, slots: int) -> tuple[int, int]:
+    """(n-slices, row tiles per slice) of the backward: one block a slice
+    of consecutive 128-row tiles, as many slices as fill ``slots`` block
+    slots once (at least one, so an empty n still zeroes its partials)."""
+    row_tiles = -(-n // BWD_ROWS)
+    per = max(1, -(-row_tiles // max(1, min(row_tiles, slots))))
+    return max(1, -(-row_tiles // per)), per
+
+
+def reg_stats_bwd(x, y, w, zp, sp, gcp, hp, m, n_slices, tiles_per_slice,
+                  flags, part_z, part_ell, part_sf2, dz, dell, dsf2, dx, dy,
+                  dw) -> None:
+    """Launch the backward for x's dtype (the tile pass, then the
+    fixed-order reduce) on the current stream.  dx, dy, dw are written
+    only where ``flags`` (1, 2, 4) asks."""
+    fn = getattr(_build.load("reg_stats_bwd"), _BWD_FN[x.dtype])
+    if fn.argtypes is None:
+        fn.argtypes = [*([_P] * 7), *([_I] * 8), *([_P] * 10)]
+        fn.restype = _I
+    n, q = x.shape
+    err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), zp.data_ptr(),
+             sp.data_ptr(), gcp.data_ptr(), hp.data_ptr(), n, m, q,
+             y.shape[1], zp.shape[0], n_slices, tiles_per_slice, flags,
+             part_z.data_ptr(), part_ell.data_ptr(), part_sf2.data_ptr(),
+             dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), dx.data_ptr(),
+             dy.data_ptr(), dw.data_ptr(), _build.stream_handle(x.device))
+    _build.check(_BWD_FN[x.dtype], err)

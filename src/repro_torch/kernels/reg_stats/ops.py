@@ -16,17 +16,22 @@ partials are summed in f64 and the outputs come back in the caller's
 dtype, so the fold across chunks and all solves downstream run in f64.
 
 Differentiation: the CUDA path is a ``torch.autograd.Function`` whose
-forward is the kernel and whose backward recomputes the dense formulation
-(``core.stats.reg_stats_dense``) in row chunks (``kernels._vjp``), as the
-JAX package's ``custom_vjp`` recomputes through XLA.
+forward is the kernel and whose backward is the hand-written backward
+kernel (``csrc/reg_stats_bwd.cu``, the closed form of
+``ref.reg_stats_vjp_ref``), where the JAX package's ``custom_vjp``
+recomputes through XLA.  It raises where that kernel cannot run; there is
+no fallback.  :func:`reg_stats_vjp`, the dense formulation recomputed in
+row chunks (``kernels._vjp``) under autograd, is kept as its oracle and
+runs on any device; no path calls it.
 
 For every tensor but a real CPU one (a CUDA tensor, or a fake tensor of
-the dry run) the Function's forward calls the operator
-``torch.ops.repro_torch.reg_stats`` (``torch.library``: its CUDA
-implementation is the device check and the launch).  Its fake
-implementation gives the outputs' shapes and dtypes, and its FLOP formula
-(``flop_count``) the kernel's work, so the dry run (``launch.dryrun``)
-counts the kernel, not the plain version; the backward runs as it stands.
+the dry run) the Function's forward and backward call the operators
+``torch.ops.repro_torch.reg_stats`` and ``reg_stats_bwd``
+(``torch.library``: each CUDA implementation is the device check and the
+launch).  Their fake implementations give the outputs' shapes and dtypes,
+and their FLOP formulas (``flop_count``, ``bwd_flop_count``) the kernels'
+work, so the dry run (``launch.dryrun``) counts the kernels, not the plain
+versions.
 """
 from __future__ import annotations
 
@@ -41,8 +46,9 @@ from .. import _vjp
 from . import kernel as _k
 from . import ref as _ref
 
-#: launches of the CUDA kernel since the counts were last reset, by tile dtype
-LAUNCHES = {"float32": 0, "float64": 0}
+#: launches of the CUDA kernels since the counts were last reset: the
+#: forward by tile dtype, the backward as ``bwd_<dtype>``
+LAUNCHES = {"float32": 0, "float64": 0, "bwd_float32": 0, "bwd_float64": 0}
 
 
 def reg_stats(hyp: dict, z, x, y, w):
@@ -177,16 +183,111 @@ def _dense(log_sf2, log_ell, z, x, y, w):
 
 def reg_stats_vjp(log_sf2, log_ell, z, x, y, w, gb, gc, gd, needs):
     """Gradients of ``<(gb, gc, gd), reg_stats(...)>`` by the dense
-    formulation, recomputed in row chunks: the backward of the CUDA path,
-    callable on any device."""
+    formulation, recomputed in row chunks under autograd: the oracle of
+    the backward kernel, callable on any device."""
     chunk = _vjp.rows_per_chunk(z.shape[0])
     return _vjp.chunked_vjp(_dense, (log_sf2, log_ell, z), (x, y, w),
                             (gb, gc, gd), needs, chunk)
 
 
+# -- the backward -------------------------------------------------------------
+
+_LIB.define("reg_stats_bwd(Tensor log_sf2, Tensor log_ell, Tensor z, "
+            "Tensor x, Tensor y, Tensor w, Tensor gb, Tensor gc, Tensor gd, "
+            "int flags) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _bwd_op(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags):
+    operands = (z, x, y, w, log_sf2, log_ell, gb, gc, gd)
+    if any(t.device != x.device for t in operands):
+        raise ValueError("reg_stats_bwd: every operand must be on one CUDA "
+                         f"device, got {[str(t.device) for t in operands]}")
+    return _launch_bwd(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags,
+                       _build.sm_count(x.device))
+
+
+_LIB.impl("reg_stats_bwd", _bwd_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::reg_stats_bwd", lib=_LIB)
+def _(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags):
+    # a row output not asked for (flags 1 x, 2 y, 4 w) is empty
+    shapes = ((), log_ell.shape, z.shape, x.shape if flags & 1 else (0,),
+              y.shape if flags & 2 else (0,), w.shape if flags & 4 else (0,))
+    return tuple(t.new_empty(sh) for t, sh in
+                 zip((log_sf2, log_ell, z, x, y, w), shapes))
+
+
+def bwd_flops(n: int, m: int, q: int, d: int) -> int:
+    """The backward kernel's FLOPs: knm S (n m^2 FMAs), knm rebuilt once
+    per 128-column tile of the output (3q + 2 a pair each time), and each
+    entry's epilogue: knm again, P (d FMAs), E, and r, E r, E r^2 per
+    feature (4q)."""
+    tiles = -(-m // _k.BWD_COLUMNS)
+    return 2 * n * m * m + n * m * (3 * q + 2) * (tiles + 1) \
+        + n * m * (2 * d + 4 + 4 * q)
+
+
+@register_flop_formula(torch.ops.repro_torch.reg_stats_bwd)
+def bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, x_shape, y_shape,
+                   *args, **kwargs) -> int:
+    (n, q), m, d = x_shape, z_shape[0], y_shape[1]
+    return bwd_flops(n, m, q, d)
+
+
+def bwd_launch_args(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags, slots):
+    """The backward kernel's operands, scratch and outputs for one launch
+    (``kernel.reg_stats_bwd``'s arguments) over ``slots`` block slots:
+    z, S = gD + gD^T and gC zero-padded to 128-row multiples, hp = [sf2,
+    sf2 gb, 1/ell^2] in the tile dtype."""
+    n, q = x.shape
+    m, d = z.shape[0], y.shape[1]
+    f64 = torch.float64
+    dt = f64 if x.dtype == f64 else torch.float32
+    dev = x.device
+    mp = -(-m // _k.BWD_COLUMNS) * _k.BWD_COLUMNS
+    xs, ys, ws = (_build.operand(t, dt) for t in (x, y, w))
+    zp = torch.zeros((mp, q), dtype=dt, device=dev)
+    zp[:m] = z
+    sp = torch.zeros((mp, mp), dtype=dt, device=dev)
+    sp[:m, :m] = gd + gd.T
+    gcp = torch.zeros((mp, d), dtype=dt, device=dev)
+    gcp[:m] = gc
+    sf2 = torch.exp(log_sf2)
+    hp = torch.cat([sf2.reshape(1), (sf2 * gb).reshape(1),
+                    torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
+    n_slices, per = _k.bwd_plan(n, slots * _k.BWD_BLOCKS_PER_SM[dt])
+
+    def rows(shape, flag):
+        return torch.empty(shape if flags & flag else (0,), dtype=dt,
+                           device=dev)
+    return (xs, ys, ws, zp, sp, gcp, hp, m, n_slices, per, flags,
+            torch.empty((n_slices, mp, q), dtype=f64, device=dev),
+            torch.empty((n_slices, q), dtype=f64, device=dev),
+            torch.empty((n_slices,), dtype=f64, device=dev),
+            torch.empty((m, q), dtype=f64, device=dev),
+            torch.empty((q,), dtype=f64, device=dev),
+            torch.empty((), dtype=f64, device=dev),
+            rows((n, q), 1), rows((n, d), 2), rows((n,), 4))
+
+
+def _launch_bwd(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags, slots):
+    """The bare backward launch (the operator's implementation): device
+    checks are the caller's.  d log_sf2 gets gb b (b = sf2 sum w) here."""
+    args = bwd_launch_args(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags,
+                           slots)
+    _k.reg_stats_bwd(*args)
+    LAUNCHES["bwd_" + str(args[0].dtype).removeprefix("torch.")] += 1
+    dz, dell, dsf2, dx, dy, dw = args[-6:]
+    b = torch.exp(log_sf2.double()) * w.double().sum()
+    dsf2 = dsf2 + gb.double() * b
+    return (dsf2.to(log_sf2.dtype), dell.to(log_ell.dtype), dz.to(z.dtype),
+            dx.to(x.dtype), dy.to(y.dtype), dw.to(w.dtype))
+
+
 class _RegStats(torch.autograd.Function):
-    """Forward: the operator (the CUDA kernel).  Backward:
-    :func:`reg_stats_vjp`."""
+    """Forward: the operator (the CUDA kernel).  Backward: the backward
+    operator (the CUDA backward kernel)."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, x, y, w):
@@ -195,5 +296,7 @@ class _RegStats(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gb, gc, gd):
-        return tuple(reg_stats_vjp(*ctx.saved_tensors, gb, gc, gd,
-                                   ctx.needs_input_grad))
+        needs = ctx.needs_input_grad
+        grads = torch.ops.repro_torch.reg_stats_bwd(
+            *ctx.saved_tensors, gb, gc, gd, _build.row_flags(needs))
+        return tuple(g if need else None for g, need in zip(grads, needs))

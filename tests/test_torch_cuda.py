@@ -172,17 +172,18 @@ def _grads(fn, inputs, cotangents):
 
 
 def _assert_grads_close(got, want):
-    """The backward recomputes a plain f64 formulation, so the Function's
-    gradients equal plain autograd's up to f64 rounding (the recompute's
-    row chunks, and for reg_stats the dense expanded-square form): rtol
-    1e-10."""
+    """The backward kernels compute the closed form in f64 (psi1's backward
+    recomputes the plain version), so the Functions' gradients equal plain
+    autograd's up to f64 rounding (summation order, and for reg_stats
+    autograd's expanded-square form): rtol 1e-10."""
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
 
 
 def test_reg_stats_gradient(cuda):
-    """The Function's backward (chunked dense recompute) against autograd
-    of the plain version, f64, on every input."""
+    """The Function's backward (the backward kernel,
+    ``csrc/reg_stats_bwd.cu``) against autograd of the plain version, f64,
+    on every input; one backward launch."""
     rng = np.random.default_rng(4)
     n, m, q, d = 300, 37, 3, 2
     inputs = [_t(rng.uniform(-0.5, 0.8), cuda), _t(rng.uniform(-0.4, 0.4, q), cuda),
@@ -197,8 +198,10 @@ def test_reg_stats_gradient(cuda):
         return rs_ops.reg_stats({"log_sf2": log_sf2, "log_ell": log_ell},
                                 z, x, y, w)
 
-    _assert_grads_close(_grads(kernel, inputs, cts),
-                        _grads(rs_ref.reg_stats_ref, inputs, cts))
+    before = rs_ops.LAUNCHES["bwd_float64"]
+    got = _grads(kernel, inputs, cts)
+    assert rs_ops.LAUNCHES["bwd_float64"] == before + 1
+    _assert_grads_close(got, _grads(rs_ref.reg_stats_ref, inputs, cts))
 
 
 def _psi_inputs(seed, n, m, q, device, dtype=torch.float64):
@@ -367,8 +370,9 @@ def test_psi2_zero_weights_and_tiles_do_not_leak(cuda):
 
 
 def test_psi_gradients(cuda):
-    """Both Functions' backward (chunked plain recompute) against autograd
-    of the plain version, f64, on every input."""
+    """Both Functions' backward (psi2: the backward kernel,
+    ``csrc/psi2_bwd.cu``; psi1: the chunked plain recompute) against
+    autograd of the plain version, f64, on every input."""
     hyp, z, mu, s, w = _psi_inputs(5, 300, 37, 3, cuda)
     rng = np.random.default_rng(6)
 
@@ -380,8 +384,10 @@ def test_psi_gradients(cuda):
 
     inputs = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
     ct2 = (_t(rng.standard_normal((37, 37)), cuda),)
-    _assert_grads_close(_grads(psi2, inputs, ct2),
-                        _grads(ps_ref.psi2_ref, inputs, ct2))
+    before = ps_ops.LAUNCHES["psi2_bwd_float64"]
+    got = _grads(psi2, inputs, ct2)
+    assert ps_ops.LAUNCHES["psi2_bwd_float64"] == before + 1
+    _assert_grads_close(got, _grads(ps_ref.psi2_ref, inputs, ct2))
     ct1 = (_t(rng.standard_normal((300, 37)), cuda),)
     _assert_grads_close(_grads(psi1, inputs[:5], ct1),
                         _grads(ps_ref.psi1_ref, inputs[:5], ct1))
@@ -1781,3 +1787,155 @@ def test_gp_operator_fake_and_flop_formula(cuda, name):
             "psi1": ps_ops.psi1_flops(n, m, q)}[name]
     assert counter.get_total_flops() == want
     assert (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES)) == before
+
+
+# -- the backward kernels (csrc/reg_stats_bwd.cu, csrc/psi2_bwd.cu) ----------
+
+def _hold_bwd(got, closed, closed_abs, chunked, dtype):
+    """Each gradient against the closed form at the kernel's tier
+    (|err| <= rtol |plain| + atol |plain on absolute terms|, whatever the
+    dtype it comes back in) and against the chunked recompute (f64:
+    normwise 1e-8)."""
+    rtol, atol = TIERS[dtype]
+    for i, (g, p, pa, c) in enumerate(zip(got, closed, closed_abs, chunked)):
+        g64 = g.double()
+        assert g.shape == p.shape, i
+        assert bool((g64 - p).abs().le(rtol * p.abs() + atol * pa).all()), i
+        if dtype == F64 and c.numel():
+            assert float(torch.linalg.vector_norm(g64 - c)
+                         / torch.linalg.vector_norm(c).clamp_min(1e-300)) \
+                <= 1e-8, i
+
+
+def _rs_bwd_inputs(seed, n, m, q, d, device):
+    rng = np.random.default_rng(seed)
+    ins = [_t(rng.uniform(-0.5, 0.8), device),
+           _t(rng.uniform(-0.4, 0.4, q), device),
+           _t(rng.standard_normal((m, q)), device),
+           _t(rng.standard_normal((n, q)), device),
+           _t(rng.standard_normal((n, d)), device),
+           _t(rng.uniform(size=n) > 0.15, device)]
+    cts = [_t(rng.standard_normal(sh), device)
+           for sh in ((), (m, d), (m, m))]      # gD not symmetric
+    return ins, cts
+
+
+@pytest.mark.parametrize("n,m,q,d,dtype", RS_CASES)
+def test_reg_stats_bwd_matches_closed_form_and_recompute(cuda, n, m, q, d,
+                                                         dtype):
+    """The backward operator (every input's gradient) against
+    ``reg_stats_vjp_ref`` and the chunked recompute on the values the
+    kernel sees, and bitwise on a second call."""
+    ins, cts = _rs_bwd_inputs(n + 3 * m, n, m, q, d, cuda)
+    kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
+    kct = [t.to(dtype) for t in cts]
+    pin, pct = [t.double() for t in kin], [t.double() for t in kct]
+    name = "bwd_" + str(dtype).removeprefix("torch.")
+    before = rs_ops.LAUNCHES[name]
+    got = torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, 7)
+    again = torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, 7)
+    assert rs_ops.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [g.dtype for g in got] == [F64, F64, dtype, dtype, dtype, dtype]
+    needs = [True] * 6
+    _hold_bwd(got, rs_ref.reg_stats_vjp_ref(*pin, *pct, needs),
+              rs_ref.reg_stats_vjp_ref(*pin, *pct, needs, absolute=True),
+              rs_ops.reg_stats_vjp(*pin, *pct, needs), dtype)
+
+
+@pytest.mark.parametrize("n,m,q,dtype", PSI_CASES)
+def test_psi2_bwd_matches_closed_form_and_recompute(cuda, n, m, q, dtype):
+    """psi2's backward operator (every input's gradient) against
+    ``psi2_vjp_ref`` and the chunked recompute, for a non-symmetric
+    cotangent, and bitwise on a second call."""
+    hyp, z, mu, s, w = _psi_inputs(2 * n + m, n, m, q, cuda, dtype)
+    g = _t(np.random.default_rng(n).standard_normal((m, m)), cuda, dtype)
+    kin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
+    pin, pg = [t.double() for t in kin], g.double()
+    name = "psi2_bwd_" + str(dtype).removeprefix("torch.")
+    before = ps_ops.LAUNCHES[name]
+    got = torch.ops.repro_torch.psi2_bwd(*kin, g, 7)
+    again = torch.ops.repro_torch.psi2_bwd(*kin, g, 7)
+    assert ps_ops.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    needs = [True] * 6
+    _hold_bwd(got, ps_ref.psi2_vjp_ref(*pin, pg, needs),
+              ps_ref.psi2_vjp_ref(*pin, pg, needs, absolute=True),
+              ps_ops.psi2_vjp(*pin, pg, needs), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_zero_weight_rows_do_not_leak(cuda, dtype):
+    """Rows of weight 0 get exactly zero d x, d y (reg_stats) and d mu,
+    d s (psi2), and the shared gradients equal those over the kept rows
+    alone to rounding."""
+    ins, cts = _rs_bwd_inputs(11, 1037, 130, 3, 2, cuda)
+    kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
+    kct = [t.to(dtype) for t in cts]
+    keep = kin[5] > 0
+    full = torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, 7)
+    kept = torch.ops.repro_torch.reg_stats_bwd(
+        *kin[:3], *(t[keep] for t in kin[3:]), *kct, 7)
+    assert not bool(full[3][~keep].any()) and not bool(full[4][~keep].any())
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    for a, b in zip(full[:3], kept[:3]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()))
+    hyp, z, mu, s, w = _psi_inputs(12, 1003, 70, 3, cuda, dtype)
+    g = _t(np.random.default_rng(12).standard_normal((70, 70)), cuda, dtype)
+    kin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
+    keep = w > 0
+    full = torch.ops.repro_torch.psi2_bwd(*kin, g, 7)
+    kept = torch.ops.repro_torch.psi2_bwd(*kin[:3], *(t[keep] for t in kin[3:]),
+                                          g, 7)
+    assert not bool(full[3][~keep].any()) and not bool(full[4][~keep].any())
+    for a, b in zip(full[:3], kept[:3]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * float(b.abs().max()))
+
+
+def test_backward_kernels_raise_and_never_recompute(cuda, monkeypatch):
+    """On the card the Functions' backward is the kernel or an error: a
+    launch that fails raises, and the chunked recompute is never called."""
+    from repro_torch.kernels import _vjp
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the chunked recompute ran on the card")
+    monkeypatch.setattr(_vjp, "chunked_vjp", refuse)
+    ins, cts = _rs_bwd_inputs(13, 300, 37, 3, 2, cuda)
+
+    def kernel(log_sf2, log_ell, z, x, y, w):
+        return rs_ops.reg_stats({"log_sf2": log_sf2, "log_ell": log_ell},
+                                z, x, y, w)
+    _grads(kernel, ins, cts)           # the kernel, no recompute
+    hyp, z, mu, s, w = _psi_inputs(14, 300, 37, 3, cuda)
+
+    def psi2(log_sf2, log_ell, z, mu, s, w):
+        return ps_ops.psi2({"log_sf2": log_sf2, "log_ell": log_ell}, z, mu,
+                           s, w)
+    pin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
+    ct = (_t(np.random.default_rng(14).standard_normal((37, 37)), cuda),)
+    _grads(psi2, pin, ct)
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("CUDA kernel failed to launch")
+    monkeypatch.setattr(rs_k, "reg_stats_bwd", fail)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _grads(kernel, ins, cts)
+    from repro_torch.kernels.psi_stats import kernel as ps_k
+    monkeypatch.setattr(ps_k, "psi2_bwd", fail)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _grads(psi2, pin, ct)
+
+
+@pytest.mark.parametrize("n,m,q,d", [(100_003, 130, 8, 4), (20_011, 512, 8, 4)])
+def test_reg_stats_bwd_is_repeatable_across_slices(cuda, n, m, q, d):
+    """More row tiles than SMs: the slices' partials are summed in a fixed
+    order, so the SGPR's gradients (hyper-parameters and z) are bitwise
+    the same across runs, in both dtypes."""
+    ins, cts = _rs_bwd_inputs(15, n, m, q, d, cuda)
+    for dtype in DTYPES:
+        kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
+        kct = [t.to(dtype) for t in cts]
+        first = torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, 0)
+        for _ in range(3):
+            again = torch.ops.repro_torch.reg_stats_bwd(*kin, *kct, 0)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))

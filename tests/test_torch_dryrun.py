@@ -22,8 +22,8 @@ negative bound in f32 on the same 4 real ranks (``DistributedGP`` over
 the world, ``torch.distributed.all_reduce`` counted) and on the fake
 world of 4 (every axis a data shard; the engine's own all_reduce, which
 records in ``COUNTS``): the collectives equal to the byte,
-the argument bytes the ranks' shards, the FLOPs (the kernels' operators
-by their formulas, the backward's plain recompute as it runs) within
+the argument bytes the ranks' shards, the FLOPs (the kernels' operators,
+forward and backward, by their formulas; plain versions as they run) within
 ``GP_FLOP_BAND`` of ``roofline.gp_model_flops``.  The production cell
 gplvm-oilflow ``naive`` runs on the fake (16, 16) mesh through ``--gp``,
 and ``report`` reads its record.
@@ -49,12 +49,14 @@ SHAPES = {"train": ShapeSpec("tiny_train", 16, 4, "train"),
           "decode": ShapeSpec("tiny_decode", 16, 4, "decode")}
 FLOP_RANGE = (0.9, 1.3)
 # GP cells: the counted FLOPs over the paper's 3 n m^2 (2q + 4) per rank,
-# within 30 % of each cell's ratio on the CPU's fake world of 4 (0.1518 and
-# 2.260).  The regression's K^T W K and its pull-back, 6 n m^2, are
-# 2 / (2q + 4) = 0.1 of the paper's count at q 8 (the kernel's exponent
-# and the bound's m^3 terms the rest at m 64); the GPLVM's ``mxu`` psi2
-# forms each row's (m, m, q) product in full, forward and backward.
-GP_FLOP_BAND = {"sgpr-synth-1m": (0.1063, 0.1974),
+# within 30 % of each cell's ratio on the CPU's fake world of 4 (0.09349 and
+# 2.260).  The regression's kernels count by their operators' formulas:
+# K^T W K's upper half (n m^2) and the backward kernel's K S (2 n m^2),
+# 3 n m^2, are 1 / (2q + 4) = 0.05 of the paper's count at q 8 (the
+# kernels' exponents and the bound's m^3 terms the rest at m 64); the
+# GPLVM's ``mxu`` psi2 forms each row's (m, m, q) product in full, forward
+# and backward.
+GP_FLOP_BAND = {"sgpr-synth-1m": (0.06545, 0.1215),
                 "gplvm-usps": (1.582, 2.938)}
 GP_CELLS = {"sgpr-synth-1m": dict(n=4096, m=64),
             "gplvm-usps": dict(n=1000, m=32)}

@@ -1,0 +1,294 @@
+"""The closed-form backward of the map kernels against the JAX package.
+
+``reg_stats_vjp_ref`` and ``psi2_vjp_ref`` (``repro_torch.kernels.*.ref``)
+state, without autograd, the functions the backward kernels
+``csrc/reg_stats_bwd.cu`` and ``csrc/psi2_bwd.cu`` compute.  The same
+numpy inputs, made from a seed, go through ``jax.vjp`` of the reference's
+``core.stats.reg_stats_dense`` and of its weighted per-point psi2, and
+through the closed forms on the CPU, at rtol 1e-8 / atol 1e-10 (the
+custom_vjp contract of ``tests/test_reg_stats_pallas.py``): a
+non-symmetric cotangent throughout, zero weights, d 1 and d past 8, q past
+16 (the kernels stage 16 features at a time) and m off the kernels'
+tiles.  Both closed forms are also held against the port's chunked
+recompute (``reg_stats_vjp``, ``psi2_vjp``: autograd of the plain version)
+with each pattern of wanted gradients; the new operators' fake
+implementations and FLOP formulas, and the kernels' plans and shared
+memory, are checked without a card.  The kernels themselves are held
+against these on the card in ``test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.core import gp_kernels as j_gpk
+from repro.core import stats as j_stats
+from repro_torch.kernels.psi_stats import kernel as ps_k
+from repro_torch.kernels.psi_stats import ops as ps_ops
+from repro_torch.kernels.psi_stats import ref as ps_ref
+from repro_torch.kernels.reg_stats import kernel as rs_k
+from repro_torch.kernels.reg_stats import ops as rs_ops
+from repro_torch.kernels.reg_stats import ref as rs_ref
+
+RTOL, ATOL = 1e-8, 1e-10
+
+# (n, m, q, d, weights): d 1 and d past 8, q past 16, m off the tiles
+RS_CASES = [
+    (60, 37, 3, 1, "masked"),
+    (50, 130, 18, 11, "masked"),
+    (40, 12, 2, 9, "zero"),
+    (33, 7, 17, 2, "ones"),
+]
+# (n, m, q, weights): q past 16, m off the 64-point tiles and below a patch
+PSI_CASES = [
+    (40, 37, 3, "masked"),
+    (30, 65, 18, "masked"),
+    (25, 12, 2, "zero"),
+    (20, 3, 1, "ones"),
+]
+NEEDS = [
+    (True,) * 6,
+    (True, True, True, False, False, False),
+    (False, False, False, True, True, True),
+    (False, True, False, True, False, True),
+]
+
+
+def _weights(rng, n, kind):
+    if kind == "zero":
+        return np.zeros(n)
+    if kind == "ones":
+        return np.ones(n)
+    return (rng.uniform(size=n) > 0.3).astype(np.float64)
+
+
+def _rs_inputs(n, m, q, d, kind):
+    rng = np.random.default_rng(n + 7 * m + q + d)
+    ins = [np.asarray(rng.uniform(-0.5, 0.8)), rng.uniform(-0.4, 0.4, q),
+           rng.standard_normal((m, q)), rng.standard_normal((n, q)),
+           rng.standard_normal((n, d)), _weights(rng, n, kind)]
+    cts = [np.asarray(rng.standard_normal()), rng.standard_normal((m, d)),
+           rng.standard_normal((m, m))]   # gD not symmetric
+    return ins, cts
+
+
+def _psi_inputs(n, m, q, kind):
+    rng = np.random.default_rng(3 * n + m + q)
+    ins = [np.asarray(rng.uniform(-0.5, 0.8)), rng.uniform(-0.4, 0.4, q),
+           rng.standard_normal((m, q)), rng.standard_normal((n, q)),
+           rng.uniform(0.05, 0.8, (n, q)), _weights(rng, n, kind)]
+    return ins, rng.standard_normal((m, m))
+
+
+def _t(arrs):
+    return [torch.from_numpy(np.array(a, dtype=np.float64)) for a in arrs]
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL, name=""):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=rtol,
+                               atol=atol, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_rs():
+    """jax.vjp of reg_stats_dense for every case, computed once."""
+    out = {}
+    for case in RS_CASES:
+        ins, cts = _rs_inputs(*case)
+
+        def fn(log_sf2, log_ell, z, x, y, w):
+            return j_stats.reg_stats_dense(
+                {"log_sf2": log_sf2, "log_ell": log_ell}, z, x, y, w)
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, ins))
+        out[case] = [np.asarray(g) for g in vjp(tuple(map(jnp.asarray, cts)))]
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_psi():
+    """jax.vjp of the reference's weighted psi2 for every case, once."""
+    out = {}
+    for case in PSI_CASES:
+        ins, g = _psi_inputs(*case)
+
+        def fn(log_sf2, log_ell, z, mu, s, w):
+            per = j_gpk.psi2_per_point({"log_sf2": log_sf2,
+                                        "log_ell": log_ell}, z, mu, s)
+            return jnp.einsum("n,njk->jk", w, per)
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, ins))
+        out[case] = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    return out
+
+
+@pytest.mark.parametrize("case", RS_CASES)
+def test_reg_stats_closed_form_matches_jax_vjp(case, jax_rs):
+    ins, cts = _rs_inputs(*case)
+    got = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), [True] * 6, chunk=17)
+    for i, (g, want) in enumerate(zip(got, jax_rs[case])):
+        assert g.shape == want.shape
+        _close(g, want, name=f"input {i}")
+
+
+@pytest.mark.parametrize("case", PSI_CASES)
+def test_psi2_closed_form_matches_jax_vjp(case, jax_psi):
+    ins, g = _psi_inputs(*case)
+    got = ps_ref.psi2_vjp_ref(*_t(ins), torch.from_numpy(g), [True] * 6,
+                              chunk=7)
+    for i, (t, want) in enumerate(zip(got, jax_psi[case])):
+        assert t.shape == want.shape
+        _close(t, want, name=f"input {i}")
+
+
+@pytest.mark.parametrize("needs", NEEDS)
+@pytest.mark.parametrize("case", RS_CASES[:2])
+def test_reg_stats_closed_form_matches_chunked_recompute(case, needs):
+    ins, cts = _rs_inputs(*case)
+    got = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), list(needs))
+    want = rs_ops.reg_stats_vjp(*_t(ins), *_t(cts), list(needs))
+    for i, (g, w, need) in enumerate(zip(got, want, needs)):
+        assert (g is None) == (not need) == (w is None)
+        if need:
+            _close(g, w, rtol=1e-10, atol=1e-12, name=f"input {i}")
+
+
+@pytest.mark.parametrize("needs", NEEDS)
+@pytest.mark.parametrize("case", PSI_CASES[:2])
+def test_psi2_closed_form_matches_chunked_recompute(case, needs):
+    ins, g = _psi_inputs(*case)
+    got = ps_ref.psi2_vjp_ref(*_t(ins), torch.from_numpy(g), list(needs))
+    want = ps_ops.psi2_vjp(*_t(ins), torch.from_numpy(g), list(needs))
+    for i, (t, w, need) in enumerate(zip(got, want, needs)):
+        assert (t is None) == (not need) == (w is None)
+        if need:
+            _close(t, w, rtol=1e-10, atol=1e-12, name=f"input {i}")
+
+
+def test_absolute_closed_forms_bound_the_signed_ones():
+    """``absolute=True`` sums every term by its absolute value: it bounds
+    the signed sum entry by entry, with equality where no term is
+    negative (the cotangents and weights non-negative, one feature and
+    every x right of every z)."""
+    ins, cts = _rs_inputs(40, 9, 3, 2, "masked")
+    signed = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), [True] * 6)
+    absol = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), [True] * 6,
+                                     absolute=True)
+    for s, a in zip(signed, absol):
+        assert bool((s.abs() <= a * (1 + 1e-12) + 1e-300).all())
+    pins, g = _psi_inputs(20, 6, 2, "masked")
+    signed = ps_ref.psi2_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 6)
+    absol = ps_ref.psi2_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 6,
+                                absolute=True)
+    for s, a in zip(signed, absol):
+        assert bool((s.abs() <= a * (1 + 1e-12) + 1e-300).all())
+    rng = np.random.default_rng(0)
+    x = rng.uniform(3.0, 4.0, (30, 1))
+    ins = [np.asarray(0.1), np.asarray([0.2]), rng.uniform(-1.0, 0.0, (5, 1)),
+           x, rng.uniform(0.0, 1.0, (30, 1)), np.ones(30)]
+    cts = [np.asarray(0.5), rng.uniform(0.0, 1.0, (5, 1)),
+           rng.uniform(0.0, 1.0, (5, 5))]
+    needs = [True, True, True, False, True, True]
+    signed = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), needs)
+    absol = rs_ref.reg_stats_vjp_ref(*_t(ins), *_t(cts), needs, absolute=True)
+    for s, a in zip(signed, absol):
+        if s is not None:
+            _close(s, a, rtol=1e-13, atol=0.0)
+
+
+@pytest.mark.parametrize("flags", [0, 1, 6, 7])
+def test_reg_stats_bwd_fake_shapes_and_flops(flags):
+    n, m, q, d = 1000, 300, 5, 3
+    with FakeTensorMode():
+        ins = [torch.empty(()), torch.empty(q), torch.empty(m, q),
+               torch.empty(n, q), torch.empty(n, d), torch.empty(n)]
+        cts = [torch.empty(()), torch.empty(m, d), torch.empty(m, m)]
+        ins = [t.double() for t in ins]
+        with FlopCounterMode(display=False) as counter:
+            out = torch.ops.repro_torch.reg_stats_bwd(*ins, *cts, flags)
+    shapes = [(), (q,), (m, q), (n, q) if flags & 1 else (0,),
+              (n, d) if flags & 2 else (0,), (n,) if flags & 4 else (0,)]
+    assert [tuple(t.shape) for t in out] == shapes
+    assert all(t.dtype == torch.float64 for t in out)
+    assert counter.get_total_flops() == rs_ops.bwd_flops(n, m, q, d)
+
+
+@pytest.mark.parametrize("flags", [0, 3, 4, 7])
+def test_psi2_bwd_fake_shapes_and_flops(flags):
+    n, m, q = 700, 150, 10
+    with FakeTensorMode():
+        ins = [torch.empty(()), torch.empty(q), torch.empty(m, q),
+               torch.empty(n, q), torch.empty(n, q), torch.empty(n)]
+        ins = [t.float() for t in ins]
+        with FlopCounterMode(display=False) as counter:
+            out = torch.ops.repro_torch.psi2_bwd(*ins, torch.empty(m, m),
+                                                 flags)
+    shapes = [(), (q,), (m, q), (n, q) if flags & 1 else (0,),
+              (n, q) if flags & 2 else (0,), (n,) if flags & 4 else (0,)]
+    assert [tuple(t.shape) for t in out] == shapes
+    assert all(t.dtype == torch.float32 for t in out)
+    assert counter.get_total_flops() == ps_ops.psi2_bwd_flops(n, m, q)
+
+
+def test_functions_backward_through_the_operators_on_fake_tensors():
+    """On fake tensors (the dry run) the Functions' backward calls the
+    backward operators: gradients of the inputs asked for, with their
+    shapes, None for the rest, and no kernel launched."""
+    before = (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES))
+    n, m, q, d = 200, 40, 3, 2
+    with FakeTensorMode():
+        hyp = {"log_sf2": torch.zeros((), dtype=torch.float64,
+                                      requires_grad=True),
+               "log_ell": torch.zeros(q, dtype=torch.float64,
+                                      requires_grad=True)}
+        z = torch.zeros(m, q, dtype=torch.float64, requires_grad=True)
+        x, y, w = (torch.zeros(sh, dtype=torch.float64)
+                   for sh in ((n, q), (n, d), (n,)))
+        with FlopCounterMode(display=False) as counter:
+            b, c, dd = rs_ops.reg_stats(hyp, z, x, y, w)
+            grads = torch.autograd.grad(b + c.sum() + dd.sum(),
+                                        [hyp["log_sf2"], hyp["log_ell"], z])
+        assert [tuple(g.shape) for g in grads] == [(), (q,), (m, q)]
+        flops = counter.get_flop_counts()
+        assert flops["Global"][torch.ops.repro_torch.reg_stats_bwd] \
+            == rs_ops.bwd_flops(n, m, q, d)
+        mu = torch.zeros(n, q, dtype=torch.float64, requires_grad=True)
+        s = torch.ones(n, q, dtype=torch.float64)
+        psi = ps_ops.psi2(hyp, z, mu, s, w)
+        gz, gmu = torch.autograd.grad(psi.sum(), [z, mu])
+        assert gz.shape == (m, q) and gmu.shape == (n, q)
+    assert (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 1_000_000])
+@pytest.mark.parametrize("slots", [1, 132, 264])
+def test_reg_stats_bwd_plan_covers_every_row_tile_once(n, slots):
+    n_slices, per = rs_k.bwd_plan(n, slots)
+    tiles = -(-n // rs_k.BWD_ROWS)
+    assert 1 <= n_slices <= max(1, slots)
+    covered = [t for s in range(n_slices)
+               for t in range(s * per, min(tiles, (s + 1) * per))]
+    assert covered == list(range(tiles))
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 4649, 100_000])
+@pytest.mark.parametrize("slots", [1, 132])
+def test_psi2_bwd_plan_covers_every_row_once(n, slots):
+    n_slices, per = ps_k.psi2_bwd_plan(n, slots)
+    assert 1 <= n_slices <= max(1, slots)
+    rows = [r for s in range(n_slices)
+            for r in range(s * per, min(n, (s + 1) * per))]
+    assert rows == list(range(n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_shared_memory_is_fixed_and_fits(dtype):
+    """One block's shared memory fits an sm_90 block (the f32 reg_stats
+    backward two a multiprocessor), whatever q and d."""
+    rs = rs_k.bwd_smem_bytes(dtype)
+    ps = ps_k.psi2_bwd_smem_bytes(dtype)
+    per_sm = rs_k.BWD_BLOCKS_PER_SM[dtype]
+    assert (rs + 512) * per_sm <= rs_k.SMEM_LIMIT   # beside the exp table
+    assert ps + 512 <= ps_k.SMEM_MAX
