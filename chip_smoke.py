@@ -25,8 +25,10 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    chunked recompute at sgpr-synth-1m, gplvm-usps and gplvm-synth-100k
    (f64 normwise 1e-8 per input, f32 at its tier over the closed form on
    absolute values; bitwise on a second call) and at ragged shapes with
-   every input's gradient, each timed beside the recompute, and psi1's
-   backward (still the recompute) timed; flash attention, bf16 and f32, at the
+   every input's gradient, each timed beside the recompute; psi1's
+   backward kernel likewise at gplvm-usps, gplvm-synth-100k (both timed:
+   the operator, the bare launch, the device time and its launches'
+   split) and ragged shapes (m past 256, q past 16); flash attention, bf16 and f32, at the
    ``llama3.2-1b`` prefill shape, one long shape and the sweep of
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
    as a yardstick; and cuBLAS's f64 and f32 ``K^T (w K)`` and ``K g`` over
@@ -881,35 +883,16 @@ def time_operator_routes(rs_ops, ps_ops, sgpr, usps) -> dict:
     return out
 
 
-def time_backward(label, vjp, primals, cotangents, needs, reps=5) -> float:
-    """CUDA-event median of one call of a backward's chunked recompute (the
-    plain version under autograd in row chunks, ``kernels._vjp``) on the
-    card, with the inputs the training path differentiates; printed on its
-    own line."""
-    ms = time_ms(lambda: vjp(*primals, *cotangents, needs), reps=reps)
-    print(f"backward {label}: {ms:.4f} ms (median of {reps})", flush=True)
-    return ms
-
-
-def time_backwards(ps_ops, usps, bwd) -> None:
+def time_backwards(bwd) -> None:
     """Each backward beside its chunked recompute, from the full-width
     checks (``bwd``: ``check_reg_stats_bwd`` at sgpr-synth-1m, hyper-
-    parameters and z as the SGPR takes them; ``check_psi2_bwd`` at
-    gplvm-usps, the hyper-parameters, z, mu and s as the GPLVM takes
-    them), one line each; psi1's backward, still the recompute, timed at
-    gplvm-usps."""
+    parameters and z as the SGPR takes them; ``check_psi2_bwd`` and
+    ``check_psi1_bwd`` at gplvm-usps and gplvm-synth-100k, every
+    gradient the GPLVM takes), one line each."""
     for key, res in bwd.items():
         print(f"backward {key}: kernel {res['ms']:.4f} ms, chunked recompute "
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms",
               flush=True)
-    rng = np.random.default_rng(SEED + 3)
-    n, m, q = usps.n, usps.m, usps.q
-    primals = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
-               t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
-               t64(rng.uniform(0.05, 1.0, (n, q)))]
-    time_backward("psi1_vjp f64 gplvm-usps (the recompute, no kernel yet)",
-                  ps_ops.psi1_vjp, primals,
-                  [t64(rng.standard_normal((n, m)))], [True] * 5)
 
 
 def hold_backward(label, got, again, plain, plain_abs, dtype) -> float:
@@ -973,12 +956,87 @@ def psi2_bwd_bound(n, m, q, dtype, peaks) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def psi1_bwd_bound(n, m, q, dtype, peaks) -> tuple[float, str]:
+    """Least time of psi1's backward work, as ``psi_bound`` counts psi1's:
+    per (row, point) entry the exponent (3q), psi1 and E (3), the row sums
+    of E, E r, E r^2 (4q + 1) and the point sums of E r a (3q), and one
+    exp (``ops_seconds``); or the bytes read and written once (g, mu, s,
+    z and the log hyper-parameters; d mu, d s, d z, d log_ell and
+    d log_sf2, every gradient the GPLVM takes)."""
+    item = 4 if dtype == torch.float32 else 8
+    entries = n * m
+    nbytes = item * (n * m + 4 * n * q + 2 * m * q + 2 * q + 2)
+    t_ops = ops_seconds(entries * (10 * q + 4), entries, dtype, peaks)
+    t_bytes = nbytes / peaks[2]
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_psi1_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, timed,
+                   needs=(True,) * 5):
+    """psi1's backward kernel (``torch.ops.repro_torch.psi1_bwd``, the
+    Function's route) against the chunked recompute (``psi1_vjp``) on the
+    same values in f64 (the kernel reads the log hyper-parameters in its
+    dtype too); bitwise on a second call.  Timed: the operator, the bare
+    launch on operands prepared once (``launch_only_ms``), its device time
+    (``device_ms``, bare launches from one CUDA graph) and split by
+    kernel (``kernels_us``), and the recompute, with ``needs`` (default:
+    every gradient, as the GPLVM takes them)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.psi_stats import kernel as ps_k
+
+    rng = np.random.default_rng(SEED + 9 + n + m)
+    f64 = torch.float64
+    ins = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
+           t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
+           t64(rng.uniform(0.05, 1.0, (n, q)))]
+    kin = [t.to(dtype) for t in ins]
+    kg = t64(rng.standard_normal((n, m))).to(dtype)
+    pin, pg = [t.to(f64) for t in kin], kg.to(f64)
+    flags = _build.row_flags((*needs, False))
+    name = "psi1_bwd_" + ("float64" if dtype == f64 else "float32")
+    before = ps_ops.LAUNCHES[name]
+
+    def kernel():
+        return torch.ops.repro_torch.psi1_bwd(*kin, kg, flags)
+    got, again = kernel(), kernel()
+    if ps_ops.LAUNCHES[name] != before + 2:
+        raise AssertionError("psi1_bwd: the operator did not launch the "
+                             "kernel once a call")
+    got = [t if need else None for t, need in zip(got, needs)]
+    again = [t if need else None for t, need in zip(again, needs)]
+    plain = ps_ops.psi1_vjp(*pin, pg, list(needs))
+    plain_abs = ps_ref.psi1_vjp_ref(*pin, pg, list(needs), absolute=True)
+    label = f"psi1_bwd {dtype} n={n} m={m} q={q}"
+    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype),
+           "needs": list(needs),
+           "max_abs_err": hold_backward(label, got, again, plain, plain_abs,
+                                        dtype)}
+    del plain, plain_abs
+    if timed:
+        out["ms"] = time_ms(kernel)
+        out["plain_ms"] = time_ms(
+            lambda: ps_ops.psi1_vjp(*pin, pg, list(needs)), reps=3)
+        args = ps_ops.psi1_bwd_launch_args(*kin, kg, flags,
+                                           _build.sm_count(kg.device))
+
+        def bare():
+            ps_k.psi1_bwd(*args)
+        out["launch_only_ms"] = time_ms(bare)
+        out["device_ms"] = graph_ms(bare)
+        out["kernels_us"] = kernel_split(bare)
+        out["bound_ms"], out["bound_by"] = psi1_bwd_bound(n, m, q, dtype,
+                                                          peaks)
+    print(f"psi1_bwd {out}", flush=True)
+    return out
+
+
 def check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked,
                         timed, needs=(True, True, True, False, False, False)):
     """The backward kernel (``torch.ops.repro_torch.reg_stats_bwd``, the
     Function's route) against the chunked recompute (``reg_stats_vjp``)
     on the same values in f64, for a non-symmetric gD; bitwise on a second
-    call.  Timed: the kernel and the recompute with ``needs`` (default:
+    call.  Timed: the kernel (the operator, and the bare launch on
+    operands prepared once) and the recompute with ``needs`` (default:
     the SGPR's, hyper-parameters and z)."""
     from repro_torch.kernels import _build
 
@@ -1018,7 +1076,13 @@ def check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked,
                                         dtype)}
     del plain, plain_abs
     if timed:
+        from repro_torch.kernels.reg_stats import kernel as rs_k
+
         out["ms"] = time_ms(kernel)
+        args = rs_ops.bwd_launch_args(
+            *kin, *kct, flags, rs_k.bwd_slots(dtype, m, q, kct[0].device))
+        out["launch_only_ms"] = time_ms(lambda: rs_k.reg_stats_bwd(*args))
+        del args
         out["plain_ms"] = time_ms(
             lambda: rs_ops.reg_stats_vjp(*pin, *pct, list(needs)), reps=3)
         out["bound_ms"], out["bound_by"] = reg_stats_bwd_bound(n, m, q, d,
@@ -1082,10 +1146,11 @@ def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
                     synth) -> dict:
     """Phase 2's backward kernels: each instantiation at full width
     against the chunked recompute (timed at sgpr-synth-1m and gplvm-usps,
-    held at gplvm-synth-100k), then untimed with every input's gradient
-    asked for at ragged shapes (m off the 128- and 64-point tiles, q past
-    one 16-feature chunk, d past 8, n below one row tile, masked rows).
-    Returns the timed results by label."""
+    psi2 held and psi1 timed at gplvm-synth-100k), then untimed with
+    every input's gradient asked for at ragged shapes (m off the 128- and
+    64-point tiles, m past the reg_stats cluster's 1,024 points and
+    psi1's 256-column tile, q past one 16-feature chunk, d past 8, n below
+    one row tile, masked rows).  Returns the timed results by label."""
     out = {}
     every = (True,) * 6
     for dtype in (torch.float32, torch.float64):
@@ -1100,13 +1165,23 @@ def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
         check_psi2_bwd(ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q,
                        dtype, masked=False, timed=False)
         for n, m, q, d in ((100_003, 130, 3, 5), (20_011, 257, 20, 9),
-                           (77, 64, 8, 1), (5_003, 2_048, 8, 4)):
+                           (77, 64, 8, 1), (5_003, 2_048, 8, 4),
+                           (3_001, 1_030, 3, 2)):
             check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype,
                                 masked=True, timed=False, needs=every)
         for n, m, q in ((1_003, 151, 10), (1_003, 65, 18), (33, 1, 1),
                         (2_001, 63, 2)):
             check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype,
                            masked=True, timed=False, needs=every)
+        out[f"psi1 {tag} {usps.name}"] = check_psi1_bwd(
+            ps_ops, ps_ref, peaks, usps.n, usps.m, usps.q, dtype, timed=True)
+        out[f"psi1 {tag} {synth.name}"] = check_psi1_bwd(
+            ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q, dtype,
+            timed=True)
+        for n, m, q in ((1_003, 37, 160), (1_003, 300, 18), (33, 257, 5),
+                        (2_001, 63, 2), (1, 1, 1)):
+            check_psi1_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype,
+                           timed=False)
         torch.cuda.empty_cache()
     return out
 
@@ -1122,7 +1197,8 @@ def f32_gp_counters() -> tuple:
             ("reg_stats_bwd_f32", rs_ops.LAUNCHES, "bwd_float32"),
             ("psi2_f32", ps_ops.LAUNCHES, "psi2_float32"),
             ("psi2_bwd_f32", ps_ops.LAUNCHES, "psi2_bwd_float32"),
-            ("psi1_f32", ps_ops.LAUNCHES, "psi1_float32"))
+            ("psi1_f32", ps_ops.LAUNCHES, "psi1_float32"),
+            ("psi1_bwd_f32", ps_ops.LAUNCHES, "psi1_bwd_float32"))
 
 
 def reset_counts(*counts):
@@ -1425,6 +1501,7 @@ def gplvm_path(rt, cfg) -> dict:
         model.params["mu"], include_noise=True))
     launches = {"psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
                 "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
+                "psi1_bwd_f64": ps_ops.LAUNCHES["psi1_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"]}
     print(f"gplvm path steps (s): {json.dumps(steps)}", flush=True)
@@ -1681,6 +1758,7 @@ def distributed_path(rt, cfg, usps) -> dict:
                 "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
                 "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
+                "psi1_bwd_f64": ps_ops.LAUNCHES["psi1_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
 
     # Only the engine's calls count: the references (SGPR, BayesianGPLVM)
@@ -2062,6 +2140,7 @@ def streaming_path(rt, cfg, usps) -> dict:
                 "predict_f64": p_ops.LAUNCHES["float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
                 "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
+                "psi1_bwd_f64": ps_ops.LAUNCHES["psi1_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"]}
 
     # Only the port's own calls count, not the in-memory and plain
@@ -3956,6 +4035,7 @@ def async_path(rt, cfg, usps, sgpr) -> dict:
                 "reg_stats_bwd_f64": rs_ops.LAUNCHES["bwd_float64"],
                 "psi2_f64": ps_ops.LAUNCHES["psi2_float64"],
                 "psi2_bwd_f64": ps_ops.LAUNCHES["psi2_bwd_float64"],
+                "psi1_bwd_f64": ps_ops.LAUNCHES["psi1_bwd_float64"],
                 "psi1_f64": ps_ops.LAUNCHES["psi1_float64"],
                 "predict_f64": p_ops.LAUNCHES["float64"]}
 
@@ -6379,7 +6459,7 @@ def main() -> int:
     check_psi2_midway(ps_ops, ps_ref, 1003, 150, 10, torch.float32, 20.0)
     bwd = check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, cfg, usps,
                           synth)
-    time_backwards(ps_ops, usps, bwd)
+    time_backwards(bwd)
     time_operator_routes(rs_ops, ps_ops, cfg, usps)
     fa_full = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -6485,6 +6565,12 @@ def main() -> int:
         entry("psi2_bwd_f64", "src/repro_torch/csrc/psi2_bwd.cu",
               "src/repro/kernels/psi_stats/ops.py:56",
               bwd[f"psi2 f64 {usps.name}"]),
+        entry("psi1_bwd_f32", "src/repro_torch/csrc/psi1_bwd.cu",
+              "src/repro/core/gp_kernels.py:97",
+              bwd[f"psi1 f32 {usps.name}"]),
+        entry("psi1_bwd_f64", "src/repro_torch/csrc/psi1_bwd.cu",
+              "src/repro/core/gp_kernels.py:97",
+              bwd[f"psi1 f64 {usps.name}"]),
         entry("flash_attention_bf16", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:80",
               fa_full[torch.bfloat16]),

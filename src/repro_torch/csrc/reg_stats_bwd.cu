@@ -23,51 +23,81 @@
 // autograd in row chunks.
 //
 // What bounds it on the H100: operations.  knm S is n*m*m multiply-adds
-// (2.6e11 at n = 1e6, m = 512), twice the forward's upper-half D product,
-// against ~52 MB of input; knm is rebuilt, as in the forward, m/128 times
-// per entry.  The design (both instantiations):
-//   * knm S as a GEMM whose A operand is built on the fly: a block owns a
-//     slice of 128-row tiles and, for each row tile, walks the 128-column
-//     tiles of the output; for each it runs a k-loop over the inducing
-//     points 32 at a time, building the (32 x 128 rows) slab of knm from x
-//     and z in shared memory while S's (32 x 128) rows stream in by
-//     cp.async.  The slab of step c+1 is built while step c's product
-//     runs (double-buffered slabs, one barrier a step), as in the forward.
-//     Neither knm nor knm S is ever stored in device memory.
-//   * The epilogue of each (row tile, column tile) writes knm S to shared
-//     memory (the slab buffers), then turns it into E in place, entry by
-//     entry (two threads a row, each half the columns, four columns' chains
-//     side by side: knm recomputed, P by d FMAs over gC staged in shared
-//     memory, the weight), and reduces E by columns: d z (two threads a
-//     column, each half the rows, added in a fixed order), d log_ell and
-//     sum E (each thread's sums, then a warp butterfly and the warps in
-//     order).  Row outputs, when asked, are summed by rows in the entry
-//     pass (d w, d y) or after it (d x, one thread a row).  At
-//     sgpr-synth-1m the epilogue takes about a quarter of the time, the
-//     k-loop the rest (ablations: PERF.md section 6).
+// (2.6e11 at n = 1e6, m = 512) against ~52 MB of input, on the FP64 tensor
+// cores; building knm (n*m exps and 3q + 2 flops an entry) shares the FP64
+// pipe with it.  So each knm entry is built once a call (the first design
+// built it m/128 + 1 times: once in each column tile's k-loop and once in
+// its epilogue), and the design (both instantiations):
+//   * A thread-block cluster of CS = min(m/128, 8) blocks shares a 64-row
+//     tile of x.  Block r of the cluster owns the output's column tiles r,
+//     r + CS, ... (128 inducing points each) and builds knm of the row
+//     tile against its own tile's points into its shared memory (128 x 64,
+//     the "own" tile), once, as a phase of its own (all 8 warps, 8 exps'
+//     chains a thread side by side).  After a cluster barrier, each block
+//     runs the k-loop of its (64 x 128) block of knm S over every inducing
+//     point: step by step (32 points) the slab of knm comes from the own
+//     tile of the block that built it, its own read in place, another's
+//     copied by ld.shared::cluster (distributed shared memory) into
+//     registers while the step before multiplies, half a slab at a time,
+//     then into a double-buffered slab.  Each block starts at its own
+//     tile's steps and wraps around, so at each step the blocks read
+//     different blocks' tiles (all reading one block's tile at once made
+//     its SM the bottleneck).  S's rows stream in by cp.async,
+//     double-buffered (a third stage measured slower: their L2 traffic, 32
+//     GB at sgpr-synth-1m, twice the 128-row design's, is the k-loop's
+//     limit, not their latency).  Neither knm nor knm S is ever stored in
+//     device memory.
+//   * Past CS * 128 = 1,024 points the output's column tiles and the k
+//     points go in groups of CS tiles: for each group of output tiles the
+//     k-loop walks the k groups, the block's own group last, building each
+//     group's own tiles anew (so m <= 1,024, every config of the repo,
+//     builds knm once; m = 2,048 twice).  That instantiation (GROUPED)
+//     keeps its sums live across the builds; the other does not, so its
+//     registers fit without spilling.
+//   * The epilogue of each (row tile, column tile) reads knm from the own
+//     tile, which still holds its column tile's points: it is not
+//     recomputed.  It writes knm S to shared memory (the slab buffers),
+//     turns it into E in place, entry by entry (four threads a row, each a
+//     quarter of the columns: P by d FMAs over gC staged in shared memory,
+//     the weight), and reduces E by columns: d z (two threads a column,
+//     each half the rows, added in a fixed order), d log_ell and sum E
+//     (each thread's sums, then a warp butterfly and the warps in order).
+//     Row outputs, when asked, are summed by rows in the entry pass (d w,
+//     d y) or after it (d x, one thread a row), into the block's rank's
+//     row partials, which a last kernel adds over the ranks in order.
+//   * The product: the 8 warps are two k-groups of 4, each taking half of
+//     a step's 32 points over the whole (64 x 128) block, their sums added
+//     in the epilogue.  That keeps the forward's register tiles (f64: a
+//     warp 64 x 32 as 4 x 4 DMMA fragments; f32: a thread 8 x 8) and so
+//     their shared-memory traffic per multiply-add.
 //   * The f64 exp is psi_stats.cu's branch-free exp_pair (table in shared
-//     memory), so that a thread's chains interleave; libdevice's exp
-//     branches on its range.
+//     memory), so that a thread's chains interleave.
 //   * The shared outputs (d z, d log_ell, sum E) accumulate, in f64, in the
-//     block's own partials in device memory, each entry owned by one
-//     thread; a second kernel sums the slices' partials in a fixed order.
-//     The row outputs are owned by the block that owns the rows, summed
-//     over the column tiles in order.  No atomics: bitwise repeatable.
+//     blocks' own partials in device memory (d z a cluster's, each column
+//     tile's rows owned by one block), each entry owned by one thread; a
+//     second kernel sums them in a fixed order.  Clusters walk fixed slices
+//     of row tiles.  No atomics: bitwise repeatable.
 //   * The exponent and r are in the direct form (the forward's reasons).
 //   * Ragged edges: z, S and gC come zero-padded to a multiple of 128
 //     rows, so padded inducing points contribute exactly zero (their S
 //     rows and columns and gC rows are 0); rows past n carry w = 0, x = 0
 //     and are never written.  The k-loop stops at the last 32-point step
-//     holding a point below m.
+//     holding a point below m; a block whose column tile is past m in a
+//     ragged last group only builds and keeps the cluster's barriers.
 //   * Shared memory is fixed, whatever q and d: features are staged
 //     QC = 16 at a time; past that (CHUNKED) x and z are read from device
 //     memory (L1), the slow but general path no config of the repo takes.
+//     f64: the own tile 128 x 68 (69,632 bytes); the buffers, the larger
+//     of the slabs and S's rows 2 x 32 x 68 + 2 x 32 x 132 (102,400) and
+//     the epilogue's 64 x 129 E tile, z and gC of the column tile, the
+//     passes' scratch and the warps' sums (110,144), which also hold z for
+//     the build; x, w and 1/ell^2 (9,344): 189,120 bytes and 512 of exp
+//     table, of the 232,448 a block may use.  f32 92,512: two blocks an
+//     SM.
 //
-// f64: the product on the FP64 tensor cores (mma.sync m16n8k4, the
-// forward's fragments: 8 warps, each 64 rows x 32 columns as 4 x 4
-// fragments).  f32: FMA micro-tiles on the CUDA cores (8 x 8 per thread,
-// float4 slab loads, the forward's layout), IEEE f32, no TF32; its exp is
-// one ex2.approx.
+// f64: the product on the FP64 tensor cores (mma.sync m16n8k4; Hopper has
+// no f64 wgmma).  f32: FMA micro-tiles on the CUDA cores (float4 slab
+// loads), IEEE f32, no TF32; its exp is one ex2.approx.
 //
 // C interface, bound with ctypes from
 // src/repro_torch/kernels/reg_stats/kernel.py.
@@ -76,40 +106,46 @@
 
 namespace {
 
-constexpr int BR = 128;   // rows per row tile
-constexpr int BC = 128;   // columns per column tile
+constexpr int BR = 64;    // rows per row tile
+constexpr int BC = 128;   // columns (inducing points) per column tile
 constexpr int KS = 32;    // inducing points per k-step
 constexpr int NT = 256;   // threads per block
 constexpr int QC = 16;    // features staged at a time
 constexpr int QP = QC + 1;  // staged row stride of x and z (odd: no conflicts)
 constexpr int ELD = BC + 1; // E tile row stride
-constexpr int GROUPS = 4;   // build/product interleave groups of a k-step
 constexpr int GC = 8;       // gC columns staged for the epilogue
 constexpr int JU = 4;       // columns of the entry pass taken side by side
+constexpr int RS = 1 + GC;  // a row's sums of the entry pass (d w, d y)
+constexpr int CMAX = 8;     // blocks a cluster, at most (the portable size)
+constexpr int BU = 8;       // entries of the build taken side by side
+constexpr int CQ = 8;       // features of the column pass taken at a time
+constexpr int SS = 2;       // S's rows: double-buffered
 
 template <typename T> struct Cfg;
-template <> struct Cfg<double> { static constexpr int LD = BR + 4; };  // DMMA loads
-template <> struct Cfg<float> { static constexpr int LD = BR; };       // float4 loads
+// LDA: row stride of the own tile and the slabs (k-major, BR rows); LDS:
+// of S's rows.  f64 pads both by 4 (4 mod 16: the DMMA fragments' loads
+// hit distinct banks); f32 reads float4 rows, unpadded.
+template <> struct Cfg<double> { static constexpr int LDA = BR + 4, LDS = BC + 4; };
+template <> struct Cfg<float> { static constexpr int LDA = BR, LDS = BC; };
+
+constexpr int RED = BC * QP > 3 * BR * RS ? BC * QP : 3 * BR * RS;  // the passes' scratch
+
+// The buffers: in the k-loop the slabs (two) and S's rows (SS); in the
+// epilogue the E tile, z and gC of the column tile, the passes' scratch
+// and the warps' sums; z of the own tile for the build.
+template <typename T>
+__host__ __device__ constexpr int buf_elems() {
+  return 2 * KS * Cfg<T>::LDA + SS * KS * Cfg<T>::LDS
+                 > BR * ELD + BC * QP + BC * GC + RED + 8 * (QC + 1)
+             ? 2 * KS * Cfg<T>::LDA + SS * KS * Cfg<T>::LDS
+             : BR * ELD + BC * QP + BC * GC + RED + 8 * (QC + 1);
+}
 
 template <typename T>
-constexpr size_t smem_elems() {
-  // max(slabs A and B double-buffered, the E tile), x and z tiles, z of
-  // three k-steps, w, 1/ell^2, 8 columns of gC, the reduction scratch
-  return (4 * KS * Cfg<T>::LD > BR * ELD ? 4 * KS * Cfg<T>::LD : BR * ELD)
-         + 2 * BR * QP + 3 * KS * QC + BR + QC + BC * GC + BC * QP + 8 * (QC + 1);
+constexpr size_t smem_elems() {  // the own tile, the buffers, x, w, 1/ell^2
+  return BC * Cfg<T>::LDA + buf_elems<T>() + BR * QP + BR + QC;
 }
 
-__device__ __forceinline__ void cp_async(double* dst, const double* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(valid ? 8 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-// 16 bytes global -> shared (both 16-byte aligned).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -120,6 +156,45 @@ __device__ __forceinline__ void cp_commit() {
 }
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+
+// The cluster: this block's rank, the barrier's two halves (arrive with
+// release, wait with acquire: shared memory written before an arrive is
+// seen by every block of the cluster after the wait), a local shared
+// address mapped to the same offset in block `rank`, and 16-byte loads
+// from another block's shared memory.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void ld_cluster(uint32_t a, double (&v)[2]) {
+  asm volatile("ld.shared::cluster.v2.f64 {%0, %1}, [%2];\n"
+               : "=d"(v[0]), "=d"(v[1]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ld_cluster(uint32_t a, float (&v)[4]) {
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void st_vec(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // 2^(j/32), j = 0..31, as hi + lo (psi_stats.cu's table).
@@ -199,43 +274,44 @@ __device__ __forceinline__ void dmma(double* c, const double (&a)[2], double b) 
       : "d"(a[0]), "d"(a[1]), "d"(b));
 }
 
-// The thread's accumulator entry e (0..63) as (row, column) of the tile.
-// f64: fragment (mt, nt) of the warp's 64 x 32 part, entry e & 3 of it.
-// f32: the 8 x 8 micro-tile, rows rg*4 + {0..3} and 64 + ..., columns
-// likewise.
-__device__ __forceinline__ void entry_rc(double*, int e, int warp, int lane,
-                                         int& i, int& j) {
+// The thread's accumulator entry e (0..63) as (row, column) of the 64 x 128
+// block; both k-groups hold the same entries.  f64: warp w % 4 owns
+// columns 32 (w % 4) + 0..31, fragment (mt, nt) of its 64 x 32 part, entry
+// e & 3 of it.  f32: thread t = tid % 128 owns the 8 x 8 micro-tile of rows
+// 4 (t / 16) + {0..3} and 32 + ..., columns 4 (t % 16) + {0..3} and 64 + ...
+__device__ __forceinline__ void entry_rc(double*, int e, int tid, int& i, int& j) {
+  const int warp = (tid / 32) % 4, lane = tid % 32;
   const int mt = e >> 4, nt = (e >> 2) & 3, h = e & 3;
-  i = (warp / 4) * 64 + mt * 16 + lane / 4 + 8 * (h >> 1);
-  j = (warp % 4) * 32 + nt * 8 + 2 * (lane % 4) + (h & 1);
+  i = mt * 16 + lane / 4 + 8 * (h >> 1);
+  j = warp * 32 + nt * 8 + 2 * (lane % 4) + (h & 1);
 }
-__device__ __forceinline__ void entry_rc(float*, int e, int warp, int lane,
-                                         int& i, int& j) {
-  const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
+__device__ __forceinline__ void entry_rc(float*, int e, int tid, int& i, int& j) {
+  const int t = tid % 128, rg = t >> 4, cg = t & 15;
   const int ii = e >> 3, jj = e & 7;
-  i = (ii >> 2) * 64 + rg * 4 + (ii & 3);
+  i = (ii >> 2) * 32 + rg * 4 + (ii & 3);
   j = (jj >> 2) * 64 + cg * 4 + (jj & 3);
 }
 
-// Rows [g*KS/GROUPS, (g+1)*KS/GROUPS) of one k-step's product acc += A B
-// with A = slab (k x rows, row stride LD) and B = S rows (k x columns).
+// Half `half` of k-group kg's half of one k-step's product acc += A B with
+// A = slab (k x BR rows, row stride LDA) and B = S rows (k x BC columns,
+// stride LDS): the points kg KS/2 + half KS/4 + 0..KS/4-1 of the step.
 __device__ __forceinline__ void product(double* acc, const double* as,
-                                        const double* bs, int g, int warp,
-                                        int lane) {
-  constexpr int LD = Cfg<double>::LD;
-  const int gid = lane / 4, tig = lane % 4;
-  const int i0 = (warp / 4) * 64, j0 = (warp % 4) * 32;
+                                        const double* bs, int kg, int half,
+                                        int tid) {
+  constexpr int LDA = Cfg<double>::LDA, LDS = Cfg<double>::LDS;
+  const int lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int j0 = ((tid / 32) % 4) * 32;
 #pragma unroll
-  for (int kk = g * KS / GROUPS / 4; kk < (g + 1) * KS / GROUPS / 4; ++kk) {
-    const int k = 4 * kk + tig;
+  for (int t = 0; t < KS / 16; ++t) {
+    const int k = 4 * (kg * (KS / 8) + half * (KS / 16) + t) + tig;
     double af[4][2], bf[4];
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
-      af[mt][0] = as[k * LD + i0 + mt * 16 + gid];
-      af[mt][1] = as[k * LD + i0 + mt * 16 + gid + 8];
+      af[mt][0] = as[k * LDA + mt * 16 + gid];
+      af[mt][1] = as[k * LDA + mt * 16 + gid + 8];
     }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) bf[nt] = bs[k * LD + j0 + nt * 8 + gid];
+    for (int nt = 0; nt < 4; ++nt) bf[nt] = bs[k * LDS + j0 + nt * 8 + gid];
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -243,17 +319,18 @@ __device__ __forceinline__ void product(double* acc, const double* as,
   }
 }
 __device__ __forceinline__ void product(float* acc, const float* as,
-                                        const float* bs, int g, int warp,
-                                        int lane) {
-  constexpr int LD = Cfg<float>::LD;
-  const int rg = (warp >> 1) * 4 + (lane >> 3), cg = (warp & 1) * 8 + (lane & 7);
+                                        const float* bs, int kg, int half,
+                                        int tid) {
+  constexpr int LDA = Cfg<float>::LDA, LDS = Cfg<float>::LDS;
+  const int t = tid % 128, rg = t >> 4, cg = t & 15;
 #pragma unroll
-  for (int k = g * KS / GROUPS; k < (g + 1) * KS / GROUPS; ++k) {
+  for (int u = 0; u < KS / 4; ++u) {
+    const int k = kg * (KS / 2) + half * (KS / 4) + u;
     float av[8], bv[8];
-    const float4 a0 = *reinterpret_cast<const float4*>(as + k * LD + rg * 4);
-    const float4 a1 = *reinterpret_cast<const float4*>(as + k * LD + 64 + rg * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(bs + k * LD + cg * 4);
-    const float4 b1 = *reinterpret_cast<const float4*>(bs + k * LD + 64 + cg * 4);
+    const float4 a0 = *reinterpret_cast<const float4*>(as + k * LDA + rg * 4);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + k * LDA + 32 + rg * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(bs + k * LDS + cg * 4);
+    const float4 b1 = *reinterpret_cast<const float4*>(bs + k * LDS + 64 + cg * 4);
     av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
     av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
     bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
@@ -266,235 +343,254 @@ __device__ __forceinline__ void product(float* acc, const float* as,
   }
 }
 
-// One block: the row tiles [slice * tiles_per_slice, ...) of x, every
-// column tile of each.  hp = [sf2, sf2 * gb, 1/ell^2 (q)].  zp (mp, q), sp
-// (mp, mp) = gD + gD^T and gcp (mp, d), zero past m.  Partials (f64) of
-// this slice: part_z (mp, q), part_ell (q), part_sf2 (1).  flags: 1 d x,
-// 2 d y, 4 d w.
-template <typename T, bool CHUNKED>
+// One cluster of cs blocks: the row tiles [slice * tiles_per_slice, ...)
+// of x; block rank r, the column tiles r, r + cs, ...  hp = [sf2, sf2 * gb,
+// 1/ell^2 (q)].  zp (mp, q), sp (mp, mp) = gD + gD^T and gcp (mp, d), zero
+// past m.  Partials (f64): part_z (slices, mp, q) by cluster, part_ell
+// (blocks, q) and part_sf2 (blocks) by block.  Row partials (flags 1 d x,
+// 2 d y, 4 d w) by rank: rp_x (cs, n, q), rp_y (cs, n, d), rp_w (cs, n).
+template <typename T, bool CHUNKED, bool GROUPED>
 __global__ void __launch_bounds__(NT, sizeof(T) == 8 ? 1 : 2)
 reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
                     const T* __restrict__ w, const T* __restrict__ zp,
                     const T* __restrict__ sp, const T* __restrict__ gcp,
                     const T* __restrict__ hp, int n, int m, int q, int d,
-                    int mp, int tiles_per_slice, int flags,
+                    int mp, int cs, int tiles_per_slice, int flags,
                     double* __restrict__ part_z, double* __restrict__ part_ell,
-                    double* __restrict__ part_sf2, T* __restrict__ dx,
-                    T* __restrict__ dy, T* __restrict__ dw) {
-  constexpr int LD = Cfg<T>::LD;
-  constexpr int TILE_ELEMS = 4 * KS * LD > BR * ELD ? 4 * KS * LD : BR * ELD;
+                    double* __restrict__ part_sf2, T* __restrict__ rp_x,
+                    T* __restrict__ rp_y, T* __restrict__ rp_w) {
+  constexpr int LDA = Cfg<T>::LDA, LDS = Cfg<T>::LDS;
+  constexpr int V = 16 / sizeof(T);            // elements a 16-byte vector
+  constexpr int RV = KS * BR / V / NT;         // a thread's vectors of a slab
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tiles = reinterpret_cast<T*>(smem_raw);  // slabs [2][KS][LD], S rows [2][KS][LD]; or E [BR][ELD]
-  T* xs = tiles + TILE_ELEMS;                 // [BR][QP]   x of the row tile
-  T* zs = xs + BR * QP;                       // [BC][QP]   z of the column tile
-  T* zk = zs + BC * QP;                       // [3][KS][QC] z of a k-step
-  T* ws = zk + 3 * KS * QC;                   // [BR]
-  T* inv = ws + BR;                           // [QC]
-  T* gcs = inv + QC;                          // [BC][GC]   gC of the column tile
-  T* red = gcs + BC * GC;                     // [BC][QP]   the second half's sums
-  T* wred = red + BC * QP;                    // [QC + 1][8] warps' sums
-  __shared__ double e2f[64];                  // kExp2Frac, for the f64 exp
+  T* own = reinterpret_cast<T*>(smem_raw);     // [BC][LDA]  knm of the own tile's points
+  T* buf = own + BC * LDA;                     // the buffers
+  T* xs = buf + buf_elems<T>();                // [BR][QP]   x of the row tile
+  T* ws = xs + BR * QP;                        // [BR]
+  T* inv = ws + BR;                            // [QC]
+  T* stg = buf;                                // [2][KS][LDA]  slabs (the k-loop)
+  T* srow = buf + 2 * KS * LDA;                // [SS][KS][LDS] S rows (the k-loop)
+  T* et = buf;                                 // [BR][ELD]  E (the epilogue)
+  T* zs = et + BR * ELD;                       // [BC][QP]   z (the build, the epilogue)
+  T* gcs = zs + BC * QP;                       // [BC][GC]   gC (the epilogue)
+  T* red = gcs + BC * GC;                      // [RED]      the passes' scratch
+  T* wred = red + RED;                         // [QC + 1][8] the warps' sums
+  __shared__ double e2f[64];                   // kExp2Frac, for the f64 exp
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid < 64) e2f[tid] = kExp2Frac[tid];
-  const int slice = blockIdx.x;
-  const int nts = mp / BC;
+  const int blk = blockIdx.x, slice = blk / cs, r = cluster_rank();
+  const int kgrp = tid / 128;                  // the thread's k-group
+  const int nts = mp / BC, ngroups = GROUPED ? (nts + cs - 1) / cs : 1;
   const int row_tiles = (n + BR - 1) / BR;
   const int rt_lo = slice * tiles_per_slice;
   const int rt_hi = min(row_tiles, rt_lo + tiles_per_slice);
-  const int nk = (m + KS - 1) / KS;
-  const T sf2 = hp[0], sf2gb = hp[1];
+  const T sf2 = hp[0];
   const T* ivg = hp + 2;
 
   double* pz = part_z + (size_t)slice * mp * q;
-  for (int e = tid; e < mp * q; e += NT) pz[e] = 0.0;
-  if (tid < q) part_ell[(size_t)slice * q + tid] = 0.0;
-  if (tid == 0) part_sf2[slice] = 0.0;
+  for (int g = 0; g < ngroups; ++g)
+    if (g * cs + r < nts)
+      for (int e = tid; e < BC * q; e += NT) pz[(size_t)(g * cs + r) * BC * q + e] = 0.0;
+  for (int e = tid; e < q; e += NT) part_ell[(size_t)blk * q + e] = 0.0;
+  if (tid == 0) part_sf2[blk] = 0.0;
   if (!CHUNKED)
     for (int e = tid; e < q; e += NT) inv[e] = ivg[e];
 
-  // x of row tile row r (local), feature f
-  auto xval = [&](int row0, int r, int f) -> T {
-    if (CHUNKED) return row0 + r < n ? x[(size_t)(row0 + r) * q + f] : T(0);
-    return xs[r * QP + f];
+  // x of row tile row i (local), feature f
+  auto xval = [&](int row0, int i, int f) -> T {
+    if (CHUNKED) return row0 + i < n ? x[(size_t)(row0 + i) * q + f] : T(0);
+    return xs[i * QP + f];
   };
   auto ivf = [&](int f) -> T { return CHUNKED ? ivg[f] : inv[f]; };
-  // Rows [g*KS/GROUPS, ...) of a k-step's slab: knm[r][kb + k] at
-  // as[k * LD + r].  Thread: row r = tid % BR, half of the group's k.
-  auto build = [&](T* as, const T* zb, int row0, int kb, int g) {
-    const int r = tid % BR;
-    constexpr int U = KS / GROUPS / 2;
-    const int k0 = g * (KS / GROUPS) + (tid / BR) * U;
-    T e[U];
+  // knm of the row tile against the points of column tile tk, into the
+  // own tile (own[k * LDA + i]).  Thread: row i = tid % BR, a quarter of
+  // the points, BU at a time.
+  auto build = [&](int row0, int tk) {
+    const int i = tid % BR, k_lo = (tid / BR) * (BC / 4);
+#pragma unroll 1
+    for (int k0 = k_lo; k0 < k_lo + BC / 4; k0 += BU) {
+      T e[BU];
 #pragma unroll
-    for (int u = 0; u < U; ++u) e[u] = T(0);
-    if (CHUNKED) {
-      for (int f = 0; f < q; ++f) {
-        const T xv = xval(row0, r, f), iv = ivg[f];
+      for (int u = 0; u < BU; ++u) e[u] = T(0);
+      if (CHUNKED) {
+        for (int f = 0; f < q; ++f) {
+          const T xv = xval(row0, i, f), iv = ivg[f];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const T dv = xv - zp[(size_t)(kb + k0 + u) * q + f];
-          e[u] = fma(dv * dv, iv, e[u]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int f = 0; f < QC; ++f)
-        if (f < q) {
-          const T xv = xs[r * QP + f], iv = inv[f];
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const T dv = xv - zb[(k0 + u) * QC + f];
+          for (int u = 0; u < BU; ++u) {
+            const T dv = xv - zp[(size_t)(tk * BC + k0 + u) * q + f];
             e[u] = fma(dv * dv, iv, e[u]);
           }
         }
-    }
+      } else {
 #pragma unroll
-    for (int u = 0; u < U; ++u) as[(k0 + u) * LD + r] = kexp(sf2, e[u], e2f);
+        for (int f = 0; f < QC; ++f)
+          if (f < q) {
+            const T xv = xs[i * QP + f], iv = inv[f];
+#pragma unroll
+            for (int u = 0; u < BU; ++u) {
+              const T dv = xv - zs[(k0 + u) * QP + f];
+              e[u] = fma(dv * dv, iv, e[u]);
+            }
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < BU; ++u) own[(k0 + u) * LDA + i] = kexp(sf2, e[u], e2f);
+    }
   };
-  // S rows [kb, kb + KS) of the column tile b0 into bs; z of the step's
-  // points into zb (not CHUNKED)
-  auto issue_s = [&](T* bs, int kb, int b0) {
-    constexpr int V = 16 / sizeof(T);
+  // S rows [p0, p0 + KS) of the column tile b0 into bs
+  auto fetch_s = [&](T* bs, int p0, int b0) {
     for (int e = tid; e < KS * (BC / V); e += NT) {
       const int k = e / (BC / V), c = (e % (BC / V)) * V;
-      cp_async16(bs + k * LD + c, sp + (size_t)(kb + k) * mp + b0 + c);
+      cp_async16(bs + k * LDS + c, sp + (size_t)(p0 + k) * mp + b0 + c);
     }
   };
-  auto issue_z = [&](T* zb, int kb) {
-    if (!CHUNKED) {
-      for (int e = tid; e < KS * q; e += NT) {
-        const int k = e / q, f = e % q;
-        cp_async(zb + k * QC + f, zp + (size_t)(kb + k) * q + f, true);
-      }
+  // Half `half` of the slab of group point p (KS points, BR rows) from
+  // the own tile of the rank that built it, into registers; then into a
+  // slab buffer.  In halves, each beside half of the product, so that few
+  // registers carry it.
+  auto load_slab = [&](T (&rv)[RV / 2][V], int p, int half) {
+    const uint32_t base = map_rank(own + (p % BC) * LDA, p / BC);
+#pragma unroll
+    for (int u = 0; u < RV / 2; ++u) {
+      const int e = tid + (half * (RV / 2) + u) * NT;
+      const int k = e / (BR / V), c = (e % (BR / V)) * V;
+      ld_cluster(base + (uint32_t)((k * LDA + c) * sizeof(T)), rv[u]);
+    }
+  };
+  auto store_slab = [&](T* as, const T (&rv)[RV / 2][V], int half) {
+#pragma unroll
+    for (int u = 0; u < RV / 2; ++u) {
+      const int e = tid + (half * (RV / 2) + u) * NT;
+      const int k = e / (BR / V), c = (e % (BR / V)) * V;
+      st_vec(as + k * LDA + c, rv[u]);
     }
   };
 
   T acc[64];
+  T rv[RV / 2][V];
+  bool arrived = false;  // this thread's cluster arrive awaits its wait
   for (int rt = rt_lo; rt < rt_hi; ++rt) {
     const int row0 = rt * BR;
-    __syncthreads();  // the previous tile's reductions are done with xs, ws
-    for (int e = tid; e < BR; e += NT) ws[e] = row0 + e < n ? w[row0 + e] : T(0);
-    if (!CHUNKED)
-      for (int e = tid; e < BR * q; e += NT) {
-        const int r = e / q, f = e % q;
-        xs[r * QP + f] = row0 + r < n ? x[(size_t)(row0 + r) * q + f] : T(0);
-      }
-
-    for (int b = 0; b < nts; ++b) {
-      const int b0 = b * BC;
-      T* slab = tiles;                  // [2][KS][LD]
-      T* et = tiles;                    // [BR][ELD] after the k-loop
-      T* srow = tiles + 2 * KS * LD;    // [2][KS][LD]
-#pragma unroll
-      for (int e = 0; e < 64; ++e) acc[e] = T(0);
-      __syncthreads();  // the E tile and staged z of the last column tile are free
-      issue_s(srow, 0, b0);
-      issue_z(zk, 0);
-      if (nk > 1) issue_z(zk + KS * QC, KS);
-      cp_commit();
-      cp_wait_all();
-      __syncthreads();  // xs, ws, step 0's S rows and z of steps 0, 1
-      for (int g = 0; g < GROUPS; ++g) build(slab, zk, row0, 0, g);
-
-      for (int c = 0; c < nk; ++c) {
-        cp_wait_all();
-        __syncthreads();  // slab c built, S rows of step c in; step c-1 done
-        if (c + 1 < nk) issue_s(srow + ((c + 1) & 1) * KS * LD, (c + 1) * KS, b0);
-        if (c + 2 < nk) issue_z(zk + ((c + 2) % 3) * KS * QC, (c + 2) * KS);
-        cp_commit();
-        const T* as = slab + (c & 1) * KS * LD;
-        const T* bs = srow + (c & 1) * KS * LD;
-        T* nxt = slab + ((c + 1) & 1) * KS * LD;
-        const T* znx = zk + ((c + 1) % 3) * KS * QC;
-#pragma unroll
-        for (int g = 0; g < GROUPS; ++g) {
-          product(acc, as, bs, g, warp, lane);
-          if (c + 1 < nk) build(nxt, znx, row0, (c + 1) * KS, g);
+    for (int g = 0; g < ngroups; ++g) {
+      const int b = g * cs + r, b0 = b * BC;  // the output's column tile
+      for (int t = 0; t < ngroups; ++t) {
+        const int kg = (g + 1 + t) % ngroups;  // the own group last
+        const int tk = kg * cs + r;            // the tile this block builds
+        __syncthreads();  // the last epilogue / k-loop is done with xs, ws, zs
+        if (g == 0 && t == 0) {
+          for (int e = tid; e < BR; e += NT) ws[e] = row0 + e < n ? w[row0 + e] : T(0);
+          if (!CHUNKED)
+            for (int e = tid; e < BR * q; e += NT) {
+              const int i = e / q, f = e % q;
+              xs[i * QP + f] = row0 + i < n ? x[(size_t)(row0 + i) * q + f] : T(0);
+            }
         }
-      }
-      cp_wait_all();
-      __syncthreads();  // every product done: the buffers take the E tile
+        if (!CHUNKED && tk < nts)
+          for (int e = tid; e < BC * q; e += NT) {
+            const int j = e / q, f = e % q;
+            zs[j * QP + f] = zp[(size_t)(tk * BC + j) * q + f];
+          }
+        __syncthreads();
+        if (arrived) cluster_wait();  // every block is done reading the own tiles
+        arrived = false;
+        if (tk < nts) build(row0, tk);
+        cluster_arrive();
+        cluster_wait();  // every own tile of the group is built and visible
+        if (t == 0)  // not before the build: without GROUPED no sums live across it
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        int i, j;
-        entry_rc(static_cast<T*>(nullptr), e, warp, lane, i, j);
-        et[i * ELD + j] = acc[e];  // (knm S)[i][j]
+          for (int e = 0; e < 64; ++e) acc[e] = T(0);
+
+        if (b < nts) {
+          // The steps start at the block's own tile and wrap around, so
+          // that at each step the blocks read different blocks' tiles.
+          const int gp0 = kg * cs * BC;
+          const int nk = (min(m - gp0, cs * BC) + KS - 1) / KS;
+          const int c0 = (r * (BC / KS)) % nk;
+          auto point = [&](int c) { return (c + c0) % nk * KS; };
+          fetch_s(srow, gp0 + point(0), b0);
+          cp_commit();
+          if (point(0) / BC != r)
+            for (int h = 0; h < 2; ++h) {
+              load_slab(rv, point(0), h);
+              store_slab(stg, rv, h);
+            }
+          for (int c = 0; c < nk; ++c) {
+            cp_wait_all();
+            __syncthreads();  // step c's slab and S rows in; step c-1 done
+            const int p = point(c), pn = point(c + 1);
+            const bool next = c + 1 < nk, remote = next && pn / BC != r;
+            if (next) fetch_s(srow + (c + 1) % SS * KS * LDS, gp0 + pn, b0);
+            cp_commit();
+            const T* as = p / BC == r ? own + (p % BC) * LDA : stg + (c & 1) * KS * LDA;
+            T* an = stg + ((c + 1) & 1) * KS * LDA;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (remote) load_slab(rv, pn, h);
+              product(acc, as, srow + c % SS * KS * LDS, kgrp, h, tid);
+              if (remote) store_slab(an, rv, h);
+            }
+          }
+          cp_wait_all();
+        }
+        cluster_arrive();  // done reading the others' own tiles
+        arrived = true;
       }
-      if constexpr (!CHUNKED)
-        for (int e = tid; e < BC * q; e += NT) {
-          const int j = e / q, f = e % q;
-          zs[j * QP + f] = zp[(size_t)(b0 + j) * q + f];
+      if (b >= nts) continue;
+
+      // The epilogue of (row tile, column tile b): the own tile holds knm
+      // of b's points.  The two k-groups' sums, group 1's first.
+      __syncthreads();  // every product done: the buffers take the E tile
+      if (kgrp == 1)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          int i, j;
+          entry_rc(static_cast<T*>(nullptr), e, tid, i, j);
+          et[i * ELD + j] = acc[e];
         }
       for (int e = tid; e < BC * GC; e += NT) {
         const int j = e / GC, c = e % GC;
         gcs[e] = c < d ? gcp[(size_t)(b0 + j) * d + c] : T(0);
       }
+      if (!CHUNKED)
+        for (int e = tid; e < BC * q; e += NT) {
+          const int j = e / q, f = e % q;
+          zs[j * QP + f] = zp[(size_t)(b0 + j) * q + f];
+        }
+      __syncthreads();
+      if (kgrp == 0)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          int i, j;
+          entry_rc(static_cast<T*>(nullptr), e, tid, i, j);
+          et[i * ELD + j] += acc[e];  // (knm S)[i][j]
+        }
       __syncthreads();
 
       // Entry by entry: E = w knm (knm S + P) in place; the row sums of
       // knm (1/2 knm S + P) (d w) and of knm gC (d y, GC columns a pass)
-      // when asked.  Thread: row i, the columns of half h.
+      // when asked.  Thread: row i, the columns of quarter h.
       {
         const int i = tid % BR, h = tid / BR, row = row0 + i;
         const bool live = row < n;
         const T wi = ws[i];
-        T xi[QC], yi[GC];
-    #pragma unroll
-        for (int f = 0; f < QC; ++f) xi[f] = f < q && !CHUNKED ? xs[i * QP + f] : T(0);
+        T yi[GC];
     #pragma unroll
         for (int c = 0; c < GC; ++c) yi[c] = live && c < d ? y[(size_t)row * d + c] : T(0);
-        auto knm = [&](int j) -> T {
-          T e = T(0);
-          if constexpr (CHUNKED) {
-            for (int f = 0; f < q; ++f) {
-              const T dv = xval(row0, i, f) - zp[(size_t)(b0 + j) * q + f];
-              e = fma(dv * dv, ivg[f], e);
-            }
-          } else {
-    #pragma unroll
-            for (int f = 0; f < QC; ++f)
-              if (f < q) {
-                const T dv = xi[f] - zs[j * QP + f];
-                e = fma(dv * dv, inv[f], e);
-              }
-          }
-          return kexp(sf2, e, e2f);
-        };
         T hs = T(0), ys[GC];
     #pragma unroll
         for (int c = 0; c < GC; ++c) ys[c] = T(0);
         // JU columns at a time, their chains side by side
-        for (int jj = 0; jj < BC / 2; jj += JU) {
-          const int j = h * (BC / 2) + jj;
-          T ks[JU], ex[JU], kv[JU], p[JU];
+#pragma unroll 1
+        for (int jj = 0; jj < BC / 4; jj += JU) {
+          const int j = h * (BC / 4) + jj;
+          T ks[JU], kv[JU], p[JU];
     #pragma unroll
           for (int u = 0; u < JU; ++u) {
             ks[u] = et[i * ELD + j + u];
-            ex[u] = p[u] = T(0);
+            kv[u] = own[(j + u) * LDA + i];
+            p[u] = T(0);
           }
-          if constexpr (CHUNKED) {
-            for (int f = 0; f < q; ++f) {
-              const T xv = xval(row0, i, f);
-    #pragma unroll
-              for (int u = 0; u < JU; ++u) {
-                const T dv = xv - zp[(size_t)(b0 + j + u) * q + f];
-                ex[u] = fma(dv * dv, ivg[f], ex[u]);
-              }
-            }
-          } else {
-    #pragma unroll
-            for (int f = 0; f < QC; ++f)
-              if (f < q) {
-    #pragma unroll
-                for (int u = 0; u < JU; ++u) {
-                  const T dv = xi[f] - zs[(j + u) * QP + f];
-                  ex[u] = fma(dv * dv, inv[f], ex[u]);
-                }
-              }
-          }
-    #pragma unroll
-          for (int u = 0; u < JU; ++u) kv[u] = kexp(sf2, ex[u], e2f);
     #pragma unroll
           for (int c = 0; c < GC; ++c)
             if (c < d)
@@ -515,34 +611,41 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
                 if (c < d) ys[c] = fma(kv[u], gcs[(j + u) * GC + c], ys[c]);
           }
         }
-        // the halves' sums, added in order; d y past 8 columns in passes
+        // the quarters' sums, added in order; d y past 8 columns in passes
         for (int c0 = 0; (flags & 6) && c0 < ((flags & 2) ? d : 1); c0 += GC) {
           if (c0 > 0) {
     #pragma unroll
             for (int c = 0; c < GC; ++c) ys[c] = T(0);
-            for (int jj = 0; jj < BC / 2; ++jj) {
-              const int j = h * (BC / 2) + jj;
-              const T kv = knm(j);
+            for (int jj = 0; jj < BC / 4; ++jj) {
+              const int j = h * (BC / 4) + jj;
+              const T kv = own[j * LDA + i];
     #pragma unroll
               for (int c = 0; c < GC; ++c)
                 if (c0 + c < d) ys[c] = fma(kv, gcp[(size_t)(b0 + j) * d + c0 + c], ys[c]);
             }
           }
-          if (h == 1) {
-            red[i * QP] = hs;
+          if (h > 0) {
+            T* rd = red + ((h - 1) * BR + i) * RS;
+            rd[0] = hs;
     #pragma unroll
-            for (int c = 0; c < GC; ++c) red[i * QP + 1 + c] = ys[c];
+            for (int c = 0; c < GC; ++c) rd[1 + c] = ys[c];
           }
           __syncthreads();
           if (h == 0 && live) {
-            if ((flags & 4) && c0 == 0)
-              dw[row] = (b == 0 ? sf2gb : dw[row]) + (hs + red[i * QP]);
+            if ((flags & 4) && c0 == 0) {
+              T s = hs;
+              for (int hh = 0; hh < 3; ++hh) s += red[(hh * BR + i) * RS];
+              const size_t o = (size_t)r * n + row;
+              rp_w[o] = (g == 0 ? T(0) : rp_w[o]) + s;
+            }
             if (flags & 2)
     #pragma unroll
               for (int c = 0; c < GC; ++c)
                 if (c0 + c < d) {
-                  const size_t o = (size_t)row * d + c0 + c;
-                  dy[o] = (b == 0 ? T(0) : dy[o]) + wi * (ys[c] + red[i * QP + 1 + c]);
+                  T s = ys[c];
+                  for (int hh = 0; hh < 3; ++hh) s += red[(hh * BR + i) * RS + 1 + c];
+                  const size_t o = ((size_t)r * n + row) * d + c0 + c;
+                  rp_y[o] = (g == 0 ? T(0) : rp_y[o]) + s;
                 }
           }
           __syncthreads();
@@ -555,23 +658,24 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
         const int j = tid % BC, h = tid / BC;
         const int r_lo = h * (BR / 2);
         T se = T(0);
-        for (int r = r_lo; r < r_lo + BR / 2; ++r) se += et[r * ELD + j];
-        for (int f0 = 0; f0 < q; f0 += QC) {
-          T sz[QC], sl[QC], zj[QC];
+        for (int i = r_lo; i < r_lo + BR / 2; ++i) se += et[i * ELD + j];
+        for (int f0 = 0; f0 < q; f0 += CQ) {
+          T sz[CQ], sl[CQ], zj[CQ];
     #pragma unroll
-          for (int f = 0; f < QC; ++f) {
+          for (int f = 0; f < CQ; ++f) {
             sz[f] = sl[f] = T(0);
             if constexpr (CHUNKED)
               zj[f] = f0 + f < q ? zp[(size_t)(b0 + j) * q + f0 + f] : T(0);
             else
-              zj[f] = f < q ? zs[j * QP + f] : T(0);
+              zj[f] = f0 + f < q ? zs[j * QP + f0 + f] : T(0);
           }
-          for (int r = r_lo; r < r_lo + BR / 2; ++r) {
-            const T ev = et[r * ELD + j];
+    #pragma unroll 2
+          for (int i = r_lo; i < r_lo + BR / 2; ++i) {
+            const T ev = et[i * ELD + j];
     #pragma unroll
-            for (int f = 0; f < QC; ++f)
+            for (int f = 0; f < CQ; ++f)
               if (f0 + f < q) {
-                const T dv = xval(row0, r, f0 + f) - zj[f];
+                const T dv = xval(row0, i, f0 + f) - zj[f];
                 const T t = ev * dv;
                 sz[f] += t;
                 sl[f] = fma(t, dv, sl[f]);
@@ -579,29 +683,30 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
           }
           if (h == 1)
     #pragma unroll
-            for (int f = 0; f < QC; ++f) red[j * QP + f] = sz[f];
+            for (int f = 0; f < CQ; ++f) red[j * QP + f] = sz[f];
           // d log_ell: every thread's sums, a warp butterfly, warps in order
     #pragma unroll
-          for (int f = 0; f < QC; ++f) {
-            const T v = warp_sum(sl[f]);
-            if (lane == 0) wred[f * 8 + warp] = v;
-          }
+          for (int f = 0; f < CQ; ++f)
+            if (f0 + f < q) {
+              const T v = warp_sum(sl[f]);
+              if (lane == 0) wred[f * 8 + warp] = v;
+            }
           if (f0 == 0) {
             const T v = warp_sum(se);
-            if (lane == 0) wred[QC * 8 + warp] = v;
+            if (lane == 0) wred[CQ * 8 + warp] = v;
           }
           __syncthreads();
           if (h == 0 && b0 + j < m)
     #pragma unroll
-            for (int f = 0; f < QC; ++f)
+            for (int f = 0; f < CQ; ++f)
               if (f0 + f < q)
                 pz[(size_t)(b0 + j) * q + f0 + f] +=
                     (double)((sz[f] + red[j * QP + f]) * ivf(f0 + f));
-          if (tid < QC + 1 && (tid == QC ? f0 == 0 : f0 + tid < q)) {
+          if (tid < CQ + 1 && (tid == CQ ? f0 == 0 : f0 + tid < q)) {
             T s = T(0);
             for (int k = 0; k < 8; ++k) s += wred[tid * 8 + k];
-            if (tid == QC) part_sf2[slice] += (double)s;
-            else part_ell[(size_t)slice * q + f0 + tid] += (double)(s * ivf(f0 + tid));
+            if (tid == CQ) part_sf2[blk] += (double)s;
+            else part_ell[(size_t)blk * q + f0 + tid] += (double)(s * ivf(f0 + tid));
           }
           __syncthreads();
         }
@@ -619,20 +724,22 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
             else zv = zs[j * QP + f];
             s = fma(et[i * ELD + j], xv - zv, s);
           }
-          const size_t o = (size_t)(row0 + i) * q + f;
-          dx[o] = (b == 0 ? T(0) : dx[o]) - s * ivf(f);
+          const size_t o = ((size_t)r * n + row0 + i) * q + f;
+          rp_x[o] = (g == 0 ? T(0) : rp_x[o]) - s * ivf(f);
         }
       }
     }
   }
+  if (arrived) cluster_wait();  // no block leaves while another reads its tile
 }
 
-// Fixed-order f64 sum of the slices' partials.
+// Fixed-order f64 sums of the partials: d z over the clusters, d log_ell
+// and sum E over the blocks.
 __global__ void reg_stats_bwd_reduce(const double* __restrict__ part_z,
                                      const double* __restrict__ part_ell,
                                      const double* __restrict__ part_sf2,
-                                     int n_slices, int m, int q, int mp,
-                                     double* __restrict__ dz,
+                                     int n_slices, int n_blocks, int m, int q,
+                                     int mp, double* __restrict__ dz,
                                      double* __restrict__ dell,
                                      double* __restrict__ dsf2) {
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -643,14 +750,101 @@ __global__ void reg_stats_bwd_reduce(const double* __restrict__ part_z,
   }
   if (e < q) {
     double s = 0.0;
-    for (int sl = 0; sl < n_slices; ++sl) s += part_ell[(size_t)sl * q + e];
+    for (int b = 0; b < n_blocks; ++b) s += part_ell[(size_t)b * q + e];
     dell[e] = s;
   }
   if (e == 0) {
     double s = 0.0;
-    for (int sl = 0; sl < n_slices; ++sl) s += part_sf2[sl];
+    for (int b = 0; b < n_blocks; ++b) s += part_sf2[b];
     *dsf2 = s;
   }
+}
+
+// The row outputs asked for: the ranks' row partials added in rank order;
+// d y times w, d w plus sf2 gb.
+template <typename T>
+__global__ void reg_stats_bwd_rows(const T* __restrict__ rp_x, const T* __restrict__ rp_y,
+                                   const T* __restrict__ rp_w, const T* __restrict__ w,
+                                   const T* __restrict__ hp, int n, int q, int d,
+                                   int cs, int flags, T* __restrict__ dx,
+                                   T* __restrict__ dy, T* __restrict__ dw) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long nx = (flags & 1) ? (long)n * q : 0, ny = (flags & 2) ? (long)n * d : 0;
+  const long nw = (flags & 4) ? n : 0;
+  if (e < nx) {
+    T s = T(0);
+    for (int r = 0; r < cs; ++r) s += rp_x[(size_t)r * nx + e];
+    dx[e] = s;
+  } else if (e < nx + ny) {
+    const long k = e - nx;
+    T s = T(0);
+    for (int r = 0; r < cs; ++r) s += rp_y[(size_t)r * ny + k];
+    dy[k] = w[k / d] * s;
+  } else if (e < nx + ny + nw) {
+    const long k = e - nx - ny;
+    T s = hp[1];
+    for (int r = 0; r < cs; ++r) s += rp_w[(size_t)r * nw + k];
+    dw[k] = s;
+  }
+}
+
+// The cluster width for m (padded to mp): one block a column tile, at most
+// CMAX.
+int cluster_size(int mp) { return mp / BC < CMAX ? mp / BC : CMAX; }
+
+template <typename T>
+using TilesFn = decltype(&reg_stats_bwd_tiles<T, false, false>);
+
+// The variant's kernel (past 16 features CHUNKED; past the cluster's
+// 1,024 points GROUPED, whose sums stay live across the builds), its
+// shared-memory attribute set once per device: a runtime call per launch
+// costs host time the card waits for.
+template <typename T>
+cudaError_t prepare(bool chunked, bool grouped, TilesFn<T>* kernel) {
+  *kernel = chunked ? (grouped ? reg_stats_bwd_tiles<T, true, true>
+                               : reg_stats_bwd_tiles<T, true, false>)
+                    : (grouped ? reg_stats_bwd_tiles<T, false, true>
+                               : reg_stats_bwd_tiles<T, false, false>);
+  static bool ready[64][2][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !ready[dev][chunked][grouped]) {
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(smem_elems<T>() * sizeof(T)));
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev][chunked][grouped] = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaLaunchConfig_t config(int clusters, int cs, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * cs));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_elems<T>() * sizeof(T);
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of the variant for m and q that the card holds at once.
+template <typename T>
+int max_clusters(int m, int q, int* out) {
+  const int mp = (m + BC - 1) / BC * BC;
+  TilesFn<T> kernel;
+  cudaError_t err = prepare<T>(q > QC, mp / BC > CMAX, &kernel);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const int cs = cluster_size(mp);
+  cudaLaunchConfig_t cfg = config<T>(1, cs, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 template <typename T>
@@ -658,31 +852,35 @@ int launch(const T* x, const T* y, const T* w, const T* zp, const T* sp,
            const T* gcp, const T* hp, int n, int m, int q, int d, int mp,
            int n_slices, int tiles_per_slice, int flags, double* part_z,
            double* part_ell, double* part_sf2, double* dz, double* dell,
-           double* dsf2, T* dx, T* dy, T* dw, void* stream) {
+           double* dsf2, T* rp_x, T* rp_y, T* rp_w, T* dx, T* dy, T* dw,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool chunked = q > QC;
-  auto kernel = chunked ? reg_stats_bwd_tiles<T, true> : reg_stats_bwd_tiles<T, false>;
-  const int smem = (int)(smem_elems<T>() * sizeof(T));
-  // The attribute once per device and variant: a runtime call per launch
-  // costs host time the card waits for.
-  static bool ready[64][2] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  TilesFn<T> kernel;
+  cudaError_t err = prepare<T>(q > QC, mp / BC > CMAX, &kernel);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !ready[dev][chunked]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) ready[dev][chunked] = true;
-  }
-  kernel<<<(unsigned)n_slices, NT, smem, s>>>(
-      x, y, w, zp, sp, gcp, hp, n, m, q, d, mp, tiles_per_slice, flags,
-      part_z, part_ell, part_sf2, dx, dy, dw);
+  const int cs = cluster_size(mp);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config<T>(n_slices, cs, s, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, w, zp, sp, gcp, hp, n, m, q, d, mp, cs,
+                           tiles_per_slice, flags, part_z, part_ell, part_sf2, rp_x,
+                           rp_y, rp_w);
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  long total = (long)m * q > 1 ? (long)m * q : 1;
+  long total = (long)m * q > q ? (long)m * q : q;
+  total = total > 1 ? total : 1;
   reg_stats_bwd_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      part_z, part_ell, part_sf2, n_slices, m, q, mp, dz, dell, dsf2);
-  return cudaGetLastError();
+      part_z, part_ell, part_sf2, n_slices, n_slices * cs, m, q, mp, dz, dell, dsf2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long rows = ((flags & 1) ? (long)n * q : 0) + ((flags & 2) ? (long)n * d : 0)
+                    + ((flags & 4) ? n : 0);
+  if (rows > 0) {
+    reg_stats_bwd_rows<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+        rp_x, rp_y, rp_w, w, hp, n, q, d, cs, flags, dx, dy, dw);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 static_assert(smem_elems<double>() * sizeof(double) <= 232448 - 512,
@@ -694,23 +892,28 @@ static_assert(smem_elems<float>() * sizeof(float) <= 232448 / 2 - 512,
 
 // x (n, q), y (n, d), w (n,): the forward's inputs.  zp (mp, q), sp (mp,
 // mp) = gD + gD^T, gcp (mp, d): zero past m, mp = 128 ceil(m / 128).  hp =
-// [sf2, sf2 gb, 1/ell^2 (q)].  One block per slice of tiles_per_slice
-// 128-row tiles (n_slices of them, at least one).  Scratch (f64): part_z
-// (n_slices, mp, q), part_ell (n_slices, q), part_sf2 (n_slices).  Outputs
-// (f64): dz (m, q), dell (q), dsf2 (), the latter without gb b; when flags
-// asks (1, 2, 4), dx (n, q), dy (n, d), dw (n) in the input dtype.  Any q
-// and d: shared memory is fixed.  Returns cudaGetLastError().
+// [sf2, sf2 gb, 1/ell^2 (q)].  n_slices clusters of cs = min(mp / 128, 8)
+// blocks, each a slice of tiles_per_slice 64-row tiles (at least one
+// slice).  Scratch (f64): part_z (n_slices, mp, q), part_ell (n_slices cs,
+// q), part_sf2 (n_slices cs); in the input dtype, when flags asks (1, 2,
+// 4), the row partials rp_x (cs, n, q), rp_y (cs, n, d), rp_w (cs, n).
+// Outputs (f64): dz (m, q), dell (q), dsf2 (), the latter without gb b;
+// when flags asks, dx (n, q), dy (n, d), dw (n) in the input dtype.  Any
+// m, q and d: shared memory is fixed.  Returns cudaGetLastError().
+// reg_stats_bwd_clusters_*: the clusters of the variant for (m, q) the
+// card holds at once (cudaOccupancyMaxActiveClusters), into *out.
 extern "C" int reg_stats_bwd_f64(const double* x, const double* y, const double* w,
                                  const double* zp, const double* sp,
                                  const double* gcp, const double* hp, int n,
                                  int m, int q, int d, int mp, int n_slices,
                                  int tiles_per_slice, int flags, double* part_z,
                                  double* part_ell, double* part_sf2, double* dz,
-                                 double* dell, double* dsf2, double* dx,
+                                 double* dell, double* dsf2, double* rp_x,
+                                 double* rp_y, double* rp_w, double* dx,
                                  double* dy, double* dw, void* stream) {
   return launch<double>(x, y, w, zp, sp, gcp, hp, n, m, q, d, mp, n_slices,
                         tiles_per_slice, flags, part_z, part_ell, part_sf2, dz,
-                        dell, dsf2, dx, dy, dw, stream);
+                        dell, dsf2, rp_x, rp_y, rp_w, dx, dy, dw, stream);
 }
 
 extern "C" int reg_stats_bwd_f32(const float* x, const float* y, const float* w,
@@ -719,9 +922,18 @@ extern "C" int reg_stats_bwd_f32(const float* x, const float* y, const float* w,
                                  int m, int q, int d, int mp, int n_slices,
                                  int tiles_per_slice, int flags, double* part_z,
                                  double* part_ell, double* part_sf2, double* dz,
-                                 double* dell, double* dsf2, float* dx,
+                                 double* dell, double* dsf2, float* rp_x,
+                                 float* rp_y, float* rp_w, float* dx,
                                  float* dy, float* dw, void* stream) {
   return launch<float>(x, y, w, zp, sp, gcp, hp, n, m, q, d, mp, n_slices,
                        tiles_per_slice, flags, part_z, part_ell, part_sf2, dz,
-                       dell, dsf2, dx, dy, dw, stream);
+                       dell, dsf2, rp_x, rp_y, rp_w, dx, dy, dw, stream);
+}
+
+extern "C" int reg_stats_bwd_clusters_f64(int m, int q, int* out) {
+  return max_clusters<double>(m, q, out);
+}
+
+extern "C" int reg_stats_bwd_clusters_f32(int m, int q, int* out) {
+  return max_clusters<float>(m, q, out);
 }

@@ -1,14 +1,14 @@
 """A fused kernel's backward by its plain version, recomputed in row chunks.
 
 The JAX package's ``custom_vjp`` backward recomputes through the XLA
-formulation.  Here ``reg_stats`` and ``psi2`` have hand-written backward
-kernels (``csrc/reg_stats_bwd.cu``, ``csrc/psi2_bwd.cu``); ``psi1``'s
-``torch.autograd.Function`` still takes its gradient from
-:func:`chunked_vjp` (its kernel is queued, ROADMAP Queue 2 item 1), and
-``reg_stats_vjp`` / ``psi2_vjp``, built on it, stay as the backward
-kernels' oracles.  Rows are taken a chunk at a time, so the autograd graph
-of one chunk is alive at a time: O(chunk·m) for ``reg_stats`` and
-``psi1``, O(chunk·m²·q) for ``psi2``, whatever n is.
+formulation.  Here ``reg_stats``, ``psi2`` and ``psi1`` have hand-written
+backward kernels (``csrc/reg_stats_bwd.cu``, ``csrc/psi2_bwd.cu``,
+``csrc/psi1_bwd.cu``), which their ``torch.autograd.Function``s launch;
+``reg_stats_vjp`` / ``psi2_vjp`` / ``psi1_vjp``, built on
+:func:`chunked_vjp`, stay as the backward kernels' oracles for the tests
+and ``tools/``, and no path calls them.  Rows are taken a chunk at a time,
+so the autograd graph of one chunk is alive at a time: O(chunk·m) for
+``reg_stats`` and ``psi1``, O(chunk·m²·q) for ``psi2``, whatever n is.
 """
 from __future__ import annotations
 

@@ -179,3 +179,46 @@ def psi2_bwd(mu, s, w, zp, g, hp, n_slices, rows_per_slice, flags, lns, ivs,
              dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), dmu.data_ptr(),
              ds.data_ptr(), dw.data_ptr(), _build.stream_handle(mu.device))
     _build.check(name, err)
+
+
+# -- psi1's backward: csrc/psi1_bwd.cu ---------------------------------------
+
+P1B_BLOCKS_PER_SM = 1   # blocks an SM the plan counts on (f64: 194 registers)
+
+
+def psi1_bwd_smem_bytes(m: int, q: int, dtype) -> int:
+    """Dynamic shared memory of one psi1 backward block (``smem_elems`` in
+    the source): the E tile of P1_ROWS rows by min(m, P1_COLS) columns (row
+    stride 8 mod 16), with q <= FEATURES (staged) z of a tile and the rows'
+    mu, s, 1/(l^2 + s) and l^2; the log-normalisers and the rows' terms
+    of d log_ell."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nc = min(m, P1_COLS)
+    ld = (nc + 7) // 16 * 16 + 8
+    qp = FEATURES + 1
+    staged = (nc * qp + 3 * P1_ROWS * qp + FEATURES) if q <= FEATURES else 0
+    return item * (P1_ROWS * ld + staged + P1_ROWS + P1_ROWS * qp)
+
+
+def psi1_bwd_plan(n: int, slots: int) -> int:
+    """Blocks of psi1's backward: one a unit of P1_ROWS rows, at most
+    ``slots`` (at least one, so an empty n still zeroes its partials);
+    block b takes units b, b + blocks, ..."""
+    return max(1, min(-(-n // P1_ROWS), slots))
+
+
+def psi1_bwd(mu, s, z, log_sf2, log_ell, g, n_blocks, flags, part_z,
+             part_ell, part_sf2, dz, dell, dsf2, dmu, ds) -> None:
+    """Launch psi1's backward for mu's dtype on the current stream (the
+    unit pass, then the fixed-order reduce); dmu, ds are written only
+    where ``flags`` (1 mu, 2 s) asks."""
+    name, fn = _fn("psi1_bwd", mu.dtype, [_P] * 6 + [_I] * 5 + [_P] * 9,
+                   lib="psi1_bwd")
+    n, q = mu.shape
+    err = fn(mu.data_ptr(), s.data_ptr(), z.data_ptr(), log_sf2.data_ptr(),
+             log_ell.data_ptr(), g.data_ptr(), n, z.shape[0], q, n_blocks,
+             flags, part_z.data_ptr(), part_ell.data_ptr(),
+             part_sf2.data_ptr(), dz.data_ptr(), dell.data_ptr(),
+             dsf2.data_ptr(), dmu.data_ptr(), ds.data_ptr(),
+             _build.stream_handle(mu.device))
+    _build.check(name, err)

@@ -14,24 +14,25 @@ f32 map statistics break the q(u) factorisation at full width (ROADMAP,
 Queue 3).
 
 Differentiation: ``pallas_call`` has no VJP, so the JAX package wraps psi2
-in a ``custom_vjp`` that recomputes through XLA.  Here psi2's Function
-takes the hand-written backward kernel (``csrc/psi2_bwd.cu``, the closed
-form of ``ref.psi2_vjp_ref``) and raises where it cannot run; there is no
-fallback.  psi1's backward still recomputes the plain version in row
-chunks (``kernels._vjp``), O(chunk·m·q) memory whatever n is; its kernel
-is queued (ROADMAP Queue 2 item 1).  :func:`psi2_vjp`, the chunked
-recompute of psi2, is kept as the backward kernel's oracle; no path calls
-it.  ``log_sf2`` and ``log_ell`` are separate inputs, so the
+in a ``custom_vjp`` that recomputes through XLA, and differentiates psi1
+through XLA's ``se_psi1``.  Here each Function takes a hand-written
+backward kernel (``csrc/psi2_bwd.cu``, ``csrc/psi1_bwd.cu``: the closed
+forms of ``ref.psi2_vjp_ref`` and ``ref.psi1_vjp_ref``) and raises where
+it cannot run; there is no fallback.  :func:`psi2_vjp` and
+:func:`psi1_vjp`, the plain versions recomputed in row chunks
+(``kernels._vjp``), are kept as the backward kernels' oracles; no path
+calls them.  ``log_sf2`` and ``log_ell`` are separate inputs, so the
 hyper-parameters get their gradients.
 
 For every tensor but a real CPU one (a CUDA tensor, or a fake tensor of
 the dry run) each Function calls its operators,
 ``torch.ops.repro_torch.psi2`` / ``psi2_bwd`` / ``psi1`` (``torch.library``:
-each CUDA implementation is the device check and the launch); the fake
+each CUDA implementation is the device check and the launch), as do
+their backward operators ``psi2_bwd`` / ``psi1_bwd``; the fake
 implementations give the outputs' shapes and dtypes and the FLOP formulas
-(``psi2_flop_count``, ``psi2_bwd_flop_count``, ``psi1_flop_count``) the
-kernels' work, so the dry run (``launch.dryrun``) counts the kernels;
-psi1's backward runs as it stands.
+(``psi2_flop_count``, ``psi2_bwd_flop_count``, ``psi1_flop_count``,
+``psi1_bwd_flop_count``) the kernels' work, so the dry run
+(``launch.dryrun``) counts the kernels.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ from . import ref as _ref
 #: and tile dtype
 LAUNCHES = {"psi2_float32": 0, "psi2_float64": 0,
             "psi2_bwd_float32": 0, "psi2_bwd_float64": 0,
-            "psi1_float32": 0, "psi1_float64": 0}
+            "psi1_float32": 0, "psi1_float64": 0,
+            "psi1_bwd_float32": 0, "psi1_bwd_float64": 0}
 _PSI2_KEY = {torch.float32: "psi2_float32", torch.float64: "psi2_float64"}
 _PSI1_KEY = {torch.float32: "psi1_float32", torch.float64: "psi1_float64"}
 
@@ -307,7 +309,8 @@ def _launch_psi1(log_sf2, log_ell, z, mu, s):
 
 def psi1_vjp(log_sf2, log_ell, z, mu, s, g, needs):
     """Gradients of ``<g, psi1(...)>`` by the plain version, recomputed in
-    row chunks (each chunk takes its rows of ``g``)."""
+    row chunks (each chunk takes its rows of ``g``): the oracle of the
+    backward kernel, callable on any device."""
     m, q = z.shape
     chunk = _vjp.rows_per_chunk(m * q)
 
@@ -318,10 +321,78 @@ def psi1_vjp(log_sf2, log_ell, z, mu, s, g, needs):
                             chunk, per_row=True)
 
 
+_LIB.define("psi1_bwd(Tensor log_sf2, Tensor log_ell, Tensor z, Tensor mu, "
+            "Tensor s, Tensor g, int flags) -> (Tensor, Tensor, Tensor, "
+            "Tensor, Tensor)")
+
+
+def _psi1_bwd_op(log_sf2, log_ell, z, mu, s, g, flags):
+    _on_one_card("psi1_bwd", mu, s, z, log_sf2, log_ell, g)
+    return _launch_psi1_bwd(log_sf2, log_ell, z, mu, s, g, flags,
+                            _build.sm_count(mu.device))
+
+
+_LIB.impl("psi1_bwd", _psi1_bwd_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::psi1_bwd", lib=_LIB)
+def _(log_sf2, log_ell, z, mu, s, g, flags):
+    shapes = ((), log_ell.shape, z.shape, mu.shape if flags & 1 else (0,),
+              s.shape if flags & 2 else (0,))
+    return tuple(t.new_empty(sh) for t, sh in
+                 zip((log_sf2, log_ell, z, mu, s), shapes))
+
+
+def psi1_bwd_flops(n: int, m: int, q: int) -> int:
+    """psi1's backward kernel's FLOPs: per (row, point) entry the exponent
+    (3q), psi1 and E (3), the row sums of E, E r, E r^2 (4q + 1) and the
+    point sums of E r a (3q)."""
+    return n * m * (10 * q + 4)
+
+
+@register_flop_formula(torch.ops.repro_torch.psi1_bwd)
+def psi1_bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
+                        *args, **kwargs) -> int:
+    return psi1_bwd_flops(mu_shape[0], z_shape[0], z_shape[1])
+
+
+def psi1_bwd_launch_args(log_sf2, log_ell, z, mu, s, g, flags, slots):
+    """psi1's backward operands, scratch and outputs for one launch
+    (``kernel.psi1_bwd``'s arguments) over ``slots`` SMs."""
+    n, q = mu.shape
+    m = z.shape[0]
+    f64 = torch.float64
+    dt = _tile_dtype(mu.dtype)
+    dev = mu.device
+    n_blocks = _k.psi1_bwd_plan(n, slots * _k.P1B_BLOCKS_PER_SM)
+
+    def rows(flag):
+        return torch.empty((n, q) if flags & flag else (0,), dtype=dt,
+                           device=dev)
+    return (*(_build.operand(t, dt) for t in (mu, s, z, log_sf2, log_ell, g)),
+            n_blocks, flags,
+            torch.empty((n_blocks, m, q), dtype=f64, device=dev),
+            torch.empty((n_blocks, q), dtype=f64, device=dev),
+            torch.empty((n_blocks,), dtype=f64, device=dev),
+            torch.empty((m, q), dtype=f64, device=dev),
+            torch.empty((q,), dtype=f64, device=dev),
+            torch.empty((), dtype=f64, device=dev), rows(1), rows(2))
+
+
+def _launch_psi1_bwd(log_sf2, log_ell, z, mu, s, g, flags, slots):
+    """The bare backward launch (the operator's implementation): device
+    checks are the caller's."""
+    args = psi1_bwd_launch_args(log_sf2, log_ell, z, mu, s, g, flags, slots)
+    _k.psi1_bwd(*args)
+    LAUNCHES["psi1_bwd_" + str(args[0].dtype).removeprefix("torch.")] += 1
+    dz, dell, dsf2, dmu, ds = args[-5:]
+    return (dsf2.to(log_sf2.dtype), dell.to(log_ell.dtype), dz.to(z.dtype),
+            dmu.to(mu.dtype), ds.to(s.dtype))
+
+
 class _Psi1(torch.autograd.Function):
-    """Forward: the operator (the CUDA kernel).  Backward:
-    :func:`psi1_vjp`, the plain version recomputed in row chunks (its
-    backward kernel is queued, ROADMAP Queue 2 item 1)."""
+    """Forward: the operator (the CUDA kernel).  Backward: the backward
+    operator (the CUDA backward kernel)."""
 
     @staticmethod
     def forward(ctx, log_sf2, log_ell, z, mu, s):
@@ -330,7 +401,10 @@ class _Psi1(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return tuple(psi1_vjp(*ctx.saved_tensors, g, ctx.needs_input_grad))
+        needs = ctx.needs_input_grad
+        grads = torch.ops.repro_torch.psi1_bwd(
+            *ctx.saved_tensors, g, _build.row_flags((*needs, False)))
+        return tuple(t if need else None for t, need in zip(grads, needs))
 
 
 def psi2_fn_for_engine(kernel=None):

@@ -23,6 +23,62 @@ def psi1_ref(log_sf2, log_ell, z, mu, s, chunk: int | None = None):
     return torch.cat(parts) if parts else mu.new_zeros((0, z.shape[0]))
 
 
+def psi1_vjp_ref(log_sf2, log_ell, z, mu, s, g, needs,
+                 chunk: int | None = None, absolute: bool = False):
+    """Gradients of ``<g, psi1_ref(...)>`` in closed form, without
+    autograd: the function ``csrc/psi1_bwd.cu`` computes.
+
+    With Ψ = psi1, E = g ⊙ Ψ (n, m), a_nq = 1/(ℓ_q² + S_nq) and
+    r = μ_nq - z_jq::
+
+        d log_sf2   = ΣE
+        d z_jq      = Σₙ E_nj r a_nq
+        d μ_nq      = -Σⱼ E_nj r a_nq
+        d S_nq      = ½ Σⱼ E_nj (r² a_nq² - a_nq)
+        d log_ell_q = Σ E_nj (S_nq a_nq + ℓ_q² r² a_nq²)
+
+    r in the direct form.  Rows are taken ``chunk`` at a time (default:
+    about 2^25 elements of the (rows, m, q) difference).  ``needs``: input
+    by input (log_sf2, log_ell, z, mu, s), whether a gradient is wanted;
+    None where not.  ``absolute``: every term of every sum by its
+    absolute value (g and r by theirs, the -a term of d S positive), the
+    scale of the rounding error of a kernel that forms the same sums.
+    """
+    ab = torch.abs if absolute else (lambda t: t)
+    n, q = mu.shape
+    m = z.shape[0]
+    ell2 = torch.exp(2.0 * log_ell)
+    step = max(1, chunk or (1 << 25) // max(1, m * q))
+    d_sf2 = ell2.new_zeros(())
+    d_ell = ell2.new_zeros((q,))
+    d_z = z.new_zeros((m, q))
+    rows = {3: [], 4: []}
+    for lo in range(0, n, step):
+        mus, ss = mu[lo:lo + step], s[lo:lo + step]
+        e = ab(g[lo:lo + step]) * psi1_ref(log_sf2, log_ell, z, mus, ss)
+        a = 1.0 / (ell2 + ss)                                   # (r, q)
+        r = mus[:, None, :] - z[None, :, :]                     # (r, m, q)
+        e0 = e.sum(1)                                           # (r,)
+        e1 = torch.einsum("nj,njq->nq", e, ab(r))
+        e2 = torch.einsum("nj,njq->nq", e, r * r)
+        d_sf2 = d_sf2 + e0.sum()
+        if needs[1]:
+            d_ell = d_ell + (e0[:, None] * ss * a + ell2 * a * a * e2).sum(0)
+        if needs[2]:
+            d_z = d_z + torch.einsum("nj,njq->jq", e, ab(r) * a[:, None, :])
+        if needs[3]:
+            rows[3].append((1.0 if absolute else -1.0) * a * e1)
+        if needs[4]:
+            rows[4].append(0.5 * a * (a * e2 + (1.0 if absolute else -1.0)
+                                      * e0[:, None]))
+    out = [d_sf2, d_ell, d_z]
+    for i, t in ((3, mu), (4, s)):
+        out.append((torch.cat(rows[i]) if rows[i] else torch.zeros_like(t))
+                   if needs[i] else None)
+    return [t if need else None for t, need in zip(out[:3], needs[:3])] \
+        + out[3:]
+
+
 def psi2_ref(log_sf2, log_ell, z, mu, s, w, chunk: int | None = None):
     """(m, m) ``sum_i w_i <k(x_i, z_a) k(x_i, z_b)>`` under q(x_i)."""
     hyp = {"log_sf2": log_sf2, "log_ell": log_ell}

@@ -7,6 +7,7 @@ scratch of one dtype (float32 or float64) and the outputs float64;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -75,31 +76,75 @@ def reg_stats(x, y, w, z, hp, n_slices, rows_per_slice,
 
 # -- the backward: csrc/reg_stats_bwd.cu -------------------------------------
 
-BWD_ROWS = 128       # rows per row tile of the backward (BR)
+BWD_ROWS = 64        # rows per row tile of the backward (BR)
 BWD_COLUMNS = 128    # columns per column tile; z, S and gC padded to it (BC)
 BWD_STEP = 32        # inducing points per k-step (KS)
+BWD_CLUSTER = 8      # blocks a cluster, at most: one a column tile (CMAX)
+BWD_S_STAGES = 2     # stages of S's rows: double-buffered (SS)
 BWD_BLOCKS_PER_SM = {torch.float32: 2, torch.float64: 1}
 _BWD_FN = {torch.float32: "reg_stats_bwd_f32", torch.float64: "reg_stats_bwd_f64"}
+_BWD_CLUSTERS_FN = {torch.float32: "reg_stats_bwd_clusters_f32",
+                    torch.float64: "reg_stats_bwd_clusters_f64"}
 
 
 def bwd_smem_bytes(dtype) -> int:
     """Dynamic shared memory of one backward block (``smem_elems`` in the
-    source): the larger of the double-buffered slab and S rows (row stride
-    132 f64, 128 f32) and the E tile (128 x 129), the x and z tiles (128 x
-    17 each), z of three k-steps, w, 1/ell^2, 8 columns of gC, the
-    reduction scratch (128 x 17, 17 x 8).  Neither q nor d changes it; the
-    f64 exp's table adds 512 static bytes."""
+    source): the own tile (128 points x 64 rows, row stride 68 f64, 64
+    f32); the buffers, the larger of the k-loop's two slabs and two
+    stages of S rows (row stride 132 f64, 128 f32) and the epilogue's E
+    tile (64 x 129), z (128 x 17), 8 columns of gC, the passes' scratch
+    (the larger of 128 x 17 and 3 x 64 x 9) and the warps' sums (17 x 8);
+    x (64 x 17), w and 1/ell^2.  Neither q nor d changes it; the f64 exp's
+    table adds 512 static bytes."""
     item = torch.empty((), dtype=dtype).element_size()
-    ld = BWD_ROWS + (4 if dtype == torch.float64 else 0)
-    tiles = max(4 * BWD_STEP * ld, BWD_ROWS * (BWD_COLUMNS + 1))
-    return item * (tiles + 2 * BWD_ROWS * (FEATURES + 1) + 3 * BWD_STEP * FEATURES
-                   + BWD_ROWS + FEATURES + BWD_COLUMNS * COLUMNS
-                   + BWD_COLUMNS * (FEATURES + 1) + 8 * (FEATURES + 1))
+    pad = 4 if dtype == torch.float64 else 0
+    lda, lds = BWD_ROWS + pad, BWD_COLUMNS + pad
+    qp = FEATURES + 1
+    loop = 2 * BWD_STEP * lda + BWD_S_STAGES * BWD_STEP * lds
+    epilogue = (BWD_ROWS * (BWD_COLUMNS + 1) + BWD_COLUMNS * qp
+                + BWD_COLUMNS * COLUMNS
+                + max(BWD_COLUMNS * qp, 3 * BWD_ROWS * (1 + COLUMNS)) + 8 * qp)
+    return item * (BWD_COLUMNS * lda + max(loop, epilogue) + BWD_ROWS * qp
+                   + BWD_ROWS + FEATURES)
+
+
+def bwd_cluster(m: int) -> tuple[int, int]:
+    """(blocks a cluster, column groups) of the backward for m points: one
+    block a 128-point column tile, at most ``BWD_CLUSTER``; block r of the
+    cluster takes the tiles r, r + width, ... (group g: tile g width + r),
+    and the inducing points are built once per group of output tiles."""
+    tiles = -(-m // BWD_COLUMNS)
+    width = min(tiles, BWD_CLUSTER)
+    return width, -(-tiles // width)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_clusters(dtype, width: int, grouped: bool, chunked: bool,
+                  index: int) -> int:
+    fn = getattr(_build.load("reg_stats_bwd"), _BWD_CLUSTERS_FN[dtype])
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_BWD_CLUSTERS_FN[dtype],
+                     fn(width * BWD_COLUMNS * (2 if grouped else 1),
+                        FEATURES + 1 if chunked else 1, ctypes.byref(out)))
+    return max(1, out.value)
+
+
+def bwd_slots(dtype, m: int, q: int, device) -> int:
+    """Clusters of the backward the card holds at once for m points and q
+    features (``cudaOccupancyMaxActiveClusters``, looked up once per
+    cluster width, variant and device)."""
+    index = torch.device(device).index
+    width, groups = bwd_cluster(m)
+    return _bwd_clusters(dtype, width, groups > 1, q > FEATURES,
+                         torch.cuda.current_device() if index is None else index)
 
 
 def bwd_plan(n: int, slots: int) -> tuple[int, int]:
-    """(n-slices, row tiles per slice) of the backward: one block a slice
-    of consecutive 128-row tiles, as many slices as fill ``slots`` block
+    """(n-slices, row tiles per slice) of the backward: one cluster a slice
+    of consecutive 64-row tiles, as many slices as fill ``slots`` cluster
     slots once (at least one, so an empty n still zeroes its partials)."""
     row_tiles = -(-n // BWD_ROWS)
     per = max(1, -(-row_tiles // max(1, min(row_tiles, slots))))
@@ -107,20 +152,21 @@ def bwd_plan(n: int, slots: int) -> tuple[int, int]:
 
 
 def reg_stats_bwd(x, y, w, zp, sp, gcp, hp, m, n_slices, tiles_per_slice,
-                  flags, part_z, part_ell, part_sf2, dz, dell, dsf2, dx, dy,
-                  dw) -> None:
-    """Launch the backward for x's dtype (the tile pass, then the
-    fixed-order reduce) on the current stream.  dx, dy, dw are written
-    only where ``flags`` (1, 2, 4) asks."""
+                  flags, part_z, part_ell, part_sf2, dz, dell, dsf2, rp_x,
+                  rp_y, rp_w, dx, dy, dw) -> None:
+    """Launch the backward for x's dtype (the clusters' tile pass, the
+    fixed-order reduce, and where ``flags`` (1 x, 2 y, 4 w) asks, the row
+    outputs from the ranks' row partials) on the current stream."""
     fn = getattr(_build.load("reg_stats_bwd"), _BWD_FN[x.dtype])
     if fn.argtypes is None:
-        fn.argtypes = [*([_P] * 7), *([_I] * 8), *([_P] * 10)]
+        fn.argtypes = [*([_P] * 7), *([_I] * 8), *([_P] * 13)]
         fn.restype = _I
     n, q = x.shape
     err = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), zp.data_ptr(),
              sp.data_ptr(), gcp.data_ptr(), hp.data_ptr(), n, m, q,
              y.shape[1], zp.shape[0], n_slices, tiles_per_slice, flags,
              part_z.data_ptr(), part_ell.data_ptr(), part_sf2.data_ptr(),
-             dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), dx.data_ptr(),
-             dy.data_ptr(), dw.data_ptr(), _build.stream_handle(x.device))
+             dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), rp_x.data_ptr(),
+             rp_y.data_ptr(), rp_w.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+             dw.data_ptr(), _build.stream_handle(x.device))
     _build.check(_BWD_FN[x.dtype], err)

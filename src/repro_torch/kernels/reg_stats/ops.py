@@ -202,8 +202,9 @@ def _bwd_op(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags):
     if any(t.device != x.device for t in operands):
         raise ValueError("reg_stats_bwd: every operand must be on one CUDA "
                          f"device, got {[str(t.device) for t in operands]}")
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
     return _launch_bwd(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags,
-                       _build.sm_count(x.device))
+                       _k.bwd_slots(dt, z.shape[0], x.shape[1], x.device))
 
 
 _LIB.impl("reg_stats_bwd", _bwd_op, "CUDA")
@@ -219,12 +220,12 @@ def _(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags):
 
 
 def bwd_flops(n: int, m: int, q: int, d: int) -> int:
-    """The backward kernel's FLOPs: knm S (n m^2 FMAs), knm rebuilt once
-    per 128-column tile of the output (3q + 2 a pair each time), and each
-    entry's epilogue: knm again, P (d FMAs), E, and r, E r, E r^2 per
-    feature (4q)."""
-    tiles = -(-m // _k.BWD_COLUMNS)
-    return 2 * n * m * m + n * m * (3 * q + 2) * (tiles + 1) \
+    """The backward kernel's FLOPs: knm S (n m^2 FMAs), knm built once per
+    group of output column tiles (3q + 2 a pair each time; one group up to
+    1,024 points), and each entry's epilogue: P (d FMAs), E, and r, E r,
+    E r^2 per feature (4q)."""
+    groups = _k.bwd_cluster(m)[1]
+    return 2 * n * m * m + n * m * (3 * q + 2) * groups \
         + n * m * (2 * d + 4 + 4 * q)
 
 
@@ -237,9 +238,10 @@ def bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, x_shape, y_shape,
 
 def bwd_launch_args(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags, slots):
     """The backward kernel's operands, scratch and outputs for one launch
-    (``kernel.reg_stats_bwd``'s arguments) over ``slots`` block slots:
-    z, S = gD + gD^T and gC zero-padded to 128-row multiples, hp = [sf2,
-    sf2 gb, 1/ell^2] in the tile dtype."""
+    (``kernel.reg_stats_bwd``'s arguments) over ``slots`` cluster slots
+    (``kernel.bwd_slots``): z, S = gD + gD^T and gC zero-padded to
+    128-row multiples, hp = [sf2, sf2 gb, 1/ell^2] in the tile dtype; the
+    ranks' row partials only where ``flags`` asks for a row output."""
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
     f64 = torch.float64
@@ -256,18 +258,21 @@ def bwd_launch_args(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags, slots):
     sf2 = torch.exp(log_sf2)
     hp = torch.cat([sf2.reshape(1), (sf2 * gb).reshape(1),
                     torch.exp(-2.0 * log_ell)]).to(dt).contiguous()
-    n_slices, per = _k.bwd_plan(n, slots * _k.BWD_BLOCKS_PER_SM[dt])
+    n_slices, per = _k.bwd_plan(n, slots)
+    width = _k.bwd_cluster(m)[0]
 
     def rows(shape, flag):
         return torch.empty(shape if flags & flag else (0,), dtype=dt,
                            device=dev)
     return (xs, ys, ws, zp, sp, gcp, hp, m, n_slices, per, flags,
             torch.empty((n_slices, mp, q), dtype=f64, device=dev),
-            torch.empty((n_slices, q), dtype=f64, device=dev),
-            torch.empty((n_slices,), dtype=f64, device=dev),
+            torch.empty((n_slices * width, q), dtype=f64, device=dev),
+            torch.empty((n_slices * width,), dtype=f64, device=dev),
             torch.empty((m, q), dtype=f64, device=dev),
             torch.empty((q,), dtype=f64, device=dev),
             torch.empty((), dtype=f64, device=dev),
+            rows((width, n, q), 1), rows((width, n, d), 2),
+            rows((width, n), 4),
             rows((n, q), 1), rows((n, d), 2), rows((n,), 4))
 
 
@@ -278,7 +283,7 @@ def _launch_bwd(log_sf2, log_ell, z, x, y, w, gb, gc, gd, flags, slots):
                            slots)
     _k.reg_stats_bwd(*args)
     LAUNCHES["bwd_" + str(args[0].dtype).removeprefix("torch.")] += 1
-    dz, dell, dsf2, dx, dy, dw = args[-6:]
+    (dz, dell, dsf2), (dx, dy, dw) = args[-9:-6], args[-3:]
     b = torch.exp(log_sf2.double()) * w.double().sum()
     dsf2 = dsf2 + gb.double() * b
     return (dsf2.to(log_sf2.dtype), dell.to(log_ell.dtype), dz.to(z.dtype),

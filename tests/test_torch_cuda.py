@@ -64,6 +64,10 @@ RS_CASES = [(*shape, dtype) for shape in [
     # f64 past one 16-feature chunk and with wide y: any q and d fit (at
     # these q the kernel values sit near f32's underflow, so f64 only)
     (1037, 130, 40, 1, F64), (1037, 130, 8, 64, F64), (517, 130, 200, 3, F64)]
+# the reg_stats backward past its cluster's width (8 column tiles): m 1,030
+# (9 tiles, a ragged second group) and 2,048 (two full groups)
+RS_BWD_CASES = RS_CASES + [(*shape, dtype) for shape in [
+    (1037, 1030, 3, 2), (517, 2048, 3, 2)] for dtype in DTYPES]
 
 
 @pytest.mark.parametrize("n,m,q,d,dtype", RS_CASES)
@@ -172,10 +176,10 @@ def _grads(fn, inputs, cotangents):
 
 
 def _assert_grads_close(got, want):
-    """The backward kernels compute the closed form in f64 (psi1's backward
-    recomputes the plain version), so the Functions' gradients equal plain
-    autograd's up to f64 rounding (summation order, and for reg_stats
-    autograd's expanded-square form): rtol 1e-10."""
+    """The backward kernels compute the closed form in f64, so the
+    Functions' gradients equal plain autograd's up to f64 rounding
+    (summation order, and for reg_stats autograd's expanded-square form):
+    rtol 1e-10."""
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
 
@@ -370,9 +374,9 @@ def test_psi2_zero_weights_and_tiles_do_not_leak(cuda):
 
 
 def test_psi_gradients(cuda):
-    """Both Functions' backward (psi2: the backward kernel,
-    ``csrc/psi2_bwd.cu``; psi1: the chunked plain recompute) against
-    autograd of the plain version, f64, on every input."""
+    """Both Functions' backward (the backward kernels ``csrc/psi2_bwd.cu``
+    and ``csrc/psi1_bwd.cu``, one launch each) against autograd of the
+    plain version, f64, on every input."""
     hyp, z, mu, s, w = _psi_inputs(5, 300, 37, 3, cuda)
     rng = np.random.default_rng(6)
 
@@ -389,8 +393,10 @@ def test_psi_gradients(cuda):
     assert ps_ops.LAUNCHES["psi2_bwd_float64"] == before + 1
     _assert_grads_close(got, _grads(ps_ref.psi2_ref, inputs, ct2))
     ct1 = (_t(rng.standard_normal((300, 37)), cuda),)
-    _assert_grads_close(_grads(psi1, inputs[:5], ct1),
-                        _grads(ps_ref.psi1_ref, inputs[:5], ct1))
+    before = ps_ops.LAUNCHES["psi1_bwd_float64"]
+    got = _grads(psi1, inputs[:5], ct1)
+    assert ps_ops.LAUNCHES["psi1_bwd_float64"] == before + 1
+    _assert_grads_close(got, _grads(ps_ref.psi1_ref, inputs[:5], ct1))
 
 
 def test_predict_refuses_grad(cuda):
@@ -1820,7 +1826,7 @@ def _rs_bwd_inputs(seed, n, m, q, d, device):
     return ins, cts
 
 
-@pytest.mark.parametrize("n,m,q,d,dtype", RS_CASES)
+@pytest.mark.parametrize("n,m,q,d,dtype", RS_BWD_CASES)
 def test_reg_stats_bwd_matches_closed_form_and_recompute(cuda, n, m, q, d,
                                                          dtype):
     """The backward operator (every input's gradient) against
@@ -1862,6 +1868,36 @@ def test_psi2_bwd_matches_closed_form_and_recompute(cuda, n, m, q, dtype):
     _hold_bwd(got, ps_ref.psi2_vjp_ref(*pin, pg, needs),
               ps_ref.psi2_vjp_ref(*pin, pg, needs, absolute=True),
               ps_ops.psi2_vjp(*pin, pg, needs), dtype)
+
+
+PSI1_BWD_CASES = [(*shape, dtype) for shape in [
+    (64, 16, 2), (100, 37, 3), (257, 64, 10), (1003, 150, 10),
+    (4649, 150, 10), (1003, 300, 18), (33, 257, 5), (0, 37, 3), (1, 1, 1)]
+    for dtype in DTYPES]
+
+
+@pytest.mark.parametrize("n,m,q,dtype", PSI1_BWD_CASES)
+def test_psi1_bwd_matches_closed_form_and_recompute(cuda, n, m, q, dtype):
+    """psi1's backward operator (every input's gradient) against
+    ``psi1_vjp_ref`` and the chunked recompute on the values the kernel
+    sees, and bitwise on a second call: gplvm-usps, m past one 256-column
+    tile, q past 16, an empty n."""
+    hyp, z, mu, s, _ = _psi_inputs(3 * n + m, n, m, q, cuda, dtype)
+    g = _t(np.random.default_rng(n + 1).standard_normal((n, m)), cuda, dtype)
+    kin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s]
+    pin, pg = [t.double() for t in kin], g.double()
+    pin[:2] = [t.to(dtype).double() for t in pin[:2]]  # as the kernel reads them
+    name = "psi1_bwd_" + str(dtype).removeprefix("torch.")
+    before = ps_ops.LAUNCHES[name]
+    got = torch.ops.repro_torch.psi1_bwd(*kin, g, 3)
+    again = torch.ops.repro_torch.psi1_bwd(*kin, g, 3)
+    assert ps_ops.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [t.dtype for t in got] == [F64, F64, dtype, dtype, dtype]
+    needs = [True] * 5
+    _hold_bwd(got, ps_ref.psi1_vjp_ref(*pin, pg, needs),
+              ps_ref.psi1_vjp_ref(*pin, pg, needs, absolute=True),
+              ps_ops.psi1_vjp(*pin, pg, needs), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1915,6 +1951,11 @@ def test_backward_kernels_raise_and_never_recompute(cuda, monkeypatch):
     ct = (_t(np.random.default_rng(14).standard_normal((37, 37)), cuda),)
     _grads(psi2, pin, ct)
 
+    def psi1(log_sf2, log_ell, z, mu, s):
+        return ps_ops.psi1({"log_sf2": log_sf2, "log_ell": log_ell}, z, mu, s)
+    ct1 = (_t(np.random.default_rng(15).standard_normal((300, 37)), cuda),)
+    _grads(psi1, pin[:5], ct1)
+
     def fail(*args, **kwargs):
         raise RuntimeError("CUDA kernel failed to launch")
     monkeypatch.setattr(rs_k, "reg_stats_bwd", fail)
@@ -1924,6 +1965,9 @@ def test_backward_kernels_raise_and_never_recompute(cuda, monkeypatch):
     monkeypatch.setattr(ps_k, "psi2_bwd", fail)
     with pytest.raises(RuntimeError, match="failed to launch"):
         _grads(psi2, pin, ct)
+    monkeypatch.setattr(ps_k, "psi1_bwd", fail)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _grads(psi1, pin[:5], ct1)
 
 
 @pytest.mark.parametrize("n,m,q,d", [(100_003, 130, 8, 4), (20_011, 512, 8, 4)])

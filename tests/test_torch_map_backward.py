@@ -1,19 +1,20 @@
 """The closed-form backward of the map kernels against the JAX package.
 
-``reg_stats_vjp_ref`` and ``psi2_vjp_ref`` (``repro_torch.kernels.*.ref``)
-state, without autograd, the functions the backward kernels
-``csrc/reg_stats_bwd.cu`` and ``csrc/psi2_bwd.cu`` compute.  The same
-numpy inputs, made from a seed, go through ``jax.vjp`` of the reference's
-``core.stats.reg_stats_dense`` and of its weighted per-point psi2, and
-through the closed forms on the CPU, at rtol 1e-8 / atol 1e-10 (the
-custom_vjp contract of ``tests/test_reg_stats_pallas.py``): a
-non-symmetric cotangent throughout, zero weights, d 1 and d past 8, q past
-16 (the kernels stage 16 features at a time) and m off the kernels'
-tiles.  Both closed forms are also held against the port's chunked
-recompute (``reg_stats_vjp``, ``psi2_vjp``: autograd of the plain version)
-with each pattern of wanted gradients; the new operators' fake
-implementations and FLOP formulas, and the kernels' plans and shared
-memory, are checked without a card.  The kernels themselves are held
+``reg_stats_vjp_ref``, ``psi2_vjp_ref`` and ``psi1_vjp_ref``
+(``repro_torch.kernels.*.ref``) state, without autograd, the functions the
+backward kernels ``csrc/reg_stats_bwd.cu``, ``csrc/psi2_bwd.cu`` and
+``csrc/psi1_bwd.cu`` compute.  The same numpy inputs, made from a seed, go
+through ``jax.vjp`` of the reference's ``core.stats.reg_stats_dense``, of
+its weighted per-point psi2 and of its ``se_psi1``, and through the closed
+forms on the CPU, at rtol 1e-8 / atol 1e-10 (the custom_vjp contract of
+``tests/test_reg_stats_pallas.py``): a non-symmetric cotangent throughout,
+zero weights, d 1 and d past 8, q past 16 (the kernels stage 16 features
+at a time) and m off the kernels' tiles (psi1: past one 256-column tile).
+The closed forms are also held against the port's chunked recompute
+(``reg_stats_vjp``, ``psi2_vjp``, ``psi1_vjp``: autograd of the plain
+version) with each pattern of wanted gradients; the backward operators'
+fake implementations and FLOP formulas, and the kernels' plans, clusters
+and shared memory, are checked without a card.  The kernels themselves are held
 against these on the card in ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax
@@ -49,11 +50,27 @@ PSI_CASES = [
     (25, 12, 2, "zero"),
     (20, 3, 1, "ones"),
 ]
+# (n, m, q): q past 16, m off the tiles and past one 256-column tile
+PSI1_CASES = [
+    (40, 37, 3),
+    (30, 300, 18),
+    (25, 12, 2),
+    (20, 3, 1),
+    (33, 257, 5),
+]
 NEEDS = [
     (True,) * 6,
     (True, True, True, False, False, False),
     (False, False, False, True, True, True),
     (False, True, False, True, False, True),
+]
+# psi1's five inputs (log_sf2, log_ell, z, mu, s)
+NEEDS1 = [
+    (True,) * 5,
+    (True, True, True, False, False),
+    (False, False, False, True, True),
+    (False, True, False, False, True),
+    (True, False, True, True, False),
 ]
 
 
@@ -81,6 +98,14 @@ def _psi_inputs(n, m, q, kind):
            rng.standard_normal((m, q)), rng.standard_normal((n, q)),
            rng.uniform(0.05, 0.8, (n, q)), _weights(rng, n, kind)]
     return ins, rng.standard_normal((m, m))
+
+
+def _psi1_inputs(n, m, q):
+    rng = np.random.default_rng(5 * n + m + q)
+    ins = [np.asarray(rng.uniform(-0.5, 0.8)), rng.uniform(-0.4, 0.4, q),
+           rng.standard_normal((m, q)), rng.standard_normal((n, q)),
+           rng.uniform(0.05, 0.8, (n, q))]
+    return ins, rng.standard_normal((n, m))
 
 
 def _t(arrs):
@@ -124,6 +149,21 @@ def jax_psi():
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_psi1():
+    """jax.vjp of the reference's se_psi1 for every case, once."""
+    out = {}
+    for case in PSI1_CASES:
+        ins, g = _psi1_inputs(*case)
+
+        def fn(log_sf2, log_ell, z, mu, s):
+            return j_gpk.se_psi1({"log_sf2": log_sf2, "log_ell": log_ell},
+                                 z, mu, s)
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, ins))
+        out[case] = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    return out
+
+
 @pytest.mark.parametrize("case", RS_CASES)
 def test_reg_stats_closed_form_matches_jax_vjp(case, jax_rs):
     ins, cts = _rs_inputs(*case)
@@ -141,6 +181,28 @@ def test_psi2_closed_form_matches_jax_vjp(case, jax_psi):
     for i, (t, want) in enumerate(zip(got, jax_psi[case])):
         assert t.shape == want.shape
         _close(t, want, name=f"input {i}")
+
+
+@pytest.mark.parametrize("case", PSI1_CASES)
+def test_psi1_closed_form_matches_jax_vjp(case, jax_psi1):
+    ins, g = _psi1_inputs(*case)
+    got = ps_ref.psi1_vjp_ref(*_t(ins), torch.from_numpy(g), [True] * 5,
+                              chunk=7)
+    for i, (t, want) in enumerate(zip(got, jax_psi1[case])):
+        assert t.shape == want.shape
+        _close(t, want, name=f"input {i}")
+
+
+@pytest.mark.parametrize("needs", NEEDS1)
+@pytest.mark.parametrize("case", PSI1_CASES[:2])
+def test_psi1_closed_form_matches_chunked_recompute(case, needs):
+    ins, g = _psi1_inputs(*case)
+    got = ps_ref.psi1_vjp_ref(*_t(ins), torch.from_numpy(g), list(needs))
+    want = ps_ops.psi1_vjp(*_t(ins), torch.from_numpy(g), list(needs))
+    for i, (t, w, need) in enumerate(zip(got, want, needs)):
+        assert (t is None) == (not need) == (w is None)
+        if need:
+            _close(t, w, rtol=1e-10, atol=1e-12, name=f"input {i}")
 
 
 @pytest.mark.parametrize("needs", NEEDS)
@@ -181,6 +243,12 @@ def test_absolute_closed_forms_bound_the_signed_ones():
     pins, g = _psi_inputs(20, 6, 2, "masked")
     signed = ps_ref.psi2_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 6)
     absol = ps_ref.psi2_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 6,
+                                absolute=True)
+    for s, a in zip(signed, absol):
+        assert bool((s.abs() <= a * (1 + 1e-12) + 1e-300).all())
+    pins, g = _psi1_inputs(20, 6, 2)
+    signed = ps_ref.psi1_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 5)
+    absol = ps_ref.psi1_vjp_ref(*_t(pins), torch.from_numpy(g), [True] * 5,
                                 absolute=True)
     for s, a in zip(signed, absol):
         assert bool((s.abs() <= a * (1 + 1e-12) + 1e-300).all())
@@ -232,6 +300,23 @@ def test_psi2_bwd_fake_shapes_and_flops(flags):
     assert counter.get_total_flops() == ps_ops.psi2_bwd_flops(n, m, q)
 
 
+@pytest.mark.parametrize("flags", [0, 1, 2, 3])
+def test_psi1_bwd_fake_shapes_and_flops(flags):
+    n, m, q = 4649, 150, 10
+    with FakeTensorMode():
+        ins = [torch.empty(()), torch.empty(q), torch.empty(m, q),
+               torch.empty(n, q), torch.empty(n, q)]
+        ins = [t.double() for t in ins]
+        with FlopCounterMode(display=False) as counter:
+            out = torch.ops.repro_torch.psi1_bwd(
+                *ins, torch.empty(n, m, dtype=torch.float64), flags)
+    shapes = [(), (q,), (m, q), (n, q) if flags & 1 else (0,),
+              (n, q) if flags & 2 else (0,)]
+    assert [tuple(t.shape) for t in out] == shapes
+    assert all(t.dtype == torch.float64 for t in out)
+    assert counter.get_total_flops() == ps_ops.psi1_bwd_flops(n, m, q)
+
+
 def test_functions_backward_through_the_operators_on_fake_tensors():
     """On fake tensors (the dry run) the Functions' backward calls the
     backward operators: gradients of the inputs asked for, with their
@@ -259,6 +344,12 @@ def test_functions_backward_through_the_operators_on_fake_tensors():
         psi = ps_ops.psi2(hyp, z, mu, s, w)
         gz, gmu = torch.autograd.grad(psi.sum(), [z, mu])
         assert gz.shape == (m, q) and gmu.shape == (n, q)
+        with FlopCounterMode(display=False) as counter:
+            p1 = ps_ops.psi1(hyp, z, mu, s)
+            gell, gmu = torch.autograd.grad(p1.sum(), [hyp["log_ell"], mu])
+        assert gell.shape == (q,) and gmu.shape == (n, q)
+        assert counter.get_flop_counts()["Global"][
+            torch.ops.repro_torch.psi1_bwd] == ps_ops.psi1_bwd_flops(n, m, q)
     assert (dict(rs_ops.LAUNCHES), dict(ps_ops.LAUNCHES)) == before
 
 
@@ -271,6 +362,38 @@ def test_reg_stats_bwd_plan_covers_every_row_tile_once(n, slots):
     covered = [t for s in range(n_slices)
                for t in range(s * per, min(tiles, (s + 1) * per))]
     assert covered == list(range(tiles))
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 512, 1000, 1024, 1030,
+                               2048, 46_400])
+def test_reg_stats_bwd_cluster_covers_every_column_tile_once(m):
+    """Block r of a cluster takes the column tiles g width + r over the
+    groups g: every 128-point tile of m once, a cluster at most
+    ``BWD_CLUSTER`` wide, and one group (knm built once) up to 1,024
+    points."""
+    width, groups = rs_k.bwd_cluster(m)
+    tiles = -(-m // rs_k.BWD_COLUMNS)
+    assert 1 <= width <= rs_k.BWD_CLUSTER and width <= tiles
+    covered = sorted(g * width + r for g in range(groups) for r in range(width)
+                     if g * width + r < tiles)
+    assert covered == list(range(tiles))
+    assert (groups == 1) == (m <= rs_k.BWD_CLUSTER * rs_k.BWD_COLUMNS)
+    assert rs_ops.bwd_flops(1, m, 8, 4) - rs_ops.bwd_flops(1, m, 8, 0) \
+        == 8 * m
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 4649, 100_000])
+@pytest.mark.parametrize("slots", [1, 264])
+def test_psi1_bwd_plan_covers_every_row_once(n, slots):
+    """Block b of psi1's backward takes the 32-row units b, b + blocks, ...:
+    every row once, at most ``slots`` blocks and at least one."""
+    blocks = ps_k.psi1_bwd_plan(n, slots)
+    assert 1 <= blocks <= max(1, slots)
+    units = -(-n // ps_k.P1_ROWS)
+    rows = sorted(r for b in range(blocks) for u in range(b, units, blocks)
+                  for r in range(u * ps_k.P1_ROWS,
+                                 min(n, (u + 1) * ps_k.P1_ROWS)))
+    assert rows == list(range(n))
 
 
 @pytest.mark.parametrize("n", [0, 1, 33, 4649, 100_000])
@@ -286,9 +409,22 @@ def test_psi2_bwd_plan_covers_every_row_once(n, slots):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_backward_shared_memory_is_fixed_and_fits(dtype):
     """One block's shared memory fits an sm_90 block (the f32 reg_stats
-    backward two a multiprocessor), whatever q and d."""
+    backward two a multiprocessor), whatever q and d; the redesigned
+    reg_stats backward's own knm tile (128 points x 64 rows) fits beside
+    its buffers; psi1's backward grows with m only up to one 256-column
+    tile, and its plan's blocks an SM fit at gplvm-usps (m 150)."""
     rs = rs_k.bwd_smem_bytes(dtype)
     ps = ps_k.psi2_bwd_smem_bytes(dtype)
     per_sm = rs_k.BWD_BLOCKS_PER_SM[dtype]
     assert (rs + 512) * per_sm <= rs_k.SMEM_LIMIT   # beside the exp table
+    item = torch.empty((), dtype=dtype).element_size()
+    own = rs_k.BWD_COLUMNS * (rs_k.BWD_ROWS + (4 if item == 8 else 0)) * item
+    assert own < rs < rs_k.SMEM_LIMIT - 512
     assert ps + 512 <= ps_k.SMEM_MAX
+    p1 = [ps_k.psi1_bwd_smem_bytes(m, q, dtype)
+          for m in (1, 150, 256, 257, 46_400) for q in (1, 10, 16, 17, 160)]
+    assert max(p1) + 512 <= ps_k.SMEM_MAX
+    assert ps_k.psi1_bwd_smem_bytes(256, 10, dtype) \
+        == ps_k.psi1_bwd_smem_bytes(46_400, 10, dtype)
+    usps = ps_k.psi1_bwd_smem_bytes(150, 10, dtype) + 512
+    assert usps * ps_k.P1B_BLOCKS_PER_SM <= ps_k.SMEM_MAX
