@@ -888,10 +888,13 @@ def time_backwards(bwd) -> None:
     checks (``bwd``: ``check_reg_stats_bwd`` at sgpr-synth-1m, hyper-
     parameters and z as the SGPR takes them; ``check_psi2_bwd`` and
     ``check_psi1_bwd`` at gplvm-usps and gplvm-synth-100k, every
-    gradient the GPLVM takes), one line each."""
+    gradient the GPLVM takes), one line each; psi2 and psi1 with their
+    device time and each launch's device microseconds."""
     for key, res in bwd.items():
+        more = "".join(f", {k} {res[k]}" for k in
+                       ("device_ms", "kernels_us", "yardstick_ms") if k in res)
         print(f"backward {key}: kernel {res['ms']:.4f} ms, chunked recompute "
-              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms",
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms{more}",
               flush=True)
 
 
@@ -972,22 +975,24 @@ def psi1_bwd_bound(n, m, q, dtype, peaks) -> tuple[float, str]:
 
 
 def check_psi1_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, timed,
-                   needs=(True,) * 5):
+                   needs=(True,) * 5, shift=0.0):
     """psi1's backward kernel (``torch.ops.repro_torch.psi1_bwd``, the
     Function's route) against the chunked recompute (``psi1_vjp``) on the
     same values in f64 (the kernel reads the log hyper-parameters in its
-    dtype too); bitwise on a second call.  Timed: the operator, the bare
-    launch on operands prepared once (``launch_only_ms``), its device time
-    (``device_ms``, bare launches from one CUDA graph) and split by
-    kernel (``kernels_us``), and the recompute, with ``needs`` (default:
-    every gradient, as the GPLVM takes them)."""
+    dtype too); bitwise on a second call; ``shift`` added to mu and z
+    (the offset case).  Timed: the operator, the bare launch on operands
+    prepared once (``launch_only_ms``), its device time (``device_ms``,
+    bare launches from one CUDA graph) and split by kernel
+    (``kernels_us``), and the recompute, with ``needs`` (default: every
+    gradient, as the GPLVM takes them)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.psi_stats import kernel as ps_k
 
     rng = np.random.default_rng(SEED + 9 + n + m)
     f64 = torch.float64
     ins = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
-           t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
+           t64(rng.standard_normal((m, q)) + shift),
+           t64(rng.standard_normal((n, q)) + shift),
            t64(rng.uniform(0.05, 1.0, (n, q)))]
     kin = [t.to(dtype) for t in ins]
     kg = t64(rng.standard_normal((n, m))).to(dtype)
@@ -1006,8 +1011,8 @@ def check_psi1_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, timed,
     again = [t if need else None for t, need in zip(again, needs)]
     plain = ps_ops.psi1_vjp(*pin, pg, list(needs))
     plain_abs = ps_ref.psi1_vjp_ref(*pin, pg, list(needs), absolute=True)
-    label = f"psi1_bwd {dtype} n={n} m={m} q={q}"
-    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype),
+    label = f"psi1_bwd {dtype} n={n} m={m} q={q} shift={shift}"
+    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype), "shift": shift,
            "needs": list(needs),
            "max_abs_err": hold_backward(label, got, again, plain, plain_abs,
                                         dtype)}
@@ -1092,18 +1097,26 @@ def check_reg_stats_bwd(rs_ops, rs_ref, peaks, n, m, q, d, dtype, masked,
 
 
 def check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed,
-                   needs=(True, True, True, True, True, False)):
+                   needs=(True, True, True, True, True, False), shift=0.0):
     """psi2's backward kernel (``torch.ops.repro_torch.psi2_bwd``) against
     the chunked recompute (``psi2_vjp``) on the same values in f64, for a
-    non-symmetric cotangent; bitwise on a second call.  Timed: the kernel
-    and the recompute with ``needs`` (default: the GPLVM's,
-    hyper-parameters, z, mu and s)."""
+    non-symmetric cotangent; bitwise on a second call; ``shift`` added to
+    mu and z (the offset case: the kernel expands (mu - zbar)^2 after
+    centring).  Timed, with ``needs`` (default: the GPLVM's,
+    hyper-parameters, z, mu and s): the operator, the bare launch on
+    operands prepared once (``launch_only_ms``), its device time
+    (``device_ms``, bare launches from one CUDA graph), split by kernel
+    (``kernels_us``, each launch's device microseconds), the recompute,
+    and cuBLAS's f64 ``F Zb^T`` ((n, pairs) by (pairs, 2q), one of the
+    kernel's three products: a yardstick, not the function)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.psi_stats import kernel as ps_k
 
     rng = np.random.default_rng(SEED + 7 + n + m)
     f64 = torch.float64
     ins = [t64(rng.uniform(-0.5, 0.8)), t64(np.full(q, 0.5 * np.log(q))),
-           t64(rng.standard_normal((m, q))), t64(rng.standard_normal((n, q))),
+           t64(rng.standard_normal((m, q)) + shift),
+           t64(rng.standard_normal((n, q)) + shift),
            t64(rng.uniform(0.05, 1.0, (n, q))),
            t64(rng.uniform(size=n) > 0.15) if masked
            else torch.ones(n, dtype=f64, device=DEV)]
@@ -1125,8 +1138,8 @@ def check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed,
     again = [t if need else None for t, need in zip(again, needs)]
     plain = ps_ops.psi2_vjp(*pin, pg, list(needs))
     plain_abs = ps_ref.psi2_vjp_ref(*pin, pg, list(needs), absolute=True)
-    label = f"psi2_bwd {dtype} n={n} m={m} q={q}"
-    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype),
+    label = f"psi2_bwd {dtype} n={n} m={m} q={q} shift={shift}"
+    out = {"shape": dict(n=n, m=m, q=q), "dtype": str(dtype), "shift": shift,
            "needs": list(needs),
            "max_abs_err": hold_backward(label, got, again, plain, plain_abs,
                                         dtype)}
@@ -1135,9 +1148,22 @@ def check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed,
         out["ms"] = time_ms(kernel)
         out["plain_ms"] = time_ms(
             lambda: ps_ops.psi2_vjp(*pin, pg, list(needs)), reps=3)
+        args = ps_ops.psi2_bwd_launch_args(*kin, kg, flags,
+                                           _build.sm_count(kg.device))
+
+        def bare():
+            ps_k.psi2_bwd(*args)
+        out["launch_only_ms"] = time_ms(bare)
+        out["device_ms"] = graph_ms(bare)
+        out["kernels_us"] = kernel_split(bare)
+        del args
+        pairs = m * (m + 1) // 2
+        fm = torch.randn((n, pairs), dtype=f64, device=DEV)
+        zb = torch.randn((pairs, 2 * q), dtype=f64, device=DEV)
+        out["yardstick_ms"] = time_ms(lambda: torch.matmul(fm, zb))
+        del fm, zb
         out["bound_ms"], out["bound_by"] = psi2_bwd_bound(n, m, q, dtype,
                                                           peaks)
-        out["kernels_us"] = kernel_split(kernel)
     print(f"psi2_bwd {out}", flush=True)
     return out
 
@@ -1145,12 +1171,14 @@ def check_psi2_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype, masked, timed,
 def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
                     synth) -> dict:
     """Phase 2's backward kernels: each instantiation at full width
-    against the chunked recompute (timed at sgpr-synth-1m and gplvm-usps,
-    psi2 held and psi1 timed at gplvm-synth-100k), then untimed with
-    every input's gradient asked for at ragged shapes (m off the 128- and
-    64-point tiles, m past the reg_stats cluster's 1,024 points and
-    psi1's 256-column tile, q past one 16-feature chunk, d past 8, n below
-    one row tile, masked rows).  Returns the timed results by label."""
+    against the chunked recompute (timed at sgpr-synth-1m, gplvm-usps and
+    gplvm-synth-100k), then untimed with every input's gradient asked for
+    at ragged shapes (m off the 128-point tiles and psi2's 8-point
+    patches, m past the reg_stats cluster's 1,024 points and psi1's
+    256-column tile, q past one 16-feature chunk, d past 8, n below one
+    row tile, masked rows) and at gplvm-usps's shape with mu and z
+    shifted by +100 (psi2 and psi1).  Returns the timed results by
+    label."""
     out = {}
     every = (True,) * 6
     for dtype in (torch.float32, torch.float64):
@@ -1162,8 +1190,12 @@ def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
         out[f"psi2 {tag} {usps.name}"] = check_psi2_bwd(
             ps_ops, ps_ref, peaks, usps.n, usps.m, usps.q, dtype,
             masked=False, timed=True)
-        check_psi2_bwd(ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q,
-                       dtype, masked=False, timed=False)
+        out[f"psi2 {tag} {synth.name}"] = check_psi2_bwd(
+            ps_ops, ps_ref, peaks, synth.n, synth.m, synth.q, dtype,
+            masked=False, timed=True)
+        check_psi2_bwd(ps_ops, ps_ref, peaks, usps.n, usps.m, usps.q, dtype,
+                       masked=True, timed=False, needs=(True,) * 6,
+                       shift=100.0)
         for n, m, q, d in ((100_003, 130, 3, 5), (20_011, 257, 20, 9),
                            (77, 64, 8, 1), (5_003, 2_048, 8, 4),
                            (3_001, 1_030, 3, 2)):
@@ -1182,6 +1214,8 @@ def check_backwards(rs_ops, rs_ref, ps_ops, ps_ref, peaks, sgpr, usps,
                         (2_001, 63, 2), (1, 1, 1)):
             check_psi1_bwd(ps_ops, ps_ref, peaks, n, m, q, dtype,
                            timed=False)
+        check_psi1_bwd(ps_ops, ps_ref, peaks, usps.n, usps.m, usps.q, dtype,
+                       timed=False, shift=100.0)
         torch.cuda.empty_cache()
     return out
 

@@ -23,15 +23,19 @@
 // at gplvm-usps) against ~10q + 4 flops and one exp an entry; at
 // gplvm-usps the work is microseconds and the launch dominates.  The
 // design:
-//   * Units of P1R = 32 rows (the forward's largest), walked grid-stride by
-//     at most one block an SM (the plan's; f64 takes 194 registers); a unit takes every column, in tiles of up
-//     to P1C = 256 (all of m <= 256 in one).  Per tile the block forms E
-//     once, in shared memory: the exponent in the direct form (the
-//     forward's), one exp (f64 the forward's branch-free exp_pair, f32 one
-//     ex2.approx), times g, read once and coalesced.  Then
+//   * Units of `rows` rows, a multiple of 8 up to P1R = 32, sized by the
+//     plan so that the units fill the blocks in flight (two an SM while
+//     the E tile fits twice) in one wave where n allows; blocks walk them
+//     grid-stride.  A unit takes every column, in tiles of up to P1C = 256
+//     (all of m <= 256 in one).  Per tile the block forms E once, in
+//     shared memory: the exponent in the direct form (the forward's), one
+//     exp (f64 the forward's branch-free exp_pair, f32 one ex2.approx),
+//     times g, read once and coalesced.  Then, feature by feature (no
+//     per-feature registers: two blocks an SM fit the register file)
 //       - by rows: 8 threads a row, each every 8th column, sum E, E r and
-//         E r^2 per feature in registers across the tiles; a butterfly over
-//         the 8 adds them in a fixed order.  The row outputs follow, d mu =
+//         E r^2 over the tile; a butterfly over the 8 adds them in a fixed
+//         order, and the row's lane adds them, tile after tile, into the
+//         unit's row sums in shared memory.  The row outputs follow, d mu =
 //         -a sum E r and d s = a (a sum E r^2 - sum E) / 2, written by the
 //         block that owns the row; the rows' terms of d log_ell and
 //         d log_sf2 are added in row order into the block's partials;
@@ -39,8 +43,9 @@
 //         adds it into the block's partial of d z.
 //     The E tile's row stride is 8 mod 16 elements, so the row pass's
 //     loads (4 rows x 8 columns a warp) hit distinct banks.
-//   * The blocks' partials (f64) are summed over the blocks in a fixed
-//     order by a second kernel.  No atomics: bitwise repeatable.
+//   * The blocks' partials (f64, one scratch allocation) are summed over
+//     the blocks in a fixed order by a second kernel, 8 warps an output
+//     tile.  No atomics: bitwise repeatable.
 //   * Any n, m and q: features are taken QC = 16 at a time in the row and
 //     column passes (one pass for q <= 16, every config of the repo; past
 //     that E is formed again for each chunk).  With q <= 16 (STAGED) the
@@ -58,7 +63,7 @@
 namespace {
 
 constexpr int NT = 256;   // threads per block
-constexpr int P1R = 32;   // rows per unit
+constexpr int P1R = 32;   // rows per unit, at most
 constexpr int P1C = 256;  // columns per tile
 constexpr int QC = 16;    // features a pass
 constexpr int QP = QC + 1;  // staged row stride (odd: no conflicts)
@@ -140,22 +145,23 @@ __device__ __forceinline__ T row_sum(T v) {
 __host__ __device__ constexpr int etl(int nc) { return (nc + 7) / 16 * 16 + 8; }
 
 // Shared memory of one block, in elements: the E tile, z of a tile, the
-// rows' mu, s and a, l^2 (STAGED); the log-normalisers and the rows' terms.
+// rows' mu, s and a, l^2 (STAGED); the log-normalisers, the rows' terms and
+// the rows' sums of E, E r and E r^2.
 __host__ __device__ constexpr int smem_elems(int m, bool staged) {
   return P1R * etl(m < P1C ? m : P1C)
          + (staged ? (m < P1C ? m : P1C) * QP + 3 * P1R * QP + QC : 0)
-         + P1R + P1R * QP;
+         + P1R + P1R * QP + P1R + 2 * P1R * QP;
 }
 
-// Blocks walk units of P1R rows, unit blk, blk + gridDim.x, ...  Partials
-// (f64) of this block: part_z (m, q), part_ell (q), part_sf2 (1).  flags: 1
-// d mu, 2 d s.
+// Blocks walk units of `rows` rows, unit blk, blk + gridDim.x, ...
+// Partials (f64) of this block: part_z (m, q), part_ell (q), part_sf2 (1).
+// flags: 1 d mu, 2 d s.
 template <typename T, bool STAGED>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
             const T* __restrict__ z, const T* __restrict__ log_sf2,
             const T* __restrict__ log_ell, const T* __restrict__ g, int n,
-            int m, int q, int flags, double* __restrict__ part_z,
+            int m, int q, int rows, int flags, double* __restrict__ part_z,
             double* __restrict__ part_ell, double* __restrict__ part_sf2,
             T* __restrict__ dmu, T* __restrict__ ds) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -170,6 +176,9 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   T* l2s = as + (STAGED ? P1R * QP : 0);           // [QC]         l^2
   T* lns = l2s + (STAGED ? QC : 0);                // [P1R]        log-normaliser
   T* rowv = lns + P1R;                             // [P1R][QP]    the rows' terms
+  T* rs0 = rowv + P1R * QP;                        // [P1R]        sum E
+  T* rs1 = rs0 + P1R;                              // [P1R][QP]    sum E r
+  T* rs2 = rs1 + P1R * QP;                         // [P1R][QP]    sum E r^2
 
   const int tid = threadIdx.x, blk = blockIdx.x;
   if (tid < 64) e2f[tid] = kExp2Frac[tid];
@@ -196,10 +205,11 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   };
 
   const int ri = tid / RP, rp = tid % RP;  // row pass: row ri, columns rp + 8k
-  const long n_units = ((long)n + P1R - 1) / P1R;
+  const long n_units = ((long)n + rows - 1) / rows;
   for (long unit = blk; unit < n_units; unit += gridDim.x) {
-    const long r0 = unit * P1R;
-    const int nr = (int)min((long)P1R, (long)n - r0);
+    const long r0 = unit * rows;
+    const int nr = (int)min((long)rows, (long)n - r0);
+    const bool rok = ri < nr;
     __syncthreads();  // the previous unit is done with the staged rows
     if (STAGED)
       for (int e = tid; e < nr * q; e += NT) {
@@ -216,12 +226,8 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
       for (int f = 0; f < q; ++f) acc += log1p_t(sv(r0, tid, f) / l2f(f));
       lns[tid] = T(-0.5) * acc;
     }
-    T a0 = T(0);  // the row's sum E, over every tile (the first chunk)
     for (int f0 = 0; f0 < q; f0 += QC) {
       const int fw = min(QC, q - f0);
-      T a1[QC], a2[QC];
-#pragma unroll
-      for (int f = 0; f < QC; ++f) a1[f] = a2[f] = T(0);
       for (int c0 = 0; c0 < m; c0 += P1C) {
         const int nc = min(P1C, m - c0);
         __syncthreads();  // the last tile's passes are done with et and zs
@@ -236,6 +242,7 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
         {
           int i = tid / nc, j = tid % nc;
           const int si = NT / nc, sj = NT % nc;
+#pragma unroll 4
           for (int e = tid; e < nr * nc; e += NT) {
             T ex = T(0);
             if (STAGED) {
@@ -259,61 +266,58 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
           }
         }
         __syncthreads();
-        // by rows: sum E, E r and E r^2 of the chunk's features
-        if (ri < nr)
-          for (int j = rp; j < nc; j += RP) {
-            const T ev = et[ri * ld + j];
-            if (f0 == 0) a0 += ev;
-#pragma unroll
-            for (int f = 0; f < QC; ++f)
-              if (f < fw) {
-                const T dv = muv(r0, ri, f0 + f) - zv(c0, j, f0 + f);
-                const T t = ev * dv;
-                a1[f] += t;
-                a2[f] = fma(t, dv, a2[f]);
-              }
-          }
-        // by columns: sum_i E r a into the block's partial of d z
-        for (int j = tid; j < nc; j += NT) {
-          T zj[QC], dz[QC];
-#pragma unroll
-          for (int f = 0; f < QC; ++f) {
-            zj[f] = f < fw ? zv(c0, j, f0 + f) : T(0);
-            dz[f] = T(0);
-          }
-          for (int i = 0; i < nr; ++i) {
-            const T ev = et[i * ld + j];
-#pragma unroll
-            for (int f = 0; f < QC; ++f)
-              if (f < fw) {
-                const T dv = muv(r0, i, f0 + f) - zj[f];
-                dz[f] = fma(ev * dv, av(r0, i, f0 + f), dz[f]);
-              }
-          }
-#pragma unroll
-          for (int f = 0; f < QC; ++f)
-            if (f < fw) pz[(size_t)(c0 + j) * q + f0 + f] += (double)dz[f];
+        // by rows, feature by feature: the 8 lanes of a row sum their
+        // columns, a butterfly adds them, the row's lane adds the tile's
+        // sums into the unit's (every lane shuffles: rows past nr add 0)
+        if (f0 == 0) {
+          T s0 = T(0);
+          if (rok)
+            for (int j = rp; j < nc; j += RP) s0 += et[ri * ld + j];
+          s0 = row_sum(s0);
+          if (rp == 0 && rok) rs0[ri] = c0 == 0 ? s0 : rs0[ri] + s0;
         }
-      }
-      // The 8 threads of a row add their sums; the row's outputs and terms.
-      if (f0 == 0) a0 = row_sum(a0);
-#pragma unroll
-      for (int f = 0; f < QC; ++f) {
-        a1[f] = row_sum(a1[f]);
-        a2[f] = row_sum(a2[f]);
-      }
-      if (rp == 0 && ri < nr) {
-        const size_t row = (size_t)(r0 + ri);
-#pragma unroll
-        for (int f = 0; f < QC; ++f)
-          if (f < fw) {
-            const T a = av(r0, ri, f0 + f);
-            if (flags & 1) dmu[row * q + f0 + f] = -a * a1[f];
-            if (flags & 2) ds[row * q + f0 + f] = T(0.5) * a * fma(a, a2[f], -a0);
-            rowv[ri * QP + f] = sv(r0, ri, f0 + f) * a * a0 + l2f(f0 + f) * a * a * a2[f];
+        for (int f = 0; f < fw; ++f) {
+          T t1 = T(0), t2 = T(0);
+          if (rok) {
+            const T mv = muv(r0, ri, f0 + f);
+            for (int j = rp; j < nc; j += RP) {
+              const T dv = mv - zv(c0, j, f0 + f);
+              const T t = et[ri * ld + j] * dv;
+              t1 += t;
+              t2 = fma(t, dv, t2);
+            }
           }
-        if (f0 == 0) rowv[ri * QP + QC] = a0;
+          t1 = row_sum(t1);
+          t2 = row_sum(t2);
+          if (rp == 0 && rok) {
+            rs1[ri * QP + f] = c0 == 0 ? t1 : rs1[ri * QP + f] + t1;
+            rs2[ri * QP + f] = c0 == 0 ? t2 : rs2[ri * QP + f] + t2;
+          }
+        }
+        // by columns: sum_i E r a into the block's partial of d z
+        for (int j = tid; j < nc; j += NT)
+          for (int f = 0; f < fw; ++f) {
+            const T zj = zv(c0, j, f0 + f);
+            T dz = T(0);
+            for (int i = 0; i < nr; ++i) {
+              const T dv = muv(r0, i, f0 + f) - zj;
+              dz = fma(et[i * ld + j] * dv, av(r0, i, f0 + f), dz);
+            }
+            pz[(size_t)(c0 + j) * q + f0 + f] += (double)dz;
+          }
       }
+      __syncthreads();  // the rows' sums
+      // the row outputs and the rows' terms, a thread a (row, feature)
+      for (int e = tid; e < nr * fw; e += NT) {
+        const int i = e / fw, f = e % fw;
+        const size_t row = (size_t)(r0 + i);
+        const T a = av(r0, i, f0 + f), a0 = rs0[i], a2 = rs2[i * QP + f];
+        if (flags & 1) dmu[row * q + f0 + f] = -a * rs1[i * QP + f];
+        if (flags & 2) ds[row * q + f0 + f] = T(0.5) * a * fma(a, a2, -a0);
+        rowv[i * QP + f] = sv(r0, i, f0 + f) * a * a0 + l2f(f0 + f) * a * a * a2;
+      }
+      if (f0 == 0)
+        for (int i = tid; i < nr; i += NT) rowv[i * QP + QC] = rs0[i];
       __syncthreads();
       if (tid < fw) {  // d log_ell's rows' terms, in row order
         double acc = 0.0;
@@ -329,34 +333,42 @@ psi1b_tiles(const T* __restrict__ mu, const T* __restrict__ s,
   }
 }
 
-// Fixed-order f64 sums of the blocks' partials.
+// Fixed-order f64 sums of the blocks' partials: a block sums 32
+// consecutive outputs (of d z, then d log_ell, then d log_sf2), its warp w
+// the partials w, w + 8, ..., then warp 0 adds the 8 warps' sums in order.
 __global__ void psi1b_reduce(const double* __restrict__ part_z,
                              const double* __restrict__ part_ell,
                              const double* __restrict__ part_sf2,
                              int n_blocks, int m, int q,
                              double* __restrict__ dz, double* __restrict__ dell,
                              double* __restrict__ dsf2) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long mq = (long)m * q;
+  __shared__ double sh[8][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long e = (long)blockIdx.x * 32 + lane;
+  const long mq = (long)m * q, total = mq + q + 1;
+  const double* src = e < mq ? part_z + e : e < mq + q ? part_ell + (e - mq) : part_sf2;
+  const long stride = e < mq ? mq : e < mq + q ? q : 1;
   double acc = 0.0;
-  if (e < mq) {
-    for (int b = 0; b < n_blocks; ++b) acc += part_z[(size_t)b * mq + e];
-    dz[e] = acc;
-  } else if (e < mq + q) {
-    for (int b = 0; b < n_blocks; ++b) acc += part_ell[(size_t)b * q + (e - mq)];
-    dell[e - mq] = acc;
-  } else if (e == mq + q) {
-    for (int b = 0; b < n_blocks; ++b) acc += part_sf2[b];
-    *dsf2 = acc;
+  if (e < total) {
+#pragma unroll 4
+    for (int b = w; b < n_blocks; b += 8) acc += src[(size_t)b * stride];
+  }
+  sh[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && e < total) {
+    double t = 0.0;
+    for (int k = 0; k < 8; ++k) t += sh[k][lane];
+    if (e < mq) dz[e] = t;
+    else if (e < mq + q) dell[e - mq] = t;
+    else *dsf2 = t;
   }
 }
 
 template <typename T>
 int launch(const T* mu, const T* s, const T* z, const T* log_sf2,
            const T* log_ell, const T* g, int n, int m, int q, int n_blocks,
-           int flags, double* part_z, double* part_ell, double* part_sf2,
-           double* dz, double* dell, double* dsf2, T* dmu, T* ds,
-           void* stream) {
+           int rows, int flags, double* scratch, double* dz, double* dell,
+           double* dsf2, T* dmu, T* ds, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool staged = q <= QC;
   auto kernel = staged ? psi1b_tiles<T, true> : psi1b_tiles<T, false>;
@@ -372,13 +384,16 @@ int launch(const T* mu, const T* s, const T* z, const T* log_sf2,
     if (err != cudaSuccess) return err;
     if (dev < 64) ready[dev][staged] = true;
   }
+  double* part_z = scratch;
+  double* part_ell = part_z + (size_t)n_blocks * m * q;
+  double* part_sf2 = part_ell + (size_t)n_blocks * q;
   kernel<<<(unsigned)n_blocks, NT, smem_elems(m, staged) * sizeof(T), st>>>(
-      mu, s, z, log_sf2, log_ell, g, n, m, q, flags, part_z, part_ell,
+      mu, s, z, log_sf2, log_ell, g, n, m, q, rows, flags, part_z, part_ell,
       part_sf2, dmu, ds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long total = (long)m * q + q + 1;
-  psi1b_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+  psi1b_reduce<<<(unsigned)((total + 31) / 32), 256, 0, st>>>(
       part_z, part_ell, part_sf2, n_blocks, m, q, dz, dell, dsf2);
   return cudaGetLastError();
 }
@@ -389,29 +404,27 @@ static_assert(smem_elems(P1C, true) * sizeof(double) <= 232448 - 512,
 }  // namespace
 
 // mu, s (n, q), z (m, q), log_sf2 (), log_ell (q,), g (n, m): contiguous,
-// one dtype.  n_blocks blocks (at least one) walk the 32-row units.
-// Scratch (f64): part_z (n_blocks, m, q), part_ell (n_blocks, q), part_sf2
-// (n_blocks).  Outputs (f64): dz (m, q), dell (q), dsf2 (); when flags asks
-// (1, 2), dmu and ds (n, q) in the input dtype.  Any n, m and q.  Returns
-// cudaGetLastError().
+// one dtype.  n_blocks blocks (at least one) walk the units of `rows` rows
+// (a multiple of 8, at most 32).  scratch (f64): part_z (n_blocks, m, q),
+// part_ell (n_blocks, q), part_sf2 (n_blocks).  Outputs (f64): dz (m, q),
+// dell (q), dsf2 (); when flags asks (1, 2), dmu and ds (n, q) in the input
+// dtype.  Any n, m and q.  Returns cudaGetLastError().
 extern "C" int psi1_bwd_f64(const double* mu, const double* s, const double* z,
                             const double* log_sf2, const double* log_ell,
                             const double* g, int n, int m, int q, int n_blocks,
-                            int flags, double* part_z, double* part_ell,
-                            double* part_sf2, double* dz, double* dell,
-                            double* dsf2, double* dmu, double* ds, void* stream) {
-  return launch<double>(mu, s, z, log_sf2, log_ell, g, n, m, q, n_blocks, flags,
-                        part_z, part_ell, part_sf2, dz, dell, dsf2, dmu, ds,
-                        stream);
+                            int rows, int flags, double* scratch, double* dz,
+                            double* dell, double* dsf2, double* dmu, double* ds,
+                            void* stream) {
+  return launch<double>(mu, s, z, log_sf2, log_ell, g, n, m, q, n_blocks, rows,
+                        flags, scratch, dz, dell, dsf2, dmu, ds, stream);
 }
 
 extern "C" int psi1_bwd_f32(const float* mu, const float* s, const float* z,
                             const float* log_sf2, const float* log_ell,
                             const float* g, int n, int m, int q, int n_blocks,
-                            int flags, double* part_z, double* part_ell,
-                            double* part_sf2, double* dz, double* dell,
-                            double* dsf2, float* dmu, float* ds, void* stream) {
-  return launch<float>(mu, s, z, log_sf2, log_ell, g, n, m, q, n_blocks, flags,
-                       part_z, part_ell, part_sf2, dz, dell, dsf2, dmu, ds,
-                       stream);
+                            int rows, int flags, double* scratch, double* dz,
+                            double* dell, double* dsf2, float* dmu, float* ds,
+                            void* stream) {
+  return launch<float>(mu, s, z, log_sf2, log_ell, g, n, m, q, n_blocks, rows,
+                       flags, scratch, dz, dell, dsf2, dmu, ds, stream);
 }

@@ -6,56 +6,62 @@
 //                   exp(-(z_jq - z_kq)^2 / (4 l_q^2) - r^2 / (l_q^2 + 2 s_nq)),
 //     r = mu_nq - (z_jq + z_kq) / 2   (summed over q in the exponent),
 //
-// for the cotangent g (m, m).  With F_njk = w_n g_jk psi_n[j, k] and
-// D_nq = l_q^2 + 2 s_nq:
-//
-//     d mu_nq     = -2 sum_jk F r / D
-//     d s_nq      = sum_jk F (2 r^2 / D^2 - 1 / D)
-//     d z_jq      = sum_nk (F_njk + F_nkj) (r / D - (z_jq - z_kq) / (2 l_q^2))
-//     d log_ell_q = 2 l_q^2 sum F (s / (l_q^2 D) + (z_jq - z_kq)^2 / (4 l_q^4)
-//                                  + r^2 / D^2)
-//     d log_sf2   = 2 sum F
-//     d w_n       = sum_jk g_jk psi_n[j, k]
-//
-// (kernels/psi_stats/ref.py::psi2_vjp_ref states the same function).
+// for the cotangent g (m, m) (kernels/psi_stats/ref.py::psi2_vjp_ref
+// states the closed form).
 //
 // Replaces the backward of the TPU kernel's custom_vjp,
-// src/repro/kernels/psi_stats/ops.py:56 (jax.vjp of gp_kernels.psi2_mxu,
-// the recompute through XLA); the port recomputed the plain version under
-// autograd in row chunks.
+// src/repro/kernels/psi_stats/ops.py:56: jax.vjp of gp_kernels.psi2_mxu,
+// which writes the exponent as E[n, p] = alpha_n + M_n . Zb_p + static_p
+// over the upper pairs p = (j <= k).  This kernel computes that VJP the
+// same way (ref.py::psi2_vjp_products is its arithmetic in plain torch):
 //
-// What bounds it on the H100: operations, O(n m^2 q) like the forward: per
-// (row, pair) the exponent (q features), one exp and, per feature, the
-// products of F with r and r^2.  The design:
-//   * Only the pairs the forward walks: psi_n is symmetric, so the pair
-//     (j < k) carries g_jk + g_kj and the diagonal g_jj, walked as the
-//     forward's upper 4 x 4 patches of 64 x 64 tiles (kernels/psi_stats.cu).
-//   * A block owns a slice of rows and walks every tile for them, so the
-//     per-row sums (sum F, sum g psi, and per feature sum F r and sum F r^2)
-//     are owned by the block: each row's are summed over the block's
-//     threads (a warp butterfly, then the warps in order) and added into
-//     its row accumulators in device memory, tile after tile.  The row
-//     outputs and the rows' parts of d log_ell and d log_sf2 follow from
-//     those sums (D, s) in a second pass.
-//   * The per-point sums of d z (sum over rows and partners of F r / D)
-//     are kept in registers per thread, for its patch's 4 + 4 points and
-//     QB = 4 features at a time: the features go in passes over the rows,
-//     the exponent recomputed in each (q = 10 takes three).  After a pass
-//     the threads' sums, with the static term (sum over rows of F, per
-//     pair, times (z_j - z_k) / (2 l^2)), go through shared memory and
-//     are added point by point over the threads that hold the point, in a
-//     fixed order.
-//   * Every sum has a fixed order and an owner: the rows' accumulators and
-//     the slices' partials of d z and d log_ell (f64) are summed in a
-//     fixed order by the last kernel.  No atomics: bitwise repeatable.
-//   * The exponent and r in the direct form (r itself, never expanded in
-//     mu^2 or z^2), exp as the forward's (f64: its branch-free exp_pair).
-//   * Ragged edges: z comes zero-padded to a multiple of 64 rows; pairs
-//     past m or below the diagonal carry a zero cotangent, so they add
-//     exactly zero, and their points are never written.
-//   * Shared memory is fixed: with q <= QC = 16 (STAGED, every config of
-//     the repo) z, mu and 1/D are staged in shared memory; past that they
-//     are read from device memory (L1), the slow but general path.
+//     A = [2 mu'/D, -1/D (feature by feature), alpha, 1]     (n, 2q + 2)
+//     B = [zbar', zbar'^2 (feature by feature), 1, static]  (pairs, 2q + 2)
+//     E = A B^T,  G = sf2^2 g_p exp(E),  F = w G
+//     H = G B     the rows' sums: sum G zbar', sum G zbar'^2, sum G
+//     Q = F^T A   the pairs' sums: sum F 2 mu'/D, -sum F / D, ., sum F
+//
+// with D = l^2 + 2 s, mu' = mu - c and zbar' = (z_j + z_k) / 2 - c for c the
+// mean of z, alpha = -1/2 sum log1p(2 s / l^2) - sum mu'^2 / D, static =
+// -1/4 sum (z_j - z_k)^2 / l^2 and g_p = g_jk + g_kj (g_jj on the
+// diagonal).  The gradients of mu, s, w, log_ell and log_sf2 follow per row
+// from H, those of z and log_ell's static part per pair from Q.
+//
+// What bounds it on the H100: operations, O(n m^2 q): the three products
+// (2 (2q + 2) FLOPs each a (row, pair)) and one exp a (row, pair).  The
+// design:
+//   * Each (row, pair)'s exponent and exp are formed once, whatever q: E
+//     accumulates over the column chunks of A and B, G stays in registers
+//     for H and goes to shared memory as F for Q.
+//   * The products run on the FP64 tensor cores (mma.sync m16n8k4 f64,
+//     DMMA: Hopper has no f64 wgmma).  H takes its A operand straight
+//     from E's accumulators: a lane's two columns of an 8-pair tile are
+//     two k-steps of H's product (the pairs' order within k is free).
+//   * The centre c cancels in E (the VJP is invariant to it, as the
+//     forward's centred exponent), so the expansion of (mu' - zbar')^2
+//     cancels no more than the spread of z and mu allows.
+//   * Work items are (64-row tile, 8 x 8-point patch of the upper pairs),
+//     row tile major; block b takes items [b T / S, (b + 1) T / S) of the
+//     T, with S = two blocks an SM (one past q 15), so every SM gets an
+//     equal share of the 4,096-slot items.  Only the diagonal patches
+//     carry pairs below the diagonal (zero cotangent), 7 / m of the slots.
+//   * Every sum has an owner and a fixed order, no atomics (bitwise
+//     repeatable): H accumulates in registers over a row tile's patches
+//     and goes to the block's partial of that row tile (two halves, one a
+//     warp row), summed over the blocks in order by psi2b_rows_out; Q is
+//     complete after the item (k = its 64 rows), turned into point sums
+//     (8 pairs a point and feature, a thread each) and added into the
+//     block's partial of d z and d log_ell, summed in order by
+//     psi2b_reduce.
+//   * Any n, m and q: rows past n and points past m are masked (zero G,
+//     never written); past q 15 (WIDE) A and B are staged 32 columns at a
+//     time, E over the chunks, H and Q chunk by chunk in reverse order
+//     (the static column's chunk first), H added into the partial after
+//     each item.  Shared memory is fixed.
+//   * f32 inputs are computed in f64 (the same template; the tensor
+//     cores' f32 path is TF32) and their row outputs rounded to f32.
+//   * The hyper-parameters are read as the log values the caller holds,
+//     on the card; ragged m is masked in the kernel.
 //
 // C interface, bound with ctypes from
 // src/repro_torch/kernels/psi_stats/kernel.py.
@@ -63,13 +69,13 @@
 
 namespace {
 
-constexpr int TM = 64;   // tile edge (the forward's)
-constexpr int PP = 4;    // patch edge
-constexpr int RC = 32;   // rows staged per chunk
-constexpr int NT = 256;  // threads per block
-constexpr int QC = 16;   // features staged
-constexpr int QB = 4;    // features a pass
-constexpr int NV = 2 * QB + 2;  // a row's sums: F r (QB), F r^2 (QB), F, g psi
+constexpr int RT = 64;       // rows a tile
+constexpr int PB = 8;        // patch edge: an item's pairs are 8 x 8 points
+constexpr int PT = PB * PB;  // pairs an item
+constexpr int NT = 256;      // threads per block, 8 warps
+constexpr int KC = 32;       // columns of A and B a chunk (16 features)
+constexpr int LDA = KC + 4;  // row stride of A's and Q's tiles (4 mod 16)
+constexpr int LDB = PT + 4;  // row stride of B's and F's tiles (4 mod 16)
 
 // 2^(j/32), j = 0..31, as hi + lo (the forward's table, psi_stats.cu).
 __constant__ double kExp2Frac[64] = {
@@ -90,8 +96,7 @@ __constant__ double kExp2Frac[64] = {
     0x1.7a1cd345dcc81p-54, -0x1.5584f7e54ac3bp-56, 0x1.11065895048ddp-55, 0x1.503cbd1e949dbp-56,
     0x1.2ed02d75b3707p-55, -0x1.1a5cd4f184b5cp-54, -0x1.e9c23179c2893p-54, 0x1.9d3e12dd8a18bp-54};
 
-// The forward's exp (psi_stats.cu::exp_pair): f64 branch-free, f32 expf.
-__device__ __forceinline__ float exp_pair(float x, const double*) { return expf(x); }
+// The forward's exp (psi_stats.cu::exp_pair): f64, branch-free.
 __device__ __forceinline__ double exp_pair(double x, const double* tab) {
   constexpr double kShift = 0x1.8p+52;
   constexpr double kInvLn2_32 = 0x1.71547652b82fep+5;
@@ -115,389 +120,452 @@ __device__ __forceinline__ double exp_pair(double x, const double* tab) {
            * __hiloint2double((m - m1 + 1023) << 20, 0);
 }
 
-__device__ __forceinline__ float log1p_t(float v) { return log1pf(v); }
-__device__ __forceinline__ double log1p_t(double v) { return log1p(v); }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// c (16 x 8) += a (16 x 4) b (4 x 8) in f64.  Lane l holds a[l/4][l%4] and
+// a[l/4 + 8][l%4], b[l%4][l/4], c[l/4 (+8)][2(l%4) + {0, 1}].
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-__host__ __device__ __forceinline__ int patch_index(int pa, int pb, int np) {
-  return pa * np - pa * (pa - 1) / 2 + (pb - pa);
-}
-
-// Per row: the log-normaliser -1/2 sum_q log1p(2 s / l^2) and 1/D =
-// 1/(l^2 + 2 s).  hp = [sf2^2, l^2 (q)].
-template <typename T>
-__global__ void psi2b_rows(const T* __restrict__ s, const T* __restrict__ hp,
-                           int n, int q, T* __restrict__ lns,
-                           T* __restrict__ ivs) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  T acc = T(0);
-  for (int k = 0; k < q; ++k) {
-    const T sk = s[i * q + k];
-    acc += log1p_t(T(2) * sk / hp[1 + k]);
-    ivs[i * q + k] = T(1) / (hp[1 + k] + T(2) * sk);
+// Patch pt of the upper patches, row-major over nb point blocks: (jb, kb).
+__device__ __forceinline__ void patch_of(long pt, int nb, int& jb, int& kb) {
+  int rem = (int)pt;
+  jb = 0;
+  while (rem >= nb - jb) {
+    rem -= nb - jb;
+    ++jb;
   }
-  lns[i] = T(-0.5) * acc;
+  kb = jb + rem;
 }
 
-// One block: rows [slice * rows_per_slice, ...) against every upper tile.
-// racc (n, 2 + 2q), f64: per row sum F, sum g psi, then per feature
-// sum F 2r and sum F (2r)^2.  part_z (slices, mp, q) and part_ell
-// (slices, q), f64: the slice's sums of d z and of d log_ell's static
-// term.
-template <typename T, bool STAGED>
-__global__ void __launch_bounds__(NT, 1)
-psi2b_tiles(const T* __restrict__ mu, const T* __restrict__ w,
-            const T* __restrict__ zp, const T* __restrict__ g,
-            const T* __restrict__ hp, const T* __restrict__ lns_g,
-            const T* __restrict__ ivs_g, int n, int m, int q, int nts,
-            int rows_per_slice, double* __restrict__ racc,
-            double* __restrict__ part_z, double* __restrict__ part_ell) {
+// Blocks [0, row_blocks): the rows' A (n_pad, kp), zero past n and past
+// column 2q + 1.  The blocks past them: each pair slot's g_p sf2^2 (zero
+// below the diagonal and past m) and static term, gsp and stp (np_, 64).
+// Every block computes l^2 and c (the same sums in the same order); block
+// 0 writes hyp = [sf2^2, l^2 (q), c (q), 1 / l^2 (q)] and zc = z - c.
+template <typename T>
+__global__ void psi2b_prep(const T* __restrict__ mu, const T* __restrict__ s,
+                           const T* __restrict__ z, const T* __restrict__ g,
+                           const double* __restrict__ log_sf2,
+                           const double* __restrict__ log_ell, int n,
+                           int n_pad, int m, int q, int kp, int np_,
+                           int row_blocks, double* __restrict__ hyp,
+                           double* __restrict__ zc, double* __restrict__ a,
+                           double* __restrict__ gsp, double* __restrict__ stp) {
+  extern __shared__ double hs[];  // [2q]: l^2, c
+  const int tid = threadIdx.x;
+  for (int f = tid; f < q; f += blockDim.x) {
+    double acc = 0.0;
+    for (int j = 0; j < m; ++j) acc += (double)z[(size_t)j * q + f];
+    hs[f] = exp(2.0 * log_ell[f]);
+    hs[q + f] = acc / m;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    if (tid == 0) hyp[0] = exp(2.0 * log_sf2[0]);
+    for (int f = tid; f < q; f += blockDim.x) {
+      hyp[1 + f] = hs[f];
+      hyp[1 + q + f] = hs[q + f];
+      hyp[1 + 2 * q + f] = 1.0 / hs[f];
+    }
+    for (long e = tid; e < (long)m * q; e += blockDim.x)
+      zc[e] = (double)z[e] - hs[q + e % q];
+  }
+  if ((int)blockIdx.x >= row_blocks) {
+    const long e = (long)(blockIdx.x - row_blocks) * blockDim.x + tid;
+    if (e >= (long)np_ * PT) return;
+    int jb, kb;
+    patch_of(e / PT, (m + PB - 1) / PB, jb, kb);
+    const int p = (int)(e % PT), j = jb * PB + p / PB, k = kb * PB + p % PB;
+    double gv = 0.0, st = 0.0;
+    if (j <= k && k < m) {
+      gv = exp(2.0 * log_sf2[0])
+           * (j == k ? (double)g[(size_t)j * m + j]
+                     : (double)g[(size_t)j * m + k] + (double)g[(size_t)k * m + j]);
+      for (int f = 0; f < q; ++f) {
+        const double d = (double)z[(size_t)j * q + f] - (double)z[(size_t)k * q + f];
+        st = fma(d * d, 1.0 / hs[f], st);
+      }
+      st *= -0.25;
+    }
+    gsp[e] = gv;
+    stp[e] = st;
+    return;
+  }
+  const long i = (long)blockIdx.x * blockDim.x + tid;
+  if (i >= n_pad) return;
+  double* ar = a + i * kp;
+  if (i >= n) {
+    for (int c = 0; c < kp; ++c) ar[c] = 0.0;
+    return;
+  }
+  double ln = 0.0, mq = 0.0;
+  for (int f = 0; f < q; ++f) {
+    const double sv = (double)s[i * q + f], l2 = hs[f];
+    const double iv = 1.0 / (l2 + 2.0 * sv);
+    const double mc = (double)mu[i * q + f] - hs[q + f];
+    ln += log1p(2.0 * sv / l2);
+    mq = fma(mc * mc, iv, mq);
+    ar[2 * f] = 2.0 * mc * iv;
+    ar[2 * f + 1] = -iv;
+  }
+  ar[2 * q] = -0.5 * ln - mq;
+  ar[2 * q + 1] = 1.0;
+  for (int c = 2 * q + 2; c < kp; ++c) ar[c] = 0.0;
+}
+
+constexpr int LDQ = KC + 2;  // row stride of Q's two halves
+
+// Shared memory of one tile block, in doubles: A's and B's chunks, F, Q's
+// two row halves, the pairs' g_p sf2^2 and sum F, the rows' weights.
+constexpr int smem_elems() {
+  return RT * LDA + KC * LDB + RT * LDB + 2 * PT * LDQ + 2 * PT + RT;
+}
+
+// Items [blk T / S, (blk + 1) T / S) of the T = n_rt np_ (row tile, patch)
+// items, row tile major.  KN: H's and Q's 8-column tiles (kp = 8 KN) when
+// A and B fit one chunk; WIDE (KN 4): kp past one chunk.  hpart (S, nrb,
+// 2, RT, kp): the block's H for each row tile it touches (slot = row tile
+// - its first); pz (S, m, q), pell (S, 8, q): its sums of d z and of
+// d log_ell's static part.
+template <typename T, int KN, bool WIDE>
+__global__ void __launch_bounds__(NT, WIDE ? 1 : 2)
+psi2b_tiles(const double* __restrict__ a, const T* __restrict__ w,
+            const double* __restrict__ zc, const double* __restrict__ gsp,
+            const double* __restrict__ stp, const double* __restrict__ hyp,
+            int n, int m, int q, int kp, int np_, long items, int nrb,
+            double* __restrict__ hpart, double* __restrict__ pz,
+            double* __restrict__ pell) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ double e2f[64];
-  T* za = reinterpret_cast<T*>(smem_raw);  // [QC][TM]
-  T* zb = za + QC * TM;                    // [QC][TM]
-  T* mus = zb + QC * TM;                   // [RC][QC]
-  T* ivs = mus + RC * QC;                  // [RC][QC]
-  T* lns = ivs + RC * QC;                  // [RC]
-  T* ws = lns + RC;                        // [RC]
-  T* rred = ws + RC;                       // [RC][NV][8]  warps' row sums
-  T* pbuf = rred + RC * NV * 8;            // [2 PP][QB][NT] threads' point sums
-  T* wred = pbuf + 2 * PP * QB * NT;       // [QB][8]
+  double* as = reinterpret_cast<double*>(smem_raw);  // [RT][LDA]  A chunk
+  double* bs = as + RT * LDA;                        // [KC][LDB]  B chunk
+  double* fs = bs + KC * LDB;                        // [RT][LDB]  F
+  double* q0 = fs + RT * LDB;                        // [PT][LDQ]  Q, rows 0-31
+  double* q1 = q0 + PT * LDQ;                        // [PT][LDQ]  Q, rows 32-63
+  double* gst = q1 + PT * LDQ;                       // [PT]  g_p sf2^2
+  double* dst = gst + PT;                            // [PT]  sum F
+  double* ws = dst + PT;                             // [RT]  w
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wr = (warp & 3) * 16, kh = warp >> 2, wp = kh * 32;
   if (tid < 64) e2f[tid] = kExp2Frac[tid];
-  const int slice = blockIdx.x;
-  const int mp = nts * TM;
-  const int rw = 2 + 2 * q;
-  const long lo = (long)slice * rows_per_slice;
-  const long hi = min((long)n, lo + rows_per_slice);
-  const T sf4 = hp[0];
-  for (long e = tid; e < (hi - lo) * rw; e += NT) racc[lo * rw + e] = 0.0;
-  double* pz = part_z + (size_t)slice * mp * q;
-  for (int e = tid; e < mp * q; e += NT) pz[e] = 0.0;
-  if (tid < q) part_ell[(size_t)slice * q + tid] = 0.0;
-  if (hi <= lo) return;
+  const int blk = blockIdx.x, nblk = gridDim.x;
+  const long lo = (long)blk * items / nblk, hi = (long)(blk + 1) * items / nblk;
+  const double* il2 = hyp + 1 + 2 * q;
+  const int nb = (m + PB - 1) / PB, nkc = WIDE ? (kp + KC - 1) / KC : 1;
+  const int scol = 2 * q + 1 - (nkc - 1) * KC;  // sum F's column, last chunk
+  double* pzb = pz + (size_t)blk * m * q;
+  for (long e = tid; e < (long)m * q; e += NT) pzb[e] = 0.0;
+  if (WIDE)
+    for (int e = tid; e < PB * q; e += NT) pell[(size_t)blk * PB * q + e] = 0.0;
+  const long rt_lo = lo / np_;
+  // the point-sum thread: side 0 a point as j (its 8 pairs (j, k); on a
+  // diagonal patch as k too), side 1 as k; point pa of the side, feature fl
+  const int side = tid >> 7, pa = (tid >> 4) & 7, fl = tid & 15;
+  double el_acc = 0.0;  // d log_ell's static part, feature fl (not WIDE)
 
-  const int n_tiles = nts * (nts + 1) / 2;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    int ta = 0, rem = tile;
-    while (rem >= nts - ta) {
-      rem -= nts - ta;
-      ++ta;
+  double hacc[KN][4];  // H: rows wr + g8 (+8), columns hn 8 + 2 t4 (+1)
+  auto zero_h = [&]() {
+#pragma unroll
+    for (int hn = 0; hn < KN; ++hn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hacc[hn][i] = 0.0;
+  };
+  // H's columns c0 .. c0 + kw into the block's partial of row tile rt.
+  auto flush = [&](long rt, int c0, int kw, bool add) {
+    double* hp = hpart + (((size_t)blk * nrb + (rt - rt_lo)) * 2 + kh) * RT * kp;
+#pragma unroll
+    for (int hn = 0; hn < KN; ++hn)
+      if (!WIDE || hn * 8 < kw)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          double2* d = reinterpret_cast<double2*>(
+              hp + (size_t)(wr + g8 + (i >> 1) * 8) * kp + c0 + hn * 8 + 2 * t4);
+          double2 v = make_double2(hacc[hn][i], hacc[hn][i + 1]);
+          if (add) {
+            const double2 o = *d;
+            v.x += o.x;
+            v.y += o.y;
+          }
+          *d = v;
+        }
+  };
+  zero_h();
+
+  long cur = -1;
+  int jb = 0, kb = 0;
+  if (lo < hi) patch_of(lo % np_, nb, jb, kb);
+  for (long item = lo; item < hi; ++item) {
+    const long rt = item / np_, pt = item - rt * np_;
+    if (item > lo) {  // the next patch, row-major over the upper blocks
+      if (pt == 0) {
+        jb = kb = 0;
+      } else if (++kb == nb) {
+        kb = ++jb;
+      }
     }
-    const int tb = ta + rem;
-    const bool diag = ta == tb;
-    const int a0 = ta * TM, b0 = tb * TM;
-    const int na = min(TM / PP, (m - a0 + PP - 1) / PP);
-    const int nb = min(TM / PP, (m - b0 + PP - 1) / PP);
-    const int count = diag ? na * (na + 1) / 2 : na * nb;
-    const bool active = tid < count;
-    int pa = 0, pb = 0;
-    if (active && diag) {
-      int r = tid;
-      while (r >= na - pa) {
-        r -= na - pa;
-        ++pa;
-      }
-      pb = pa + r;
-    } else if (active) {
-      pa = tid / nb;
-      pb = tid % nb;
+    const bool diag = jb == kb, fresh = rt != cur;
+    // The previous item's reads of As, Bs, Fs, gst and ws are behind its
+    // barriers: this item may restage them.
+    if (fresh) {
+      if (!WIDE && cur >= 0) flush(cur, 0, kp, false);
+      zero_h();
+      cur = rt;
+      for (int r = tid; r < RT; r += NT)
+        ws[r] = rt * RT + r < n ? (double)w[rt * RT + r] : 0.0;
     }
-    const int ia = a0 + pa * PP, ib = b0 + pb * PP;  // the patch's first points
-
-    __syncthreads();  // the last tile's staged z and sums are consumed
-    if (STAGED)
-      for (int e = tid; e < q * TM; e += NT) {
-        const int f = e / TM, p = e % TM;
-        za[f * TM + p] = zp[(size_t)(a0 + p) * q + f];
-        zb[f * TM + p] = zp[(size_t)(b0 + p) * q + f];
+    auto stage_a = [&](int kc) {
+      const int kw = WIDE ? min(KC, kp - kc * KC) : 8 * KN;
+#pragma unroll
+      for (int it = 0; it < RT * kw / NT; ++it) {
+        const int e = tid + it * NT, r = e / kw, c = e % kw;
+        as[r * LDA + c] = a[(size_t)(cur * RT + r) * kp + kc * KC + c];
       }
-    // The pairs' cotangent with sf2^2 exp(static): zero for pairs the patch
-    // does not own (below the diagonal, past m, an idle thread).
-    T gst[PP][PP], fsum[PP][PP];
-#pragma unroll
-    for (int i = 0; i < PP; ++i)
-#pragma unroll
-      for (int j = 0; j < PP; ++j) {
-        const int a = ia + i, b = ib + j;
-        fsum[i][j] = T(0);
-        gst[i][j] = T(0);
-        if (active && a <= b && b < m) {
-          T st = T(0);
-          for (int f = 0; f < q; ++f) {
-            const T dz = zp[(size_t)a * q + f] - zp[(size_t)b * q + f];
-            st += dz * dz / hp[1 + f];
-          }
-          const T gs = a == b ? g[(size_t)a * m + a]
-                              : g[(size_t)a * m + b] + g[(size_t)b * m + a];
-          gst[i][j] = sf4 * gs * exp_pair(T(-0.25) * st, e2f);
-        }
-      }
-    __syncthreads();  // staged z
-
-    auto zav = [&](int f, T (&v)[PP]) {
-#pragma unroll
-      for (int i = 0; i < PP; ++i)
-        v[i] = STAGED ? za[f * TM + pa * PP + i] : zp[(size_t)(ia + i) * q + f];
     };
-    auto zbv = [&](int f, T (&v)[PP]) {
+    // B's chunk kc for this patch: pair p = (jb 8 + p / 8, kb 8 + p % 8).
+    auto build_b = [&](int kc) {
+      const int kw = WIDE ? min(KC, kp - kc * KC) : 8 * KN;
 #pragma unroll
-      for (int j = 0; j < PP; ++j)
-        v[j] = STAGED ? zb[f * TM + pb * PP + j] : zp[(size_t)(ib + j) * q + f];
+      for (int it = 0; it < kw * PT / NT; ++it) {
+        const int e = tid + it * NT, c = e / PT, p = e % PT, col = kc * KC + c;
+        const int j = jb * PB + p / PB, k = kb * PB + p % PB;
+        double v = 0.0;
+        if (col == 2 * q) {
+          v = 1.0;
+        } else if (col == 2 * q + 1) {
+          v = stp[pt * PT + p];
+        } else if (col < 2 * q && k < m) {
+          const int f = col >> 1;
+          const double zb = 0.5 * (zc[(size_t)j * q + f] + zc[(size_t)k * q + f]);
+          v = col & 1 ? zb * zb : zb;
+        }
+        bs[c * LDB + p] = v;
+      }
     };
+    if (tid < PT) gst[tid] = gsp[pt * PT + tid];
+    if (!WIDE && fresh) stage_a(0);
 
-    for (int qb = 0; qb < q; qb += QB) {
-      T sa[PP][QB], sb[PP][QB];  // sum over rows of (sum over partners F 2r) / D
-#pragma unroll
-      for (int i = 0; i < PP; ++i)
-#pragma unroll
-        for (int v = 0; v < QB; ++v) sa[i][v] = sb[i][v] = T(0);
+    // this item's point sum, fetched early (the last item's stores are
+    // behind the barrier after B's build)
+    const int point = (side == 0 ? jb : kb) * PB + pa;
+    const bool mine = fl < q && point < m && (side == 0 || !diag);
+    double pold = 0.0;
 
-      for (long r0 = lo; r0 < hi; r0 += RC) {
-        const int nr = (int)min((long)RC, hi - r0);
-        __syncthreads();  // the last chunk's rows and row sums are consumed
-        for (int r = tid; r < nr; r += NT) {
-          ws[r] = w[r0 + r];
-          lns[r] = lns_g[r0 + r];
-        }
-        if (STAGED)
-          for (int e = tid; e < nr * q; e += NT) {
-            const int r = e / q, f = e % q;
-            mus[r * QC + f] = mu[(r0 + r) * q + f];
-            ivs[r * QC + f] = ivs_g[(r0 + r) * q + f];
-          }
-        __syncthreads();
-        auto muv = [&](int r, int f) -> T {
-          return STAGED ? mus[r * QC + f] : mu[(r0 + r) * q + f];
-        };
-        auto ivv = [&](int r, int f) -> T {
-          return STAGED ? ivs[r * QC + f] : ivs_g[(r0 + r) * q + f];
-        };
-
-        for (int r = 0; r < nr; ++r) {
-          const T wr = ws[r];
-          // the exponent, direct form: -sum_q (2r)^2 / (4 D)
-          T e[PP][PP];
+    // Q = F^T A for chunk kc (warp: pairs wr .. wr + 16, rows kh 32 .. +
+    // 32, into its half's buffer), then the chunk's features' point sums
+    // added into the block's partial.
+    auto pairs_pass = [&](int kc) {
+      const int kw = WIDE ? min(KC, kp - kc * KC) : 8 * KN;
+      if (kc == nkc - 1) __syncthreads();  // F
+      double qa[KN][4];
 #pragma unroll
-          for (int i = 0; i < PP; ++i)
+      for (int qn = 0; qn < KN; ++qn)
 #pragma unroll
-            for (int j = 0; j < PP; ++j) e[i][j] = lns[r];
-          for (int f = 0; f < q; ++f) {
-            const T mv = muv(r, f), iv4 = T(-0.25) * ivv(r, f);
-            T zz[PP], ua[PP], ub[PP];
-            zav(f, zz);
+        for (int i = 0; i < 4; ++i) qa[qn][i] = 0.0;
 #pragma unroll
-            for (int i = 0; i < PP; ++i) ua[i] = mv - zz[i];
-            zbv(f, zz);
+      for (int k0 = 0; k0 < 32; k0 += 4) {
+        const int r = kh * 32 + k0 + t4;
+        const double a0 = fs[r * LDB + wr + g8], a1 = fs[r * LDB + wr + g8 + 8];
 #pragma unroll
-            for (int j = 0; j < PP; ++j) ub[j] = mv - zz[j];
-#pragma unroll
-            for (int i = 0; i < PP; ++i)
-#pragma unroll
-              for (int j = 0; j < PP; ++j) {
-                const T r2 = ua[i] + ub[j];
-                e[i][j] = fma(r2 * r2, iv4, e[i][j]);
-              }
-          }
-          T fv[PP][PP], s0 = T(0), sw = T(0);
-#pragma unroll
-          for (int i = 0; i < PP; ++i)
-#pragma unroll
-            for (int j = 0; j < PP; ++j) {
-              const T p = gst[i][j] * exp_pair(e[i][j], e2f);
-              fv[i][j] = wr * p;
-              sw += p;
-              s0 += fv[i][j];
-              if (qb == 0) fsum[i][j] += fv[i][j];
-            }
-          T s1[QB], s2[QB];
-#pragma unroll
-          for (int v = 0; v < QB; ++v) {
-            s1[v] = s2[v] = T(0);
-            const int f = qb + v;
-            if (f < q) {
-              const T mv = muv(r, f), iv = ivv(r, f);
-              T zz[PP], ua[PP], ub[PP], ra[PP], rb[PP];
-              zav(f, zz);
-#pragma unroll
-              for (int i = 0; i < PP; ++i) {
-                ua[i] = mv - zz[i];
-                ra[i] = T(0);
-              }
-              zbv(f, zz);
-#pragma unroll
-              for (int j = 0; j < PP; ++j) {
-                ub[j] = mv - zz[j];
-                rb[j] = T(0);
-              }
-#pragma unroll
-              for (int i = 0; i < PP; ++i)
-#pragma unroll
-                for (int j = 0; j < PP; ++j) {
-                  const T r2 = ua[i] + ub[j];
-                  const T t = fv[i][j] * r2;
-                  s1[v] += t;
-                  s2[v] = fma(t, r2, s2[v]);
-                  ra[i] += t;
-                  rb[j] += t;
-                }
-#pragma unroll
-              for (int i = 0; i < PP; ++i) {
-                sa[i][v] = fma(ra[i], iv, sa[i][v]);
-                sb[i][v] = fma(rb[i], iv, sb[i][v]);
-              }
-            }
-          }
-          // the row's sums over the block: a butterfly, the warps in order
-#pragma unroll
-          for (int v = 0; v < QB; ++v) {
-            const T x1 = warp_sum(s1[v]), x2 = warp_sum(s2[v]);
-            if (lane == 0) {
-              rred[(r * NV + v) * 8 + warp] = x1;
-              rred[(r * NV + QB + v) * 8 + warp] = x2;
-            }
-          }
-          if (qb == 0) {
-            const T x0 = warp_sum(s0), xw = warp_sum(sw);
-            if (lane == 0) {
-              rred[(r * NV + 2 * QB) * 8 + warp] = x0;
-              rred[(r * NV + 2 * QB + 1) * 8 + warp] = xw;
-            }
-          }
-        }
-        __syncthreads();  // every row's warp sums
-        for (int e = tid; e < nr * NV; e += NT) {
-          const int r = e / NV, v = e % NV;
-          int slot;
-          if (v < QB) slot = qb + v < q ? 2 + qb + v : -1;
-          else if (v < 2 * QB) slot = qb + v - QB < q ? 2 + q + qb + v - QB : -1;
-          else slot = qb == 0 ? v - 2 * QB : -1;
-          if (slot < 0) continue;
-          T s = T(0);
-          for (int k = 0; k < 8; ++k) s += rred[(r * NV + v) * 8 + k];
-          racc[(r0 + r) * rw + slot] += (double)s;
-        }
+        for (int qn = 0; qn < KN; ++qn)
+          if (!WIDE || qn * 8 < kw) dmma(qa[qn], a0, a1, as[r * LDA + qn * 8 + g8]);
       }
-
-      // The pass's point sums: F r / D over rows and partners (half of the
-      // sums of F 2r) and the static term, per point and feature.
+      double* qh = kh == 0 ? q0 : q1;
 #pragma unroll
-      for (int v = 0; v < QB; ++v) {
-        const int f = qb + v;
-        T dl = T(0);
-        T ca[PP], cb[PP];
+      for (int qn = 0; qn < KN; ++qn)
+        if (!WIDE || qn * 8 < kw)
 #pragma unroll
-        for (int i = 0; i < PP; ++i) ca[i] = cb[i] = T(0);
-        if (f < q) {
-          const T h = T(0.5) / hp[1 + f];  // 1 / (2 l^2)
-          T zx[PP], zy[PP];
-          zav(f, zx);
-          zbv(f, zy);
-#pragma unroll
-          for (int i = 0; i < PP; ++i)
-#pragma unroll
-            for (int j = 0; j < PP; ++j) {
-              const T dz = zx[i] - zy[j];
-              const T t = fsum[i][j] * dz;
-              ca[i] += t;
-              cb[j] -= t;
-              dl = fma(t, dz, dl);
-            }
-#pragma unroll
-          for (int i = 0; i < PP; ++i) {
-            ca[i] = T(0.5) * sa[i][v] - ca[i] * h;
-            cb[i] = T(0.5) * sb[i][v] - cb[i] * h;
-          }
-          dl *= h;
-        }
-#pragma unroll
-        for (int i = 0; i < PP; ++i) {
-          pbuf[(i * QB + v) * NT + tid] = ca[i];
-          pbuf[((PP + i) * QB + v) * NT + tid] = cb[i];
-        }
-        const T x = warp_sum(dl);
-        if (lane == 0) wred[v * 8 + warp] = x;
-      }
+          for (int i = 0; i < 4; i += 2)
+            *reinterpret_cast<double2*>(qh + (wr + g8 + (i >> 1) * 8) * LDQ + qn * 8 + 2 * t4) =
+                make_double2(qa[qn][i], qa[qn][i + 1]);
       __syncthreads();
-      for (int e = tid; e < (diag ? 1 : 2) * TM * QB; e += NT) {
-        const int side = e / (TM * QB), p = (e % (TM * QB)) / QB, v = e % QB;
-        const int f = qb + v, pp = p / PP, ii = p % PP;
-        const int point = (side == 0 ? a0 : b0) + p;
-        if (f >= q || point >= m) continue;
-        T s = T(0);
+      if (WIDE && kc == nkc - 1 && tid < PT) dst[tid] = q0[tid * LDQ + scol] + q1[tid * LDQ + scol];
+      const int f = kc * 16 + fl;
+      if (f < q && point < m && (side == 0 || !diag)) {
+        const double zp = zc[(size_t)point * q + f], il = il2[f];
+        double acc = 0.0, el = 0.0;
+        // sgn -1: the point as j of pair p (partner zo), +1: as k
+        auto term = [&](int p, double zo, double sgn) {
+          const double zj = sgn < 0 ? zp : zo, zk = sgn < 0 ? zo : zp;
+          const double zb = 0.5 * (zj + zk), d = zj - zk;
+          const double dzb = fma(2.0 * zb, q0[p * LDQ + 2 * fl + 1] + q1[p * LDQ + 2 * fl + 1],
+                                 q0[p * LDQ + 2 * fl] + q1[p * LDQ + 2 * fl]);
+          const double sumf = WIDE && kc < nkc - 1 ? dst[p]
+                                                   : q0[p * LDQ + scol] + q1[p * LDQ + scol];
+          const double u = 0.5 * sumf * d * il;
+          acc += fma(0.5, dzb, sgn * u);
+          if (sgn < 0) el = fma(u, d, el);
+        };
         if (side == 0) {
-          // as the first point of its pairs: the patches (pp, pb')
-          for (int pb2 = diag ? pp : 0; pb2 < nb; ++pb2)
-            s += pbuf[(ii * QB + v) * NT + (diag ? patch_index(pp, pb2, na) : pp * nb + pb2)];
-          if (diag)  // and as the second: the patches (pa', pp)
-            for (int pa2 = 0; pa2 <= pp; ++pa2)
-              s += pbuf[((PP + ii) * QB + v) * NT + patch_index(pa2, pp, na)];
-        } else {
-          for (int pa2 = 0; pa2 < na; ++pa2)
-            s += pbuf[((PP + ii) * QB + v) * NT + pa2 * nb + pp];
+#pragma unroll
+          for (int o = 0; o < PB; ++o) {  // pairs (point, kb 8 + o)
+            const int k = kb * PB + o;
+            if ((!diag || o >= pa) && k < m) term(pa * PB + o, zc[(size_t)k * q + f], -1.0);
+          }
         }
-        pz[(size_t)point * q + f] += (double)s;
+        if (side == 1 || diag) {
+#pragma unroll
+          for (int o = 0; o < PB; ++o)  // pairs (jb 8 + o, point)
+            if (!diag || o <= pa) term(o * PB + pa, zc[(size_t)(jb * PB + o) * q + f], 1.0);
+        }
+        const size_t at = (size_t)point * q + f;
+        pzb[at] = (WIDE ? pzb[at] : pold) + acc;
+        if (side == 0) {
+          if (WIDE) pell[((size_t)blk * PB + pa) * q + f] += el;
+          else el_acc += el;
+        }
       }
-      if (tid < QB && qb + tid < q) {
-        T s = T(0);
-        for (int k = 0; k < 8; ++k) s += wred[tid * 8 + k];
-        part_ell[(size_t)slice * q + qb + tid] += (double)s;
+    };
+
+    // E = A B^T, G = g_p sf2^2 exp(E) (zero past n) and H += G B, for the
+    // warp's 32 pairs in NH parts of NE 8-pair tiles (two when A and B
+    // fit one chunk: half E's registers; WIDE: one, its H chunk by
+    // chunk, the last (with sum F's column) first, each with its Q).
+    constexpr int NH = WIDE ? 1 : 2, NE = 4 / NH;
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) {
+      double e[NE][4];
+#pragma unroll
+      for (int nt = 0; nt < NE; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) e[nt][i] = 0.0;
+      for (int kc = 0; kc < nkc; ++kc) {
+        if (nh == 0) {
+          if (WIDE) {
+            if (kc > 0) __syncthreads();  // the last chunk's products are done
+            stage_a(kc);
+          }
+          build_b(kc);
+          __syncthreads();
+          if (!WIDE && mine) pold = pzb[(size_t)point * q + fl];
+        }
+        const int kw = WIDE ? min(KC, kp - kc * KC) : 8 * KN;
+#pragma unroll
+        for (int k0 = 0; k0 < kw; k0 += 4) {
+          const double a0 = as[(wr + g8) * LDA + k0 + t4];
+          const double a1 = as[(wr + g8 + 8) * LDA + k0 + t4];
+#pragma unroll
+          for (int nt = 0; nt < NE; ++nt)
+            dmma(e[nt], a0, a1, bs[(k0 + t4) * LDB + wp + (nh * NE + nt) * 8 + g8]);
+        }
       }
-      __syncthreads();  // pbuf and wred are free
+      // G in e; F = w G to shared memory
+#pragma unroll
+      for (int nt = 0; nt < NE; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          const int r = wr + g8 + (i >> 1) * 8, p = wp + (nh * NE + nt) * 8 + 2 * t4;
+          const bool ok = cur * RT + r < n;
+          const double g0 = ok ? gst[p] * exp_pair(e[nt][i], e2f) : 0.0;
+          const double g1 = ok ? gst[p + 1] * exp_pair(e[nt][i + 1], e2f) : 0.0;
+          e[nt][i] = g0;
+          e[nt][i + 1] = g1;
+          *reinterpret_cast<double2*>(fs + r * LDB + p) = make_double2(ws[r] * g0, ws[r] * g1);
+        }
+      for (int kc = nkc - 1; kc >= 0; --kc) {
+        const int kw = WIDE ? min(KC, kp - kc * KC) : 8 * KN;
+        if (WIDE && kc < nkc - 1) {
+          stage_a(kc);
+          build_b(kc);
+          __syncthreads();
+        }
+        // H += G B: k-steps of an 8-pair tile are its lanes' even and odd
+        // pairs, straight from E's accumulators
+#pragma unroll
+        for (int hn = 0; hn < KN; ++hn)
+          if (!WIDE || hn * 8 < kw)
+#pragma unroll
+            for (int nt = 0; nt < NE; ++nt) {
+              const double* b = bs + (hn * 8 + g8) * LDB + wp + (nh * NE + nt) * 8 + 2 * t4;
+              dmma(hacc[hn], e[nt][0], e[nt][2], b[0]);
+              dmma(hacc[hn], e[nt][1], e[nt][3], b[1]);
+            }
+        if (WIDE) {
+          flush(cur, kc * KC, kw, !fresh);
+          zero_h();
+          pairs_pass(kc);
+        }
+      }
     }
+    if (!WIDE) pairs_pass(0);
   }
+  if (!WIDE && cur >= 0) flush(cur, 0, kp, false);
+  if (!WIDE && side == 0 && fl < q) pell[((size_t)blk * PB + pa) * q + fl] = el_acc;
 }
 
-// Row outputs from the rows' sums (flags: 1 d mu, 2 d s, 4 d w).
+// Per (row, feature): H summed over the blocks that hold its row tile (in
+// block order, each block's two halves in order); the row outputs (flags:
+// 1 d mu, 2 d s, 4 d w) and the row's terms of d log_ell and d log_sf2,
+// into rterm (n, q + 1).
 template <typename T>
-__global__ void psi2b_rows_out(const double* __restrict__ racc,
-                               const T* __restrict__ ivs, int n, int q,
+__global__ void psi2b_rows_out(const double* __restrict__ hpart,
+                               const T* __restrict__ mu, const T* __restrict__ s,
+                               const T* __restrict__ w,
+                               const double* __restrict__ hyp, int n, int q,
+                               int kp, int np_, long items, int nblk, int nrb,
                                int flags, T* __restrict__ dmu,
-                               T* __restrict__ ds, T* __restrict__ dw) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const double* ra = racc + i * (2 + 2 * q);
-  if (flags & 4) dw[i] = (T)ra[1];
-  for (int f = 0; f < q; ++f) {
-    const double iv = ivs[i * q + f];
-    if (flags & 1) dmu[i * q + f] = (T)(-ra[2 + f] * iv);
-    if (flags & 2) ds[i * q + f] = (T)((0.5 * ra[2 + q + f] * iv - ra[0]) * iv);
+                               T* __restrict__ ds, T* __restrict__ dw,
+                               double* __restrict__ rterm) {
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long)n * q) return;
+  const long i = t / q, rt = i / RT;
+  const int f = (int)(t % q), r = (int)(i % RT);
+  // the blocks of the row tile's first and last items; the first holds it
+  // in its slot s_lo, every later one in its slot 0
+  const long b_lo = ((rt * np_ + 1) * nblk - 1) / items;
+  const long b_hi = ((rt + 1) * np_ * nblk - 1) / items;
+  const long s_lo = rt - (b_lo * items / nblk) / np_;
+  const size_t half = (size_t)RT * kp, per_block = (size_t)nrb * 2 * half;
+  const double* first = hpart + b_lo * per_block + s_lo * 2 * half + (size_t)r * kp;
+  const double* later = hpart + (size_t)r * kp;
+  auto h = [&](int c) {
+    double acc = first[c] + first[c + half];
+    for (long b = b_lo + 1; b <= b_hi; ++b) {
+      const double* hp = later + b * per_block + c;
+      acc += hp[0];
+      acc += hp[half];
+    }
+    return acc;
+  };
+  const double wi = (double)w[i], h0 = h(2 * q);
+  if (f == 0) {
+    if (flags & 4) dw[i] = (T)h0;
+    rterm[i * (q + 1) + q] = 2.0 * wi * h0;
   }
+  const double h1 = h(2 * f), h2 = h(2 * f + 1);
+  const double l2 = hyp[1 + f], sv = (double)s[t];
+  const double iv = 1.0 / (l2 + 2.0 * sv);
+  const double mc = (double)mu[t] - hyp[1 + q + f];
+  const double sr2 = fma(mc, fma(mc, h0, -2.0 * h1), h2);  // sum G r^2
+  if (flags & 1) dmu[t] = (T)(2.0 * wi * iv * fma(-mc, h0, h1));
+  if (flags & 2) ds[t] = (T)(wi * iv * fma(2.0 * iv, sr2, -h0));
+  rterm[i * (q + 1) + f] = wi * iv * (2.0 * sv * h0 + 2.0 * l2 * iv * sr2);
 }
 
-// Fixed-order sums: blocks [0, q) d log_ell (the rows' terms, then the
-// slices' static terms), block q d log_sf2, the rest d z.
-template <typename T>
-__global__ void psi2b_reduce(const double* __restrict__ racc,
-                             const T* __restrict__ s, const T* __restrict__ ivs,
-                             const T* __restrict__ hp,
-                             const double* __restrict__ part_z,
-                             const double* __restrict__ part_ell, int n_slices,
-                             int n, int m, int q, int mp,
-                             double* __restrict__ dz, double* __restrict__ dell,
+// Fixed-order sums: blocks [0, q) d log_ell (the rows' terms and the
+// blocks' static terms), block q d log_sf2 (each a tree over 256 strided
+// sums), the rest d z (32 entries a block over the blocks' partials).
+__global__ void psi2b_reduce(const double* __restrict__ rterm,
+                             const double* __restrict__ pz,
+                             const double* __restrict__ pell, int nblk, int n,
+                             int m, int q, double* __restrict__ dz,
+                             double* __restrict__ dell,
                              double* __restrict__ dsf2) {
   __shared__ double sh[256];
   const int blk = blockIdx.x, tid = threadIdx.x;
-  const int rw = 2 + 2 * q;
   if (blk <= q) {
     double acc = 0.0;
-    for (long i = tid; i < n; i += blockDim.x) {
-      const double* ra = racc + i * rw;
-      if (blk == q) {
-        acc += 2.0 * ra[0];
-      } else {
-        const double iv = ivs[i * q + blk], l2 = hp[1 + blk];
-        acc += 2.0 * ra[0] * (double)s[i * q + blk] * iv
-               + 0.5 * l2 * ra[2 + q + blk] * iv * iv;
-      }
+#pragma unroll 8
+    for (long i = tid; i < n; i += blockDim.x) acc += rterm[i * (q + 1) + blk];
+    if (blk < q) {
+#pragma unroll 8
+      for (long b = tid; b < (long)nblk * PB; b += blockDim.x) acc += pell[b * q + blk];
     }
     sh[tid] = acc;
     __syncthreads();
@@ -505,96 +573,124 @@ __global__ void psi2b_reduce(const double* __restrict__ racc,
       if (tid < o) sh[tid] += sh[tid + o];
       __syncthreads();
     }
-    if (tid == 0) {
-      if (blk == q) {
-        *dsf2 = sh[0];
-      } else {
-        double t = sh[0];
-        for (int sl = 0; sl < n_slices; ++sl) t += part_ell[(size_t)sl * q + blk];
-        dell[blk] = t;
-      }
-    }
+    if (tid == 0) *(blk == q ? dsf2 : dell + blk) = sh[0];
     return;
   }
-  const long e = (long)(blk - q - 1) * blockDim.x + tid;
-  if (e < (long)m * q) {
+  // d z: 32 consecutive entries a block, warp w the partials w, w + 8,
+  // ..., then warp 0 adds the 8 warps' sums in order
+  const int lane = tid & 31, w = tid >> 5;
+  const long e = (long)(blk - q - 1) * 32 + lane;
+  const long mq = (long)m * q;
+  double acc = 0.0;
+  if (e < mq) {
+#pragma unroll 4
+    for (int b = w; b < nblk; b += 8) acc += pz[(size_t)b * mq + e];
+  }
+  sh[tid] = acc;
+  __syncthreads();
+  if (w == 0 && e < mq) {
     double t = 0.0;
-    for (int sl = 0; sl < n_slices; ++sl) t += part_z[(size_t)sl * mp * q + e];
+    for (int k = 0; k < 8; ++k) t += sh[k * 32 + lane];
     dz[e] = t;
   }
 }
 
-constexpr size_t smem_elems() {
-  return 2 * QC * TM + 2 * RC * QC + 2 * RC + RC * NV * 8 + 2 * PP * QB * NT + QB * 8;
-}
+static_assert(smem_elems() * sizeof(double) * 2 + 2 * 1024 <= 233472,
+              "two blocks an SM over sm_90's 228 KB");
 
 template <typename T>
-int launch(const T* mu, const T* s, const T* w, const T* zp, const T* g,
-           const T* hp, int n, int m, int q, int n_slices, int rows_per_slice,
-           int flags, T* lns, T* ivs, double* racc, double* part_z,
-           double* part_ell, double* dz, double* dell, double* dsf2, T* dmu,
-           T* ds, T* dw, void* stream) {
+int launch(const T* mu, const T* s, const T* w, const T* z, const T* g,
+           const double* log_sf2, const double* log_ell, int n, int m, int q,
+           int nblk, int nrb, int flags, double* scratch, double* dz,
+           double* dell, double* dsf2, T* dmu, T* ds, T* dw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nts = (m + TM - 1) / TM, mp = nts * TM;
-  const bool staged = q <= QC;
-  const int smem = (int)(smem_elems() * sizeof(T));
-  auto kernel = staged ? psi2b_tiles<T, true> : psi2b_tiles<T, false>;
-  static bool ready[64][2] = {};
+  const int kp = (2 * q + 2 + 7) / 8 * 8;
+  const int n_rt = (n + RT - 1) / RT, n_pad = n_rt * RT;
+  const int nb = (m + PB - 1) / PB, np_ = nb * (nb + 1) / 2;
+  const long items = (long)n_rt * np_;
+  double* next = scratch;
+  auto take = [&](size_t count) {  // 32-byte aligned regions
+    double* p = next;
+    next += (count + 3) / 4 * 4;
+    return p;
+  };
+  double* hyp = take(1 + 3 * q);
+  double* zc = take((size_t)m * q);
+  double* a = take((size_t)n_pad * kp);
+  double* gsp = take((size_t)np_ * PT);
+  double* stp = take((size_t)np_ * PT);
+  double* hpart = take((size_t)nblk * nrb * 2 * RT * kp);
+  double* pz = take((size_t)nblk * m * q);
+  double* pell = take((size_t)nblk * PB * q);
+  double* rterm = take((size_t)n * (q + 1));
+  // the tile kernel for kp: 8, 16, 24 or 32 columns in one chunk, or WIDE
+  const int variant = kp > KC ? 4 : kp / 8 - 1;
+  void (*const kernels[5])(const double*, const T*, const double*, const double*,
+                           const double*, const double*, int, int, int, int, int,
+                           long, int, double*, double*, double*) = {
+      psi2b_tiles<T, 1, false>, psi2b_tiles<T, 2, false>, psi2b_tiles<T, 3, false>,
+      psi2b_tiles<T, 4, false>, psi2b_tiles<T, 4, true>};
+  auto kernel = kernels[variant];
+  const int smem = (int)(smem_elems() * sizeof(double));
+  static bool ready[64][5] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !ready[dev][staged]) {
+  if (dev >= 64 || !ready[dev][variant]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    if (dev < 64) ready[dev][staged] = true;
+    if (dev < 64) ready[dev][variant] = true;
   }
-  if (n > 0) psi2b_rows<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(s, hp, n, q, lns, ivs);
-  kernel<<<(unsigned)n_slices, NT, smem, st>>>(mu, w, zp, g, hp, lns, ivs, n, m, q,
-                                               nts, rows_per_slice, racc, part_z,
-                                               part_ell);
+  const int row_blocks = (n_pad + 255) / 256;
+  const int pair_blocks = (np_ * PT + 255) / 256;
+  psi2b_prep<T><<<(unsigned)(row_blocks + pair_blocks), 256, 2 * q * sizeof(double), st>>>(
+      mu, s, z, g, log_sf2, log_ell, n, n_pad, m, q, kp, np_, row_blocks, hyp, zc, a,
+      gsp, stp);
+  kernel<<<(unsigned)nblk, NT, smem, st>>>(a, w, zc, gsp, stp, hyp, n, m, q, kp, np_,
+                                           items, nrb, hpart, pz, pell);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (n > 0 && (flags & 7))
-    psi2b_rows_out<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(racc, ivs, n, q, flags,
-                                                                   dmu, ds, dw);
+  if (n > 0)
+    psi2b_rows_out<T><<<(unsigned)(((long)n * q + 255) / 256), 256, 0, st>>>(
+        hpart, mu, s, w, hyp, n, q, kp, np_, items, nblk, nrb, flags, dmu, ds,
+        dw, rterm);
   const long mq = (long)m * q;
-  psi2b_reduce<T><<<(unsigned)(q + 1 + (mq + 255) / 256), 256, 0, st>>>(
-      racc, s, ivs, hp, part_z, part_ell, n_slices, n, m, q, mp, dz, dell, dsf2);
+  psi2b_reduce<<<(unsigned)(q + 1 + (mq + 31) / 32), 256, 0, st>>>(
+      rterm, pz, pell, nblk, n, m, q, dz, dell, dsf2);
   return cudaGetLastError();
 }
 
-static_assert(smem_elems() * sizeof(double) <= 232448 - 512, "f64 block over sm_90's 227 KB");
-
 }  // namespace
 
-// mu, s (n, q), w (n,): the forward's inputs.  zp (mp, q): z zero-padded to
-// mp = 64 ceil(m / 64).  g (m, m): the cotangent.  hp = [sf2^2, l^2 (q)].
-// One block per slice of rows_per_slice rows (n_slices of them).  Scratch:
-// lns (n), ivs (n, q) in the input dtype; racc (n, 2 + 2q), part_z
-// (n_slices, mp, q), part_ell (n_slices, q) in f64.  Outputs (f64): dz (m,
-// q), dell (q), dsf2 (); when flags asks (1, 2, 4), dmu, ds (n, q) and dw
-// (n) in the input dtype.  Any q: shared memory is fixed.  Returns
+// mu, s (n, q), w (n,), z (m, q), g (m, m) in one dtype; log_sf2 (),
+// log_ell (q,) in f64.  nblk blocks (at least one) take equal shares of
+// the (64-row tile, 8 x 8-point patch) items; nrb row tiles a block at
+// most.  scratch (f64), each region rounded up to 4 elements: hyp (1 +
+// 3q), zc (m q), A (n_pad kp), gsp and stp (np 64 each, np the upper 8 x 8
+// patches), hpart (nblk nrb 2 64 kp), pz (nblk m q), pell (nblk 8 q), rterm
+// (n (q + 1)), with
+// n_pad = 64 ceil(n / 64) and kp = 8 ceil((2q + 2) / 8).  Outputs (f64):
+// dz (m, q), dell (q), dsf2 (); when flags asks (1, 2, 4), dmu, ds (n, q)
+// and dw (n) in the input dtype.  Any n, m and q.  Returns
 // cudaGetLastError().
 extern "C" int psi2_bwd_f64(const double* mu, const double* s, const double* w,
-                            const double* zp, const double* g, const double* hp,
-                            int n, int m, int q, int n_slices, int rows_per_slice,
-                            int flags, double* lns, double* ivs, double* racc,
-                            double* part_z, double* part_ell, double* dz,
-                            double* dell, double* dsf2, double* dmu, double* ds,
-                            double* dw, void* stream) {
-  return launch<double>(mu, s, w, zp, g, hp, n, m, q, n_slices, rows_per_slice,
-                        flags, lns, ivs, racc, part_z, part_ell, dz, dell, dsf2,
-                        dmu, ds, dw, stream);
+                            const double* z, const double* g,
+                            const double* log_sf2, const double* log_ell,
+                            int n, int m, int q, int nblk, int nrb, int flags,
+                            double* scratch, double* dz, double* dell,
+                            double* dsf2, double* dmu, double* ds, double* dw,
+                            void* stream) {
+  return launch<double>(mu, s, w, z, g, log_sf2, log_ell, n, m, q, nblk, nrb,
+                        flags, scratch, dz, dell, dsf2, dmu, ds, dw, stream);
 }
 
 extern "C" int psi2_bwd_f32(const float* mu, const float* s, const float* w,
-                            const float* zp, const float* g, const float* hp,
-                            int n, int m, int q, int n_slices, int rows_per_slice,
-                            int flags, float* lns, float* ivs, double* racc,
-                            double* part_z, double* part_ell, double* dz,
-                            double* dell, double* dsf2, float* dmu, float* ds,
-                            float* dw, void* stream) {
-  return launch<float>(mu, s, w, zp, g, hp, n, m, q, n_slices, rows_per_slice,
-                       flags, lns, ivs, racc, part_z, part_ell, dz, dell, dsf2,
-                       dmu, ds, dw, stream);
+                            const float* z, const float* g,
+                            const double* log_sf2, const double* log_ell,
+                            int n, int m, int q, int nblk, int nrb, int flags,
+                            double* scratch, double* dz, double* dell,
+                            double* dsf2, float* dmu, float* ds, float* dw,
+                            void* stream) {
+  return launch<float>(mu, s, w, z, g, log_sf2, log_ell, n, m, q, nblk, nrb,
+                       flags, scratch, dz, dell, dsf2, dmu, ds, dw, stream);
 }

@@ -141,41 +141,80 @@ _psi1_plan = functools.lru_cache(maxsize=64)(psi1_plan)
 
 # -- psi2's backward: csrc/psi2_bwd.cu ---------------------------------------
 
-BWD_FEATURES = 4     # features a pass over the rows (QB)
-BWD_VALUES = 2 * BWD_FEATURES + 2   # a row's sums a pass (NV)
+BWD_ROWS = 64     # rows a tile (RT)
+BWD_PATCH = 8     # an item's pairs: a BWD_PATCH x BWD_PATCH patch of points (PB)
+BWD_CHUNK = 32    # columns of A and B staged at a time (KC)
 
 
-def psi2_bwd_smem_bytes(dtype) -> int:
+def psi2_bwd_width(q: int) -> int:
+    """Columns of psi2's backward's A and B (kp): 2q + 2 rounded up to 8."""
+    return -(-(2 * q + 2) // 8) * 8
+
+
+def psi2_bwd_blocks_per_sm(q: int) -> int:
+    """Blocks an SM of psi2's backward tile kernel: two (128 registers)
+    while A and B fit one chunk (q <= 15), one past it (WIDE)."""
+    return 2 if psi2_bwd_width(q) <= BWD_CHUNK else 1
+
+
+def psi2_bwd_smem_bytes() -> int:
     """Shared memory of one psi2 backward block (``smem_elems`` in the
-    source): z of both tiles, mu, 1/D, log-normaliser and w of RC rows,
-    the warps' row sums, the threads' point sums and the warps' sums of
-    d log_ell.  q does not change it."""
-    item = torch.empty((), dtype=dtype).element_size()
-    return item * (2 * FEATURES * TILE + 2 * ROWS * FEATURES + 2 * ROWS
-                   + ROWS * BWD_VALUES * 8 + 2 * PATCH * BWD_FEATURES * THREADS
-                   + BWD_FEATURES * 8)
+    source), any q: A's chunk tile (64 x 36), B's chunk and F (32 and 64
+    rows x 68), Q's two row halves (64 x 34 each), the pairs' g sf2^2
+    and sum F, the rows' weights."""
+    pt = BWD_PATCH ** 2
+    return 8 * (BWD_ROWS * (BWD_CHUNK + 4) + (BWD_CHUNK + BWD_ROWS) * (pt + 4)
+                + 2 * pt * (BWD_CHUNK + 2) + 2 * pt + BWD_ROWS)
 
 
-def psi2_bwd_plan(n: int, slots: int) -> tuple[int, int]:
-    """(n-slices, rows per slice) of psi2's backward: one block a slice of
-    rows against every upper tile, as many slices as ``slots`` (at least
-    one, so an empty n still zeroes its partials)."""
-    per = max(1, -(-n // max(1, slots)))
-    return max(1, -(-n // per)), per
+@functools.lru_cache(maxsize=256)
+def psi2_bwd_plan(n: int, m: int, slots: int) -> tuple[int, int, int, int]:
+    """psi2's backward work split: (blocks, row tiles a block touches at
+    most, items, patches).  The items are (64-row tile, 8 x 8-point
+    upper patch) pairs, row tile major, patches row-major over the
+    ceil(m / 8) point blocks; block b takes items ``b * items // blocks``
+    up to ``(b + 1) * items // blocks``, with blocks = ``slots`` (the
+    SMs times ``psi2_bwd_blocks_per_sm``), at most one an item and at
+    least one (an empty n still zeroes its partials)."""
+    nb = -(-m // BWD_PATCH)
+    patches = nb * (nb + 1) // 2
+    items = -(-n // BWD_ROWS) * patches
+    blocks = max(1, min(slots, items))
+    per = -(-items // blocks)
+    return blocks, (per + patches - 2) // patches + 1 if items else 0, \
+        items, patches
 
 
-def psi2_bwd(mu, s, w, zp, g, hp, n_slices, rows_per_slice, flags, lns, ivs,
-             racc, part_z, part_ell, dz, dell, dsf2, dmu, ds, dw) -> None:
+def psi2_bwd_scratch_len(n: int, m: int, q: int, blocks: int,
+                         row_tiles: int) -> int:
+    """f64 elements of psi2's backward scratch (the launcher's layout, each
+    region rounded up to 4 elements): the hyper-parameters (1 + 3q),
+    centred z (m q), A (64 ceil(n / 64) rows x kp), each patch slot's
+    g_p sf2^2 and static term (2 x patches x 64), the blocks' H partials
+    (blocks x row_tiles x 2 x 64 x kp), their d z and d log_ell partials
+    (blocks x (m + 8) q) and the rows' terms (n (q + 1))."""
+    kp = psi2_bwd_width(q)
+    nb = -(-m // BWD_PATCH)
+    patches = nb * (nb + 1) // 2
+    regions = (1 + 3 * q, m * q, -(-n // BWD_ROWS) * BWD_ROWS * kp,
+               patches * BWD_PATCH ** 2, patches * BWD_PATCH ** 2,
+               blocks * row_tiles * 2 * BWD_ROWS * kp, blocks * m * q,
+               blocks * BWD_PATCH * q, n * (q + 1))
+    return sum(-(-r // 4) * 4 for r in regions)
+
+
+def psi2_bwd(mu, s, w, z, g, log_sf2, log_ell, blocks, row_tiles, flags,
+             scratch, dz, dell, dsf2, dmu, ds, dw) -> None:
     """Launch psi2's backward for mu's dtype on the current stream (the
-    rows' terms, the tile pass, the row outputs where ``flags`` (1 mu, 2 s,
-    4 w) asks, and the fixed-order reduce)."""
-    name, fn = _fn("psi2_bwd", mu.dtype, [_P] * 6 + [_I] * 6 + [_P] * 12,
+    rows' A, the tile pass, the row outputs where ``flags`` (1 mu, 2 s,
+    4 w) asks, and the fixed-order reduce); log_sf2 and log_ell in f64,
+    the scratch of :func:`psi2_bwd_scratch_len`."""
+    name, fn = _fn("psi2_bwd", mu.dtype, [_P] * 7 + [_I] * 6 + [_P] * 8,
                    lib="psi2_bwd")
     n, q = mu.shape
-    err = fn(mu.data_ptr(), s.data_ptr(), w.data_ptr(), zp.data_ptr(),
-             g.data_ptr(), hp.data_ptr(), n, g.shape[0], q, n_slices,
-             rows_per_slice, flags, lns.data_ptr(), ivs.data_ptr(),
-             racc.data_ptr(), part_z.data_ptr(), part_ell.data_ptr(),
+    err = fn(mu.data_ptr(), s.data_ptr(), w.data_ptr(), z.data_ptr(),
+             g.data_ptr(), log_sf2.data_ptr(), log_ell.data_ptr(), n,
+             z.shape[0], q, blocks, row_tiles, flags, scratch.data_ptr(),
              dz.data_ptr(), dell.data_ptr(), dsf2.data_ptr(), dmu.data_ptr(),
              ds.data_ptr(), dw.data_ptr(), _build.stream_handle(mu.device))
     _build.check(name, err)
@@ -183,42 +222,53 @@ def psi2_bwd(mu, s, w, zp, g, hp, n_slices, rows_per_slice, flags, lns, ivs,
 
 # -- psi1's backward: csrc/psi1_bwd.cu ---------------------------------------
 
-P1B_BLOCKS_PER_SM = 1   # blocks an SM the plan counts on (f64: 194 registers)
+SM_SMEM = 233_472   # shared memory of one sm_90 SM
 
 
 def psi1_bwd_smem_bytes(m: int, q: int, dtype) -> int:
     """Dynamic shared memory of one psi1 backward block (``smem_elems`` in
     the source): the E tile of P1_ROWS rows by min(m, P1_COLS) columns (row
     stride 8 mod 16), with q <= FEATURES (staged) z of a tile and the rows'
-    mu, s, 1/(l^2 + s) and l^2; the log-normalisers and the rows' terms
-    of d log_ell."""
-    item = torch.empty((), dtype=dtype).element_size()
+    mu, s, 1/(l^2 + s) and l^2; the log-normalisers, the rows' terms of
+    d log_ell and the rows' sums of E, E r and E r^2."""
+    item = dtype.itemsize
     nc = min(m, P1_COLS)
     ld = (nc + 7) // 16 * 16 + 8
     qp = FEATURES + 1
     staged = (nc * qp + 3 * P1_ROWS * qp + FEATURES) if q <= FEATURES else 0
-    return item * (P1_ROWS * ld + staged + P1_ROWS + P1_ROWS * qp)
+    return item * (P1_ROWS * ld + staged + 2 * P1_ROWS + 3 * P1_ROWS * qp)
 
 
-def psi1_bwd_plan(n: int, slots: int) -> int:
-    """Blocks of psi1's backward: one a unit of P1_ROWS rows, at most
-    ``slots`` (at least one, so an empty n still zeroes its partials);
-    block b takes units b, b + blocks, ..."""
-    return max(1, min(-(-n // P1_ROWS), slots))
+def psi1_bwd_blocks_per_sm(m: int, q: int, dtype) -> int:
+    """Blocks of psi1's backward an SM holds: two (its registers allow
+    two) where two blocks' shared memory fits, beside each block's 1 KB
+    reserve and exp table."""
+    return 2 if 2 * (psi1_bwd_smem_bytes(m, q, dtype) + 1536) <= SM_SMEM else 1
 
 
-def psi1_bwd(mu, s, z, log_sf2, log_ell, g, n_blocks, flags, part_z,
-             part_ell, part_sf2, dz, dell, dsf2, dmu, ds) -> None:
+def psi1_bwd_plan(n: int, slots: int) -> tuple[int, int]:
+    """(blocks, rows a unit) of psi1's backward: units of a multiple of 8
+    rows, at most P1_ROWS, as few as fill ``slots`` blocks (the SMs times
+    ``psi1_bwd_blocks_per_sm``) in one wave where n allows; one block a
+    unit, at most ``slots`` (at least one, so an empty n still zeroes its
+    partials); block b takes units b, b + blocks, ..."""
+    per = -(-n // max(1, slots))
+    rows = min(P1_ROWS, max(8, -(-per // 8) * 8))
+    return max(1, min(-(-n // rows), slots)), rows
+
+
+def psi1_bwd(mu, s, z, log_sf2, log_ell, g, n_blocks, rows, flags, scratch,
+             dz, dell, dsf2, dmu, ds) -> None:
     """Launch psi1's backward for mu's dtype on the current stream (the
-    unit pass, then the fixed-order reduce); dmu, ds are written only
-    where ``flags`` (1 mu, 2 s) asks."""
-    name, fn = _fn("psi1_bwd", mu.dtype, [_P] * 6 + [_I] * 5 + [_P] * 9,
+    unit pass, then the fixed-order reduce); the scratch holds the blocks'
+    partials (``n_blocks`` (m + 1) q + ``n_blocks`` f64); dmu, ds are
+    written only where ``flags`` (1 mu, 2 s) asks."""
+    name, fn = _fn("psi1_bwd", mu.dtype, [_P] * 6 + [_I] * 6 + [_P] * 7,
                    lib="psi1_bwd")
     n, q = mu.shape
     err = fn(mu.data_ptr(), s.data_ptr(), z.data_ptr(), log_sf2.data_ptr(),
              log_ell.data_ptr(), g.data_ptr(), n, z.shape[0], q, n_blocks,
-             flags, part_z.data_ptr(), part_ell.data_ptr(),
-             part_sf2.data_ptr(), dz.data_ptr(), dell.data_ptr(),
+             rows, flags, scratch.data_ptr(), dz.data_ptr(), dell.data_ptr(),
              dsf2.data_ptr(), dmu.data_ptr(), ds.data_ptr(),
              _build.stream_handle(mu.device))
     _build.check(name, err)

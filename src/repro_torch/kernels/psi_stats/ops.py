@@ -181,11 +181,11 @@ def _(log_sf2, log_ell, z, mu, s, w, g, flags):
 
 def psi2_bwd_flops(n: int, m: int, q: int) -> int:
     """psi2's backward kernel's FLOPs: each row (every row, as the
-    forward's formula) against the upper half of the pairs, the exponent
-    and the exp's FMA (3q + 2) recomputed in each pass of 4 features, and
-    per feature r, F r, F r^2 and the point sums (6q), and F (3)."""
-    passes = -(-q // _k.BWD_FEATURES)
-    return n * (m * (m + 1) // 2) * ((3 * q + 2) * passes + 6 * q + 3)
+    forward's formula) against the upper half of the pairs, per (row,
+    pair) the exponent formed once (E's product over the 2q + 2 columns,
+    2(2q + 2)), F (3: the exp's FMA, the cotangent, the weight), the rows'
+    sums H = G B (2(2q + 1)) and the pairs' sums Q = F^T A (2(2q + 1))."""
+    return n * (m * (m + 1) // 2) * (12 * q + 11)
 
 
 @register_flop_formula(torch.ops.repro_torch.psi2_bwd)
@@ -194,45 +194,37 @@ def psi2_bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
     return psi2_bwd_flops(mu_shape[0], z_shape[0], z_shape[1])
 
 
-def psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags, slots):
+def psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags, sms):
     """psi2's backward operands, scratch and outputs for one launch
-    (``kernel.psi2_bwd``'s arguments) over ``slots`` block slots: z
-    zero-padded to 64-row multiples, hp = [sf2^2, l^2] in the tile
-    dtype."""
+    (``kernel.psi2_bwd``'s arguments) on a card of ``sms`` SMs: the
+    operands as they are (the log hyper-parameters in f64), one scratch
+    allocation."""
     n, q = mu.shape
     m = z.shape[0]
     f64 = torch.float64
     dt = _tile_dtype(mu.dtype)
     dev = mu.device
-    mp = -(-m // _k.TILE) * _k.TILE
-    zp = torch.zeros((mp, q), dtype=dt, device=dev)
-    zp[:m] = z
-    sf2 = torch.exp(log_sf2)
-    hp = torch.cat([(sf2 * sf2).reshape(1),
-                    torch.exp(2.0 * log_ell)]).to(dt).contiguous()
-    n_slices, per = _k.psi2_bwd_plan(n, slots)
+    blocks, row_tiles, _, _ = _k.psi2_bwd_plan(
+        n, m, sms * _k.psi2_bwd_blocks_per_sm(q))
 
     def rows(shape, flag):
         return torch.empty(shape if flags & flag else (0,), dtype=dt,
                            device=dev)
-    return (*(_build.operand(t, dt) for t in (mu, s, w)), zp,
-            _build.operand(g, dt), hp, n_slices, per, flags,
-            torch.empty((n,), dtype=dt, device=dev),
-            torch.empty((n, q), dtype=dt, device=dev),
-            torch.empty((n, 2 + 2 * q), dtype=f64, device=dev),
-            torch.empty((n_slices, mp, q), dtype=f64, device=dev),
-            torch.empty((n_slices, q), dtype=f64, device=dev),
+    return (*(_build.operand(t, dt) for t in (mu, s, w, z, g)),
+            _build.operand(log_sf2, f64), _build.operand(log_ell, f64),
+            blocks, row_tiles, flags,
+            torch.empty((_k.psi2_bwd_scratch_len(n, m, q, blocks, row_tiles),),
+                        dtype=f64, device=dev),
             torch.empty((m, q), dtype=f64, device=dev),
             torch.empty((q,), dtype=f64, device=dev),
             torch.empty((), dtype=f64, device=dev),
             rows((n, q), 1), rows((n, q), 2), rows((n,), 4))
 
 
-def _launch_psi2_bwd(log_sf2, log_ell, z, mu, s, w, g, flags, slots):
+def _launch_psi2_bwd(log_sf2, log_ell, z, mu, s, w, g, flags, sms):
     """The bare backward launch (the operator's implementation): device
     checks are the caller's."""
-    args = psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags,
-                                slots)
+    args = psi2_bwd_launch_args(log_sf2, log_ell, z, mu, s, w, g, flags, sms)
     _k.psi2_bwd(*args)
     LAUNCHES["psi2_bwd_" + str(args[0].dtype).removeprefix("torch.")] += 1
     dz, dell, dsf2, dmu, ds, dw = args[-6:]
@@ -356,27 +348,28 @@ def psi1_bwd_flop_count(log_sf2_shape, log_ell_shape, z_shape, mu_shape,
     return psi1_bwd_flops(mu_shape[0], z_shape[0], z_shape[1])
 
 
-def psi1_bwd_launch_args(log_sf2, log_ell, z, mu, s, g, flags, slots):
+def psi1_bwd_launch_args(log_sf2, log_ell, z, mu, s, g, flags, sms):
     """psi1's backward operands, scratch and outputs for one launch
-    (``kernel.psi1_bwd``'s arguments) over ``slots`` SMs."""
+    (``kernel.psi1_bwd``'s arguments) on a card of ``sms`` SMs: one
+    scratch allocation for the blocks' partials."""
     n, q = mu.shape
     m = z.shape[0]
     f64 = torch.float64
     dt = _tile_dtype(mu.dtype)
     dev = mu.device
-    n_blocks = _k.psi1_bwd_plan(n, slots * _k.P1B_BLOCKS_PER_SM)
+    n_blocks, rows = _k.psi1_bwd_plan(
+        n, sms * _k.psi1_bwd_blocks_per_sm(m, q, dt))
 
-    def rows(flag):
+    def out_rows(flag):
         return torch.empty((n, q) if flags & flag else (0,), dtype=dt,
                            device=dev)
     return (*(_build.operand(t, dt) for t in (mu, s, z, log_sf2, log_ell, g)),
-            n_blocks, flags,
-            torch.empty((n_blocks, m, q), dtype=f64, device=dev),
-            torch.empty((n_blocks, q), dtype=f64, device=dev),
-            torch.empty((n_blocks,), dtype=f64, device=dev),
+            n_blocks, rows, flags,
+            torch.empty((n_blocks * ((m + 1) * q + 1),), dtype=f64,
+                        device=dev),
             torch.empty((m, q), dtype=f64, device=dev),
             torch.empty((q,), dtype=f64, device=dev),
-            torch.empty((), dtype=f64, device=dev), rows(1), rows(2))
+            torch.empty((), dtype=f64, device=dev), out_rows(1), out_rows(2))
 
 
 def _launch_psi1_bwd(log_sf2, log_ell, z, mu, s, g, flags, slots):

@@ -169,3 +169,59 @@ def psi2_vjp_ref(log_sf2, log_ell, z, mu, s, w, g, needs,
                    if needs[i] else None)
     return [g if need else None for g, need in zip(out[:3], needs[:3])] \
         + out[3:]
+
+
+def psi2_vjp_products(log_sf2, log_ell, z, mu, s, w, g, needs):
+    """:func:`psi2_vjp_ref`'s function by the arithmetic of
+    ``csrc/psi2_bwd.cu``: the reference's factorisation
+    (``core.gp_kernels.psi2_mxu``) with μ and z centred, three matrix
+    products and an elementwise chain.  Only the tests call it.
+
+    With c the mean of z, μ' = μ - c, z̄' the pair's centred midpoint,
+    D = ℓ² + 2S and the upper pairs p = (j <= k) carrying g_jk + g_kj
+    (g_jj on the diagonal)::
+
+        A = [2μ'/D, -1/D (per feature), α, 1]      (n, 2q + 2)
+        B = [z̄', z̄'² (per feature), 1, static]    (pairs, 2q + 2)
+        E = A Bᵀ,  G = sf2² g_p exp(E),  F = w G
+        H = G B    (rows: Σ G z̄', Σ G z̄'², Σ G)
+        Q = Fᵀ A   (pairs: Σ F 2μ'/D, -Σ F/D, ·, Σ F)
+
+    with α = -½ Σ log1p(2S/ℓ²) - Σ μ'²/D and static = -¼ Σ (z_j - z_k)²/ℓ²;
+    the gradients follow per row from H and per pair from Q.  The shift
+    by c cancels in E, so the expansion of (μ' - z̄')² loses nothing to
+    an offset common to μ and z."""
+    n, q = mu.shape
+    m = z.shape[0]
+    ell2 = torch.exp(2.0 * log_ell)
+    sf4 = torch.exp(2.0 * log_sf2)
+    c = z.mean(0)
+    zc, muc = z - c, mu - c
+    j, k = torch.triu_indices(m, m)
+    gp = torch.where(j == k, g[j, k], g[j, k] + g[k, j])
+    zbar = 0.5 * (zc[j] + zc[k])                                  # (P, q)
+    dzp = zc[j] - zc[k]
+    static = -0.25 * (dzp * dzp / ell2).sum(-1)
+    inv = 1.0 / (ell2 + 2.0 * s)
+    alpha = -0.5 * torch.log1p(2.0 * s / ell2).sum(-1) \
+        - (muc * muc * inv).sum(-1)
+    a = torch.cat([torch.stack([2.0 * muc * inv, -inv], -1).reshape(n, 2 * q),
+                   alpha[:, None], torch.ones_like(alpha)[:, None]], 1)
+    b = torch.cat([torch.stack([zbar, zbar * zbar], -1).reshape(-1, 2 * q),
+                   torch.ones_like(static)[:, None], static[:, None]], 1)
+    gm = sf4 * gp * torch.exp(a @ b.T)                            # (n, P)
+    h = gm @ b
+    qm = (w[:, None] * gm).T @ a
+    h0, h1, h2 = h[:, 2 * q], h[:, 0:2 * q:2], h[:, 1:2 * q:2]
+    sr2 = muc * muc * h0[:, None] - 2.0 * muc * h1 + h2          # Σ G r²
+    wc = w[:, None]
+    d_ell = (wc * (2.0 * s * inv * h0[:, None]
+                   + 2.0 * ell2 * sr2 * inv * inv)).sum(0)
+    dzbar = qm[:, 0:2 * q:2] + 2.0 * zbar * qm[:, 1:2 * q:2]
+    u = 0.5 * qm[:, 2 * q + 1, None] * dzp / ell2
+    d_z = torch.zeros_like(z).index_add_(0, j, 0.5 * dzbar - u) \
+        .index_add_(0, k, 0.5 * dzbar + u)
+    out = [2.0 * (w * h0).sum(), d_ell + (u * dzp).sum(0), d_z,
+           2.0 * wc * inv * (h1 - muc * h0[:, None]),
+           wc * (2.0 * sr2 * inv * inv - h0[:, None] * inv), h0]
+    return [t if need else None for t, need in zip(out, needs)]

@@ -1900,6 +1900,37 @@ def test_psi1_bwd_matches_closed_form_and_recompute(cuda, n, m, q, dtype):
               ps_ops.psi1_vjp(*pin, pg, needs), dtype)
 
 
+@pytest.mark.parametrize("kernel", ["psi2", "psi1"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_psi_bwd_holds_offset_inputs(cuda, kernel, dtype):
+    """mu and z shifted by +100 in every feature, at gplvm-usps's q and m
+    off the patches: psi2's backward expands (mu - zbar)^2 after centring
+    both on the mean of z, psi1's forms r directly; each holds the closed
+    form at its tier and the chunked recompute (f64 normwise 1e-8), and
+    is bitwise on a second call."""
+    n, m, q = 1003, 151, 10
+    hyp, z, mu, s, w = _psi_inputs(21, n, m, q, cuda, dtype)
+    z, mu = z + 100.0, mu + 100.0
+    rng = np.random.default_rng(22)
+    if kernel == "psi2":
+        g = _t(rng.standard_normal((m, m)), cuda, dtype)
+        kin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s, w]
+        op, flags, needs = torch.ops.repro_torch.psi2_bwd, 7, [True] * 6
+        closed, chunked = ps_ref.psi2_vjp_ref, ps_ops.psi2_vjp
+    else:
+        g = _t(rng.standard_normal((n, m)), cuda, dtype)
+        kin = [hyp["log_sf2"], hyp["log_ell"], z, mu, s]
+        op, flags, needs = torch.ops.repro_torch.psi1_bwd, 3, [True] * 5
+        closed, chunked = ps_ref.psi1_vjp_ref, ps_ops.psi1_vjp
+    pin, pg = [t.double() for t in kin], g.double()
+    if kernel == "psi1":   # psi1 reads the log hyper-parameters in its dtype
+        pin[:2] = [t.to(dtype).double() for t in pin[:2]]
+    got, again = op(*kin, g, flags), op(*kin, g, flags)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _hold_bwd(got, closed(*pin, pg, needs), closed(*pin, pg, needs, absolute=True),
+              chunked(*pin, pg, needs), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_backward_zero_weight_rows_do_not_leak(cuda, dtype):
     """Rows of weight 0 get exactly zero d x, d y (reg_stats) and d mu,

@@ -50,6 +50,13 @@ PSI_CASES = [
     (25, 12, 2, "zero"),
     (20, 3, 1, "ones"),
 ]
+# (n, m, q, weights, shift): mu and z shifted by +100 in every feature (the
+# expanded exponent's cancellation), and m off the 8-point patches at
+# gplvm-usps's q
+PSI_EXTRA = [
+    (30, 37, 3, "masked", 100.0),
+    (12, 29, 10, "masked", 0.0),
+]
 # (n, m, q): q past 16, m off the tiles and past one 256-column tile
 PSI1_CASES = [
     (40, 37, 3),
@@ -92,10 +99,11 @@ def _rs_inputs(n, m, q, d, kind):
     return ins, cts
 
 
-def _psi_inputs(n, m, q, kind):
+def _psi_inputs(n, m, q, kind, shift=0.0):
     rng = np.random.default_rng(3 * n + m + q)
     ins = [np.asarray(rng.uniform(-0.5, 0.8)), rng.uniform(-0.4, 0.4, q),
-           rng.standard_normal((m, q)), rng.standard_normal((n, q)),
+           rng.standard_normal((m, q)) + shift,
+           rng.standard_normal((n, q)) + shift,
            rng.uniform(0.05, 0.8, (n, q)), _weights(rng, n, kind)]
     return ins, rng.standard_normal((m, m))
 
@@ -137,7 +145,7 @@ def jax_rs():
 def jax_psi():
     """jax.vjp of the reference's weighted psi2 for every case, once."""
     out = {}
-    for case in PSI_CASES:
+    for case in PSI_CASES + PSI_EXTRA:
         ins, g = _psi_inputs(*case)
 
         def fn(log_sf2, log_ell, z, mu, s, w):
@@ -181,6 +189,21 @@ def test_psi2_closed_form_matches_jax_vjp(case, jax_psi):
     for i, (t, want) in enumerate(zip(got, jax_psi[case])):
         assert t.shape == want.shape
         _close(t, want, name=f"input {i}")
+
+
+@pytest.mark.parametrize("case", PSI_CASES + PSI_EXTRA)
+def test_psi2_products_match_jax_vjp(case, jax_psi):
+    """``psi2_vjp_products``, the arithmetic of ``csrc/psi2_bwd.cu`` (the
+    centred factorisation, E = A B^T, H = G B, Q = F^T A and the
+    elementwise chain), against jax.vjp of the reference at normwise
+    1e-10, every input's gradient: the offset case holds only because
+    mu and z are centred before the expansion."""
+    ins, g = _psi_inputs(*case)
+    got = ps_ref.psi2_vjp_products(*_t(ins), torch.from_numpy(g), [True] * 6)
+    for i, (t, want) in enumerate(zip(got, jax_psi[case])):
+        assert t.shape == want.shape
+        err = np.linalg.norm(t.numpy() - want)
+        assert err <= 1e-10 * max(np.linalg.norm(want), 1e-300), (i, err)
 
 
 @pytest.mark.parametrize("case", PSI1_CASES)
@@ -385,25 +408,74 @@ def test_reg_stats_bwd_cluster_covers_every_column_tile_once(m):
 @pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 4649, 100_000])
 @pytest.mark.parametrize("slots", [1, 264])
 def test_psi1_bwd_plan_covers_every_row_once(n, slots):
-    """Block b of psi1's backward takes the 32-row units b, b + blocks, ...:
-    every row once, at most ``slots`` blocks and at least one."""
-    blocks = ps_k.psi1_bwd_plan(n, slots)
+    """Block b of psi1's backward takes the units of ``rows`` rows b, b +
+    blocks, ...: every row once, at most ``slots`` blocks and at least
+    one, units of a multiple of 8 rows up to 32, and one wave (no more
+    units than slots) wherever 32-row units allow it."""
+    blocks, per = ps_k.psi1_bwd_plan(n, slots)
     assert 1 <= blocks <= max(1, slots)
-    units = -(-n // ps_k.P1_ROWS)
+    assert per % 8 == 0 and 8 <= per <= ps_k.P1_ROWS
+    units = -(-n // per)
+    assert units <= slots or per == ps_k.P1_ROWS
     rows = sorted(r for b in range(blocks) for u in range(b, units, blocks)
-                  for r in range(u * ps_k.P1_ROWS,
-                                 min(n, (u + 1) * ps_k.P1_ROWS)))
+                  for r in range(u * per, min(n, (u + 1) * per)))
     assert rows == list(range(n))
+
+
+def _patch_of(pt, nb):
+    """The kernel's patch_of: upper 8-point blocks (jb <= kb), row-major."""
+    jb = 0
+    while pt >= nb - jb:
+        pt -= nb - jb
+        jb += 1
+    return jb, jb + pt
 
 
 @pytest.mark.parametrize("n", [0, 1, 33, 4649, 100_000])
 @pytest.mark.parametrize("slots", [1, 132])
 def test_psi2_bwd_plan_covers_every_row_once(n, slots):
-    n_slices, per = ps_k.psi2_bwd_plan(n, slots)
-    assert 1 <= n_slices <= max(1, slots)
-    rows = [r for s in range(n_slices)
-            for r in range(s * per, min(n, (s + 1) * per))]
-    assert rows == list(range(n))
+    """psi2's backward items (64-row tile, 8 x 8-point patch), row tile
+    major, in equal shares of ``items // blocks``: for each m, the blocks'
+    ranges cover every item once; a block touches at most ``row_tiles``
+    row tiles; the kernel's patch walk (``patch_of`` at a block's first
+    item, then the next patch row-major) visits every upper patch once a
+    row tile, and the patches' slots every pair j <= k < m once; the row
+    epilogue's first and last block of a row tile are the blocks that
+    hold its first and last item, its slot in the first ``tile - first
+    tile of that block`` and 0 in the later ones."""
+    for m in (1, 63, 64, 65, 150, 151, 257):
+        blocks, row_tiles, items, patches = ps_k.psi2_bwd_plan(n, m, slots)
+        nb = -(-m // ps_k.BWD_PATCH)
+        assert patches == nb * (nb + 1) // 2
+        assert items == -(-n // ps_k.BWD_ROWS) * patches
+        assert 1 <= blocks <= max(1, slots) and (items == 0 or blocks <= items)
+        lo = [b * items // blocks for b in range(blocks + 1)]
+        assert lo[0] == 0 and lo[-1] == items
+        assert all(a < b for a, b in zip(lo, lo[1:])) or items == 0
+        for a, b in zip(lo, lo[1:]):
+            if b > a:
+                assert (b - 1) // patches - a // patches + 1 <= row_tiles
+        walk, jb, kb = [], 0, 0
+        for pt in range(patches):   # the kernel's step from patch to patch
+            if pt:
+                kb += 1
+                if kb == nb:
+                    jb += 1
+                    kb = jb
+            walk.append((jb, kb))
+            assert _patch_of(pt, nb) == (jb, kb)
+        pairs = sorted((jb * 8 + a, kb * 8 + b) for jb, kb in walk
+                       for a in range(8) for b in range(8)
+                       if jb * 8 + a <= kb * 8 + b < m)
+        assert pairs == [(j, k) for j in range(m) for k in range(j, m)]
+        for rt in range(-(-n // ps_k.BWD_ROWS)):
+            b_lo = ((rt * patches + 1) * blocks - 1) // items
+            b_hi = ((rt + 1) * patches * blocks - 1) // items
+            assert lo[b_lo] <= rt * patches < lo[b_lo + 1]
+            assert lo[b_hi] <= (rt + 1) * patches - 1 < lo[b_hi + 1]
+            assert 0 <= rt - lo[b_lo] // patches < row_tiles
+            assert all(lo[b] // patches == rt for b in range(b_lo + 1,
+                                                               b_hi + 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -411,20 +483,26 @@ def test_backward_shared_memory_is_fixed_and_fits(dtype):
     """One block's shared memory fits an sm_90 block (the f32 reg_stats
     backward two a multiprocessor), whatever q and d; the redesigned
     reg_stats backward's own knm tile (128 points x 64 rows) fits beside
-    its buffers; psi1's backward grows with m only up to one 256-column
-    tile, and its plan's blocks an SM fit at gplvm-usps (m 150)."""
+    its buffers; psi2's backward block (any q) fits twice an SM, and its
+    plan counts two up to q 15; psi1's backward grows with m only up to
+    one 256-column tile, and two of its blocks fit an SM at gplvm-usps (m
+    150)."""
     rs = rs_k.bwd_smem_bytes(dtype)
-    ps = ps_k.psi2_bwd_smem_bytes(dtype)
+    ps = ps_k.psi2_bwd_smem_bytes()
     per_sm = rs_k.BWD_BLOCKS_PER_SM[dtype]
     assert (rs + 512) * per_sm <= rs_k.SMEM_LIMIT   # beside the exp table
     item = torch.empty((), dtype=dtype).element_size()
     own = rs_k.BWD_COLUMNS * (rs_k.BWD_ROWS + (4 if item == 8 else 0)) * item
     assert own < rs < rs_k.SMEM_LIMIT - 512
-    assert ps + 512 <= ps_k.SMEM_MAX
+    # psi2: two blocks an SM, each beside its 1 KB reserve and exp table
+    assert 2 * (ps + 1536) <= ps_k.SM_SMEM
+    assert [ps_k.psi2_bwd_blocks_per_sm(q) for q in (1, 10, 15, 16, 160)] \
+        == [2, 2, 2, 1, 1]
     p1 = [ps_k.psi1_bwd_smem_bytes(m, q, dtype)
           for m in (1, 150, 256, 257, 46_400) for q in (1, 10, 16, 17, 160)]
     assert max(p1) + 512 <= ps_k.SMEM_MAX
     assert ps_k.psi1_bwd_smem_bytes(256, 10, dtype) \
         == ps_k.psi1_bwd_smem_bytes(46_400, 10, dtype)
-    usps = ps_k.psi1_bwd_smem_bytes(150, 10, dtype) + 512
-    assert usps * ps_k.P1B_BLOCKS_PER_SM <= ps_k.SMEM_MAX
+    usps = ps_k.psi1_bwd_smem_bytes(150, 10, dtype) + 1536
+    assert ps_k.psi1_bwd_blocks_per_sm(150, 10, dtype) == 2
+    assert 2 * usps <= ps_k.SM_SMEM
