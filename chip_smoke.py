@@ -15,7 +15,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``torch.profiler``; reg_stats' and the psi kernels' bare launch and
    device time; reg_stats at q = 40 and at d = 64, predict at m = 2048 and
    psi at q = 160, past one 16-feature chunk or one block's slab, and
-   reg_stats at m = 2,048 (more units than SMs), in both dtypes; f32
+   reg_stats at m = 2,048 (more units than SMs), in both dtypes, and the
+   f64 reg_stats at phase 3e's blocks (n 2,048, m 64), timed; f32
    reg_stats at m = 127, 129 and 257 (the 128-tile edge) and at m = 46,400
    (past the old gridDim.y limit, its D held 2,048 rows at a time), checked
    untimed; psi2 and psi1 at m = 63, 65 and 151 (psi2's patch and tile
@@ -33,7 +34,8 @@ Run from the root of a checkout on a machine with a CUDA card.  It
    ``tests/test_kernels_pallas.py``, beside ``scaled_dot_product_attention``
    as a yardstick; and cuBLAS's f64 and f32 ``K^T (w K)`` and ``K g`` over
    a materialised K (TF32 off), printed as yardsticks of the reg_stats and
-   predict kernels' product loops);
+   predict kernels' product loops, and cuBLAS's f64 ``Knm S`` scaled to
+   n = 1e6, the yardstick of the reg_stats backward's);
 3a. trains and serves the SGPR at ``sgpr-synth-1m`` (n = 1e6, q = 8,
    d = 4, m = 512): ``SGPR`` -> value and gradient of the bound against the
    plain f64 path -> ``fit`` (3 SCG iterations; the bound must rise) ->
@@ -6447,6 +6449,10 @@ def main() -> int:
         check_reg_stats(rs_ops, rs_ref, peaks, 20_011, m, 8, 4,
                         torch.float32, masked=True, timed=False)
     check_reg_stats_rows(rs_ops, 1_003, 46_400, 3, 2, torch.float32)
+    # Phase 3e's streamed blocks: 2,048 rows at m 64, one cluster of one
+    # block a 32-row slice.
+    check_reg_stats(rs_ops, rs_ref, peaks, 2_048, 64, 8, 1, torch.float64,
+                    masked=False, timed=True)
     torch.cuda.empty_cache()
     print("cublas f64 K^T (w K), 65,536 x 512 scaled to n = 1e6 (yardstick "
           f"of the DMMA loop, not called by the port): "
@@ -6470,6 +6476,11 @@ def main() -> int:
     print("cublas f32 K g, 65,536 x 512 by 512 x 512, TF32 off (yardstick of "
           "the f32 predict kernel's FMA loop, not called by the port): "
           f"{cublas_quad_product_ms(65_536, cfg.m, torch.float32):.4f} ms",
+          flush=True)
+    print("cublas f64 Knm S, 65,536 x 512 by 512 x 512 scaled to n = 1e6 "
+          "(yardstick of the reg_stats backward's DMMA loop, not called by "
+          "the port): "
+          f"{cublas_quad_product_ms(65_536, cfg.m) * cfg.n / 65_536:.4f} ms",
           flush=True)
     usps, synth = GP_CONFIGS["gplvm-usps"], GP_CONFIGS["gplvm-synth-100k"]
     psi_full = {}

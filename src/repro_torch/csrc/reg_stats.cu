@@ -14,59 +14,104 @@
 // What bounds it on the H100: operations.  D alone is n*m*(m+1)/2
 // multiply-adds (2.6e11 at n = 1e6, m = 512) against ~52 MB of input, far
 // above the card's balance point; the slab costs q distance FMAs and one
-// exp per (row, column) it is built for.  Shared by both instantiations:
+// exp per (row, column) it is built for.  Shared by all three kernels:
 //   * The TPU carries the D/C/b accumulators from one step of a sequential
 //     n-grid to the next.  Here blocks run in parallel and in no order, so
-//     each block owns one unit (n-slice, upper D tile): one tile (a, b)
-//     with a <= b and one slice of rows; it stages RC rows at a time and
-//     builds the slabs ka*w and kb of its tile's columns in shared memory.
-//     Only the upper tiles are computed; the lower half is their mirror.
-//     The units go on gridDim.x (unit = slice * tiles + tile, which also
-//     indexes the unit's partial), so no m is refused: gridDim.y stopped at
-//     65,535 tiles.
-//   * C is accumulated on the diagonal tiles (a == b), b on tile 0, in the
-//     same pass.  On a diagonal tile kb is ka, so its slab is built once.
-//   * A second small kernel sums the per-slice partials in a fixed order
-//     (slice 0, 1, ...) in f64 and mirrors D: no atomics, so results are
-//     deterministic, and splitting n keeps the error of a 1e6-row sum
-//     small.  Within a slice, partial sums are folded into the running tile
-//     with Kahan compensation.
+//     the rows are cut into slices; each slice's partials are summed by a
+//     second small kernel in a fixed order (slice 0, 1, ...) in f64, which
+//     also mirrors D (only the upper triangle is computed): no atomics, so
+//     results are bitwise repeatable, and splitting n keeps the error of a
+//     1e6-row sum small.  Within a slice, the accumulators are folded into
+//     the block's partial every 4,096 rows with Kahan compensation.
 //   * The exponent is evaluated directly as sum_q (x_q - z_q)^2 * inv_q
 //     (q FMAs per entry).  The Pallas kernel's expanded form alpha + M.Zc is
 //     not anchored and cancels in f32 for inputs with large offsets; the
 //     direct form has no such cancellation and costs little at q = 8.
 //   * Ragged edges are masked, never padded into the result: rows past n
 //     (or past the slice) carry w = 0 and x = y = 0; inducing points past m
-//     carry z = 0 and are never written out; q and d are loop bounds.  No
-//     result depends on the tile size.
+//     carry z = 0 and are never written out.  No result depends on the
+//     tile size.
+//   * Shared memory is fixed whatever q and d (features staged 16 at a
+//     time or read from device memory past that, y and C 8 columns wide or
+//     in device memory past that), and the work units go on gridDim.x, so
+//     no q, d or m is refused.
 //
-// f64 (what the f64 models call): D on the FP64 tensor cores.
-//   * 128 x 128 upper tiles (10 at m = 512), and as many n-slices as fill
-//     the 132 SMs once (13 at m = 512: 130 blocks, one per SM), so each
-//     (row, column) entry of the slab is built m/128 = 4 times over the
-//     grid instead of m/64 = 8 times with 64 x 64 tiles.  The slab build
-//     (q DFMAs and one libdevice exp per entry, on the CUDA cores) is then
-//     as large as the D product itself, and the two overlap: a chunk's
-//     product runs beside the next chunk's build, the slabs double
-//     buffered in shared memory.
-//   * The product is mma.sync m16n8k4 f64 (DMMA, IEEE f64 on the tensor
-//     cores): 8 warps, each a 64 x 32 part of the tile as 4 x 4 fragments
-//     in registers.  The fragments accumulate over 4,096 rows, then are
-//     folded into the running tile with Kahan compensation; running tile
-//     and compensation live in the block's own scratch in device memory
-//     (L2), each entry touched by one thread only.
-//   * The next chunk's x and w are in flight (cp.async, three buffers)
-//     while the current one is built and multiplied: one barrier a chunk.
-//   * Shared memory is fixed (DMMA_SMEM_BYTES), whatever q and d: z, x and
-//     1/ell^2 are staged QC = 16 features at a time (one chunk for every
-//     config of the repo; past that the exponent sums accumulate in the
-//     slab buffers over the chunks, without the overlap above), and y and
-//     C's rows are staged DC = 8 columns wide; past that C accumulates in
-//     the diagonal block's own rows of part_c, with y read from device
-//     memory.
+// f64 (what the f64 models call): D on the FP64 tensor cores (mma.sync
+// f64, DMMA: IEEE f64; Hopper has no f64 wgmma).  At m <= 512 (every config
+// of the repo) the cluster kernel; past that the per-tile kernel.
+//   * What bounded the per-tile design (the f64 kernel before the
+//     cluster kernel): each block built the slabs
+//     of its own 128 x 128 upper tile, so each knm entry was built m/128
+//     times over the grid (4 at m = 512), and that build (q distance FMAs
+//     and a libdevice exp an entry, on the FP64 CUDA cores) took as long
+//     as the product; the diagonal tiles, with one slab, waited.
+//   * Why not "a block a 128-column tile, its upper tiles dealt over the
+//     cluster": D's accumulators must stay in registers across the rows
+//     (folding a tile out of registers every chunk costs more L2 traffic
+//     than the product), and at m = 512 the upper triangle, 131,328
+//     entries, is more than 4 SMs' registers hold.  Eight SMs hold 8 x 256
+//     threads x 64 accumulators = 131,072 entries: just short of the
+//     triangle with its diagonal, enough without the 64 diagonal 8 x 8
+//     blocks.  So:
+//   * The cluster kernel: a thread-block cluster of nb = ceil(m/64) blocks
+//     (at most 8) takes one slice of rows.  Block r builds knm of each
+//     32-row chunk against its own band of 64 inducing points, once, into
+//     its shared memory (three buffers: chunk c is multiplied while c+2 is
+//     built and c+1 is copied).  D's upper triangle is cut into nb^2 warp
+//     tasks of 16 fragments each: the 64 x 32 regions of the band pairs
+//     (lo < hi: A = band lo, B = a half of band hi weighted by w), and
+//     each band's staircase (the 16 fragments of its own 64 x 64 block
+//     strictly above its diagonal 8 x 8 blocks).  Rank h takes its own
+//     staircase and the pairs (h, h + 1 .. h + (nb-1)/2 mod nb), both
+//     halves, and for even nb one half of (h, h + nb/2): every block the
+//     same number of fragments (nb x 16), every warp at most 16, and at
+//     most 4 other bands to copy.  The other bands of a chunk come through
+//     distributed shared memory (ld.shared::cluster, one copy a chunk into
+//     a local buffer), never rebuilt.  Each warp also takes one diagonal
+//     8 x 8 block of its own band and its C rows (mma.sync m8n8k4 f64, A =
+//     w knm, B = knm or y), so D's diagonal and C come from the block that
+//     built them.  One cluster barrier a chunk, its wait after the chunk's
+//     first product part.  kernels/reg_stats/kernel.py::cluster_plan is
+//     the plan; the blocks read it.
+//   * The products take sm_90's m16n8k8 f64 shape (8 rows an instruction):
+//     12.77 ms against 13.71 with m16n8k4 (H100 80GB HBM3, 700 W,
+//     tools/bwd_ablation.py-style variants, one call).
+//   * The build: q <= 8 and q <= 16 are instantiations whose feature loop
+//     is unrolled without a guard (x, z and 1/ell^2 zero past q, x's rows
+//     staged KQ wide), four chains a thread side by side, the exp
+//     psi_stats.cu's branch-free exp_pair (its table in shared memory).
+//     With a guard on q and two chains the build cost 5.1-5.5 ms of 16.0,
+//     latency-bound; now 2.1-2.3 ms.  Past 16 features x and z come from
+//     device memory.
+//   * Measured (the ablation tool's --kernel reg_stats_fwd, device ms at
+//     sgpr-synth-1m): 12.78-12.90 against the per-tile design's 16.78;
+//     without the build 10.5-10.7, without the products 8.6, without the
+//     copies 11.4-11.6, without the cluster barrier 11.9-12.1, the products
+//     and the frame alone 9.3-9.5.  15 clusters of 8 fit the card (120 of
+//     132 SMs).  The DMMA loop runs at about half of its peak: with two
+//     warps a sub-partition, the barriers and the build's and copies'
+//     latency stall it; build and product do not overlap.
+//   * Tried and dropped (same tool, same card): the two warps of an SM
+//     sub-partition building and multiplying in opposite order (16.46
+//     against 15.84 in the same phase); x and z in units of ell, two
+//     FP64 ops a distance term (13.08 against 12.78); libdevice's exp in
+//     place of exp_pair (equal within 1%).
+//   * Shared memory is fixed (CLUSTER_SMEM_BYTES): x staged by cp.async
+//     (four buffers, three chunks ahead) when q <= QC = 16; y staged DC = 8
+//     columns wide and C on DMMA when d <= 8, else C on the CUDA cores into
+//     the block's rows of part_c with y from device memory.
+//   * Past 512 points (nb > 8) the per-tile kernel: one block an (n-slice,
+//     upper 128-tile) unit on gridDim.x (unit = slice * tiles + tile; C on
+//     the diagonal tiles, b on tile 0), each building the slabs of its two
+//     column tiles (libdevice exp), 8 warps of 64 x 32 m16n8k4 fragments,
+//     the next chunk's slabs built while this one's are multiplied, x and w
+//     by cp.async in three buffers; z, x and 1/ell^2 staged 16 features at
+//     a time (past that the exponent sums accumulate in the slab buffers,
+//     without the overlap), y and C's rows 8 columns wide (past that in
+//     part_c).
 //
-// f32 (the TPU kernel's f32 contract): the same structure with the product
-// in IEEE f32 on the CUDA cores (TF32 misses the f32 tier), so the product
+// f32 (the TPU kernel's f32 contract): the per-tile kernel's structure with
+// the product in IEEE f32 on the CUDA cores (TF32 misses the f32 tier), so the product
 // (n*m*(m+1)/2 FMAs, 1.3e11 at sgpr-synth-1m) and the slab build share the
 // FP32 pipe, and that pipe is the bound, with shared memory's delivery
 // beside it (an 8 x 8 tile reads a byte per FMA).  On the H100 the two
@@ -82,8 +127,8 @@
 //   * The exponent in the direct form, -1/2 log2(e) folded into the staged
 //     1/ell^2 by the wrapper, and one ex2.approx per entry on the SFU (about
 //     2^-22 relative, far inside the tier; libdevice's expf is ~8 FP32 ops).
-//   * The f64 kernel's overlap (double-buffered slabs, cp.async rows in
-//     three buffers, one barrier a chunk) and its Kahan fold every 4,096
+//   * The f64 per-tile kernel's overlap (double-buffered slabs, cp.async
+//     rows in three buffers, one barrier a chunk) and its Kahan fold every 4,096
 //     rows into the block's scratch in L2 (a fold per chunk in registers
 //     cost 4 ops per accumulator a chunk and 32 registers a thread).
 //   * Fixed shared memory (FMA_SMEM_BYTES), whatever q and d, as in f64.
@@ -471,6 +516,590 @@ int launch_f64(const double* x, const double* y, const double* w,
   return cudaGetLastError();
 }
 // ---------------------------------------------------------------------------
+// f64, m <= 512: one cluster a row slice, each knm entry built once
+// ---------------------------------------------------------------------------
+
+constexpr int BW = 64;           // inducing points a band (one band a block)
+constexpr int CR = 32;           // rows a chunk
+constexpr int LDB = BW + 4;      // band row stride (doubles): 4 mod 16, so the
+                                 // DMMA fragments' loads hit distinct banks
+constexpr int NR = 4;            // other blocks' bands a block copies, at most
+constexpr int NBMAX = 8;         // bands, i.e. blocks a cluster, at most
+constexpr int XS = 4;            // staging buffers of x, y, w: chunks c .. c+3
+constexpr int GRP = 4;           // parts of a chunk's work interleaved
+constexpr int TASK = 6;          // ints of one warp's task in the plan
+constexpr int PLAN = NR + TASK * (DNT / 32);  // ints of one rank's plan
+
+// Shared memory of one cluster block, whatever q and d: its band of three
+// chunks, the copied bands of two, x (QC columns), y (DC) and w of XS
+// chunks, z of its band and 1/ell^2 (QC features).
+constexpr size_t CLUSTER_SMEM_BYTES =
+    sizeof(double) * (3 * CR * LDB + 2 * NR * CR * LDB + XS * CR * QC
+                      + XS * CR * DC + XS * CR + QC * BW + QC);
+static_assert(CLUSTER_SMEM_BYTES + 512 <= 232448,
+              "cluster block over sm_90's 227 KB beside the exp table");
+
+// 2^(j/32), j = 0..31, as hi + lo (psi_stats.cu's table).
+__constant__ double kExp2Frac[64] = {
+    0x1.0000000000000p+0, 0x1.059b0d3158574p+0, 0x1.0b5586cf9890fp+0, 0x1.11301d0125b51p+0,
+    0x1.172b83c7d517bp+0, 0x1.1d4873168b9aap+0, 0x1.2387a6e756238p+0, 0x1.29e9df51fdee1p+0,
+    0x1.306fe0a31b715p+0, 0x1.371a7373aa9cbp+0, 0x1.3dea64c123422p+0, 0x1.44e086061892dp+0,
+    0x1.4bfdad5362a27p+0, 0x1.5342b569d4f82p+0, 0x1.5ab07dd485429p+0, 0x1.6247eb03a5585p+0,
+    0x1.6a09e667f3bcdp+0, 0x1.71f75e8ec5f74p+0, 0x1.7a11473eb0187p+0, 0x1.82589994cce13p+0,
+    0x1.8ace5422aa0dbp+0, 0x1.93737b0cdc5e5p+0, 0x1.9c49182a3f090p+0, 0x1.a5503b23e255dp+0,
+    0x1.ae89f995ad3adp+0, 0x1.b7f76f2fb5e47p+0, 0x1.c199bdd85529cp+0, 0x1.cb720dcef9069p+0,
+    0x1.d5818dcfba487p+0, 0x1.dfc97337b9b5fp+0, 0x1.ea4afa2a490dap+0, 0x1.f50765b6e4540p+0,
+    0x0.0p+0, 0x1.d73e2a475b465p-55, 0x1.8a62e4adc610bp-54, -0x1.6c51039449b3ap-54,
+    -0x1.19041b9d78a76p-55, 0x1.e016e00a2643cp-54, 0x1.9b07eb6c70573p-54, 0x1.612e8afad1255p-55,
+    0x1.6f46ad23182e4p-55, -0x1.63aeabf42eae2p-54, 0x1.ada0911f09ebcp-55, 0x1.89b7a04ef80d0p-59,
+    0x1.d4397afec42e2p-56, -0x1.07abe1db13cadp-55, 0x1.6324c054647adp-54, -0x1.383c17e40b497p-54,
+    -0x1.bdd3413b26456p-54, -0x1.16e4786887a99p-55, -0x1.41577ee04992fp-55, -0x1.d4c1dd41532d8p-54,
+    0x1.6e9f156864b27p-54, -0x1.75fc781b57ebcp-57, 0x1.c7c46b071f2bep-56, -0x1.d2f6edb8d41e1p-54,
+    0x1.7a1cd345dcc81p-54, -0x1.5584f7e54ac3bp-56, 0x1.11065895048ddp-55, 0x1.503cbd1e949dbp-56,
+    0x1.2ed02d75b3707p-55, -0x1.1a5cd4f184b5cp-54, -0x1.e9c23179c2893p-54, 0x1.9d3e12dd8a18bp-54};
+
+// sf2 exp(-1/2 e), e = sum_q (x_q - z_q)^2 / ell_q^2: psi_stats.cu's
+// branch-free exp_pair (so a thread's chains interleave; its error one
+// rounding beyond a 4e-18 polynomial), the table tab staged in shared
+// memory.
+__device__ __forceinline__ double kexp(double sf2, double e, const double* tab) {
+  constexpr double kShift = 0x1.8p+52;
+  constexpr double kInvLn2_32 = 0x1.71547652b82fep+5;
+  constexpr double kLn2_32Hi = 0x1.62e42fef00000p-6;
+  constexpr double kLn2_32Lo = 0x1.473de6af278edp-39;
+  double x = -0.5 * e;
+  x = x < -750.0 ? -750.0 : x;
+  const double t = fma(x, kInvLn2_32, kShift);
+  const int n = __double2loint(t);
+  const double nd = t - kShift;
+  double r = fma(nd, -kLn2_32Hi, x);
+  r = fma(nd, -kLn2_32Lo, r);
+  double p = fma(r, 1.0 / 720, 1.0 / 120);
+  p = fma(p, r, 1.0 / 24);
+  p = fma(p, r, 1.0 / 6);
+  p = fma(p, r, 0.5);
+  p = fma(p, r, 1.0);
+  const double hi = tab[n & 31], lo = tab[32 + (n & 31)];
+  const double v = hi + fma(hi, p * r, lo);
+  const int m = n >> 5, m1 = m >> 1;
+  return sf2 * (v * __hiloint2double((m1 + 1023) << 20, 0)
+                  * __hiloint2double((m - m1 + 1023) << 20, 0));
+}
+
+// c (8 x 8) += a (8 x 4) b (4 x 8) in f64.  Lane l holds a[l/4][l%4],
+// b[l%4][l/4], c[l/4][2(l%4) + {0, 1}].
+__device__ __forceinline__ void dmma8(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// The cluster: this block's rank, the barrier's two halves (arrive with
+// release, wait with acquire: shared memory written before an arrive is
+// seen by every block of the cluster after the wait), a local shared
+// address mapped to the same offset in block `rank`, and a 16-byte load
+// from another block's shared memory.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void ld_cluster(uint32_t a, double (&v)[2]) {
+  asm volatile("ld.shared::cluster.v2.f64 {%0, %1}, [%2];\n"
+               : "=d"(v[0]), "=d"(v[1]) : "r"(a) : "memory");
+}
+
+// The staircase's fragment s (0..15) of a band's own 64 x 64 block: row
+// fragment i (16 points), column fragment j (8 points), j >= 2i + 1, the
+// part strictly above the block's diagonal 8 x 8 blocks.
+__host__ __device__ constexpr int stair_i(int s) {
+  return s < 7 ? 0 : s < 12 ? 1 : s < 15 ? 2 : 3;
+}
+__host__ __device__ constexpr int stair_j(int s) {
+  return s < 7 ? s + 1 : s < 12 ? s - 4 : s < 15 ? s - 7 : 7;
+}
+
+// c (16 x 8) += a (16 x 8) b (8 x 8) in f64 (sm_90's k = 8 shape: half the
+// instructions of two m16n8k4).  Lane l holds a[l/4 + 8 (i % 2)][l%4 + 4
+// (i / 2)] in a[i], b[l%4 + 4 i][l/4] in b[i], c as m16n8k4's.
+__device__ __forceinline__ void dmma_k8(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// One k-step of 8 rows (chunk rows 8 k8 .. 8 k8 + 7) of a 64 x 32 region:
+// A the 64 points of the band at as, B the 32 points at bs times the rows'
+// w (wb).  acc[mt * 4 + nt] is fragment (mt, nt).
+__device__ __forceinline__ void rect_step(double (&acc)[16][4], const double* as,
+                                          const double* bs, int k8, const double* wb,
+                                          int gid, int tig) {
+  const int r0 = 8 * k8 + tig, r1 = r0 + 4;
+  const double w0 = wb[r0], w1 = wb[r1];
+  double af[4][4], bf[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    af[mt][0] = as[r0 * LDB + mt * 16 + gid];
+    af[mt][1] = as[r0 * LDB + mt * 16 + gid + 8];
+    af[mt][2] = as[r1 * LDB + mt * 16 + gid];
+    af[mt][3] = as[r1 * LDB + mt * 16 + gid + 8];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    bf[nt][0] = bs[r0 * LDB + nt * 8 + gid] * w0;
+    bf[nt][1] = bs[r1 * LDB + nt * 8 + gid] * w1;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) dmma_k8(acc[mt * 4 + nt], af[mt], bf[nt]);
+}
+
+// One 8-row k-step of a band's staircase (its 16 fragments), A and B the
+// band.
+__device__ __forceinline__ void stair_step(double (&acc)[16][4], const double* bs,
+                                           int k8, const double* wb, int gid, int tig) {
+  const int r0 = 8 * k8 + tig, r1 = r0 + 4;
+  const double w0 = wb[r0], w1 = wb[r1];
+  double af[4][4], bf[8][2];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    af[mt][0] = bs[r0 * LDB + mt * 16 + gid];
+    af[mt][1] = bs[r0 * LDB + mt * 16 + gid + 8];
+    af[mt][2] = bs[r1 * LDB + mt * 16 + gid];
+    af[mt][3] = bs[r1 * LDB + mt * 16 + gid + 8];
+  }
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    bf[j][0] = bs[r0 * LDB + j * 8 + gid] * w0;
+    bf[j][1] = bs[r1 * LDB + j * 8 + gid] * w1;
+  }
+#pragma unroll
+  for (int s = 0; s < 16; ++s) dmma_k8(acc[s], af[stair_i(s)], bf[stair_j(s)]);
+}
+
+// One cluster of nb blocks takes the rows [slice * rows_per_slice, ...);
+// block (rank) h builds band h (inducing points 64 h .. 64 h + 63) and runs
+// the tasks plan[h] gives its warps: (kind: 0 none, 1 region, 2
+// staircase; A's slot, B's slot (0: its own band, s: its copy of band
+// plan[h][s - 1]), B's first column (0 or 32), the partial's task slot,
+// its first column).  Partials (f64): part_d / part_comp (slices, nb (nb +
+// 1) / 2 task slots, 64, 64): slot t < nb band t's staircase, nb +
+// pair(lo, hi) the pair's two regions; part_g / part_gcomp (slices, nb *
+// 8, 8, 8) the diagonal 8 x 8 blocks; part_c (slices, nb * 64, d), part_b
+// (slices).
+template <int KQ>
+__global__ void __launch_bounds__(DNT, 1)
+reg_stats_cluster(const double* __restrict__ x, const double* __restrict__ y,
+                  const double* __restrict__ w, const double* __restrict__ z,
+                  const double* __restrict__ hp, int n, int m, int q, int d,
+                  int nb, int rows_per_slice, const int* __restrict__ plan,
+                  double* __restrict__ part_d, double* __restrict__ part_comp,
+                  double* __restrict__ part_g, double* __restrict__ part_gcomp,
+                  double* __restrict__ part_c, double* __restrict__ part_b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* own = reinterpret_cast<double*>(smem_raw);  // [3][CR][LDB]  the own band
+  double* cps = own + 3 * CR * LDB;                   // [2][NR][CR][LDB] copies
+  double* xs = cps + 2 * NR * CR * LDB;               // [XS][CR * QC]
+  double* ys = xs + XS * CR * QC;                     // [XS][CR * DC]
+  double* ws = ys + XS * CR * DC;                     // [XS][CR]
+  double* zT = ws + XS * CR;                          // [QC][BW]
+  double* inv = zT + QC * BW;                         // [QC]
+  __shared__ double e2f[64];                          // kExp2Frac
+
+  constexpr bool CHUNKED = KQ == 0;  // past QC features: x and z from device memory
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  if (tid < 64) e2f[tid] = kExp2Frac[tid];
+  const int slice = (int)blockIdx.x / nb, rank = cluster_rank();
+  const int p0 = rank * BW;
+  const int n_tasks = nb * (nb + 1) / 2;
+  const double sf2 = hp[0];
+  const int* pl = plan + rank * PLAN;
+  int cr[NR];
+#pragma unroll
+  for (int s = 0; s < NR; ++s) cr[s] = pl[s];
+  const int* tk = pl + NR + warp * TASK;
+  const int kind = tk[0], a_slot = tk[1], b_slot = tk[2], b_col = tk[3];
+  const int out_task = tk[4], out_col = tk[5];
+
+  const long lo = (long)slice * rows_per_slice;
+  const long hi = min((long)n, lo + rows_per_slice);
+  const int n_chunks = hi > lo ? (int)((hi - lo + CR - 1) / CR) : 0;
+  const bool staged_y = d <= DC;
+  double* pc = part_c + ((size_t)slice * nb * BW + p0) * d;
+  if (!staged_y)
+    for (int e = tid; e < BW * d; e += DNT) pc[e] = 0.0;
+  if (!CHUNKED) {
+    // KQ features, zero past q (1/ell^2 too), x's rows KQ wide: the
+    // build's feature loop needs no guard.
+    for (int e = tid; e < KQ; e += DNT) inv[e] = e < q ? hp[1 + e] : 0.0;
+    for (int e = tid; e < KQ * BW; e += DNT) {
+      const int k = e / BW, i = e % BW;
+      zT[e] = p0 + i < m && k < q ? z[(size_t)(p0 + i) * q + k] : 0.0;
+    }
+    for (int e = tid; e < XS * CR * QC; e += DNT) xs[e] = 0.0;
+    __syncthreads();  // the zeros are in before cp.async fills the rows
+  }
+
+  // x (q <= QC, rows KQ wide), y (d <= DC) and w of chunk c into buffer
+  // c % XS, rows past the slice zero-filled
+  auto issue = [&](int c) {
+    if (c >= n_chunks) return;
+    const long r0 = lo + (long)c * CR;
+    const int bf = c % XS;
+    const long xlim = (hi - r0) * q, ylim = (hi - r0) * d;
+    if (!CHUNKED)
+      for (int e = tid; e < CR * q; e += DNT)
+        cp_async8(xs + bf * CR * QC + e / q * KQ + e % q, e < xlim ? x + r0 * q + e : x,
+                  e < xlim);
+    if (staged_y)
+      for (int e = tid; e < CR * d; e += DNT)
+        cp_async8(ys + bf * CR * DC + e, e < ylim ? y + r0 * d + e : y, e < ylim);
+    for (int e = tid; e < CR; e += DNT)
+      cp_async8(ws + bf * CR + e, r0 + e < hi ? w + r0 + e : w, r0 + e < hi);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // Half h of chunk c's band: point i = tid % 64, rows 8 (tid / 64) + 4 h
+  // + {0..3}, the four chains side by side (KQ features, unguarded).
+  auto build = [&](int c, int h) {
+    double* ob = own + (c % 3) * CR * LDB;
+    const int i = tid % BW, rb = (tid / BW) * 8 + 4 * h;
+    double s[4] = {0.0, 0.0, 0.0, 0.0};
+    if constexpr (!CHUNKED) {
+      const double* xb = xs + (c % XS) * CR * QC + rb * KQ;
+#pragma unroll
+      for (int k = 0; k < KQ; ++k) {
+        const double zk = zT[k * BW + i], iv = inv[k];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const double dv = xb[u * KQ + k] - zk;
+          s[u] = fma(dv * dv, iv, s[u]);
+        }
+      }
+    } else {
+      const long r0 = lo + (long)c * CR + rb;
+      for (int k = 0; k < q; ++k) {
+        const double zk = p0 + i < m ? z[(size_t)(p0 + i) * q + k] : 0.0;
+        const double iv = hp[1 + k];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const double dv = (r0 + u < hi ? x[(r0 + u) * q + k] : 0.0) - zk;
+          s[u] = fma(dv * dv, iv, s[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) ob[(rb + u) * LDB + i] = kexp(sf2, s[u], e2f);
+  };
+  // Part g of the copy of chunk c's bands from the other blocks: its
+  // 16-byte pieces g * DNT + tid (of 1,024 a band), into registers, then
+  // into the copy buffer c % 2.
+  uint32_t src[NR];
+  auto copy_load = [&](double (&v)[NR][2], int g) {
+    const int e = g * DNT + tid, r = e / (BW / 2), col = 2 * (e % (BW / 2));
+#pragma unroll
+    for (int s = 0; s < NR; ++s)
+      if (cr[s] >= 0) ld_cluster(src[s] + (uint32_t)((r * LDB + col) * sizeof(double)), v[s]);
+  };
+  auto copy_store = [&](const double (&v)[NR][2], int c, int g) {
+    const int e = g * DNT + tid, r = e / (BW / 2), col = 2 * (e % (BW / 2));
+#pragma unroll
+    for (int s = 0; s < NR; ++s)
+      if (cr[s] >= 0)
+        *reinterpret_cast<double2*>(cps + ((c % 2) * NR + s) * CR * LDB + r * LDB + col) =
+            make_double2(v[s][0], v[s][1]);
+  };
+  auto band = [&](int slot, int c) -> const double* {
+    return slot == 0 ? own + (c % 3) * CR * LDB
+                     : cps + ((c % 2) * NR + slot - 1) * CR * LDB;
+  };
+
+  double acc[16][4], gacc[2] = {0.0, 0.0}, cacc[2] = {0.0, 0.0};
+#pragma unroll
+  for (int s = 0; s < 16; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[s][e] = 0.0;
+  // Part g of chunk c's product: rows 8 g .. 8 g + 7 of the warp's task,
+  // its diagonal 8 x 8 block (group `warp` of the band) and C's rows of it.
+  auto product = [&](int c, int g) {
+    const double* wb = ws + (c % XS) * CR;
+    const double* yb = ys + (c % XS) * CR * DC;
+    const double* ob = own + (c % 3) * CR * LDB;
+    const double* as = band(a_slot, c);
+    const double* bs = band(b_slot, c) + b_col;
+    if (kind == 1) rect_step(acc, as, bs, g, wb, gid, tig);
+    else if (kind == 2) stair_step(acc, ob, g, wb, gid, tig);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = 2 * g + kk, r = 4 * ks + tig;
+      const double wr = wb[r];
+      const double kv = ob[r * LDB + 8 * warp + gid];
+      dmma8(gacc, kv * wr, kv);
+      if (staged_y) dmma8(cacc, kv * wr, gid < d ? yb[r * d + gid] : 0.0);
+    }
+  };
+
+  bool first_fold = true;
+  double* pd = part_d + ((size_t)slice * n_tasks + out_task) * BW * BW;
+  double* pk = part_comp + ((size_t)slice * n_tasks + out_task) * BW * BW;
+  double* pg = part_g + ((size_t)slice * nb * 8 + rank * 8 + warp) * 64;
+  double* pgk = part_gcomp + ((size_t)slice * nb * 8 + rank * 8 + warp) * 64;
+  // Kahan: running partial += acc; acc = 0.  Each entry has one owner.
+  auto kahan = [&](double* tot, double* comp, size_t o, double& v) {
+    double tv = v, cv = 0.0;
+    if (!first_fold) {
+      const double t0 = tot[o], yv = v - comp[o];
+      tv = t0 + yv;
+      cv = (tv - t0) - yv;
+    }
+    tot[o] = tv;
+    comp[o] = cv;
+    v = 0.0;
+  };
+  auto fold = [&]() {
+    if (kind != 0)
+#pragma unroll
+      for (int s = 0; s < 16; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (kind == 1 ? 16 * (s / 4) : 16 * stair_i(s)) + gid + 8 * (e >> 1);
+          const int j = (kind == 1 ? out_col + 8 * (s % 4) : 8 * stair_j(s))
+                        + 2 * tig + (e & 1);
+          kahan(pd, pk, (size_t)i * BW + j, acc[s][e]);
+        }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) kahan(pg, pgk, gid * 8 + 2 * tig + e, gacc[e]);
+    first_fold = false;
+  };
+
+  double wsum = 0.0;  // rank 0, warp 0: lane r sums row r's w of every chunk
+  // After chunk c's product: C on the CUDA cores when d > DC, its w, the
+  // Kahan fold every FOLD_CHUNKS chunks.
+  auto finish = [&](int c) {
+    const double* wb = ws + (c % XS) * CR;
+    if (!staged_y) {
+      const double* ob = own + (c % 3) * CR * LDB;
+      const long r0 = lo + (long)c * CR;
+      const int nr = (int)min((long)CR, hi - r0);
+      for (int e = tid; e < BW * d; e += DNT) {
+        const int i = e / d, cc = e % d;
+        double s = 0.0;
+        for (int r = 0; r < nr; ++r)
+          s = fma(ob[r * LDB + i] * wb[r], y[(r0 + r) * d + cc], s);
+        pc[e] += s;
+      }
+    }
+    if (rank == 0 && tid < CR) wsum += wb[tid];
+    if ((c + 1) % FOLD_CHUNKS == 0 || c + 1 == n_chunks) fold();
+  };
+
+  issue(0);
+  issue(1);
+  issue(2);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // z, 1/ell^2, the exp table, chunks 0-2's rows
+  for (int c = 0; c < 2 && c < n_chunks; ++c) {
+    build(c, 0);
+    build(c, 1);
+  }
+  cluster_arrive();
+  cluster_wait();   // every block's chunks 0 and 1 are built
+  if (n_chunks > 0) {
+#pragma unroll
+    for (int s = 0; s < NR; ++s) src[s] = cr[s] >= 0 ? map_rank(own, cr[s]) : 0u;
+    for (int g = 0; g < GRP; ++g) {
+      double v[NR][2];
+      copy_load(v, g);
+      copy_store(v, 0, g);
+    }
+  }
+  __syncthreads();  // chunk 0's copies are in
+  cluster_arrive();
+
+  // Chunk c: the product of chunk c, the copy of chunk c + 1's bands (after
+  // the cluster's wait: every block built c + 1 in chunk c - 1) and the
+  // build of chunk c + 2's own band (its buffer held chunk c - 1, which
+  // the others copied before the wait of chunk c - 1), in GRP parts; the
+  // cluster's wait comes after the first part's product.
+  for (int c = 0; c < n_chunks; ++c) {
+    issue(c + 3);
+    const bool more = c + 1 < n_chunks, next2 = c + 2 < n_chunks;
+    if (more)
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+        src[s] = cr[s] >= 0 ? map_rank(own + ((c + 1) % 3) * CR * LDB, cr[s]) : 0u;
+#pragma unroll 1
+    for (int g = 0; g < GRP; ++g) {
+      double v[NR][2];
+      if (more && g > 0) copy_load(v, g);
+      product(c, g);
+      if (g == 0) {
+        cluster_wait();  // the others' chunk c + 1 is built; chunk c is copied
+        if (more) copy_load(v, 0);
+      }
+      if (next2 && (g & 1)) build(c + 2, g >> 1);
+      if (more) copy_store(v, c + 1, g);
+    }
+    finish(c);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();   // chunk c + 1's copies and c + 3's rows are in
+    cluster_arrive();  // built c + 2, copied c + 1
+  }
+  cluster_wait();  // no block leaves while another may read its band
+  if (n_chunks == 0) fold();  // an empty slice writes zeros
+
+  if (staged_y)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (2 * tig + e < d)
+        pc[(size_t)(8 * warp + gid) * d + 2 * tig + e] = cacc[e];
+  if (rank == 0 && warp == 0) {  // the lanes' sums in a fixed order
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+    if (lane == 0) part_b[slice] = sf2 * wsum;
+  }
+}
+
+// Fixed-order f64 sums of the cluster kernel's partials: D's entry (a, b),
+// a <= b, from its diagonal 8 x 8 block, its band's staircase or its
+// pair's region; D's lower half mirrors the upper, so D is exactly
+// symmetric.
+__global__ void reg_stats_cluster_reduce(const double* __restrict__ part_d,
+                                         const double* __restrict__ part_g,
+                                         const double* __restrict__ part_c,
+                                         const double* __restrict__ part_b,
+                                         int n_slices, int nb, int m, int d,
+                                         double* __restrict__ D, double* __restrict__ C,
+                                         double* __restrict__ b) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < (long)m * m) {
+    const int r = e / m, c = e % m;
+    const int lo = min(r, c), hi = max(r, c);
+    const double* src;
+    size_t stride, off;
+    if (lo / 8 == hi / 8) {
+      src = part_g;
+      stride = (size_t)nb * 8 * 64;
+      off = (size_t)(lo / 8) * 64 + (lo % 8) * 8 + hi % 8;
+    } else {
+      const int bl = lo / BW, bh = hi / BW;
+      const int task = bl == bh ? bl : nb + bl * nb - bl * (bl + 1) / 2 + (bh - bl - 1);
+      src = part_d;
+      stride = (size_t)nb * (nb + 1) / 2 * BW * BW;
+      off = (size_t)task * BW * BW + (lo % BW) * BW + hi % BW;
+    }
+    double s = 0.0;
+    for (int sl = 0; sl < n_slices; ++sl) s += src[sl * stride + off];
+    D[e] = s;
+  }
+  if (e < (long)m * d) {
+    double s = 0.0;
+    for (int sl = 0; sl < n_slices; ++sl) s += part_c[(size_t)sl * nb * BW * d + e];
+    C[e] = s;
+  }
+  if (e == 0) {
+    double s = 0.0;
+    for (int sl = 0; sl < n_slices; ++sl) s += part_b[sl];
+    *b = s;
+  }
+}
+
+using ClusterFn = decltype(&reg_stats_cluster<8>);
+
+// The variant's kernel for q features (8 and 16 features unrolled, zero
+// past q; past 16, x and z from device memory), its shared-memory
+// attribute set once per device: a runtime call per launch costs host time
+// the card waits for.
+cudaError_t prepare_cluster(int q, ClusterFn* kernel) {
+  const int v = q > QC ? 0 : q > 8 ? 2 : 1;
+  *kernel = v == 0 ? reg_stats_cluster<0> : v == 1 ? reg_stats_cluster<8>
+                                                   : reg_stats_cluster<QC>;
+  static bool ready[64][3] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !ready[dev][v]) {
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)CLUSTER_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready[dev][v] = true;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(int clusters, int nb, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * nb));
+  cfg.blockDim = dim3(DNT);
+  cfg.dynamicSmemBytes = CLUSTER_SMEM_BYTES;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)nb;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int launch_cluster(const double* x, const double* y, const double* w,
+                   const double* z, const double* hp, int n, int m, int q, int d,
+                   int n_slices, int rows_per_slice, const int* plan,
+                   double* part_d, double* part_comp, double* part_g,
+                   double* part_gcomp, double* part_c, double* part_b, double* D,
+                   double* C, double* b, void* stream) {
+  const int nb = (m + BW - 1) / BW;
+  if (nb < 1 || nb > NBMAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ClusterFn kernel;
+  cudaError_t err = prepare_cluster(q, &kernel);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(n_slices, nb, s, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, y, w, z, hp, n, m, q, d, nb,
+                           rows_per_slice, plan, part_d, part_comp, part_g,
+                           part_gcomp, part_c, part_b);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  long total = (long)m * m > (long)m * d ? (long)m * m : (long)m * d;
+  if (total < 1) total = 1;
+  reg_stats_cluster_reduce<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part_d, part_g, part_c, part_b, n_slices, nb, m, d, D, C, b);
+  return cudaGetLastError();
+}
+
+// Clusters of nb blocks of the variant for q the card holds at once.
+int max_clusters(int nb, int q, int* out) {
+  ClusterFn kernel;
+  cudaError_t err = prepare_cluster(q, &kernel);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, nb, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+// ---------------------------------------------------------------------------
 // f32: FMA micro-tiles on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -833,4 +1462,31 @@ extern "C" int reg_stats_f64(const double* x, const double* y, const double* w,
                              double* C, double* b, void* stream) {
   return launch_f64(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
                     part_d, part_comp, part_c, part_b, D, C, b, stream);
+}
+
+// f64 at m <= 512: clusters of nb = ceil(m/64) blocks, one a slice of
+// rows_per_slice rows (n_slices clusters); plan (nb, PLAN) int32 from
+// kernels/reg_stats/kernel.py::cluster_plan.  hp = [sf2, 1/ell^2 (q)].
+// Scratch (f64): part_d and part_comp (n_slices, nb (nb + 1) / 2, 64, 64),
+// part_g and part_gcomp (n_slices, nb * 8, 8, 8), part_c (n_slices, nb *
+// 64, d), part_b (n_slices,).  Outputs as reg_stats_f64.  Any q and d:
+// shared memory is CLUSTER_SMEM_BYTES.
+extern "C" int reg_stats_f64_cluster(const double* x, const double* y,
+                                     const double* w, const double* z,
+                                     const double* hp, int n, int m, int q,
+                                     int d, int n_slices, int rows_per_slice,
+                                     const int* plan, double* part_d,
+                                     double* part_comp, double* part_g,
+                                     double* part_gcomp, double* part_c,
+                                     double* part_b, double* D, double* C,
+                                     double* b, void* stream) {
+  return launch_cluster(x, y, w, z, hp, n, m, q, d, n_slices, rows_per_slice,
+                        plan, part_d, part_comp, part_g, part_gcomp, part_c,
+                        part_b, D, C, b, stream);
+}
+
+// The clusters of nb blocks (for q features) the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int reg_stats_f64_clusters(int nb, int q, int* out) {
+  return max_clusters(nb, q, out);
 }

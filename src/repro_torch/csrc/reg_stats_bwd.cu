@@ -71,7 +71,21 @@
 //     warp 64 x 32 as 4 x 4 DMMA fragments; f32: a thread 8 x 8) and so
 //     their shared-memory traffic per multiply-add.
 //   * The f64 exp is psi_stats.cu's branch-free exp_pair (table in shared
-//     memory), so that a thread's chains interleave.
+//     memory), so that a thread's chains interleave.  In f64 at q <= 8 (the
+//     KQ = 8 instantiation: every config of the repo) the build's feature
+//     loop is unrolled without a guard on q (x, z and 1/ell^2 zero past q),
+//     so its loads issue ahead of the chains: 24.2-24.4 ms against 25.0-25.2
+//     at sgpr-synth-1m (H100 80GB HBM3, 700 W, tools/bwd_ablation.py, the
+//     parent in the same call), results bitwise the same.  f32 and q past 8
+//     keep the guarded loop (unguarded, f32 was 4% slower and q 9-16 spilled).
+//   * What bounds it now (the same tool): the DMMA loop with its frame,
+//     11.7 ms alone; the epilogue 5.7; S's rows 2.2; the build 1.9; the
+//     copies 1.0; none overlaps the product.  Tried and dropped: the column
+//     pass (d z, d log_ell, sum E) as one DMMA product a tile, E^T [1, x~,
+//     x~^2] with x and z centred on the mean of z (27.45 ms against 25.17:
+//     the kernel, at 255 registers with no spill, spilled 220 bytes, and
+//     the epilogue did not shrink); the k-loop on sm_90's m16n8k8 f64 shape
+//     (24.40 against 24.38).
 //   * The shared outputs (d z, d log_ell, sum E) accumulate, in f64, in the
 //     blocks' own partials in device memory (d z a cluster's, each column
 //     tile's rows owned by one block), each entry owned by one thread; a
@@ -349,7 +363,7 @@ __device__ __forceinline__ void product(float* acc, const float* as,
 // past m.  Partials (f64): part_z (slices, mp, q) by cluster, part_ell
 // (blocks, q) and part_sf2 (blocks) by block.  Row partials (flags 1 d x,
 // 2 d y, 4 d w) by rank: rp_x (cs, n, q), rp_y (cs, n, d), rp_w (cs, n).
-template <typename T, bool CHUNKED, bool GROUPED>
+template <typename T, int KQ, bool GROUPED>
 __global__ void __launch_bounds__(NT, sizeof(T) == 8 ? 1 : 2)
 reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
                     const T* __restrict__ w, const T* __restrict__ zp,
@@ -377,6 +391,10 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
   T* wred = red + RED;                         // [QC + 1][8] the warps' sums
   __shared__ double e2f[64];                   // kExp2Frac, for the f64 exp
 
+  constexpr bool CHUNKED = KQ == 0;  // past QC features: x and z from device memory
+  // KQ 8 (f64, q <= 8): the build's feature loop unrolled without a guard,
+  // x, z and 1/ell^2 zero past q; KQ 16: guarded by q
+  const int qs = KQ == 8 ? 8 : q;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid < 64) e2f[tid] = kExp2Frac[tid];
   const int blk = blockIdx.x, slice = blk / cs, r = cluster_rank();
@@ -395,7 +413,7 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
   for (int e = tid; e < q; e += NT) part_ell[(size_t)blk * q + e] = 0.0;
   if (tid == 0) part_sf2[blk] = 0.0;
   if (!CHUNKED)
-    for (int e = tid; e < q; e += NT) inv[e] = ivg[e];
+    for (int e = tid; e < qs; e += NT) inv[e] = e < q ? ivg[e] : T(0);
 
   // x of row tile row i (local), feature f
   auto xval = [&](int row0, int i, int f) -> T {
@@ -424,8 +442,8 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
         }
       } else {
 #pragma unroll
-        for (int f = 0; f < QC; ++f)
-          if (f < q) {
+        for (int f = 0; f < (KQ == 8 ? 8 : QC); ++f)
+          if (KQ == 8 || f < q) {
             const T xv = xs[i * QP + f], iv = inv[f];
 #pragma unroll
             for (int u = 0; u < BU; ++u) {
@@ -481,15 +499,15 @@ reg_stats_bwd_tiles(const T* __restrict__ x, const T* __restrict__ y,
         if (g == 0 && t == 0) {
           for (int e = tid; e < BR; e += NT) ws[e] = row0 + e < n ? w[row0 + e] : T(0);
           if (!CHUNKED)
-            for (int e = tid; e < BR * q; e += NT) {
-              const int i = e / q, f = e % q;
-              xs[i * QP + f] = row0 + i < n ? x[(size_t)(row0 + i) * q + f] : T(0);
+            for (int e = tid; e < BR * qs; e += NT) {
+              const int i = e / qs, f = e % qs;
+              xs[i * QP + f] = row0 + i < n && f < q ? x[(size_t)(row0 + i) * q + f] : T(0);
             }
         }
         if (!CHUNKED && tk < nts)
-          for (int e = tid; e < BC * q; e += NT) {
-            const int j = e / q, f = e % q;
-            zs[j * QP + f] = zp[(size_t)(tk * BC + j) * q + f];
+          for (int e = tid; e < BC * qs; e += NT) {
+            const int j = e / qs, f = e % qs;
+            zs[j * QP + f] = f < q ? zp[(size_t)(tk * BC + j) * q + f] : T(0);
           }
         __syncthreads();
         if (arrived) cluster_wait();  // every block is done reading the own tiles
@@ -793,27 +811,34 @@ __global__ void reg_stats_bwd_rows(const T* __restrict__ rp_x, const T* __restri
 int cluster_size(int mp) { return mp / BC < CMAX ? mp / BC : CMAX; }
 
 template <typename T>
-using TilesFn = decltype(&reg_stats_bwd_tiles<T, false, false>);
+using TilesFn = decltype(&reg_stats_bwd_tiles<T, QC, false>);
 
-// The variant's kernel (past 16 features CHUNKED; past the cluster's
-// 1,024 points GROUPED, whose sums stay live across the builds), its
-// shared-memory attribute set once per device: a runtime call per launch
-// costs host time the card waits for.
+// The instantiation of variant v (0 CHUNKED, 1 KQ 8, f64 only; 2 KQ 16).
+template <typename T, bool GROUPED>
+TilesFn<T> pick(int v) {
+  if constexpr (sizeof(T) == 8)
+    if (v == 1) return reg_stats_bwd_tiles<T, 8, GROUPED>;
+  return v == 0 ? reg_stats_bwd_tiles<T, 0, GROUPED> : reg_stats_bwd_tiles<T, QC, GROUPED>;
+}
+
+// The variant's kernel for q features (f64 at q <= 8: the build's 8
+// features unguarded; past 16, CHUNKED: x and z from device memory) and m
+// points (past the cluster's 1,024, GROUPED, whose sums stay live across
+// the builds), its shared-memory attribute set once per device: a runtime
+// call per launch costs host time the card waits for.
 template <typename T>
-cudaError_t prepare(bool chunked, bool grouped, TilesFn<T>* kernel) {
-  *kernel = chunked ? (grouped ? reg_stats_bwd_tiles<T, true, true>
-                               : reg_stats_bwd_tiles<T, true, false>)
-                    : (grouped ? reg_stats_bwd_tiles<T, false, true>
-                               : reg_stats_bwd_tiles<T, false, false>);
-  static bool ready[64][2][2] = {};
+cudaError_t prepare(int q, bool grouped, TilesFn<T>* kernel) {
+  const int v = q > QC ? 0 : q > 8 || sizeof(T) == 4 ? 2 : 1;
+  *kernel = grouped ? pick<T, true>(v) : pick<T, false>(v);
+  static bool ready[64][3][2] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !ready[dev][chunked][grouped]) {
+  if (dev >= 64 || !ready[dev][v][grouped]) {
     err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)(smem_elems<T>() * sizeof(T)));
     if (err != cudaSuccess) return err;
-    if (dev < 64) ready[dev][chunked][grouped] = true;
+    if (dev < 64) ready[dev][v][grouped] = true;
   }
   return cudaSuccess;
 }
@@ -839,7 +864,7 @@ template <typename T>
 int max_clusters(int m, int q, int* out) {
   const int mp = (m + BC - 1) / BC * BC;
   TilesFn<T> kernel;
-  cudaError_t err = prepare<T>(q > QC, mp / BC > CMAX, &kernel);
+  cudaError_t err = prepare<T>(q, mp / BC > CMAX, &kernel);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const int cs = cluster_size(mp);
@@ -856,7 +881,7 @@ int launch(const T* x, const T* y, const T* w, const T* zp, const T* sp,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TilesFn<T> kernel;
-  cudaError_t err = prepare<T>(q > QC, mp / BC > CMAX, &kernel);
+  cudaError_t err = prepare<T>(q, mp / BC > CMAX, &kernel);
   if (err != cudaSuccess) return err;
   const int cs = cluster_size(mp);
   cudaLaunchAttribute attr[1];

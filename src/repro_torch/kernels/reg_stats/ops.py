@@ -116,8 +116,11 @@ _NEG_HALF_LOG2E = -0.5 / math.log(2.0)
 def launch_args(log_sf2, log_ell, z, x, y, w):
     """The kernel's operands, scratch and outputs for one launch (the tile
     dtype's inputs, hp, the plan and its scratch): ``kernel.reg_stats``'s
-    arguments.  The f32 kernel takes -log2(e) / (2 ell^2), folded here in
-    the hyper-parameters' own dtype and rounded once."""
+    arguments.  f64 at m <= 512 takes the cluster kernel (a cluster of
+    ceil(m/64) blocks a slice, ``kernel.cluster_plan``), every other case
+    a per-tile kernel (``_build.fill_plan``).  The f32 kernel takes
+    -log2(e) / (2 ell^2), folded here in the hyper-parameters' own dtype
+    and rounded once."""
     n, q = x.shape
     m, d = z.shape[0], y.shape[1]
     f64 = torch.float64
@@ -127,19 +130,33 @@ def launch_args(log_sf2, log_ell, z, x, y, w):
     if dt != f64:
         inv = inv * _NEG_HALF_LOG2E
     hp = torch.cat([torch.exp(log_sf2).reshape(1), inv]).to(dt).contiguous()
+    dev = x.device
+    d_out = torch.empty((m, m), dtype=f64, device=dev)
+    c_out = torch.empty((m, d), dtype=f64, device=dev)
+    b_out = torch.empty((), dtype=f64, device=dev)
+    if _k.takes_cluster(m, dt):
+        nb = _k.cluster_bands(m)
+        n_slices, per_slice = _k.cluster_slices(
+            n, _k.cluster_slots(m, q, dev))
+        band = _k.BAND
+        part_d = torch.empty((n_slices, nb * (nb + 1) // 2, band, band),
+                             dtype=f64, device=dev)
+        part_g = torch.empty((n_slices, nb * 8, 8, 8), dtype=f64, device=dev)
+        return (xs, ys, ws, zs, hp, n_slices, per_slice, part_d,
+                torch.empty_like(part_d),
+                torch.empty((n_slices, nb * band, d), dtype=f64, device=dev),
+                torch.empty((n_slices,), dtype=f64, device=dev),
+                _k.plan_tensor(m, dev), part_g, torch.empty_like(part_g),
+                d_out, c_out, b_out)
     tile, rows = _k.TILE, _k.ROWS
     slots = _build.sm_count(x.device) * (1 if dt == f64 else _k.F32_BLOCKS_PER_SM)
     n_tiles, n_slices, per_slice = _build.fill_plan(n, m, slots, tile, rows)
-    dev = x.device
     part_d = torch.empty((n_slices, n_tiles, tile, tile), dtype=dt,
                          device=dev)
     part_comp = torch.empty_like(part_d)
     part_c = torch.empty((n_slices, -(-m // tile) * tile, d), dtype=dt,
                          device=dev)
     part_b = torch.empty((n_slices,), dtype=dt, device=dev)
-    d_out = torch.empty((m, m), dtype=f64, device=dev)
-    c_out = torch.empty((m, d), dtype=f64, device=dev)
-    b_out = torch.empty((), dtype=f64, device=dev)
     return (xs, ys, ws, zs, hp, n_slices, per_slice, part_d, part_comp,
             part_c, part_b, d_out, c_out, b_out)
 

@@ -63,11 +63,16 @@ RS_CASES = [(*shape, dtype) for shape in [
     for dtype in DTYPES] + [
     # f64 past one 16-feature chunk and with wide y: any q and d fit (at
     # these q the kernel values sit near f32's underflow, so f64 only)
-    (1037, 130, 40, 1, F64), (1037, 130, 8, 64, F64), (517, 130, 200, 3, F64)]
-# the reg_stats backward past its cluster's width (8 column tiles): m 1,030
-# (9 tiles, a ragged second group) and 2,048 (two full groups)
-RS_BWD_CASES = RS_CASES + [(*shape, dtype) for shape in [
-    (1037, 1030, 3, 2), (517, 2048, 3, 2)] for dtype in DTYPES]
+    (1037, 130, 40, 1, F64), (1037, 130, 8, 64, F64), (517, 130, 200, 3, F64)
+    ] + [(*shape, dtype) for shape in [
+    # past the f64 forward's cluster (8 bands of 64 points) and the
+    # backward's (8 column tiles of 128): m 1,030 (a ragged second group)
+    # and 2,048 (two full groups)
+    (1037, 1030, 3, 2), (517, 2048, 3, 2)] for dtype in DTYPES] + [
+    # x and z shifted by +100 in every feature (OFFSETS)
+    (4097, 512, 8, 4, F64)]
+OFFSETS = {(4097, 512, 8, 4): 100.0}
+RS_BWD_CASES = RS_CASES
 
 
 @pytest.mark.parametrize("n,m,q,d,dtype", RS_CASES)
@@ -75,13 +80,16 @@ def test_reg_stats_matches_plain(cuda, n, m, q, d, dtype):
     rng = np.random.default_rng(n + m)
     hyp = {"log_sf2": _t(rng.uniform(-0.5, 0.8), cuda),
            "log_ell": _t(rng.uniform(-0.4, 0.4, q), cuda)}
-    z, x, y = (_t(rng.standard_normal(s), cuda, dtype)
-               for s in ((m, q), (n, q), (n, d)))
+    off = OFFSETS.get((n, m, q, d), 0.0)
+    z, x, y = (_t(rng.standard_normal(s) + o, cuda, dtype)
+               for s, o in (((m, q), off), ((n, q), off), ((n, d), 0.0)))
     w = _t(rng.uniform(size=n) > 0.15, cuda, dtype)
     name = str(dtype).removeprefix("torch.")
     before = rs_ops.LAUNCHES[name]
     got = rs_ops.reg_stats(hyp, z, x, y, w)
-    assert rs_ops.LAUNCHES[name] == before + 1
+    again = rs_ops.reg_stats(hyp, z, x, y, w)
+    assert rs_ops.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(g.dtype == dtype for g in got)
     z, x, y, w = (v.double() for v in (z, x, y, w))
     plain = rs_ref.reg_stats_ref(hyp["log_sf2"], hyp["log_ell"], z, x, y, w)
@@ -1831,8 +1839,11 @@ def test_reg_stats_bwd_matches_closed_form_and_recompute(cuda, n, m, q, d,
                                                          dtype):
     """The backward operator (every input's gradient) against
     ``reg_stats_vjp_ref`` and the chunked recompute on the values the
-    kernel sees, and bitwise on a second call."""
+    kernel sees, and bitwise on a second call (x and z shifted by +100 in
+    the ``OFFSETS`` case)."""
     ins, cts = _rs_bwd_inputs(n + 3 * m, n, m, q, d, cuda)
+    off = OFFSETS.get((n, m, q, d), 0.0)
+    ins[2], ins[3] = ins[2] + off, ins[3] + off
     kin = ins[:2] + [t.to(dtype) for t in ins[2:]]
     kct = [t.to(dtype) for t in cts]
     pin, pct = [t.double() for t in kin], [t.double() for t in kct]

@@ -216,6 +216,142 @@ def test_f32_slab_exponent_in_log2_units_matches_plain(n, m, q, d):
     _close(np.exp(hyp["log_sf2"]) * w.sum(), b, name="b")
 
 
+# -- the f64 plan: the cluster kernel's (m <= 512), the per-tile one past it --
+
+F64_PLAN_MS = [37, 128, 130, 512, 600, 1_030, 2_048]
+F64_PLAN_NS = [(1_000_000, 15), (1_000_000, 132), (100_003, 16), (2_048, 132),
+               (31, 1), (0, 15)]   # (n, cluster or block slots)
+
+
+def _cluster_read(a, b, nb):
+    """Where the cluster kernel's reduce reads D's entry (a, b): a mirror of
+    ``reg_stats_cluster_reduce``: the diagonal 8 x 8 block of its group,
+    else its band's staircase (slot: the band) or its pair's region (slot
+    ``pair_slot``), at (row, column) within the slot's 64 x 64 partial."""
+    lo, hi = min(a, b), max(a, b)
+    if lo // 8 == hi // 8:
+        return ("g", lo // 8, lo % 8, hi % 8)
+    bl, bh = lo // rs_k.BAND, hi // rs_k.BAND
+    slot = bl if bl == bh else rs_k.pair_slot(bl, bh, nb)
+    return ("d", slot, lo % rs_k.BAND, hi % rs_k.BAND)
+
+
+def _cluster_writes(m):
+    """Every partial entry the plan's warps write, a mirror of the
+    kernel's fold: {entry: (rank, warp)}, each entry written once; and
+    each rank's DMMA fragments (16 x 8) besides its diagonal blocks."""
+    nb = rs_k.cluster_bands(m)
+    written, frags = {}, []
+    for h, row in enumerate(rs_k.cluster_plan(m)):
+        bands = [h] + [b for b in row[:rs_k.COPY_SLOTS] if b >= 0]
+        count = 0
+        for wp in range(rs_k.WARPS):
+            kind, a_slot, b_slot, b_col, out, out_col = \
+                row[rs_k.COPY_SLOTS + rs_k.TASK_INTS * wp:][:rs_k.TASK_INTS]
+            for r in range(8):        # the warp's diagonal 8 x 8 block
+                for c in range(8):
+                    key = ("g", h * 8 + wp, r, c)
+                    assert key not in written
+                    written[key] = (h, wp)
+            if kind == 0:
+                continue
+            a, b = bands[a_slot], bands[b_slot]
+            if kind == 2:
+                assert a == b == h == out and b_col == out_col == 0
+                cells = rs_k.STAIR
+            else:
+                assert a < b and out == rs_k.pair_slot(a, b, nb)
+                assert b_col == out_col in (0, 32)
+                cells = [(i, j) for i in range(4) for j in range(4)]
+            assert len(cells) == 16
+            count += len(cells)
+            for i, j in cells:
+                for r in range(16):
+                    for c in range(8):
+                        key = ("d", out, 16 * i + r, out_col + 8 * j + c)
+                        assert key not in written, key
+                        written[key] = (h, wp)
+        frags.append(count)
+    return written, frags
+
+
+@pytest.mark.parametrize("n,slots", F64_PLAN_NS)
+@pytest.mark.parametrize("m", F64_PLAN_MS)
+def test_f64_plan_covers_every_upper_entry_and_row_once(m, n, slots):
+    """The f64 kernel's plan covers D's upper triangle and the n rows once.
+    m <= 512 (the cluster kernel): every entry (a <= b < m) is read by the
+    reduce from a partial entry that exactly one (rank, warp) writes, no
+    entry is written twice, and the slices are whole 32-row chunks that
+    cover n once.  Past 512 (the per-tile kernel, ``fill_plan`` over the
+    SMs): every upper 128-tile once, n once."""
+    if rs_k.takes_cluster(m, torch.float64):
+        nb = rs_k.cluster_bands(m)
+        written, _ = _cluster_writes(m)
+        a, b = np.triu_indices(m)
+        for ea, eb in zip(a, b):
+            assert _cluster_read(int(ea), int(eb), nb) in written
+        n_slices, per = rs_k.cluster_slices(n, slots)
+        assert per % rs_k.CLUSTER_ROWS == 0 and n_slices <= max(1, slots)
+    else:
+        n_tiles, n_slices, per = _build.fill_plan(n, m, slots, rs_k.TILE,
+                                                  rs_k.ROWS)
+        nts = -(-m // rs_k.TILE)
+        ta, tb = zip(*(_kernel_tile(t, nts) for t in range(n_tiles)))
+        assert sorted(zip(ta, tb)) == sorted(zip(*np.triu_indices(nts)))
+        assert per % rs_k.ROWS == 0
+    assert (n_slices - 1) * per < max(n, 1) <= n_slices * per
+
+
+@pytest.mark.parametrize("m", F64_PLAN_MS)
+def test_f64_plan_is_balanced_and_clusters_fit(m):
+    """Balance and width.  The cluster kernel (m <= 512): ceil(m/64) <= 8
+    blocks a cluster, every block the same multiply-adds (16 DMMA
+    fragments for each of its nb tasks, besides one diagonal 8 x 8 block
+    a warp), every warp at most one task of 16 fragments (its
+    accumulators fit its registers), at most 4 bands copied a block.  Past
+    512, the per-tile kernel: one block a unit, each the full 128 x 128
+    tile's fragments (128), width 1."""
+    if rs_k.takes_cluster(m, torch.float64):
+        nb = rs_k.cluster_bands(m)
+        assert 1 <= nb <= rs_k.CLUSTER_BANDS == 8
+        _, frags = _cluster_writes(m)
+        assert frags == [16 * nb] * nb
+        plan = rs_k.cluster_plan(m)
+        assert len(plan) == nb and all(len(r) == rs_k.PLAN_INTS for r in plan)
+        for row in plan:
+            kinds = row[rs_k.COPY_SLOTS::rs_k.TASK_INTS]
+            assert sum(k > 0 for k in kinds) == nb <= rs_k.WARPS
+            assert sum(c >= 0 for c in row[:rs_k.COPY_SLOTS]) <= 4
+        tasks = [t for r in rs_k.cluster_tasks(nb) for t in r]
+        assert len(tasks) == nb * nb    # nb staircases, nb (nb - 1) regions
+    else:
+        assert rs_k.cluster_bands(m) > rs_k.CLUSTER_BANDS
+        with pytest.raises(ValueError):
+            rs_k.cluster_plan(m)
+
+
+def test_f64_plan_at_sgpr_synth_1m():
+    """sgpr-synth-1m: m 512 is 8 bands, a cluster of 8 blocks, each 8
+    warps of 16 fragments (1,024 in all, with the 64 diagonal 8 x 8 blocks
+    beside them); the H100 holds 15 such clusters at once (measured), so
+    15 slices of 66,688 rows."""
+    assert rs_k.cluster_bands(512) == 8
+    assert rs_k.cluster_slices(1_000_000, 15) == (15, 66_688)
+    _, frags = _cluster_writes(512)
+    assert sum(frags) == 1_024
+
+
+def test_cluster_shared_memory_is_fixed_and_fits():
+    """The cluster block's shared memory (``CLUSTER_SMEM_BYTES``: its band
+    of three 32-row chunks and 4 copied bands of two, row stride 68; x, y
+    and w of four chunks; z of its band and 1/ell^2) is one constant,
+    225,408 bytes, and fits an sm_90 block beside the exp's table."""
+    want = 8 * (3 * 32 * 68 + 2 * 4 * 32 * 68 + 4 * 32 * (16 + 8 + 1)
+                + 16 * 64 + 16)
+    assert rs_k.cluster_smem_bytes() == want == 225_408
+    assert want + 512 <= rs_k.SMEM_LIMIT
+
+
 def _kernel_tile(tile, nts):
     """The upper tile (a, b) of unit index ``tile``: a mirror of the CUDA
     kernels' decode."""
@@ -238,9 +374,17 @@ def test_plans_refuse_no_m_and_units_cover_every_tile_and_row(dtype, n, m):
     """The plan takes any m.  Units (slice, upper tile) go on gridDim.x,
     one block each: unit = slice * tiles + tile, decoded as the kernels
     decode it, covers every upper tile once per slice, and the slices
-    cover the n rows once.  Both instantiations share the plan
+    cover the n rows once.  The per-tile kernels share the plan
     (``fill_plan``, 128-tiles, 32-row chunks) over their block slots: 132
-    SMs of one f64 block, or of two f32 blocks."""
+    SMs of one f64 block, or of two f32 blocks.  f64 at m <= 512 takes
+    the cluster kernel instead: a cluster a slice on gridDim.x, its slices
+    whole chunks covering n once (its tiles: the f64 plan tests above)."""
+    if rs_k.takes_cluster(m, dtype):
+        n_slices, per = rs_k.cluster_slices(n, 15)
+        assert per % rs_k.CLUSTER_ROWS == 0
+        assert (n_slices - 1) * per < n <= n_slices * per
+        assert n_slices * rs_k.cluster_bands(m) < 2 ** 31   # gridDim.x
+        return
     sms = 132 * (rs_k.F32_BLOCKS_PER_SM if dtype == torch.float32 else 1)
     tile_edge, rows = rs_k.TILE, rs_k.ROWS
     n_tiles, n_slices, per_slice = _build.fill_plan(n, m, sms, tile_edge, rows)

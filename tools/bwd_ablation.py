@@ -1,7 +1,7 @@
 """Where a backward kernel's time goes: ablations on the card, beside the
 previous design's kernel.
 
-    python3 tools/bwd_ablation.py [--kernel reg_stats|psi2|psi1]
+    python3 tools/bwd_ablation.py [--kernel reg_stats|reg_stats_fwd|psi2|psi1]
                                   [--parent FILE | --parent-rev REV]
 
 Builds variants of the kernel's source (``SOURCES``), each the source
@@ -23,8 +23,17 @@ and power limit.
   the own knm tile, the DMMA / FMA product, the copies of the other
   blocks' slabs through distributed shared memory, S's rows after the
   first step; build and product both; all but the products.  The parent:
-  one block a slice of 128-row tiles, as many slices as the card's block
+  the previous design (the same C interface), on its own cluster
   slots.
+- ``reg_stats_fwd``: ``csrc/reg_stats.cu``'s f64 kernel at
+  ``sgpr-synth-1m`` and at 3e's blocks (n 2,048, m 64, q 8, d 1), by
+  events and from a CUDA graph; the variants without the build of the
+  chunk's own band, without the DMMA products of the warps' tasks,
+  without the copies of the other bands through distributed shared
+  memory, without the cluster barrier a chunk (kept around the first and
+  the last), with libdevice's exp, and with only the products.  The parent: the
+  per-tile design (one block an (n-slice, upper 128-tile) unit over the
+  SMs).
 - ``psi2``: ``csrc/psi2_bwd.cu`` at ``gplvm-usps`` (n 4,649, m 150, q 10;
   the GPLVM's gradients: hyper-parameters, z, mu and s); the variants
   without the exp, without each of the three products (E, H, Q), without
@@ -64,6 +73,7 @@ from repro_torch.kernels.reg_stats import kernel as rs_k  # noqa: E402
 from repro_torch.kernels.reg_stats import ops as rs_ops  # noqa: E402
 
 SOURCES = {"reg_stats": "src/repro_torch/csrc/reg_stats_bwd.cu",
+           "reg_stats_fwd": "src/repro_torch/csrc/reg_stats.cu",
            "psi2": "src/repro_torch/csrc/psi2_bwd.cu",
            "psi1": "src/repro_torch/csrc/psi1_bwd.cu"}
 _SKIP = "      if (b >= nts) continue;\n"
@@ -106,8 +116,33 @@ PSI2_VARIANTS = {
     "no_point_pass": _POINTS,
     "products_only": _EXP + _POINTS,
 }
-VARIANTS = {"reg_stats": RS_VARIANTS, "psi2": PSI2_VARIANTS, "psi1": {"full": []}}
-PARENT_ROWS = 128   # the previous reg_stats design's row tile
+# The forward's cluster kernel: its parts removed in the chunk loop (the
+# prologue still builds and copies chunks 0 and 1)
+_FWD_BUILD = [("      if (next2 && (g & 1)) build(c + 2, g >> 1);\n", "")]
+_FWD_COPY = [("      if (more && g > 0) copy_load(v, g);\n", ""),
+             ("        if (more) copy_load(v, 0);\n", ""),
+             ("      if (more) copy_store(v, c + 1, g);\n", "")]
+FWD_VARIANTS = {
+    "full": [],
+    "no_build": _FWD_BUILD,
+    # the warps' tasks skipped at run time (n is never negative), their
+    # sums kept live
+    "no_product": [("    if (kind == 1) rect_step(", "    if (kind == 1 && n < 0) rect_step("),
+                   ("    else if (kind == 2) stair_step(", "    else if (kind == 2 && n < 0) stair_step(")],
+    "no_dsmem": _FWD_COPY,
+    # the cluster barrier only around the first and the last chunk (the
+    # copies race; no block leaves while another may read its band)
+    "no_cluster_barrier": [("        cluster_wait();  // the others'",
+                            "        if (c == 0) cluster_wait();  // the others'"),
+                           ("    cluster_arrive();  // built c + 2",
+                            "    if (c + 1 == n_chunks) cluster_arrive();  // built c + 2")],
+    "libdevice_exp": [("ob[(rb + u) * LDB + i] = kexp(sf2, s[u], e2f);",
+                       "ob[(rb + u) * LDB + i] = sf2 * exp(-0.5 * s[u]);")],
+    "product_only": _FWD_BUILD + _FWD_COPY,
+}
+VARIANTS = {"reg_stats": RS_VARIANTS, "reg_stats_fwd": FWD_VARIANTS,
+            "psi2": PSI2_VARIANTS, "psi1": {"full": []}}
+FWD_SHAPES = [(1_000_000, 512, 8, 4), (2_048, 64, 8, 1)]   # sgpr-synth-1m; 3e's blocks
 USPS = (4649, 150, 10)   # gplvm-usps: n, m, q
 
 
@@ -149,22 +184,28 @@ def _c_fn(lib, name, dtype, n_ptr, n_int, n_ptr2):
 
 
 def rs_parent_launch(lib, args, dtype):
-    """The previous reg_stats design's launch on the new arguments'
-    operands: its own plan (128-row tiles, one block a slice, the card's
-    block slots) and scratch; returns (launch, its outputs)."""
+    """The previous reg_stats backward design's launch (clusters of
+    min(m/128, 8) blocks sharing knm) on the new arguments' operands: the same C interface (it reads hp's
+    first 2 + q entries), its own cluster slots and scratch; returns
+    (launch, its outputs)."""
     (x, y, w, zp, sp, gcp, hp, m, *_rest) = args
     n, q = x.shape
     mp, d = zp.shape[0], y.shape[1]
     f64, dev = torch.float64, x.device
-    slots = _build.sm_count(dev) * rs_k.BWD_BLOCKS_PER_SM[dtype]
-    row_tiles = -(-n // PARENT_ROWS)
-    per = max(1, -(-row_tiles // max(1, min(row_tiles, slots))))
-    n_slices = max(1, -(-row_tiles // per))
+    clusters = getattr(lib, "reg_stats_bwd_clusters" + (
+        "_f64" if dtype == torch.float64 else "_f32"))
+    clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    clusters.restype = ctypes.c_int
+    slots = ctypes.c_int(0)
+    _build.check("parent clusters", clusters(m, q, ctypes.byref(slots)))
+    n_slices, per = rs_k.bwd_plan(n, max(1, slots.value))
+    width = rs_k.bwd_cluster(m)[0]
     scratch = [torch.empty(sh, dtype=f64, device=dev)
-               for sh in ((n_slices, mp, q), (n_slices, q), (n_slices,))]
+               for sh in ((n_slices, mp, q), (n_slices * width, q),
+                          (n_slices * width,))]
     outs = [torch.empty(sh, dtype=f64, device=dev) for sh in ((m, q), (q,), ())]
-    rows = [torch.empty((0,), dtype=dtype, device=dev) for _ in range(3)]
-    fn = _c_fn(lib, "reg_stats_bwd", dtype, 7, 8, 10)
+    rows = [torch.empty((0,), dtype=dtype, device=dev) for _ in range(6)]
+    fn = _c_fn(lib, "reg_stats_bwd", dtype, 7, 8, 13)
     ptrs = [t.data_ptr() for t in (x, y, w, zp, sp, gcp, hp)]
 
     def launch():
@@ -172,6 +213,7 @@ def rs_parent_launch(lib, args, dtype):
                  *(t.data_ptr() for t in (*scratch, *outs, *rows)),
                  _build.stream_handle(dev))
         _build.check("parent reg_stats_bwd", err)
+    launch.keep = scratch + rows
     return launch, outs
 
 
@@ -234,6 +276,70 @@ def psi1_parent_launch(lib, kin, g, flags, dtype):
                  _build.stream_handle(dev))
         _build.check("parent psi1_bwd", err)
     return launch, outs + rows
+
+
+def rs_fwd_parent_launch(lib, x, y, w, z, log_sf2, log_ell):
+    """The previous forward design's f64 launch: one block an (n-slice,
+    upper 128-tile) unit over the card's SMs (``_build.fill_plan``), its
+    own scratch; returns (launch, its outputs D, C, b)."""
+    n, q = x.shape
+    m, d = z.shape[0], y.shape[1]
+    f64, dev = torch.float64, x.device
+    hp = torch.cat([torch.exp(log_sf2).reshape(1),
+                    torch.exp(-2.0 * log_ell)]).contiguous()
+    n_tiles, n_slices, per = _build.fill_plan(n, m, _build.sm_count(dev),
+                                              rs_k.TILE, rs_k.ROWS)
+    part_d = torch.empty((n_slices, n_tiles, rs_k.TILE, rs_k.TILE), dtype=f64,
+                         device=dev)
+    keep = [hp, part_d, torch.empty_like(part_d),
+            torch.empty((n_slices, -(-m // rs_k.TILE) * rs_k.TILE, d),
+                        dtype=f64, device=dev),
+            torch.empty((n_slices,), dtype=f64, device=dev)]
+    outs = [torch.empty(sh, dtype=f64, device=dev) for sh in ((m, m), (m, d), ())]
+    fn = _c_fn(lib, "reg_stats", torch.float64, 5, 6, 8)
+
+    def launch():
+        err = fn(*(t.data_ptr() for t in (x, y, w, z, hp)), n, m, q, d,
+                 n_slices, per, *(t.data_ptr() for t in (*keep[1:], *outs)),
+                 _build.stream_handle(dev))
+        _build.check("parent reg_stats_f64", err)
+    launch.keep = keep   # the scratch lives as long as the launch
+    return launch, outs
+
+
+def run_reg_stats_fwd(libs, variants):
+    """The f64 forward at sgpr-synth-1m and at 3e's 2,048-row blocks (m
+    64): the parent, the kernel and its variants by events and from a CUDA
+    graph, in turns; the kernel's D, C, b against the parent's."""
+    dev = torch.device("cuda")
+    order = ["parent", "full", *(v for v in variants if v != "full"), "full",
+             "parent"]
+    for n, m, q, d in FWD_SHAPES:
+        rng = np.random.default_rng(0)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+        log_sf2, log_ell = t(0.3), t(np.full(q, 0.5 * np.log(q)))
+        z, x, y = (t(rng.uniform(-2, 2, sh)) for sh in ((m, q), (n, q), (n, d)))
+        w = torch.ones(n, dtype=torch.float64, device=dev)
+        kargs = rs_ops.launch_args(log_sf2, log_ell, z, x, y, w)
+        parent, parent_out = rs_fwd_parent_launch(libs["parent"], x, y, w, z,
+                                                  log_sf2, log_ell)
+        timed = {"parent": (parent, None)}
+        for name in variants:
+            timed[name] = (lambda: rs_k.reg_stats(*kargs), libs[name])
+        times, device = {}, {}
+        in_turns(order, timed, times)
+        in_turns(order, timed, device, lambda fn: graph_ms(fn, launches=4))
+        in_turns(["full"], timed, {})
+        parent()
+        torch.cuda.synchronize()
+        rel = rel_to_parent(kargs[-3:], parent_out)
+        if max(rel) > 1e-10:
+            raise SystemExit(f"the new kernel and the parent differ: {rel}")
+        print(json.dumps({"kernel": "reg_stats_f64", "shape": dict(n=n, m=m, q=q, d=d),
+                          "slices": kargs[5], "ms": times, "device_ms": device,
+                          "rel_to_parent": rel}), flush=True)
 
 
 def time_ms(fn, reps=10) -> float:
@@ -398,6 +504,8 @@ def main() -> int:
     print(smi, flush=True)
     if args.kernel == "reg_stats":
         run_reg_stats(libs, variants)
+    elif args.kernel == "reg_stats_fwd":
+        run_reg_stats_fwd(libs, variants)
     else:
         run_psi(args.kernel, libs, variants)
     print(smi, flush=True)
